@@ -1,0 +1,16 @@
+"""Device resolution shared by the port's entry points."""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device | None) -> torch.device:
+    """``None`` means the card.  There is no silent CPU fallback: without
+    CUDA the caller must ask for ``device="cpu"`` explicitly."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; pass device='cpu' to run the port "
+                "on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
