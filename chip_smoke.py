@@ -11,10 +11,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 2. the LGC kernels against their plain torch versions on the card, bitwise,
    at D in {63, 100_003, 28_311_552} and C in {1, 3} with a dropped channel:
    maxabs, histogram, sparsify_ef (and u == g + e'), lgc_compress_hist;
+   then maxabs at sizes around a block's and the grid's pass, at pointer
+   offsets 0-3, on zeros, -0.0 and a NaN, and ten launches in a row;
 3. ``swa_decode`` against its plain version on the card, f32 (rtol = atol =
    2e-5) and bf16 (1e-2), at TestSWADecode's shapes, the GQA serve shape
    (B=8, H=12, Kv=2, W=4096, Dh=128) and W=4160, with lengths 1, W/2+3 and
    W; slots past the length filled with +-1e9 must leave the output alone;
+   B=1 (many splits), W=16 and REP=16 at lengths on either side of each
+   tile and split edge; two launches bitwise equal, also after a launch
+   with more groups;
 4. a small f32 trainer on the card, kernel backend against the plain backend
    (every leaf through the kernels), to the CPU tests' tolerances;
 5. the training path: ``make_task("qwen2_100m", preset="full")`` at full
@@ -29,9 +34,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ``cfg.window``, then 160 greedy steps (positions 4000-4159, the ring
    wraps at 4096); swa_decode must launch 160 x 28 = 4,480 times and the
    LGC kernels none;
-8. the ``kernels`` line: each kernel's time (CUDA events, median after
-   warm-up) beside its plain version, its bound (bytes over 3.35 TB/s or
-   operations over 67 TFLOP/s) and one PyTorch call as a yardstick; the LGC
+8. the ``kernels`` line: each kernel's time beside its plain version, its
+   bound (bytes over 3.35 TB/s or operations over 67 TFLOP/s) and one
+   PyTorch call as a yardstick.  ``ms`` is the median of single calls
+   between two CUDA events (host code included); ``device_ms`` is the
+   device time per call, events around 100 back-to-back calls that a sleep
+   kernel queues up (for the kernel and the library call alike); the LGC
    kernels at the largest leaf and at ``embed``, swa_decode at the GQA serve
    shape in bf16 with every slot valid, its inputs rotated over four copies
    so that each call finds them outside the L2 cache, as a decode step does;
@@ -62,6 +70,8 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 4000, 160
 SWA_SERVE_SHAPE = (8, 12, 2, 4096, 128)          # (B, H, Kv, W, Dh)
 SWA_SHAPES = [(2, 4, 4, 512, 64), (1, 8, 8, 1024, 128), (4, 2, 2, 256, 32),
               SWA_SERVE_SHAPE, (8, 12, 2, 4160, 128)]
+SWA_EDGE_SHAPES = [(1, 12, 2, 4096, 128), (2, 4, 2, 16, 64),
+                   (1, 16, 1, 4160, 32)]
 
 TPU_KERNELS = {
     "maxabs": ("src/repro_torch/kernels/csrc/maxabs.cu",
@@ -145,6 +155,33 @@ def phase_kernels(gen, errs: dict) -> None:
             log(f"kernels D={n} C={c_n} recv={recv_list}: bitwise equal to "
                 f"the plain versions, {sent} coordinates sent")
     torch.cuda.synchronize()
+    # maxabs at the edges of a block's pass (4,096 floats) and of the full
+    # grid's, at pointer offsets 0-3, and on special values
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    grid_pass = sms * 8 * 256 * 4 * 4
+    sizes = [1, 2, 3, 63, 4095, 4096, 4097, 1_000_003, grid_pass - 1,
+             grid_pass, grid_pass + 1, 2 * grid_pass + 3]
+    for n in sizes:
+        base = torch.randn(n + 3, generator=gen, device="cuda")
+        for off in range(4):
+            v = base[off:off + n]
+            check(bits_equal(maxabs(v), ref.hist_maxabs(v).reshape(1, 1)),
+                  f"maxabs D={n} offset {off}")
+    z = torch.zeros(100_003, device="cuda")
+    specials = {"zeros": z, "-0.0": torch.full_like(z, -0.0),
+                "NaN": z.clone().index_fill_(0, torch.tensor(
+                    [77_777], device="cuda"), float("nan"))}
+    for tag, v in specials.items():
+        check(bits_equal(maxabs(v), ref.hist_maxabs(v).reshape(1, 1)),
+              f"maxabs {tag}")
+    big = torch.randn(LARGEST_LEAF, generator=gen, device="cuda")
+    want = ref.hist_maxabs(big).reshape(1, 1)
+    outs = [maxabs(big) for _ in range(10)]
+    check(all(bits_equal(o, want) for o in outs),
+          "maxabs: ten launches in a row")
+    torch.cuda.synchronize()
+    log(f"maxabs: bitwise equal to the plain version at D in {sizes}, "
+        f"offsets 0-3, all zeros, -0.0, a NaN, and ten launches in a row")
 
 
 # ---------------------------------------------------------------------------
@@ -196,6 +233,46 @@ def phase_swa(gen, errs: dict) -> None:
           "swa_decode read slots past the length")
     log("swa_decode: +-1e9 past the length leaves the output bitwise "
         "unchanged; length 0 gives zeros")
+    # many splits of one tile (B=1), one partial tile (W=16), two query-head
+    # groups (REP=16): lengths on either side of each tile and split edge
+    from repro_torch.kernels.swa_attention import _MAX_REP, _num_splits
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    t = ref.SWA_TILE
+    for shape in SWA_EDGE_SHAPES:
+        b, h, kv, w, dh = shape
+        sl = ref.swa_split_len(w, _num_splits(
+            b * kv * -(-(h // kv) // _MAX_REP), w, sms))
+        lengths = sorted({n for n in (1, t - 1, t, t + 1, sl - 1, sl, sl + 1,
+                                      w - 1, w) if 1 <= n <= w})
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = SWA_TOL[str(dtype).split(".")[1]]
+            q, k, v = swa_inputs(gen, shape, dtype)
+            for n in lengths:
+                ln = torch.full((b,), n, dtype=torch.int32, device="cuda")
+                got = swa_decode(q, k, v, ln)
+                want = ref.swa_decode_ref(q, k, v, ln)
+                check(bool(torch.isclose(got.float(), want.float(), rtol=tol,
+                                         atol=tol).all()),
+                      f"swa_decode {shape} {dtype} length {n}")
+                errs["swa_decode"] = max(errs["swa_decode"],
+                                         max_abs_err(got, want))
+        log(f"swa_decode {shape}: split length {sl}, within tolerance at "
+            f"lengths {lengths} in f32 and bf16")
+    # the same bits on every launch, also right after a launch with more
+    # groups (whose last blocks must have reset their counters)
+    inputs = {shape: swa_inputs(gen, shape, torch.bfloat16)
+              for shape in (SWA_SERVE_SHAPE, (64, 16, 8, 256, 64))}
+    first = {}
+    for shape in (SWA_SERVE_SHAPE, (64, 16, 8, 256, 64), SWA_SERVE_SHAPE):
+        q, k, v = inputs[shape]
+        ln = torch.full((shape[0],), shape[3] - 3, dtype=torch.int32,
+                        device="cuda")
+        out1, out2 = swa_decode(q, k, v, ln), swa_decode(q, k, v, ln)
+        check(torch.equal(out1, out2), f"swa_decode {shape} not deterministic")
+        check(torch.equal(first.setdefault(shape, out1), out1),
+              f"swa_decode {shape} changed after a launch with more groups")
+    log("swa_decode: two launches bitwise equal, and unchanged after a "
+        "launch with 512 groups")
     torch.cuda.synchronize()
 
 
@@ -428,6 +505,7 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
 
 def phase_timings(gen) -> dict:
     import torch
+    from repro_torch.device import device_ms
     from repro_torch.kernels import histogram, maxabs, ref, sparsify_ef
     rows: dict = {}
     c_n = 3
@@ -462,12 +540,15 @@ def phase_timings(gen) -> dict:
             bnd, by = bound_ms(n_bytes, n_ops)
             row = {"n": n, "ms": time_ms(kern), "plain_ms": time_ms(plain),
                    "library_ms": time_ms(lib) if lib else None,
+                   "device_ms": device_ms(kern),
+                   "library_device_ms": device_ms(lib) if lib else None,
                    "bound_ms": bnd, "bound_by": by}
             rows.setdefault(name, {})[n] = row
-            log(f"timing {name} D={n}: kernel {row['ms']:.4f} ms, plain "
-                f"{row['plain_ms']:.4f} ms, library "
-                f"{row['library_ms'] if lib else None} ms, bound "
-                f"{bnd:.4f} ms ({by})")
+            log(f"timing {name} D={n}: kernel {row['ms']:.5f} ms one call, "
+                f"{row['device_ms']:.5f} ms device; plain "
+                f"{row['plain_ms']:.5f} ms; library {row['library_ms']} ms "
+                f"one call, {row['library_device_ms']} ms device; bound "
+                f"{bnd:.5f} ms ({by})")
     return rows
 
 
@@ -478,6 +559,7 @@ def phase_time_swa(gen) -> dict:
     cache cold; ``ms_l2_warm`` repeats one copy."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.device import device_ms
     from repro_torch.kernels import ref, swa_decode
     b, h, kv, w, dh = SWA_SERVE_SHAPE
     sets = [swa_inputs(gen, SWA_SERVE_SHAPE, torch.bfloat16)
@@ -508,12 +590,17 @@ def phase_time_swa(gen) -> dict:
     row = {"shape": list(SWA_SERVE_SHAPE), "dtype": "bfloat16",
            "ms": time_ms(kern), "plain_ms": time_ms(plain),
            "library_ms": time_ms(lib) if lib else None,
+           "device_ms": device_ms(kern),
+           "library_device_ms": device_ms(lib) if lib else None,
            "bound_ms": bnd, "bound_by": by, "bytes": n_bytes,
-           "ms_l2_warm": time_ms(lambda: swa_decode(*sets[0], ln))}
+           "ms_l2_warm": time_ms(lambda: swa_decode(*sets[0], ln)),
+           "device_ms_l2_warm": device_ms(lambda: swa_decode(*sets[0], ln))}
     log(f"timing swa_decode (B,H,Kv,W,Dh)={SWA_SERVE_SHAPE} bf16: kernel "
-        f"{row['ms']:.4f} ms ({row['ms_l2_warm']:.4f} ms with the inputs in "
-        f"L2), plain {row['plain_ms']:.4f} ms, library "
-        f"{row['library_ms']} ms, bound {bnd:.5f} ms ({by}, {n_bytes:,} B)")
+        f"{row['ms']:.5f} ms one call, {row['device_ms']:.5f} ms device "
+        f"({row['device_ms_l2_warm']:.5f} ms with the inputs in L2); plain "
+        f"{row['plain_ms']:.5f} ms; library {row['library_ms']} ms one "
+        f"call, {row['library_device_ms']} ms device; bound {bnd:.5f} ms "
+        f"({by}, {n_bytes:,} B)")
     return row
 
 
@@ -560,11 +647,8 @@ def main() -> int:
                "replaces": replaces, "max_abs_err": errs[name]}
         if name in LGC_KERNELS:        # the training path's kernels
             big = rows[name][LARGEST_LEAF]
-            row |= {"launches": launches[name], "ms": big["ms"],
-                    "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
-                    "bound_by": big["bound_by"],
-                    "library_ms": big["library_ms"], "n": LARGEST_LEAF,
-                    "at_embed": rows[name][EMBED]}
+            row |= {"launches": launches[name]} | big | {
+                "at_embed": rows[name][EMBED]}
         else:                          # the serving path's kernel
             row |= {"launches": serving["launches"][name]} | swa_row
         kernels.append(row)

@@ -2,8 +2,12 @@
 from __future__ import annotations
 
 import subprocess
+import time
 
 import torch
+
+SM_MAX_HZ = 1.98e9     # H100 SXM boost clock: a sleep of N cycles lasts at
+                       # least N / SM_MAX_HZ seconds
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -25,3 +29,32 @@ def card_name_and_power_limit() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def device_ms(fn, reps: int = 100, warmup: int = 5) -> float:
+    """Device time per call of ``fn`` on the current card: CUDA events
+    around ``reps`` back-to-back calls, divided by ``reps``, after warm-up.
+
+    A sleep kernel holds the stream while the host enqueues the calls, so
+    they run back to back on the card whatever the host's dispatch rate;
+    the hold doubles until it outlasts the enqueue."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    hold_ms = 20.0
+    for _ in range(8):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(hold_ms * 1e-3 * SM_MAX_HZ))
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        end.synchronize()
+        if enqueue_ms < 0.5 * hold_ms:
+            return start.elapsed_time(end) / reps
+        hold_ms *= 2
+    raise RuntimeError(f"device_ms: a hold of {hold_ms / 2:.0f} ms did not "
+                       f"outlast an enqueue of {enqueue_ms:.1f} ms")

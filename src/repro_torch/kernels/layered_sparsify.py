@@ -17,7 +17,8 @@ from __future__ import annotations
 import torch
 
 from . import _build, ref
-from .topk_threshold import _check_same_device, _check_vec, _stream
+from .topk_threshold import (_check_same_device, _check_vec, _on_device,
+                             _stream)
 
 MAX_LAYERS = 4
 
@@ -49,7 +50,7 @@ def sparsify_ef(e: torch.Tensor, delta: torch.Tensor, thr: torch.Tensor,
         return ref.hist_layered_sparsify(e + delta, thr, recv)
     g = torch.empty_like(e)
     e_new = torch.empty_like(e)
-    with torch.cuda.device(e.device):
+    with _on_device(e):
         err = _build.lib().lgc_sparsify_ef(
             e.data_ptr(), delta.data_ptr(), thr.data_ptr(), recv.data_ptr(),
             n_layers, g.data_ptr(), e_new.data_ptr(), e.numel(), _stream(e))

@@ -15,11 +15,19 @@ from __future__ import annotations
 import torch
 
 N_BINS = 256
+SWA_TILE = 64          # slots per K/V tile of the swa_decode kernel
 
 
 def hist_maxabs(x: torch.Tensor) -> torch.Tensor:
-    """max |x| as a 0-dim f32 tensor."""
-    return x.abs().max().to(torch.float32)
+    """max |x| as a 0-dim f32 tensor, taken on the bits of |x| as integers.
+
+    |x| is x with the sign bit cleared.  For non-negative floats the bit
+    order is the value order, so this is the max; a NaN, whose bits sit
+    above +inf, comes out with its own bits (sign cleared), as jnp.max
+    gives it, on every device.  (On a CUDA tensor ``abs()`` and ``max()``
+    of floats return another NaN, 0x7fffffff.)"""
+    bits = x.to(torch.float32).contiguous().view(torch.int32) & 0x7FFFFFFF
+    return bits.max().view(torch.float32)
 
 
 def hist_counts(x: torch.Tensor, maxabs: torch.Tensor) -> torch.Tensor:
@@ -105,21 +113,73 @@ def swa_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     agree to rounding.
     """
     b, h, dh = q.shape
-    kv, w = k.shape[1], k.shape[2]
-    qf = q.to(torch.float32).reshape(b, kv, h // kv, dh)
-    kf = k.to(torch.float32)
-    vf = v.to(torch.float32)
-    scale = 1.0 / torch.sqrt(torch.tensor(float(dh), dtype=torch.float32,
-                                          device=q.device))
-    logits = (qf @ kf.transpose(-1, -2)) * scale            # (B,Kv,rep,W)
-    valid = (torch.arange(w, device=q.device)[None, :]
-             < length.to(q.device)[:, None])[:, None, None, :]
-    logits = logits.masked_fill(~valid, float("-inf"))
+    logits, vf, valid = _swa_logits(q, k, v, length)
     m = logits.amax(-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(logits - m).masked_fill(~valid, 0.0)
     l_sum = p.sum(-1, keepdim=True)
-    # slots past length never reach the product, whatever they hold
-    vf = vf.masked_fill(~valid[:, :, 0, :, None], 0.0)
     out = (p @ vf) / torch.clamp_min(l_sum, 1e-30)
+    return out.reshape(b, h, dh).to(q.dtype)
+
+
+def _swa_logits(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                length: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """f32 logits (B, Kv, rep, W), -inf at slots >= length; v in f32 with
+    those slots zeroed (so they never reach the product, whatever they
+    hold); the (B, 1, 1, W) mask of valid slots."""
+    b, h, dh = q.shape
+    kv, w = k.shape[1], k.shape[2]
+    qf = q.to(torch.float32).reshape(b, kv, h // kv, dh)
+    scale = 1.0 / torch.sqrt(torch.tensor(float(dh), dtype=torch.float32,
+                                          device=q.device))
+    logits = (qf @ k.to(torch.float32).transpose(-1, -2)) * scale
+    valid = (torch.arange(w, device=q.device)[None, :]
+             < length.to(q.device)[:, None])[:, None, None, :]
+    vf = v.to(torch.float32).masked_fill(~valid[:, :, 0, :, None], 0.0)
+    return logits.masked_fill(~valid, float("-inf")), vf, valid
+
+
+def swa_split_len(w: int, splits: int) -> int:
+    """Slots per split of a W-slot window cut into ``splits`` runs of whole
+    tiles (the last one shorter or empty), as the swa_decode kernel cuts it."""
+    tiles = -(-w // SWA_TILE)
+    return SWA_TILE * -(-tiles // splits)
+
+
+def swa_decode_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         length: torch.Tensor, splits: int) -> torch.Tensor:
+    """``swa_decode_ref`` computed as the kernel partitions it, for tests.
+
+    Split s holds slots ``[s L, (s + 1) L)`` of the window, with L =
+    ``swa_split_len(W, splits)``.  Each split keeps its own f32 state: m_s,
+    the max of its valid logits (-inf when it has none), l_s = sum exp(logit
+    - m_s) and acc_s = sum exp(logit - m_s) v.  The states merge in split
+    order: M = max_s m_s, l = sum_s l_s exp(m_s - M), acc = sum_s acc_s
+    exp(m_s - M), an empty split weighing 0; out = acc / max(l, 1e-30) in
+    q's dtype.
+    """
+    b, h, dh = q.shape
+    w = k.shape[2]
+    logits, vf, _ = _swa_logits(q, k, v, length)
+    sl = swa_split_len(w, splits)
+    states = []
+    for s in range(splits):
+        lo, hi = min(s * sl, w), min((s + 1) * sl, w)
+        lg = logits[..., lo:hi]
+        m = lg.amax(-1, keepdim=True) if hi > lo else torch.full_like(
+            logits[..., :1], float("-inf"))
+        m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        p = torch.exp(lg - m_safe).masked_fill(~torch.isfinite(lg), 0.0)
+        states.append((m, p.sum(-1, keepdim=True), p @ vf[:, :, lo:hi]))
+    big_m = torch.stack([m for m, _, _ in states]).amax(0)
+    big_m = torch.where(torch.isfinite(big_m), big_m, torch.zeros_like(big_m))
+    l_sum = torch.zeros_like(big_m)
+    acc = torch.zeros_like(states[0][2])
+    for m, l_s, acc_s in states:
+        wt = torch.where(torch.isfinite(m), torch.exp(m - big_m),
+                         torch.zeros_like(m))
+        l_sum = l_sum + l_s * wt
+        acc = acc + acc_s * wt
+    out = acc / torch.clamp_min(l_sum, 1e-30)
     return out.reshape(b, h, dh).to(q.dtype)

@@ -8,7 +8,9 @@ kernel (csrc/swa_decode.cu) computes the Pallas kernel's function -- f32
 logits scaled by 1/sqrt(Dh), an online softmax with an f32 accumulator, the
 output in q's dtype -- and reads each valid K/V row once.  Slots at or past
 ``length`` are never read.  W is any size >= 1: a cache without a window
-has ``prompt + gen`` slots.
+has ``prompt + gen`` slots.  One launch splits W over the card's SMs
+(:func:`_num_splits`) and merges the splits in order, as
+:func:`repro_torch.kernels.ref.swa_decode_split_ref` does.
 
 For a CPU tensor the wrapper calls the plain version
 (:func:`repro_torch.kernels.ref.swa_decode_ref`); for a CUDA tensor it
@@ -19,10 +21,26 @@ from __future__ import annotations
 import torch
 
 from . import _build, ref
-from .topk_threshold import _check_same_device, _stream
+from .topk_threshold import (_check_same_device, _on_device, _sm_count,
+                             _stream, _zeroed_counters)
 
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_REP = 8                   # query heads per block (swa_decode.cu kMaxRep)
+_MAX_SPLITS = 128              # swa_decode.cu kMaxSplits
+
+
+def _num_splits(groups: int, w: int, sms: int = 132) -> int:
+    """Splits S of a W-slot window for ``groups`` (b, KV head, query-head
+    group): about one block per SM (groups x S >= sms before the splits are
+    rounded to whole tiles of ``ref.SWA_TILE`` slots, and at least sms / 2
+    after), none starting past W, and at most ``_MAX_SPLITS``.  One block
+    per SM with longer splits beat two with shorter ones at the serve
+    shape: 8 splits of 512 slots against 16 of 256 (PERF.md;
+    ``python -m repro_torch.launch.bench_swa_splits`` measures it)."""
+    tiles = -(-w // ref.SWA_TILE)
+    want = min(tiles, _MAX_SPLITS, -(-sms // groups))
+    return -(-tiles // -(-tiles // want))
 
 
 def swa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -68,10 +86,16 @@ def swa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+    groups = b * kv * -(-(h // kv) // _MAX_REP)
+    splits = _num_splits(groups, w, _sm_count(q.device))
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
+    part = torch.empty(b * h * splits * (dh + 2), dtype=torch.float32,
+                       device=q.device)
+    counters = _zeroed_counters("swa_decode", q.device, groups)
+    with _on_device(q):
         err = _build.lib().lgc_swa_decode(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
-            out.data_ptr(), b, h, kv, w, dh, _DTYPE_CODE[q.dtype], _stream(q))
+            out.data_ptr(), part.data_ptr(), counters.data_ptr(), b, h, kv, w,
+            dh, _DTYPE_CODE[q.dtype], splits, _stream(q))
     _build.check(err, "swa_decode")
     return out

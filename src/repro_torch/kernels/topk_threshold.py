@@ -15,11 +15,19 @@ plain versions (chip_smoke.py on the card, tests/test_torch_kernels.py).
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from . import _build, ref
 
 N_BINS = ref.N_BINS
+_THREADS = 256                 # threads per block of the LGC kernels (lgc::kThreads)
+_MAXABS_LOADS = 4              # float4 loads per thread per pass (maxabs.cu kLoads)
+_MAXABS_BLOCKS_PER_SM = 8      # resident blocks of maxabs per SM
+
+_sm_counts: dict[int, int] = {}
+_counters: dict[tuple[str, int], torch.Tensor] = {}
 
 
 def _check_vec(x: torch.Tensor, name: str, dtype=torch.float32) -> None:
@@ -44,16 +52,51 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _on_device(x: torch.Tensor) -> contextlib.AbstractContextManager:
+    """The context for a launch on x's card: nothing when it is current."""
+    if x.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(x.device)
+
+
+def _sm_count(device: torch.device) -> int:
+    n = _sm_counts.get(device.index)
+    if n is None:
+        n = torch.cuda.get_device_properties(device).multi_processor_count
+        _sm_counts[device.index] = n
+    return n
+
+
+def _zeroed_counters(kernel: str, device: torch.device, n: int
+                     ) -> torch.Tensor:
+    """``n`` int32 counters on ``device`` that ``kernel`` keeps at zero
+    between launches (its last block resets what it counted).  Kept per
+    kernel and card, and grown, never shrunk; launches of one kernel on one
+    card must not run concurrently on two streams."""
+    key = (kernel, device.index)
+    c = _counters.get(key)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+        _counters[key] = c
+    return c
+
+
 def maxabs(x: torch.Tensor) -> torch.Tensor:
     """max |x| over a flat f32 vector.  Returns (1, 1) f32."""
     _check_vec(x, "x")
     _check_same_device(x)
     if x.device.type == "cpu":
         return ref.hist_maxabs(x).reshape(1, 1)
-    out = torch.zeros((1, 1), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
+    per_block = _THREADS * _MAXABS_LOADS * 4        # floats of one block's pass
+    grid = min(-(-x.numel() // per_block),
+               _MAXABS_BLOCKS_PER_SM * _sm_count(x.device))
+    out = torch.empty((1, 1), dtype=torch.float32, device=x.device)
+    partials = torch.empty(grid, dtype=torch.int32, device=x.device)
+    counter = _zeroed_counters("maxabs", x.device, 1)
+    with _on_device(x):
         err = _build.lib().lgc_maxabs(x.data_ptr(), x.numel(), out.data_ptr(),
-                                      _stream(x))
+                                      partials.data_ptr(), counter.data_ptr(),
+                                      grid, _stream(x))
     _build.check(err, "maxabs")
     return out
 
@@ -68,7 +111,7 @@ def histogram(x: torch.Tensor, maxabs_val: torch.Tensor) -> torch.Tensor:
         return ref.hist_counts(x, maxabs_val)
     m = maxabs_val.reshape(1).contiguous()
     counts = torch.zeros(N_BINS, dtype=torch.int32, device=x.device)
-    with torch.cuda.device(x.device):
+    with _on_device(x):
         err = _build.lib().lgc_histogram(x.data_ptr(), x.numel(), m.data_ptr(),
                                          counts.data_ptr(), _stream(x))
     _build.check(err, "histogram")

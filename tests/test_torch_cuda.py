@@ -99,6 +99,47 @@ def test_degenerate_inputs_match_plain_versions(card):
     torch.cuda.synchronize()
 
 
+def _maxabs_pass(card) -> int:
+    """Floats that one pass of maxabs's full grid reads."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    return sms * 8 * 256 * 4 * 4
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("passes,extra", [
+    (0, 1), (0, 2), (0, 3), (0, 63), (0, 4095), (0, 4096), (0, 4097),
+    (0, 1_000_003), (1, -1), (1, 0), (1, 1), (1, 5), (2, 3)])
+def test_maxabs_bitwise_at_the_chunk_edges(card, passes, extra, offset):
+    """n = passes x (the floats one pass of the full grid reads) + extra:
+    sizes around one block's pass (4,096 floats) and the full grid's, at
+    every pointer offset from a 16-byte boundary."""
+    n = passes * _maxabs_pass(card) + extra
+    x = _vec(n + offset, n + 5, 1e-3, card)[offset:]
+    assert _bits_equal(pk.maxabs(x), pref.hist_maxabs(x).reshape(1, 1))
+    torch.cuda.synchronize()
+
+
+def test_maxabs_special_values_and_repeated_launches(card):
+    """All zeros, -0.0, a NaN, +inf; then ten launches in a row with no
+    re-zeroing of anything (the last block resets the counter)."""
+    x = torch.zeros(100_003, device=card)
+    cases = [x, torch.full_like(x, -0.0), x.clone().index_fill_(
+        0, torch.tensor([77_777], device=card), float("nan")),
+        x.clone().index_fill_(0, torch.tensor([3], device=card),
+                              float("-inf"))]
+    for c in cases:
+        assert _bits_equal(pk.maxabs(c), pref.hist_maxabs(c).reshape(1, 1))
+    big = _vec(3 * _maxabs_pass(card) + 7, 11, 1e-3, card)
+    want = pref.hist_maxabs(big).reshape(1, 1)
+    outs = [pk.maxabs(big) for _ in range(10)]
+    small = _vec(63, 12, 1.0, card)
+    outs_small = [pk.maxabs(small) for _ in range(10)]
+    assert all(_bits_equal(o, want) for o in outs)
+    assert all(_bits_equal(o, pref.hist_maxabs(small).reshape(1, 1))
+               for o in outs_small)
+    torch.cuda.synchronize()
+
+
 def test_each_wrapper_counts_its_launches(card):
     x = _vec(5000, 3, 1e-3, card)
     cum = _cum_ks(5000, 3, card)
@@ -156,6 +197,64 @@ def test_swa_decode_matches_plain_version(card, shape, dtype):
         tol = SWA_TOL[dtype]
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
+    torch.cuda.synchronize()
+
+
+def _edge_lengths(shape, card) -> list[int]:
+    """Lengths at the tile and split edges of this shape's launch."""
+    from repro_torch.kernels.swa_attention import _MAX_REP, _num_splits
+    b, h, kv, w, _ = shape
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    groups = b * kv * -(-(h // kv) // _MAX_REP)
+    sl = pref.swa_split_len(w, _num_splits(groups, w, sms))
+    t = pref.SWA_TILE
+    return sorted({n for n in (1, t - 1, t, t + 1, sl - 1, sl, sl + 1,
+                               2 * sl + 1, w - 1, w) if 1 <= n <= w})
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 12, 2, 4096, 128), (2, 4, 2, 16, 64),
+                                   (1, 16, 1, 4160, 32),
+                                   (8, 12, 2, 4096, 128)])
+def test_swa_decode_at_tile_and_split_edges(card, shape, dtype):
+    """B=1 (many splits of one tile), W=16 (one partial tile), REP=16 (two
+    query-head groups) and the serve shape, at lengths on either side of
+    every tile and split edge; each row of the batch its own length."""
+    b, h, kv, w, dh = shape
+    q, k, v = _swa_inputs(b, h, kv, w, dh, dtype, card, seed=w + b)
+    tol = SWA_TOL[dtype]
+    for n in _edge_lengths(shape, card):
+        ln = torch.tensor([max(1, n - i) for i in range(b)],
+                          dtype=torch.int32, device=card)
+        got = pk.swa_decode(q, k, v, ln)
+        torch.testing.assert_close(got.float(),
+                                   pref.swa_decode_ref(q, k, v, ln).float(),
+                                   rtol=tol, atol=tol,
+                                   msg=lambda m: f"length {n}: {m}")
+    torch.cuda.synchronize()
+
+
+def test_swa_decode_is_deterministic_across_group_counts(card):
+    """Two launches give the same bits; a launch right after one with more
+    groups (and one that grows the counters) is still right, so the last
+    block of every group left its counter at zero."""
+    shapes = [(8, 12, 2, 4096, 128), (64, 16, 8, 256, 64),
+              (1, 12, 2, 4096, 128), (160, 8, 8, 128, 64),
+              (8, 12, 2, 4096, 128)]
+    first = {}
+    for i, shape in enumerate(shapes):
+        b, h, kv, w, dh = shape
+        q, k, v = _swa_inputs(b, h, kv, w, dh, torch.bfloat16, card, seed=5)
+        ln = torch.full((b,), w - 3, dtype=torch.int32, device=card)
+        out1 = pk.swa_decode(q, k, v, ln)
+        out2 = pk.swa_decode(q, k, v, ln)
+        assert torch.equal(out1, out2), shape
+        torch.testing.assert_close(out1.float(),
+                                   pref.swa_decode_ref(q, k, v, ln).float(),
+                                   rtol=1e-2, atol=1e-2)
+        if shape in first:
+            assert torch.equal(first[shape], out1), shape
+        first.setdefault(shape, out1)
     torch.cuda.synchronize()
 
 

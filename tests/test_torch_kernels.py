@@ -68,6 +68,24 @@ def test_maxabs_matches_reference(n):
     _assert_bitwise(pref.hist_maxabs(_t(x)).numpy(), jref.hist_maxabs(x))
 
 
+@pytest.mark.parametrize("case", ["zeros", "minus_zero", "nan", "minus_nan",
+                                  "inf"])
+def test_maxabs_special_values_match_reference(case):
+    """All zeros, -0.0, a NaN of either sign, -inf: the plain version gives
+    the Pallas kernel's bits (a NaN's bits with the sign cleared)."""
+    x = np.zeros(1000, np.float32)
+    if case == "minus_zero":
+        x[:] = -0.0
+    elif case in ("nan", "minus_nan"):
+        x[5] = -2.5
+        x[777] = np.float32(np.nan) if case == "nan" else -np.float32(np.nan)
+    elif case == "inf":
+        x[3] = -np.inf
+    want = jk.maxabs(jnp.asarray(x))
+    _assert_bitwise(pk.maxabs(_t(x)).numpy(), want)
+    _assert_bitwise(pref.hist_maxabs(_t(x)).numpy(), jref.hist_maxabs(x))
+
+
 @pytest.mark.parametrize("n", SIZES)
 def test_histogram_matches_reference(n):
     x = _vec(n, n + 1)
