@@ -11,8 +11,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 2. the LGC kernels against their plain torch versions on the card, bitwise,
    at D in {63, 100_003, 28_311_552} and C in {1, 3} with a dropped channel:
    maxabs, histogram, sparsify_ef (and u == g + e'), lgc_compress_hist;
-   then maxabs at sizes around a block's and the grid's pass, at pointer
-   offsets 0-3, on zeros, -0.0 and a NaN, and ten launches in a row;
+   then maxabs and histogram at sizes around a block's and the grid's pass,
+   at pointer offsets 0-3, on zeros, -0.0 and a NaN (histogram also +-inf,
+   a constant vector, exact bin edges k/256, and a maximum that is NaN or
+   0), ten launches in a row, and a histogram launch right after one with a
+   larger grid; then every LGC kernel (and ``sum_maxabs``) on inputs scaled
+   by 1e-39, 1e-37, 1e-36 and 1e-30, all, partly or not subnormal, bitwise
+   equal to the plain versions that flush subnormals as the JAX reference;
 3. ``swa_decode`` against its plain version on the card, f32 (rtol = atol =
    2e-5) and bf16 (1e-2), at TestSWADecode's shapes, the GQA serve shape
    (B=8, H=12, Kv=2, W=4096, Dh=128) and W=4160, with lengths 1, W/2+3 and
@@ -26,6 +31,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    width (128,419,584 parameters, bf16) with ``aggregate="dense_masked"``
    and the CUDA kernels, 3 sync rounds of 2 FL devices; each LGC launch
    counter must be 3 rounds x 2 devices x 8 leaves = 48 and swa_decode's 0;
+   the inputs of the largest leaf's first call in round 2 are kept (a copy
+   taken by wrapping the step's ``lgc_compress_hist``) for phase 8;
 6. a small f32 serve (qwen2-smoke), card against CPU with the same weights:
    8-token prefill into a 16-slot ring, 24 greedy steps past the wrap; the
    logits agree at rtol = atol = 1e-5 and the tokens are equal;
@@ -40,7 +47,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    between two CUDA events (host code included); ``device_ms`` is the
    device time per call, events around 100 back-to-back calls that a sleep
    kernel queues up (for the kernel and the library call alike); the LGC
-   kernels at the largest leaf and at ``embed``, swa_decode at the GQA serve
+   kernels at the largest leaf and at ``embed``, the histogram also on the
+   main path's real u of round 2 (``at_main_path_u``) and on a constant
+   vector (``at_one_bin``), ``sum_maxabs`` against the add and maxabs apart
+   (``at_sum`` of maxabs), swa_decode at the GQA serve
    shape in bf16 with every slot valid, its inputs rotated over four copies
    so that each call finds them outside the L2 cache, as a decode step does;
 9. the last line: ``{"ok": true, "device": {...}}``.
@@ -124,12 +134,8 @@ def phase_kernels(gen, errs: dict) -> None:
             m = maxabs(v)
             m_ref = ref.hist_maxabs(v).reshape(1, 1)
             check(bits_equal(m, m_ref), f"maxabs D={n} {tag}")
-            c = histogram(v, m)
-            c_ref = ref.hist_counts(v, m)
-            check(bits_equal(c, c_ref) and int(c.sum()) == v.numel(),
-                  f"histogram D={n} {tag}")
             errs["maxabs"] = max(errs["maxabs"], max_abs_err(m, m_ref))
-            errs["histogram"] = max(errs["histogram"], max_abs_err(c, c_ref))
+            check_histogram(v, m, f"D={n} {tag}", errs)
         m = maxabs(u)
         counts = histogram(u, m)
         for recv_list in ([1], [0], [1, 0, 1]):
@@ -182,6 +188,110 @@ def phase_kernels(gen, errs: dict) -> None:
     torch.cuda.synchronize()
     log(f"maxabs: bitwise equal to the plain version at D in {sizes}, "
         f"offsets 0-3, all zeros, -0.0, a NaN, and ten launches in a row")
+    phase_histogram_edges(gen, errs)
+    phase_subnormals(errs)
+
+
+def check_histogram(v, m, what: str, errs: dict) -> None:
+    from repro_torch.kernels import histogram, ref
+    c = histogram(v, m)
+    c_ref = ref.hist_counts(v, m)
+    check(bits_equal(c, c_ref) and int(c.sum()) == v.numel(),
+          f"histogram {what}")
+    errs["histogram"] = max(errs["histogram"], max_abs_err(c, c_ref))
+
+
+def phase_histogram_edges(gen, errs: dict) -> None:
+    """histogram at the edges of a block's pass (4,096 floats) and of the
+    full grid's, at pointer offsets 0-3, on special values, a constant
+    vector and exact bin edges; ten launches in a row, and a launch right
+    after one with a larger grid (the last block must have emptied the
+    accumulator and reset the counter)."""
+    import torch
+    from repro_torch.kernels import histogram, maxabs, ref
+    from repro_torch.kernels.topk_threshold import histogram_grid
+    grid_pass = histogram_grid(1 << 40, torch.device("cuda")) * 256 * 4 * 4
+    sizes = [1, 2, 3, 63, 4095, 4096, 4097, 1_000_003, grid_pass - 1,
+             grid_pass, grid_pass + 1, 2 * grid_pass + 3]
+    for n in sizes:
+        base = torch.randn(n + 3, generator=gen, device="cuda")
+        for off in range(4):
+            v = base[off:off + n]
+            check_histogram(v, maxabs(v), f"D={n} offset {off}", errs)
+    g = torch.randn(100_003, generator=gen, device="cuda")
+    m_g = g.abs().max().reshape(1, 1)
+    z = torch.zeros_like(g)
+    one = torch.ones((1, 1), device="cuda")
+    k = torch.arange(257, device="cuda", dtype=torch.float32) / 256
+    at = torch.tensor([77_777], device="cuda")
+    specials = {
+        "zeros": (z, maxabs(z)), "-0.0": (torch.full_like(z, -0.0), maxabs(z)),
+        "NaN": (g.clone().index_fill_(0, at, float("nan")), m_g),
+        "+inf": (g.clone().index_fill_(0, at, float("inf")), m_g),
+        "-inf": (g.clone().index_fill_(0, at, float("-inf")), m_g),
+        "constant": (torch.full((LARGEST_LEAF,), -0.5, device="cuda"),
+                     one / 2),
+        "bin edges k/256": (torch.cat([k, -k]).repeat(1000), one),
+        "m NaN": (g, torch.full((1, 1), float("nan"), device="cuda")),
+        "m 0": (g, one * 0)}
+    for tag, (v, m) in specials.items():
+        check_histogram(v, m, tag, errs)
+    big = torch.randn(3 * grid_pass + 7, generator=gen, device="cuda")
+    small = torch.randn(5000, generator=gen, device="cuda")
+    m_big, m_small = maxabs(big), maxabs(small)
+    outs = [histogram(big, m_big) for _ in range(10)]
+    after_big = histogram(small, m_small)
+    want_big = ref.hist_counts(big, m_big)
+    check(all(bits_equal(o, want_big) for o in outs),
+          "histogram: ten launches in a row")
+    check(bits_equal(after_big, ref.hist_counts(small, m_small)),
+          "histogram: a launch after one with a larger grid")
+    torch.cuda.synchronize()
+    log(f"histogram: bitwise equal to the plain version, sums equal to D, at "
+        f"D in {sizes}, offsets 0-3, on {', '.join(specials)}; ten launches "
+        f"in a row, and a launch after one with a larger grid")
+
+
+SUBNORMAL_SCALES = (1e-39, 1e-37, 1e-36, 1e-30)
+
+
+def phase_subnormals(errs: dict) -> None:
+    """Each LGC kernel at scales where its inputs are all, partly or not
+    subnormal: bitwise equal to its plain version, which flushes f32
+    subnormals as the JAX reference does."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import (histogram, lgc_compress_hist, maxabs,
+                                     ref, sparsify_ef, sum_maxabs)
+    cum = torch.tensor([40, 120], dtype=torch.int32, device="cuda")
+    recv = torch.tensor([1, 0], dtype=torch.int32, device="cuda")
+    sent = {}
+    for scale in SUBNORMAL_SCALES:
+        rng = np.random.default_rng(0)
+        e, d = (torch.from_numpy((rng.standard_normal(4096) * scale).astype(
+            np.float32)).cuda() for _ in range(2))
+        m = maxabs(e)
+        check(bits_equal(m, ref.hist_maxabs(e).reshape(1, 1)),
+              f"maxabs at scale {scale}")
+        check_histogram(e, m, f"at scale {scale}", errs)
+        u, m_u = sum_maxabs(e, d)
+        u_ref = ref.ftz_add(e, d)
+        check(bits_equal(u, u_ref) and bits_equal(
+            m_u, ref.hist_maxabs(u_ref).reshape(1, 1)),
+            f"sum_maxabs at scale {scale}")
+        thr = ref.hist_thresholds(histogram(u, m_u), m_u, cum)
+        for got, want in zip(sparsify_ef(e, d, thr, recv),
+                             ref.hist_layered_sparsify(u_ref, thr, recv)):
+            check(bits_equal(got, want), f"sparsify_ef at scale {scale}")
+        g, e_new = lgc_compress_hist(e, d, cum, recv)
+        g_ref, e_ref = ref.hist_lgc_compress(e, d, cum, recv)
+        check(bits_equal(g, g_ref) and bits_equal(e_new, e_ref),
+              f"lgc_compress_hist at scale {scale}")
+        sent[scale] = int((g != 0).sum())
+    torch.cuda.synchronize()
+    log(f"subnormals: maxabs, sum_maxabs, histogram, sparsify_ef and "
+        f"lgc_compress_hist bitwise equal to the plain versions at scales "
+        f"{SUBNORMAL_SCALES}; coordinates sent {sent}")
 
 
 # ---------------------------------------------------------------------------
@@ -316,9 +426,12 @@ def phase_small_trainer() -> None:
 # phase 5: the training path at full width
 # ---------------------------------------------------------------------------
 
-def phase_main_path() -> dict:
+def phase_main_path() -> tuple[dict, object]:
+    """Returns the launch counts and u = e + delta of the largest leaf in
+    round 2."""
     import torch
-    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.kernels import LAUNCHES, ref, reset_launch_counts
+    from repro_torch.launch.bench_histogram import capture_leaf_inputs
     from repro_torch.models import transformer as tf
     from repro_torch.models.paper_models import make_task
     task = make_task("qwen2_100m", m_devices=M_DEVICES, preset="full",
@@ -333,7 +446,10 @@ def phase_main_path() -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    out = task.run(ROUNDS)
+    # keep (e, delta) of the largest leaf's first call in round 2
+    with capture_leaf_inputs(LARGEST_LEAF,
+                             M_DEVICES * N_KERNEL_LEAVES) as kept:
+        out = task.run(ROUNDS)
     torch.cuda.synchronize()
     counts = dict(LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -363,7 +479,8 @@ def phase_main_path() -> dict:
         f"memory {peak_gib:.2f} GiB")
     log(f"main path: kernel launches {counts} (want {want} for each LGC "
         f"kernel, 0 for swa_decode)")
-    return counts
+    (e, delta), = kept
+    return counts, ref.ftz_add(e, delta)
 
 
 # ---------------------------------------------------------------------------
@@ -503,10 +620,46 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_timings(gen) -> dict:
+def time_row(n: int, kern, plain, lib, n_bytes: float, n_ops: float) -> dict:
+    from repro_torch.device import device_ms
+    bnd, by = bound_ms(n_bytes, n_ops)
+    return {"n": n, "ms": time_ms(kern), "plain_ms": time_ms(plain),
+            "library_ms": time_ms(lib) if lib else None,
+            "device_ms": device_ms(kern),
+            "library_device_ms": device_ms(lib) if lib else None,
+            "bound_ms": bnd, "bound_by": by}
+
+
+def log_row(name: str, tag, row: dict) -> None:
+    log(f"timing {name} {tag}: kernel {row['ms']:.5f} ms one call, "
+        f"{row['device_ms']:.5f} ms device; plain {row['plain_ms']:.5f} ms; "
+        f"library {row['library_ms']} ms one call, "
+        f"{row['library_device_ms']} ms device; bound {row['bound_ms']:.5f} "
+        f"ms ({row['bound_by']})")
+
+
+def histogram_case(u) -> tuple:
+    """histogram on u with m = maxabs(u): kernel, plain version, histc,
+    bytes and operations."""
+    import torch
+    from repro_torch.kernels import histogram, maxabs, ref
+    n = u.numel()
+    m = maxabs(u)
+    m_host = float(m)
+    a = u.abs()
+    return (lambda: histogram(u, m), lambda: ref.hist_counts(u, m),
+            lambda: torch.histc(a, bins=256, min=0.0, max=m_host),
+            4 * n + 4 + 4 * 256, 3 * n)
+
+
+def phase_timings(gen, main_u) -> dict:
+    """The LGC kernels at the largest leaf and at embed (Gaussian u), the
+    histogram also on the main path's real u and on a constant vector, and
+    maxabs forming u = e + x (``sum_maxabs``) against the add and maxabs
+    apart."""
     import torch
     from repro_torch.device import device_ms
-    from repro_torch.kernels import histogram, maxabs, ref, sparsify_ef
+    from repro_torch.kernels import maxabs, ref, sparsify_ef, sum_maxabs
     rows: dict = {}
     c_n = 3
     recv = torch.tensor([1, 1, 1], dtype=torch.int32, device="cuda")
@@ -514,41 +667,37 @@ def phase_timings(gen) -> dict:
         x = torch.randn(n, generator=gen, device="cuda") * 1e-3
         e = torch.randn(n, generator=gen, device="cuda") * 1e-4
         u = e + x
-        a = u.abs()
         m = maxabs(u)
-        m_host = float(m)
-        counts = histogram(u, m)
         cum = torch.tensor([n // 100, 3 * n // 100, 5 * n // 100],
                            dtype=torch.int32, device="cuda")
-        thr = ref.hist_thresholds(counts, m, cum)
+        thr = ref.hist_thresholds(ref.hist_counts(u, m), m, cum)
         inf = float("inf")
         cases = {
             "maxabs": (lambda: maxabs(u), lambda: ref.hist_maxabs(u),
                        lambda: torch.linalg.vector_norm(u, inf),
                        4 * n + 4, n),
-            "histogram": (lambda: histogram(u, m),
-                          lambda: ref.hist_counts(u, m),
-                          lambda: torch.histc(a, bins=256, min=0.0,
-                                              max=m_host),
-                          4 * n + 4 + 4 * 256, 3 * n),
+            "histogram": histogram_case(u),
             "sparsify_ef": (lambda: sparsify_ef(e, x, thr, recv),
-                            lambda: ref.hist_layered_sparsify(e + x, thr,
-                                                              recv),
+                            lambda: ref.hist_layered_sparsify(
+                                ref.ftz_add(e, x), thr, recv),
                             None, 16 * n + 8 * c_n, (2 + 4 * c_n) * n),
         }
-        for name, (kern, plain, lib, n_bytes, n_ops) in cases.items():
-            bnd, by = bound_ms(n_bytes, n_ops)
-            row = {"n": n, "ms": time_ms(kern), "plain_ms": time_ms(plain),
-                   "library_ms": time_ms(lib) if lib else None,
-                   "device_ms": device_ms(kern),
-                   "library_device_ms": device_ms(lib) if lib else None,
-                   "bound_ms": bnd, "bound_by": by}
-            rows.setdefault(name, {})[n] = row
-            log(f"timing {name} D={n}: kernel {row['ms']:.5f} ms one call, "
-                f"{row['device_ms']:.5f} ms device; plain "
-                f"{row['plain_ms']:.5f} ms; library {row['library_ms']} ms "
-                f"one call, {row['library_device_ms']} ms device; bound "
-                f"{bnd:.5f} ms ({by})")
+        for name, case in cases.items():
+            rows.setdefault(name, {})[n] = time_row(n, *case)
+            log_row(name, f"D={n}", rows[name][n])
+        if n == LARGEST_LEAF:
+            row = time_row(n, lambda: sum_maxabs(e, x),
+                           lambda: ref.hist_maxabs(ref.ftz_add(e, x)), None,
+                           12 * n + 4, 2 * n)
+            row["unfused_device_ms"] = device_ms(lambda: maxabs(e + x))
+            rows["maxabs"]["sum"] = row
+            log_row("sum_maxabs", f"D={n}", row)
+            log(f"timing maxabs(e + x), the add apart: "
+                f"{row['unfused_device_ms']:.5f} ms device")
+    one_bin = torch.full((LARGEST_LEAF,), 1e-3, device="cuda")
+    for tag, v in (("main_path_u", main_u), ("one_bin", one_bin)):
+        rows["histogram"][tag] = time_row(v.numel(), *histogram_case(v))
+        log_row("histogram", tag, rows["histogram"][tag])
     return rows
 
 
@@ -627,7 +776,7 @@ def main() -> int:
     log(f"build: {so.name} in {time.perf_counter() - t0:.1f} s "
         f"({'cached' if not _build.build_log else 'compiled'})")
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "entry function" in line:
             log(f"  ptxas: {line.strip()}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -635,10 +784,10 @@ def main() -> int:
     phase_kernels(gen, errs)
     phase_swa(gen, errs)
     phase_small_trainer()
-    launches = phase_main_path()
+    launches, main_u = phase_main_path()
     phase_small_serve()
     serving = phase_serve()
-    rows = phase_timings(gen)
+    rows = phase_timings(gen, main_u)
     swa_row = phase_time_swa(gen)
 
     kernels = []
@@ -649,6 +798,11 @@ def main() -> int:
             big = rows[name][LARGEST_LEAF]
             row |= {"launches": launches[name]} | big | {
                 "at_embed": rows[name][EMBED]}
+            if name == "histogram":
+                row |= {"at_main_path_u": rows[name]["main_path_u"],
+                        "at_one_bin": rows[name]["one_bin"]}
+            if name == "maxabs":
+                row["at_sum"] = rows[name]["sum"]
         else:                          # the serving path's kernel
             row |= {"launches": serving["launches"][name]} | swa_row
         kernels.append(row)

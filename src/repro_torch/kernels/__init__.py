@@ -14,11 +14,13 @@ from ._build import LAUNCHES, reset_launch_counts
 from .layered_sparsify import sparsify_ef
 from .ops import lgc_compress_hist, selected_counts
 from .swa_attention import swa_decode
-from .topk_threshold import histogram, maxabs, thresholds_from_counts
+from .topk_threshold import (histogram, maxabs, sum_maxabs,
+                             thresholds_from_counts)
 
 __all__ = [
     "LAUNCHES", "reset_launch_counts",
     "lgc_compress_hist", "selected_counts",
-    "histogram", "maxabs", "thresholds_from_counts", "sparsify_ef",
+    "histogram", "maxabs", "sum_maxabs", "thresholds_from_counts",
+    "sparsify_ef",
     "swa_decode",
 ]

@@ -112,8 +112,8 @@ def lib() -> ctypes.CDLL:
         if _lib is None:
             so = ctypes.CDLL(str(build()))
             vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-            so.lgc_maxabs.argtypes = [vp, i64, vp, vp, vp, ci, vp]
-            so.lgc_histogram.argtypes = [vp, i64, vp, vp, vp]
+            so.lgc_maxabs.argtypes = [vp, vp, vp, i64, vp, vp, vp, ci, vp]
+            so.lgc_histogram.argtypes = [vp, i64, vp, vp, vp, ci, vp]
             so.lgc_sparsify_ef.argtypes = [vp, vp, vp, vp, ci, vp, vp, i64, vp]
             so.lgc_swa_decode.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci,
                                           ci, ci, ci, ci, ci, vp]

@@ -34,4 +34,36 @@ __device__ __forceinline__ int64_t head_elems(const float* p, int64_t n) {
   return h < n ? h : n;
 }
 
+// 16-byte load that bypasses L1: each byte of the input is read once
+__device__ __forceinline__ float4 load_stream(const float4* p) {
+  float4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "l"(p));
+  return v;
+}
+
+// Subnormals.  The reference's platforms flush f32 subnormals (XLA:CPU runs
+// with FTZ/DAZ, the TPU has none): its arithmetic reads a subnormal input as
+// a zero of the same sign and writes a subnormal result as one.  The `.ftz`
+// forms of PTX arithmetic do the same; abs and moves keep the bits.
+constexpr unsigned kMinNormalBits = 0x00800000u;    // 2**-126
+
+__device__ __forceinline__ float ftz(float v) {
+  const unsigned b = __float_as_uint(v);
+  return (b & 0x7fffffffu) < kMinNormalBits ? __uint_as_float(b & 0x80000000u) : v;
+}
+
+__device__ __forceinline__ float add_ftz(float a, float b) {
+  float r;
+  asm("add.rn.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float mul_ftz(float a, float b) {
+  float r;
+  asm("mul.rn.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 }  // namespace lgc

@@ -10,17 +10,22 @@
 // launch besides this one.  The max runs on the bits of |x| as unsigned
 // integers: for non-negative floats the bit order is the value order, so the
 // result is exact (and a NaN, whose bits sit above +inf, propagates as jnp.max
-// does).
+// does).  A subnormal |x| counts as 0, as the reference's flushed max reads it.
+//
+// With a second input d (`lgc_compress_hist`'s statistics pass) the values are
+// u = e + d, added with `add.rn.ftz` as the reference adds, and stored to u as
+// they are formed: one pass in place of a separate add.
 //
 // Bound on the H100: bytes.  The kernel reads each input element once (4 B)
 // and does one compare per element; at the largest leaf of the 100M stack
-// (28,311,552 elements) that is 113 MB, 0.034 ms at 3.35 TB/s.  To keep that
-// rate each thread issues kLoads independent 16-byte streaming loads
-// (`ld.global.nc.L1::no_allocate`) before it reduces them, over whole chunks of
-// the grid with no bounds check; the 0-3 floats before the first 16-byte
-// boundary, the float4s past the last whole chunk and the 0-3 floats at the end
-// are handled apart.  The grid is the resident block count (the wrapper passes
-// SMs x 8 blocks of 256 threads, fewer for a short vector).
+// (28,311,552 elements) that is 113 MB, 0.034 ms at 3.35 TB/s (12 B an element
+// with d and u).  To keep that rate each thread issues kLoads independent
+// 16-byte streaming loads (`ld.global.nc.L1::no_allocate`) before it reduces
+// them, over whole chunks of the grid with no bounds check; the 0-3 floats
+// before the first 16-byte boundary, the float4s past the last whole chunk and
+// the 0-3 floats at the end are handled apart.  The grid is the resident block
+// count (the wrapper passes SMs x 8 blocks of 256 threads, fewer for a short
+// vector).
 #include "common.cuh"
 
 namespace {
@@ -28,19 +33,17 @@ namespace {
 constexpr int kLoads = 4;              // independent 16-byte loads per thread
 
 __device__ __forceinline__ unsigned abs_bits(float v) {
-  return __float_as_uint(v) & 0x7fffffffu;
+  const unsigned b = __float_as_uint(v) & 0x7fffffffu;
+  return b < lgc::kMinNormalBits ? 0u : b;
 }
 
 __device__ __forceinline__ unsigned abs_bits(float4 v) {
   return max(max(abs_bits(v.x), abs_bits(v.y)), max(abs_bits(v.z), abs_bits(v.w)));
 }
 
-__device__ __forceinline__ float4 load_stream(const float4* p) {
-  float4 v;
-  asm("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-      : "l"(p));
-  return v;
+__device__ __forceinline__ float4 add_ftz(float4 a, float4 b) {
+  return make_float4(lgc::add_ftz(a.x, b.x), lgc::add_ftz(a.y, b.y), lgc::add_ftz(a.z, b.z),
+                     lgc::add_ftz(a.w, b.w));
 }
 
 // the block's max of m, in every thread
@@ -55,32 +58,70 @@ __device__ __forceinline__ unsigned block_max(unsigned m) {
   return __reduce_max_sync(0xffffffffu, m);
 }
 
+// kSum: the values are u = x + d, stored to u.  kVec: x, d and u share their
+// offset from a 16-byte boundary, so the body moves as float4s.
+template <bool kSum, bool kVec>
 __global__ void __launch_bounds__(lgc::kThreads)
-maxabs_kernel(const float* __restrict__ x, int64_t n, unsigned* __restrict__ partials,
-              int* __restrict__ counter, unsigned* __restrict__ out) {
+maxabs_kernel(const float* __restrict__ x, const float* __restrict__ d, float* __restrict__ u,
+              int64_t n, unsigned* __restrict__ partials, int* __restrict__ counter,
+              unsigned* __restrict__ out) {
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  const int64_t head = lgc::head_elems(x, n);
-  const int64_t n4 = (n - head) / 4;
-  const float4* body = reinterpret_cast<const float4*>(x + head);
-  const int64_t chunk = stride * kLoads;           // float4s per pass of the grid
-  const int64_t whole = n4 / chunk * chunk;
+  auto value = [&](int64_t i) {
+    if constexpr (kSum) {
+      const float v = lgc::add_ftz(x[i], d[i]);
+      u[i] = v;
+      return v;
+    } else {
+      return x[i];
+    }
+  };
 
-  unsigned m = tid < head ? abs_bits(x[tid]) : 0u;
-  for (int64_t i = tid; i < whole; i += chunk) {
-    float4 v[kLoads];
+  unsigned m = 0u;
+  if constexpr (!kVec) {
+    for (int64_t i = tid; i < n; i += stride) m = max(m, abs_bits(value(i)));
+  } else {
+    const int64_t head = lgc::head_elems(x, n);
+    const int64_t n4 = (n - head) / 4;
+    const float4* body = reinterpret_cast<const float4*>(x + head);
+    const float4* body_d = kSum ? reinterpret_cast<const float4*>(d + head) : nullptr;
+    float4* body_u = kSum ? reinterpret_cast<float4*>(u + head) : nullptr;
+    const int64_t chunk = stride * kLoads;         // float4s per pass of the grid
+    const int64_t whole = n4 / chunk * chunk;
+
+    if (tid < head) m = abs_bits(value(tid));
+    for (int64_t i = tid; i < whole; i += chunk) {
+      float4 v[kLoads];
 #pragma unroll
-    for (int u = 0; u < kLoads; ++u) v[u] = load_stream(body + i + u * stride);
+      for (int k = 0; k < kLoads; ++k) v[k] = lgc::load_stream(body + i + k * stride);
+      if constexpr (kSum) {
+        float4 w[kLoads];
 #pragma unroll
-    for (int u = 0; u < kLoads; ++u) m = max(m, abs_bits(v[u]));
+        for (int k = 0; k < kLoads; ++k) w[k] = lgc::load_stream(body_d + i + k * stride);
+#pragma unroll
+        for (int k = 0; k < kLoads; ++k) {
+          v[k] = add_ftz(v[k], w[k]);
+          body_u[i + k * stride] = v[k];
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kLoads; ++k) m = max(m, abs_bits(v[k]));
+    }
+#pragma unroll
+    for (int k = 0; k < kLoads; ++k) {             // the float4s past the whole chunks
+      const int64_t i = whole + tid + k * stride;
+      if (i < n4) {
+        float4 v = lgc::load_stream(body + i);
+        if constexpr (kSum) {
+          v = add_ftz(v, lgc::load_stream(body_d + i));
+          body_u[i] = v;
+        }
+        m = max(m, abs_bits(v));
+      }
+    }
+    const int64_t t = head + 4 * n4 + tid;         // the 0-3 floats at the end
+    if (t < n) m = max(m, abs_bits(value(t)));
   }
-#pragma unroll
-  for (int u = 0; u < kLoads; ++u) {               // the float4s past the whole chunks
-    const int64_t i = whole + tid + u * stride;
-    if (i < n4) m = max(m, abs_bits(load_stream(body + i)));
-  }
-  const int64_t t = head + 4 * n4 + tid;           // the 0-3 floats at the end
-  if (t < n) m = max(m, abs_bits(x[t]));
 
   __shared__ bool last;
   m = block_max(m);
@@ -106,10 +147,22 @@ maxabs_kernel(const float* __restrict__ x, int64_t n, unsigned* __restrict__ par
 }  // namespace
 
 // partials: `grid` unsigned ints of scratch; counter: one int, zero, left zero.
-extern "C" int lgc_maxabs(const float* x, int64_t n, float* out, unsigned* partials,
-                          int* counter, int grid, cudaStream_t stream) {
+// d == nullptr: max |x|.  Otherwise max |u| with u = x + d (flushed) written
+// to u (n floats).
+extern "C" int lgc_maxabs(const float* x, const float* d, float* u, int64_t n, float* out,
+                          unsigned* partials, int* counter, int grid, cudaStream_t stream) {
   if (n < 1 || grid < 1) return static_cast<int>(cudaErrorInvalidValue);
-  maxabs_kernel<<<grid, lgc::kThreads, 0, stream>>>(x, n, partials, counter,
-                                                   reinterpret_cast<unsigned*>(out));
+  unsigned* o = reinterpret_cast<unsigned*>(out);
+  if (d == nullptr) {
+    maxabs_kernel<false, true><<<grid, lgc::kThreads, 0, stream>>>(x, d, u, n, partials,
+                                                                   counter, o);
+  } else if (((reinterpret_cast<uintptr_t>(x) ^ reinterpret_cast<uintptr_t>(d)) |
+              (reinterpret_cast<uintptr_t>(x) ^ reinterpret_cast<uintptr_t>(u))) & 15u) {
+    maxabs_kernel<true, false><<<grid, lgc::kThreads, 0, stream>>>(x, d, u, n, partials,
+                                                                   counter, o);
+  } else {
+    maxabs_kernel<true, true><<<grid, lgc::kThreads, 0, stream>>>(x, d, u, n, partials,
+                                                                  counter, o);
+  }
   return static_cast<int>(cudaGetLastError());
 }

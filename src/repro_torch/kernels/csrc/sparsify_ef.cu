@@ -11,7 +11,8 @@
 // thresholds and delivery flags in registers (read on the device: no host
 // sync).  g starts at +0.0 and adds u or +0.0 once per layer, exactly as the
 // reference does, so g and e' are bitwise equal to the plain version and
-// u == g + e' holds exactly.
+// u == g + e' holds exactly.  u is added with `add.rn.ftz` and the thresholds
+// are flushed, as the reference's platforms flush f32 subnormals.
 //
 // Bound on the H100: bytes.  It reads e and delta once and writes g and e'
 // once: 16 B per element, 453 MB at the largest leaf (28,311,552 elements),
@@ -28,7 +29,7 @@ struct Layers {
   bool on[C];
 
   __device__ __forceinline__ void apply(float ev, float dv, float& gv, float& env) const {
-    const float u = __fadd_rn(ev, dv);
+    const float u = lgc::add_ftz(ev, dv);
     const float a = fabsf(u);
     float acc = 0.0f;
     float hi = __int_as_float(0x7f800000);   // +inf
@@ -51,7 +52,7 @@ sparsify_ef_kernel(const float* __restrict__ e, const float* __restrict__ d,
   Layers<C> L;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    L.lo[c] = __ldg(thr + c);
+    L.lo[c] = lgc::ftz(__ldg(thr + c));
     L.on[c] = __ldg(recv + c) > 0;
   }
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;

@@ -47,7 +47,7 @@ def sparsify_ef(e: torch.Tensor, delta: torch.Tensor, thr: torch.Tensor,
     thr = thr.to(torch.float32).contiguous()
     recv = received.to(torch.int32).contiguous()
     if e.device.type == "cpu":
-        return ref.hist_layered_sparsify(e + delta, thr, recv)
+        return ref.hist_layered_sparsify(ref.ftz_add(e, delta), thr, recv)
     g = torch.empty_like(e)
     e_new = torch.empty_like(e)
     with _on_device(e):

@@ -3,8 +3,9 @@
 Port of ``repro/kernels/ops.py:26-52``.  ``lgc_compress_hist`` is composed as
 the reference composes it (ops.py:36-41):
 
-  1. u = e + delta, materialised once for the statistics passes
-  2. maxabs (CUDA kernel)
+  1.-2. u = e + delta, materialised once for the statistics passes, and
+       maxabs, in one launch of the maxabs kernel (``sum_maxabs``; the add
+       flushes subnormals as the reference's does)
   3. 256-bin magnitude histogram of u (CUDA kernel)
   4. per-layer thresholds from the CDF (torch ops on 256 scalars)
   5. fused layered sparsify + error feedback (CUDA kernel, recomputes u)
@@ -16,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from .layered_sparsify import sparsify_ef
-from .topk_threshold import histogram, maxabs, thresholds_from_counts
+from .topk_threshold import histogram, sum_maxabs, thresholds_from_counts
 
 
 def lgc_compress_hist(e: torch.Tensor, delta: torch.Tensor,
@@ -25,8 +26,7 @@ def lgc_compress_hist(e: torch.Tensor, delta: torch.Tensor,
     """Histogram-LGC with error feedback.  Returns (g, e_new), f32 (D,)."""
     e = e.to(torch.float32)
     delta = delta.to(torch.float32)
-    u_stats = e + delta
-    m = maxabs(u_stats)
+    u_stats, m = sum_maxabs(e, delta)
     counts = histogram(u_stats, m)
     thr = thresholds_from_counts(counts, m, cum_ks)
     return sparsify_ef(e, delta, thr, received)

@@ -9,6 +9,14 @@ as the reference, so they are bit-identical to the JAX oracles
 (tests/test_torch_kernels.py); ``swa_decode_ref`` agrees with the Pallas
 kernel to f32 rounding (tests/test_torch_swa.py).  Everything stays on the
 tensor's device: no ``.item()``, no host sync.
+
+Subnormals.  Both platforms of the reference flush f32 subnormals: XLA:CPU
+runs with FTZ and DAZ (an arithmetic op reads a subnormal input as a zero of
+its sign and writes a subnormal result as a zero of its sign), and the TPU
+has no subnormals; ``abs``, ``where`` and copies keep the bits.  PyTorch
+keeps subnormals on both the CPU and the card, so the ``hist_*`` functions
+flush where the reference's arithmetic does: the add that forms u, the
+inputs of the max, the product and the compares, and the division m / 256.
 """
 from __future__ import annotations
 
@@ -16,6 +24,24 @@ import torch
 
 N_BINS = 256
 SWA_TILE = 64          # slots per K/V tile of the swa_decode kernel
+_MIN_NORMAL_BITS = 0x00800000     # bits of the smallest normal f32, 2**-126
+_SIGN_BIT = -0x80000000
+
+
+def ftz(x: torch.Tensor) -> torch.Tensor:
+    """f32 x with every subnormal replaced by a zero of its sign."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    tiny = (bits & 0x7FFFFFFF) < _MIN_NORMAL_BITS
+    return torch.where(tiny, bits & _SIGN_BIT, bits).view(torch.float32)
+
+
+def ftz_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a + b in f32 as XLA:CPU adds under FTZ/DAZ (PTX ``add.rn.ftz.f32``).
+
+    Exact: after the inputs are flushed, an exact sum below 2**-126 is a
+    multiple of 2**-149, so the IEEE sum is exact there and flushing it
+    gives the flushed hardware's result."""
+    return ftz(ftz(a) + ftz(b))
 
 
 def hist_maxabs(x: torch.Tensor) -> torch.Tensor:
@@ -25,8 +51,10 @@ def hist_maxabs(x: torch.Tensor) -> torch.Tensor:
     order is the value order, so this is the max; a NaN, whose bits sit
     above +inf, comes out with its own bits (sign cleared), as jnp.max
     gives it, on every device.  (On a CUDA tensor ``abs()`` and ``max()``
-    of floats return another NaN, 0x7fffffff.)"""
+    of floats return another NaN, 0x7fffffff.)  A subnormal |x| counts as
+    0, as the reference's max reads it: all-subnormal input gives +0."""
     bits = x.to(torch.float32).contiguous().view(torch.int32) & 0x7FFFFFFF
+    bits = torch.where(bits < _MIN_NORMAL_BITS, 0, bits)
     return bits.max().view(torch.float32)
 
 
@@ -34,10 +62,12 @@ def hist_counts(x: torch.Tensor, maxabs: torch.Tensor) -> torch.Tensor:
     """256-bin histogram of |x| over [0, maxabs]; bin 255 holds the largest.
 
     bin = clip(int32(|x| * (256 / maxabs)), 0, 255), with 256 / maxabs an
-    IEEE-rounded f32 division (0 when maxabs == 0).  Returns (256,) int32.
+    IEEE-rounded f32 division (0 when maxabs == 0).  Subnormal |x| and
+    maxabs read as 0 (so a subnormal |x| times an infinite scale is NaN, bin
+    0).  Returns (256,) int32.
     """
-    a = x.abs().to(torch.float32).reshape(-1)
-    m = maxabs.reshape(()).to(torch.float32)
+    a = ftz(x.abs().reshape(-1))
+    m = ftz(maxabs.reshape(()))
     scale = torch.where(m > 0, N_BINS / m, torch.zeros_like(m))
     # clamp in f32 before the truncating cast: NaN -> bin 0 and overflow ->
     # bin 255, the saturating conversion of XLA and of the CUDA kernel
@@ -56,7 +86,10 @@ def hist_thresholds(counts: torch.Tensor, maxabs: torch.Tensor,
     bin qualifies).  Returns (C,) f32.
     """
     desc = torch.flip(torch.cumsum(torch.flip(counts, (0,)), 0), (0,))
-    bin_w = maxabs.reshape(()).to(torch.float32) / N_BINS
+    # m / 256 is exact unless it falls below 2**-126, where the reference
+    # flushes it (also where IEEE rounding would have reached 2**-126)
+    m = maxabs.reshape(()).to(torch.float32)
+    bin_w = torch.where(m.abs() < 2.0 ** -118, m * 0, m / N_BINS)
     ok = desc[None, :] >= cum_ks.to(desc.dtype)[:, None]          # (C, 256)
     ids = torch.arange(N_BINS, device=counts.device)
     top = torch.where(ok, ids, torch.full_like(ids, -1)).amax(1)
@@ -70,8 +103,12 @@ def hist_layered_sparsify(u: torch.Tensor, thr: torch.Tensor,
     """g = sum of the received layers, e_new = u - g.
 
     Layer c keeps thr[c-1] >= |u| > thr[c] with thr[-1] := +inf.  g starts
-    at +0.0 and adds u or +0.0 once per layer, as the reference does.
+    at +0.0 and adds u or +0.0 once per layer, as the reference does.  The
+    reference's compares and adds read a subnormal u or thr as a zero of
+    its sign, so both are flushed first.
     """
+    u = ftz(u)
+    thr = ftz(thr)
     a = u.abs()
     inf = torch.full((1,), float("inf"), dtype=torch.float32, device=u.device)
     hi = torch.cat([inf, thr[:-1].to(torch.float32)])
@@ -85,10 +122,10 @@ def hist_layered_sparsify(u: torch.Tensor, thr: torch.Tensor,
 def hist_lgc_compress(e: torch.Tensor, delta: torch.Tensor,
                       cum_ks: torch.Tensor, received: torch.Tensor
                       ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The whole histogram-LGC pipeline on flat vectors: u = e + delta,
-    thresholds from the histogram of |u|, g = the received layers,
-    e_new = u - g."""
-    u = (e + delta).to(torch.float32)
+    """The whole histogram-LGC pipeline on flat vectors: u = e + delta
+    (flushed, :func:`ftz_add`), thresholds from the histogram of |u|, g =
+    the received layers, e_new = u - g."""
+    u = ftz_add(e, delta)
     m = hist_maxabs(u)
     counts = hist_counts(u, m)
     thr = hist_thresholds(counts, m, cum_ks)

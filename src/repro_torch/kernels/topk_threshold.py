@@ -3,7 +3,8 @@ the thresholds.
 
 Port of ``repro/kernels/topk_threshold.py:32-116``:
 
-  pass 1: ``maxabs``    -- CUDA kernel, csrc/maxabs.cu
+  pass 1: ``maxabs``    -- CUDA kernel, csrc/maxabs.cu (``sum_maxabs``: the
+                           same kernel forming u = e + delta on the way)
   pass 2: ``histogram`` -- CUDA kernel, csrc/histogram.cu
   then  : ``thresholds_from_counts`` -- torch ops on 256 counts, on the device
 
@@ -25,6 +26,12 @@ N_BINS = ref.N_BINS
 _THREADS = 256                 # threads per block of the LGC kernels (lgc::kThreads)
 _MAXABS_LOADS = 4              # float4 loads per thread per pass (maxabs.cu kLoads)
 _MAXABS_BLOCKS_PER_SM = 8      # resident blocks of maxabs per SM
+
+_HIST_LOADS = 4                # float4 loads per thread per pass (histogram.cu kLoads)
+# blocks of histogram per SM: of 2, 4 and 6 (its occupancy limit, 38
+# registers a thread) 4 was the fastest on the H100
+# (python -m repro_torch.launch.bench_histogram --blocks-per-sm 2,4,6)
+_HIST_BLOCKS_PER_SM = 4
 
 _sm_counts: dict[int, int] = {}
 _counters: dict[tuple[str, int], torch.Tensor] = {}
@@ -81,12 +88,8 @@ def _zeroed_counters(kernel: str, device: torch.device, n: int
     return c
 
 
-def maxabs(x: torch.Tensor) -> torch.Tensor:
-    """max |x| over a flat f32 vector.  Returns (1, 1) f32."""
-    _check_vec(x, "x")
-    _check_same_device(x)
-    if x.device.type == "cpu":
-        return ref.hist_maxabs(x).reshape(1, 1)
+def _launch_maxabs(x: torch.Tensor, d: torch.Tensor | None,
+                   u: torch.Tensor | None) -> torch.Tensor:
     per_block = _THREADS * _MAXABS_LOADS * 4        # floats of one block's pass
     grid = min(-(-x.numel() // per_block),
                _MAXABS_BLOCKS_PER_SM * _sm_count(x.device))
@@ -94,11 +97,48 @@ def maxabs(x: torch.Tensor) -> torch.Tensor:
     partials = torch.empty(grid, dtype=torch.int32, device=x.device)
     counter = _zeroed_counters("maxabs", x.device, 1)
     with _on_device(x):
-        err = _build.lib().lgc_maxabs(x.data_ptr(), x.numel(), out.data_ptr(),
-                                      partials.data_ptr(), counter.data_ptr(),
-                                      grid, _stream(x))
+        err = _build.lib().lgc_maxabs(
+            x.data_ptr(), None if d is None else d.data_ptr(),
+            None if u is None else u.data_ptr(), x.numel(), out.data_ptr(),
+            partials.data_ptr(), counter.data_ptr(), grid, _stream(x))
     _build.check(err, "maxabs")
     return out
+
+
+def maxabs(x: torch.Tensor) -> torch.Tensor:
+    """max |x| over a flat f32 vector (a subnormal |x| counts as 0).
+    Returns (1, 1) f32."""
+    _check_vec(x, "x")
+    _check_same_device(x)
+    if x.device.type == "cpu":
+        return ref.hist_maxabs(x).reshape(1, 1)
+    return _launch_maxabs(x, None, None)
+
+
+def sum_maxabs(e: torch.Tensor, delta: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """u = e + delta, added as the reference adds (subnormals flushed,
+    ``ref.ftz_add``), and max |u|, in one launch of the maxabs kernel.
+    Returns u (D,) f32 and (1, 1) f32."""
+    _check_vec(e, "e")
+    _check_vec(delta, "delta")
+    if e.shape != delta.shape:
+        raise ValueError(f"e {tuple(e.shape)} and delta {tuple(delta.shape)}")
+    _check_same_device(e, delta)
+    if e.device.type == "cpu":
+        u = ref.ftz_add(e, delta)
+        return u, ref.hist_maxabs(u).reshape(1, 1)
+    # u starts at e's offset from a 16-byte boundary, so both move as float4s
+    n, off = e.numel(), e.data_ptr() % 16 // 4
+    u = torch.empty(n + 3, dtype=torch.float32, device=e.device)[off:off + n]
+    return u, _launch_maxabs(e, delta, u)
+
+
+def histogram_grid(n: int, device: torch.device) -> int:
+    """Blocks of a ``histogram`` launch over n floats: 4 per SM, fewer for
+    a short vector."""
+    per_block = _THREADS * _HIST_LOADS * 4          # floats of one block's pass
+    return min(-(-n // per_block), _HIST_BLOCKS_PER_SM * _sm_count(device))
 
 
 def histogram(x: torch.Tensor, maxabs_val: torch.Tensor) -> torch.Tensor:
@@ -110,10 +150,13 @@ def histogram(x: torch.Tensor, maxabs_val: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return ref.hist_counts(x, maxabs_val)
     m = maxabs_val.reshape(1).contiguous()
-    counts = torch.zeros(N_BINS, dtype=torch.int32, device=x.device)
+    counts = torch.empty(N_BINS, dtype=torch.int32, device=x.device)
+    acc = _zeroed_counters("histogram", x.device, N_BINS + 1)
+    grid = histogram_grid(x.numel(), x.device)
     with _on_device(x):
         err = _build.lib().lgc_histogram(x.data_ptr(), x.numel(), m.data_ptr(),
-                                         counts.data_ptr(), _stream(x))
+                                         counts.data_ptr(), acc.data_ptr(),
+                                         grid, _stream(x))
     _build.check(err, "histogram")
     return counts
 

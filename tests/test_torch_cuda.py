@@ -140,6 +140,117 @@ def test_maxabs_special_values_and_repeated_launches(card):
     torch.cuda.synchronize()
 
 
+def _histogram_pass(card) -> int:
+    """Floats that one pass of histogram's full grid reads."""
+    from repro_torch.kernels.topk_threshold import histogram_grid
+    return histogram_grid(1 << 40, card) * 256 * 4 * 4
+
+
+def _assert_histogram(x: torch.Tensor, m: torch.Tensor, msg="") -> None:
+    counts = pk.histogram(x, m)
+    assert counts.dtype == torch.int32 and counts.shape == (256,), msg
+    assert _bits_equal(counts, pref.hist_counts(x, m)), msg
+    assert int(counts.sum()) == x.numel(), msg
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("passes,extra", [
+    (0, 1), (0, 2), (0, 3), (0, 63), (0, 4095), (0, 4096), (0, 4097),
+    (0, 1_000_003), (1, -1), (1, 0), (1, 1), (1, 5), (2, 3)])
+def test_histogram_bitwise_at_the_chunk_edges(card, passes, extra, offset):
+    """n = passes x (the floats one pass of histogram's full grid reads) +
+    extra: sizes around one block's pass (4,096 floats) and the full grid's,
+    at every pointer offset from a 16-byte boundary."""
+    n = passes * _histogram_pass(card) + extra
+    x = _vec(n + offset, n + 6, 1e-3, card)[offset:]
+    _assert_histogram(x, pk.maxabs(x), f"n={n} offset={offset}")
+    torch.cuda.synchronize()
+
+
+def _histogram_specials(card) -> dict:
+    """(x, m) for the edge inputs: m is max |x| over the finite values."""
+    z = torch.zeros(100_003, device=card)
+    g = _vec(100_003, 13, 1.0, card)
+    m_g = g.abs().max().reshape(1, 1)
+    one = torch.ones((1, 1), device=card)
+    k = torch.arange(257, device=card, dtype=torch.float32) / 256
+    idx = torch.tensor([77_777], device=card)
+    return {
+        "zeros": (z, pk.maxabs(z)),
+        "-0.0": (torch.full_like(z, -0.0), pk.maxabs(z)),
+        "NaN": (g.clone().index_fill_(0, idx, float("nan")), m_g),
+        "+inf": (g.clone().index_fill_(0, idx, float("inf")), m_g),
+        "-inf": (g.clone().index_fill_(0, idx, float("-inf")), m_g),
+        "constant": (torch.full((1_000_003,), -0.5, device=card), one / 2),
+        "bin edges": (torch.cat([k, -k]).repeat(1000), one),
+        "m NaN": (g, torch.full((1, 1), float("nan"), device=card)),
+        "m 0": (g, one * 0),
+    }
+
+
+def test_histogram_special_values_and_repeated_launches(card):
+    """Zeros, -0.0, a NaN, +-inf, a constant vector (every element in bin
+    255), exact bin edges k/256; then ten launches in a row and a launch
+    right after one with a larger grid, with no re-zeroing of anything (the
+    last block empties the accumulator and resets the counter)."""
+    for tag, (x, m) in _histogram_specials(card).items():
+        _assert_histogram(x, m, tag)
+    big = _vec(3 * _histogram_pass(card) + 7, 14, 1e-3, card)
+    small = _vec(5000, 15, 1.0, card)
+    m_big, m_small = pk.maxabs(big), pk.maxabs(small)
+    want_big = pref.hist_counts(big, m_big)
+    want_small = pref.hist_counts(small, m_small)
+    outs = [pk.histogram(big, m_big) for _ in range(10)]
+    after_big = pk.histogram(small, m_small)
+    outs_small = [pk.histogram(small, m_small) for _ in range(10)]
+    assert all(_bits_equal(o, want_big) for o in outs)
+    assert _bits_equal(after_big, want_small)
+    assert all(_bits_equal(o, want_small) for o in outs_small)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("scale", [1e-39, 1e-37, 1e-36, 1e-30])
+def test_kernels_flush_subnormals_as_the_plain_versions(card, scale):
+    """Inputs that are all, partly or not subnormal: each LGC kernel flushes
+    as its plain version does (the reference's FTZ/DAZ)."""
+    rng = np.random.default_rng(0)
+    e, d = (torch.from_numpy((rng.standard_normal(4096) * scale).astype(
+        np.float32)).to(card) for _ in range(2))
+    m = pk.maxabs(e)
+    assert _bits_equal(m, pref.hist_maxabs(e).reshape(1, 1))
+    assert _bits_equal(pk.histogram(e, m), pref.hist_counts(e, m))
+    u, m_u = pk.sum_maxabs(e, d)
+    u_r = pref.ftz_add(e, d)
+    assert _bits_equal(u, u_r)
+    assert _bits_equal(m_u, pref.hist_maxabs(u_r).reshape(1, 1))
+    cum = torch.tensor([40, 120], dtype=torch.int32, device=card)
+    thr = pref.hist_thresholds(pref.hist_counts(u_r, m_u), m_u, cum)
+    for recv in ([1, 1], [1, 0]):
+        recv = torch.tensor(recv, dtype=torch.int32, device=card)
+        for got, want in zip(pk.sparsify_ef(e, d, thr, recv),
+                             pref.hist_layered_sparsify(u_r, thr, recv)):
+            assert _bits_equal(got, want)
+        for got, want in zip(pk.lgc_compress_hist(e, d, cum, recv),
+                             pref.hist_lgc_compress(e, d, cum, recv)):
+            assert _bits_equal(got, want)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("off_e,off_d", [(0, 0), (1, 1), (3, 3), (0, 1),
+                                         (2, 1)])
+@pytest.mark.parametrize("n", [1, 5, 4097, 1_000_003])
+def test_sum_maxabs_matches_plain_version(card, n, off_e, off_d):
+    """u = e + delta and max |u| in one launch, with e and delta at equal
+    offsets from a 16-byte boundary (float4 body) and at unequal ones."""
+    e = _vec(n + 3, n, 1e-4, card)[off_e:off_e + n]
+    d = _vec(n + 3, n + 1, 1e-3, card)[off_d:off_d + n]
+    u, m = pk.sum_maxabs(e, d)
+    u_r = pref.ftz_add(e, d)
+    assert _bits_equal(u, u_r)
+    assert _bits_equal(m, pref.hist_maxabs(u_r).reshape(1, 1))
+    torch.cuda.synchronize()
+
+
 def test_each_wrapper_counts_its_launches(card):
     x = _vec(5000, 3, 1e-3, card)
     cum = _cum_ks(5000, 3, card)

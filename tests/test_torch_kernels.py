@@ -151,6 +151,117 @@ def test_lgc_compress_hist_matches_reference(n, c):
         assert int(pk.selected_counts(g)) == int(jk.selected_counts(g_j))
 
 
+def _special_case(case: str) -> tuple[np.ndarray, np.float32]:
+    """(x, m) with m the scale's maximum, for the histogram's edge inputs."""
+    x = _vec(1000, 9, 1.0)
+    m = np.float32(np.abs(x).max())
+    if case == "zeros":
+        x, m = np.zeros(1000, np.float32), np.float32(0)
+    elif case == "minus_zero":
+        x, m = np.full(1000, -0.0, np.float32), np.float32(0)
+    elif case == "nan":
+        x[777] = np.nan
+    elif case == "inf":
+        x[3] = np.inf
+    elif case == "minus_inf":
+        x[3] = -np.inf
+    elif case == "constant":
+        x, m = np.full(1000, -0.5, np.float32), np.float32(0.5)
+    elif case == "bin_edges":          # k/256 for k = 0..256, both signs
+        k = np.arange(257, dtype=np.float32) / 256
+        x, m = np.concatenate([k, -k]).astype(np.float32), np.float32(1)
+    elif case == "m_nan":
+        m = np.float32(np.nan)
+    elif case == "m_zero":
+        m = np.float32(0)
+    elif case == "m_subnormal":
+        m = np.float32(1e-39)
+    return x, m
+
+
+@pytest.mark.parametrize("case", [
+    "zeros", "minus_zero", "nan", "inf", "minus_inf", "constant",
+    "bin_edges", "m_nan", "m_zero", "m_subnormal"])
+def test_histogram_special_values_match_reference(case):
+    """Zeros, -0.0, a NaN, +-inf, a constant vector, exact bin edges, and a
+    maximum that is NaN, 0 or subnormal: the plain version and the CPU path
+    of the wrapper give the Pallas kernel's counts."""
+    x, m = _special_case(case)
+    want = jk.histogram(jnp.asarray(x), jnp.asarray(m).reshape(1, 1))
+    m_t = _t(np.asarray(m).reshape(1, 1))
+    got = pk.histogram(_t(x), m_t)
+    _assert_bitwise(got.numpy(), want)
+    _assert_bitwise(pref.hist_counts(_t(x), m_t).numpy(), want)
+    assert int(got.sum()) == x.size
+
+
+SUBNORMAL_SCALES = (1e-39, 1e-37, 1e-36, 1e-30)
+
+
+def _scaled_normal(scale: float) -> tuple[np.ndarray, np.ndarray]:
+    """e and delta, standard normal x scale from numpy seed 0: at 1e-39 all
+    subnormal, at 1e-37 and 1e-36 partly, at 1e-30 none."""
+    rng = np.random.default_rng(0)
+    e = (rng.standard_normal(4096) * scale).astype(np.float32)
+    d = (rng.standard_normal(4096) * scale).astype(np.float32)
+    return e, d
+
+
+@pytest.mark.parametrize("scale", SUBNORMAL_SCALES)
+def test_lgc_compress_hist_flushes_subnormals_as_the_reference(scale):
+    """The pipeline at scales where u is subnormal, where 256/m overflows and
+    m/256 is subnormal: the reference flushes f32 subnormals (XLA:CPU runs
+    with FTZ/DAZ, the TPU has none), and the port's plain path must give its
+    bits."""
+    e, d = _scaled_normal(scale)
+    cum, recv = np.array([40, 120], np.int32), np.ones(2, np.int32)
+    args_j = (jnp.asarray(e), jnp.asarray(d), jnp.asarray(cum),
+              jnp.asarray(recv))
+    args_p = (_t(e), _t(d), _t(cum), _t(recv))
+    g_j, e_j = jk.lgc_compress_hist(*args_j)
+    for name, (g, en) in {"kernel": pk.lgc_compress_hist(*args_p),
+                          "plain": pref.hist_lgc_compress(*args_p)}.items():
+        _assert_bitwise(g.numpy(), g_j, f"{name} g at {scale}")
+        _assert_bitwise(en.numpy(), e_j, f"{name} e_new at {scale}")
+
+
+@pytest.mark.parametrize("scale", SUBNORMAL_SCALES)
+def test_kernels_flush_subnormals_as_the_reference(scale):
+    """Each kernel module on its own, fed unflushed subnormal inputs:
+    maxabs and histogram of e, thresholds, and sparsify_ef of (e, delta)."""
+    e, d = _scaled_normal(scale)
+    m_j = jk.maxabs(jnp.asarray(e))
+    _assert_bitwise(pk.maxabs(_t(e)).numpy(), m_j, "maxabs")
+    m = _t(np.asarray(m_j))
+    counts_j = jk.histogram(jnp.asarray(e), m_j)
+    _assert_bitwise(pk.histogram(_t(e), m).numpy(), counts_j, "histogram")
+    cum = np.array([40, 120], np.int32)
+    thr_j = jk.thresholds_from_counts(counts_j, m_j, jnp.asarray(cum))
+    thr = pk.thresholds_from_counts(_t(np.asarray(counts_j)), m, _t(cum))
+    _assert_bitwise(thr.numpy(), thr_j, "thresholds")
+    recv = np.array([1, 0], np.int32)
+    g_j, e_j = jk.sparsify_ef(jnp.asarray(e), jnp.asarray(d), thr_j,
+                              jnp.asarray(recv))
+    g_p, e_p = pk.sparsify_ef(_t(e), _t(d), thr, _t(recv))
+    _assert_bitwise(g_p.numpy(), g_j, "sparsify_ef g")
+    _assert_bitwise(e_p.numpy(), e_j, "sparsify_ef e_new")
+
+
+def test_thresholds_flush_a_subnormal_bin_width():
+    """m / 256 below 2**-126 is flushed, also at the one m whose IEEE
+    quotient rounds up to 2**-126."""
+    counts = np.zeros(256, np.int32)
+    counts[255] = 10
+    cum = np.array([5], np.int32)
+    for m in (np.float32(2.0 ** -118) - np.float32(2.0 ** -142),
+              np.float32(2.0 ** -118), np.float32(1e-37)):
+        m = np.asarray(m, np.float32).reshape(1, 1)
+        want = jk.thresholds_from_counts(jnp.asarray(counts), jnp.asarray(m),
+                                         jnp.asarray(cum))
+        got = pk.thresholds_from_counts(_t(counts), _t(m), _t(cum))
+        _assert_bitwise(got.numpy(), want, f"m={m}")
+
+
 class TestWrapperChecks:
     def test_rejects_wrong_dtype_shape_and_layout(self):
         x = torch.zeros(8, dtype=torch.float64)
