@@ -11,6 +11,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 2. the LGC kernels against their plain torch versions on the card, bitwise,
    at D in {63, 100_003, 28_311_552} and C in {1, 3} with a dropped channel:
    maxabs, histogram, sparsify_ef (and u == g + e'), lgc_compress_hist;
+   lgc_compress_hist at the simulator's D (7,850 and 206,922) with its
+   budget and all 8 received patterns of its 3 channels;
    then maxabs and histogram at sizes around a block's and the grid's pass,
    at pointer offsets 0-3, on zeros, -0.0 and a NaN (histogram also +-inf,
    a constant vector, exact bin edges k/256, and a maximum that is NaN or
@@ -32,7 +34,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    and the CUDA kernels, 3 sync rounds of 2 FL devices; each LGC launch
    counter must be 3 rounds x 2 devices x 8 leaves = 48 and swa_decode's 0;
    the inputs of the largest leaf's first call in round 2 are kept (a copy
-   taken by wrapping the step's ``lgc_compress_hist``) for phase 8;
+   taken by wrapping the step's ``lgc_compress_hist``) for phase 9;
 6. a small f32 serve (qwen2-smoke), card against CPU with the same weights:
    8-token prefill into a 16-slot ring, 24 greedy steps past the wrap; the
    logits agree at rtol = atol = 1e-5 and the tokens are equal;
@@ -41,24 +43,44 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ``cfg.window``, then 160 greedy steps (positions 4000-4159, the ring
    wraps at 4096); swa_decode must launch 160 x 28 = 4,480 times and the
    LGC kernels none;
-8. the ``kernels`` line: each kernel's time beside its plain version, its
+8. the simulator: the threefry PRNG on the card (``split``, ``fold_in``,
+   ``stream_key``, raw bits, ``randint``, ``uniform``, ``normal``,
+   ``truncated_normal``) bitwise equal to the CPU's; then the loop engine
+   with ``backend="cuda"`` on the card against the same run on the CPU
+   (the kernels' plain versions): ``lr_mnist`` at the quickstart's defaults
+   (M=3, n_train 3000, 120 rounds, H=4, eval every 20) in modes lgc and
+   fedavg, and ``cnn_mnist`` at the factory's (n_train 6000, batch 64) with
+   M=8, 40 rounds, H=4 in modes lgc and topk; ``step`` and ``uplink_mb``
+   equal, losses within 1e-3 and accuracy counts within 1 of 1,000; in the
+   card run every sync's (g, e') bitwise equal to the plain pipeline on the
+   same card tensors (``lgc_compress_hist`` wrapped); each LGC kernel
+   launched once per sync (90 for lr lgc, 0 for fedavg, 80 for each cnn
+   mode) and swa_decode never; then a second card run, not checked per
+   sync, for the host ms per round (the run's time over its rounds, with
+   the median sync and other round) and device-steps/s;
+9. the ``kernels`` line: each kernel's time beside its plain version, its
    bound (bytes over 3.35 TB/s or operations over 67 TFLOP/s) and one
    PyTorch call as a yardstick.  ``ms`` is the median of single calls
    between two CUDA events (host code included); ``device_ms`` is the
    device time per call, events around 100 back-to-back calls that a sleep
    kernel queues up (for the kernel and the library call alike); the LGC
-   kernels at the largest leaf and at ``embed``, the histogram also on the
-   main path's real u of round 2 (``at_main_path_u``) and on a constant
+   kernels at the largest leaf, at ``embed`` and at the simulator's flat
+   vectors (``at_cnn_mnist``, D = 206,922; ``at_lr_mnist``, D = 7,850; there
+   maxabs is ``sum_maxabs``, as the simulator calls it) with their launches
+   per simulator run (``launches_simulator``), the
+   histogram also on the main path's real u of round 2 (``at_main_path_u``)
+   and on a constant
    vector (``at_one_bin``), ``sum_maxabs`` against the add and maxabs apart
    (``at_sum`` of maxabs), swa_decode at the GQA serve
    shape in bf16 with every slot valid, its inputs rotated over four copies
    so that each call finds them outside the L2 cache, as a decode step does;
-9. the last line: ``{"ok": true, "device": {...}}``.
+10. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import pathlib
@@ -82,6 +104,13 @@ SWA_SHAPES = [(2, 4, 4, 512, 64), (1, 8, 8, 1024, 128), (4, 2, 2, 256, 32),
               SWA_SERVE_SHAPE, (8, 12, 2, 4160, 128)]
 SWA_EDGE_SHAPES = [(1, 12, 2, 4096, 128), (2, 4, 2, 16, 64),
                    (1, 16, 1, 4160, 32)]
+# the simulator: lr_mnist at the quickstart's defaults and cnn_mnist at the
+# task factory's (n_train 6000, batch 64) with 8 devices; (task, M, n_train,
+# rounds, eval_every, modes)
+SIM_H = 4
+SIM_RUNS = [("lr_mnist", 3, 3000, 120, 20, ("lgc", "fedavg")),
+            ("cnn_mnist", 8, 6000, 40, 10, ("lgc", "topk"))]
+LR_D, CNN_D = 7_850, 206_922
 
 TPU_KERNELS = {
     "maxabs": ("src/repro_torch/kernels/csrc/maxabs.cu",
@@ -188,8 +217,39 @@ def phase_kernels(gen, errs: dict) -> None:
     torch.cuda.synchronize()
     log(f"maxabs: bitwise equal to the plain version at D in {sizes}, "
         f"offsets 0-3, all zeros, -0.0, a NaN, and ten launches in a row")
+    phase_simulator_sizes(gen, errs)
     phase_histogram_edges(gen, errs)
     phase_subnormals(errs)
+
+
+def phase_simulator_sizes(gen, errs: dict) -> None:
+    """lgc_compress_hist at the simulator's flat sizes (lr and cnn) with
+    its budget (5% of D split 1/2, 1/4, 1/4) and every received pattern of
+    its 3 channels, bitwise equal to the plain pipeline."""
+    import itertools
+    import torch
+    from repro_torch.core.fl import baseline_ks
+    from repro_torch.kernels import lgc_compress_hist, ref
+    for n in (LR_D, CNN_D):
+        x = torch.randn(n, generator=gen, device="cuda") * 1e-3
+        e = torch.randn(n, generator=gen, device="cuda") * 1e-4
+        cum = torch.tensor(list(itertools.accumulate(baseline_ks(n))),
+                           dtype=torch.int32, device="cuda")
+        for recv_list in itertools.product((0, 1), repeat=3):
+            recv = torch.tensor(recv_list, dtype=torch.int32, device="cuda")
+            g, e_new = lgc_compress_hist(e, x, cum, recv)
+            g_ref, e_ref = ref.hist_lgc_compress(e, x, cum, recv)
+            check(bits_equal(g, g_ref) and bits_equal(e_new, e_ref),
+                  f"lgc_compress_hist D={n} recv={list(recv_list)}")
+            check(bits_equal(g + e_new, ref.ftz_add(e, x)),
+                  f"u == g + e' D={n} recv={list(recv_list)}")
+            errs["sparsify_ef"] = max(errs["sparsify_ef"],
+                                      max_abs_err(g, g_ref),
+                                      max_abs_err(e_new, e_ref))
+    torch.cuda.synchronize()
+    log(f"kernels at the simulator's D in {(LR_D, CNN_D)}, its budget and "
+        f"all 8 received patterns of 3 channels: bitwise equal to the "
+        f"plain versions")
 
 
 def check_histogram(v, m, what: str, errs: dict) -> None:
@@ -594,7 +654,174 @@ def phase_serve() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 8: timings
+# phase 8: the simulator, card against CPU
+# ---------------------------------------------------------------------------
+
+def phase_prng() -> None:
+    """The threefry PRNG on the card: every call bitwise equal to the CPU's."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.core.scenario import stream_key
+    for seed in (0, 1, 2 ** 31 - 1):
+        kc, kg = prng.PRNGKey(seed), prng.PRNGKey(seed, device="cuda")
+        calls = {
+            "split": lambda k: prng.split(k, 4),
+            "fold_in": lambda k: prng.fold_in(k, 2 ** 31 + 5),
+            "stream_key": lambda k: stream_key(k, 1, 119, 7),
+            "random_bits": lambda k: prng.random_bits(k, (3, 5)),
+            "randint": lambda k: prng.randint(k, (4096,), 0, 70_000),
+            "uniform": lambda k: prng.uniform(k, (206_922,)),
+            "normal": lambda k: prng.normal(k, (7_850,)),
+            "truncated_normal": lambda k: prng.truncated_normal(
+                k, -2.0, 2.0, (200_704,)),
+        }
+        for name, fn in calls.items():
+            got, want = fn(kg), fn(kc)
+            check(got.device.type == "cuda" and bits_equal(got.cpu(), want),
+                  f"prng {name} seed {seed}: card and CPU differ")
+        dither = prng.uniform(kc, (206_922,), device="cuda")
+        check(bits_equal(dither.cpu(), prng.uniform(kc, (206_922,))),
+              "prng: bits drawn on the card from a CPU key")
+    torch.cuda.synchronize()
+    log(f"prng: {', '.join(calls)} on the card bitwise equal to the CPU's "
+        f"(seeds 0, 1, 2**31-1)")
+
+
+@contextlib.contextmanager
+def syncs_held_against_plain(compared: list):
+    """Wrap ``repro_torch.kernels.lgc_compress_hist`` (``_ef_step`` imports
+    it at every sync): each sync's (g, e') must be bitwise equal to the
+    plain pipeline on the same card tensors; ``compared`` gets each sync's
+    received pattern.  The plain calls launch no kernel of the port."""
+    import repro_torch.kernels as kernels
+    from repro_torch.kernels import ref
+    kern = kernels.lgc_compress_hist
+
+    def checked(e, delta, cum_ks, received):
+        g, e_new = kern(e, delta, cum_ks, received)
+        g_ref, e_ref = ref.hist_lgc_compress(e, delta, cum_ks, received)
+        check(bits_equal(g, g_ref) and bits_equal(e_new, e_ref),
+              f"simulator sync {len(compared)}: the kernels' (g, e') differ "
+              f"from the plain versions' on the same inputs")
+        compared.append(tuple(received.tolist()))
+        return g, e_new
+    kernels.lgc_compress_hist = checked
+    try:
+        yield
+    finally:
+        kernels.lgc_compress_hist = kern
+
+
+def sim_run(task_name: str, m: int, n_train: int, rounds: int,
+            eval_every: int, mode: str, device: str,
+            compared: list | None = None) -> dict:
+    """One loop-engine run (backend "cuda": the kernels on the card, their
+    plain versions on the CPU) with its launch counts and host times; with
+    ``compared``, every sync is held against the plain versions (a run not
+    timed)."""
+    import torch
+    from repro_torch.core import FLConfig
+    from repro_torch.core.fl import EVAL_SUBSET, baseline_simulator
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.models.paper_models import make_task
+    task = make_task(task_name, m_devices=m, n_train=n_train)
+    cfg = FLConfig(rounds=rounds, eval_every=eval_every, backend="cuda")
+    sim = baseline_simulator(task, cfg, mode, h=SIM_H, device=device)
+    held = (syncs_held_against_plain(compared) if compared is not None
+            else contextlib.nullcontext())
+    if device == "cuda":
+        torch.cuda.synchronize()
+    with held:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        hist = sim.run()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(LAUNCHES)
+    check(all(math.isfinite(x) for x in hist.loss + hist.accuracy),
+          f"{task_name} {mode} on {device}: History not finite")
+    sync = [ms for t, ms in enumerate(sim.round_ms) if (t + 1) % SIM_H == 0]
+    other = [ms for t, ms in enumerate(sim.round_ms) if (t + 1) % SIM_H]
+    return {"hist": hist, "d": sim.d, "launches": counts, "wall_s": wall,
+            "n_eval": min(EVAL_SUBSET, len(task.eval_data[1])),
+            "host_ms_per_round": wall * 1e3 / rounds,
+            "median_sync_round_ms": statistics.median(sync),
+            "median_other_round_ms": statistics.median(other),
+            "device_steps_per_s": m * rounds / wall}
+
+
+def check_history(tag: str, gpu, cpu, n_eval: int) -> tuple[float, int]:
+    """step and uplink_mb equal, losses within 1e-3 and the accuracy
+    counts on the ``n_eval`` eval samples within 1e-3 of them; returns the
+    worst gaps."""
+    check(gpu.step == cpu.step and gpu.uplink_mb == cpu.uplink_mb,
+          f"{tag}: step or uplink_mb differ between card and CPU")
+    worst = max(abs(a - b) for a, b in zip(gpu.loss, cpu.loss))
+    check(worst <= 1e-3, f"{tag}: losses differ by {worst}")
+    # accuracy is a count over the eval subset: 1e-3 of 1000 samples is
+    # one, whose f32 mean differs by 0.0010000467
+    gap = max(round(abs(a - b) * n_eval)
+              for a, b in zip(gpu.accuracy, cpu.accuracy))
+    check(gap <= round(1e-3 * n_eval),
+          f"{tag}: accuracy counts differ by {gap} of {n_eval}")
+    return worst, gap
+
+
+def phase_simulator(smi: str) -> dict:
+    """lr_mnist at the quickstart's defaults (lgc, fedavg) and cnn_mnist at
+    the factory's (lgc, topk): the card against the CPU, each sync's
+    (g, e') on the card bitwise equal to the plain versions on the same
+    inputs, and the LGC kernels launched once per sync.  A second card run,
+    not checked per sync, gives the host times.  Returns the launch counts
+    of the checked runs."""
+    launches = {}
+    for task_name, m, n_train, rounds, eval_every, modes in SIM_RUNS:
+        for mode in modes:
+            args = (task_name, m, n_train, rounds, eval_every, mode)
+            tag = f"{task_name} {mode}"
+            compared: list = []
+            cpu = sim_run(*args, "cpu")
+            gpu = sim_run(*args, "cuda", compared=compared)
+            timed = sim_run(*args, "cuda")
+            n_eval = cpu["n_eval"]
+            worst, gap = check_history(tag, gpu["hist"], cpu["hist"], n_eval)
+            check_history(f"{tag} (timed run)", timed["hist"], cpu["hist"],
+                          n_eval)
+            want = m * (rounds // SIM_H) if mode != "fedavg" else 0
+            for name in LGC_KERNELS:
+                for run in (gpu, timed):
+                    check(run["launches"][name] == want,
+                          f"{tag}: {name} launched {run['launches'][name]} "
+                          f"times, expected {want}")
+            check(gpu["launches"]["swa_decode"] == 0
+                  and timed["launches"]["swa_decode"] == 0,
+                  f"{tag}: swa_decode launched")
+            check(len(compared) == want, f"{tag}: {len(compared)} syncs "
+                  f"held against the plain versions, expected {want}")
+            dropped = sum(1 for r in compared if not all(r))
+            launches[tag] = gpu["launches"]
+            h = gpu["hist"]
+            log(f"simulator {tag}: D={gpu['d']:,}, M={m}, {rounds} rounds, "
+                f"H={SIM_H}; loss {h.loss[0]:.4f} -> {h.loss[-1]:.4f}, "
+                f"accuracy {h.accuracy[-1]:.4f}, uplink "
+                f"{h.uplink_mb[-1]:.4f} MB, energy {h.energy_j[-1]:.1f} J; "
+                f"card's losses within {worst:.2e} of the CPU's, accuracy "
+                f"count within {gap} of {n_eval}; {len(compared)} syncs "
+                f"bitwise equal to the plain versions ({dropped} with a "
+                f"channel dropped); launches {gpu['launches']}")
+            for dev, r in (("cuda", timed), ("cpu", cpu)):
+                log(f"simulator {tag} on {dev}: host ms per round "
+                    f"{r['host_ms_per_round']:.3f} (median sync round "
+                    f"{r['median_sync_round_ms']:.3f}, other rounds "
+                    f"{r['median_other_round_ms']:.3f}), device-steps/s "
+                    f"{r['device_steps_per_s']:.1f} ({r['wall_s']:.2f} s); "
+                    f"{smi}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 9: timings
 # ---------------------------------------------------------------------------
 
 def time_ms(fn, reps: int = 30, warmup: int = 5) -> float:
@@ -656,26 +883,35 @@ def phase_timings(gen, main_u) -> dict:
     """The LGC kernels at the largest leaf and at embed (Gaussian u), the
     histogram also on the main path's real u and on a constant vector, and
     maxabs forming u = e + x (``sum_maxabs``) against the add and maxabs
-    apart."""
+    apart; at the simulator's sizes (lr, cnn) with its budget, maxabs as
+    the path calls it: ``sum_maxabs``."""
+    import itertools
     import torch
+    from repro_torch.core.fl import baseline_ks
     from repro_torch.device import device_ms
     from repro_torch.kernels import maxabs, ref, sparsify_ef, sum_maxabs
     rows: dict = {}
     c_n = 3
     recv = torch.tensor([1, 1, 1], dtype=torch.int32, device="cuda")
-    for n in (LARGEST_LEAF, EMBED):
+    for n in (LARGEST_LEAF, EMBED, CNN_D, LR_D):
         x = torch.randn(n, generator=gen, device="cuda") * 1e-3
         e = torch.randn(n, generator=gen, device="cuda") * 1e-4
         u = e + x
         m = maxabs(u)
-        cum = torch.tensor([n // 100, 3 * n // 100, 5 * n // 100],
+        on_sim_path = n in (CNN_D, LR_D)
+        cum = torch.tensor(list(itertools.accumulate(baseline_ks(n)))
+                           if on_sim_path else
+                           [n // 100, 3 * n // 100, 5 * n // 100],
                            dtype=torch.int32, device="cuda")
         thr = ref.hist_thresholds(ref.hist_counts(u, m), m, cum)
         inf = float("inf")
         cases = {
-            "maxabs": (lambda: maxabs(u), lambda: ref.hist_maxabs(u),
-                       lambda: torch.linalg.vector_norm(u, inf),
-                       4 * n + 4, n),
+            "maxabs": ((lambda: sum_maxabs(e, x),
+                        lambda: ref.hist_maxabs(ref.ftz_add(e, x)), None,
+                        12 * n + 4, 2 * n) if on_sim_path else
+                       (lambda: maxabs(u), lambda: ref.hist_maxabs(u),
+                        lambda: torch.linalg.vector_norm(u, inf),
+                        4 * n + 4, n)),
             "histogram": histogram_case(u),
             "sparsify_ef": (lambda: sparsify_ef(e, x, thr, recv),
                             lambda: ref.hist_layered_sparsify(
@@ -684,7 +920,10 @@ def phase_timings(gen, main_u) -> dict:
         }
         for name, case in cases.items():
             rows.setdefault(name, {})[n] = time_row(n, *case)
-            log_row(name, f"D={n}", rows[name][n])
+            if name == "maxabs" and on_sim_path:
+                rows[name][n]["call"] = "sum_maxabs"
+            log_row("sum_maxabs" if name == "maxabs" and on_sim_path
+                    else name, f"D={n}", rows[name][n])
         if n == LARGEST_LEAF:
             row = time_row(n, lambda: sum_maxabs(e, x),
                            lambda: ref.hist_maxabs(ref.ftz_add(e, x)), None,
@@ -787,6 +1026,8 @@ def main() -> int:
     launches, main_u = phase_main_path()
     phase_small_serve()
     serving = phase_serve()
+    phase_prng()
+    sim_launches = phase_simulator(smi)
     rows = phase_timings(gen, main_u)
     swa_row = phase_time_swa(gen)
 
@@ -803,6 +1044,10 @@ def main() -> int:
                         "at_one_bin": rows[name]["one_bin"]}
             if name == "maxabs":
                 row["at_sum"] = rows[name]["sum"]
+            row |= {"launches_simulator": {
+                        tag: c[name] for tag, c in sim_launches.items()},
+                    "at_cnn_mnist": rows[name][CNN_D],
+                    "at_lr_mnist": rows[name][LR_D]}
         else:                          # the serving path's kernel
             row |= {"launches": serving["launches"][name]} | swa_row
         kernels.append(row)

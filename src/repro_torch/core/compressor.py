@@ -1,10 +1,157 @@
-"""Compression constants of the port.
+"""LGC compressors (paper §2.1): the rank-exact oracle, QSGD and the
+flat-vector helpers.
 
-Only the kernel routing floor is ported so far (``repro/core/compressor.py``
-:222); the rank-exact compressors, QSGD and the per-layer budgets wait for
-the simulator slice (ROADMAP A2, A8).
+Port of ``repro/core/compressor.py:41-131`` and ``:439-511``:
+
+* ``tree_size`` / ``flatten_tree`` / ``unflatten_like`` over the port's
+  flat ``{path: Tensor}`` parameter dicts.  Leaves go in sorted-path order,
+  the order ``jax.tree_util.tree_leaves`` gives a nested dict (for the CNN:
+  ``b1, b2, bw1, bw2, c1, c2, w1, w2``), so the flat vectors line up with
+  the reference's coordinate for coordinate.
+* ``top_k``, ``lgc_layers``, ``lgc_compress`` -- layer c keeps the
+  coordinates whose |x| rank lies in [K_{c-1}, K_c).  Ranks come from a
+  stable argsort of -|x| (``jnp.argsort``'s tie rule), so ties go to the
+  lower index and the layers are exactly disjoint.
+* ``LGCCompressor``, ``wire_bytes``, ``qsgd_quantize`` /
+  ``qsgd_dequantize`` (QSGD dither from the ported threefry ``uniform``).
+
+Everything runs on the tensors' own device and is bitwise equal to the
+reference on the same inputs (tests/test_torch_sim_core.py).  The
+histogram-threshold selection that the CUDA kernels compute lives in
+:mod:`repro_torch.kernels`; the per-layer budgets (reference :225-411,
+ROADMAP A8) and the argsort-free ``lgc_compress_topk`` of the batched
+engine (ROADMAP A6) wait for their slices.
 """
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from . import prng
 
 #: flat leaves at least this large take the CUDA kernels when the backend is
 #: ``"cuda"``; smaller leaves take the plain torch path
 PALLAS_MIN_ELEMS = 100_000
+
+
+# ---------------------------------------------------------------------------
+# flat parameter dicts <-> flat vectors
+# ---------------------------------------------------------------------------
+
+def _leaf_order(tree: dict[str, torch.Tensor]) -> list[str]:
+    """Leaf paths in the order of the nested dict's sorted keys."""
+    return sorted(tree, key=lambda path: path.split("/"))
+
+
+def tree_size(tree: dict[str, torch.Tensor]) -> int:
+    """Total number of scalar parameters."""
+    return sum(int(v.numel()) for v in tree.values())
+
+
+def flatten_tree(tree: dict[str, torch.Tensor]) -> torch.Tensor:
+    """Concatenate all leaves into one flat f32 vector (sorted-path order)."""
+    return torch.cat([tree[k].reshape(-1).to(torch.float32)
+                      for k in _leaf_order(tree)])
+
+
+def unflatten_like(flat: torch.Tensor, tree: dict[str, torch.Tensor]
+                   ) -> dict[str, torch.Tensor]:
+    """Inverse of :func:`flatten_tree` against a reference dict."""
+    out, off = {}, 0
+    for k in _leaf_order(tree):
+        leaf = tree[k]
+        n = int(leaf.numel())
+        out[k] = flat[off:off + n].reshape(leaf.shape).to(leaf.dtype)
+        off += n
+    return out
+
+
+# ---------------------------------------------------------------------------
+# rank-exact compressors (paper semantics)
+# ---------------------------------------------------------------------------
+
+def _rank_of(x: torch.Tensor) -> torch.Tensor:
+    """rank[i] = 0-based rank of |x_i| among all coordinates (0 = largest),
+    ties broken by index (stable argsort)."""
+    order = torch.argsort(-torch.abs(x), stable=True)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(x.shape[0], device=x.device)
+    return rank
+
+
+def top_k(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Keep the k largest-|.| coordinates of x, zero the rest."""
+    if k <= 0:
+        return torch.zeros_like(x)
+    if k >= x.shape[0]:
+        return x
+    return torch.where(_rank_of(x) < k, x, torch.zeros_like(x))
+
+
+def lgc_layers(x: torch.Tensor, ks: Sequence[int]) -> list[torch.Tensor]:
+    """Split x into C disjoint layers; layer c keeps ranks [K_{c-1}, K_c).
+    sum(layers) == top_k(x, sum(ks))."""
+    rank = _rank_of(x)
+    zero = torch.zeros_like(x)
+    layers, lo = [], 0
+    for k in ks:
+        hi = lo + int(k)
+        layers.append(torch.where((rank >= lo) & (rank < hi), x, zero))
+        lo = hi
+    return layers
+
+
+def lgc_compress(x: torch.Tensor, ks: Sequence[int],
+                 received: Sequence[bool] | None = None) -> torch.Tensor:
+    """LGC_k(x) (paper Eq. (2)): the sum of the layers that arrived,
+    starting from +0.0 and adding each layer or zeros, as the reference."""
+    layers = lgc_layers(x, ks)
+    if received is None:
+        received = [True] * len(layers)
+    out = torch.zeros_like(x)
+    for layer, ok in zip(layers, received):
+        out = out + (layer if ok else torch.zeros_like(layer))
+    return out
+
+
+def wire_bytes(ks: Sequence[int], value_bytes: int = 4,
+               index_bytes: int = 4) -> list[int]:
+    """Bytes on the wire per channel for the sparse format."""
+    return [int(k) * (value_bytes + index_bytes) for k in ks]
+
+
+class LGCCompressor:
+    """Stateless layered compressor bound to layer budgets ``ks``."""
+
+    def __init__(self, ks: Sequence[int]):
+        self.ks = [int(k) for k in ks]
+
+    def __call__(self, u: torch.Tensor,
+                 received: Sequence[bool] | None = None) -> torch.Tensor:
+        return lgc_compress(u, self.ks, received)
+
+
+# ---------------------------------------------------------------------------
+# QSGD quantization (composes with LGC under error feedback)
+# ---------------------------------------------------------------------------
+
+def qsgd_quantize(x: torch.Tensor, key: torch.Tensor, levels: int = 255
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Unbiased stochastic quantization: (int32 codes in [-levels // 2,
+    levels // 2], f32 scale).  The dither is ``uniform(key, x.shape)``
+    drawn on x's device."""
+    scale = torch.amax(torch.abs(x)) + 1e-30
+    half = levels // 2
+    y = x / scale * half
+    lo = torch.floor(y)
+    p = y - lo                                 # P(round up)
+    up = prng.uniform(key, tuple(x.shape), device=x.device) < p
+    q = (lo + up.to(torch.float32)).to(torch.int32)
+    return torch.clamp(q, -half, half), scale
+
+
+def qsgd_dequantize(q: torch.Tensor, scale: torch.Tensor,
+                    levels: int = 255) -> torch.Tensor:
+    half = levels // 2
+    return q.to(torch.float32) * (scale / half)

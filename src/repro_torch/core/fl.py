@@ -1,0 +1,468 @@
+"""Federated learning with Layered Gradient Compression (paper Algorithm 1):
+the loop engine.
+
+Port of ``repro/core/fl.py:94-249`` (``FLTask``, ``FLConfig``,
+``RoundDecision``, ``FixedController``, ``ControllerFleet``, ``History``)
+and of the ``LGCSimulator`` loop path (``_run_loop`` :611, ``_ef_step``
+:670, ``_sync_device`` :708, ``_record`` :794) with ``run_baseline`` :806:
+
+    for t in 0..T-1:
+      every device m:   w_hat^{t+1/2} = w_hat^t - eta(t) * grad f_m(w_hat^t; D_m^t)
+      if t+1 in I_m:    u = e_m + w_m - w_hat^{t+1/2}
+                        g_m = LGC_k(u);  upload layers over channels
+                        e_m <- u - g_received
+                        receive global model: w_m, w_hat_m <- w_global
+      server:           w_global <- w_global - (1/M) sum_{m synced} g_m
+
+Every variate comes from ``stream_key(base, TAG, t, m)`` (the ported
+threefry, :mod:`.prng`), so for a seed the port draws the reference's
+minibatches, channel states, eval subsets and QSGD dither, and its History
+agrees with the reference loop engine's to float summation order
+(tests/test_torch_fl.py).  Keys, minibatch indices and channel draws live
+on the host; parameters, error memories, data and the compression on the
+simulator's device.
+
+``backend="cuda"`` (``"pallas"`` is its alias) sends each sync's flat
+update through :func:`repro_torch.kernels.lgc_compress_hist` -- one launch
+each of ``maxabs``, ``histogram`` and ``sparsify_ef`` on a CUDA device, their
+plain versions on the CPU; ``backend="exact"`` keeps the rank-exact oracle
+of :mod:`.compressor`.  Modes: ``lgc``, ``topk``, ``fedavg``, ``lgc_q8``.
+
+Not ported yet, and raising where asked for: the batched and sharded
+engines (ROADMAP A6, A12), per-layer budgets (A8), the per-device action
+space, pipelined decisions and learning controllers (A9), the diloco and
+semi_sync servers (A10), and scenarios whose channels evolve or whose
+devices drop (A7).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+from . import prng
+from .channels import (DEFAULT_CHANNELS, ChannelSpec, DeviceProfile,
+                       comm_cost, comp_cost, stack_specs)
+from .compressor import (LGCCompressor, flatten_tree, qsgd_dequantize,
+                         qsgd_quantize, tree_size, unflatten_like, wire_bytes)
+from .error_feedback import EFState, ef_compress, init_ef
+from .scenario import (TAG_BATCH, TAG_CHANNEL, TAG_EVAL, TAG_QUANT, Scenario,
+                       get_scenario, init_carry, sample_from_carry,
+                       stream_key)
+from .server import get_aggregator
+
+BACKENDS = {"exact": "exact", "cuda": "cuda", "pallas": "cuda"}
+MODES = ("lgc", "topk", "fedavg", "lgc_q8")
+EVAL_SUBSET = 2048    # eval samples drawn per record (reference fl.py:795)
+
+
+# ---------------------------------------------------------------------------
+# model + data interfaces
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class FLTask:
+    """A learning task: init/loss/eval + per-device data shards (numpy)."""
+    init: Callable[[torch.Tensor], dict]               # key -> params dict
+    loss_fn: Callable[[dict, tuple], torch.Tensor]     # (params, batch) -> scalar
+    metric_fn: Callable[[dict, tuple], torch.Tensor]   # accuracy
+    device_data: Sequence[tuple[np.ndarray, np.ndarray]]  # per-device (X, y)
+    eval_data: tuple[np.ndarray, np.ndarray]
+    name: str = "task"
+
+
+@dataclasses.dataclass
+class FLConfig:
+    rounds: int = 500                  # T: global iteration budget
+    batch_size: int = 64               # b (paper: 64)
+    lr: float = 0.01                   # paper: 0.01
+    lr_decay_a: float = 200.0          # eta(t) = lr * a / (a + t) (decaying)
+    max_gap: int = 8                   # H: uniform bound on gap(I_m)
+    channels: Sequence[ChannelSpec] = DEFAULT_CHANNELS
+    device_profiles: Sequence[DeviceProfile] | None = None
+    seed: int = 0
+    eval_every: int = 10
+    value_bytes: int = 4               # fp32 values on the wire
+    index_bytes: int = 4
+    # the reference defaults to its batched engine; the port has the loop
+    # engine only so far (batched: ROADMAP A6, sharded: A12)
+    engine: str = "loop"
+    backend: str = "exact"             # "exact" | "cuda" ("pallas" = "cuda")
+    scenario: str | Scenario = "static"
+    layer_policy: str = "global"       # others: ROADMAP A8
+    aggregator: str = "mean"           # diloco / semi_sync: ROADMAP A10
+    action_space: str = "shared"       # "per_device": ROADMAP A9
+    pipeline_decisions: bool = False   # ROADMAP A9
+
+
+@dataclasses.dataclass
+class RoundDecision:
+    """Controller output for one device for its next sync window."""
+    h: int                              # local steps until next sync
+    ks: Sequence[int]                   # coordinates per channel (layer sizes)
+
+
+class FixedController:
+    """LGC without DRL: fixed local computation + fixed traffic allocation."""
+
+    def __init__(self, h: int, ks: Sequence[int]):
+        self.h, self.ks = h, list(ks)
+
+    def act(self, state: np.ndarray) -> RoundDecision:
+        return RoundDecision(self.h, self.ks)
+
+    def observe(self, *a, **k):  # no learning
+        pass
+
+
+class ControllerFleet:
+    """List->fleet shim over per-device controllers: one ``act`` per sync
+    boundary with (M, .) arrays (the reference's batched controller
+    protocol, ``fl.py:179-229``; ``observe``, the reward signal of learning
+    controllers, is ROADMAP A9)."""
+
+    def __init__(self, controllers: Sequence):
+        self.controllers = list(controllers)
+        self.needs_reward = np.array(
+            [hasattr(c, "reward") for c in self.controllers], bool)
+
+    @property
+    def m(self) -> int:
+        return len(self.controllers)
+
+    def act(self, states: np.ndarray, mask: np.ndarray | None = None):
+        mask = np.ones(self.m, bool) if mask is None else np.asarray(mask)
+        h = np.zeros(self.m, np.int64)
+        ks: list[Sequence[int]] = [()] * self.m
+        for i in np.nonzero(mask)[0]:
+            dec = self.controllers[i].act(np.asarray(states[i]))
+            h[i], ks[i] = dec.h, list(dec.ks)
+        return h, ks
+
+
+@dataclasses.dataclass
+class History:
+    """Recorded metrics, one entry per eval point."""
+    step: list[int] = dataclasses.field(default_factory=list)
+    loss: list[float] = dataclasses.field(default_factory=list)
+    accuracy: list[float] = dataclasses.field(default_factory=list)
+    energy_j: list[float] = dataclasses.field(default_factory=list)
+    money: list[float] = dataclasses.field(default_factory=list)
+    time_s: list[float] = dataclasses.field(default_factory=list)
+    uplink_mb: list[float] = dataclasses.field(default_factory=list)
+    rewards: list[float] = dataclasses.field(default_factory=list)
+    drl_loss: list[float] = dataclasses.field(default_factory=list)
+    # simulated server wall-clock: the slowest syncing device's window time
+    server_wall_s: list[float] = dataclasses.field(default_factory=list)
+
+    def asdict(self):
+        return dataclasses.asdict(self)
+
+
+# ---------------------------------------------------------------------------
+# the simulator
+# ---------------------------------------------------------------------------
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+class LGCSimulator:
+    """Runs Algorithm 1 for M devices with per-device controllers.
+
+    ``device=None`` runs on the card and raises without CUDA; the CPU is
+    asked for with ``device="cpu"``."""
+
+    def __init__(self, task: FLTask, cfg: FLConfig, controllers,
+                 mode: str = "lgc", engine: str | None = None,
+                 backend: str | None = None,
+                 device: str | torch.device | None = None):
+        self.task, self.cfg, self.mode = task, cfg, mode
+        self.engine = engine or cfg.engine
+        backend = backend or cfg.backend
+        if mode not in MODES:
+            raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}; expected one of "
+                             f"{sorted(BACKENDS)}")
+        self.backend = BACKENDS[backend]
+        if self.engine == "batched":
+            raise _not_ported("engine='batched'", "A6")
+        if self.engine == "sharded":
+            raise _not_ported("engine='sharded'", "A12")
+        if self.engine != "loop":
+            raise ValueError(f"unknown engine {self.engine!r}")
+        if cfg.layer_policy != "global":
+            raise _not_ported(f"layer_policy={cfg.layer_policy!r}", "A8")
+        if cfg.action_space != "shared":
+            raise _not_ported(f"action_space={cfg.action_space!r}", "A9")
+        if cfg.pipeline_decisions:
+            raise _not_ported("pipeline_decisions=True", "A9")
+        if get_aggregator(cfg.aggregator).name != "mean":
+            raise _not_ported(f"aggregator={cfg.aggregator!r}", "A10")
+        self.scenario = get_scenario(cfg.scenario)
+        if not self.scenario.is_static or self.scenario.has_dropout:
+            raise _not_ported(
+                f"scenario {self.scenario.name!r} in the engine (channel "
+                f"chains, dropout)", "A7")
+        self.device = resolve_device(device)
+        self.m_devices = len(task.device_data)
+        self.fleet = (ControllerFleet(controllers)
+                      if isinstance(controllers, (list, tuple))
+                      else controllers)
+        if self.fleet.m != self.m_devices:
+            raise ValueError(f"{self.fleet.m} controllers for "
+                             f"{self.m_devices} devices")
+        if np.any(self.fleet.needs_reward):
+            raise _not_ported("controllers that learn from rewards", "A9")
+
+        dev = self.device
+        params = task.init(prng.PRNGKey(cfg.seed))       # global model
+        self.params = {k: v.to(dev) for k, v in params.items()}
+        self.d = tree_size(self.params)
+        self.server_wall_s = 0.0                     # simulated f64, host-side
+        self.profiles = (list(cfg.device_profiles) if cfg.device_profiles
+                         else self.scenario.device_profiles(self.m_devices))
+
+        # per-device state (Algorithm 1 line 1)
+        self.w_hat = [self.params for _ in range(self.m_devices)]
+        self.w_anchor = [flatten_tree(self.params)
+                         for _ in range(self.m_devices)]
+        self.ef = [init_ef(self.d, dev) for _ in range(self.m_devices)]
+        self.next_sync = [0] * self.m_devices        # t at which device syncs
+        self.decisions: list[RoundDecision | None] = [None] * self.m_devices
+        self.decision_log: list[tuple] = []          # (t, m, h, ks) committed
+        self.spend = [dict(energy_j=0.0, money=0.0, time_s=0.0, mb=0.0)
+                      for _ in range(self.m_devices)]
+        self.round_ms: list[float] = []              # host time per round
+
+        self._base = prng.PRNGKey(cfg.seed + 1)       # event-key base
+        self._data = [(torch.from_numpy(np.asarray(x)).to(dev),
+                       torch.from_numpy(np.asarray(y)).to(dev))
+                      for x, y in task.device_data]
+        xe, ye = task.eval_data
+        self._eval_xy = (torch.from_numpy(np.asarray(xe)).to(dev),
+                         torch.from_numpy(np.asarray(ye)).to(dev))
+        # scenario state: one channel-chain carry per device (static: never
+        # advanced, its fields are never read)
+        self._consts = stack_specs(cfg.channels)
+        n_ch = len(cfg.channels)
+        self.scen_carry = [init_carry(self.scenario, self._base, m, n_ch)
+                           for m in range(self.m_devices)]
+
+    # -- local computation ---------------------------------------------------
+    def _sgd_step(self, params: dict, batch: tuple, eta: float) -> dict:
+        """One local SGD step: the explicit gradient, then p - eta * g in
+        f32 (``eta`` is an f32 value)."""
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        loss = self.task.loss_fn(leaves, batch)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return {k: (p - eta * g).detach()
+                for (k, p), g in zip(leaves.items(), grads)}
+
+    def _eta(self, t: int) -> float:
+        """eta(t) = lr * a / (a + t), rounded to f32 as ``jnp.float32(eta)``."""
+        a = self.cfg.lr_decay_a
+        return float(np.float32(self.cfg.lr * a / (a + t)))
+
+    def _sample_batch(self, m: int, t: int) -> tuple:
+        x, y = self._data[m]
+        key = stream_key(self._base, TAG_BATCH, t, m)
+        idx = prng.randint(key, (self.cfg.batch_size,), 0, x.shape[0])
+        idx = idx.to(self.device)
+        return x[idx], y[idx]
+
+    @torch.no_grad()
+    def _eval_subset(self, tag: int, ids: tuple, n_take: int
+                     ) -> tuple[float, float]:
+        """(loss, accuracy) of the global model on a keyed eval subset."""
+        xb, yb = self._eval_xy
+        n = xb.shape[0]
+        key = stream_key(self._base, tag, *ids)
+        idx = prng.randint(key, (min(n_take, n),), 0, n).to(self.device)
+        batch = (xb[idx], yb[idx])
+        loss = self.task.loss_fn(self.params, batch)
+        acc = self.task.metric_fn(self.params, batch)
+        return float(loss), float(acc)
+
+    # -- controller boundary -------------------------------------------------
+    def _controller_states(self) -> np.ndarray:
+        """(M, 4) resource spends: energy, money, time, MB."""
+        return np.array([[s["energy_j"], s["money"], s["time_s"], s["mb"]]
+                         for s in self.spend], np.float32)
+
+    def _fleet_decide(self, ms: Sequence[int]) -> dict:
+        """One fleet act for the devices in ``ms`` -> {m: RoundDecision}."""
+        mask = np.zeros(self.m_devices, bool)
+        mask[list(ms)] = True
+        h_arr, ks_arr = self.fleet.act(self._controller_states(), mask)
+        n_ch = len(self.cfg.channels)
+        out = {}
+        for m in ms:
+            h = int(np.clip(int(h_arr[m]), 1, self.cfg.max_gap))
+            # one layer per channel: pad/trim the controller's budgets
+            ks = ([int(k) for k in ks_arr[m]] + [0] * n_ch)[:n_ch]
+            out[m] = RoundDecision(h, ks)
+        return out
+
+    def _decide_devices(self, ms: Sequence[int], t: int):
+        """Commit the decisions of the devices in ``ms`` for the window
+        starting at ``t``."""
+        ms = list(ms)
+        if not ms:
+            return
+        fresh = self._fleet_decide(ms)
+        for m in ms:
+            dec = fresh[m]
+            self.decisions[m] = dec
+            self.next_sync[m] = t + dec.h
+            self.decision_log.append((t, m, dec.h, tuple(dec.ks)))
+
+    # -- main loop -----------------------------------------------------------
+    def run(self) -> History:
+        """Run ``cfg.rounds`` rounds of Algorithm 1; ``self.round_ms`` gets
+        each round's host time."""
+        hist = History()
+        cfg = self.cfg
+        self.round_ms = []
+        self._decide_devices(range(self.m_devices), 0)
+        for t in range(cfg.rounds):
+            t0 = time.perf_counter()
+            eta = self._eta(t)
+            updates, walls, sync_ms = [], [], []
+            for m in range(self.m_devices):
+                batch = self._sample_batch(m, t)
+                self.w_hat[m] = self._sgd_step(self.w_hat[m], batch, eta)
+                if t + 1 >= self.next_sync[m]:
+                    g, total = self._sync_device(m, t)
+                    updates.append(g)
+                    sync_ms.append(m)
+                    walls.append(total["time_s"])
+            if updates:
+                g_mean = sum(updates) / self.m_devices
+                flat = flatten_tree(self.params) - g_mean
+                self.params = unflatten_like(flat, self.params)
+                self.server_wall_s += max(walls)
+                for m in sync_ms:
+                    # broadcast: the device adopts the global model
+                    self.w_hat[m] = self.params
+                    self.w_anchor[m] = flatten_tree(self.params)
+                self._decide_devices(sync_ms, t + 1)
+            if t % cfg.eval_every == 0 or t == cfg.rounds - 1:
+                self._record(hist, t)
+            self.round_ms.append((time.perf_counter() - t0) * 1e3)
+        return hist
+
+    def _ef_step(self, m: int, t: int, delta: torch.Tensor,
+                 ks: Sequence[int], received: Sequence[bool]
+                 ) -> torch.Tensor:
+        """One error-compensated layered compression (backend-dispatched)."""
+        if self.backend == "cuda":
+            from repro_torch.kernels import lgc_compress_hist
+            cum_ks = torch.tensor(np.cumsum(ks), dtype=torch.int32,
+                                  device=delta.device)
+            recv = torch.tensor([int(r) for r in received],
+                                dtype=torch.int32, device=delta.device)
+            g, e_new = lgc_compress_hist(self.ef[m].e, delta, cum_ks, recv)
+            self.ef[m] = EFState(e_new)
+            return g
+        g, self.ef[m] = ef_compress(self.ef[m], delta, LGCCompressor(ks),
+                                    received)
+        return g
+
+    def _sync_device(self, m: int, t: int):
+        dec = self.decisions[m]
+        k_ch = stream_key(self._base, TAG_CHANNEL, t, m)
+        ch = sample_from_carry(self.scenario, self._consts,
+                               self.scen_carry[m], k_ch)
+        up = [bool(u) for u in ch.up.tolist()]
+        delta = self.w_anchor[m] - flatten_tree(self.w_hat[m])
+
+        if self.mode == "fedavg":
+            # dense, no error feedback; the full model over the fastest
+            # channel that is up -- with every channel down nothing is sent
+            any_up = any(up)
+            g = delta if any_up else torch.zeros_like(delta)
+            bw = ch.bandwidth_mb_s * ch.up
+            best = int(torch.argmax(bw))
+            nbytes = [0] * len(self.cfg.channels)
+            nbytes[best] = self.d * self.cfg.value_bytes if any_up else 0
+        else:
+            if self.mode == "topk":
+                ks = [sum(dec.ks)] + [0] * (len(dec.ks) - 1)
+            else:
+                ks = list(dec.ks)
+            received = up[:len(ks)]
+            received += [True] * (len(ks) - len(received))
+            g = self._ef_step(m, t, delta, ks, received)
+            value_bytes = self.cfg.value_bytes
+            if self.mode == "lgc_q8":
+                # LGC + QSGD int8 values on the wire; the quantization
+                # residual stays in the error memory
+                kq = stream_key(self._base, TAG_QUANT, t, m)
+                q, scale = qsgd_quantize(g, kq)
+                g_deq = qsgd_dequantize(q, scale)
+                self.ef[m] = EFState(self.ef[m].e + (g - g_deq))
+                g = g_deq
+                value_bytes = 1
+            nbytes = wire_bytes(ks, value_bytes, self.cfg.index_bytes)
+            nbytes = [b if r else 0 for b, r in zip(nbytes, received)]
+        cost = comm_cost(ch, nbytes)
+
+        ccomp = comp_cost(self.profiles[m], dec.h)
+        total = {
+            "energy_j": float(cost["energy_j"]) + ccomp["energy_j"],
+            "money": float(cost["money"]) + ccomp["money"],
+            "time_s": float(cost["time_s"]) + ccomp["time_s"],
+            "mb": float(sum(nbytes)) / 1e6,
+        }
+        for k, v in total.items():
+            self.spend[m][k] += v
+        return g, total
+
+    def _record(self, hist: History, t: int):
+        loss, acc = self._eval_subset(TAG_EVAL, (t,), EVAL_SUBSET)
+        hist.step.append(t)
+        hist.loss.append(loss)
+        hist.accuracy.append(acc)
+        hist.energy_j.append(sum(s["energy_j"] for s in self.spend))
+        hist.money.append(sum(s["money"] for s in self.spend))
+        hist.time_s.append(max(s["time_s"] for s in self.spend))
+        hist.uplink_mb.append(sum(s["mb"] for s in self.spend))
+        hist.server_wall_s.append(self.server_wall_s)
+
+
+def baseline_ks(d: int) -> list[int]:
+    """The baselines' fixed budget: 5% of D split 1/2, 1/4, 1/4 over the
+    three channels."""
+    k_total = max(1, d // 20)
+    return [k_total // 2, k_total // 4, k_total - k_total // 2 - k_total // 4]
+
+
+def baseline_simulator(task: FLTask, cfg: FLConfig, mode: str,
+                       h: int = 4, ks: Sequence[int] | None = None,
+                       engine: str | None = None, backend: str | None = None,
+                       device: str | torch.device | None = None
+                       ) -> LGCSimulator:
+    """The simulator of :func:`run_baseline`, not yet run."""
+    if ks is None:
+        ks = baseline_ks(tree_size(task.init(prng.PRNGKey(0))))
+    ctrls = [FixedController(h, ks) for _ in task.device_data]
+    return LGCSimulator(task, cfg, ctrls, mode=mode, engine=engine,
+                        backend=backend, device=device)
+
+
+def run_baseline(task: FLTask, cfg: FLConfig, mode: str,
+                 h: int = 4, ks: Sequence[int] | None = None,
+                 engine: str | None = None, backend: str | None = None,
+                 device: str | torch.device | None = None) -> History:
+    """FedAvg / LGC-noDRL / Top-k / LGC+QSGD with fixed controllers; ``ks``
+    defaults to 5% of D split 1/2, 1/4, 1/4 over the three channels."""
+    return baseline_simulator(task, cfg, mode, h, ks, engine, backend,
+                              device).run()

@@ -1,0 +1,323 @@
+"""Counter-based randomness: ``jax.random``'s threefry2x32, bit for bit.
+
+Port of the parts of ``jax.random`` the simulator calls, as jax 0.9.0
+computes them with ``jax_threefry_partitionable=True`` and 64-bit mode off
+(``jax/_src/prng.py``, ``jax/_src/random.py``):
+
+* a key is two uint32 words, held here as an int64 tensor of shape (2,);
+  ``PRNGKey(seed)`` is ``(0, seed mod 2**32)`` -- without 64-bit mode jax
+  converts the seed to int32 first, so the high word is always 0;
+* ``fold_in(key, d)`` hashes the counter pair ``(0, d)``; ``split(key, n)``
+  hashes ``(hi(i), lo(i))`` of a 64-bit iota, key i being the pair of
+  output words; raw 32-bit bits are ``bits1 ^ bits2`` of the same iota;
+* ``uniform``, ``randint``, ``normal`` and ``truncated_normal`` follow
+  ``random.py`` step by step, in uint32 arithmetic that wraps where jax's
+  does.
+
+torch has no full uint32 arithmetic, so every word lives in an int64 and is
+masked with ``& 0xFFFFFFFF`` after each add, shift and multiply; the hash
+is written once over Python ints and tensors alike.  Keys are derived with
+Python ints when they lie on the CPU (about 10 us a hash) and with tensor
+ops on the card; bits are tensor ops on the device asked for.  Integer
+arithmetic is exact on both, so the CPU and the card give the same bits.
+
+``normal`` goes through XLA:CPU's f32 ``erf_inv`` (Giles' polynomial over
+``log1p``), reproduced here with the same operations in the same order:
+XLA contracts each multiply-add of its polynomials into a fused
+multiply-add, which :func:`fma32` computes exactly, and evaluates ``log``
+by the Cephes polynomial of its CPU backend.  One step is not reproduced:
+XLA:CPU's f32 ``sqrt`` is not correctly rounded (a fraction of inputs
+differ from IEEE by an ulp), and ``erf_inv`` takes it where w >= 5, that
+is for |normal| above about 2.93.  There the port's correctly rounded
+``sqrt`` (:func:`sqrt_f32`, the same on the CPU and the card, where the
+f32 ``torch.sqrt`` is not correctly rounded either) leaves ``normal``
+within 2 ulp of jax's; everywhere else ``normal`` is bitwise equal, and
+``truncated_normal`` (|u| <= erf(sqrt 2), w < 2.5) always is.
+tests/test_torch_prng.py holds each sampler to live jax: raw bits, keys,
+``uniform``, ``randint`` and ``truncated_normal`` bitwise, ``normal``
+bitwise below 2.9 and within 2 ulp above.
+"""
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+
+MASK = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_F32 = torch.float32
+
+
+# ---------------------------------------------------------------------------
+# the block function and key derivation
+# ---------------------------------------------------------------------------
+
+def _rotl(v, r: int):
+    return ((v << r) | (v >> (32 - r))) & MASK
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """Threefry-2x32 with 20 rounds (``prng.py:_threefry2x32_lowering``).
+
+    Works on Python ints and on int64 tensors holding uint32 values alike
+    (tensors broadcast).  Returns the two output words."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & MASK
+    x1 = (x1 + ks[1]) & MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & MASK
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & MASK
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & MASK
+    return x0, x1
+
+
+def PRNGKey(seed: int, device: str | torch.device = "cpu") -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)`` (64-bit mode off): ``(0, seed mod 2**32)``."""
+    return torch.tensor([0, int(seed) & MASK], dtype=torch.int64,
+                        device=device)
+
+
+def _hash_counters(key: torch.Tensor, x0: Sequence[int], x1: Sequence[int]
+                   ) -> torch.Tensor:
+    """Keys ``threefry2x32(key, (x0[i], x1[i]))`` as an (n, 2) tensor on the
+    key's device."""
+    if key.device.type == "cpu":
+        k0, k1 = key.tolist()
+        return torch.tensor([threefry2x32(k0, k1, a, b)
+                             for a, b in zip(x0, x1)], dtype=torch.int64)
+    c0 = torch.tensor(list(x0), dtype=torch.int64, device=key.device)
+    c1 = torch.tensor(list(x1), dtype=torch.int64, device=key.device)
+    y0, y1 = threefry2x32(key[0], key[1], c0, c1)
+    return torch.stack([y0, y1], -1)
+
+
+def _uint32(d) -> int:
+    d = int(d)
+    if not 0 <= d <= MASK:
+        raise ValueError(f"fold_in data must be a uint32, got {d}")
+    return d
+
+
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in``: the hash of the counter pair ``(0, data)``."""
+    return _hash_counters(key, [0], [_uint32(data)])[0]
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split`` (foldlike): (num, 2) keys over a 64-bit iota."""
+    return _hash_counters(key, [i >> 32 for i in range(num)],
+                          [i & MASK for i in range(num)])
+
+
+def random_bits(key: torch.Tensor, shape: Sequence[int] = (),
+                device: str | torch.device | None = None) -> torch.Tensor:
+    """32 random bits per element (``bits1 ^ bits2`` over a 64-bit iota), as
+    an int64 tensor of uint32 values on ``device`` (default: the key's)."""
+    dev = key.device if device is None else torch.device(device)
+    n = math.prod(shape)
+    i = torch.arange(n, dtype=torch.int64, device=dev)
+    k = key.to(dev)
+    y0, y1 = threefry2x32(k[0], k[1], i >> 32, i & MASK)
+    return (y0 ^ y1).reshape(tuple(shape))
+
+
+# ---------------------------------------------------------------------------
+# samplers
+# ---------------------------------------------------------------------------
+
+def _f32(v, device) -> torch.Tensor:
+    return torch.tensor(v, dtype=_F32, device=device)
+
+
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """f32 ``a * b + c`` rounded once, as a fused multiply-add.
+
+    The f64 product of two f32 values is exact; the f64 sum is made
+    round-to-odd (an inexact sum with an even last bit moves one ulp toward
+    the exact value), after which rounding to f32 is the single rounding of
+    the exact result."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    t = s - p
+    err = (p - (s - t)) + (cd - t)                  # s + err == p + cd exactly
+    even = (s.view(torch.int64) & 1) == 0
+    away = torch.where(err > 0, torch.full_like(s, math.inf),
+                       torch.full_like(s, -math.inf))
+    s = torch.where((err != 0) & even, torch.nextafter(s, away), s)
+    return s.to(_F32)
+
+
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 square root on every device: taken in f64
+    and rounded once more (exact, 53 >= 2 * 24 + 2 bits).  The card's f32
+    ``torch.sqrt`` is not correctly rounded: it made the card's ``normal``
+    differ from the CPU's (chip_smoke.py's PRNG phase) before this."""
+    return torch.sqrt(x.double()).to(_F32)
+
+
+def _uniform_floats(key, shape, device) -> torch.Tensor:
+    """Floats in [0, 1): 23 random mantissa bits under the exponent of 1."""
+    bits = random_bits(key, shape, device)
+    one = ((bits >> 9) | 0x3F800000).to(torch.int32).view(_F32)
+    return one - 1.0
+
+
+def uniform(key: torch.Tensor, shape: Sequence[int] = (), minval=0.0,
+            maxval=1.0, device: str | torch.device | None = None
+            ) -> torch.Tensor:
+    """``jax.random.uniform`` in f32: ``max(min, floats * (max - min) + min)``
+    with the multiply-add fused, as XLA:CPU fuses it (``random.py:_uniform``)."""
+    floats = _uniform_floats(key, shape, device)
+    lo = _f32(minval, floats.device)
+    hi = _f32(maxval, floats.device)
+    span = (hi - lo).expand_as(floats)
+    out = fma32(floats, span, lo.expand_as(floats))
+    return torch.maximum(lo, out)
+
+
+def randint(key: torch.Tensor, shape: Sequence[int], minval: int, maxval: int,
+            device: str | torch.device | None = None) -> torch.Tensor:
+    """``jax.random.randint`` for int32 bounds, as an int64 tensor.
+
+    Two keys give the higher and lower 32 bits; the offset
+    ``(hi % span) * multiplier + lo % span`` is taken in uint32 and wraps
+    there, where ``multiplier = (2**16 % span)**2 % span`` (its square
+    wraps too, for spans above 2**16)."""
+    lo_i, hi_i = (max(-2 ** 31, min(int(v), 2 ** 31 - 1))
+                  for v in (minval, maxval))
+    span = (hi_i - lo_i) & MASK if hi_i > lo_i else 1
+    mult = (2 ** 16) % span
+    mult = ((mult * mult) & MASK) % span
+    k1, k2 = split(key, 2)
+    higher = random_bits(k1, shape, device)
+    lower = random_bits(k2, shape, device)
+    off = ((higher % span) * mult) & MASK
+    off = ((off + lower % span) & MASK) % span
+    return off + lo_i
+
+
+# XLA:CPU's f32 log1p: a Cephes rational function below sqrt(2) - 1, the
+# Cephes log of 1 + x above (xla/service/elemental_ir_emitter.cc EmitLog1p,
+# xla/service/cpu polynomial log), every multiply-add fused
+_LOG1P_DEN = (1., 1.5062909083469192043167E1, 8.3047565967967209469434E1,
+              2.2176239823732856465394E2, 3.0909872225312059774938E2,
+              2.1642788614495947685003E2, 6.0118660497603843919306E1)
+_LOG1P_NUM = (4.5270000862445199635215E-5, 4.9854102823193375972212E-1,
+              6.5787325942061044846969E0, 2.9911919328553073277375E1,
+              6.0949667980987787057556E1, 5.7112963590585538103336E1,
+              2.0039553499201281259648E1)
+_LOG_P = (7.0376836292E-2, -1.1514610310E-1, 1.1676998740E-1,
+          -1.2420140846E-1, 1.4249322787E-1, -1.6668057665E-1,
+          2.0000714765E-1, -2.4999993993E-1, 3.3333331174E-1)
+_LOG_Q1, _LOG_Q2 = -2.12194440e-4, 0.693359375
+_MIN_NORMAL = 1.1754943508222875e-38
+
+
+def _horner(x: torch.Tensor, coeffs) -> torch.Tensor:
+    r = torch.full_like(x, coeffs[0])
+    for c in coeffs[1:]:
+        r = fma32(r, x, torch.full_like(x, c))
+    return r
+
+
+def _xla_log(x: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's f32 log (the Cephes polynomial on the mantissa)."""
+    def k(v):
+        return torch.full_like(x, v)
+    t = torch.maximum(x, k(_MIN_NORMAL))
+    bits = t.view(torch.int32)
+    e = (bits >> 23) - 0x7F
+    frac = ((bits & ~0x7F800000) | 0x3F000000).view(_F32)
+    e = 1.0 + e.to(_F32)
+    small = frac < 0.707106781186547524
+    t = frac - 1.0
+    e = e - torch.where(small, k(1.0), k(0.0))
+    t = t + torch.where(small, frac, k(0.0))
+    x2 = t * t
+    x3 = x2 * t
+    y = fma32(t, k(_LOG_P[0]), k(_LOG_P[1]))
+    y1 = fma32(t, k(_LOG_P[3]), k(_LOG_P[4]))
+    y2 = fma32(t, k(_LOG_P[6]), k(_LOG_P[7]))
+    y = fma32(y, t, k(_LOG_P[2]))
+    y1 = fma32(y1, t, k(_LOG_P[5]))
+    y2 = fma32(y2, t, k(_LOG_P[8]))
+    y = fma32(y, x3, y1)
+    y = fma32(y, x3, y2)
+    y = fma32(y, x3, _LOG_Q1 * e)
+    t = fma32(k(-0.5), x2, t)
+    t = t + y
+    t = t + _LOG_Q2 * e
+    t = torch.where(x == 0, k(-math.inf), t)
+    t = torch.where(x == math.inf, k(math.inf), t)
+    return torch.where(x < 0, k(math.nan), t)
+
+
+def _xla_log1p(x: torch.Tensor) -> torch.Tensor:
+    x2 = x * x
+    small = x * x2 * (_horner(x, _LOG1P_NUM) / _horner(x, _LOG1P_DEN))
+    small = x + fma32(torch.full_like(x, -0.5), x2, small)
+    return torch.where(x.abs() < 0.41421356237309504880, small,
+                       _xla_log(x + 1.0))
+
+
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 ``erf_inv`` (Giles): w = -log1p(-x*x); a degree-8
+    polynomial in w - 2.5 (w < 5) or sqrt(w) - 3; times x; +-inf at +-1."""
+    w = -_xla_log1p(x * -x)
+    lt = w < 5.0
+    ww = torch.where(lt, w - 2.5, sqrt_f32(w) - 3.0)
+
+    def coeff(i):
+        return torch.where(lt, torch.full_like(x, _ERFINV_LT5[i]),
+                           torch.full_like(x, _ERFINV_GE5[i]))
+    p = coeff(0)
+    for i in range(1, 9):
+        p = fma32(p, ww, coeff(i))
+    return torch.where(x.abs() == 1.0, x * math.inf, p * x)
+
+
+_SQRT2 = 1.4142135381698608        # f32(sqrt(2))
+_NORMAL_LO = -0.99999994039535522  # nextafter(f32(-1), 0)
+
+
+def normal(key: torch.Tensor, shape: Sequence[int] = (),
+           device: str | torch.device | None = None) -> torch.Tensor:
+    """``jax.random.normal`` in f32: ``sqrt(2) * erf_inv(u)``, u uniform on
+    [nextafter(-1, 0), 1)."""
+    u = uniform(key, shape, _NORMAL_LO, 1.0, device)
+    return _SQRT2 * erf_inv(u)
+
+
+def _f32_round(v: float) -> float:
+    return float(torch.tensor(v, dtype=_F32))
+
+
+def truncated_normal(key: torch.Tensor, lower: float, upper: float,
+                     shape: Sequence[int] = (),
+                     device: str | torch.device | None = None
+                     ) -> torch.Tensor:
+    """``jax.random.truncated_normal`` in f32 (``random.py:_truncated_normal``):
+    u uniform on [erf(lower / sqrt 2), erf(upper / sqrt 2)), sqrt(2) *
+    erf_inv(u), clipped into the open interval.  The two erf values are
+    constants, taken in f64 from the f32 quotients and rounded to f32 (equal
+    to XLA's f32 erf at the bounds the models use; tests/test_torch_prng.py)."""
+    lo32, hi32 = _f32_round(lower), _f32_round(upper)
+    a = _f32_round(math.erf(_f32_round(lo32 / _SQRT2)))
+    b = _f32_round(math.erf(_f32_round(hi32 / _SQRT2)))
+    u = uniform(key, shape, a, b, device)
+    out = _SQRT2 * erf_inv(u)
+    lo_t = torch.nextafter(_f32(lo32, out.device), _f32(math.inf, out.device))
+    hi_t = torch.nextafter(_f32(hi32, out.device), _f32(-math.inf, out.device))
+    return torch.clamp(out, lo_t, hi_t)

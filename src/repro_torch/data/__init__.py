@@ -1,4 +1,10 @@
 """Data pipelines of the port (numpy only, copied from the reference)."""
+from .mnist import load_synthetic_mnist, partition_iid, partition_noniid
+from .partition import partition_dirichlet, partition_quantity_skew
 from .tokens import TokenPipeline
 
-__all__ = ["TokenPipeline"]
+__all__ = [
+    "load_synthetic_mnist", "partition_iid", "partition_noniid",
+    "partition_dirichlet", "partition_quantity_skew",
+    "TokenPipeline",
+]

@@ -58,3 +58,30 @@ def device_ms(fn, reps: int = 100, warmup: int = 5) -> float:
         hold_ms *= 2
     raise RuntimeError(f"device_ms: a hold of {hold_ms / 2:.0f} ms did not "
                        f"outlast an enqueue of {enqueue_ms:.1f} ms")
+
+
+PORT_KERNELS = ("maxabs_kernel", "histogram_kernel", "sparsify_ef_kernel",
+                "swa_decode_kernel")
+GEMM_MARKS = ("gemm", "gemv", "xmma", "cutlass", "cublas", "nvjet")
+
+
+def kernel_group(name: str) -> str:
+    """A device kernel's group: the port's kernel by name, ``matmul`` for
+    cuBLAS's, ``other`` for the rest."""
+    for k in PORT_KERNELS:
+        if k in name:
+            return k
+    low = name.lower()
+    return "matmul" if any(m in low for m in GEMM_MARKS) else "other"
+
+
+def union_us(intervals: list[tuple[float, float]]) -> float:
+    """Length of the union of (start, end) intervals: the time the card was
+    busy with at least one kernel."""
+    busy, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e <= end:
+            continue
+        busy += e - max(s, end)
+        end = e
+    return busy

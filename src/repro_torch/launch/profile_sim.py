@@ -1,0 +1,138 @@
+"""Where a round of the LGC simulator (loop engine) spends its time.
+
+    python -m repro_torch.launch.profile_sim [--task lr_mnist] [--m-devices 3]
+        [--n-train 3000] [--rounds 40] [--mode lgc]
+
+Runs ``run_baseline``'s simulator on the card with ``backend="cuda"`` (H=4,
+5% of D per sync), once to warm up, once timed and once under
+``torch.profiler``:
+
+* host ms per round (the timed run's time over its rounds), the median
+  sync round and the median other round (with H=4 three rounds in four
+  sync no device, so the median round is one of those), and the split
+  over the loop's phases, each wrapped with a host clock: ``sample_batch``
+  (threefry keys and the minibatch index upload, which waits for the
+  card), ``sgd``
+  (forward, ``autograd.grad``, update; enqueued), ``sync`` (channel draw,
+  compression, cost model) and ``record`` (eval), the rest being the
+  server mean and the controller;
+* device busy ms per round (union of kernel intervals in the profiled
+  run), the idle share against the unprofiled round, kernel launches per
+  round, device ms by group (the three LGC kernels, matmuls, the rest).
+
+Prints one JSON line; it needs a card and fails without one.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import time
+
+import torch
+
+from repro_torch.core import FLConfig
+from repro_torch.core.fl import baseline_simulator
+from repro_torch.device import (card_name_and_power_limit, kernel_group,
+                                 union_us)
+from repro_torch.models.paper_models import make_task
+
+H = 4                  # the baselines' fixed sync gap
+PHASES = {"sample_batch": "_sample_batch", "sgd": "_sgd_step",
+          "sync": "_sync_device", "record": "_record"}
+
+
+def _timed_phases(sim) -> dict[str, float]:
+    """Wrap the simulator's phase methods with host clocks; returns the
+    dict of accumulated seconds the wrappers fill."""
+    spent = {k: 0.0 for k in PHASES}
+
+    def wrap(key, fn):
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[key] += time.perf_counter() - t0
+        return timed
+    for key, attr in PHASES.items():
+        setattr(sim, attr, wrap(key, getattr(sim, attr)))
+    return spent
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--task", default="lr_mnist",
+                    choices=("lr_mnist", "cnn_mnist"))
+    ap.add_argument("--m-devices", type=int, default=3)
+    ap.add_argument("--n-train", type=int, default=3000)
+    ap.add_argument("--rounds", type=int, default=40)
+    ap.add_argument("--mode", default="lgc",
+                    choices=("lgc", "topk", "fedavg", "lgc_q8"))
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_sim needs a CUDA card")
+    card = card_name_and_power_limit()
+    task = make_task(args.task, m_devices=args.m_devices,
+                     n_train=args.n_train)
+    cfg = FLConfig(rounds=args.rounds, eval_every=10, backend="cuda")
+
+    def simulator():
+        return baseline_simulator(task, cfg, args.mode, h=H, device="cuda")
+    simulator().run()                             # build + first-call set-up
+    sim = simulator()
+    spent = _timed_phases(sim)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    sync = [ms for t, ms in enumerate(sim.round_ms) if (t + 1) % H == 0]
+    other = [ms for t, ms in enumerate(sim.round_ms) if (t + 1) % H]
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    prof_sim = simulator()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        prof_sim.run()
+        torch.cuda.synchronize()
+        prof_wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_group: dict[str, float] = {}
+    for e in kernels:
+        g = kernel_group(e.name)
+        by_group[g] = by_group.get(g, 0.0) + e.time_range.elapsed_us()
+    busy_us = union_us([(e.time_range.start, e.time_range.end)
+                         for e in kernels])
+    rounds = args.rounds
+    out = {
+        "card": card,
+        "device": torch.cuda.get_device_name(0),
+        "task": args.task, "m_devices": args.m_devices, "mode": args.mode,
+        "d": sim.d, "rounds": rounds,
+        "h": H,
+        "host_ms_per_round": wall_s * 1e3 / args.rounds,
+        "median_sync_round_ms": statistics.median(sync),
+        "median_other_round_ms": statistics.median(other),
+        "device_steps_per_s": args.m_devices * rounds / wall_s,
+        "host_ms_per_round_by_phase": {
+            k: v * 1e3 / rounds for k, v in spent.items()},
+        "profiled_round_ms": prof_wall_us / 1e3 / rounds,
+        "device_busy_ms_per_round": busy_us / 1e3 / rounds,
+        "device_idle_share": 1.0 - busy_us / prof_wall_us,
+        # the profiler slows the host, not the card: the same busy time
+        # over the unprofiled rounds
+        "device_idle_share_unprofiled": 1.0 - busy_us / 1e3 / (wall_s * 1e3),
+        "kernel_launches_per_round": len(kernels) / rounds,
+        "kernel_ms_per_round_by_group": {
+            k: v / 1e3 / rounds for k, v in sorted(by_group.items())},
+    }
+    print(json.dumps(out), flush=True)
+    return out
+
+
+if __name__ == "__main__":
+    main()

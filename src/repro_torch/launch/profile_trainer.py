@@ -23,34 +23,10 @@ import time
 
 import torch
 
-from repro_torch.device import card_name_and_power_limit
+from repro_torch.device import (card_name_and_power_limit, kernel_group,
+                                 union_us)
 from repro_torch.kernels import LAUNCHES, reset_launch_counts
 from repro_torch.models.paper_models import make_task
-
-PORT_KERNELS = ("maxabs_kernel", "histogram_kernel", "sparsify_ef_kernel",
-                "swa_decode_kernel")
-GEMM_MARKS = ("gemm", "gemv", "xmma", "cutlass", "cublas", "nvjet")
-
-
-def _group(name: str) -> str:
-    """A device kernel's group: the port's kernel by name, ``matmul`` for
-    cuBLAS's, ``other`` for the rest."""
-    for k in PORT_KERNELS:
-        if k in name:
-            return k
-    low = name.lower()
-    return "matmul" if any(m in low for m in GEMM_MARKS) else "other"
-
-
-def _union_us(intervals: list[tuple[float, float]]) -> float:
-    busy, end = 0.0, float("-inf")
-    for s, e in sorted(intervals):
-        if e <= end:
-            continue
-        busy += e - max(s, end)
-        end = e
-    return busy
-
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -87,12 +63,12 @@ def main(argv=None) -> dict:
     by_name: dict[str, list] = {}
     for e in kernels:
         us = e.time_range.elapsed_us()
-        g = _group(e.name)
+        g = kernel_group(e.name)
         by_group[g] = by_group.get(g, 0.0) + us
         row = by_name.setdefault(e.name[:80], [0.0, 0])
         row[0] += us
         row[1] += 1
-    busy_us = _union_us([(e.time_range.start, e.time_range.end)
+    busy_us = union_us([(e.time_range.start, e.time_range.end)
                          for e in kernels])
     out = {
         "card": card,

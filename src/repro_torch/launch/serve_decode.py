@@ -30,8 +30,8 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import ArchConfig
-from repro_torch.device import card_name_and_power_limit, resolve_device
-from repro_torch.launch.profile_trainer import _group, _union_us
+from repro_torch.device import (card_name_and_power_limit, kernel_group,
+                                 resolve_device, union_us)
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
 from repro_torch.models import transformer as tf
 
@@ -57,9 +57,9 @@ def _profile(step, params, tok, cache, n: int) -> tuple[dict, dict]:
                if e.device_type == torch.autograd.DeviceType.CUDA]
     by_group: dict[str, float] = {}
     for e in kernels:
-        g = _group(e.name)
+        g = kernel_group(e.name)
         by_group[g] = by_group.get(g, 0.0) + e.time_range.elapsed_us()
-    busy_us = _union_us([(e.time_range.start, e.time_range.end)
+    busy_us = union_us([(e.time_range.start, e.time_range.end)
                          for e in kernels])
     return {"steps": n, "wall_ms_per_step": wall_us / n / 1e3,
             "device_busy_ms_per_step": busy_us / n / 1e3,

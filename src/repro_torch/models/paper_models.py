@@ -1,18 +1,148 @@
-"""The task registry: ``TASKS`` and ``make_task``.
+"""The paper's evaluation models (§4.1) and the task registry.
 
-Port of ``repro/models/paper_models.py:240-285``.  Only ``qwen2_100m`` is
-ported; the paper's MNIST and Shakespeare tasks raise until their ROADMAP
-item.
+Port of ``repro/models/paper_models.py``: ``_xent``, ``_acc``, the LR and
+CNN models on (synthetic) MNIST, ``make_mnist_task``, and ``TASKS`` /
+``make_task``.  Parameters are flat ``{name: Tensor}`` dicts and forward
+passes plain functions, as in the reference.  The CNN keeps the
+reference's NHWC layout and its shift-im2col formulation of the 3x3 conv
+(pad, nine shifted views, one matmul) instead of ``F.conv2d``, so the same
+weights compute the same function and no cuDNN TF32 setting comes in.
+``rnn_shakespeare`` raises until ROADMAP A7.
+
+``lr_init`` / ``cnn_init`` draw from the ported threefry
+(:mod:`repro_torch.core.prng`): the CNN's ``he_normal`` is bitwise equal to
+the reference's, the LR's ``normal`` within 2 ulp
+(tests/test_torch_paper_models.py).
 """
 from __future__ import annotations
 
 import dataclasses
 
-_NOT_PORTED = {
-    "lr_mnist": "ROADMAP A4",
-    "cnn_mnist": "ROADMAP A7",
-    "rnn_shakespeare": "ROADMAP A7",
-}
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import prng
+from repro_torch.core.fl import FLTask
+from repro_torch.core.scenario import Scenario, get_scenario, partition_fn
+from repro_torch.data.mnist import load_synthetic_mnist
+
+_F32 = torch.float32
+
+
+def _xent(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    logp = F.log_softmax(logits, -1)
+    return -torch.mean(torch.gather(logp, -1, y[..., None].long()))
+
+
+def _acc(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return torch.mean((torch.argmax(logits, -1) == y).to(_F32))
+
+
+# ---------------------------------------------------------------------------
+# LR on MNIST
+# ---------------------------------------------------------------------------
+
+def lr_init(key: torch.Tensor) -> dict[str, torch.Tensor]:
+    k1, _ = prng.split(key)
+    return {"b": torch.zeros((10,), dtype=_F32),
+            "w": prng.normal(k1, (784, 10)) * 0.01}
+
+
+def lr_logits(params: dict, x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(x.shape[0], -1) @ params["w"] + params["b"]
+
+
+# ---------------------------------------------------------------------------
+# CNN on MNIST (LeNet-style)
+# ---------------------------------------------------------------------------
+
+def _he_normal(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+    """``jax.nn.initializers.he_normal()``: truncated normal on (-2, 2)
+    scaled to variance 2 / fan_in (fan_in = shape[-2] x receptive field)."""
+    fan_in = shape[-2] * (torch.Size(shape).numel() // (shape[-2] * shape[-1]))
+    variance = torch.tensor(2.0 / fan_in, dtype=_F32)
+    stddev = prng.sqrt_f32(variance) / torch.tensor(.87962566103423978,
+                                                    dtype=_F32)
+    return prng.truncated_normal(key, -2.0, 2.0, shape) * stddev
+
+
+def cnn_init(key: torch.Tensor) -> dict[str, torch.Tensor]:
+    ks = prng.split(key, 4)
+    return {
+        "c1": _he_normal(ks[0], (3, 3, 1, 16)), "b1": torch.zeros(16),
+        "c2": _he_normal(ks[1], (3, 3, 16, 32)), "b2": torch.zeros(32),
+        "w1": _he_normal(ks[2], (7 * 7 * 32, 128)), "bw1": torch.zeros(128),
+        "w2": _he_normal(ks[3], (128, 10)), "bw2": torch.zeros(10),
+    }
+
+
+def _conv3x3(z: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+             ) -> torch.Tensor:
+    """SAME 3x3 conv on NHWC as shift-im2col: pad, the nine shifted views
+    concatenated on the channel axis, one matmul with the (9 cin, cout)
+    kernel (``repro/models/paper_models.py:70``)."""
+    _, h, wd, cin = z.shape
+    zp = F.pad(z, (0, 0, 1, 1, 1, 1))
+    patches = torch.cat([zp[:, i:i + h, j:j + wd, :]
+                         for i in range(3) for j in range(3)], dim=-1)
+    return patches @ w.reshape(9 * cin, w.shape[-1]) + b
+
+
+def _pool2x2(z: torch.Tensor) -> torch.Tensor:
+    """2x2/2 max pool as a reshape + max (ties share the gradient evenly,
+    as ``jnp.max`` shares it)."""
+    bsz, h, wd, c = z.shape
+    return torch.amax(z.reshape(bsz, h // 2, 2, wd // 2, 2, c), dim=(2, 4))
+
+
+def cnn_logits(params: dict, x: torch.Tensor) -> torch.Tensor:
+    # relu after pool: max and relu commute exactly
+    z = torch.relu(_pool2x2(_conv3x3(x, params["c1"], params["b1"])))
+    z = torch.relu(_pool2x2(_conv3x3(z, params["c2"], params["b2"])))
+    z = z.reshape(z.shape[0], -1)
+    z = torch.relu(z @ params["w1"] + params["bw1"])
+    return z @ params["w2"] + params["bw2"]
+
+
+# ---------------------------------------------------------------------------
+# FLTask factory
+# ---------------------------------------------------------------------------
+
+def make_mnist_task(model: str = "lr", m_devices: int = 3, n_train: int = 6000,
+                    seed: int = 0, partition: str = "iid",
+                    alpha: float = 0.5,
+                    scenario: str | Scenario | None = None) -> FLTask:
+    """The LR or CNN task on synthetic MNIST, sharded over ``m_devices``
+    (``partition`` / ``alpha``, or the scenario's when ``scenario`` is
+    given).  The data stay numpy arrays; the simulator moves them to its
+    device."""
+    if model not in ("lr", "cnn"):
+        raise ValueError(f"unknown MNIST model {model!r}")
+    if scenario is not None:
+        scn = get_scenario(scenario)
+        partition, alpha = scn.partition, scn.alpha
+    (xtr, ytr), (xte, yte) = load_synthetic_mnist(n_train=n_train, seed=seed)
+    shards = partition_fn(Scenario(partition=partition, alpha=alpha))(
+        xtr, ytr, m_devices, seed)
+    init, logits = ((lr_init, lr_logits) if model == "lr"
+                    else (cnn_init, cnn_logits))
+
+    def loss_fn(params, batch):
+        x, y = batch
+        return _xent(logits(params, x), y)
+
+    def metric_fn(params, batch):
+        x, y = batch
+        return _acc(logits(params, x), y)
+    return FLTask(init, loss_fn, metric_fn, shards, (xte, yte),
+                  name=f"{model}-mnist")
+
+
+# ---------------------------------------------------------------------------
+# the task registry
+# ---------------------------------------------------------------------------
+
+_NOT_PORTED = {"rnn_shakespeare": "ROADMAP A7"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,9 +158,14 @@ class TaskSpec:
             raise NotImplementedError(
                 f"task {self.name!r} is not ported yet "
                 f"({_NOT_PORTED[self.name]})")
-        from repro_torch.models.lgc_transformer import make_qwen2_100m_task
-        return make_qwen2_100m_task(m_devices, seed=seed, scenario=scenario,
-                                    **kw)
+        if self.dataset == "tokens":
+            from repro_torch.models.lgc_transformer import (
+                make_qwen2_100m_task)
+            return make_qwen2_100m_task(m_devices, seed=seed,
+                                        scenario=scenario, **kw)
+        kw.setdefault("partition", self.partition)
+        return make_mnist_task(self.model, m_devices, seed=seed,
+                               scenario=scenario, **kw)
 
 
 TASKS: dict[str, TaskSpec] = {
@@ -49,7 +184,8 @@ TASKS: dict[str, TaskSpec] = {
 def make_task(name: str, m_devices: int = 3, seed: int = 0, scenario=None,
               **kw):
     """Resolve a registry name and build the task (extra kwargs pass
-    through, e.g. ``preset``/``aggregate``/``backend``/``device``)."""
+    through: ``n_train`` for the MNIST tasks; ``preset`` / ``aggregate`` /
+    ``backend`` / ``device`` for ``qwen2_100m``)."""
     try:
         spec = TASKS[name]
     except KeyError:

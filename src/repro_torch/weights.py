@@ -4,7 +4,9 @@ port.
 A reference parameter tree is a nested dict of arrays.  The port keeps a
 flat ``dict[str, Tensor]`` whose keys are the tree's leaf paths joined by
 ``/`` (``"blocks/attn/wq"``), in the order of
-``jax.tree_util.tree_leaves_with_path`` (sorted dict keys).  This module
+``jax.tree_util.tree_leaves_with_path`` (sorted dict keys).  A flat vector
+of the simulator (an error memory, an anchor) is one f32 array on both
+sides (``vector_from_jax``).  This module
 works on numpy arrays only: the caller turns jax arrays into numpy
 (``np.asarray`` / ``jax.device_get``) on its side.
 """
@@ -62,3 +64,9 @@ def cache_from_jax(tree: dict, device: str | torch.device = "cpu") -> dict:
     return {"pos": int(np.asarray(tree["pos"])),
             "kv": {name: _to_tensor(tree["kv"][name]).to(device)
                    for name in ("k", "v")}}
+
+
+def vector_from_jax(a, device: str | torch.device = "cpu") -> torch.Tensor:
+    """A reference flat f32 vector (a device's error memory or anchor, a
+    net progress delta) -> an f32 tensor of the same bits."""
+    return _to_tensor(np.asarray(a, dtype=np.float32)).to(device)

@@ -1,5 +1,8 @@
 """The port's CUDA kernels on the card against their plain versions: the
-LGC kernels bitwise, ``swa_decode`` to the tolerance of its f32 sums.
+LGC kernels bitwise, ``swa_decode`` to the tolerance of its f32 sums; and
+the simulator's threefry PRNG on the card bitwise equal to the CPU's, a
+short LR run through the LGC kernels against the CPU's plain versions, and
+every sync of short LR and CNN runs bitwise equal to the plain pipeline.
 
 These tests need an NVIDIA card and ``nvcc``; without a card they skip with
 a reason.  The file imports neither ``jax`` nor the reference package, so it
@@ -387,3 +390,80 @@ def test_swa_decode_rejects_mixed_devices(card):
     kv = torch.zeros((1, 1, 4, 32), device=card)
     with pytest.raises(ValueError):
         pk.swa_decode(q, kv, kv, torch.ones(1, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# the simulator: the PRNG on the card, and a short run through the kernels
+# ---------------------------------------------------------------------------
+
+def test_prng_on_the_card_equals_the_cpu(card):
+    from repro_torch.core import prng
+    from repro_torch.core.scenario import stream_key
+    for seed in (0, 7, 2 ** 31 - 1):
+        kc, kg = prng.PRNGKey(seed), prng.PRNGKey(seed, device=card)
+        pairs = [
+            (prng.fold_in(kc, 2 ** 31 + 3), prng.fold_in(kg, 2 ** 31 + 3)),
+            (prng.split(kc, 4), prng.split(kg, 4)),
+            (stream_key(kc, 1, 119, 7), stream_key(kg, 1, 119, 7)),
+            (prng.random_bits(kc, (3, 5)), prng.random_bits(kg, (3, 5))),
+            (prng.randint(kc, (2048,), 0, 70_000),
+             prng.randint(kg, (2048,), 0, 70_000)),
+            (prng.uniform(kc, (4099,)), prng.uniform(kg, (4099,))),
+            (prng.normal(kc, (7850,)), prng.normal(kg, (7850,))),
+            (prng.truncated_normal(kc, -2.0, 2.0, (4099,)),
+             prng.truncated_normal(kg, -2.0, 2.0, (4099,))),
+            # CPU keys, bits drawn on the card (the QSGD dither's path)
+            (prng.uniform(kc, (999,)), prng.uniform(kc, (999,), device=card)),
+        ]
+        for want, got in pairs:
+            assert got.device.type == "cuda"
+            assert _bits_equal(got.cpu(), want)
+
+
+def test_short_lr_run_launches_the_kernels_once_per_sync(card):
+    from repro_torch.core import FLConfig, run_baseline
+    from repro_torch.models.paper_models import make_task
+    task = make_task("lr_mnist", m_devices=3, n_train=300)
+    cfg = FLConfig(rounds=12, eval_every=4, backend="cuda")
+    runs = {}
+    for dev in ("cpu", card):
+        pk.reset_launch_counts()
+        runs[str(dev)] = run_baseline(task, cfg, "lgc", h=4, device=dev)
+        counts = dict(pk.LAUNCHES)
+    torch.cuda.synchronize()
+    assert counts == {"maxabs": 9, "histogram": 9, "sparsify_ef": 9,
+                      "swa_decode": 0}
+    cpu, gpu = runs["cpu"], runs[str(card)]
+    assert gpu.step == cpu.step and gpu.uplink_mb == cpu.uplink_mb
+    np.testing.assert_allclose(gpu.loss, cpu.loss, atol=1e-3)
+    np.testing.assert_allclose(gpu.accuracy, cpu.accuracy, atol=1e-3)
+    pk.reset_launch_counts()
+    run_baseline(task, cfg, "fedavg", h=4, device=card)
+    torch.cuda.synchronize()
+    assert all(v == 0 for v in pk.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("task_name,m,n_train,batch", [
+    ("lr_mnist", 3, 300, 64), ("cnn_mnist", 2, 200, 16)])
+def test_every_simulator_sync_matches_the_plain_pipeline_bitwise(
+        card, monkeypatch, task_name, m, n_train, batch):
+    from repro_torch.core import FLConfig, run_baseline
+    from repro_torch.models.paper_models import make_task
+    kern = pk.lgc_compress_hist
+    received = []
+
+    def checked(e, delta, cum_ks, recv):
+        g, e_new = kern(e, delta, cum_ks, recv)
+        g_ref, e_ref = pref.hist_lgc_compress(e, delta, cum_ks, recv)
+        assert torch.equal(g.view(torch.int32), g_ref.view(torch.int32))
+        assert torch.equal(e_new.view(torch.int32), e_ref.view(torch.int32))
+        received.append(tuple(recv.tolist()))
+        return g, e_new
+    monkeypatch.setattr(pk, "lgc_compress_hist", checked)
+    task = make_task(task_name, m_devices=m, n_train=n_train)
+    pk.reset_launch_counts()
+    cfg = FLConfig(rounds=8, eval_every=4, batch_size=batch, backend="cuda")
+    run_baseline(task, cfg, "lgc", h=4, device=card)
+    torch.cuda.synchronize()
+    assert len(received) == 2 * m
+    assert pk.LAUNCHES["sparsify_ef"] == 2 * m

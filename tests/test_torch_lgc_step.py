@@ -257,6 +257,11 @@ def test_port_and_chip_smoke_import_no_reference_module():
         "repro_torch." + ".".join(p.relative_to(src).with_suffix("").parts)
         for p in src.rglob("*.py"))
     mods = [m.removesuffix(".__init__") for m in mods] + ["chip_smoke"]
+    simulator = ["core.prng", "core.scenario", "core.channels",
+                 "core.compressor", "core.error_feedback", "core.server",
+                 "core.fl", "data.mnist", "data.partition",
+                 "models.paper_models", "launch.quickstart"]
+    assert {f"repro_torch.{m}" for m in simulator} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
