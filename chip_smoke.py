@@ -20,6 +20,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    larger grid; then every LGC kernel (and ``sum_maxabs``) on inputs scaled
    by 1e-39, 1e-37, 1e-36 and 1e-30, all, partly or not subnormal, bitwise
    equal to the plain versions that flush subnormals as the JAX reference;
+   then the (M, D) row forms (``sum_maxabs_rows``, ``histogram_rows``,
+   ``sparsify_ef_rows``, ``lgc_compress_hist_rows``) at (3, 7,850),
+   (8, 206,922), (2, 28,311,552) and (3, 7), rows on and off a 16-byte
+   boundary, each row seeing all 8 received patterns of 3 channels: bitwise
+   equal to the plain row versions and to M flat launches, row by row, and
+   at the subnormal scales;
 3. ``swa_decode`` against its plain version on the card, f32 (rtol = atol =
    2e-5) and bf16 (1e-2), at TestSWADecode's shapes, the GQA serve shape
    (B=8, H=12, Kv=2, W=4096, Dh=128) and W=4160, with lengths 1, W/2+3 and
@@ -30,11 +36,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 4. a small f32 trainer on the card, kernel backend against the plain backend
    (every leaf through the kernels), to the CPU tests' tolerances;
 5. the training path: ``make_task("qwen2_100m", preset="full")`` at full
-   width (128,419,584 parameters, bf16) with ``aggregate="dense_masked"``
-   and the CUDA kernels, 3 sync rounds of 2 FL devices; each LGC launch
-   counter must be 3 rounds x 2 devices x 8 leaves = 48 and swa_decode's 0;
-   the inputs of the largest leaf's first call in round 2 are kept (a copy
-   taken by wrapping the step's ``lgc_compress_hist``) for phase 9;
+   width (128,419,584 parameters, bf16, drawn with the ported threefry)
+   with ``aggregate="dense_masked"`` and the CUDA kernels, 3 sync rounds of
+   2 FL devices, each leaf compressed once over both devices' rows; each
+   LGC row counter must be 3 rounds x 8 leaves = 24, the flat counters and
+   swa_decode's 0; then the same 3 rounds from the same state through the
+   flat kernels device by device (``rows=False``, 48 launches each) must
+   give bitwise the same params and error memory; device 0's inputs of the
+   largest leaf's first call in round 2 are kept (a copy taken by wrapping
+   the step's ``lgc_compress_hist_rows``) for phase 9;
 6. a small f32 serve (qwen2-smoke), card against CPU with the same weights:
    8-token prefill into a 16-slot ring, 24 greedy steps past the wrap; the
    logits agree at rtol = atol = 1e-5 and the tokens are equal;
@@ -45,19 +55,23 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    LGC kernels none;
 8. the simulator: the threefry PRNG on the card (``split``, ``fold_in``,
    ``stream_key``, raw bits, ``randint``, ``uniform``, ``normal``,
-   ``truncated_normal``) bitwise equal to the CPU's; then the loop engine
-   with ``backend="cuda"`` on the card against the same run on the CPU
-   (the kernels' plain versions): ``lr_mnist`` at the quickstart's defaults
-   (M=3, n_train 3000, 120 rounds, H=4, eval every 20) in modes lgc and
-   fedavg, and ``cnn_mnist`` at the factory's (n_train 6000, batch 64) with
-   M=8, 40 rounds, H=4 in modes lgc and topk; ``step`` and ``uplink_mb``
-   equal, losses within 1e-3 and accuracy counts within 1 of 1,000; in the
-   card run every sync's (g, e') bitwise equal to the plain pipeline on the
-   same card tensors (``lgc_compress_hist`` wrapped); each LGC kernel
-   launched once per sync (90 for lr lgc, 0 for fedavg, 80 for each cnn
-   mode) and swa_decode never; then a second card run, not checked per
-   sync, for the host ms per round (the run's time over its rounds, with
-   the median sync and other round) and device-steps/s;
+   ``truncated_normal``, the batched ``stream_keys`` and the row samplers)
+   bitwise equal to the CPU's; then both engines with ``backend="cuda"`` on
+   the card against the same run on the CPU (the kernels' plain versions):
+   ``lr_mnist`` at the quickstart's defaults (M=3, n_train 3000, 120
+   rounds, H=4, eval every 20) in modes lgc and fedavg, and ``cnn_mnist`` at
+   the factory's (n_train 6000, batch 64) with M=8, 40 rounds, H=4 in modes
+   lgc and topk; ``step`` and ``uplink_mb`` equal, losses within 1e-3 and
+   accuracy counts within 1 of 1,000; in the card runs every sync's (g, e')
+   bitwise equal to the plain pipeline on the same card tensors
+   (``lgc_compress_hist`` and ``lgc_compress_hist_rows`` wrapped); the loop
+   engine launches each flat LGC kernel once per device and sync (90 for lr
+   lgc, 0 for fedavg, 80 for each cnn mode), the batched engine each row
+   kernel once per sync boundary (30, 0, 10, 10) and no flat kernel, with
+   torch's sync debug mode raising on any host sync inside a window;
+   swa_decode never; then a second card run of each engine, not checked
+   per sync, for the host ms per round (the run's time over its rounds) and
+   device-steps/s, in the same call;
 9. the ``kernels`` line: each kernel's time beside its plain version, its
    bound (bytes over 3.35 TB/s or operations over 67 TFLOP/s) and one
    PyTorch call as a yardstick.  ``ms`` is the median of single calls
@@ -71,7 +85,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    histogram also on the main path's real u of round 2 (``at_main_path_u``)
    and on a constant
    vector (``at_one_bin``), ``sum_maxabs`` against the add and maxabs apart
-   (``at_sum`` of maxabs), swa_decode at the GQA serve
+   (``at_sum`` of maxabs), and each LGC kernel's row form at (3, 7,850),
+   (8, 206,922) and (2, 28,311,552) (``rows``: the paths' launches of it,
+   its times, the plain row version, M flat launches and, for maxabs,
+   ``vector_norm(u, inf, dim=1)``, for histogram M ``histc`` calls);
+   swa_decode at the GQA serve
    shape in bf16 with every slot valid, its inputs rotated over four copies
    so that each call finds them outside the L2 cache, as a decode step does;
 10. the last line: ``{"ok": true, "device": {...}}``.
@@ -81,6 +99,7 @@ It imports nothing of JAX or of the JAX package ``repro``.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import math
 import pathlib
@@ -111,6 +130,12 @@ SIM_H = 4
 SIM_RUNS = [("lr_mnist", 3, 3000, 120, 20, ("lgc", "fedavg")),
             ("cnn_mnist", 8, 6000, 40, 10, ("lgc", "topk"))]
 LR_D, CNN_D = 7_850, 206_922
+ENGINES = ("loop", "batched")
+ROW_KERNELS = {"maxabs": "maxabs_rows", "histogram": "histogram_rows",
+               "sparsify_ef": "sparsify_ef_rows"}
+# (M, D) of the row forms on the paths: the lr and cnn simulator runs and
+# the largest leaf of the training path
+ROW_SHAPES = [(3, LR_D), (8, CNN_D), (M_DEVICES, LARGEST_LEAF)]
 
 TPU_KERNELS = {
     "maxabs": ("src/repro_torch/kernels/csrc/maxabs.cu",
@@ -220,6 +245,7 @@ def phase_kernels(gen, errs: dict) -> None:
     phase_simulator_sizes(gen, errs)
     phase_histogram_edges(gen, errs)
     phase_subnormals(errs)
+    phase_rows(gen, errs)
 
 
 def phase_simulator_sizes(gen, errs: dict) -> None:
@@ -354,6 +380,105 @@ def phase_subnormals(errs: dict) -> None:
         f"{SUBNORMAL_SCALES}; coordinates sent {sent}")
 
 
+RECEIVED_PATTERNS = list(itertools.product((1, 0), repeat=3))
+
+
+def row_inputs(gen, m: int, n: int, offset: int = 0, scale: float = 1.0):
+    """e, x (M, D) on the card (e's rows start ``offset`` floats off a
+    16-byte boundary), row 1 all zeros, and the simulator's budget."""
+    import itertools
+    import torch
+    from repro_torch.core.fl import baseline_ks
+    e = (torch.randn(m * n + offset, generator=gen, device="cuda")[offset:]
+         .view(m, n) * (1e-4 * scale))
+    x = torch.randn((m, n), generator=gen, device="cuda") * (1e-3 * scale)
+    if m > 1:
+        e[1] = 0.0
+        x[1] = 0.0
+    cum = torch.tensor(list(itertools.accumulate(baseline_ks(n))),
+                       dtype=torch.int32, device="cuda").expand(m, 3)
+    return e, x, cum.contiguous()
+
+
+def check_rows(e, x, cum, recv, what: str, errs: dict) -> int:
+    """Each row kernel, one launch over all rows, bitwise equal to its
+    plain row version and to the flat kernel on every row; returns the
+    coordinates sent."""
+    import torch
+    from repro_torch.kernels import (histogram, histogram_rows,
+                                     lgc_compress_hist,
+                                     lgc_compress_hist_rows, ref,
+                                     sparsify_ef, sparsify_ef_rows,
+                                     sum_maxabs, sum_maxabs_rows,
+                                     thresholds_from_counts)
+    u, m = sum_maxabs_rows(e, x)
+    u_ref = ref.ftz_add(e, x)
+    check(bits_equal(u, u_ref) and bits_equal(m, ref.hist_maxabs_rows(u_ref)),
+          f"sum_maxabs_rows {what}")
+    counts = histogram_rows(u, m)
+    check(bits_equal(counts, ref.hist_counts_rows(u_ref, m))
+          and bool((counts.sum(1) == e.shape[1]).all()),
+          f"histogram_rows {what}")
+    thr = thresholds_from_counts(counts, m, cum)
+    g, e_new = sparsify_ef_rows(e, x, thr, recv)
+    g_ref, e_ref = ref.hist_layered_sparsify_rows(u_ref, thr, recv)
+    # u == g + e' by value: a flushed u of -0.0 gives g = +0.0, e' = -0.0
+    check(bits_equal(g, g_ref) and bits_equal(e_new, e_ref)
+          and torch.equal(g + e_new, u_ref), f"sparsify_ef_rows {what}")
+    gp, ep = lgc_compress_hist_rows(e, x, cum, recv)
+    check(bits_equal(gp, g) and bits_equal(ep, e_new),
+          f"lgc_compress_hist_rows {what}")
+    for r in range(e.shape[0]):
+        er = e[r].contiguous()
+        u1, m1 = sum_maxabs(er, x[r])
+        check(bits_equal(u1, u[r]) and bits_equal(m1.reshape(()), m[r]),
+              f"sum_maxabs row {r} {what}")
+        check(bits_equal(histogram(u1, m1), counts[r]),
+              f"histogram row {r} {what}")
+        g1, e1 = sparsify_ef(er, x[r], thr[r], recv[r])
+        check(bits_equal(g1, g[r]) and bits_equal(e1, e_new[r]),
+              f"sparsify_ef row {r} {what}")
+        g2, e2 = lgc_compress_hist(er, x[r], cum[r], recv[r])
+        check(bits_equal(g2, g[r]) and bits_equal(e2, e_new[r]),
+              f"lgc_compress_hist row {r} {what}")
+    errs["maxabs"] = max(errs["maxabs"], max_abs_err(m, ref.hist_maxabs_rows(
+        u_ref)))
+    errs["histogram"] = max(errs["histogram"], max_abs_err(
+        counts, ref.hist_counts_rows(u_ref, m)))
+    errs["sparsify_ef"] = max(errs["sparsify_ef"], max_abs_err(g, g_ref),
+                              max_abs_err(e_new, e_ref))
+    return int((g != 0).sum())
+
+
+def phase_rows(gen, errs: dict) -> None:
+    """The (M, D) row forms at the paths' shapes and an odd D below 8, rows
+    on and off a 16-byte boundary, each row through all 8 received
+    patterns; then at the subnormal scales."""
+    import torch
+    pats = torch.tensor(RECEIVED_PATTERNS, dtype=torch.int32, device="cuda")
+    for m, n in ROW_SHAPES + [(3, 7)]:
+        for offset in (0, 1):
+            e, x, cum = row_inputs(gen, m, n, offset)
+            sent = []
+            for p in range(len(RECEIVED_PATTERNS)):
+                recv = pats[(torch.arange(m, device="cuda") + p)
+                            % len(RECEIVED_PATTERNS)]
+                sent.append(check_rows(e, x, cum, recv,
+                                       f"(M, D)=({m}, {n}) offset {offset} "
+                                       f"pattern {p}", errs))
+        torch.cuda.synchronize()
+        log(f"row kernels (M, D)=({m}, {n}), offsets 0 and 1, all 8 "
+            f"received patterns on every row: bitwise equal to the plain "
+            f"row versions and to {m} flat launches row by row; "
+            f"coordinates sent {sent}")
+    for scale in SUBNORMAL_SCALES:
+        e, x, cum = row_inputs(gen, 3, 4096, 1, scale / 1e-3)
+        check_rows(e, x, cum, pats[:3], f"at scale {scale}", errs)
+    torch.cuda.synchronize()
+    log(f"row kernels at scales {SUBNORMAL_SCALES}: bitwise equal to the "
+        f"plain row versions and the flat kernels")
+
+
 # ---------------------------------------------------------------------------
 # phase 3: swa_decode against its plain version
 # ---------------------------------------------------------------------------
@@ -486,29 +611,42 @@ def phase_small_trainer() -> None:
 # phase 5: the training path at full width
 # ---------------------------------------------------------------------------
 
+def main_path_task():
+    from repro_torch.models.paper_models import make_task
+    return make_task("qwen2_100m", m_devices=M_DEVICES, preset="full",
+                     aggregate="dense_masked", backend="cuda")
+
+
 def phase_main_path() -> tuple[dict, object]:
-    """Returns the launch counts and u = e + delta of the largest leaf in
-    round 2."""
+    """Returns the launch counts and u = e + delta of device 0's largest
+    leaf in round 2."""
     import torch
     from repro_torch.kernels import LAUNCHES, ref, reset_launch_counts
     from repro_torch.launch.bench_histogram import capture_leaf_inputs
+    from repro_torch.launch.steps import make_lgc_train_step
     from repro_torch.models import transformer as tf
-    from repro_torch.models.paper_models import make_task
-    task = make_task("qwen2_100m", m_devices=M_DEVICES, preset="full",
-                     aggregate="dense_masked", backend="cuda")
+    task = main_path_task()
     n_params = task.param_count()
     check(n_params == 128_419_584, f"param_count {n_params}")
+    t0 = time.perf_counter()
     b = task.build()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
     kernel_leaves = [k for k, v in b["params"].items()
                      if v.numel() >= task.step_cfg.pallas_min_elems]
     check(len(kernel_leaves) == N_KERNEL_LEAVES, f"kernel leaves "
           f"{kernel_leaves}")
+    # the same start for the device-by-device check below
+    flat_task = main_path_task()
+    fb = flat_task.build(params={k: v.clone() for k, v in
+                                 b["params"].items()})
+    fb["step"] = make_lgc_train_step(flat_task.arch, M_DEVICES,
+                                     flat_task.step_cfg, rows=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    # keep (e, delta) of the largest leaf's first call in round 2
-    with capture_leaf_inputs(LARGEST_LEAF,
-                             M_DEVICES * N_KERNEL_LEAVES) as kept:
+    # keep device 0's (e, delta) of the largest leaf's first call in round 2
+    with capture_leaf_inputs(LARGEST_LEAF, N_KERNEL_LEAVES) as kept:
         out = task.run(ROUNDS)
     torch.cuda.synchronize()
     counts = dict(LAUNCHES)
@@ -523,22 +661,42 @@ def phase_main_path() -> tuple[dict, object]:
               f"param {k}")
         check(ef[k].shape == (M_DEVICES,) + tuple(shapes[k])
               and bool(torch.isfinite(ef[k]).all()), f"ef {k}")
-    want = ROUNDS * M_DEVICES * N_KERNEL_LEAVES
-    for name in LGC_KERNELS:
-        check(counts[name] == want, f"{name} launched {counts[name]} times "
-              f"on the training path, expected {want}")
+    want = ROUNDS * N_KERNEL_LEAVES
+    for name, rows_name in ROW_KERNELS.items():
+        check(counts[rows_name] == want, f"{rows_name} launched "
+              f"{counts[rows_name]} times on the training path, expected "
+              f"{want}")
+        check(counts[name] == 0, f"{name} launched {counts[name]} times on "
+              f"the training path, expected 0 (the row form carries it)")
     check(counts["swa_decode"] == 0, f"swa_decode launched "
           f"{counts['swa_decode']} times on the training path, expected 0")
-    log(f"main path: qwen2_100m full width, {n_params:,} params (bf16), "
-        f"M={M_DEVICES}, H={task.step_cfg.local_steps}, sparsity "
-        f"{task.step_cfg.sparsity}, seq {task.seq}, {ROUNDS} rounds")
+    # the same rounds device by device through the flat kernels
+    reset_launch_counts()
+    flat_task.run(ROUNDS)
+    torch.cuda.synchronize()
+    flat_counts = dict(LAUNCHES)
+    for k in params:
+        check(bits_equal(fb["params"][k].view(torch.int16),
+                         params[k].view(torch.int16)),
+              f"param {k}: the row path and the flat path differ")
+        check(bits_equal(fb["ef"][k], ef[k]),
+              f"ef {k}: the row path and the flat path differ")
+    check(all(flat_counts[n] == M_DEVICES * want for n in LGC_KERNELS),
+          f"flat path launches {flat_counts}")
+    log(f"main path: qwen2_100m full width, {n_params:,} params (bf16, "
+        f"drawn on the card in {init_s:.2f} s), M={M_DEVICES}, "
+        f"H={task.step_cfg.local_steps}, sparsity {task.step_cfg.sparsity}, "
+        f"seq {task.seq}, {ROUNDS} rounds")
     log(f"main path: losses {losses}")
     log(f"main path: wire bytes/round/device "
         f"{out['wire_bytes_per_round_per_device']:,}; device-steps/s "
         f"{out['device_steps_per_s']:.3f} (rounds 2-{ROUNDS}); peak device "
         f"memory {peak_gib:.2f} GiB")
     log(f"main path: kernel launches {counts} (want {want} for each LGC "
-        f"kernel, 0 for swa_decode)")
+        f"row kernel, 0 for the flat ones and swa_decode)")
+    log(f"main path: params and error memory after {ROUNDS} rounds bitwise "
+        f"equal to the device-by-device flat path (launches {flat_counts})")
+    del flat_task, fb
     (e, delta), = kept
     return counts, ref.ftz_add(e, delta)
 
@@ -661,7 +819,7 @@ def phase_prng() -> None:
     """The threefry PRNG on the card: every call bitwise equal to the CPU's."""
     import torch
     from repro_torch.core import prng
-    from repro_torch.core.scenario import stream_key
+    from repro_torch.core.scenario import stream_key, stream_keys
     for seed in (0, 1, 2 ** 31 - 1):
         kc, kg = prng.PRNGKey(seed), prng.PRNGKey(seed, device="cuda")
         calls = {
@@ -682,41 +840,90 @@ def phase_prng() -> None:
         dither = prng.uniform(kc, (206_922,), device="cuda")
         check(bits_equal(dither.cpu(), prng.uniform(kc, (206_922,))),
               "prng: bits drawn on the card from a CPU key")
+        # the batched engine's forms: CPU base key, rounds and devices as
+        # tensors on the device, rows of keys there
+        rows = {
+            "stream_keys": lambda d: stream_keys(
+                kc, 0, torch.arange(96, 100, device=d),
+                torch.arange(8, device=d)),
+            "randint_rows": lambda d: prng.randint_rows(
+                prng.split(kc, 8).to(d), 64,
+                torch.arange(1, 9, device=d) * 9_000),
+            "uniform_rows": lambda d: prng.uniform_rows(
+                prng.split(kc, 8).to(d), 7_850),
+            "normal_rows": lambda d: prng.normal_rows(
+                prng.split(kc, 8).to(d), 3),
+        }
+        for name, fn in rows.items():
+            got, want = fn("cuda"), fn("cpu")
+            check(got.device.type == "cuda" and bits_equal(got.cpu(), want),
+                  f"prng {name} seed {seed}: card and CPU differ")
     torch.cuda.synchronize()
-    log(f"prng: {', '.join(calls)} on the card bitwise equal to the CPU's "
-        f"(seeds 0, 1, 2**31-1)")
+    log(f"prng: {', '.join(calls)}, {', '.join(rows)} on the card bitwise "
+        f"equal to the CPU's (seeds 0, 1, 2**31-1)")
 
 
 @contextlib.contextmanager
-def syncs_held_against_plain(compared: list):
-    """Wrap ``repro_torch.kernels.lgc_compress_hist`` (``_ef_step`` imports
-    it at every sync): each sync's (g, e') must be bitwise equal to the
-    plain pipeline on the same card tensors; ``compared`` gets each sync's
-    received pattern.  The plain calls launch no kernel of the port."""
+def syncs_held_against_plain(compared: list, engine: str):
+    """Wrap ``repro_torch.kernels.lgc_compress_hist`` (the loop engine's
+    ``_ef_step`` imports it at every sync) or ``lgc_compress_hist_rows``
+    (the batched engine's, likewise): each sync's (g, e') must be bitwise
+    equal to the plain pipeline on the same card tensors; ``compared`` gets
+    each synced device's received pattern.  The plain calls launch no
+    kernel of the port.  On the batched engine, the window's phases run
+    under torch's sync debug mode "error": a host sync inside a window
+    raises."""
+    import torch
     import repro_torch.kernels as kernels
+    from repro_torch.core.fl_batched import BatchedEngine
     from repro_torch.kernels import ref
-    kern = kernels.lgc_compress_hist
+    name = "lgc_compress_hist" if engine == "loop" else "lgc_compress_hist_rows"
+    plain = (ref.hist_lgc_compress if engine == "loop"
+             else ref.hist_lgc_compress_rows)
+    kern = getattr(kernels, name)
 
     def checked(e, delta, cum_ks, received):
         g, e_new = kern(e, delta, cum_ks, received)
-        g_ref, e_ref = ref.hist_lgc_compress(e, delta, cum_ks, received)
+        # the check's own reads wait for the card: not the engine's
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("default")
+        g_ref, e_ref = plain(e, delta, cum_ks, received)
         check(bits_equal(g, g_ref) and bits_equal(e_new, e_ref),
-              f"simulator sync {len(compared)}: the kernels' (g, e') differ "
-              f"from the plain versions' on the same inputs")
-        compared.append(tuple(received.tolist()))
+              f"simulator sync {len(compared)} ({engine}): the kernels' "
+              f"(g, e') differ from the plain versions' on the same inputs")
+        rows = received.tolist()
+        compared.extend(map(tuple, rows) if engine == "batched"
+                        else [tuple(rows)])
+        torch.cuda.set_sync_debug_mode(mode)
         return g, e_new
-    kernels.lgc_compress_hist = checked
+
+    def no_sync(fn):
+        def guarded(*a, **k):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return guarded
+    window = ("_channels", "_draw_batches", "_local_steps", "_sync")
+    saved = {m: getattr(BatchedEngine, m) for m in window}
+    setattr(kernels, name, checked)
+    if engine == "batched":
+        for m in window:
+            setattr(BatchedEngine, m, no_sync(saved[m]))
     try:
         yield
     finally:
-        kernels.lgc_compress_hist = kern
+        setattr(kernels, name, kern)
+        for m in window:
+            setattr(BatchedEngine, m, saved[m])
 
 
 def sim_run(task_name: str, m: int, n_train: int, rounds: int,
-            eval_every: int, mode: str, device: str,
+            eval_every: int, mode: str, engine: str, device: str,
             compared: list | None = None) -> dict:
-    """One loop-engine run (backend "cuda": the kernels on the card, their
-    plain versions on the CPU) with its launch counts and host times; with
+    """One run (backend "cuda": the kernels on the card, their plain
+    versions on the CPU) with its launch counts and host times; with
     ``compared``, every sync is held against the plain versions (a run not
     timed)."""
     import torch
@@ -725,10 +932,11 @@ def sim_run(task_name: str, m: int, n_train: int, rounds: int,
     from repro_torch.kernels import LAUNCHES, reset_launch_counts
     from repro_torch.models.paper_models import make_task
     task = make_task(task_name, m_devices=m, n_train=n_train)
-    cfg = FLConfig(rounds=rounds, eval_every=eval_every, backend="cuda")
+    cfg = FLConfig(rounds=rounds, eval_every=eval_every, backend="cuda",
+                   engine=engine)
     sim = baseline_simulator(task, cfg, mode, h=SIM_H, device=device)
-    held = (syncs_held_against_plain(compared) if compared is not None
-            else contextlib.nullcontext())
+    held = (syncs_held_against_plain(compared, engine)
+            if compared is not None else contextlib.nullcontext())
     if device == "cuda":
         torch.cuda.synchronize()
     with held:
@@ -740,15 +948,21 @@ def sim_run(task_name: str, m: int, n_train: int, rounds: int,
         wall = time.perf_counter() - t0
         counts = dict(LAUNCHES)
     check(all(math.isfinite(x) for x in hist.loss + hist.accuracy),
-          f"{task_name} {mode} on {device}: History not finite")
-    sync = [ms for t, ms in enumerate(sim.round_ms) if (t + 1) % SIM_H == 0]
-    other = [ms for t, ms in enumerate(sim.round_ms) if (t + 1) % SIM_H]
-    return {"hist": hist, "d": sim.d, "launches": counts, "wall_s": wall,
-            "n_eval": min(EVAL_SUBSET, len(task.eval_data[1])),
-            "host_ms_per_round": wall * 1e3 / rounds,
-            "median_sync_round_ms": statistics.median(sync),
-            "median_other_round_ms": statistics.median(other),
-            "device_steps_per_s": m * rounds / wall}
+          f"{task_name} {mode} {engine} on {device}: History not finite")
+    out = {"hist": hist, "d": sim.d, "launches": counts, "wall_s": wall,
+           "n_eval": min(EVAL_SUBSET, len(task.eval_data[1])),
+           "host_ms_per_round": wall * 1e3 / rounds,
+           "device_steps_per_s": m * rounds / wall}
+    if engine == "loop":
+        sync = [ms for t, ms in enumerate(sim.round_ms)
+                if (t + 1) % SIM_H == 0]
+        other = [ms for t, ms in enumerate(sim.round_ms) if (t + 1) % SIM_H]
+        out |= {"median_sync_round_ms": statistics.median(sync),
+                "median_other_round_ms": statistics.median(other)}
+    else:
+        out["median_window_ms"] = statistics.median(
+            sim.batched_engine.window_ms)
+    return out
 
 
 def check_history(tag: str, gpu, cpu, n_eval: int) -> tuple[float, int]:
@@ -770,53 +984,74 @@ def check_history(tag: str, gpu, cpu, n_eval: int) -> tuple[float, int]:
 
 def phase_simulator(smi: str) -> dict:
     """lr_mnist at the quickstart's defaults (lgc, fedavg) and cnn_mnist at
-    the factory's (lgc, topk): the card against the CPU, each sync's
-    (g, e') on the card bitwise equal to the plain versions on the same
-    inputs, and the LGC kernels launched once per sync.  A second card run,
-    not checked per sync, gives the host times.  Returns the launch counts
-    of the checked runs."""
+    the factory's (lgc, topk), on the loop and the batched engine: the card
+    against the CPU, each sync's (g, e') on the card bitwise equal to the
+    plain versions on the same inputs, the loop engine launching the flat
+    LGC kernels once per device and sync and the batched engine the row
+    kernels once per sync boundary.  A second card run of each, not
+    checked per sync, gives the host times.  Returns the launch counts of
+    the checked runs by (task mode, engine)."""
     launches = {}
     for task_name, m, n_train, rounds, eval_every, modes in SIM_RUNS:
         for mode in modes:
-            args = (task_name, m, n_train, rounds, eval_every, mode)
-            tag = f"{task_name} {mode}"
-            compared: list = []
-            cpu = sim_run(*args, "cpu")
-            gpu = sim_run(*args, "cuda", compared=compared)
-            timed = sim_run(*args, "cuda")
-            n_eval = cpu["n_eval"]
-            worst, gap = check_history(tag, gpu["hist"], cpu["hist"], n_eval)
-            check_history(f"{tag} (timed run)", timed["hist"], cpu["hist"],
-                          n_eval)
-            want = m * (rounds // SIM_H) if mode != "fedavg" else 0
-            for name in LGC_KERNELS:
-                for run in (gpu, timed):
-                    check(run["launches"][name] == want,
-                          f"{tag}: {name} launched {run['launches'][name]} "
-                          f"times, expected {want}")
-            check(gpu["launches"]["swa_decode"] == 0
-                  and timed["launches"]["swa_decode"] == 0,
-                  f"{tag}: swa_decode launched")
-            check(len(compared) == want, f"{tag}: {len(compared)} syncs "
-                  f"held against the plain versions, expected {want}")
-            dropped = sum(1 for r in compared if not all(r))
-            launches[tag] = gpu["launches"]
-            h = gpu["hist"]
-            log(f"simulator {tag}: D={gpu['d']:,}, M={m}, {rounds} rounds, "
-                f"H={SIM_H}; loss {h.loss[0]:.4f} -> {h.loss[-1]:.4f}, "
-                f"accuracy {h.accuracy[-1]:.4f}, uplink "
-                f"{h.uplink_mb[-1]:.4f} MB, energy {h.energy_j[-1]:.1f} J; "
-                f"card's losses within {worst:.2e} of the CPU's, accuracy "
-                f"count within {gap} of {n_eval}; {len(compared)} syncs "
-                f"bitwise equal to the plain versions ({dropped} with a "
-                f"channel dropped); launches {gpu['launches']}")
-            for dev, r in (("cuda", timed), ("cpu", cpu)):
-                log(f"simulator {tag} on {dev}: host ms per round "
-                    f"{r['host_ms_per_round']:.3f} (median sync round "
-                    f"{r['median_sync_round_ms']:.3f}, other rounds "
-                    f"{r['median_other_round_ms']:.3f}), device-steps/s "
-                    f"{r['device_steps_per_s']:.1f} ({r['wall_s']:.2f} s); "
-                    f"{smi}")
+            timing = {}
+            for engine in ENGINES:
+                args = (task_name, m, n_train, rounds, eval_every, mode,
+                        engine)
+                tag = f"{task_name} {mode} {engine}"
+                compared: list = []
+                cpu = sim_run(*args, "cpu")
+                gpu = sim_run(*args, "cuda", compared=compared)
+                timed = sim_run(*args, "cuda")
+                n_eval = cpu["n_eval"]
+                worst, gap = check_history(tag, gpu["hist"], cpu["hist"],
+                                           n_eval)
+                check_history(f"{tag} (timed run)", timed["hist"],
+                              cpu["hist"], n_eval)
+                syncs = m * (rounds // SIM_H) if mode != "fedavg" else 0
+                boundaries = rounds // SIM_H if mode != "fedavg" else 0
+                for name, rows_name in ROW_KERNELS.items():
+                    want = {name: syncs if engine == "loop" else 0,
+                            rows_name: boundaries if engine == "batched"
+                            else 0}
+                    for run in (gpu, timed):
+                        for k, v in want.items():
+                            check(run["launches"][k] == v,
+                                  f"{tag}: {k} launched "
+                                  f"{run['launches'][k]} times, expected {v}")
+                check(gpu["launches"]["swa_decode"] == 0
+                      and timed["launches"]["swa_decode"] == 0,
+                      f"{tag}: swa_decode launched")
+                check(len(compared) == syncs, f"{tag}: {len(compared)} syncs "
+                      f"held against the plain versions, expected {syncs}")
+                dropped = sum(1 for r in compared if not all(r))
+                launches[tag] = gpu["launches"]
+                timing[engine] = timed
+                h = gpu["hist"]
+                log(f"simulator {tag}: D={gpu['d']:,}, M={m}, {rounds} "
+                    f"rounds, H={SIM_H}; loss {h.loss[0]:.4f} -> "
+                    f"{h.loss[-1]:.4f}, accuracy {h.accuracy[-1]:.4f}, uplink "
+                    f"{h.uplink_mb[-1]:.4f} MB, energy {h.energy_j[-1]:.1f} J; "
+                    f"card's losses within {worst:.2e} of the CPU's, accuracy "
+                    f"count within {gap} of {n_eval}; {len(compared)} device "
+                    f"syncs bitwise equal to the plain versions ({dropped} "
+                    f"with a channel dropped); launches {gpu['launches']}")
+                for dev, r in (("cuda", timed), ("cpu", cpu)):
+                    detail = (f"median sync round "
+                              f"{r['median_sync_round_ms']:.3f}, other rounds "
+                              f"{r['median_other_round_ms']:.3f}"
+                              if engine == "loop" else
+                              f"median window {r['median_window_ms']:.3f}")
+                    log(f"simulator {tag} on {dev}: host ms per round "
+                        f"{r['host_ms_per_round']:.3f} ({detail}), "
+                        f"device-steps/s {r['device_steps_per_s']:.1f} "
+                        f"({r['wall_s']:.2f} s); {smi}")
+            log(f"simulator {task_name} {mode} on the card, batched against "
+                f"loop in this call: device-steps/s "
+                f"{timing['batched']['device_steps_per_s']:.1f} against "
+                f"{timing['loop']['device_steps_per_s']:.1f}, host ms per "
+                f"round {timing['batched']['host_ms_per_round']:.3f} against "
+                f"{timing['loop']['host_ms_per_round']:.3f}; {smi}")
     return launches
 
 
@@ -847,14 +1082,26 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_row(n: int, kern, plain, lib, n_bytes: float, n_ops: float) -> dict:
+def time_row(n: int, kern, plain, lib, n_bytes: float, n_ops: float,
+             m_flat=None) -> dict:
+    """Times of a kernel, its plain version and a library call; with
+    ``m_flat``, also of the M flat launches that the row form replaces."""
     from repro_torch.device import device_ms
     bnd, by = bound_ms(n_bytes, n_ops)
-    return {"n": n, "ms": time_ms(kern), "plain_ms": time_ms(plain),
-            "library_ms": time_ms(lib) if lib else None,
-            "device_ms": device_ms(kern),
-            "library_device_ms": device_ms(lib) if lib else None,
-            "bound_ms": bnd, "bound_by": by}
+    lib_device_ms = None
+    if lib:
+        try:
+            lib_device_ms = device_ms(lib)
+        except RuntimeError as err:    # the call waits for the card itself
+            log(f"timing: no device time for the library call ({err})")
+    row = {"n": n, "ms": time_ms(kern), "plain_ms": time_ms(plain),
+           "library_ms": time_ms(lib) if lib else None,
+           "device_ms": device_ms(kern), "library_device_ms": lib_device_ms,
+           "bound_ms": bnd, "bound_by": by, "bytes": n_bytes}
+    if m_flat is not None:
+        row |= {"m_flat_ms": time_ms(m_flat),
+                "m_flat_device_ms": device_ms(m_flat)}
+    return row
 
 
 def log_row(name: str, tag, row: dict) -> None:
@@ -937,6 +1184,62 @@ def phase_timings(gen, main_u) -> dict:
     for tag, v in (("main_path_u", main_u), ("one_bin", one_bin)):
         rows["histogram"][tag] = time_row(v.numel(), *histogram_case(v))
         log_row("histogram", tag, rows["histogram"][tag])
+    return rows
+
+
+def phase_time_rows(gen) -> dict:
+    """Each LGC row kernel at the paths' (M, D), as the paths call it:
+    ``sum_maxabs_rows`` (library: ``vector_norm(u, inf, dim=1)`` on u),
+    ``histogram_rows`` (library: M ``histc`` calls), ``sparsify_ef_rows``;
+    each beside its plain row version and the M flat launches it
+    replaces.  Returns {kernel: {"MxD": row}}."""
+    import torch
+    from repro_torch.kernels import (histogram, histogram_rows, ref,
+                                     sparsify_ef, sparsify_ef_rows,
+                                     sum_maxabs, sum_maxabs_rows,
+                                     thresholds_from_counts)
+    rows: dict = {name: {} for name in ROW_KERNELS}
+    inf = float("inf")
+    for m, n in ROW_SHAPES:
+        e, x, cum = row_inputs(gen, m, n)
+        x[1 % m] = torch.randn(n, generator=gen, device="cuda") * 1e-3
+        e[1 % m] = torch.randn(n, generator=gen, device="cuda") * 1e-4
+        recv = torch.ones((m, 3), dtype=torch.int32, device="cuda")
+        u, mx = sum_maxabs_rows(e, x)
+        mx_host = mx.tolist()
+        a = u.abs()
+        thr = thresholds_from_counts(histogram_rows(u, mx), mx, cum)
+        c_n, md = 3, m * n
+        cases = {
+            "maxabs": (lambda: sum_maxabs_rows(e, x),
+                       lambda: ref.hist_maxabs_rows(ref.ftz_add(e, x)),
+                       lambda: torch.linalg.vector_norm(u, inf, dim=1),
+                       12 * md + 4 * m, 2 * md,
+                       lambda: [sum_maxabs(e[r], x[r]) for r in range(m)]),
+            "histogram": (lambda: histogram_rows(u, mx),
+                          lambda: ref.hist_counts_rows(u, mx),
+                          lambda: [torch.histc(a[r], bins=256, min=0.0,
+                                               max=mx_host[r])
+                                   for r in range(m)],
+                          4 * md + 4 * m + 4 * 256 * m, 3 * md,
+                          lambda: [histogram(u[r], mx[r]) for r in range(m)]),
+            "sparsify_ef": (lambda: sparsify_ef_rows(e, x, thr, recv),
+                            lambda: ref.hist_layered_sparsify_rows(
+                                ref.ftz_add(e, x), thr, recv),
+                            None, 16 * md + 8 * c_n * m,
+                            (2 + 4 * c_n) * md,
+                            lambda: [sparsify_ef(e[r], x[r], thr[r], recv[r])
+                                     for r in range(m)]),
+        }
+        for name, (kern, plain, lib, n_bytes, n_ops, m_flat) in cases.items():
+            row = time_row(n, kern, plain, lib, n_bytes, n_ops, m_flat)
+            row["shape"] = [m, n]
+            rows[name][f"{m}x{n}"] = row
+            log_row(f"{ROW_KERNELS[name]}", f"(M, D)=({m}, {n})", row)
+            log(f"timing {m} flat launches of {name} at D={n}: "
+                f"{row['m_flat_ms']:.5f} ms one call, "
+                f"{row['m_flat_device_ms']:.5f} ms device")
+        del e, x, u, a
     return rows
 
 
@@ -1029,6 +1332,7 @@ def main() -> int:
     phase_prng()
     sim_launches = phase_simulator(smi)
     rows = phase_timings(gen, main_u)
+    row_times = phase_time_rows(gen)
     swa_row = phase_time_swa(gen)
 
     kernels = []
@@ -1036,8 +1340,11 @@ def main() -> int:
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "max_abs_err": errs[name]}
         if name in LGC_KERNELS:        # the training path's kernels
+            rn = ROW_KERNELS[name]
             big = rows[name][LARGEST_LEAF]
-            row |= {"launches": launches[name]} | big | {
+            row |= {"launches": launches[name] + launches[rn],
+                    "launches_by_form": {"flat": launches[name],
+                                         "rows": launches[rn]}} | big | {
                 "at_embed": rows[name][EMBED]}
             if name == "histogram":
                 row |= {"at_main_path_u": rows[name]["main_path_u"],
@@ -1045,9 +1352,17 @@ def main() -> int:
             if name == "maxabs":
                 row["at_sum"] = rows[name]["sum"]
             row |= {"launches_simulator": {
-                        tag: c[name] for tag, c in sim_launches.items()},
+                        tag: c[name] + c[rn]
+                        for tag, c in sim_launches.items()},
                     "at_cnn_mnist": rows[name][CNN_D],
                     "at_lr_mnist": rows[name][LR_D]}
+            # the row form at each path's (M, D), with that path's launches
+            path_launches = (sim_launches["lr_mnist lgc batched"][rn],
+                             sim_launches["cnn_mnist lgc batched"][rn],
+                             launches[rn])
+            for (m, n), k in zip(ROW_SHAPES, path_launches):
+                row_times[name][f"{m}x{n}"]["launches"] = k
+            row["rows"] = row_times[name]
         else:                          # the serving path's kernel
             row |= {"launches": serving["launches"][name]} | swa_row
         kernels.append(row)

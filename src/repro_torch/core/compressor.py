@@ -18,9 +18,11 @@ Port of ``repro/core/compressor.py:41-131`` and ``:439-511``:
 Everything runs on the tensors' own device and is bitwise equal to the
 reference on the same inputs (tests/test_torch_sim_core.py).  The
 histogram-threshold selection that the CUDA kernels compute lives in
-:mod:`repro_torch.kernels`; the per-layer budgets (reference :225-411,
-ROADMAP A8) and the argsort-free ``lgc_compress_topk`` of the batched
-engine (ROADMAP A6) wait for their slices.
+:mod:`repro_torch.kernels`.  The batched engine's exact backend,
+``lgc_compress_traced`` and the argsort-free ``lgc_compress_topk``
+(reference :132-196), takes budgets and delivery masks as (M, C) tensors
+over (M, D) rows.  The per-layer budgets (reference :225-411) wait for
+ROADMAP A8.
 """
 from __future__ import annotations
 
@@ -115,6 +117,86 @@ def lgc_compress(x: torch.Tensor, ks: Sequence[int],
     return out
 
 
+# ---------------------------------------------------------------------------
+# traced budgets on (M, D) rows: the batched engine's exact backend
+# ---------------------------------------------------------------------------
+
+def _as_rows(u: torch.Tensor, ks: torch.Tensor, received: torch.Tensor):
+    flat = u.dim() == 1
+    if flat:
+        u, ks, received = u[None], ks[None], received[None]
+    return flat, u, ks.to(torch.int64), received.to(torch.bool)
+
+
+def lgc_compress_traced(u: torch.Tensor, ks: torch.Tensor,
+                        received: torch.Tensor) -> torch.Tensor:
+    """LGC_k of each row of u (M, D) with per-row budgets ``ks`` (M, C) and
+    delivery masks ``received`` (M, C), as tensors (reference
+    ``compressor.py:174``): the rank semantics of :func:`lgc_compress`
+    (stable argsort of -|u|, ties to the lower index).  A flat u with (C,)
+    budgets is one row."""
+    flat, u, ks, received = _as_rows(u, ks, received)
+    order = torch.argsort(-torch.abs(u), dim=1, stable=True)
+    rank = torch.empty_like(order)
+    rank.scatter_(1, order, torch.arange(u.shape[1], device=u.device)
+                  .expand_as(order))
+    cum = torch.cat([torch.zeros_like(ks[:, :1]), torch.cumsum(ks, 1)], 1)
+    g = torch.zeros_like(u)
+    for c in range(ks.shape[1]):
+        sel = ((rank >= cum[:, c:c + 1]) & (rank < cum[:, c + 1:c + 2])
+               & received[:, c:c + 1])
+        g = g + torch.where(sel, u, torch.zeros_like(u))
+    return g[0] if flat else g
+
+
+def lgc_compress_topk(u: torch.Tensor, ks: torch.Tensor,
+                      received: torch.Tensor, k_cap: int) -> torch.Tensor:
+    """:func:`lgc_compress_traced` without the full argsort (reference
+    ``compressor.py:132``): layer boundaries by threshold, the b-th largest
+    |u| of ``torch.topk``, with an index-order cumsum to split ties, which
+    keeps the stable-argsort ranks on every coordinate that matters
+    (coordinates with u == 0 may change layer but add 0 either way).  So
+    each row is bitwise :func:`lgc_compress` of that row.
+
+    ``k_cap`` is a bound with k_cap >= min(max(cumsum(ks)), D); the
+    selection does not depend on it above that bound."""
+    flat, u, ks, received = _as_rows(u, ks, received)
+    a = torch.abs(u)
+    d = u.shape[1]
+    vals = torch.topk(a, min(k_cap, d), dim=1).values       # descending |u|
+    cum = torch.cumsum(ks, 1)
+
+    def rank_below(b: torch.Tensor) -> torch.Tensor:
+        """{i : rank(|u_i|) < b} per row, b (M,)."""
+        bc = b.clamp(1, vals.shape[1])
+        thr = vals.gather(1, (bc - 1)[:, None])             # b-th largest
+        gt = a > thr
+        eq = a == thr
+        tied_take = bc - gt.sum(1)                          # ties to include
+        pos = torch.cumsum(eq, 1)                           # 1-based order
+        sel = gt | (eq & (pos <= tied_take[:, None]))
+        sel = sel & (b > 0)[:, None]
+        return sel | (b >= d)[:, None]
+
+    g = torch.zeros_like(u)
+    prev = torch.zeros_like(a, dtype=torch.bool)
+    for c in range(ks.shape[1]):
+        cur = rank_below(cum[:, c])
+        g = g + torch.where(cur & ~prev & received[:, c:c + 1], u,
+                            torch.zeros_like(u))
+        prev = cur
+    return g[0] if flat else g
+
+
+def k_cap_for(ks_total_max: int, d: int) -> int:
+    """The static top-k bound of :func:`lgc_compress_topk` for a largest
+    per-device budget: rounded up to a power of two, at most D (the
+    reference's ``BatchedEngine._k_cap``, ``fl_batched.py:645-660``; the
+    engine keeps the largest cap it has used, so the cap is monotone)."""
+    k_max = max(1, int(ks_total_max))
+    return min(d, 1 << (k_max - 1).bit_length())
+
+
 def wire_bytes(ks: Sequence[int], value_bytes: int = 4,
                index_bytes: int = 4) -> list[int]:
     """Bytes on the wire per channel for the sparse format."""
@@ -147,6 +229,21 @@ def qsgd_quantize(x: torch.Tensor, key: torch.Tensor, levels: int = 255
     lo = torch.floor(y)
     p = y - lo                                 # P(round up)
     up = prng.uniform(key, tuple(x.shape), device=x.device) < p
+    q = (lo + up.to(torch.float32)).to(torch.int32)
+    return torch.clamp(q, -half, half), scale
+
+
+def qsgd_quantize_rows(x: torch.Tensor, keys: torch.Tensor,
+                       levels: int = 255
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`qsgd_quantize` of each row of x (S, D) with its key of
+    ``keys`` (S, 2): codes (S, D) and scales (S, 1)."""
+    scale = torch.amax(torch.abs(x), 1, keepdim=True) + 1e-30
+    half = levels // 2
+    y = x / scale * half
+    lo = torch.floor(y)
+    p = y - lo
+    up = prng.uniform_rows(keys, x.shape[1]) < p
     q = (lo + up.to(torch.float32)).to(torch.int32)
     return torch.clamp(q, -half, half), scale
 

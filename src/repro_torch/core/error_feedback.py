@@ -16,6 +16,8 @@ from typing import NamedTuple, Sequence
 
 import torch
 
+from repro_torch.kernels.ref import ftz_add
+
 from .compressor import LGCCompressor
 
 
@@ -36,6 +38,6 @@ def ef_compress(state: EFState, delta: torch.Tensor,
 
     ``received[c]`` False drops layer c on its channel; its mass stays in
     the error memory (e' = u - g_sent), to be sent again later."""
-    u = state.e + delta
+    u = ftz_add(state.e, delta)        # flushed, as the reference adds
     g_sent = compressor(u, received)
     return g_sent, EFState(e=u - g_sent)

@@ -28,11 +28,21 @@ each of ``maxabs``, ``histogram`` and ``sparsify_ef`` on a CUDA device, their
 plain versions on the CPU; ``backend="exact"`` keeps the rank-exact oracle
 of :mod:`.compressor`.  Modes: ``lgc``, ``topk``, ``fedavg``, ``lgc_q8``.
 
-Not ported yet, and raising where asked for: the batched and sharded
-engines (ROADMAP A6, A12), per-layer budgets (A8), the per-device action
-space, pipelined decisions and learning controllers (A9), the diloco and
-semi_sync servers (A10), and scenarios whose channels evolve or whose
-devices drop (A7).
+Two engines run the same algorithm: ``engine="batched"`` (the default, as
+in the reference: :mod:`.fl_batched`, stacked (M, D) state, one launch of
+each LGC row kernel per sync boundary) and ``engine="loop"`` (this module,
+the Python loop over devices).  Their Histories agree to float summation
+order (tests/test_torch_fl_batched.py).
+
+Subnormals.  The reference's XLA:CPU flushes f32 subnormals in every
+arithmetic op; PyTorch keeps them.  So the engines flush where the
+reference's arithmetic would (:func:`sgd_update`, the net progress, the EF
+adds, :func:`server_mean_update`), with ``kernels.ref.ftz`` / ``ftz_add``.
+
+Not ported yet, and raising where asked for: the sharded engine (ROADMAP
+A12), per-layer budgets (A8), the per-device action space, pipelined
+decisions and learning controllers (A9), the diloco and semi_sync servers
+(A10), and scenarios whose channels evolve or whose devices drop (A7).
 """
 from __future__ import annotations
 
@@ -44,6 +54,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.ref import ftz, ftz_add
 
 from . import prng
 from .channels import (DEFAULT_CHANNELS, ChannelSpec, DeviceProfile,
@@ -89,9 +100,7 @@ class FLConfig:
     eval_every: int = 10
     value_bytes: int = 4               # fp32 values on the wire
     index_bytes: int = 4
-    # the reference defaults to its batched engine; the port has the loop
-    # engine only so far (batched: ROADMAP A6, sharded: A12)
-    engine: str = "loop"
+    engine: str = "batched"            # "batched" | "loop" ("sharded": A12)
     backend: str = "exact"             # "exact" | "cuda" ("pallas" = "cuda")
     scenario: str | Scenario = "static"
     layer_policy: str = "global"       # others: ROADMAP A8
@@ -172,6 +181,21 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
+def sgd_update(p: torch.Tensor, g: torch.Tensor, eta: float) -> torch.Tensor:
+    """p - eta * g in f32, subnormals flushed as the reference's XLA:CPU
+    flushes them: each operand, the product and the result."""
+    return ftz(ftz(p) - ftz(eta * ftz(g)))
+
+
+def server_mean_update(flat: torch.Tensor, updates, m: int) -> torch.Tensor:
+    """Algorithm 1 lines 20-21: flat - (sum of the synced updates) / M, the
+    sum taken update by update, every op flushed as the reference's."""
+    g_sum = ftz(updates[0])
+    for g in updates[1:]:
+        g_sum = ftz_add(g_sum, g)
+    return ftz_add(flat, -ftz(g_sum / m))
+
+
 class LGCSimulator:
     """Runs Algorithm 1 for M devices with per-device controllers.
 
@@ -191,11 +215,9 @@ class LGCSimulator:
             raise ValueError(f"unknown backend {backend!r}; expected one of "
                              f"{sorted(BACKENDS)}")
         self.backend = BACKENDS[backend]
-        if self.engine == "batched":
-            raise _not_ported("engine='batched'", "A6")
         if self.engine == "sharded":
             raise _not_ported("engine='sharded'", "A12")
-        if self.engine != "loop":
+        if self.engine not in ("loop", "batched"):
             raise ValueError(f"unknown engine {self.engine!r}")
         if cfg.layer_policy != "global":
             raise _not_ported(f"layer_policy={cfg.layer_policy!r}", "A8")
@@ -263,7 +285,7 @@ class LGCSimulator:
                   for k, v in params.items()}
         loss = self.task.loss_fn(leaves, batch)
         grads = torch.autograd.grad(loss, list(leaves.values()))
-        return {k: (p - eta * g).detach()
+        return {k: sgd_update(p.detach(), g, eta)
                 for (k, p), g in zip(leaves.items(), grads)}
 
     def _eta(self, t: int) -> float:
@@ -326,8 +348,15 @@ class LGCSimulator:
 
     # -- main loop -----------------------------------------------------------
     def run(self) -> History:
-        """Run ``cfg.rounds`` rounds of Algorithm 1; ``self.round_ms`` gets
-        each round's host time."""
+        """Run ``cfg.rounds`` rounds of Algorithm 1 on the simulator's
+        engine; ``self.round_ms`` gets each round's host time."""
+        if self.engine == "batched":
+            from .fl_batched import BatchedEngine
+            self.batched_engine = BatchedEngine(self)
+            return self.batched_engine.run()
+        return self._run_loop()
+
+    def _run_loop(self) -> History:
         hist = History()
         cfg = self.cfg
         self.round_ms = []
@@ -345,8 +374,8 @@ class LGCSimulator:
                     sync_ms.append(m)
                     walls.append(total["time_s"])
             if updates:
-                g_mean = sum(updates) / self.m_devices
-                flat = flatten_tree(self.params) - g_mean
+                flat = server_mean_update(flatten_tree(self.params), updates,
+                                          self.m_devices)
                 self.params = unflatten_like(flat, self.params)
                 self.server_wall_s += max(walls)
                 for m in sync_ms:
@@ -382,7 +411,7 @@ class LGCSimulator:
         ch = sample_from_carry(self.scenario, self._consts,
                                self.scen_carry[m], k_ch)
         up = [bool(u) for u in ch.up.tolist()]
-        delta = self.w_anchor[m] - flatten_tree(self.w_hat[m])
+        delta = ftz_add(self.w_anchor[m], -flatten_tree(self.w_hat[m]))
 
         if self.mode == "fedavg":
             # dense, no error feedback; the full model over the fastest
@@ -408,7 +437,8 @@ class LGCSimulator:
                 kq = stream_key(self._base, TAG_QUANT, t, m)
                 q, scale = qsgd_quantize(g, kq)
                 g_deq = qsgd_dequantize(q, scale)
-                self.ef[m] = EFState(self.ef[m].e + (g - g_deq))
+                self.ef[m] = EFState(ftz_add(self.ef[m].e,
+                                             ftz_add(g, -g_deq)))
                 g = g_deq
                 value_bytes = 1
             nbytes = wire_bytes(ks, value_bytes, self.cfg.index_bytes)

@@ -1,0 +1,318 @@
+"""The batched engine: every device's state stacked on a leading M axis.
+
+Port of ``repro/core/fl_batched.py``: :func:`_stack_device_data` (:89), the
+device phase of :func:`make_device_phase` (:112) and the host loop of
+:class:`BatchedEngine` (:308).  A window runs from the last boundary to the
+earliest sync point:
+
+    window(t0 .. te):
+      keys of every (round, device) in a few tensor passes (TAG_BATCH) and
+        the minibatch indices drawn from them, on the simulator's device
+      for each round: torch.func.vmap(torch.func.grad(loss)) over the
+        stacked (M, D) parameters, then p - eta * g
+      at te - 1, for the devices that sync: the channel draw (TAG_CHANNEL)
+        and cost model, on the host; layered compression with error
+        feedback over their rows (``backend="cuda"``: one launch each of
+        the three LGC row kernels,
+        :func:`repro_torch.kernels.lgc_compress_hist_rows`; ``"exact"``:
+        :func:`.compressor.lgc_compress_topk`), QSGD (``lgc_q8``), the
+        server mean and the broadcast, on the device
+
+Nothing in a window waits for the device.  Per-round step sizes are host
+scalars; the channel draw and the costs are the loop engine's host
+arithmetic on (S, N) rows, in f32 on the CPU (a few small tensors, where
+the same draw on the card would be thousands of tiny launches), so the
+spend accumulates in f64 without reading anything back; the (S, N) up mask
+and the QSGD keys go to the device as asynchronous copies from pinned
+memory.  Host values that change rarely (the budgets, a sync set) go to
+the device once per distinct value and are kept.  Only an eval point reads
+the device (its loss and accuracy).
+
+The per-device arithmetic is the loop engine's; the batched matmuls of the
+vmapped SGD sum in another order, so History agrees with the loop engine's
+to float summation order (tests/test_torch_fl_batched.py), and byte counts
+and sync sets exactly.  What the loop engine refuses (A7-A10), this engine
+refuses too: :class:`~.fl.LGCSimulator` checks it before either runs.
+"""
+from __future__ import annotations
+
+import time
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.ref import ftz_add
+
+from . import prng
+from .channels import (ChannelSample, comm_cost_mb, comp_cost,
+                       sample_channels_rows)
+from .compressor import (_leaf_order, flatten_tree, k_cap_for,
+                         lgc_compress_topk, qsgd_dequantize,
+                         qsgd_quantize_rows, unflatten_like)
+from .fl import History, server_mean_update, sgd_update
+from .scenario import TAG_BATCH, TAG_CHANNEL, TAG_QUANT, stream_keys
+
+
+def _stack_device_data(device_data: Sequence, device: torch.device
+                       ) -> tuple[tuple[torch.Tensor, ...], torch.Tensor]:
+    """Pad the per-device shards to a common row count and stack each part
+    on a new leading device axis: (n_i, ...) -> (M, Nmax, ...), with the
+    row counts n (M,) int64, on ``device``.
+
+    Padding rows are zeros and never reach the model: the minibatch draw
+    takes indices in [0, n_i) per device."""
+    ns = [int(np.asarray(shard[0]).shape[0]) for shard in device_data]
+    nmax = max(ns)
+    parts = []
+    for leaves in zip(*device_data):
+        leaves = [np.asarray(a) for a in leaves]
+        out = np.zeros((len(leaves), nmax) + leaves[0].shape[1:],
+                       leaves[0].dtype)
+        for i, a in enumerate(leaves):
+            out[i, :a.shape[0]] = a
+        parts.append(torch.from_numpy(out).to(device))
+    return tuple(parts), torch.tensor(ns, dtype=torch.int64, device=device)
+
+
+class BatchedEngine:
+    """Drives one :class:`~.fl.LGCSimulator` with stacked (M, D) state.
+
+    The simulator's host-side attributes (params, spend, decisions,
+    next_sync) are kept current at window boundaries, so decisions and
+    History recording reuse the simulator's own code.  ``window_ms`` gets
+    each window's host time; ``sim.round_ms`` each round's share of it."""
+
+    def __init__(self, sim):
+        self.sim = sim
+        cfg = sim.cfg
+        dev = sim.device
+        self.m, self.d = sim.m_devices, sim.d
+        self.n_ch = len(cfg.channels)
+        self.data, self.n_dev = _stack_device_data(sim.task.device_data, dev)
+        self.dev_ids = torch.arange(self.m, dtype=torch.int64, device=dev)
+        flat0 = flatten_tree(sim.params)
+        self.w_hat = flat0.expand(self.m, self.d).clone()     # (M, D)
+        self.anchor = self.w_hat.clone()
+        self.ef = torch.zeros((self.m, self.d), dtype=torch.float32,
+                              device=dev)
+        self.window_ms: list[float] = []
+        self._k_cap_hi = 0
+        self._kept: dict = {}            # host values already on the device
+        names = _leaf_order(sim.params)
+        shapes = [tuple(sim.params[k].shape) for k in names]
+        sizes = [int(sim.params[k].numel()) for k in names]
+        loss_fn = sim.task.loss_fn
+
+        def loss_of_flat(w, *batch):
+            parts = torch.split(w, sizes)
+            params = {k: p.view(s) for k, p, s in zip(names, parts, shapes)}
+            return loss_fn(params, batch)
+        self._grad = torch.func.vmap(torch.func.grad(loss_of_flat))
+
+    # -- host values kept on the device -------------------------------------
+    def _on_device(self, key, make) -> torch.Tensor:
+        """``make()`` moved to the device once per distinct ``key``."""
+        t = self._kept.get(key)
+        if t is None:
+            t = make().to(self.sim.device)
+            self._kept[key] = t
+        return t
+
+    def _ks_list(self, ms: tuple[int, ...]) -> list[list[int]]:
+        """(S, C) budgets of the devices ``ms`` (topk folds the whole budget
+        into channel 0; rows padded or trimmed to the channel count)."""
+        rows = []
+        for m in ms:
+            ks = list(self.sim.decisions[m].ks)
+            if self.sim.mode == "topk":
+                ks = [sum(ks)] + [0] * (len(ks) - 1)
+            rows.append((ks + [0] * self.n_ch)[:self.n_ch])
+        return rows
+
+    def _ks_rows(self, ms: tuple[int, ...]) -> torch.Tensor:
+        """:meth:`_ks_list` on the device, kept per distinct value."""
+        rows = self._ks_list(ms)
+        return self._on_device(("ks", tuple(map(tuple, rows))),
+                               lambda: torch.tensor(rows, dtype=torch.int64))
+
+    def _rows_index(self, ms: tuple[int, ...]) -> torch.Tensor:
+        return self._on_device(("rows", ms), lambda: torch.tensor(
+            ms, dtype=torch.int64))
+
+    def _k_cap(self) -> int:
+        """The top-k bound of the exact backend: a power of two, and the
+        largest used so far (the reference's monotone ``_k_cap``)."""
+        k_max = max(sum(dec.ks) for dec in self.sim.decisions)
+        self._k_cap_hi = max(self._k_cap_hi, k_cap_for(k_max, self.d))
+        return self._k_cap_hi
+
+    # -- the window ----------------------------------------------------------
+    def _draw_batches(self, t0: int, te: int) -> torch.Tensor:
+        """(L, M, b) minibatch indices of rounds t0 .. te-1: the keys of
+        every (round, device) and the draws in a few tensor passes, each
+        device's indices in [0, n_m)."""
+        sim = self.sim
+        ts = torch.arange(t0, te, dtype=torch.int64, device=sim.device)
+        keys = stream_keys(sim._base, TAG_BATCH, ts, self.dev_ids)
+        n_l = te - t0
+        idx = prng.randint_rows(keys.reshape(n_l * self.m, 2),
+                                sim.cfg.batch_size, self.n_dev.repeat(n_l))
+        return idx.reshape(n_l, self.m, -1)
+
+    def _local_steps(self, t0: int, te: int, idx: torch.Tensor) -> None:
+        """The window's local SGD: one vmapped gradient over the M stacked
+        parameter rows per round, then p - eta(t) * g."""
+        rows = self.dev_ids[:, None]
+        for i, t in enumerate(range(t0, te)):
+            batch = tuple(part[rows, idx[i]] for part in self.data)
+            g = self._grad(self.w_hat, *batch)
+            self.w_hat = sgd_update(self.w_hat, g, self.sim._eta(t))
+
+    def _compress(self, ef: torch.Tensor, delta: torch.Tensor,
+                  ks: torch.Tensor, recv: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(g, e') of the syncing rows, backend-dispatched."""
+        if self.sim.backend == "cuda":
+            # looked up at each call, so a caller may wrap it
+            from repro_torch import kernels
+            return kernels.lgc_compress_hist_rows(
+                ef, delta, torch.cumsum(ks, 1), recv.to(torch.int32))
+        u = ftz_add(ef, delta)
+        g = lgc_compress_topk(u, ks, recv, self._k_cap())
+        return g, u - g
+
+    def _channels(self, te: int, ms: tuple[int, ...]
+                  ) -> tuple[ChannelSample, np.ndarray]:
+        """The sync's channel draw (TAG_CHANNEL at round te - 1) and cost
+        model for the devices ``ms``, on the host in f32 as the loop engine
+        prices them: the (S, N) sample and the (S, 4) costs (energy, money,
+        time, uplink bytes)."""
+        sim, cfg = self.sim, self.sim.cfg
+        keys = stream_keys(sim._base, TAG_CHANNEL,
+                           torch.tensor([te - 1]), torch.tensor(ms))[0]
+        ch = sample_channels_rows(keys, sim._consts)
+        if sim.mode == "fedavg":
+            # the whole model over the fastest channel that is up; with
+            # every channel down nothing is sent
+            any_up = ch.up.any(1)
+            best = torch.argmax(ch.bandwidth_mb_s * ch.up, 1)
+            nbytes = ((torch.arange(self.n_ch) == best[:, None])
+                      .to(torch.float32) * float(self.d * cfg.value_bytes))
+            uplink = torch.where(any_up, nbytes.sum(1), torch.zeros(()))
+        else:
+            value_bytes = 1 if sim.mode == "lgc_q8" else cfg.value_bytes
+            ks = torch.tensor(self._ks_list(ms), dtype=torch.float32)
+            nbytes = (ks * float(value_bytes + cfg.index_bytes)
+                      * ch.up[:, :self.n_ch].to(torch.float32))
+            uplink = nbytes.sum(1)
+        comm = comm_cost_mb(ch, nbytes / 1e6)
+        costs = torch.stack([comm["energy_j"], comm["money"],
+                             comm["time_s"], uplink], 1)
+        return ch, costs.numpy()
+
+    def _upload(self, x: torch.Tensor) -> torch.Tensor:
+        """A small host tensor to the device without waiting for it: pinned
+        memory, an asynchronous copy."""
+        if self.sim.device.type == "cpu":
+            return x
+        return x.pin_memory().to(self.sim.device, non_blocking=True)
+
+    def _sync(self, te: int, ms: tuple[int, ...], ks: torch.Tensor,
+              rows: torch.Tensor | None, ch: ChannelSample) -> dict:
+        """The sync at round te - 1 of the devices ``ms`` (their budgets
+        ``ks`` (S, C) and row indices ``rows`` on the device, None for all
+        rows; their channel sample ``ch`` on the host): compression with EF
+        of their rows, QSGD, the server mean and the broadcast, enqueued on
+        the device.  Returns the new global params."""
+        sim = self.sim
+        all_rows = rows is None
+
+        def take(x):
+            return x if all_rows else x.index_select(0, rows)
+        up = self._upload(ch.up)
+        ef = take(self.ef)
+        delta = ftz_add(take(self.anchor), -take(self.w_hat))
+        if sim.mode == "fedavg":
+            # dense, no error feedback; a lost upload sends nothing
+            g = torch.where(up.any(1)[:, None], delta,
+                            torch.zeros_like(delta))
+            ef_new = ef
+        else:
+            g, ef_new = self._compress(ef, delta, ks, up[:, :self.n_ch])
+            if sim.mode == "lgc_q8":
+                # int8 values on the wire; the quantization residual stays
+                # in the error memory
+                kq = self._upload(stream_keys(
+                    sim._base, TAG_QUANT, torch.tensor([te - 1]),
+                    torch.tensor(ms))[0])
+                q, scale = qsgd_quantize_rows(g, kq)
+                g_deq = qsgd_dequantize(q, scale)
+                ef_new = ftz_add(ef_new, ftz_add(g, -g_deq))
+                g = g_deq
+        flat = server_mean_update(flatten_tree(sim.params), list(g), self.m)
+        if all_rows:
+            self.ef = ef_new
+            self.w_hat = flat.expand(self.m, self.d).clone()
+            self.anchor = self.w_hat.clone()
+        else:
+            self.ef.index_copy_(0, rows, ef_new)
+            bcast = flat.expand(len(ms), self.d)
+            self.w_hat.index_copy_(0, rows, bcast)
+            self.anchor.index_copy_(0, rows, bcast)
+        return unflatten_like(flat, sim.params)
+
+    def _account(self, ms: tuple[int, ...], costs_np: np.ndarray) -> None:
+        """Spend in f64 on the host, as the loop engine adds it, and the
+        simulated server wall-clock (the slowest syncing device)."""
+        sim = self.sim
+        walls = []
+        for row, m in enumerate(ms):
+            ccomp = comp_cost(sim.profiles[m], sim.decisions[m].h)
+            total = {
+                "energy_j": float(costs_np[row, 0]) + ccomp["energy_j"],
+                "money": float(costs_np[row, 1]) + ccomp["money"],
+                "time_s": float(costs_np[row, 2]) + ccomp["time_s"],
+                "mb": float(costs_np[row, 3]) / 1e6,
+            }
+            for k, v in total.items():
+                sim.spend[m][k] += v
+            walls.append(total["time_s"])
+        sim.server_wall_s += max(walls)
+
+    # -- host loop: chain windows, decide at boundaries ----------------------
+    def run(self) -> History:
+        sim, cfg = self.sim, self.sim.cfg
+        hist = History()
+        sim.round_ms = []
+        self.window_ms = []
+        sim._decide_devices(range(self.m), 0)
+        t = 0
+        while t < cfg.rounds:
+            t_start = time.perf_counter()
+            te = min(min(sim.next_sync), cfg.rounds)
+            ms = tuple(m for m in range(self.m) if sim.next_sync[m] <= te)
+            if ms:      # host values the window needs, on the device first
+                ks = self._ks_rows(ms)
+                rows = None if len(ms) == self.m else self._rows_index(ms)
+                ch, costs = self._channels(te, ms)
+            self._local_steps(t, te, self._draw_batches(t, te))
+            params = self._sync(te, ms, ks, rows, ch) if ms else None
+            # eval points inside the window precede its sync: they see the
+            # params and the spend from before it
+            rec = [r for r in range(t, te)
+                   if r % cfg.eval_every == 0 or r == cfg.rounds - 1]
+            last_rec = bool(rec) and rec[-1] == te - 1
+            for r in rec[:-1] if last_rec else rec:
+                sim._record(hist, r)
+            if ms:
+                self._account(ms, costs)
+                sim.params = params
+                sim._decide_devices(ms, te)
+            if last_rec:
+                sim._record(hist, te - 1)
+            ms_window = (time.perf_counter() - t_start) * 1e3
+            self.window_ms.append(ms_window)
+            sim.round_ms.extend([ms_window / (te - t)] * (te - t))
+            t = te
+        return hist

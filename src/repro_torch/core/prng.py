@@ -25,17 +25,20 @@ arithmetic is exact on both, so the CPU and the card give the same bits.
 ``log1p``), reproduced here with the same operations in the same order:
 XLA contracts each multiply-add of its polynomials into a fused
 multiply-add, which :func:`fma32` computes exactly, and evaluates ``log``
-by the Cephes polynomial of its CPU backend.  One step is not reproduced:
-XLA:CPU's f32 ``sqrt`` is not correctly rounded (a fraction of inputs
-differ from IEEE by an ulp), and ``erf_inv`` takes it where w >= 5, that
-is for |normal| above about 2.93.  There the port's correctly rounded
-``sqrt`` (:func:`sqrt_f32`, the same on the CPU and the card, where the
-f32 ``torch.sqrt`` is not correctly rounded either) leaves ``normal``
-within 2 ulp of jax's; everywhere else ``normal`` is bitwise equal, and
-``truncated_normal`` (|u| <= erf(sqrt 2), w < 2.5) always is.
-tests/test_torch_prng.py holds each sampler to live jax: raw bits, keys,
-``uniform``, ``randint`` and ``truncated_normal`` bitwise, ``normal``
-bitwise below 2.9 and within 2 ulp above.
+by the Cephes polynomial of its CPU backend.  ``erf_inv`` takes a f32
+``sqrt`` where w >= 5 (|normal| above about 2.93); the port's
+(:func:`sqrt_f32`, the same on the CPU and the card, where the f32
+``torch.sqrt`` is not correctly rounded) is correctly rounded.  So is
+XLA:CPU's on the hosts this was checked on, where ``normal`` is bitwise
+equal to jax's on millions of draws; a host whose XLA:CPU ``sqrt`` is not
+correctly rounded leaves ``normal`` within 2 ulp of jax's there, which is
+the tolerance tests/test_torch_prng.py allows above 2.9.  Raw bits, keys,
+``uniform``, ``randint`` and ``truncated_normal`` (|u| <= erf(sqrt 2),
+w < 2.5) are bitwise equal to jax's on every host.
+
+The ``*_rows`` forms draw one row per key of a (K, 2) key tensor in a few
+tensor passes (the batched engine's keys of all devices at once); row r is
+bitwise the single-key draw with ``keys[r]``.
 """
 from __future__ import annotations
 
@@ -112,16 +115,51 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
                           [i & MASK for i in range(num)])
 
 
+def _bits_range(key: torch.Tensor, lo: int, hi: int, device) -> torch.Tensor:
+    """Bits of elements [lo, hi) of a draw: each element hashes its own
+    index, so a draw can be made in pieces with the same bits."""
+    i = torch.arange(lo, hi, dtype=torch.int64, device=device)
+    k = key.to(device)
+    y0, y1 = threefry2x32(k[0], k[1], i >> 32, i & MASK)
+    return y0 ^ y1
+
+
 def random_bits(key: torch.Tensor, shape: Sequence[int] = (),
                 device: str | torch.device | None = None) -> torch.Tensor:
     """32 random bits per element (``bits1 ^ bits2`` over a 64-bit iota), as
     an int64 tensor of uint32 values on ``device`` (default: the key's)."""
     dev = key.device if device is None else torch.device(device)
-    n = math.prod(shape)
-    i = torch.arange(n, dtype=torch.int64, device=dev)
-    k = key.to(dev)
-    y0, y1 = threefry2x32(k[0], k[1], i >> 32, i & MASK)
-    return (y0 ^ y1).reshape(tuple(shape))
+    return _bits_range(key, 0, math.prod(shape), dev).reshape(tuple(shape))
+
+
+# ---------------------------------------------------------------------------
+# rows: one draw per key of a (K, 2) key tensor, in one tensor pass
+# ---------------------------------------------------------------------------
+
+def fold_in_rows(keys: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """``fold_in`` of every key of ``keys`` (..., 2) with every counter of
+    ``data`` (a tensor of uint32 values on the keys' device), broadcast:
+    keys (..., 2) and data (...) give (..., 2)."""
+    d = data.to(torch.int64)
+    y0, y1 = threefry2x32(keys[..., 0], keys[..., 1], torch.zeros_like(d), d)
+    return torch.stack([y0, y1], -1)
+
+
+def split_rows(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``split`` of each key of ``keys`` (K, 2): (K, num, 2)."""
+    i = torch.arange(num, dtype=torch.int64, device=keys.device)
+    y0, y1 = threefry2x32(keys[:, None, 0], keys[:, None, 1], i >> 32,
+                          i & MASK)
+    return torch.stack([y0, y1], -1)
+
+
+def random_bits_rows(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``random_bits(keys[r], (n,))`` for every row r of ``keys`` (K, 2):
+    (K, n) on the keys' device."""
+    i = torch.arange(n, dtype=torch.int64, device=keys.device)
+    y0, y1 = threefry2x32(keys[:, None, 0], keys[:, None, 1], i >> 32,
+                          i & MASK)
+    return y0 ^ y1
 
 
 # ---------------------------------------------------------------------------
@@ -129,7 +167,8 @@ def random_bits(key: torch.Tensor, shape: Sequence[int] = (),
 # ---------------------------------------------------------------------------
 
 def _f32(v, device) -> torch.Tensor:
-    return torch.tensor(v, dtype=_F32, device=device)
+    """An f32 scalar made on ``device`` by a fill, not a copy: no host sync."""
+    return torch.full((), v, dtype=_F32, device=device)
 
 
 def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -159,24 +198,30 @@ def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.double()).to(_F32)
 
 
-def _uniform_floats(key, shape, device) -> torch.Tensor:
-    """Floats in [0, 1): 23 random mantissa bits under the exponent of 1."""
-    bits = random_bits(key, shape, device)
-    one = ((bits >> 9) | 0x3F800000).to(torch.int32).view(_F32)
-    return one - 1.0
-
-
-def uniform(key: torch.Tensor, shape: Sequence[int] = (), minval=0.0,
-            maxval=1.0, device: str | torch.device | None = None
-            ) -> torch.Tensor:
-    """``jax.random.uniform`` in f32: ``max(min, floats * (max - min) + min)``
-    with the multiply-add fused, as XLA:CPU fuses it (``random.py:_uniform``)."""
-    floats = _uniform_floats(key, shape, device)
+def _uniform_from_bits(bits: torch.Tensor, minval, maxval) -> torch.Tensor:
+    """``jax.random.uniform`` in f32 from its bits: 23 random mantissa bits
+    under the exponent of 1 give floats in [0, 1), then ``max(min, floats *
+    (max - min) + min)`` with the multiply-add fused, as XLA:CPU fuses it
+    (``random.py:_uniform``)."""
+    floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(_F32) - 1.0
     lo = _f32(minval, floats.device)
     hi = _f32(maxval, floats.device)
     span = (hi - lo).expand_as(floats)
     out = fma32(floats, span, lo.expand_as(floats))
     return torch.maximum(lo, out)
+
+
+def uniform(key: torch.Tensor, shape: Sequence[int] = (), minval=0.0,
+            maxval=1.0, device: str | torch.device | None = None
+            ) -> torch.Tensor:
+    """``jax.random.uniform`` in f32 (``random.py:_uniform``)."""
+    return _uniform_from_bits(random_bits(key, shape, device), minval, maxval)
+
+
+def uniform_rows(keys: torch.Tensor, n: int, minval=0.0, maxval=1.0
+                 ) -> torch.Tensor:
+    """``uniform(keys[r], (n,))`` for every row of ``keys`` (K, 2): (K, n)."""
+    return _uniform_from_bits(random_bits_rows(keys, n), minval, maxval)
 
 
 def randint(key: torch.Tensor, shape: Sequence[int], minval: int, maxval: int,
@@ -198,6 +243,24 @@ def randint(key: torch.Tensor, shape: Sequence[int], minval: int, maxval: int,
     off = ((higher % span) * mult) & MASK
     off = ((off + lower % span) & MASK) % span
     return off + lo_i
+
+
+def randint_rows(keys: torch.Tensor, n: int, maxval: torch.Tensor
+                 ) -> torch.Tensor:
+    """``randint(keys[r], (n,), 0, maxval[r])`` for every row of ``keys``
+    (K, 2), with a per-row bound ``maxval`` (K,) of positive int32 values
+    on the keys' device: (K, n) int64, bitwise equal to K calls of
+    :func:`randint`, in a few tensor passes and no host sync."""
+    span = maxval.to(torch.int64)[:, None]
+    mult = (2 ** 16) % span
+    mult = ((mult * mult) & MASK) % span
+    ks = split_rows(keys, 2)                                   # (K, 2, 2)
+    i = torch.arange(n, dtype=torch.int64, device=keys.device)
+    y0, y1 = threefry2x32(ks[:, :, None, 0], ks[:, :, None, 1], i >> 32,
+                          i & MASK)
+    bits = y0 ^ y1                                             # (K, 2, n)
+    off = ((bits[:, 0] % span) * mult) & MASK
+    return ((off + bits[:, 1] % span) & MASK) % span
 
 
 # XLA:CPU's f32 log1p: a Cephes rational function below sqrt(2) - 1, the
@@ -292,12 +355,30 @@ _SQRT2 = 1.4142135381698608        # f32(sqrt(2))
 _NORMAL_LO = -0.99999994039535522  # nextafter(f32(-1), 0)
 
 
+#: elements a ``normal`` draw computes at a time: its float64 temporaries
+#: for a full-width weight would otherwise take tens of GB
+NORMAL_PIECE = 1 << 22
+
+
 def normal(key: torch.Tensor, shape: Sequence[int] = (),
            device: str | torch.device | None = None) -> torch.Tensor:
     """``jax.random.normal`` in f32: ``sqrt(2) * erf_inv(u)``, u uniform on
-    [nextafter(-1, 0), 1)."""
-    u = uniform(key, shape, _NORMAL_LO, 1.0, device)
-    return _SQRT2 * erf_inv(u)
+    [nextafter(-1, 0), 1).  Drawn ``NORMAL_PIECE`` elements at a time (the
+    same bits: each element hashes its own index)."""
+    dev = key.device if device is None else torch.device(device)
+    n = math.prod(shape)
+    out = torch.empty(n, dtype=_F32, device=dev)
+    for lo in range(0, n, NORMAL_PIECE):
+        hi = min(n, lo + NORMAL_PIECE)
+        u = _uniform_from_bits(_bits_range(key, lo, hi, dev), _NORMAL_LO,
+                               1.0)
+        out[lo:hi] = _SQRT2 * erf_inv(u)
+    return out.reshape(tuple(shape))
+
+
+def normal_rows(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``normal(keys[r], (n,))`` for every row of ``keys`` (K, 2): (K, n)."""
+    return _SQRT2 * erf_inv(uniform_rows(keys, n, _NORMAL_LO, 1.0))
 
 
 def _f32_round(v: float) -> float:

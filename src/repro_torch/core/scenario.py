@@ -49,6 +49,21 @@ def stream_key(base: torch.Tensor, tag: int, *ids) -> torch.Tensor:
     return k
 
 
+def stream_keys(base: torch.Tensor, tag: int, ts: torch.Tensor,
+                dev_ids: torch.Tensor) -> torch.Tensor:
+    """``stream_key(base, tag, t, m)`` for every round t of ``ts`` (L,) and
+    device m of ``dev_ids`` (M,), as an (L, M, 2) tensor on their device:
+    the tag is folded in on the host (``base`` lies on the CPU), the rounds
+    and the devices in two tensor passes, with no copy to the device."""
+    k0, k1 = prng.fold_in(base, tag).tolist()
+    ts = ts.to(torch.int64)
+    y0, y1 = prng.threefry2x32(k0, k1, torch.zeros_like(ts), ts)
+    ids = dev_ids.to(torch.int64)[None, :]
+    z0, z1 = prng.threefry2x32(y0[:, None], y1[:, None],
+                               torch.zeros_like(ids), ids)
+    return torch.stack([z0, z1], -1)
+
+
 # ---------------------------------------------------------------------------
 # dynamics specs
 # ---------------------------------------------------------------------------

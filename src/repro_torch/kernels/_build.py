@@ -14,7 +14,9 @@ each function returns ``cudaGetLastError()`` of its launch.
 
 ``LAUNCHES`` counts kernel launches per kernel: each wrapper adds one where
 it launches its kernel and nowhere else, so a run can show which kernels its
-path went through.
+path went through.  Each LGC kernel takes (M, D) rows, a flat vector being
+one row; launches over rows count under their own keys (``maxabs_rows``,
+``histogram_rows``, ``sparsify_ef_rows``), so a run shows which form ran.
 """
 from __future__ import annotations
 
@@ -33,7 +35,8 @@ HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
-LAUNCHES = {"maxabs": 0, "histogram": 0, "sparsify_ef": 0, "swa_decode": 0}
+LAUNCHES = {"maxabs": 0, "histogram": 0, "sparsify_ef": 0, "swa_decode": 0,
+            "maxabs_rows": 0, "histogram_rows": 0, "sparsify_ef_rows": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -112,9 +115,10 @@ def lib() -> ctypes.CDLL:
         if _lib is None:
             so = ctypes.CDLL(str(build()))
             vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-            so.lgc_maxabs.argtypes = [vp, vp, vp, i64, vp, vp, vp, ci, vp]
-            so.lgc_histogram.argtypes = [vp, i64, vp, vp, vp, ci, vp]
-            so.lgc_sparsify_ef.argtypes = [vp, vp, vp, vp, ci, vp, vp, i64, vp]
+            so.lgc_maxabs.argtypes = [vp, vp, vp, i64, i64, vp, vp, vp, ci, vp]
+            so.lgc_histogram.argtypes = [vp, i64, i64, vp, vp, vp, ci, vp]
+            so.lgc_sparsify_ef.argtypes = [vp, vp, vp, vp, ci, vp, vp, i64, i64,
+                                           ci, vp]
             so.lgc_swa_decode.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci,
                                           ci, ci, ci, ci, ci, vp]
             for fn in (so.lgc_maxabs, so.lgc_histogram, so.lgc_sparsify_ef,

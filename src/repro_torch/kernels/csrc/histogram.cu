@@ -35,6 +35,9 @@
 //   fences, and counts itself on a counter; the last block moves the
 //   accumulator into `counts` with atomicExch(.., 0) and resets the counter.
 //   The integer counts make every atomic order give the same result.
+// * Rows.  The same kernel takes (M, D) rows (the simulator's batched engine
+//   and the 100M step), row blockIdx.y of a 2-D grid, each row with its own
+//   maximum, accumulator, counter and counts; a flat vector is one row.
 #include "common.cuh"
 
 namespace {
@@ -61,9 +64,11 @@ __device__ __forceinline__ void count(float4 v, float scale, int* bins, int& zer
   count(v.w, scale, bins, zeros);
 }
 
-__global__ void __launch_bounds__(lgc::kThreads)
-histogram_kernel(const float* __restrict__ x, int64_t n, const float* __restrict__ maxabs,
-                 int* __restrict__ acc, int* __restrict__ counter, int* __restrict__ counts) {
+// One vector's histogram over the blocks blockIdx.x of the grid's x axis.
+__device__ __forceinline__ void histogram_block(const float* __restrict__ x, int64_t n,
+                                                const float* __restrict__ maxabs,
+                                                int* __restrict__ acc, int* __restrict__ counter,
+                                                int* __restrict__ counts) {
   __shared__ int sub[lgc::kWarps][lgc::kBins];
   __shared__ bool last;
   for (int i = threadIdx.x; i < lgc::kWarps * lgc::kBins; i += blockDim.x) (&sub[0][0])[i] = 0;
@@ -117,13 +122,27 @@ histogram_kernel(const float* __restrict__ x, int64_t n, const float* __restrict
   if (b == 0) *counter = 0;                        // ready for the next launch
 }
 
+// Row blockIdx.y of x with its own maximum, its own 257-int accumulator (256
+// bins and a counter) and its own 256 counts; a flat vector is one row.
+__global__ void __launch_bounds__(lgc::kThreads)
+histogram_kernel(const float* __restrict__ x, int64_t n, const float* __restrict__ maxabs,
+                 int* __restrict__ acc, int* __restrict__ counts) {
+  const int64_t row = blockIdx.y;
+  int* acc_row = acc + row * (lgc::kBins + 1);
+  histogram_block(x + row * n, n, maxabs + row, acc_row, acc_row + lgc::kBins,
+                  counts + row * lgc::kBins);
+}
+
 }  // namespace
 
-// acc: 257 ints (256 bins and a counter), zero, left zero.
-extern "C" int lgc_histogram(const float* x, int64_t n, const float* maxabs, int* counts,
-                             int* acc, int grid, cudaStream_t stream) {
-  if (n < 1 || grid < 1) return static_cast<int>(cudaErrorInvalidValue);
-  histogram_kernel<<<grid, lgc::kThreads, 0, stream>>>(x, n, maxabs, acc, acc + lgc::kBins,
-                                                       counts);
+// x (rows, n), maxabs (rows,), counts (rows, 256).  acc: rows x 257 ints
+// (256 bins and a counter each), zero, left zero.  grid: blocks per row.
+extern "C" int lgc_histogram(const float* x, int64_t rows, int64_t n, const float* maxabs,
+                             int* counts, int* acc, int grid, cudaStream_t stream) {
+  if (rows < 1 || rows > 65535 || n < 1 || grid < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 blocks(grid, static_cast<unsigned>(rows));
+  histogram_kernel<<<blocks, lgc::kThreads, 0, stream>>>(x, n, maxabs, acc, counts);
   return static_cast<int>(cudaGetLastError());
 }

@@ -26,6 +26,11 @@
 // the 0-3 floats at the end are handled apart.  The grid is the resident block
 // count (the wrapper passes SMs x 8 blocks of 256 threads, fewer for a short
 // vector).
+//
+// The same kernel takes (M, D) rows (the simulator's batched engine and the
+// 100M step: one row per device), row blockIdx.y of a 2-D grid; a flat vector
+// is one row.  A row of an odd D starts anywhere modulo 16 bytes, so each row
+// takes its own head of 0-3 floats before its float4 body.
 #include "common.cuh"
 
 namespace {
@@ -58,13 +63,15 @@ __device__ __forceinline__ unsigned block_max(unsigned m) {
   return __reduce_max_sync(0xffffffffu, m);
 }
 
-// kSum: the values are u = x + d, stored to u.  kVec: x, d and u share their
-// offset from a 16-byte boundary, so the body moves as float4s.
+// One vector's max over the blocks blockIdx.x of the grid's x axis.  kSum: the values are u = x + d, stored to u.  kVec:
+// x, d and u share their offset from a 16-byte boundary, so the body moves as
+// float4s.
 template <bool kSum, bool kVec>
-__global__ void __launch_bounds__(lgc::kThreads)
-maxabs_kernel(const float* __restrict__ x, const float* __restrict__ d, float* __restrict__ u,
-              int64_t n, unsigned* __restrict__ partials, int* __restrict__ counter,
-              unsigned* __restrict__ out) {
+__device__ __forceinline__ void maxabs_block(const float* __restrict__ x,
+                                             const float* __restrict__ d, float* __restrict__ u,
+                                             int64_t n, unsigned* __restrict__ partials,
+                                             int* __restrict__ counter,
+                                             unsigned* __restrict__ out) {
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   auto value = [&](int64_t i) {
@@ -144,25 +151,43 @@ maxabs_kernel(const float* __restrict__ x, const float* __restrict__ d, float* _
   }
 }
 
+// Row blockIdx.y of x (and of d and u), gridDim.x blocks per row, each row
+// with its own partials, counter and output; a flat vector is one row.  A
+// row's result is an integer max: the same in any grouping of the rows.
+template <bool kSum, bool kVec>
+__global__ void __launch_bounds__(lgc::kThreads)
+maxabs_kernel(const float* __restrict__ x, const float* __restrict__ d, float* __restrict__ u,
+              int64_t n, unsigned* __restrict__ partials, int* __restrict__ counters,
+              unsigned* __restrict__ out) {
+  const int64_t row = blockIdx.y;
+  maxabs_block<kSum, kVec>(x + row * n, kSum ? d + row * n : d, kSum ? u + row * n : u, n,
+                           partials + row * gridDim.x, counters + row, out + row);
+}
+
 }  // namespace
 
-// partials: `grid` unsigned ints of scratch; counter: one int, zero, left zero.
-// d == nullptr: max |x|.  Otherwise max |u| with u = x + d (flushed) written
-// to u (n floats).
-extern "C" int lgc_maxabs(const float* x, const float* d, float* u, int64_t n, float* out,
-                          unsigned* partials, int* counter, int grid, cudaStream_t stream) {
-  if (n < 1 || grid < 1) return static_cast<int>(cudaErrorInvalidValue);
+// x (rows, n); out (rows,).  partials: rows x grid unsigned ints of scratch;
+// counters: `rows` ints, zero, left zero.  grid: blocks per row.  d ==
+// nullptr: max |x| of each row.  Otherwise max |u| with u = x + d (flushed)
+// written to u (rows, n).
+extern "C" int lgc_maxabs(const float* x, const float* d, float* u, int64_t rows, int64_t n,
+                          float* out, unsigned* partials, int* counters, int grid,
+                          cudaStream_t stream) {
+  if (rows < 1 || rows > 65535 || n < 1 || grid < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 blocks(grid, static_cast<unsigned>(rows));
   unsigned* o = reinterpret_cast<unsigned*>(out);
   if (d == nullptr) {
-    maxabs_kernel<false, true><<<grid, lgc::kThreads, 0, stream>>>(x, d, u, n, partials,
-                                                                   counter, o);
+    maxabs_kernel<false, true><<<blocks, lgc::kThreads, 0, stream>>>(x, d, u, n, partials,
+                                                                     counters, o);
   } else if (((reinterpret_cast<uintptr_t>(x) ^ reinterpret_cast<uintptr_t>(d)) |
               (reinterpret_cast<uintptr_t>(x) ^ reinterpret_cast<uintptr_t>(u))) & 15u) {
-    maxabs_kernel<true, false><<<grid, lgc::kThreads, 0, stream>>>(x, d, u, n, partials,
-                                                                   counter, o);
+    maxabs_kernel<true, false><<<blocks, lgc::kThreads, 0, stream>>>(x, d, u, n, partials,
+                                                                     counters, o);
   } else {
-    maxabs_kernel<true, true><<<grid, lgc::kThreads, 0, stream>>>(x, d, u, n, partials,
-                                                                  counter, o);
+    maxabs_kernel<true, true><<<blocks, lgc::kThreads, 0, stream>>>(x, d, u, n, partials,
+                                                                    counters, o);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,6 +19,14 @@
 // 0.135 ms at 3.35 TB/s; a handful of compares per element is far below the
 // compute rate.  The design is one streaming pass with 16-byte loads and
 // stores and eight resident blocks per SM; u never goes to device memory.
+//
+// One kernel serves the flat vector and the (M, D) rows (the simulator's
+// batched engine and the 100M step: one row per FL device): row blockIdx.y
+// of a 2-D grid with that row's thresholds and delivery flags, a flat vector
+// being one row.  A row starts anywhere modulo 16 bytes (an odd D, a view),
+// so each takes a scalar head of 0-3 floats, a float4 body and a scalar tail;
+// every element's arithmetic is the same, so a row's bits do not depend on
+// how the rows are grouped.
 #include "common.cuh"
 
 namespace {
@@ -44,26 +52,37 @@ struct Layers {
   }
 };
 
+// Row blockIdx.y of e and d with its own C thresholds and delivery flags
+// (thr and recv are (rows, C)), gridDim.x blocks per row.  kVec: e, d, g and
+// e_new share their offset from a 16-byte boundary, so each row moves as
+// float4s after its own head of 0-3 floats.
 template <int C, bool kVec>
 __global__ void __launch_bounds__(lgc::kThreads)
 sparsify_ef_kernel(const float* __restrict__ e, const float* __restrict__ d,
-                   const float* __restrict__ thr, const int* __restrict__ recv,
-                   float* __restrict__ g, float* __restrict__ e_new, int64_t n) {
+                        const float* __restrict__ thr, const int* __restrict__ recv,
+                        float* __restrict__ g, float* __restrict__ e_new, int64_t n) {
+  const int64_t row = blockIdx.y;
   Layers<C> L;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    L.lo[c] = lgc::ftz(__ldg(thr + c));
-    L.on[c] = __ldg(recv + c) > 0;
+    L.lo[c] = lgc::ftz(__ldg(thr + row * C + c));
+    L.on[c] = __ldg(recv + row * C + c) > 0;
   }
+  e += row * n;
+  d += row * n;
+  g += row * n;
+  e_new += row * n;
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   int64_t done = 0;
-  if (kVec) {   // every pointer 16-byte aligned (checked by the launcher)
-    const int64_t n4 = n / 4;
-    const float4* e4 = reinterpret_cast<const float4*>(e);
-    const float4* d4 = reinterpret_cast<const float4*>(d);
-    float4* g4 = reinterpret_cast<float4*>(g);
-    float4* n4p = reinterpret_cast<float4*>(e_new);
+  if (kVec) {
+    const int64_t head = lgc::head_elems(e, n);
+    if (tid < head) L.apply(e[tid], d[tid], g[tid], e_new[tid]);
+    const int64_t n4 = (n - head) / 4;
+    const float4* e4 = reinterpret_cast<const float4*>(e + head);
+    const float4* d4 = reinterpret_cast<const float4*>(d + head);
+    float4* g4 = reinterpret_cast<float4*>(g + head);
+    float4* n4p = reinterpret_cast<float4*>(e_new + head);
     for (int64_t i = tid; i < n4; i += stride) {
       const float4 ev = __ldg(e4 + i);
       const float4 dv = __ldg(d4 + i);
@@ -75,36 +94,42 @@ sparsify_ef_kernel(const float* __restrict__ e, const float* __restrict__ d,
       g4[i] = gv;
       n4p[i] = nv;
     }
-    done = 4 * n4;
+    done = head + 4 * n4;
   }
   for (int64_t i = done + tid; i < n; i += stride) L.apply(e[i], d[i], g[i], e_new[i]);
 }
 
 template <int C>
 void launch(const float* e, const float* d, const float* thr, const int* recv, float* g,
-            float* e_new, int64_t n, cudaStream_t stream) {
-  const bool vec = ((reinterpret_cast<uintptr_t>(e) | reinterpret_cast<uintptr_t>(d) |
-                     reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(e_new)) &
-                    15u) == 0;
+                 float* e_new, int64_t rows, int64_t n, int grid, cudaStream_t stream) {
+  const uintptr_t pe = reinterpret_cast<uintptr_t>(e);
+  const bool vec = (((pe ^ reinterpret_cast<uintptr_t>(d)) | (pe ^ reinterpret_cast<uintptr_t>(g)) |
+                     (pe ^ reinterpret_cast<uintptr_t>(e_new))) & 15u) == 0;
+  const dim3 blocks(grid, static_cast<unsigned>(rows));
   if (vec) {
-    const int grid = lgc::grid_for((n + 3) / 4, 8);
-    sparsify_ef_kernel<C, true><<<grid, lgc::kThreads, 0, stream>>>(e, d, thr, recv, g, e_new, n);
+    sparsify_ef_kernel<C, true><<<blocks, lgc::kThreads, 0, stream>>>(e, d, thr, recv, g,
+                                                                           e_new, n);
   } else {
-    const int grid = lgc::grid_for(n, 8);
-    sparsify_ef_kernel<C, false><<<grid, lgc::kThreads, 0, stream>>>(e, d, thr, recv, g, e_new, n);
+    sparsify_ef_kernel<C, false><<<blocks, lgc::kThreads, 0, stream>>>(e, d, thr, recv, g,
+                                                                            e_new, n);
   }
 }
 
 }  // namespace
 
-extern "C" int lgc_sparsify_ef(const float* e, const float* d, const float* thr, const int* recv,
-                               int n_layers, float* g, float* e_new, int64_t n,
-                               cudaStream_t stream) {
+// e, d, g, e_new (rows, n); thr (rows, C) f32 and recv (rows, C) int32; a
+// flat vector is one row.  grid: blocks per row.
+extern "C" int lgc_sparsify_ef(const float* e, const float* d, const float* thr,
+                               const int* recv, int n_layers, float* g, float* e_new,
+                               int64_t rows, int64_t n, int grid, cudaStream_t stream) {
+  if (rows < 1 || rows > 65535 || n < 1 || grid < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   switch (n_layers) {
-    case 1: launch<1>(e, d, thr, recv, g, e_new, n, stream); break;
-    case 2: launch<2>(e, d, thr, recv, g, e_new, n, stream); break;
-    case 3: launch<3>(e, d, thr, recv, g, e_new, n, stream); break;
-    case 4: launch<4>(e, d, thr, recv, g, e_new, n, stream); break;
+    case 1: launch<1>(e, d, thr, recv, g, e_new, rows, n, grid, stream); break;
+    case 2: launch<2>(e, d, thr, recv, g, e_new, rows, n, grid, stream); break;
+    case 3: launch<3>(e, d, thr, recv, g, e_new, rows, n, grid, stream); break;
+    case 4: launch<4>(e, d, thr, recv, g, e_new, rows, n, grid, stream); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -11,13 +11,18 @@ the reference composes it (ops.py:36-41):
   5. fused layered sparsify + error feedback (CUDA kernel, recomputes u)
 
 It matches :func:`repro_torch.kernels.ref.hist_lgc_compress` bitwise.
+``lgc_compress_hist_rows`` composes the (M, D) row forms the same way, one
+launch of each kernel over all rows (the reference's ``jax.vmap`` of
+``lgc_compress_hist``, ``repro/core/fl_batched.py:201-209``), and matches
+``ref.hist_lgc_compress_rows`` bitwise.
 """
 from __future__ import annotations
 
 import torch
 
-from .layered_sparsify import sparsify_ef
-from .topk_threshold import histogram, sum_maxabs, thresholds_from_counts
+from .layered_sparsify import sparsify_ef, sparsify_ef_rows
+from .topk_threshold import (histogram, histogram_rows, sum_maxabs,
+                             sum_maxabs_rows, thresholds_from_counts)
 
 
 def lgc_compress_hist(e: torch.Tensor, delta: torch.Tensor,
@@ -30,6 +35,20 @@ def lgc_compress_hist(e: torch.Tensor, delta: torch.Tensor,
     counts = histogram(u_stats, m)
     thr = thresholds_from_counts(counts, m, cum_ks)
     return sparsify_ef(e, delta, thr, received)
+
+
+def lgc_compress_hist_rows(e: torch.Tensor, delta: torch.Tensor,
+                           cum_ks: torch.Tensor, received: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Histogram-LGC with error feedback on each row of e, delta (M, D),
+    with per-row cumulative budgets ``cum_ks`` and delivery masks
+    ``received`` (M, C).  Returns (g, e_new), f32 (M, D)."""
+    e = e.to(torch.float32).contiguous()
+    delta = delta.to(torch.float32).contiguous()
+    u_stats, m = sum_maxabs_rows(e, delta)
+    counts = histogram_rows(u_stats, m)
+    thr = thresholds_from_counts(counts, m, cum_ks)
+    return sparsify_ef_rows(e, delta, thr, received)
 
 
 def selected_counts(g: torch.Tensor) -> torch.Tensor:

@@ -17,6 +17,11 @@ has no subnormals; ``abs``, ``where`` and copies keep the bits.  PyTorch
 keeps subnormals on both the CPU and the card, so the ``hist_*`` functions
 flush where the reference's arithmetic does: the add that forms u, the
 inputs of the max, the product and the compares, and the division m / 256.
+
+The ``*_rows`` forms take (M, D) rows, one per simulated device, as the
+reference's batched engine reaches the Pallas kernels through ``jax.vmap``
+(``repro/core/fl_batched.py:201-209``); they are the plain versions of the
+row kernels.
 """
 from __future__ import annotations
 
@@ -130,6 +135,78 @@ def hist_lgc_compress(e: torch.Tensor, delta: torch.Tensor,
     counts = hist_counts(u, m)
     thr = hist_thresholds(counts, m, cum_ks)
     return hist_layered_sparsify(u, thr, received)
+
+
+# ---------------------------------------------------------------------------
+# row forms: the same functions on (M, D) rows, one row per simulated device
+# (the reference's ``jax.vmap`` over the Pallas kernels); each row is
+# bitwise the flat version on that row
+# ---------------------------------------------------------------------------
+
+def hist_maxabs_rows(x: torch.Tensor) -> torch.Tensor:
+    """:func:`hist_maxabs` of each row of x (M, D): (M,) f32."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32) & 0x7FFFFFFF
+    bits = torch.where(bits < _MIN_NORMAL_BITS, 0, bits)
+    return bits.amax(1).view(torch.float32)
+
+
+def hist_counts_rows(x: torch.Tensor, maxabs: torch.Tensor) -> torch.Tensor:
+    """:func:`hist_counts` of each row of x (M, D) over [0, maxabs[r]]:
+    (M, 256) int32."""
+    a = ftz(x.abs())
+    m = ftz(maxabs.reshape(-1, 1))
+    scale = torch.where(m > 0, N_BINS / m, torch.zeros_like(m))
+    v = torch.nan_to_num(a * scale, nan=0.0).clamp_(max=N_BINS - 1)
+    rows = torch.arange(x.shape[0], device=x.device)[:, None] * N_BINS
+    bins = (v.to(torch.int32) + rows).reshape(-1)
+    counts = torch.zeros(x.shape[0] * N_BINS, dtype=torch.int32,
+                         device=x.device)
+    counts.index_add_(0, bins, torch.ones_like(bins, dtype=torch.int32))
+    return counts.reshape(x.shape[0], N_BINS)
+
+
+def hist_thresholds_rows(counts: torch.Tensor, maxabs: torch.Tensor,
+                         cum_ks: torch.Tensor) -> torch.Tensor:
+    """:func:`hist_thresholds` of each row: counts (M, 256), maxabs (M,),
+    cum_ks (M, C) -> (M, C) f32, in torch ops with no host sync."""
+    desc = torch.flip(torch.cumsum(torch.flip(counts, (1,)), 1), (1,))
+    m = maxabs.reshape(-1, 1).to(torch.float32)
+    bin_w = torch.where(m.abs() < 2.0 ** -118, m * 0, m / N_BINS)
+    ok = desc[:, None, :] >= cum_ks.to(desc.dtype)[:, :, None]   # (M, C, 256)
+    ids = torch.arange(N_BINS, device=counts.device)
+    top = torch.where(ok, ids, torch.full_like(ids, -1)).amax(2)
+    b = torch.where(ok.any(2), top, torch.zeros_like(top))
+    return b.to(torch.float32) * bin_w
+
+
+def hist_layered_sparsify_rows(u: torch.Tensor, thr: torch.Tensor,
+                               received: torch.Tensor
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`hist_layered_sparsify` of each row: u (M, D), thr and
+    received (M, C) -> g, e_new (M, D)."""
+    u = ftz(u)
+    thr = ftz(thr)
+    a = u.abs()
+    inf = torch.full_like(thr[:, :1], float("inf"))
+    hi = torch.cat([inf, thr[:, :-1]], 1)
+    g = torch.zeros_like(u)
+    for c in range(thr.shape[1]):
+        take = ((a <= hi[:, c:c + 1]) & (a > thr[:, c:c + 1])
+                & (received[:, c:c + 1] > 0))
+        g = g + torch.where(take, u, torch.zeros_like(u))
+    return g, u - g
+
+
+def hist_lgc_compress_rows(e: torch.Tensor, delta: torch.Tensor,
+                           cum_ks: torch.Tensor, received: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`hist_lgc_compress` of each row: e, delta (M, D), cum_ks and
+    received (M, C) -> g, e_new (M, D)."""
+    u = ftz_add(e, delta)
+    m = hist_maxabs_rows(u)
+    counts = hist_counts_rows(u, m)
+    thr = hist_thresholds_rows(counts, m, cum_ks)
+    return hist_layered_sparsify_rows(u, thr, received)
 
 
 def swa_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -8,6 +8,13 @@ Port of ``repro/kernels/topk_threshold.py:32-116``:
   pass 2: ``histogram`` -- CUDA kernel, csrc/histogram.cu
   then  : ``thresholds_from_counts`` -- torch ops on 256 counts, on the device
 
+and their (M, D) row forms, one row per simulated device, each one launch
+of the same kernel over all rows (the reference reaches its kernels
+through ``jax.vmap`` there, ``repro/core/fl_batched.py:201-209``):
+``sum_maxabs_rows``, ``histogram_rows`` and ``thresholds_from_counts`` on
+(M, 256) counts.  A flat vector is one row of the kernel, so each row of a
+launch gets the bits of a flat launch on it.
+
 A wrapper checks its inputs, allocates the outputs, launches on the current
 stream and raises if the launch failed.  For a CPU tensor it calls the plain
 version in :mod:`repro_torch.kernels.ref`; for a CUDA tensor it launches the
@@ -33,6 +40,7 @@ _HIST_LOADS = 4                # float4 loads per thread per pass (histogram.cu 
 # (python -m repro_torch.launch.bench_histogram --blocks-per-sm 2,4,6)
 _HIST_BLOCKS_PER_SM = 4
 
+_MAX_ROWS = 65535              # the grid's y extent, one row a step
 _sm_counts: dict[int, int] = {}
 _counters: dict[tuple[str, int], torch.Tensor] = {}
 
@@ -45,6 +53,25 @@ def _check_vec(x: torch.Tensor, name: str, dtype=torch.float32) -> None:
                          f"shape {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _check_rows(x: torch.Tensor, name: str, dtype=torch.float32) -> None:
+    if x.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+    if x.dim() != 2 or x.shape[0] < 1 or x.shape[1] < 1:
+        raise ValueError(f"{name} must be (M, D) with M, D >= 1, got shape "
+                         f"{tuple(x.shape)}")
+    if x.shape[0] > _MAX_ROWS:
+        raise ValueError(f"{name} has {x.shape[0]} rows; at most {_MAX_ROWS}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def rows_grid(rows: int, n: int, per_block: int, target: int) -> int:
+    """Blocks per row of a row kernel over (rows, n): enough for one pass of
+    ``per_block`` floats a block, at most ``target // rows`` (the flat
+    kernel's grid shared by the rows), at least one."""
+    return max(1, min(-(-n // per_block), target // rows))
 
 
 def _check_same_device(x: torch.Tensor, *others: torch.Tensor) -> None:
@@ -99,7 +126,7 @@ def _launch_maxabs(x: torch.Tensor, d: torch.Tensor | None,
     with _on_device(x):
         err = _build.lib().lgc_maxabs(
             x.data_ptr(), None if d is None else d.data_ptr(),
-            None if u is None else u.data_ptr(), x.numel(), out.data_ptr(),
+            None if u is None else u.data_ptr(), 1, x.numel(), out.data_ptr(),
             partials.data_ptr(), counter.data_ptr(), grid, _stream(x))
     _build.check(err, "maxabs")
     return out
@@ -134,6 +161,39 @@ def sum_maxabs(e: torch.Tensor, delta: torch.Tensor
     return u, _launch_maxabs(e, delta, u)
 
 
+def sum_maxabs_rows(e: torch.Tensor, delta: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`sum_maxabs` of each row: u = e + delta (flushed) and max |u|
+    of each row, over (M, D) rows in one launch.  Returns u (M, D) f32 and
+    (M,) f32."""
+    _check_rows(e, "e")
+    _check_rows(delta, "delta")
+    if e.shape != delta.shape:
+        raise ValueError(f"e {tuple(e.shape)} and delta {tuple(delta.shape)}")
+    _check_same_device(e, delta)
+    if e.device.type == "cpu":
+        u = ref.ftz_add(e, delta)
+        return u, ref.hist_maxabs_rows(u)
+    rows, n = e.shape
+    # u starts at e's offset from a 16-byte boundary, so both move as float4s
+    off = e.data_ptr() % 16 // 4
+    u = torch.empty(rows * n + 3, dtype=torch.float32,
+                    device=e.device)[off:off + rows * n].view(rows, n)
+    per_block = _THREADS * _MAXABS_LOADS * 4
+    grid = rows_grid(rows, n, per_block,
+                     _MAXABS_BLOCKS_PER_SM * _sm_count(e.device))
+    out = torch.empty(rows, dtype=torch.float32, device=e.device)
+    partials = torch.empty(rows * grid, dtype=torch.int32, device=e.device)
+    counters = _zeroed_counters("maxabs_rows", e.device, rows)
+    with _on_device(e):
+        err = _build.lib().lgc_maxabs(
+            e.data_ptr(), delta.data_ptr(), u.data_ptr(), rows, n,
+            out.data_ptr(), partials.data_ptr(), counters.data_ptr(), grid,
+            _stream(e))
+    _build.check(err, "maxabs_rows")
+    return u, out
+
+
 def histogram_grid(n: int, device: torch.device) -> int:
     """Blocks of a ``histogram`` launch over n floats: 4 per SM, fewer for
     a short vector."""
@@ -154,17 +214,45 @@ def histogram(x: torch.Tensor, maxabs_val: torch.Tensor) -> torch.Tensor:
     acc = _zeroed_counters("histogram", x.device, N_BINS + 1)
     grid = histogram_grid(x.numel(), x.device)
     with _on_device(x):
-        err = _build.lib().lgc_histogram(x.data_ptr(), x.numel(), m.data_ptr(),
-                                         counts.data_ptr(), acc.data_ptr(),
-                                         grid, _stream(x))
+        err = _build.lib().lgc_histogram(x.data_ptr(), 1, x.numel(),
+                                         m.data_ptr(), counts.data_ptr(),
+                                         acc.data_ptr(), grid, _stream(x))
     _build.check(err, "histogram")
+    return counts
+
+
+def histogram_rows(x: torch.Tensor, maxabs_val: torch.Tensor
+                   ) -> torch.Tensor:
+    """:func:`histogram` of each row of x (M, D) over [0, maxabs_val[r]],
+    in one launch.  Returns (M, 256) int32."""
+    _check_rows(x, "x")
+    rows, n = x.shape
+    if maxabs_val.numel() != rows or maxabs_val.dtype != torch.float32:
+        raise ValueError(f"maxabs_val must be {rows} f32 values")
+    _check_same_device(x, maxabs_val)
+    if x.device.type == "cpu":
+        return ref.hist_counts_rows(x, maxabs_val)
+    m = maxabs_val.reshape(rows).contiguous()
+    counts = torch.empty((rows, N_BINS), dtype=torch.int32, device=x.device)
+    acc = _zeroed_counters("histogram_rows", x.device, rows * (N_BINS + 1))
+    per_block = _THREADS * _HIST_LOADS * 4
+    grid = rows_grid(rows, n, per_block,
+                     _HIST_BLOCKS_PER_SM * _sm_count(x.device))
+    with _on_device(x):
+        err = _build.lib().lgc_histogram(
+            x.data_ptr(), rows, n, m.data_ptr(), counts.data_ptr(),
+            acc.data_ptr(), grid, _stream(x))
+    _build.check(err, "histogram_rows")
     return counts
 
 
 def thresholds_from_counts(counts: torch.Tensor, maxabs_val: torch.Tensor,
                            cum_ks: torch.Tensor) -> torch.Tensor:
-    """Per-layer thresholds from the histogram CDF: (C,) f32.
+    """Per-layer thresholds from the histogram CDF: (C,) f32 from (256,)
+    counts, or (M, C) from (M, 256) counts, (M,) maxima and (M, C) budgets.
 
-    Torch ops on 256 scalars, on the counts' device with no host sync;
-    the same semantics as ``ref.hist_thresholds``."""
+    Torch ops on 256 scalars a row, on the counts' device with no host
+    sync; the same semantics as ``ref.hist_thresholds``."""
+    if counts.dim() == 2:
+        return ref.hist_thresholds_rows(counts, maxabs_val, cum_ks)
     return ref.hist_thresholds(counts, maxabs_val, cum_ks)

@@ -12,7 +12,7 @@ The inputs, each with m = maxabs of it:
 * ``main_path_u``: the real u = e + delta of the largest leaf in round 2 of
   ``make_task("qwen2_100m", preset="full", aggregate="dense_masked",
   backend="cuda")`` with M=2, taken by wrapping the train step's
-  ``lgc_compress_hist`` for that one call;
+  ``lgc_compress_hist_rows`` for that one call (device 0's row);
 * ``one_bin``: a constant vector of the largest leaf's size, every element in
   bin 255 (the most contention the data can put on one bin).
 
@@ -46,25 +46,26 @@ M_DEVICES, KERNEL_LEAVES = 2, 8  # the main path's FL devices and kernel leaves
 
 @contextlib.contextmanager
 def capture_leaf_inputs(n: int, first_call: int):
-    """Keep copies of (e, delta) of the first call of the train step's
-    ``lgc_compress_hist`` on an n-element leaf at or after call number
-    ``first_call`` (counting every call from 0); yields the list they go in.
-    The wrapped call runs as it would: no launch is added."""
+    """Keep copies of device 0's (e, delta) of the first call of the train
+    step's ``lgc_compress_hist_rows`` on an n-element leaf at or after call
+    number ``first_call`` (counting every call from 0, one per leaf and
+    round); yields the list they go in.  The wrapped call runs as it would:
+    no launch is added."""
     from repro_torch.launch import steps
-    orig = steps.lgc_compress_hist
+    orig = steps.lgc_compress_hist_rows
     kept: list = []
     calls = iter(range(1 << 30))
 
     def wrapped(e, delta, cum_ks, received):
-        if next(calls) >= first_call and e.numel() == n and not kept:
-            kept.append((e.clone(), delta.clone()))
+        if next(calls) >= first_call and e.shape[1] == n and not kept:
+            kept.append((e[0].clone(), delta[0].clone()))
         return orig(e, delta, cum_ks, received)
 
-    steps.lgc_compress_hist = wrapped
+    steps.lgc_compress_hist_rows = wrapped
     try:
         yield kept
     finally:
-        steps.lgc_compress_hist = orig
+        steps.lgc_compress_hist_rows = orig
 
 
 def main_path_u(rounds: int = 2) -> torch.Tensor:
@@ -73,7 +74,7 @@ def main_path_u(rounds: int = 2) -> torch.Tensor:
     task = make_task("qwen2_100m", m_devices=M_DEVICES, preset="full",
                      aggregate="dense_masked", backend="cuda")
     with capture_leaf_inputs(LARGEST_LEAF,
-                             (rounds - 1) * M_DEVICES * KERNEL_LEAVES) as kept:
+                             (rounds - 1) * KERNEL_LEAVES) as kept:
         task.run(rounds)
     (e, delta), = kept
     return e + delta
@@ -150,7 +151,7 @@ def sweep_grid(u: torch.Tensor, m: torch.Tensor, want: torch.Tensor,
 
         def run(grid=grid):
             counts = torch.empty(256, dtype=torch.int32, device=u.device)
-            _build.check(lib.lgc_histogram(u.data_ptr(), u.numel(),
+            _build.check(lib.lgc_histogram(u.data_ptr(), 1, u.numel(),
                                            m.data_ptr(), counts.data_ptr(),
                                            acc.data_ptr(), grid, stream),
                          "histogram")

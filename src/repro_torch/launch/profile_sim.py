@@ -1,21 +1,26 @@
-"""Where a round of the LGC simulator (loop engine) spends its time.
+"""Where a round of the LGC simulator spends its time.
 
     python -m repro_torch.launch.profile_sim [--task lr_mnist] [--m-devices 3]
-        [--n-train 3000] [--rounds 40] [--mode lgc]
+        [--n-train 3000] [--rounds 40] [--mode lgc] [--engine batched]
 
 Runs ``run_baseline``'s simulator on the card with ``backend="cuda"`` (H=4,
 5% of D per sync), once to warm up, once timed and once under
 ``torch.profiler``:
 
-* host ms per round (the timed run's time over its rounds), the median
-  sync round and the median other round (with H=4 three rounds in four
-  sync no device, so the median round is one of those), and the split
-  over the loop's phases, each wrapped with a host clock: ``sample_batch``
-  (threefry keys and the minibatch index upload, which waits for the
-  card), ``sgd``
-  (forward, ``autograd.grad``, update; enqueued), ``sync`` (channel draw,
+* host ms per round (the timed run's time over its rounds) and the split
+  over the engine's phases, each wrapped with a host clock.  The loop
+  engine (``--engine loop``): ``sample_batch`` (threefry keys and the
+  minibatch index upload, which waits for the card), ``sgd`` (forward,
+  ``autograd.grad``, update; enqueued), ``sync`` (channel draw,
   compression, cost model) and ``record`` (eval), the rest being the
-  server mean and the controller;
+  server mean and the controller; with the median sync round and the
+  median other round (with H=4 three rounds in four sync no device).  The
+  batched engine (the default): ``channels`` (the sync's channel draw and
+  cost model, on the host), ``draw_batches`` (the window's keys and
+  minibatch indices, on the card), ``sgd`` (the vmapped gradients and
+  updates), ``sync`` (the LGC row kernels, QSGD, server mean; enqueued)
+  and ``record`` (eval, the only wait for the card); with the median
+  window;
 * device busy ms per round (union of kernel intervals in the profiled
   run), the idle share against the unprofiled round, kernel launches per
   round, device ms by group (the three LGC kernels, matmuls, the rest).
@@ -33,31 +38,48 @@ import torch
 
 from repro_torch.core import FLConfig
 from repro_torch.core.fl import baseline_simulator
+from repro_torch.core.fl_batched import BatchedEngine
 from repro_torch.device import (card_name_and_power_limit, kernel_group,
                                  union_us)
 from repro_torch.models.paper_models import make_task
 
 H = 4                  # the baselines' fixed sync gap
-PHASES = {"sample_batch": "_sample_batch", "sgd": "_sgd_step",
-          "sync": "_sync_device", "record": "_record"}
+# phase -> (object, method): "sim" is the simulator, "engine" the batched
+# engine that drives it
+PHASES = {
+    "loop": {"sample_batch": ("sim", "_sample_batch"),
+             "sgd": ("sim", "_sgd_step"), "sync": ("sim", "_sync_device"),
+             "record": ("sim", "_record")},
+    "batched": {"channels": ("engine", "_channels"),
+                "draw_batches": ("engine", "_draw_batches"),
+                "sgd": ("engine", "_local_steps"),
+                "sync": ("engine", "_sync"),
+                "record": ("sim", "_record")},
+}
 
 
-def _timed_phases(sim) -> dict[str, float]:
-    """Wrap the simulator's phase methods with host clocks; returns the
-    dict of accumulated seconds the wrappers fill."""
-    spent = {k: 0.0 for k in PHASES}
-
-    def wrap(key, fn):
-        def timed(*a, **k):
-            t0 = time.perf_counter()
-            try:
-                return fn(*a, **k)
-            finally:
-                spent[key] += time.perf_counter() - t0
-        return timed
-    for key, attr in PHASES.items():
-        setattr(sim, attr, wrap(key, getattr(sim, attr)))
-    return spent
+def _run(sim, spent: dict | None = None):
+    """Run the simulator on its engine; with ``spent``, each phase method
+    is wrapped with a host clock that adds its seconds there.  Returns the
+    batched engine, or None on the loop engine."""
+    engine = BatchedEngine(sim) if sim.engine == "batched" else None
+    if spent is not None:
+        def wrap(key, fn):
+            def timed(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    spent[key] += time.perf_counter() - t0
+            return timed
+        for key, (owner, attr) in PHASES[sim.engine].items():
+            obj = sim if owner == "sim" else engine
+            setattr(obj, attr, wrap(key, getattr(obj, attr)))
+    if engine is None:
+        sim.run()
+    else:
+        engine.run()
+    return engine
 
 
 def main(argv=None) -> dict:
@@ -69,26 +91,35 @@ def main(argv=None) -> dict:
     ap.add_argument("--rounds", type=int, default=40)
     ap.add_argument("--mode", default="lgc",
                     choices=("lgc", "topk", "fedavg", "lgc_q8"))
+    ap.add_argument("--engine", default="batched",
+                    choices=("loop", "batched"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_sim needs a CUDA card")
     card = card_name_and_power_limit()
     task = make_task(args.task, m_devices=args.m_devices,
                      n_train=args.n_train)
-    cfg = FLConfig(rounds=args.rounds, eval_every=10, backend="cuda")
+    cfg = FLConfig(rounds=args.rounds, eval_every=10, backend="cuda",
+                   engine=args.engine)
 
     def simulator():
         return baseline_simulator(task, cfg, args.mode, h=H, device="cuda")
-    simulator().run()                             # build + first-call set-up
+    _run(simulator())                             # build + first-call set-up
     sim = simulator()
-    spent = _timed_phases(sim)
+    spent = {k: 0.0 for k in PHASES[args.engine]}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sim.run()
+    engine = _run(sim, spent)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    sync = [ms for t, ms in enumerate(sim.round_ms) if (t + 1) % H == 0]
-    other = [ms for t, ms in enumerate(sim.round_ms) if (t + 1) % H]
+    if engine is None:
+        sync = [ms for t, ms in enumerate(sim.round_ms) if (t + 1) % H == 0]
+        other = [ms for t, ms in enumerate(sim.round_ms) if (t + 1) % H]
+        medians = {"median_sync_round_ms": statistics.median(sync),
+                   "median_other_round_ms": statistics.median(other)}
+    else:
+        medians = {"median_window_ms": statistics.median(engine.window_ms),
+                   "windows": len(engine.window_ms)}
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -96,7 +127,7 @@ def main(argv=None) -> dict:
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        prof_sim.run()
+        _run(prof_sim)
         torch.cuda.synchronize()
         prof_wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events()
@@ -112,11 +143,10 @@ def main(argv=None) -> dict:
         "card": card,
         "device": torch.cuda.get_device_name(0),
         "task": args.task, "m_devices": args.m_devices, "mode": args.mode,
-        "d": sim.d, "rounds": rounds,
+        "engine": args.engine, "d": sim.d, "rounds": rounds,
         "h": H,
         "host_ms_per_round": wall_s * 1e3 / args.rounds,
-        "median_sync_round_ms": statistics.median(sync),
-        "median_other_round_ms": statistics.median(other),
+        **medians,
         "device_steps_per_s": args.m_devices * rounds / wall_s,
         "host_ms_per_round_by_phase": {
             k: v * 1e3 / rounds for k, v in spent.items()},

@@ -13,6 +13,9 @@ run.  ``--task cnn_mnist`` runs the paper's CNN instead.
 It runs on the card unless ``--device cpu`` is given (without CUDA it
 raises).  The backend is ``"cuda"``: each sync compresses through the CUDA
 LGC kernels on the card and through their plain versions on the CPU.
+``--engine`` picks the batched engine (the default: one launch of each LGC
+row kernel per sync boundary over the M device rows) or the loop engine
+(one launch of each flat kernel per device and sync).
 """
 from __future__ import annotations
 
@@ -45,12 +48,15 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--n-train", type=int, default=3000)
     ap.add_argument("--device", default=None,
                     help="torch device; default: the card")
+    ap.add_argument("--engine", default="batched",
+                    choices=("loop", "batched"))
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     task = make_task(args.task, m_devices=3, n_train=args.n_train)
     cfg = FLConfig(rounds=args.rounds, eval_every=max(args.rounds // 6, 1),
-                   backend="cuda")
-    print(f"== {args.task} on {device}, M=3, {args.rounds} rounds ==")
+                   backend="cuda", engine=args.engine)
+    print(f"== {args.task} on {device}, M=3, {args.rounds} rounds, "
+          f"{args.engine} engine ==")
 
     print("== LGC (layered compression, 3 channels, fixed H=4) ==")
     lgc, lgc_ms = _timed_run(task, cfg, "lgc", device)

@@ -3,19 +3,27 @@ steps.
 
 Port of ``repro/launch/steps.py:51-166``, ``:329-518`` and ``:525-537``.
 The reference maps the M FL devices onto a mesh axis with ``shard_map``;
-here the M devices live on the one card and run one after another:
+here the M devices live on the one card:
 
   * each device runs H local SGD steps from the same params on its own slice
-    of the batch (``w.f32 - lr * g.f32``, cast back to ``w.dtype``);
-  * its f32 net progress delta = w0 - w_H is compressed per leaf with
-    histogram-LGC and error feedback (``aggregate="dense_masked"``), or sent
+    of the batch (``w.f32 - lr * g.f32``, cast back to ``w.dtype``), one
+    device after another;
+  * the f32 net progress delta = w0 - w_H of every device is gathered per
+    leaf into (M, n) rows and compressed with histogram-LGC and error
+    feedback (``aggregate="dense_masked"``) in one launch of each LGC row
+    kernel over the M rows (:func:`kernels.lgc_compress_hist_rows`), or sent
     dense (``aggregate="none"``, the FedAvg baseline);
   * the mean over devices replaces ``pmean``, and the server subtracts it.
 
 Leaves of at least ``pallas_min_elems`` elements take the CUDA kernels when
 ``backend`` is ``"cuda"`` (``"pallas"`` is accepted as a synonym so the
 reference's configurations carry over); smaller leaves, and every leaf under
-``backend="exact"``, take the plain torch path of :mod:`kernels.ref`.
+``backend="exact"``, take the plain torch path of :mod:`kernels.ref`, row by
+row.  Each row's bits are the flat kernel's on that row, so the step gives
+the same params and error memory as compressing device by device
+(``rows=False``, kept to hold the row kernels against, chip_smoke.py).
+Arithmetic outside the kernels flushes f32 subnormals as the reference's
+does (``core.fl.sgd_update``, ``kernels.ref.ftz``).
 
 ``sparse_gather`` and ``bucket_sparse`` are not ported yet (ROADMAP A13).
 
@@ -33,8 +41,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.compressor import PALLAS_MIN_ELEMS
+from repro_torch.core.fl import sgd_update
 from repro_torch.device import resolve_device
-from repro_torch.kernels import lgc_compress_hist
+from repro_torch.kernels import lgc_compress_hist, lgc_compress_hist_rows
 from repro_torch.kernels import ref as kref
 from repro_torch.models import transformer as tf
 
@@ -131,7 +140,7 @@ def _dtype(name: str) -> torch.dtype:
 
 
 def make_lgc_train_step(cfg: ArchConfig, m_devices: int,
-                        step_cfg: LGCStepConfig):
+                        step_cfg: LGCStepConfig, *, rows: bool = True):
     """Algorithm 1: returns ``f(params, ef, batch, received=None) ->
     (params, ef, loss)``.
 
@@ -142,6 +151,10 @@ def make_lgc_train_step(cfg: ArchConfig, m_devices: int,
     residual.  ``received`` ((M, C) int, ``None`` = all delivered) is the
     per-device per-channel delivery mask; FedAvg (``"none"``) ignores it.
     The step is functional: it returns new params and error memory.
+
+    ``rows=False`` compresses each device's leaves with the flat kernels
+    one device after another: the same bits in M times the launches, kept
+    only to hold the row path against.
     """
     h, n_ch, lr = step_cfg.local_steps, step_cfg.n_channels, step_cfg.local_lr
     wire_dt = _dtype(step_cfg.psum_dtype)
@@ -163,18 +176,37 @@ def make_lgc_train_step(cfg: ArchConfig, m_devices: int,
         mb = tokens.shape[0] // h
         for i in range(h):
             leaves = [p[k].detach().requires_grad_(True) for k in names]
-            rows = slice(i * mb, (i + 1) * mb)
+            rows_i = slice(i * mb, (i + 1) * mb)
             with torch.enable_grad():
                 loss = tf.lm_loss(dict(zip(names, leaves)), cfg,
-                                  {"tokens": tokens[rows],
-                                   "labels": labels[rows]})
+                                  {"tokens": tokens[rows_i],
+                                   "labels": labels[rows_i]})
                 grads = torch.autograd.grad(loss, leaves)
             with torch.no_grad():
-                p = {k: (w.to(torch.float32) - lr * g.to(torch.float32)
-                         ).to(w.dtype)
+                p = {k: sgd_update(w.to(torch.float32),
+                                   g.to(torch.float32), lr).to(w.dtype)
                      for k, w, g in zip(names, leaves, grads)}
                 loss_sum = loss_sum + loss.detach()
         return p, loss_sum
+
+    def compress_leaf(e: torch.Tensor, delta: torch.Tensor,
+                      received: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(g, e_new) of one leaf over the M device rows, (M, n) each."""
+        n = delta.shape[1]
+        cum_ks = cum_ks_for(n, delta.device)
+        kernel = (step_cfg.backend in ("cuda", "pallas")
+                  and n >= step_cfg.pallas_min_elems)
+        if rows and kernel:
+            return lgc_compress_hist_rows(
+                e, delta, cum_ks.expand(m_devices, -1), received)
+        out = [_compress_leaf_dense(
+            e[m], delta[m], step_cfg.sparsity, received[m],
+            backend=step_cfg.backend,
+            pallas_min_elems=step_cfg.pallas_min_elems, cum_ks=cum_ks)
+            for m in range(m_devices)]
+        return (torch.stack([g for g, _ in out]),
+                torch.stack([en for _, en in out]))
 
     @torch.no_grad()
     def step(params, ef, batch, received=None):
@@ -193,38 +225,47 @@ def make_lgc_train_step(cfg: ArchConfig, m_devices: int,
                                   device=device)
         if tuple(received.shape) != (m_devices, n_ch):
             raise ValueError(f"received must be ({m_devices}, {n_ch})")
+        recv = received.to(torch.int32).contiguous()
 
-        g_sum: dict[str, torch.Tensor] = {}
-        ef_new = {k: torch.empty_like(v) for k, v in ef.items()}
+        # ---- H local SGD steps per device; the (M, n) f32 net progress --
+        deltas = {k: torch.empty((m_devices, w.numel()), dtype=torch.float32,
+                                 device=device) for k, w in params.items()}
         loss_total = torch.zeros((), dtype=torch.float32, device=device)
         for m in range(m_devices):
-            rows = slice(m * b_local, (m + 1) * b_local)
-            p_end, loss_sum = local_sgd(params, tokens[rows], labels[rows])
+            rows_m = slice(m * b_local, (m + 1) * b_local)
+            p_end, loss_sum = local_sgd(params, tokens[rows_m],
+                                        labels[rows_m])
             loss_total = loss_total + loss_sum / h
-            recv = received[m].to(torch.int32)
             for k, w0 in params.items():
-                delta = w0.to(torch.float32) - p_end[k].to(torch.float32)
-                if step_cfg.aggregate == "none":        # FedAvg baseline
-                    g_wire = delta
-                    ef_new[k][m] = ef[k][m]
-                else:                                   # dense_masked
-                    g, e_new = _compress_leaf_dense(
-                        ef[k][m], delta, step_cfg.sparsity, recv,
-                        backend=step_cfg.backend,
-                        pallas_min_elems=step_cfg.pallas_min_elems,
-                        cum_ks=cum_ks_for(delta.numel(), device))
-                    g_wire = g.to(wire_dt)
-                    # the wire rounding residue joins the error memory
-                    ef_new[k][m] = (e_new + (g - g_wire.to(torch.float32))
-                                    ).to(ef_dt)
-                g_sum[k] = g_wire if m == 0 else g_sum[k] + g_wire
+                torch.sub(w0.to(torch.float32).reshape(-1),
+                          p_end[k].to(torch.float32).reshape(-1),
+                          out=deltas[k][m])
+                deltas[k][m] = kref.ftz(deltas[k][m])
             del p_end
 
-        # ---- server update (Alg. 1 lines 20-21): w - mean_m g_m ----------
-        params_new = {
-            k: (w.to(torch.float32)
-                - (g_sum[k] / m_devices).to(torch.float32)).to(w.dtype)
-            for k, w in params.items()}
+        # ---- compression with EF over the M rows, server update ---------
+        params_new, ef_new = {}, {}
+        for k, w in params.items():
+            delta = deltas.pop(k)
+            e_rows = ef[k].reshape(m_devices, -1)
+            if step_cfg.aggregate == "none":            # FedAvg baseline
+                g_wire = delta
+                ef_new[k] = ef[k].clone()
+            else:                                       # dense_masked
+                g, e_new = compress_leaf(e_rows.to(torch.float32), delta,
+                                         recv)
+                g_wire = g.to(wire_dt)
+                # the wire rounding residue joins the error memory
+                e_new = kref.ftz_add(e_new, kref.ftz_add(
+                    g, -g_wire.to(torch.float32)))
+                ef_new[k] = e_new.to(ef_dt).reshape(ef[k].shape)
+            # Alg. 1 lines 20-21: w - mean_m g_m, summed device by device
+            g_sum = g_wire[0]
+            for m in range(1, m_devices):
+                g_sum = g_sum + g_wire[m]
+            g_mean = kref.ftz((g_sum / m_devices).to(torch.float32))
+            params_new[k] = kref.ftz_add(w.to(torch.float32).reshape(-1),
+                                         -g_mean).to(w.dtype).reshape(w.shape)
         return params_new, ef_new, loss_total / m_devices
 
     return step

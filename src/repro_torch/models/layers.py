@@ -20,6 +20,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import prng
 from repro_torch.kernels import swa_decode
 
 NEG_INF = -1e30
@@ -192,39 +193,60 @@ def mlp_forward(x: torch.Tensor, p: dict, kind: str) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# initialisers: N(0, std) weights from an explicit generator; ``lead`` is
-# the stacked-layer prefix of the shape, e.g. (n_layers,)
+# initialisers: the reference's N(0, 1) * std draws from the ported threefry
+# (``jax.random.normal(key, shape) * std``, then the cast to the dtype).
+# ``keys`` holds one key per layer of the stacked prefix ``lead`` (one key
+# when ``lead`` is empty); ``None`` on the meta device, which draws nothing.
 # ---------------------------------------------------------------------------
 
-def normal(gen: torch.Generator | None, shape: tuple, std: float,
+def normal(keys: list | None, lead: tuple, shape: tuple, std: float,
            dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """One stacked leaf: layer i is ``normal(keys[i], shape) * std`` in f32,
+    cast to ``dtype``.  Each layer is drawn on ``device`` on its own, so a
+    full-width leaf never holds more than one layer's f32 draw."""
+    out = torch.empty(lead + shape, dtype=dtype, device=device)
     if device.type == "meta":
-        return torch.empty(shape, dtype=dtype, device=device)
-    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (w * std).to(dtype)
+        return out
+    rows = out.view((-1,) + shape)
+    for i, k in enumerate(keys):
+        rows[i] = (prng.normal(k, shape, device) * std).to(dtype)
+    return out
 
 
-def mlp_init(gen, lead: tuple, d: int, dff: int, kind: str, dtype,
-             device) -> dict:
+def _split_each(keys: list | None, n: int) -> list:
+    """The n keys of ``split(k, n)`` for every k of ``keys``, transposed:
+    entry j lists key j of every layer."""
+    if keys is None:
+        return [None] * n
+    per = [prng.split(k, n) for k in keys]
+    return [[p[j] for p in per] for j in range(n)]
+
+
+def mlp_init(keys: list | None, lead: tuple, d: int, dff: int, kind: str,
+             dtype, device) -> dict:
+    """``layers.mlp_init``: keys split three ways (gate, up, down)."""
     if kind != "swiglu":
         raise NotImplementedError(f"mlp {kind!r} is not ported yet "
                                   "(ROADMAP A15)")
     s_in, s_ff = d ** -0.5, dff ** -0.5
+    k1, k2, k3 = _split_each(keys, 3)
     return {
-        "w_gate": normal(gen, lead + (d, dff), s_in, dtype, device),
-        "w_up": normal(gen, lead + (d, dff), s_in, dtype, device),
-        "w_down": normal(gen, lead + (dff, d), s_ff, dtype, device),
+        "w_gate": normal(k1, lead, (d, dff), s_in, dtype, device),
+        "w_up": normal(k2, lead, (d, dff), s_in, dtype, device),
+        "w_down": normal(k3, lead, (dff, d), s_ff, dtype, device),
     }
 
 
-def attn_init(gen, lead: tuple, d: int, n_heads: int, n_kv: int, hd: int,
-              bias: bool, dtype, device) -> dict:
+def attn_init(keys: list | None, lead: tuple, d: int, n_heads: int,
+              n_kv: int, hd: int, bias: bool, dtype, device) -> dict:
+    """``layers.attn_init``: keys split four ways (q, k, v, o)."""
     s = d ** -0.5
+    kq, kk, kv, ko = _split_each(keys, 4)
     p = {
-        "wq": normal(gen, lead + (d, n_heads * hd), s, dtype, device),
-        "wk": normal(gen, lead + (d, n_kv * hd), s, dtype, device),
-        "wv": normal(gen, lead + (d, n_kv * hd), s, dtype, device),
-        "wo": normal(gen, lead + (n_heads * hd, d), (n_heads * hd) ** -0.5,
+        "wq": normal(kq, lead, (d, n_heads * hd), s, dtype, device),
+        "wk": normal(kk, lead, (d, n_kv * hd), s, dtype, device),
+        "wv": normal(kv, lead, (d, n_kv * hd), s, dtype, device),
+        "wo": normal(ko, lead, (n_heads * hd, d), (n_heads * hd) ** -0.5,
                      dtype, device),
     }
     if bias:

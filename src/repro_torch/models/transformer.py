@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import prng
 from repro_torch.device import resolve_device
 from .layers import (KVCache, _expand_kv, apply_norm, apply_rope,
                      attention_decode, attention_train, attn_init,
@@ -57,36 +58,44 @@ def _check_arch(cfg: ArchConfig) -> None:
 # init
 # ===========================================================================
 
-def init_params(cfg: ArchConfig, generator: torch.Generator | None = None,
-                *, seed: int = 0, device: str | torch.device | None = None
-                ) -> Params:
-    """Random N(0, std) weights with the reference's shapes, names and init
-    scales (the values are torch's, not jax.random's).
+def init_params(cfg: ArchConfig, *, seed: int = 0,
+                device: str | torch.device | None = None) -> Params:
+    """The reference's weights for ``PRNGKey(seed)``
+    (``repro/models/transformer.py:70-100``): ``split(key, 8)``, embed from
+    key 0 and lm_head from key 1, the stacked blocks from key 2 split once
+    per layer, each layer's key split six ways (attention 0, MLP 1); every
+    matrix ``normal * scale`` in f32, cast to ``cfg.dtype``, drawn on
+    ``device`` with the ported threefry (:mod:`repro_torch.core.prng`).
 
     ``device=None`` means the card; ``device="meta"`` builds the shapes
-    without allocating.  ``generator`` defaults to one on ``device`` seeded
-    with ``seed``.
-    """
+    without allocating or drawing."""
     _check_arch(cfg)
     dev = resolve_device(device)
-    gen = generator
-    if gen is None and dev.type != "meta":
-        gen = torch.Generator(device=dev).manual_seed(seed)
     d, vp, dt, nl = cfg.d_model, cfg.vocab_padded, cfg.dtype, cfg.n_layers
     lead = (nl,)
+    if dev.type == "meta":
+        ks, attn_keys, mlp_keys = [None] * 8, None, None
+    else:
+        ks = list(prng.split(prng.PRNGKey(seed), 8))
+        blocks = [prng.split(k, 6) for k in prng.split(ks[2], nl)]
+        attn_keys = [b[0] for b in blocks]
+        mlp_keys = [b[1] for b in blocks]
+
+    def one(k):
+        return None if k is None else [k]
     tree: dict = {
-        "embed": normal(gen, (vp, d), 0.02, dt, dev),
+        "embed": normal(one(ks[0]), (), (vp, d), 0.02, dt, dev),
         "final_norm": norm_init((), d, cfg.norm, dt, dev),
         "blocks": {
             "norm1": norm_init(lead, d, cfg.norm, dt, dev),
-            "attn": attn_init(gen, lead, d, cfg.n_heads, cfg.n_kv_heads,
-                              cfg.hd, cfg.qkv_bias, dt, dev),
+            "attn": attn_init(attn_keys, lead, d, cfg.n_heads,
+                              cfg.n_kv_heads, cfg.hd, cfg.qkv_bias, dt, dev),
             "norm2": norm_init(lead, d, cfg.norm, dt, dev),
-            "mlp": mlp_init(gen, lead, d, cfg.d_ff, cfg.mlp, dt, dev),
+            "mlp": mlp_init(mlp_keys, lead, d, cfg.d_ff, cfg.mlp, dt, dev),
         },
     }
     if not cfg.tie_embeddings:
-        tree["lm_head"] = normal(gen, (d, vp), d ** -0.5, dt, dev)
+        tree["lm_head"] = normal(one(ks[1]), (), (d, vp), d ** -0.5, dt, dev)
     return _flatten(tree)
 
 

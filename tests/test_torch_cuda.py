@@ -262,7 +262,12 @@ def test_each_wrapper_counts_its_launches(card):
     pk.lgc_compress_hist(x, x, cum, recv)
     pk.maxabs(x)
     assert pk.LAUNCHES == {"maxabs": 2, "histogram": 1, "sparsify_ef": 1,
-                           "swa_decode": 0}
+                           "swa_decode": 0, "maxabs_rows": 0,
+                           "histogram_rows": 0, "sparsify_ef_rows": 0}
+    pk.lgc_compress_hist_rows(x.view(2, 2500), x.view(2, 2500),
+                              cum.expand(2, 3), recv.expand(2, 3))
+    assert [pk.LAUNCHES[k] for k in ("maxabs_rows", "histogram_rows",
+                                     "sparsify_ef_rows")] == [1, 1, 1]
     q = torch.zeros((1, 2, 32), device=card)
     kv = torch.zeros((1, 1, 4, 32), device=card)
     pk.swa_decode(q, kv, kv, torch.ones(1, dtype=torch.int32, device=card))
@@ -424,7 +429,7 @@ def test_short_lr_run_launches_the_kernels_once_per_sync(card):
     from repro_torch.core import FLConfig, run_baseline
     from repro_torch.models.paper_models import make_task
     task = make_task("lr_mnist", m_devices=3, n_train=300)
-    cfg = FLConfig(rounds=12, eval_every=4, backend="cuda")
+    cfg = FLConfig(rounds=12, eval_every=4, backend="cuda", engine="loop")
     runs = {}
     for dev in ("cpu", card):
         pk.reset_launch_counts()
@@ -432,7 +437,8 @@ def test_short_lr_run_launches_the_kernels_once_per_sync(card):
         counts = dict(pk.LAUNCHES)
     torch.cuda.synchronize()
     assert counts == {"maxabs": 9, "histogram": 9, "sparsify_ef": 9,
-                      "swa_decode": 0}
+                      "swa_decode": 0, "maxabs_rows": 0,
+                      "histogram_rows": 0, "sparsify_ef_rows": 0}
     cpu, gpu = runs["cpu"], runs[str(card)]
     assert gpu.step == cpu.step and gpu.uplink_mb == cpu.uplink_mb
     np.testing.assert_allclose(gpu.loss, cpu.loss, atol=1e-3)
@@ -462,8 +468,131 @@ def test_every_simulator_sync_matches_the_plain_pipeline_bitwise(
     monkeypatch.setattr(pk, "lgc_compress_hist", checked)
     task = make_task(task_name, m_devices=m, n_train=n_train)
     pk.reset_launch_counts()
-    cfg = FLConfig(rounds=8, eval_every=4, batch_size=batch, backend="cuda")
+    cfg = FLConfig(rounds=8, eval_every=4, batch_size=batch, backend="cuda",
+                   engine="loop")
     run_baseline(task, cfg, "lgc", h=4, device=card)
     torch.cuda.synchronize()
     assert len(received) == 2 * m
     assert pk.LAUNCHES["sparsify_ef"] == 2 * m
+
+
+# ---------------------------------------------------------------------------
+# the (M, D) row kernels and the batched engine
+# ---------------------------------------------------------------------------
+
+ROW_SHAPES = [(3, 7850), (8, 206_922), (1, 3), (4, 1), (5, 2), (3, 7),
+              (2, 63), (1, 100_003)]
+
+
+def _row_inputs(m: int, d: int, card, offset: int = 0):
+    rng = np.random.default_rng(m * d)
+    e = torch.from_numpy((rng.standard_t(3, m * d + offset) * 1e-4).astype(
+        np.float32)).to(card)[offset:].view(m, d)
+    x = torch.from_numpy((rng.standard_t(3, (m, d)) * 1e-3).astype(
+        np.float32)).to(card)
+    if m > 1:
+        e[1] = 0.0
+        x[1] = 0.0
+    ks = [max(1, d // 40), max(1, d // 80), max(1, d // 80)]
+    cum = torch.tensor(np.minimum(np.cumsum(ks), d), dtype=torch.int32,
+                       device=card).expand(m, 3).contiguous()
+    pats = [(1, 1, 1), (1, 0, 1), (0, 0, 0), (0, 1, 1), (1, 1, 0)]
+    recv = torch.tensor([pats[i % len(pats)] for i in range(m)],
+                        dtype=torch.int32, device=card)
+    return e, x, cum, recv
+
+
+@pytest.mark.parametrize("m,d", ROW_SHAPES)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_row_kernels_match_flat_kernels_and_plain_rows(card, m, d, offset):
+    """Each row kernel bitwise equal to its plain row version and to the
+    flat kernel on every row (odd D, D < 4, M = 1, a zero row, rows that
+    start off a 16-byte boundary), in one launch each."""
+    e, x, cum, recv = _row_inputs(m, d, card, offset)
+    pk.reset_launch_counts()
+    u, mx = pk.sum_maxabs_rows(e, x)
+    counts = pk.histogram_rows(u, mx)
+    thr = pk.thresholds_from_counts(counts, mx, cum)
+    g, en = pk.sparsify_ef_rows(e, x, thr, recv)
+    assert {k: pk.LAUNCHES[k] for k in ("maxabs_rows", "histogram_rows",
+                                        "sparsify_ef_rows")} == {
+        "maxabs_rows": 1, "histogram_rows": 1, "sparsify_ef_rows": 1}
+    u_ref = pref.ftz_add(e, x)
+    assert _bits_equal(u, u_ref)
+    assert _bits_equal(mx, pref.hist_maxabs_rows(u_ref))
+    assert _bits_equal(counts, pref.hist_counts_rows(u_ref, mx))
+    g_ref, en_ref = pref.hist_layered_sparsify_rows(u_ref, thr, recv)
+    assert _bits_equal(g, g_ref) and _bits_equal(en, en_ref)
+    gp, enp = pk.lgc_compress_hist_rows(e, x, cum, recv)
+    for r in range(m):
+        g1, e1 = pk.lgc_compress_hist(e[r].contiguous(), x[r], cum[r],
+                                      recv[r])
+        assert _bits_equal(gp[r], g1) and _bits_equal(enp[r], e1), r
+        assert _bits_equal(counts[r], pk.histogram(u[r].contiguous(),
+                                                   mx[r].reshape(1, 1)))
+    torch.cuda.synchronize()
+
+
+def test_row_kernels_repeat_and_follow_a_larger_grid(card):
+    """Counters and accumulators are left at zero: ten launches in a row,
+    and a launch after one with more rows and blocks, give the same bits."""
+    big = _row_inputs(8, 206_922, card)
+    small = _row_inputs(3, 7850, card)
+    want = pk.lgc_compress_hist_rows(*small)
+    for _ in range(10):
+        pk.lgc_compress_hist_rows(*big)
+    got = pk.lgc_compress_hist_rows(*small)
+    assert all(_bits_equal(a, b) for a, b in zip(got, want))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("mode,want", [("lgc", 3), ("fedavg", 0),
+                                       ("lgc_q8", 3)])
+def test_batched_engine_launches_once_per_boundary_without_a_sync(
+        card, monkeypatch, mode, want):
+    """12 rounds at H=4 on the card: each row kernel launched once per sync
+    boundary (the flat kernels never), every sync's (g, e') bitwise the
+    plain row pipeline on the same card tensors, no host sync inside a
+    window (torch's sync debug mode raises), and History within the CPU
+    run's at the card's summation order."""
+    from repro_torch.core import FLConfig, run_baseline
+    from repro_torch.core import fl_batched
+    from repro_torch.models.paper_models import make_task
+    kern = pk.lgc_compress_hist_rows
+    seen = []
+
+    def checked(e, delta, cum_ks, recv):
+        g, e_new = kern(e, delta, cum_ks, recv)
+        mode = torch.cuda.get_sync_debug_mode()   # the check's reads wait
+        torch.cuda.set_sync_debug_mode("default")
+        g_ref, e_ref = pref.hist_lgc_compress_rows(e, delta, cum_ks, recv)
+        seen.append(_bits_equal(g, g_ref) and _bits_equal(e_new, e_ref))
+        torch.cuda.set_sync_debug_mode(mode)
+        return g, e_new
+    monkeypatch.setattr(pk, "lgc_compress_hist_rows", checked)
+
+    def no_sync(fn):
+        def guarded(*a, **k):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return guarded
+    for name in ("_channels", "_draw_batches", "_local_steps", "_sync"):
+        monkeypatch.setattr(fl_batched.BatchedEngine, name,
+                            no_sync(getattr(fl_batched.BatchedEngine, name)))
+    task = make_task("lr_mnist", m_devices=3, n_train=300)
+    cfg = FLConfig(rounds=12, eval_every=4, backend="cuda")
+    pk.reset_launch_counts()
+    gpu = run_baseline(task, cfg, mode, h=4, device=card)
+    torch.cuda.synchronize()
+    counts = dict(pk.LAUNCHES)
+    assert counts == {"maxabs": 0, "histogram": 0, "sparsify_ef": 0,
+                      "swa_decode": 0, "maxabs_rows": want,
+                      "histogram_rows": want, "sparsify_ef_rows": want}
+    assert len(seen) == want and all(seen)
+    cpu = run_baseline(task, cfg, mode, h=4, device="cpu")
+    assert gpu.step == cpu.step and gpu.uplink_mb == cpu.uplink_mb
+    np.testing.assert_allclose(gpu.loss, cpu.loss, atol=1e-3)
+    np.testing.assert_allclose(gpu.energy_j, cpu.energy_j, rtol=1e-5)

@@ -95,8 +95,8 @@ def test_lr_history_matches_reference_loop_engine(lr_tasks, mode, backend,
     hj, sj, up_j = _run(jfl, tj, jfl.FLConfig(engine="loop", **kw), mode,
                         backend, monkeypatch)
     reset_launch_counts()
-    hp, sp, up_p = _run(pfl, tp, pfl.FLConfig(**kw), mode, backend,
-                        monkeypatch, device="cpu")
+    hp, sp, up_p = _run(pfl, tp, pfl.FLConfig(engine="loop", **kw), mode,
+                        backend, monkeypatch, device="cpu")
     _assert_history(hp, hj)
     assert sp.decision_log == sj.decision_log
     assert len(up_p) == len(up_j) == 3 * (30 // 4)
@@ -111,8 +111,8 @@ def test_cnn_history_matches_reference_loop_engine(monkeypatch):
     kw = dict(rounds=8, eval_every=4, batch_size=16)
     hj, sj, up_j = _run(jfl, tj, jfl.FLConfig(engine="loop", **kw), "lgc",
                         "pallas", monkeypatch)
-    hp, sp, up_p = _run(pfl, tp, pfl.FLConfig(**kw), "lgc", "pallas",
-                        monkeypatch, device="cpu")
+    hp, sp, up_p = _run(pfl, tp, pfl.FLConfig(engine="loop", **kw), "lgc",
+                        "pallas", monkeypatch, device="cpu")
     _assert_history(hp, hj)
     assert sp.decision_log == sj.decision_log
     assert up_p == up_j and len(up_p) == 4
@@ -151,7 +151,7 @@ def test_single_sync_ef_step_is_bitwise(lr_tasks, backend):
 
 def test_pallas_is_an_alias_of_cuda(lr_tasks):
     _, tp = lr_tasks
-    cfg = pfl.FLConfig(rounds=9, eval_every=4)
+    cfg = pfl.FLConfig(rounds=9, eval_every=4, engine="loop")
     a = pfl.run_baseline(tp, cfg, "lgc", backend="pallas", device="cpu")
     b = pfl.run_baseline(tp, cfg, "lgc", backend="cuda", device="cpu")
     assert a.asdict() == b.asdict()
@@ -160,7 +160,7 @@ def test_pallas_is_an_alias_of_cuda(lr_tasks):
 def test_unported_options_raise_naming_their_roadmap_item(lr_tasks):
     _, tp = lr_tasks
     ctrls = [pfl.FixedController(4, [1, 1, 1])] * 3
-    cases = [({"engine": "batched"}, "A6"), ({"engine": "sharded"}, "A12"),
+    cases = [({"engine": "sharded"}, "A12"),
              ({"action_space": "per_device"}, "A9"),
              ({"pipeline_decisions": True}, "A9"),
              ({"layer_policy": "uniform"}, "A8"),
@@ -169,9 +169,10 @@ def test_unported_options_raise_naming_their_roadmap_item(lr_tasks):
              ({"scenario": "markov_urban"}, "A7"),
              ({"scenario": "gilbert_flaky"}, "A7")]
     for fields, item in cases:
-        cfg = dataclasses.replace(pfl.FLConfig(), **fields)
-        with pytest.raises(NotImplementedError, match=item):
-            pfl.LGCSimulator(tp, cfg, ctrls, device="cpu")
+        for engine in ("loop", "batched"):
+            cfg = dataclasses.replace(pfl.FLConfig(engine=engine), **fields)
+            with pytest.raises(NotImplementedError, match=item):
+                pfl.LGCSimulator(tp, cfg, ctrls, device="cpu")
     with pytest.raises(ValueError):
         pfl.LGCSimulator(tp, pfl.FLConfig(), ctrls, mode="dense",
                          device="cpu")

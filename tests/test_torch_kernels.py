@@ -284,8 +284,12 @@ class TestWrapperChecks:
         x = torch.from_numpy(_vec(100, 0))
         pk.lgc_compress_hist(x, x, torch.tensor([5], dtype=torch.int32),
                              torch.ones(1, dtype=torch.int32))
+        pk.lgc_compress_hist_rows(x.view(4, 25), x.view(4, 25),
+                                  torch.full((4, 1), 5, dtype=torch.int32),
+                                  torch.ones((4, 1), dtype=torch.int32))
         q, kv = torch.zeros((1, 2, 32)), torch.zeros((1, 1, 4, 32))
         pk.swa_decode(q, kv, kv, torch.ones(1, dtype=torch.int32))
         assert pk.LAUNCHES == {"maxabs": 0, "histogram": 0, "sparsify_ef": 0,
-                               "swa_decode": 0}
+                               "swa_decode": 0, "maxabs_rows": 0,
+                               "histogram_rows": 0, "sparsify_ef_rows": 0}
 

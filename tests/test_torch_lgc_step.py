@@ -247,6 +247,63 @@ def test_two_devices_one_round_matches_reference_composition():
                for k in ef_want)
 
 
+def test_row_compression_equals_device_by_device_compression():
+    """M=3, every leaf through the kernel route (on the CPU: the plain
+    versions), a different delivery mask per device: compressing each leaf
+    once over the M rows gives bitwise the params and error memory of the
+    device-by-device path (``rows=False``)."""
+    m_dev, h = 3, 2
+    p0 = params_from_jax(jax.device_get(jtf.init_params(
+        TINY, jax.random.PRNGKey(2))))
+    ef0 = {k: torch.from_numpy(_rand((m_dev,) + tuple(v.shape), 20 + i,
+                                     1e-5))
+           for i, (k, v) in enumerate(p0.items())}
+    rng = np.random.default_rng(8)
+    tokens = torch.from_numpy(rng.integers(0, TINY.vocab_size,
+                                           (m_dev * h, 16))).long()
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, 1, 1)}
+    received = torch.tensor([[1, 1, 1], [1, 0, 1], [0, 0, 1]],
+                            dtype=torch.int32)
+    cfg = psteps.LGCStepConfig(local_steps=h, local_lr=3e-3, sparsity=SPARSE,
+                               backend="cuda", pallas_min_elems=1)
+    outs = [psteps.make_lgc_train_step(P_TINY, m_dev, cfg, rows=rows)(
+        p0, ef0, batch, received) for rows in (True, False)]
+    for tree_a, tree_b in ((outs[0][0], outs[1][0]), (outs[0][1], outs[1][1])):
+        for k in tree_a:
+            assert torch.equal(tree_a[k].view(torch.int32),
+                               tree_b[k].view(torch.int32)), k
+    assert float(outs[0][2]) == float(outs[1][2])
+
+
+def test_step_at_tiny_learning_rate_flushes_subnormals_as_the_reference():
+    """A step size of 1e-34 puts the updates of the zero biases and the
+    error memory among f32 subnormals, which the reference's XLA:CPU
+    flushes: after each of 3 rounds the port's params and EF hold none,
+    and are zero where the reference's are."""
+    t = j_make(m_devices=1, arch=TINY, aggregate="dense_masked",
+               sparsity=SPARSE, local_steps=2, seq=16, backend="exact",
+               local_lr=1e-34)
+    p0 = jax.device_get(t.build()["params"])
+    tp = p_make(m_devices=1, arch=P_TINY, aggregate="dense_masked",
+                sparsity=SPARSE, local_steps=2, seq=16, backend="cuda",
+                pallas_min_elems=1, local_lr=1e-34, device="cpu")
+    tp.build(params=params_from_jax(p0))
+    tiny = np.float32(1.1754944e-38)
+    for _ in range(3):
+        t.run(1)
+        tp.run(1)
+        for got, want in ((tp._built["params"], t._built["params"]),
+                          (tp._built["ef"], t._built["ef"])):
+            got, want = _np(got), _np(want)
+            for k in want:
+                a, b = got[k], want[k]
+                assert not ((a != 0) & (np.abs(a) < tiny)).any(), k
+                assert not ((b != 0) & (np.abs(b) < tiny)).any(), k
+                np.testing.assert_array_equal(a == 0, b == 0, err_msg=k)
+            _assert_trees_close(got, want)
+    assert sum(int((v != 0).sum()) for v in _np(t._built["ef"]).values())
+
+
 # ---------------------------------------------------------------------------
 # guards
 # ---------------------------------------------------------------------------
@@ -259,8 +316,9 @@ def test_port_and_chip_smoke_import_no_reference_module():
     mods = [m.removesuffix(".__init__") for m in mods] + ["chip_smoke"]
     simulator = ["core.prng", "core.scenario", "core.channels",
                  "core.compressor", "core.error_feedback", "core.server",
-                 "core.fl", "data.mnist", "data.partition",
-                 "models.paper_models", "launch.quickstart"]
+                 "core.fl", "core.fl_batched", "data.mnist",
+                 "data.partition", "models.paper_models", "launch.quickstart",
+                 "launch.profile_sim"]
     assert {f"repro_torch.{m}" for m in simulator} <= set(mods)
     code = (
         "import importlib, sys\n"

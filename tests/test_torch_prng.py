@@ -170,3 +170,64 @@ def test_erf_inv_and_fma_against_xla():
     assert got[0] == np.float32(1 + 2 ** -23)
     naive = (a.astype(np.float64) * b + c).astype(np.float32)
     assert naive[0] == np.float32(1 + 2 ** -22)
+
+
+# ---------------------------------------------------------------------------
+# rows: the batched engine's keys and draws, one tensor pass for all devices
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("tag", [0, 1, 4])
+def test_stream_keys_of_rounds_and_devices_match_jax(tag):
+    """(L, M, 2) keys in two tensor passes equal L x M calls of the scalar
+    ``stream_key`` and jax's, device ids at and above 2**31 included."""
+    jb, pb = jax.random.PRNGKey(11), prng.PRNGKey(11)
+    ts = [0, 5, 119, 2 ** 31 + 3]
+    ids = [0, 1, 7, 2 ** 31 + 1]
+    got = pscn.stream_keys(pb, tag, torch.tensor(ts), torch.tensor(ids))
+    assert got.shape == (len(ts), len(ids), 2)
+    want = jax.vmap(lambda t: jax.vmap(
+        lambda m: jscn.stream_key(jb, tag, t, m))(jnp.asarray(ids, jnp.uint32))
+    )(jnp.asarray(ts, jnp.uint32))
+    _bitwise(got, _kd(want))
+    for i, t in enumerate(ts):
+        for j, m in enumerate(ids):
+            assert torch.equal(got[i, j], pscn.stream_key(pb, tag, t, m))
+
+
+def test_randint_rows_match_jax_per_row():
+    """Per-row bounds (the devices' shard sizes), spans above 2**16
+    included: row r equals ``randint(keys[r], (n,), 0, maxval[r])``."""
+    base = prng.PRNGKey(5)
+    keys = pscn.stream_keys(base, 0, torch.tensor([3]),
+                            torch.arange(6))[0]
+    maxval = [1, 400, 3000, 70_000, 2 ** 24 + 1, 2 ** 31 - 1]
+    got = prng.randint_rows(keys, 257, torch.tensor(maxval))
+    jkeys = jax.vmap(lambda m: jscn.stream_key(jax.random.PRNGKey(5), 0, 3,
+                                               m))(jnp.arange(6))
+    for r, mx in enumerate(maxval):
+        want = jax.random.randint(jkeys[r], (257,), 0, mx)
+        _bitwise(got[r], want)
+        assert torch.equal(got[r], prng.randint(keys[r], (257,), 0, mx))
+
+
+def test_row_samplers_and_a_draw_in_pieces_are_bitwise():
+    """uniform / normal rows equal one call per key, and ``normal`` drawn
+    ``NORMAL_PIECE`` elements at a time gives the bits of one piece."""
+    keys = prng.split(prng.PRNGKey(9), 4)
+    u = prng.uniform_rows(keys, 1000, -0.99999994, 1.0)
+    n = prng.normal_rows(keys, 1000)
+    for r in range(4):
+        want_u = jax.random.uniform(jax.random.wrap_key_data(
+            jnp.asarray(keys[r].numpy(), jnp.uint32)), (1000,),
+            minval=-0.99999994, maxval=1.0)
+        _bitwise(u[r], want_u)
+        assert torch.equal(n[r].view(torch.int32),
+                           prng.normal(keys[r], (1000,)).view(torch.int32))
+    whole = prng.normal(keys[0], (3, 1001))
+    old = prng.NORMAL_PIECE
+    try:
+        prng.NORMAL_PIECE = 1000
+        pieces = prng.normal(keys[0], (3, 1001))
+    finally:
+        prng.NORMAL_PIECE = old
+    assert torch.equal(whole.view(torch.int32), pieces.view(torch.int32))
