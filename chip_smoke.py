@@ -45,6 +45,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    give bitwise the same params and error memory; device 0's inputs of the
    largest leaf's first call in round 2 are kept (a copy taken by wrapping
    the step's ``lgc_compress_hist_rows``) for phase 9;
+   then the same task under ``gilbert_flaky``: 3 rounds whose (M, C)
+   delivery masks come from the scenario's chains and dropout on the host
+   (at least one 0 among them), the row counters 24 and the flat ones 0,
+   params and error memory bitwise equal to the device-by-device flat
+   path (``rows=False``) from the same state;
 6. a small f32 serve (qwen2-smoke), card against CPU with the same weights:
    8-token prefill into a 16-slot ring, 24 greedy steps past the wrap; the
    logits agree at rtol = atol = 1e-5 and the tokens are equal;
@@ -61,13 +66,21 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ``lr_mnist`` at the quickstart's defaults (M=3, n_train 3000, 120
    rounds, H=4, eval every 20) in modes lgc and fedavg, and ``cnn_mnist`` at
    the factory's (n_train 6000, batch 64) with M=8, 40 rounds, H=4 in modes
-   lgc and topk; ``step`` and ``uplink_mb`` equal, losses within 1e-3 and
-   accuracy counts within 1 of 1,000; in the card runs every sync's (g, e')
+   lgc and topk; then, in mode lgc, ``cnn_mnist`` (M=8, 24 rounds) under
+   ``gilbert_flaky`` and ``rnn_shakespeare`` at the factory's defaults
+   (M=8, sequences of 48, 2,000 windows per device, D = 83,955; 24
+   rounds) under ``mobile_noniid``, where at least one sync must have
+   lost a channel or the whole device; ``step`` and ``uplink_mb`` equal,
+   losses within 1e-3 and accuracy counts within 1e-3 of the eval
+   predictions (1e-2 under a dynamic scenario, with the CPU's loop
+   against batched engine logged as the yardstick of summation order);
+   in the card runs every sync's (g, e')
    bitwise equal to the plain pipeline on the same card tensors
    (``lgc_compress_hist`` and ``lgc_compress_hist_rows`` wrapped); the loop
    engine launches each flat LGC kernel once per device and sync (90 for lr
-   lgc, 0 for fedavg, 80 for each cnn mode), the batched engine each row
-   kernel once per sync boundary (30, 0, 10, 10) and no flat kernel, with
+   lgc, 0 for fedavg, 80 for each cnn mode, 48 for each scenario run),
+   the batched engine each row kernel once per sync boundary (30, 0, 10,
+   10, 6, 6) and no flat kernel, with
    torch's sync debug mode raising on any host sync inside a window;
    swa_decode never; then a second card run of each engine, not checked
    per sync, for the host ms per round (the run's time over its rounds) and
@@ -86,7 +99,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    and on a constant
    vector (``at_one_bin``), ``sum_maxabs`` against the add and maxabs apart
    (``at_sum`` of maxabs), and each LGC kernel's row form at (3, 7,850),
-   (8, 206,922) and (2, 28,311,552) (``rows``: the paths' launches of it,
+   (8, 206,922), (8, 83,955) and (2, 28,311,552) (``rows``: the paths'
+   launches of it,
    its times, the plain row version, M flat launches and, for maxabs,
    ``vector_norm(u, inf, dim=1)``, for histogram M ``histc`` calls);
    swa_decode at the GQA serve
@@ -126,16 +140,27 @@ SWA_EDGE_SHAPES = [(1, 12, 2, 4096, 128), (2, 4, 2, 16, 64),
 # the simulator: lr_mnist at the quickstart's defaults and cnn_mnist at the
 # task factory's (n_train 6000, batch 64) with 8 devices; (task, M, n_train,
 # rounds, eval_every, modes)
+# and, under dynamic scenarios, cnn_mnist and rnn_shakespeare (n_train None:
+# the factory's default); (task, M, n_train, rounds, eval_every, modes,
+# scenario)
 SIM_H = 4
-SIM_RUNS = [("lr_mnist", 3, 3000, 120, 20, ("lgc", "fedavg")),
-            ("cnn_mnist", 8, 6000, 40, 10, ("lgc", "topk"))]
-LR_D, CNN_D = 7_850, 206_922
+SIM_RUNS = [("lr_mnist", 3, 3000, 120, 20, ("lgc", "fedavg"), "static"),
+            ("cnn_mnist", 8, 6000, 40, 10, ("lgc", "topk"), "static"),
+            ("cnn_mnist", 8, 6000, 24, 8, ("lgc",), "gilbert_flaky"),
+            ("rnn_shakespeare", 8, None, 24, 8, ("lgc",), "mobile_noniid")]
+LR_D, CNN_D, RNN_D = 7_850, 206_922, 83_955
+# card against CPU under a dynamic scenario: 24 rounds stop in the steep
+# part of training, where dropped channels leave more mass near the layer
+# thresholds and summation order alone moves the loss by about 1e-3 (the
+# phase logs the CPU's loop against batched engine as the yardstick); the
+# syncs themselves are held bitwise
+SCENARIO_HIST_TOL = 1e-2
 ENGINES = ("loop", "batched")
 ROW_KERNELS = {"maxabs": "maxabs_rows", "histogram": "histogram_rows",
                "sparsify_ef": "sparsify_ef_rows"}
-# (M, D) of the row forms on the paths: the lr and cnn simulator runs and
-# the largest leaf of the training path
-ROW_SHAPES = [(3, LR_D), (8, CNN_D), (M_DEVICES, LARGEST_LEAF)]
+# (M, D) of the row forms on the paths: the lr, cnn and rnn simulator runs
+# and the largest leaf of the training path
+ROW_SHAPES = [(3, LR_D), (8, CNN_D), (8, RNN_D), (M_DEVICES, LARGEST_LEAF)]
 
 TPU_KERNELS = {
     "maxabs": ("src/repro_torch/kernels/csrc/maxabs.cu",
@@ -611,10 +636,11 @@ def phase_small_trainer() -> None:
 # phase 5: the training path at full width
 # ---------------------------------------------------------------------------
 
-def main_path_task():
+def main_path_task(scenario: str = "static"):
     from repro_torch.models.paper_models import make_task
     return make_task("qwen2_100m", m_devices=M_DEVICES, preset="full",
-                     aggregate="dense_masked", backend="cuda")
+                     aggregate="dense_masked", backend="cuda",
+                     scenario=scenario)
 
 
 def phase_main_path() -> tuple[dict, object]:
@@ -699,6 +725,65 @@ def phase_main_path() -> tuple[dict, object]:
     del flat_task, fb
     (e, delta), = kept
     return counts, ref.ftz_add(e, delta)
+
+
+def phase_main_path_scenario(smi: str) -> dict:
+    """The training path under gilbert_flaky: 3 rounds with the scenario's
+    delivery masks, at least one 0 among them, params and error memory
+    bitwise equal to the device-by-device flat path from the same state.
+    Returns the launch counts."""
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch.steps import make_lgc_train_step
+    task = main_path_task("gilbert_flaky")
+    b = task.build()
+    flat_task = main_path_task("gilbert_flaky")
+    fb = flat_task.build(params={k: v.clone() for k, v in
+                                 b["params"].items()})
+    fb["step"] = make_lgc_train_step(flat_task.arch, M_DEVICES,
+                                     flat_task.step_cfg, rows=False)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = task.run(ROUNDS)
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    losses = out["losses"]
+    check(all(math.isfinite(x) for x in losses),
+          f"gilbert_flaky losses {losses}")
+    masks = torch.stack(task.masks)
+    check(masks.shape == (ROUNDS, M_DEVICES, task.step_cfg.n_channels)
+          and bool((masks == 0).any()),
+          f"gilbert_flaky masks {masks.tolist()}: no channel dropped")
+    want = ROUNDS * N_KERNEL_LEAVES
+    for name, rows_name in ROW_KERNELS.items():
+        check(counts[rows_name] == want and counts[name] == 0,
+              f"gilbert_flaky training launches {counts}, expected {want} "
+              f"for each row kernel and 0 for the flat ones")
+    check(counts["swa_decode"] == 0, "gilbert_flaky: swa_decode launched")
+    reset_launch_counts()
+    flat_task.run(ROUNDS)
+    torch.cuda.synchronize()
+    flat_counts = dict(LAUNCHES)
+    check(all(bool(torch.equal(a, c)) for a, c in zip(flat_task.masks,
+                                                       task.masks)),
+          "gilbert_flaky: the two runs drew different masks")
+    for k in b["params"]:
+        check(bits_equal(fb["params"][k].view(torch.int16),
+                         b["params"][k].view(torch.int16)),
+              f"gilbert_flaky param {k}: the row path and the flat path "
+              f"differ")
+        check(bits_equal(fb["ef"][k], b["ef"][k]),
+              f"gilbert_flaky ef {k}: the row path and the flat path differ")
+    check(all(flat_counts[n] == M_DEVICES * want for n in LGC_KERNELS),
+          f"gilbert_flaky flat path launches {flat_counts}")
+    log(f"main path under gilbert_flaky: masks by round {masks.tolist()} "
+        f"({int((masks == 0).sum())} of {masks.numel()} channel-rounds "
+        f"dropped); losses {losses}; device-steps/s "
+        f"{out['device_steps_per_s']:.3f} (rounds 2-{ROUNDS}); {smi}")
+    log(f"main path under gilbert_flaky: kernel launches {counts}; params "
+        f"and error memory bitwise equal to the device-by-device flat path "
+        f"(launches {flat_counts})")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -919,21 +1004,22 @@ def syncs_held_against_plain(compared: list, engine: str):
             setattr(BatchedEngine, m, saved[m])
 
 
-def sim_run(task_name: str, m: int, n_train: int, rounds: int,
-            eval_every: int, mode: str, engine: str, device: str,
-            compared: list | None = None) -> dict:
+def sim_run(task_name: str, m: int, n_train: int | None, rounds: int,
+            eval_every: int, mode: str, scenario: str, engine: str,
+            device: str, compared: list | None = None) -> dict:
     """One run (backend "cuda": the kernels on the card, their plain
-    versions on the CPU) with its launch counts and host times; with
-    ``compared``, every sync is held against the plain versions (a run not
-    timed)."""
+    versions on the CPU) under ``scenario`` with its launch counts and host
+    times; with ``compared``, every sync is held against the plain versions
+    (a run not timed)."""
     import torch
     from repro_torch.core import FLConfig
     from repro_torch.core.fl import EVAL_SUBSET, baseline_simulator
     from repro_torch.kernels import LAUNCHES, reset_launch_counts
     from repro_torch.models.paper_models import make_task
-    task = make_task(task_name, m_devices=m, n_train=n_train)
+    kw = {} if n_train is None else {"n_train": n_train}
+    task = make_task(task_name, m_devices=m, scenario=scenario, **kw)
     cfg = FLConfig(rounds=rounds, eval_every=eval_every, backend="cuda",
-                   engine=engine)
+                   engine=engine, scenario=scenario)
     sim = baseline_simulator(task, cfg, mode, h=SIM_H, device=device)
     held = (syncs_held_against_plain(compared, engine)
             if compared is not None else contextlib.nullcontext())
@@ -949,8 +1035,10 @@ def sim_run(task_name: str, m: int, n_train: int, rounds: int,
         counts = dict(LAUNCHES)
     check(all(math.isfinite(x) for x in hist.loss + hist.accuracy),
           f"{task_name} {mode} {engine} on {device}: History not finite")
+    y_eval = task.eval_data[1]       # (n,) labels or (n, S) next tokens
     out = {"hist": hist, "d": sim.d, "launches": counts, "wall_s": wall,
-           "n_eval": min(EVAL_SUBSET, len(task.eval_data[1])),
+           "n_eval": (min(EVAL_SUBSET, len(y_eval))
+                      * math.prod(y_eval.shape[1:])),
            "host_ms_per_round": wall * 1e3 / rounds,
            "device_steps_per_s": m * rounds / wall}
     if engine == "loop":
@@ -965,49 +1053,65 @@ def sim_run(task_name: str, m: int, n_train: int, rounds: int,
     return out
 
 
-def check_history(tag: str, gpu, cpu, n_eval: int) -> tuple[float, int]:
-    """step and uplink_mb equal, losses within 1e-3 and the accuracy
-    counts on the ``n_eval`` eval samples within 1e-3 of them; returns the
-    worst gaps."""
+def history_gaps(a, b, n_eval: int) -> tuple[float, int]:
+    """The largest loss gap and accuracy-count gap (on the ``n_eval`` eval
+    predictions) between two Histories."""
+    worst = max(abs(x - y) for x, y in zip(a.loss, b.loss))
+    gap = max(round(abs(x - y) * n_eval)
+              for x, y in zip(a.accuracy, b.accuracy))
+    return worst, gap
+
+
+def check_history(tag: str, gpu, cpu, n_eval: int,
+                  tol: float = 1e-3) -> tuple[float, int]:
+    """step and uplink_mb equal, losses within ``tol`` and the accuracy
+    counts on the ``n_eval`` eval predictions within ``tol`` of them;
+    returns the worst gaps."""
     check(gpu.step == cpu.step and gpu.uplink_mb == cpu.uplink_mb,
           f"{tag}: step or uplink_mb differ between card and CPU")
-    worst = max(abs(a - b) for a, b in zip(gpu.loss, cpu.loss))
-    check(worst <= 1e-3, f"{tag}: losses differ by {worst}")
-    # accuracy is a count over the eval subset: 1e-3 of 1000 samples is
-    # one, whose f32 mean differs by 0.0010000467
-    gap = max(round(abs(a - b) * n_eval)
-              for a, b in zip(gpu.accuracy, cpu.accuracy))
-    check(gap <= round(1e-3 * n_eval),
+    worst, gap = history_gaps(gpu, cpu, n_eval)
+    check(worst <= tol, f"{tag}: losses differ by {worst}")
+    # accuracy is a count over the eval predictions: 1e-3 of 1000 samples
+    # is one, whose f32 mean differs by 0.0010000467
+    check(gap <= round(tol * n_eval),
           f"{tag}: accuracy counts differ by {gap} of {n_eval}")
     return worst, gap
 
 
 def phase_simulator(smi: str) -> dict:
     """lr_mnist at the quickstart's defaults (lgc, fedavg) and cnn_mnist at
-    the factory's (lgc, topk), on the loop and the batched engine: the card
-    against the CPU, each sync's (g, e') on the card bitwise equal to the
-    plain versions on the same inputs, the loop engine launching the flat
-    LGC kernels once per device and sync and the batched engine the row
-    kernels once per sync boundary.  A second card run of each, not
-    checked per sync, gives the host times.  Returns the launch counts of
-    the checked runs by (task mode, engine)."""
+    the factory's (lgc, topk), then cnn_mnist under gilbert_flaky and
+    rnn_shakespeare under mobile_noniid (lgc), on the loop and the batched
+    engine: the card against the CPU, each sync's (g, e') on the card
+    bitwise equal to the plain versions on the same inputs, the loop
+    engine launching the flat LGC kernels once per device and sync and the
+    batched engine the row kernels once per sync boundary; under a dynamic
+    scenario some sync must have lost a channel or the whole device.  A
+    second card run of each, not checked per sync, gives the host times.
+    Returns the launch counts of the checked runs by (task mode [scenario],
+    engine)."""
     launches = {}
-    for task_name, m, n_train, rounds, eval_every, modes in SIM_RUNS:
+    for (task_name, m, n_train, rounds, eval_every, modes,
+         scenario) in SIM_RUNS:
         for mode in modes:
-            timing = {}
+            timing, cpu_hist = {}, {}
             for engine in ENGINES:
                 args = (task_name, m, n_train, rounds, eval_every, mode,
-                        engine)
+                        scenario, engine)
                 tag = f"{task_name} {mode} {engine}"
+                if scenario != "static":
+                    tag = f"{task_name} {mode} {scenario} {engine}"
                 compared: list = []
                 cpu = sim_run(*args, "cpu")
                 gpu = sim_run(*args, "cuda", compared=compared)
                 timed = sim_run(*args, "cuda")
                 n_eval = cpu["n_eval"]
+                tol = 1e-3 if scenario == "static" else SCENARIO_HIST_TOL
                 worst, gap = check_history(tag, gpu["hist"], cpu["hist"],
-                                           n_eval)
+                                           n_eval, tol)
                 check_history(f"{tag} (timed run)", timed["hist"],
-                              cpu["hist"], n_eval)
+                              cpu["hist"], n_eval, tol)
+                cpu_hist[engine] = cpu["hist"]
                 syncs = m * (rounds // SIM_H) if mode != "fedavg" else 0
                 boundaries = rounds // SIM_H if mode != "fedavg" else 0
                 for name, rows_name in ROW_KERNELS.items():
@@ -1025,6 +1129,10 @@ def phase_simulator(smi: str) -> dict:
                 check(len(compared) == syncs, f"{tag}: {len(compared)} syncs "
                       f"held against the plain versions, expected {syncs}")
                 dropped = sum(1 for r in compared if not all(r))
+                lost = sum(1 for r in compared if not any(r))
+                if scenario != "static":
+                    check(dropped > 0, f"{tag}: no sync lost a channel or "
+                          f"a device under the scenario")
                 launches[tag] = gpu["launches"]
                 timing[engine] = timed
                 h = gpu["hist"]
@@ -1035,7 +1143,9 @@ def phase_simulator(smi: str) -> dict:
                     f"card's losses within {worst:.2e} of the CPU's, accuracy "
                     f"count within {gap} of {n_eval}; {len(compared)} device "
                     f"syncs bitwise equal to the plain versions ({dropped} "
-                    f"with a channel dropped); launches {gpu['launches']}")
+                    f"with a channel dropped, {lost} with nothing delivered: "
+                    f"the device dropped or every channel down); launches "
+                    f"{gpu['launches']}")
                 for dev, r in (("cuda", timed), ("cpu", cpu)):
                     detail = (f"median sync round "
                               f"{r['median_sync_round_ms']:.3f}, other rounds "
@@ -1046,8 +1156,16 @@ def phase_simulator(smi: str) -> dict:
                         f"{r['host_ms_per_round']:.3f} ({detail}), "
                         f"device-steps/s {r['device_steps_per_s']:.1f} "
                         f"({r['wall_s']:.2f} s); {smi}")
-            log(f"simulator {task_name} {mode} on the card, batched against "
-                f"loop in this call: device-steps/s "
+            # the yardstick of summation order alone: the CPU's two engines
+            # run the same trajectory with the same syncs
+            yard_loss, yard_gap = history_gaps(cpu_hist["loop"],
+                                               cpu_hist["batched"], n_eval)
+            log(f"simulator {tag.rsplit(' ', 1)[0]}: the CPU's loop and "
+                f"batched engines differ by {yard_loss:.2e} in loss and "
+                f"{yard_gap} of {n_eval} in accuracy counts (summation "
+                f"order alone; the card is held to {tol})")
+            log(f"simulator {tag.rsplit(' ', 1)[0]} on the card, batched "
+                f"against loop in this call: device-steps/s "
                 f"{timing['batched']['device_steps_per_s']:.1f} against "
                 f"{timing['loop']['device_steps_per_s']:.1f}, host ms per "
                 f"round {timing['batched']['host_ms_per_round']:.3f} against "
@@ -1088,15 +1206,21 @@ def time_row(n: int, kern, plain, lib, n_bytes: float, n_ops: float,
     ``m_flat``, also of the M flat launches that the row form replaces."""
     from repro_torch.device import device_ms
     bnd, by = bound_ms(n_bytes, n_ops)
-    lib_device_ms = None
-    if lib:
+    lib_device_ms, lib_reps = None, None
+    # a library call of many launches (8 histc calls: fills, counts) fills
+    # the card's launch queue behind the hold at 100 calls, and the host
+    # then waits: 20 calls
+    for reps in (100, 20) if lib else ():
         try:
-            lib_device_ms = device_ms(lib)
-        except RuntimeError as err:    # the call waits for the card itself
-            log(f"timing: no device time for the library call ({err})")
+            lib_device_ms, lib_reps = device_ms(lib, reps=reps), reps
+            break
+        except RuntimeError as err:    # the enqueue outlasted the hold
+            log(f"timing: no device time for the library call over {reps} "
+                f"calls ({err})")
     row = {"n": n, "ms": time_ms(kern), "plain_ms": time_ms(plain),
            "library_ms": time_ms(lib) if lib else None,
            "device_ms": device_ms(kern), "library_device_ms": lib_device_ms,
+           "library_device_reps": lib_reps,
            "bound_ms": bnd, "bound_by": by, "bytes": n_bytes}
     if m_flat is not None:
         row |= {"m_flat_ms": time_ms(m_flat),
@@ -1327,6 +1451,7 @@ def main() -> int:
     phase_swa(gen, errs)
     phase_small_trainer()
     launches, main_u = phase_main_path()
+    flaky_launches = phase_main_path_scenario(smi)
     phase_small_serve()
     serving = phase_serve()
     phase_prng()
@@ -1344,7 +1469,9 @@ def main() -> int:
             big = rows[name][LARGEST_LEAF]
             row |= {"launches": launches[name] + launches[rn],
                     "launches_by_form": {"flat": launches[name],
-                                         "rows": launches[rn]}} | big | {
+                                         "rows": launches[rn]},
+                    "launches_gilbert_flaky": flaky_launches[name]
+                    + flaky_launches[rn]} | big | {
                 "at_embed": rows[name][EMBED]}
             if name == "histogram":
                 row |= {"at_main_path_u": rows[name]["main_path_u"],
@@ -1357,9 +1484,11 @@ def main() -> int:
                     "at_cnn_mnist": rows[name][CNN_D],
                     "at_lr_mnist": rows[name][LR_D]}
             # the row form at each path's (M, D), with that path's launches
-            path_launches = (sim_launches["lr_mnist lgc batched"][rn],
-                             sim_launches["cnn_mnist lgc batched"][rn],
-                             launches[rn])
+            path_launches = (
+                sim_launches["lr_mnist lgc batched"][rn],
+                sim_launches["cnn_mnist lgc batched"][rn],
+                sim_launches["rnn_shakespeare lgc mobile_noniid batched"][rn],
+                launches[rn])
             for (m, n), k in zip(ROW_SHAPES, path_launches):
                 row_times[name][f"{m}x{n}"]["launches"] = k
             row["rows"] = row_times[name]

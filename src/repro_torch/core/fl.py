@@ -39,10 +39,18 @@ arithmetic op; PyTorch keeps them.  So the engines flush where the
 reference's arithmetic would (:func:`sgd_update`, the net progress, the EF
 adds, :func:`server_mean_update`), with ``kernels.ref.ftz`` / ``ftz_add``.
 
+Scenarios.  Every registry scenario runs: the (M, C) channel-chain carry
+lives on the host and steps once per round, synced or not
+(:meth:`LGCSimulator._step_scenario`, the reference's ``_scen_step_all``);
+a sync reads its device's row and loses its whole uplink when
+:func:`.scenario.dropout_mask` drops the device (the reference's
+``fl.py:713-719``): the device still compresses, with nothing received, so
+error feedback keeps the mass, and the downlink still reaches it.
+
 Not ported yet, and raising where asked for: the sharded engine (ROADMAP
 A12), per-layer budgets (A8), the per-device action space, pipelined
-decisions and learning controllers (A9), the diloco and semi_sync servers
-(A10), and scenarios whose channels evolve or whose devices drop (A7).
+decisions and learning controllers (A9), and the diloco and semi_sync
+servers (A10).
 """
 from __future__ import annotations
 
@@ -63,7 +71,8 @@ from .compressor import (LGCCompressor, flatten_tree, qsgd_dequantize,
                          qsgd_quantize, tree_size, unflatten_like, wire_bytes)
 from .error_feedback import EFState, ef_compress, init_ef
 from .scenario import (TAG_BATCH, TAG_CHANNEL, TAG_EVAL, TAG_QUANT, Scenario,
-                       get_scenario, init_carry, sample_from_carry,
+                       ScenarioCarry, dropout_mask, get_scenario, init_carry,
+                       sample_from_carry, stack_carries, step_carry_rows,
                        stream_key)
 from .server import get_aggregator
 
@@ -228,10 +237,6 @@ class LGCSimulator:
         if get_aggregator(cfg.aggregator).name != "mean":
             raise _not_ported(f"aggregator={cfg.aggregator!r}", "A10")
         self.scenario = get_scenario(cfg.scenario)
-        if not self.scenario.is_static or self.scenario.has_dropout:
-            raise _not_ported(
-                f"scenario {self.scenario.name!r} in the engine (channel "
-                f"chains, dropout)", "A7")
         self.device = resolve_device(device)
         self.m_devices = len(task.device_data)
         self.fleet = (ControllerFleet(controllers)
@@ -270,12 +275,22 @@ class LGCSimulator:
         xe, ye = task.eval_data
         self._eval_xy = (torch.from_numpy(np.asarray(xe)).to(dev),
                          torch.from_numpy(np.asarray(ye)).to(dev))
-        # scenario state: one channel-chain carry per device (static: never
-        # advanced, its fields are never read)
+        # scenario state: the (M, C) channel-chain carry of every device, on
+        # the host (static: never advanced, its fields are never read)
         self._consts = stack_specs(cfg.channels)
         n_ch = len(cfg.channels)
-        self.scen_carry = [init_carry(self.scenario, self._base, m, n_ch)
-                           for m in range(self.m_devices)]
+        self._dev_ids = torch.arange(self.m_devices, dtype=torch.int64)
+        self.scen_carry = stack_carries(
+            [init_carry(self.scenario, self._base, m, n_ch)
+             for m in range(self.m_devices)])
+
+    # -- environment ---------------------------------------------------------
+    def _step_scenario(self, t0: int, te: int) -> None:
+        """Step every device's channel chains through rounds t0 .. te-1,
+        whether it syncs or not (the reference's ``_scen_step_all``)."""
+        self.scen_carry = step_carry_rows(self.scenario, self._base,
+                                          self.scen_carry, range(t0, te),
+                                          self._dev_ids)
 
     # -- local computation ---------------------------------------------------
     def _sgd_step(self, params: dict, batch: tuple, eta: float) -> dict:
@@ -363,6 +378,7 @@ class LGCSimulator:
         self._decide_devices(range(self.m_devices), 0)
         for t in range(cfg.rounds):
             t0 = time.perf_counter()
+            self._step_scenario(t, t + 1)
             eta = self._eta(t)
             updates, walls, sync_ms = [], [], []
             for m in range(self.m_devices):
@@ -408,8 +424,14 @@ class LGCSimulator:
     def _sync_device(self, m: int, t: int):
         dec = self.decisions[m]
         k_ch = stream_key(self._base, TAG_CHANNEL, t, m)
-        ch = sample_from_carry(self.scenario, self._consts,
-                               self.scen_carry[m], k_ch)
+        carry_m = ScenarioCarry(*(part[m] for part in self.scen_carry))
+        ch = sample_from_carry(self.scenario, self._consts, carry_m, k_ch)
+        if self.scenario.has_dropout:
+            # a dropped sync loses the whole uplink (error feedback keeps
+            # the mass); the broadcast still reaches the device
+            drop = dropout_mask(self.scenario, self._base, t,
+                                self._dev_ids[m:m + 1])[0]
+            ch = ch._replace(up=ch.up & ~drop)
         up = [bool(u) for u in ch.up.tolist()]
         delta = ftz_add(self.w_anchor[m], -flatten_tree(self.w_hat[m]))
 

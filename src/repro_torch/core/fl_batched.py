@@ -10,8 +10,11 @@ earliest sync point:
         the minibatch indices drawn from them, on the simulator's device
       for each round: torch.func.vmap(torch.func.grad(loss)) over the
         stacked (M, D) parameters, then p - eta * g
+      the scenario's channel chains stepped through t0 .. te-1 for every
+        device, on the host (:meth:`.fl.LGCSimulator._step_scenario`)
       at te - 1, for the devices that sync: the channel draw (TAG_CHANNEL)
-        and cost model, on the host; layered compression with error
+        with their carry rows laid over it and the dropout (TAG_DROP), and
+        the cost model, on the host; layered compression with error
         feedback over their rows (``backend="cuda"``: one launch each of
         the three LGC row kernels,
         :func:`repro_torch.kernels.lgc_compress_hist_rows`; ``"exact"``:
@@ -31,8 +34,9 @@ the device (its loss and accuracy).
 The per-device arithmetic is the loop engine's; the batched matmuls of the
 vmapped SGD sum in another order, so History agrees with the loop engine's
 to float summation order (tests/test_torch_fl_batched.py), and byte counts
-and sync sets exactly.  What the loop engine refuses (A7-A10), this engine
-refuses too: :class:`~.fl.LGCSimulator` checks it before either runs.
+and sync sets exactly, under every scenario (tests/test_torch_scenarios.py).
+What the loop engine refuses (A8-A10), this engine refuses too:
+:class:`~.fl.LGCSimulator` checks it before either runs.
 """
 from __future__ import annotations
 
@@ -45,13 +49,13 @@ import torch
 from repro_torch.kernels.ref import ftz_add
 
 from . import prng
-from .channels import (ChannelSample, comm_cost_mb, comp_cost,
-                       sample_channels_rows)
+from .channels import ChannelSample, comm_cost_mb, comp_cost
 from .compressor import (_leaf_order, flatten_tree, k_cap_for,
                          lgc_compress_topk, qsgd_dequantize,
                          qsgd_quantize_rows, unflatten_like)
 from .fl import History, server_mean_update, sgd_update
-from .scenario import TAG_BATCH, TAG_CHANNEL, TAG_QUANT, stream_keys
+from .scenario import (TAG_BATCH, TAG_CHANNEL, TAG_QUANT, ScenarioCarry,
+                       dropout_mask, sample_from_carry_rows, stream_keys)
 
 
 def _stack_device_data(device_data: Sequence, device: torch.device
@@ -184,14 +188,20 @@ class BatchedEngine:
 
     def _channels(self, te: int, ms: tuple[int, ...]
                   ) -> tuple[ChannelSample, np.ndarray]:
-        """The sync's channel draw (TAG_CHANNEL at round te - 1) and cost
-        model for the devices ``ms``, on the host in f32 as the loop engine
-        prices them: the (S, N) sample and the (S, 4) costs (energy, money,
-        time, uplink bytes)."""
+        """The sync's channel draw (TAG_CHANNEL at round te - 1) with the
+        devices' carry rows laid over it, their dropout, and the cost model
+        for the devices ``ms``, on the host in f32 as the loop engine prices
+        them: the (S, N) sample and the (S, 4) costs (energy, money, time,
+        uplink bytes)."""
         sim, cfg = self.sim, self.sim.cfg
-        keys = stream_keys(sim._base, TAG_CHANNEL,
-                           torch.tensor([te - 1]), torch.tensor(ms))[0]
-        ch = sample_channels_rows(keys, sim._consts)
+        rows = torch.tensor(ms)
+        keys = stream_keys(sim._base, TAG_CHANNEL, torch.tensor([te - 1]),
+                           rows)[0]
+        carry = ScenarioCarry(*(part[rows] for part in sim.scen_carry))
+        ch = sample_from_carry_rows(sim.scenario, sim._consts, carry, keys)
+        if sim.scenario.has_dropout:
+            drop = dropout_mask(sim.scenario, sim._base, te - 1, rows)
+            ch = ch._replace(up=ch.up & ~drop[:, None])
         if sim.mode == "fedavg":
             # the whole model over the fastest channel that is up; with
             # every channel down nothing is sent
@@ -292,6 +302,7 @@ class BatchedEngine:
             t_start = time.perf_counter()
             te = min(min(sim.next_sync), cfg.rounds)
             ms = tuple(m for m in range(self.m) if sim.next_sync[m] <= te)
+            sim._step_scenario(t, te)
             if ms:      # host values the window needs, on the device first
                 ks = self._ks_rows(ms)
                 rows = None if len(ms) == self.m else self._rows_index(ms)

@@ -9,14 +9,23 @@ log-bandwidth, Gilbert-Elliott availability) with :func:`init_carry`,
 Every variate of a simulation comes from ``stream_key(base, TAG, round,
 device)``, a chain of threefry ``fold_in`` calls, so the port draws the
 same minibatches, channel states and dither as the reference
-(:mod:`repro_torch.core.prng`).  A carry is one device's state; the loop
-engine keeps one per device on the host.  Booleans (channel states, up
-masks, dropouts) are bitwise equal to the reference's; the AR(1) floats
-agree to f32 rounding (tests/test_torch_sim_core.py).
+(:mod:`repro_torch.core.prng`).  A carry holds one device's chain state
+((C,) fields) or M devices' ((M, C) fields).  Booleans (channel states, up
+masks, dropouts) and the carry are bitwise equal to the reference's
+(tests/test_torch_sim_core.py, tests/test_torch_scenarios.py).
 
-The loop engine (:mod:`repro_torch.core.fl`) runs the scenarios whose
-channels are memoryless and that drop no device (``static``,
-``dirichlet0.3``); the chains and dropout in the engine are ROADMAP A7.
+Both engines keep the (M, C) carry of every device on the host and step
+it once per round with :func:`step_carry_rows` (all devices, the draws of
+all the window's rounds in a few tensor passes); a sync reads its devices'
+rows through :func:`sample_from_carry` / :func:`sample_from_carry_rows`
+and drops whole uplinks by :func:`dropout_mask`.
+
+The reference steps the carry inside ``jax.jit`` (the loop engine's
+``_scen_step_all``, the batched engine's window scan), where XLA:CPU folds
+``sigma * sqrt(1 - rho**2) * sqrt(2)`` into one f32 constant and fuses
+``rho * bw_log + innov`` into a multiply-add.  The port does both
+(:func:`_gm_step`), so its chains are bitwise the jitted reference's
+(tests/test_torch_scenarios.py).
 """
 from __future__ import annotations
 
@@ -27,7 +36,7 @@ import torch
 
 from . import prng
 from .channels import (ChannelConstants, ChannelSample, DeviceProfile,
-                       sample_channels_from)
+                       sample_channels_from, sample_channels_rows)
 
 _F32 = torch.float32
 
@@ -202,6 +211,25 @@ def init_carry(scn: Scenario, base: torch.Tensor, dev_id: int,
     return ScenarioCarry(bw_log.to(_F32), good)
 
 
+def _gm_step(gm: GaussMarkovSpec, bw_log: torch.Tensor,
+             erf_inv_u: torch.Tensor) -> torch.Tensor:
+    """One AR(1) step from the innovation's ``erf_inv(u)`` (its normal
+    without the sqrt(2)): ``fma(rho, bw_log, erf_inv_u * c)`` with ``c =
+    f32(sigma * sqrt(1 - rho**2)) * f32(sqrt 2)`` in f32, as XLA:CPU folds
+    and fuses the reference's jitted step."""
+    f32 = lambda v: torch.tensor(v, dtype=_F32)   # noqa: E731
+    scale = f32(gm.sigma) * prng.sqrt_f32(f32(1.0 - gm.rho ** 2))
+    innov = erf_inv_u * (scale * f32(prng._SQRT2)).to(erf_inv_u.device)
+    rho = torch.full_like(bw_log, gm.rho)
+    return prng.fma32(rho, bw_log, innov)
+
+
+def _ge_step(ge: GilbertElliottSpec, good: torch.Tensor,
+             u: torch.Tensor) -> torch.Tensor:
+    return torch.where(good, u >= torch.tensor(ge.p_gb, dtype=_F32),
+                       u < torch.tensor(ge.p_bg, dtype=_F32))
+
+
 def step_carry(scn: Scenario, base: torch.Tensor, carry: ScenarioCarry,
                t: int, dev_id: int, valid: bool = True) -> ScenarioCarry:
     """Advance one device's chains through round ``t`` (TAG_SCEN stream);
@@ -213,14 +241,44 @@ def step_carry(scn: Scenario, base: torch.Tensor, carry: ScenarioCarry,
     bw_log, good = carry
     gm, ge = scn.gauss_markov, scn.gilbert_elliott
     if gm is not None:
-        innov_scale = gm.sigma * prng.sqrt_f32(
-            torch.tensor(1.0 - gm.rho ** 2, dtype=_F32))
-        innov = innov_scale * prng.normal(k_gm, tuple(bw_log.shape))
-        bw_log = gm.rho * bw_log + innov
+        n = bw_log.shape[0]
+        u = prng.uniform(k_gm, (n,), prng._NORMAL_LO, 1.0)
+        bw_log = _gm_step(gm, bw_log, prng.erf_inv(u))
     if ge is not None:
-        u = prng.uniform(k_ge, tuple(good.shape))
-        good = torch.where(good, u >= torch.tensor(ge.p_gb, dtype=_F32),
-                           u < torch.tensor(ge.p_bg, dtype=_F32))
+        good = _ge_step(ge, good, prng.uniform(k_ge, tuple(good.shape)))
+    return ScenarioCarry(bw_log, good)
+
+
+def stack_carries(carries: Sequence[ScenarioCarry]) -> ScenarioCarry:
+    """Per-device carries stacked into one (M, C) carry."""
+    return ScenarioCarry(torch.stack([c.bw_log for c in carries]),
+                         torch.stack([c.good for c in carries]))
+
+
+def step_carry_rows(scn: Scenario, base: torch.Tensor, carry: ScenarioCarry,
+                    ts: Sequence[int], dev_ids: torch.Tensor
+                    ) -> ScenarioCarry:
+    """:func:`step_carry` of every device of ``dev_ids`` (M,) through the
+    rounds ``ts`` in turn, on an (M, C) carry: the keys and draws of all
+    (round, device) pairs in a few tensor passes, then one elementwise
+    step per round.  Each step is bitwise the per-device one."""
+    if scn.is_static or len(ts) == 0:
+        return carry
+    bw_log, good = carry
+    m, n_ch = good.shape
+    keys = stream_keys(base, TAG_SCEN, torch.tensor(list(ts)), dev_ids)
+    ks = prng.split_rows(keys.reshape(-1, 2), 2)        # (L M, 2, 2)
+    gm, ge = scn.gauss_markov, scn.gilbert_elliott
+    if gm is not None:
+        e = prng.erf_inv(prng.uniform_rows(ks[:, 0], n_ch, prng._NORMAL_LO,
+                                           1.0)).reshape(len(ts), m, n_ch)
+    if ge is not None:
+        u = prng.uniform_rows(ks[:, 1], n_ch).reshape(len(ts), m, n_ch)
+    for i in range(len(ts)):
+        if gm is not None:
+            bw_log = _gm_step(gm, bw_log, e[i])
+        if ge is not None:
+            good = _ge_step(ge, good, u[i])
     return ScenarioCarry(bw_log, good)
 
 
@@ -230,7 +288,20 @@ def sample_from_carry(scn: Scenario, consts: ChannelConstants,
     """One device's channel conditions at a sync round: the memoryless
     draw of :func:`.channels.sample_channels_from`, with the carry-driven
     fields laid over it."""
-    s = sample_channels_from(key, consts)
+    return _lay_carry(scn, consts, carry, sample_channels_from(key, consts))
+
+
+def sample_from_carry_rows(scn: Scenario, consts: ChannelConstants,
+                           carry: ScenarioCarry, keys: torch.Tensor
+                           ) -> ChannelSample:
+    """:func:`sample_from_carry` for the (S, C) carry rows and keys (S, 2)
+    of S devices: :func:`.channels.sample_channels_rows` with the carry
+    laid over it, (S, C) each."""
+    return _lay_carry(scn, consts, carry, sample_channels_rows(keys, consts))
+
+
+def _lay_carry(scn: Scenario, consts: ChannelConstants, carry: ScenarioCarry,
+               s: ChannelSample) -> ChannelSample:
     gm, ge = scn.gauss_markov, scn.gilbert_elliott
     if gm is not None:
         # exp(x - sigma^2/2): long-run mean is exactly the nominal rate
@@ -244,12 +315,12 @@ def sample_from_carry(scn: Scenario, consts: ChannelConstants,
 def dropout_mask(scn: Scenario, base: torch.Tensor, t: int,
                  dev_ids: torch.Tensor) -> torch.Tensor:
     """(M,) bool: which devices lose their whole uplink at sync round
-    ``t`` (one TAG_DROP uniform per (round, device))."""
+    ``t`` (one TAG_DROP uniform per (round, device), all devices in a few
+    tensor passes)."""
     if not scn.has_dropout:
         return torch.zeros(dev_ids.shape, dtype=torch.bool)
-    u = torch.stack([prng.uniform(stream_key(base, TAG_DROP, t, int(i)))
-                     for i in dev_ids.tolist()])
-    return u < scn.drop_probs(dev_ids)
+    keys = stream_keys(base, TAG_DROP, torch.tensor([t]), dev_ids)[0]
+    return prng.uniform_rows(keys, 1)[:, 0] < scn.drop_probs(dev_ids)
 
 
 # ---------------------------------------------------------------------------

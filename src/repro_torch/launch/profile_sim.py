@@ -2,10 +2,13 @@
 
     python -m repro_torch.launch.profile_sim [--task lr_mnist] [--m-devices 3]
         [--n-train 3000] [--rounds 40] [--mode lgc] [--engine batched]
+        [--scenario static]
 
 Runs ``run_baseline``'s simulator on the card with ``backend="cuda"`` (H=4,
-5% of D per sync), once to warm up, once timed and once under
-``torch.profiler``:
+5% of D per sync) on ``lr_mnist``, ``cnn_mnist`` or ``rnn_shakespeare``
+(``--n-train`` defaults to 3,000 for the MNIST tasks and to the factory's
+2,000 windows per device for the RNN) under a registry scenario, once to
+warm up, once timed and once under ``torch.profiler``:
 
 * host ms per round (the timed run's time over its rounds) and the split
   over the engine's phases, each wrapped with a host clock.  The loop
@@ -14,7 +17,9 @@ Runs ``run_baseline``'s simulator on the card with ``backend="cuda"`` (H=4,
   ``autograd.grad``, update; enqueued), ``sync`` (channel draw,
   compression, cost model) and ``record`` (eval), the rest being the
   server mean and the controller; with the median sync round and the
-  median other round (with H=4 three rounds in four sync no device).  The
+  median other round (with H=4 three rounds in four sync no device).
+  Both engines: ``scenario`` (stepping the (M, C) channel-chain carry
+  through the rounds, on the host; nothing under ``static``).  The
   batched engine (the default): ``channels`` (the sync's channel draw and
   cost model, on the host), ``draw_batches`` (the window's keys and
   minibatch indices, on the card), ``sgd`` (the vmapped gradients and
@@ -39,6 +44,7 @@ import torch
 from repro_torch.core import FLConfig
 from repro_torch.core.fl import baseline_simulator
 from repro_torch.core.fl_batched import BatchedEngine
+from repro_torch.core.scenario import SCENARIOS
 from repro_torch.device import (card_name_and_power_limit, kernel_group,
                                  union_us)
 from repro_torch.models.paper_models import make_task
@@ -47,10 +53,12 @@ H = 4                  # the baselines' fixed sync gap
 # phase -> (object, method): "sim" is the simulator, "engine" the batched
 # engine that drives it
 PHASES = {
-    "loop": {"sample_batch": ("sim", "_sample_batch"),
+    "loop": {"scenario": ("sim", "_step_scenario"),
+             "sample_batch": ("sim", "_sample_batch"),
              "sgd": ("sim", "_sgd_step"), "sync": ("sim", "_sync_device"),
              "record": ("sim", "_record")},
-    "batched": {"channels": ("engine", "_channels"),
+    "batched": {"scenario": ("sim", "_step_scenario"),
+                "channels": ("engine", "_channels"),
                 "draw_batches": ("engine", "_draw_batches"),
                 "sgd": ("engine", "_local_steps"),
                 "sync": ("engine", "_sync"),
@@ -85,22 +93,27 @@ def _run(sim, spent: dict | None = None):
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--task", default="lr_mnist",
-                    choices=("lr_mnist", "cnn_mnist"))
+                    choices=("lr_mnist", "cnn_mnist", "rnn_shakespeare"))
     ap.add_argument("--m-devices", type=int, default=3)
-    ap.add_argument("--n-train", type=int, default=3000)
+    ap.add_argument("--n-train", type=int, default=None)
     ap.add_argument("--rounds", type=int, default=40)
     ap.add_argument("--mode", default="lgc",
                     choices=("lgc", "topk", "fedavg", "lgc_q8"))
     ap.add_argument("--engine", default="batched",
                     choices=("loop", "batched"))
+    ap.add_argument("--scenario", default="static", choices=sorted(SCENARIOS))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_sim needs a CUDA card")
     card = card_name_and_power_limit()
+    n_train = args.n_train
+    if n_train is None and args.task != "rnn_shakespeare":
+        n_train = 3000
+    kw = {} if n_train is None else {"n_train": n_train}
     task = make_task(args.task, m_devices=args.m_devices,
-                     n_train=args.n_train)
+                     scenario=args.scenario, **kw)
     cfg = FLConfig(rounds=args.rounds, eval_every=10, backend="cuda",
-                   engine=args.engine)
+                   engine=args.engine, scenario=args.scenario)
 
     def simulator():
         return baseline_simulator(task, cfg, args.mode, h=H, device="cuda")
@@ -143,7 +156,8 @@ def main(argv=None) -> dict:
         "card": card,
         "device": torch.cuda.get_device_name(0),
         "task": args.task, "m_devices": args.m_devices, "mode": args.mode,
-        "engine": args.engine, "d": sim.d, "rounds": rounds,
+        "engine": args.engine, "scenario": args.scenario, "d": sim.d,
+        "rounds": rounds,
         "h": H,
         "host_ms_per_round": wall_s * 1e3 / args.rounds,
         **medians,

@@ -1,9 +1,12 @@
 """Where a sync round of the qwen2_100m LGC trainer spends the card's time.
 
     python -m repro_torch.launch.profile_trainer [--m-devices 2] [--rounds 5]
+        [--scenario static]
 
 Builds ``make_task("qwen2_100m", preset="full", aggregate="dense_masked",
-backend="cuda")`` on the card, times ``--rounds`` rounds after one warm-up
+backend="cuda", scenario=...)`` on the card, times ``--rounds`` rounds
+(each ``task.run(1)``, so each with the scenario's round-0 delivery mask,
+as the reference's ``run`` restarts its chains) after one warm-up
 round (host clock around each round; a round ends in a device sync), then
 runs one more round under ``torch.profiler`` and sums the device time of
 its kernels by group: the three LGC compression kernels, matrix products
@@ -23,23 +26,27 @@ import time
 
 import torch
 
+from repro_torch.core.scenario import SCENARIOS
 from repro_torch.device import (card_name_and_power_limit, kernel_group,
                                  union_us)
 from repro_torch.kernels import LAUNCHES, reset_launch_counts
 from repro_torch.models.paper_models import make_task
+
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--m-devices", type=int, default=2)
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--scenario", default="static", choices=sorted(SCENARIOS))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_trainer needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_name_and_power_limit()
     task = make_task("qwen2_100m", m_devices=args.m_devices, seed=args.seed,
-                     preset="full", aggregate="dense_masked", backend="cuda")
+                     preset="full", aggregate="dense_masked", backend="cuda",
+                     scenario=args.scenario)
     task.run(1)                                   # build + first-call set-up
     round_s = []
     for _ in range(args.rounds):
@@ -74,6 +81,8 @@ def main(argv=None) -> dict:
         "card": card,
         "device": torch.cuda.get_device_name(0),
         "m_devices": args.m_devices,
+        "scenario": args.scenario,
+        "received": task.masks[0].tolist(),
         "local_steps": task.step_cfg.local_steps,
         "round_ms_median": statistics.median(round_s) * 1e3,
         "round_ms_all": [x * 1e3 for x in round_s],

@@ -5,7 +5,9 @@ synthetic MNIST across 3 edge devices with 3 channels (3G / 4G / 5G),
 layered gradient compression with error feedback (fixed H=4, 5% of the
 coordinates split 1/2, 1/4, 1/4 over the channels), against FedAvg's dense
 upload; then the same resource table, and the host time per round of each
-run.  ``--task cnn_mnist`` runs the paper's CNN instead.
+run.  ``--task cnn_mnist`` runs the paper's CNN instead, ``--task
+rnn_shakespeare`` its char-RNN (``--n-train`` windows of 48 characters),
+and ``--scenario`` any registry scenario (evolving channels, dropout).
 
     PYTHONPATH=src python -m repro_torch.launch.quickstart            # the card
     PYTHONPATH=src python -m repro_torch.launch.quickstart --device cpu
@@ -25,6 +27,7 @@ import time
 import torch
 
 from repro_torch.core import FLConfig, run_baseline
+from repro_torch.core.scenario import SCENARIOS
 from repro_torch.device import resolve_device
 from repro_torch.models.paper_models import make_task
 
@@ -43,7 +46,8 @@ def _timed_run(task, cfg, mode, device) -> tuple:
 def main(argv: list[str] | None = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--task", default="lr_mnist",
-                    choices=("lr_mnist", "cnn_mnist"))
+                    choices=("lr_mnist", "cnn_mnist", "rnn_shakespeare"))
+    ap.add_argument("--scenario", default="static", choices=sorted(SCENARIOS))
     ap.add_argument("--rounds", type=int, default=120)
     ap.add_argument("--n-train", type=int, default=3000)
     ap.add_argument("--device", default=None,
@@ -52,11 +56,12 @@ def main(argv: list[str] | None = None) -> dict:
                     choices=("loop", "batched"))
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
-    task = make_task(args.task, m_devices=3, n_train=args.n_train)
+    task = make_task(args.task, m_devices=3, n_train=args.n_train,
+                     scenario=args.scenario)
     cfg = FLConfig(rounds=args.rounds, eval_every=max(args.rounds // 6, 1),
-                   backend="cuda", engine=args.engine)
+                   backend="cuda", engine=args.engine, scenario=args.scenario)
     print(f"== {args.task} on {device}, M=3, {args.rounds} rounds, "
-          f"{args.engine} engine ==")
+          f"{args.engine} engine, scenario {args.scenario} ==")
 
     print("== LGC (layered compression, 3 channels, fixed H=4) ==")
     lgc, lgc_ms = _timed_run(task, cfg, "lgc", device)

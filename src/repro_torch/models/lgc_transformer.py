@@ -8,10 +8,12 @@ reference calls ``pmean``.  Everything else mirrors the reference: f32 net
 progress, ``w.f32 - lr * g`` cast back to ``w.dtype``, ``ef += g - g_wire``,
 the server subtract, the stacked (M, ...) error memory.
 
-Only the ``static`` scenario runs: its delivery mask is all ones.  The
-other scenarios draw their masks from the reference's threefry streams and
-wait for the PRNG slice (ROADMAP A1, A3, A7).  The step also takes an
-explicit (M, C) ``received`` mask.
+The scenario drives the channels: per round the (M, C) delivery mask is
+the scenario's Gilbert-Elliott state (channel c of device m up or down)
+times the whole-uplink dropout, drawn from the reference's threefry
+streams on the host (:meth:`LGCTransformerTask._round_mask`), so it is
+bitwise the reference's; undelivered mass stays in the device's error
+memory.  Under ``static`` the mask is all ones.
 """
 from __future__ import annotations
 
@@ -22,26 +24,16 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import prng
+from repro_torch.core.scenario import (Scenario, ScenarioCarry, dropout_mask,
+                                       get_scenario, init_carry,
+                                       stack_carries, step_carry_rows)
 from repro_torch.data.tokens import TokenPipeline
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import (LGCStepConfig, init_ef_tree,
                                       lgc_wire_bytes_per_round,
                                       make_lgc_train_step)
 from repro_torch.models import transformer as tf
-
-PORTED_SCENARIOS = ("static",)
-
-
-def _scenario_name(scenario) -> str:
-    name = "static" if scenario is None else getattr(scenario, "name",
-                                                     scenario)
-    if name not in PORTED_SCENARIOS:
-        raise NotImplementedError(
-            f"scenario {name!r} is not ported yet: its delivery masks come "
-            "from the reference's threefry streams (ROADMAP A1, A3, A7); "
-            f"ported: {PORTED_SCENARIOS}")
-    return name
-
 
 @dataclasses.dataclass
 class LGCTransformerTask:
@@ -53,7 +45,7 @@ class LGCTransformerTask:
     """
     arch: ArchConfig
     m_devices: int
-    scenario: str
+    scenario: Scenario
     step_cfg: LGCStepConfig
     device: torch.device
     batch_per_device: int = 2
@@ -100,16 +92,37 @@ class LGCTransformerTask:
         ef = init_ef_tree(params, self.m_devices,
                           getattr(torch, self.step_cfg.ef_dtype))
         step = make_lgc_train_step(self.arch, self.m_devices, self.step_cfg)
-        received = torch.ones((self.m_devices, self.step_cfg.n_channels),
-                              dtype=torch.int32, device=self.device)
-        self._built = dict(params=params, ef=ef, step=step, pipe=pipe,
-                           received=received)
+        self._built = dict(params=params, ef=ef, step=step, pipe=pipe)
         return self._built
 
     def next_batch(self) -> dict:
         x, y = self.build()["pipe"].next_batch()
         return {"tokens": torch.from_numpy(x).to(self.device, torch.long),
                 "labels": torch.from_numpy(y).to(self.device, torch.long)}
+
+    # -- scenario-driven channel availability -------------------------------
+
+    def _mask_state(self) -> tuple[torch.Tensor, torch.Tensor, ScenarioCarry]:
+        """The mask streams' base key, the device ids and the (M, C) carry
+        at its stationary draw, on the host."""
+        base = prng.PRNGKey(self.seed)
+        dev_ids = torch.arange(self.m_devices, dtype=torch.int64)
+        n_ch = self.step_cfg.n_channels
+        carry = stack_carries([init_carry(self.scenario, base, i, n_ch)
+                               for i in range(self.m_devices)])
+        return base, dev_ids, carry
+
+    def _round_mask(self, base: torch.Tensor, dev_ids: torch.Tensor,
+                    carry: ScenarioCarry, t: int
+                    ) -> tuple[ScenarioCarry, torch.Tensor]:
+        """Step the chains through round ``t``, then the (M, C) int32
+        delivery mask: Gilbert-Elliott availability times the whole-uplink
+        dropout, both on the shared TAG streams."""
+        carry = step_carry_rows(self.scenario, base, carry, [t], dev_ids)
+        drop = dropout_mask(self.scenario, base, t, dev_ids)
+        received = (carry.good.to(torch.int32)
+                    * (~drop).to(torch.int32)[:, None])
+        return carry, received
 
     # -- training -----------------------------------------------------------
 
@@ -118,11 +131,17 @@ class LGCTransformerTask:
         wire accounting."""
         b = self.build()
         params, ef, step = b["params"], b["ef"], b["step"]
+        base, dev_ids, carry = self._mask_state()
         losses, t_steady = [], None
+        self.masks = []                     # each round's (M, C) mask, host
         t0 = time.perf_counter()
         for i in range(steps):
-            params, ef, loss = step(params, ef, self.next_batch(),
-                                    b["received"])
+            carry, received = self._round_mask(base, dev_ids, carry, i)
+            self.masks.append(received)
+            if self.device.type == "cuda":   # no wait for the card
+                received = received.pin_memory().to(self.device,
+                                                    non_blocking=True)
+            params, ef, loss = step(params, ef, self.next_batch(), received)
             losses.append(float(loss))   # float() waits for the round
             if i == 0:
                 t_steady = time.perf_counter()   # exclude first-call set-up
@@ -167,7 +186,7 @@ def make_qwen2_100m_task(m_devices: int = 8, seed: int = 0,
     if arch is None:
         arch = (get_config("qwen2-100m") if preset == "full"
                 else get_smoke_config("qwen2-100m"))
-    scn = _scenario_name(scenario)
+    scn = get_scenario(scenario)
     kw = {} if pallas_min_elems is None else {
         "pallas_min_elems": pallas_min_elems}
     step_cfg = LGCStepConfig(local_steps=local_steps, local_lr=local_lr,

@@ -1,18 +1,21 @@
 """The paper's evaluation models (§4.1) and the task registry.
 
 Port of ``repro/models/paper_models.py``: ``_xent``, ``_acc``, the LR and
-CNN models on (synthetic) MNIST, ``make_mnist_task``, and ``TASKS`` /
+CNN models on (synthetic) MNIST, the GRU char-RNN on Shakespeare,
+``make_mnist_task``, ``make_shakespeare_task``, and ``TASKS`` /
 ``make_task``.  Parameters are flat ``{name: Tensor}`` dicts and forward
 passes plain functions, as in the reference.  The CNN keeps the
 reference's NHWC layout and its shift-im2col formulation of the 3x3 conv
 (pad, nine shifted views, one matmul) instead of ``F.conv2d``, so the same
-weights compute the same function and no cuDNN TF32 setting comes in.
-``rnn_shakespeare`` raises until ROADMAP A7.
+weights compute the same function and no cuDNN TF32 setting comes in.  The
+GRU is a Python loop over the sequence in plain torch ops (the reference's
+``lax.scan``), usable under ``torch.func.vmap(torch.func.grad(...))``.
 
-``lr_init`` / ``cnn_init`` draw from the ported threefry
-(:mod:`repro_torch.core.prng`): the CNN's ``he_normal`` is bitwise equal to
-the reference's, the LR's ``normal`` within 2 ulp
-(tests/test_torch_paper_models.py).
+``lr_init`` / ``cnn_init`` / ``rnn_init`` draw from the ported threefry
+(:mod:`repro_torch.core.prng`): the CNN's ``he_normal`` and the RNN's
+``glorot_normal`` are bitwise equal to the reference's, the ``normal``
+draws of the LR and the RNN's embedding within 2 ulp
+(tests/test_torch_paper_models.py, tests/test_torch_shakespeare.py).
 """
 from __future__ import annotations
 
@@ -25,6 +28,8 @@ from repro_torch.core import prng
 from repro_torch.core.fl import FLTask
 from repro_torch.core.scenario import Scenario, get_scenario, partition_fn
 from repro_torch.data.mnist import load_synthetic_mnist
+from repro_torch.data.shakespeare import (VOCAB_SIZE, char_shards,
+                                          load_shakespeare)
 
 _F32 = torch.float32
 
@@ -56,14 +61,30 @@ def lr_logits(params: dict, x: torch.Tensor) -> torch.Tensor:
 # CNN on MNIST (LeNet-style)
 # ---------------------------------------------------------------------------
 
-def _he_normal(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
-    """``jax.nn.initializers.he_normal()``: truncated normal on (-2, 2)
-    scaled to variance 2 / fan_in (fan_in = shape[-2] x receptive field)."""
-    fan_in = shape[-2] * (torch.Size(shape).numel() // (shape[-2] * shape[-1]))
-    variance = torch.tensor(2.0 / fan_in, dtype=_F32)
+def _variance_scaling(key: torch.Tensor, shape: tuple[int, ...],
+                      scale: float, mode: str) -> torch.Tensor:
+    """``jax.nn.initializers.variance_scaling(scale, mode,
+    "truncated_normal")``: truncated normal on (-2, 2) scaled to variance
+    ``scale`` / fan (fan_in = shape[-2] x receptive field, fan_out =
+    shape[-1] x receptive field, fan_avg their mean), in f32."""
+    receptive = torch.Size(shape).numel() // (shape[-2] * shape[-1])
+    fan_in, fan_out = shape[-2] * receptive, shape[-1] * receptive
+    fan = {"fan_in": fan_in, "fan_avg": (fan_in + fan_out) / 2}[mode]
+    variance = torch.tensor(scale / fan, dtype=_F32)
     stddev = prng.sqrt_f32(variance) / torch.tensor(.87962566103423978,
                                                     dtype=_F32)
     return prng.truncated_normal(key, -2.0, 2.0, shape) * stddev
+
+
+def _he_normal(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+    """``jax.nn.initializers.he_normal()``."""
+    return _variance_scaling(key, shape, 2.0, "fan_in")
+
+
+def _glorot_normal(key: torch.Tensor, shape: tuple[int, ...]
+                   ) -> torch.Tensor:
+    """``jax.nn.initializers.glorot_normal()``."""
+    return _variance_scaling(key, shape, 1.0, "fan_avg")
 
 
 def cnn_init(key: torch.Tensor) -> dict[str, torch.Tensor]:
@@ -105,7 +126,45 @@ def cnn_logits(params: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# FLTask factory
+# char-RNN on Shakespeare (GRU)
+# ---------------------------------------------------------------------------
+
+_RNN_EMB, _RNN_HID = 64, 128
+
+
+def rnn_init(key: torch.Tensor) -> dict[str, torch.Tensor]:
+    ks = prng.split(key, 5)
+    v, e, h = VOCAB_SIZE, _RNN_EMB, _RNN_HID
+    return {
+        "emb": prng.normal(ks[0], (v, e)) * 0.02,
+        "wz": _glorot_normal(ks[1], (e + h, h)), "bz": torch.zeros(h),
+        "wr": _glorot_normal(ks[2], (e + h, h)), "br": torch.zeros(h),
+        "wh": _glorot_normal(ks[3], (e + h, h)), "bh": torch.zeros(h),
+        "out": _glorot_normal(ks[4], (h, v)), "bo": torch.zeros(v),
+    }
+
+
+def rnn_logits(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """x: (B, S) integer tokens -> (B, S, V) next-character logits; the GRU
+    cell of the reference (gates on ``[e_t, h]``, candidate on ``[e_t, r *
+    h]``), one step per position."""
+    emb = params["emb"][x]                              # (B, S, E)
+    h = torch.zeros(x.shape[0], _RNN_HID, dtype=emb.dtype, device=emb.device)
+    hs = []
+    for t in range(x.shape[1]):
+        et = emb[:, t]
+        ze = torch.cat([et, h], -1)
+        z = torch.sigmoid(ze @ params["wz"] + params["bz"])
+        r = torch.sigmoid(ze @ params["wr"] + params["br"])
+        cand = torch.tanh(torch.cat([et, r * h], -1) @ params["wh"]
+                          + params["bh"])
+        h = (1 - z) * h + z * cand
+        hs.append(h)
+    return torch.stack(hs, 1) @ params["out"] + params["bo"]
+
+
+# ---------------------------------------------------------------------------
+# FLTask factories
 # ---------------------------------------------------------------------------
 
 def make_mnist_task(model: str = "lr", m_devices: int = 3, n_train: int = 6000,
@@ -138,11 +197,42 @@ def make_mnist_task(model: str = "lr", m_devices: int = 3, n_train: int = 6000,
                   name=f"{model}-mnist")
 
 
+def make_shakespeare_task(m_devices: int = 3, seq: int = 48, seed: int = 0,
+                          n_train: int | None = None, n_eval: int = 1024,
+                          partition: str = "dirichlet", alpha: float = 0.5,
+                          scenario: str | Scenario | None = None,
+                          test_frac: float = 0.15) -> FLTask:
+    """The char-RNN task: ``n_train`` (default 2,000 per device) windows of
+    ``seq`` characters from the train split, labelled by corpus region and
+    dealt to devices by ``partition`` / ``alpha`` (or the scenario's), and
+    ``n_eval`` eval windows from the disjoint test tail
+    (:func:`repro_torch.data.shakespeare.char_shards`).  Tokens stay int32
+    numpy arrays; the simulator moves them to its device."""
+    if scenario is not None:
+        scn = get_scenario(scenario)
+        partition, alpha = scn.partition, scn.alpha
+    stream = load_shakespeare(seed=seed)
+    n_train = 2000 * m_devices if n_train is None else n_train
+    shards, eval_data = char_shards(
+        stream, m_devices, seq=seq, n_train=n_train, n_eval=n_eval,
+        seed=seed, test_frac=test_frac,
+        partition_fn=partition_fn(Scenario(partition=partition,
+                                           alpha=alpha)))
+
+    def loss_fn(params, batch):
+        x, y = batch
+        return _xent(rnn_logits(params, x), y)
+
+    def metric_fn(params, batch):
+        x, y = batch
+        return _acc(rnn_logits(params, x), y)
+    return FLTask(rnn_init, loss_fn, metric_fn, shards, eval_data,
+                  name="rnn-shakespeare")
+
+
 # ---------------------------------------------------------------------------
 # the task registry
 # ---------------------------------------------------------------------------
-
-_NOT_PORTED = {"rnn_shakespeare": "ROADMAP A7"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,18 +244,17 @@ class TaskSpec:
     partition: str
 
     def make(self, m_devices: int = 3, seed: int = 0, scenario=None, **kw):
-        if self.name in _NOT_PORTED:
-            raise NotImplementedError(
-                f"task {self.name!r} is not ported yet "
-                f"({_NOT_PORTED[self.name]})")
         if self.dataset == "tokens":
             from repro_torch.models.lgc_transformer import (
                 make_qwen2_100m_task)
             return make_qwen2_100m_task(m_devices, seed=seed,
                                         scenario=scenario, **kw)
         kw.setdefault("partition", self.partition)
-        return make_mnist_task(self.model, m_devices, seed=seed,
-                               scenario=scenario, **kw)
+        if self.dataset == "mnist":
+            return make_mnist_task(self.model, m_devices, seed=seed,
+                                   scenario=scenario, **kw)
+        return make_shakespeare_task(m_devices, seed=seed,
+                                     scenario=scenario, **kw)
 
 
 TASKS: dict[str, TaskSpec] = {
@@ -184,7 +273,8 @@ TASKS: dict[str, TaskSpec] = {
 def make_task(name: str, m_devices: int = 3, seed: int = 0, scenario=None,
               **kw):
     """Resolve a registry name and build the task (extra kwargs pass
-    through: ``n_train`` for the MNIST tasks; ``preset`` / ``aggregate`` /
+    through: ``n_train`` for the MNIST tasks, ``n_train`` / ``seq`` /
+    ``n_eval`` for ``rnn_shakespeare``; ``preset`` / ``aggregate`` /
     ``backend`` / ``device`` for ``qwen2_100m``)."""
     try:
         spec = TASKS[name]

@@ -480,8 +480,8 @@ def test_every_simulator_sync_matches_the_plain_pipeline_bitwise(
 # the (M, D) row kernels and the batched engine
 # ---------------------------------------------------------------------------
 
-ROW_SHAPES = [(3, 7850), (8, 206_922), (1, 3), (4, 1), (5, 2), (3, 7),
-              (2, 63), (1, 100_003)]
+ROW_SHAPES = [(3, 7850), (8, 206_922), (8, 83_955), (1, 3), (4, 1), (5, 2),
+              (3, 7), (2, 63), (1, 100_003)]
 
 
 def _row_inputs(m: int, d: int, card, offset: int = 0):

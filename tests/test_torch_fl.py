@@ -24,6 +24,7 @@ import repro.core.fl as jfl  # noqa: E402
 import repro_torch.core.fl as pfl  # noqa: E402
 from repro.models.paper_models import make_task as j_make_task  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
+from repro_torch.core.scenario import SCENARIOS  # noqa: E402
 from repro_torch.kernels import LAUNCHES, reset_launch_counts  # noqa: E402
 from repro_torch.launch import quickstart  # noqa: E402
 from repro_torch.models.paper_models import make_task  # noqa: E402
@@ -165,14 +166,17 @@ def test_unported_options_raise_naming_their_roadmap_item(lr_tasks):
              ({"pipeline_decisions": True}, "A9"),
              ({"layer_policy": "uniform"}, "A8"),
              ({"aggregator": "diloco"}, "A10"),
-             ({"aggregator": "semi_sync"}, "A10"),
-             ({"scenario": "markov_urban"}, "A7"),
-             ({"scenario": "gilbert_flaky"}, "A7")]
+             ({"aggregator": "semi_sync"}, "A10")]
     for fields, item in cases:
         for engine in ("loop", "batched"):
             cfg = dataclasses.replace(pfl.FLConfig(engine=engine), **fields)
             with pytest.raises(NotImplementedError, match=item):
                 pfl.LGCSimulator(tp, cfg, ctrls, device="cpu")
+    # every scenario runs on both engines (ROADMAP A7)
+    for name in SCENARIOS:
+        for engine in ("loop", "batched"):
+            pfl.LGCSimulator(tp, pfl.FLConfig(engine=engine, scenario=name),
+                             ctrls, device="cpu")
     with pytest.raises(ValueError):
         pfl.LGCSimulator(tp, pfl.FLConfig(), ctrls, mode="dense",
                          device="cpu")

@@ -317,7 +317,8 @@ def test_port_and_chip_smoke_import_no_reference_module():
     simulator = ["core.prng", "core.scenario", "core.channels",
                  "core.compressor", "core.error_feedback", "core.server",
                  "core.fl", "core.fl_batched", "data.mnist",
-                 "data.partition", "models.paper_models", "launch.quickstart",
+                 "data.partition", "data.shakespeare", "models.paper_models",
+                 "models.lgc_transformer", "launch.quickstart",
                  "launch.profile_sim"]
     assert {f"repro_torch.{m}" for m in simulator} <= set(mods)
     code = (

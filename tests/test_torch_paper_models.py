@@ -113,8 +113,8 @@ def test_registry():
         ref = jpm.TASKS[name]
         assert (spec.model, spec.dataset, spec.partition) == \
             (ref.model, ref.dataset, ref.partition)
-    with pytest.raises(NotImplementedError, match="A7"):
-        ppm.make_task("rnn_shakespeare")
+    rnn = ppm.make_task("rnn_shakespeare", n_train=30, seq=8, n_eval=4)
+    assert rnn.name == "rnn-shakespeare" and len(rnn.device_data) == 3
     with pytest.raises(ValueError):
         ppm.make_task("nope")
     with pytest.raises(ValueError):
