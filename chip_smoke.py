@@ -25,7 +25,14 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    (8, 206,922), (2, 28,311,552) and (3, 7), rows on and off a 16-byte
    boundary, each row seeing all 8 received patterns of 3 channels: bitwise
    equal to the plain row versions and to M flat launches, row by row, and
-   at the subnormal scales;
+   at the subnormal scales; then the segmented forms (``maxabs_segments``,
+   ``histogram_segments``) at the layer slices of cnn_mnist (M=8), lr_mnist
+   (M=3) and rnn_shakespeare (M=8) and on an edge battery (one-float
+   slices, an all-zero slice, slices at every offset mod 4 floats, a NaN,
+   a +inf, subnormals): one launch each, bitwise equal to the plain
+   segmented versions and to a flat launch on every (row, slice), the
+   per-layer candidate mask bitwise its plain version, and unchanged after
+   ten launches of a larger grid;
 3. ``swa_decode`` against its plain version on the card, f32 (rtol = atol =
    2e-5) and bf16 (1e-2), at TestSWADecode's shapes, the GQA serve shape
    (B=8, H=12, Kv=2, W=4096, Dh=128) and W=4160, with lengths 1, W/2+3 and
@@ -85,6 +92,17 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    swa_decode never; then a second card run of each engine, not checked
    per sync, for the host ms per round (the run's time over its rounds) and
    device-steps/s, in the same call;
+   then the per-layer budgets: ``cnn_mnist`` (M=8, 24 rounds, lgc) under
+   ``size_prop`` and ``divergence`` on both engines, card against CPU,
+   every sync's candidate mask and (g, e') bitwise the plain segmented
+   pipeline on the same card tensors, launches per sync boundary (batched:
+   1 of each segmented kernel and of each row kernel) or per syncing device
+   (loop: the same, on one row), and
+   ``uniform`` bitwise ``global`` on the exact backend on the card; then
+   the servers: ``lr_mnist`` (M=8, 20 rounds, every 4th device 3x slower)
+   under mean, diloco and semi_sync (``staleness_cap=2``) on both engines,
+   card against CPU with ``server_wall_s`` equal, semi_sync's wall below
+   the mean's;
 9. the ``kernels`` line: each kernel's time beside its plain version, its
    bound (bytes over 3.35 TB/s or operations over 67 TFLOP/s) and one
    PyTorch call as a yardstick.  ``ms`` is the median of single calls
@@ -103,7 +121,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    launches of it,
    its times, the plain row version, M flat launches and, for maxabs,
    ``vector_norm(u, inf, dim=1)``, for histogram M ``histc`` calls);
-   swa_decode at the GQA serve
+   the segmented forms at the three models' (M, D) beside the M x L
+   ``amax`` / ``histc`` calls they replace and one ``segment_reduce(|u|,
+   "max")``, their ``launches`` from the batched per-layer CNN run under
+   ``size_prop``; swa_decode at the GQA serve
    shape in bf16 with every slot valid, its inputs rotated over four copies
    so that each call finds them outside the L2 cache, as a decode step does;
 10. the last line: ``{"ok": true, "device": {...}}``.
@@ -161,6 +182,26 @@ ROW_KERNELS = {"maxabs": "maxabs_rows", "histogram": "histogram_rows",
 # (M, D) of the row forms on the paths: the lr, cnn and rnn simulator runs
 # and the largest leaf of the training path
 ROW_SHAPES = [(3, LR_D), (8, CNN_D), (8, RNN_D), (M_DEVICES, LARGEST_LEAF)]
+
+# the segmented forms (per-layer budgets): the simulator's models
+# with their device counts, the per-layer runs (cnn_mnist, M=8, 24 rounds
+# under each policy) and the server runs (lr_mnist, M=8, every 4th device
+# 3x slower, 20 rounds, as the reference's tests/test_server.py:36-37)
+SEGMENT_MODELS = (("cnn_mnist", 8), ("lr_mnist", 3), ("rnn_shakespeare", 8))
+SEGMENT_KERNELS = {
+    "maxabs_segments": ("maxabs", "src/repro_torch/kernels/csrc/maxabs.cu",
+                        "src/repro/kernels/topk_threshold.py:32"),
+    "histogram_segments": ("histogram",
+                           "src/repro_torch/kernels/csrc/histogram.cu",
+                           "src/repro/kernels/topk_threshold.py:42"),
+}
+PER_LAYER_POLICIES = ("size_prop", "divergence")
+PER_LAYER_RUN = ("cnn_mnist", 8, 6000, 24, 8)   # task, M, n_train, rounds, eval
+SERVER_RUN = ("lr_mnist", 8, 1500, 20, 10)
+SERVER_AGGS = ("diloco", "semi_sync")
+# one-float slices, slices starting at every offset mod 4 floats, slices
+# around one block's pass (4,096 floats) and a long one
+EDGE_SIZES = [1, 1, 1, 2, 3, 4095, 4097, 63, 1, 8192, 5, 200_003]
 
 TPU_KERNELS = {
     "maxabs": ("src/repro_torch/kernels/csrc/maxabs.cu",
@@ -502,6 +543,113 @@ def phase_rows(gen, errs: dict) -> None:
     torch.cuda.synchronize()
     log(f"row kernels at scales {SUBNORMAL_SCALES}: bitwise equal to the "
         f"plain row versions and the flat kernels")
+    phase_segments(gen, errs)
+
+
+def model_edges(task_name: str) -> list[int]:
+    """The L + 1 edges of a simulator model's layer slices, in the order
+    of ``flatten_tree``."""
+    from repro_torch.core import prng
+    from repro_torch.core.compressor import tree_layer_slices
+    from repro_torch.models.paper_models import make_task
+    task = make_task(task_name, m_devices=1, n_train=100)
+    return [0] + [hi for _, _, hi in
+                  tree_layer_slices(task.init(prng.PRNGKey(0)))]
+
+
+def segment_inputs(gen, m: int, edges: list[int]):
+    """(M, D) Gaussian rows at the simulator's scale, slice 1 of row 1
+    all zeros (a zero bias, as at round 0)."""
+    import torch
+    u = torch.randn((m, edges[-1]), generator=gen, device="cuda") * 1e-3
+    u[1 % m, edges[1]:edges[2]] = 0.0
+    return u
+
+
+def segment_battery(gen):
+    """Rows over EDGE_SIZES: row 0 Gaussian; row 1 with an all-zero
+    slice, a NaN, a +inf and an all-subnormal slice; row 2 at 1e-38
+    (partly subnormal); row 3 all zeros."""
+    import torch
+    edges = [0, *itertools.accumulate(EDGE_SIZES)]
+    u = torch.randn((4, edges[-1]), generator=gen, device="cuda") * 1e-3
+    u[1, edges[3]:edges[4]] = 0.0
+    u[1, edges[6] + 5] = float("nan")
+    u[1, edges[7] + 2] = float("inf")
+    u[1, edges[8]:edges[9]] = 1e-40
+    u[2] *= 1e-35
+    u[3] = 0.0
+    return u, edges
+
+
+def phase_segments(gen, errs: dict) -> None:
+    """The segmented kernels at the simulator's models' slices (cnn M=8,
+    lr M=3, rnn M=8) and on the edge battery: one launch each, bitwise the
+    plain segmented versions and M x L flat launches, their counts summing
+    to the slice lengths; the candidate mask bitwise its plain version;
+    ten launches in a row and a launch after a larger one unchanged."""
+    import torch
+    from repro_torch.kernels import (LAUNCHES, SegmentTable, histogram,
+                                     histogram_segments, maxabs,
+                                     maxabs_segments,
+                                     per_layer_candidates_hist_rows, ref,
+                                     reset_launch_counts)
+    cases = [(f"{name} M={m}", segment_inputs(gen, m, model_edges(name)),
+              model_edges(name)) for name, m in SEGMENT_MODELS]
+    cases.append(("edge battery M=4", *segment_battery(gen)))
+    results = {}
+    for tag, u, edges in cases:
+        table = SegmentTable(edges, "cuda")
+        reset_launch_counts()
+        mx = maxabs_segments(u, table)
+        counts = histogram_segments(u, mx, table)
+        check((LAUNCHES["maxabs_segments"],
+               LAUNCHES["histogram_segments"]) == (1, 1),
+              f"segments {tag}: launches {LAUNCHES}")
+        mx_ref = ref.hist_maxabs_segments(u, edges)
+        counts_ref = ref.hist_counts_segments(u, mx, edges)
+        check(bits_equal(mx, mx_ref), f"maxabs_segments {tag}")
+        check(bits_equal(counts, counts_ref), f"histogram_segments {tag}")
+        errs["maxabs_segments"] = max(errs["maxabs_segments"],
+                                      max_abs_err(mx.nan_to_num(),
+                                                  mx_ref.nan_to_num()))
+        errs["histogram_segments"] = max(errs["histogram_segments"],
+                                         max_abs_err(counts, counts_ref))
+        lengths = torch.tensor([hi - lo for lo, hi in
+                                zip(edges[:-1], edges[1:])], device="cuda")
+        check(bool((counts.sum(2) == lengths).all()),
+              f"histogram_segments {tag}: counts do not sum to the slices")
+        for r in range(u.shape[0]):
+            for i, (lo, hi) in enumerate(zip(edges[:-1], edges[1:])):
+                seg = u[r, lo:hi].contiguous()
+                m_i = mx[r, i].reshape(1, 1)
+                check(bits_equal(m_i, maxabs(seg))
+                      and bits_equal(counts[r, i], histogram(seg, m_i)),
+                      f"segments {tag}: row {r} slice {i} differs from a "
+                      f"flat launch on it")
+        budgets = torch.randint(0, 40, mx.shape, generator=gen,
+                                device="cuda", dtype=torch.int32)
+        mask = per_layer_candidates_hist_rows(u, table, budgets)
+        check(bits_equal(mask, ref.hist_candidates_segments(u, edges,
+                                                            budgets)),
+              f"per_layer_candidates_hist_rows {tag}")
+        results[tag] = (u, table, mx, counts)
+        log(f"segments {tag}: L={len(edges) - 1}, D={edges[-1]:,}, "
+            f"{table.n_blocks} blocks a row; maxabs_segments and "
+            f"histogram_segments in one launch each, bitwise equal to the "
+            f"plain segmented versions and to {u.shape[0] * (len(edges) - 1)}"
+            f" flat launches; candidate mask bitwise its plain version")
+    u, table, mx, counts = results["lr_mnist M=3"]
+    big = results["cnn_mnist M=8"]
+    for _ in range(10):
+        histogram_segments(big[0], maxabs_segments(big[0], big[1]), big[1])
+    mx2 = maxabs_segments(u, table)
+    check(bits_equal(mx2, mx)
+          and bits_equal(histogram_segments(u, mx2, table), counts),
+          "segments: a launch after ten larger ones differs")
+    torch.cuda.synchronize()
+    log("segments: ten launches in a row and a launch after a larger one "
+        "give the same bits (counters and accumulators left at zero)")
 
 
 # ---------------------------------------------------------------------------
@@ -949,22 +1097,26 @@ def phase_prng() -> None:
 
 
 @contextlib.contextmanager
-def syncs_held_against_plain(compared: list, engine: str):
+def syncs_held_against_plain(compared: list, engine: str,
+                             masks: list | None = None):
     """Wrap ``repro_torch.kernels.lgc_compress_hist`` (the loop engine's
     ``_ef_step`` imports it at every sync) or ``lgc_compress_hist_rows``
-    (the batched engine's, likewise): each sync's (g, e') must be bitwise
+    (the batched engine's, likewise, and both engines' under per-layer
+    budgets): each sync's (g, e') must be bitwise
     equal to the plain pipeline on the same card tensors; ``compared`` gets
     each synced device's received pattern.  The plain calls launch no
     kernel of the port.  On the batched engine, the window's phases run
     under torch's sync debug mode "error": a host sync inside a window
-    raises."""
+    raises.  With ``masks`` (per-layer budgets), each sync's candidate mask
+    (``per_layer_candidates_hist_rows``) must be bitwise the plain
+    segmented pipeline's, and ``masks`` gets its rows' count."""
     import torch
     import repro_torch.kernels as kernels
     from repro_torch.core.fl_batched import BatchedEngine
     from repro_torch.kernels import ref
-    name = "lgc_compress_hist" if engine == "loop" else "lgc_compress_hist_rows"
-    plain = (ref.hist_lgc_compress if engine == "loop"
-             else ref.hist_lgc_compress_rows)
+    flat = engine == "loop" and masks is None
+    name = "lgc_compress_hist" if flat else "lgc_compress_hist_rows"
+    plain = ref.hist_lgc_compress if flat else ref.hist_lgc_compress_rows
     kern = getattr(kernels, name)
 
     def checked(e, delta, cum_ks, received):
@@ -977,8 +1129,7 @@ def syncs_held_against_plain(compared: list, engine: str):
               f"simulator sync {len(compared)} ({engine}): the kernels' "
               f"(g, e') differ from the plain versions' on the same inputs")
         rows = received.tolist()
-        compared.extend(map(tuple, rows) if engine == "batched"
-                        else [tuple(rows)])
+        compared.extend([tuple(rows)] if flat else map(tuple, rows))
         torch.cuda.set_sync_debug_mode(mode)
         return g, e_new
 
@@ -990,9 +1141,24 @@ def syncs_held_against_plain(compared: list, engine: str):
             finally:
                 torch.cuda.set_sync_debug_mode("default")
         return guarded
+    cand = kernels.per_layer_candidates_hist_rows
+
+    def checked_mask(u, segments, budgets):
+        mask = cand(u, segments, budgets)
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("default")
+        check(bits_equal(mask, ref.hist_candidates_segments(
+            u, segments.offsets, budgets)), f"simulator sync {len(masks)} "
+            f"({engine}): the candidate mask differs from the plain "
+            f"segmented pipeline's")
+        masks.append(u.shape[0])
+        torch.cuda.set_sync_debug_mode(mode)
+        return mask
     window = ("_channels", "_draw_batches", "_local_steps", "_sync")
     saved = {m: getattr(BatchedEngine, m) for m in window}
     setattr(kernels, name, checked)
+    if masks is not None:
+        kernels.per_layer_candidates_hist_rows = checked_mask
     if engine == "batched":
         for m in window:
             setattr(BatchedEngine, m, no_sync(saved[m]))
@@ -1000,17 +1166,21 @@ def syncs_held_against_plain(compared: list, engine: str):
         yield
     finally:
         setattr(kernels, name, kern)
+        kernels.per_layer_candidates_hist_rows = cand
         for m in window:
             setattr(BatchedEngine, m, saved[m])
 
 
 def sim_run(task_name: str, m: int, n_train: int | None, rounds: int,
-            eval_every: int, mode: str, scenario: str, engine: str,
-            device: str, compared: list | None = None) -> dict:
+            eval_every: int, mode: str, scenario, engine: str,
+            device: str, compared: list | None = None,
+            masks: list | None = None, backend: str = "cuda",
+            **cfg_kw) -> dict:
     """One run (backend "cuda": the kernels on the card, their plain
-    versions on the CPU) under ``scenario`` with its launch counts and host
-    times; with ``compared``, every sync is held against the plain versions
-    (a run not timed)."""
+    versions on the CPU) under ``scenario`` (a name or a Scenario) with its
+    launch counts and host times; with ``compared``, every sync is held
+    against the plain versions (a run not timed), with ``masks`` also each
+    per-layer candidate mask; ``cfg_kw`` go to FLConfig."""
     import torch
     from repro_torch.core import FLConfig
     from repro_torch.core.fl import EVAL_SUBSET, baseline_simulator
@@ -1018,10 +1188,10 @@ def sim_run(task_name: str, m: int, n_train: int | None, rounds: int,
     from repro_torch.models.paper_models import make_task
     kw = {} if n_train is None else {"n_train": n_train}
     task = make_task(task_name, m_devices=m, scenario=scenario, **kw)
-    cfg = FLConfig(rounds=rounds, eval_every=eval_every, backend="cuda",
-                   engine=engine, scenario=scenario)
+    cfg = FLConfig(rounds=rounds, eval_every=eval_every, backend=backend,
+                   engine=engine, scenario=scenario, **cfg_kw)
     sim = baseline_simulator(task, cfg, mode, h=SIM_H, device=device)
-    held = (syncs_held_against_plain(compared, engine)
+    held = (syncs_held_against_plain(compared, engine, masks)
             if compared is not None else contextlib.nullcontext())
     if device == "cuda":
         torch.cuda.synchronize()
@@ -1037,6 +1207,7 @@ def sim_run(task_name: str, m: int, n_train: int | None, rounds: int,
           f"{task_name} {mode} {engine} on {device}: History not finite")
     y_eval = task.eval_data[1]       # (n,) labels or (n, S) next tokens
     out = {"hist": hist, "d": sim.d, "launches": counts, "wall_s": wall,
+           "params": sim.params,
            "n_eval": (min(EVAL_SUBSET, len(y_eval))
                       * math.prod(y_eval.shape[1:])),
            "host_ms_per_round": wall * 1e3 / rounds,
@@ -1173,6 +1344,118 @@ def phase_simulator(smi: str) -> dict:
     return launches
 
 
+def phase_per_layer(smi: str) -> dict:
+    """cnn_mnist (M=8, 24 rounds, H=4, lgc) under each per-layer policy
+    on both engines with backend "cuda", the card against the CPU: every
+    sync's candidate mask and (g, e') bitwise the plain segmented pipeline
+    on the same card tensors; one launch of each segmented kernel per sync
+    boundary (batched) or per syncing device (loop), then the LGC row
+    kernels on the masked update; History within the CPU's at the
+    phase-8 tolerances.  Then ``uniform`` against ``global`` on the exact
+    backend on the card, bitwise.  Returns the launch counts by (policy,
+    engine)."""
+    import torch
+    task_name, m, n_train, rounds, eval_every = PER_LAYER_RUN
+    syncs, boundaries = m * (rounds // SIM_H), rounds // SIM_H
+    launches = {}
+    for policy in PER_LAYER_POLICIES:
+        for engine in ENGINES:
+            args = (task_name, m, n_train, rounds, eval_every, "lgc",
+                    "static", engine)
+            tag = f"{task_name} {policy} {engine}"
+            compared, masks = [], []
+            cpu = sim_run(*args, "cpu", layer_policy=policy)
+            gpu = sim_run(*args, "cuda", compared=compared, masks=masks,
+                          layer_policy=policy)
+            worst, gap = check_history(tag, gpu["hist"], cpu["hist"],
+                                       cpu["n_eval"])
+            per_sync = syncs if engine == "loop" else boundaries
+            want = {"maxabs_segments": per_sync,
+                    "histogram_segments": per_sync}
+            for name, rows_name in ROW_KERNELS.items():
+                want[name] = 0
+                want[rows_name] = per_sync
+            got = gpu["launches"]
+            check(all(got[k] == v for k, v in want.items())
+                  and got["swa_decode"] == 0,
+                  f"{tag}: launches {got}, expected {want}")
+            check(len(compared) == syncs and sum(masks) == syncs,
+                  f"{tag}: {len(compared)} syncs and {sum(masks)} masks "
+                  f"held against the plain versions, expected {syncs}")
+            launches[tag] = got
+            h = gpu["hist"]
+            log(f"per-layer {tag}: D={gpu['d']:,}, M={m}, {rounds} rounds; "
+                f"loss {h.loss[0]:.4f} -> {h.loss[-1]:.4f}, accuracy "
+                f"{h.accuracy[-1]:.4f}, uplink {h.uplink_mb[-1]:.4f} MB; "
+                f"card's losses within {worst:.2e} of the CPU's, accuracy "
+                f"count within {gap} of {cpu['n_eval']}; {len(masks)} "
+                f"candidate masks ({sum(masks)} device rows) and "
+                f"{len(compared)} device syncs bitwise equal to the plain "
+                f"segmented pipeline; launches {got}; card {gpu['wall_s']:.2f}"
+                f" s ({gpu['host_ms_per_round']:.3f} ms per round, checked), "
+                f"CPU {cpu['wall_s']:.2f} s; {smi}")
+    for engine in ENGINES:
+        args = (task_name, m, n_train, rounds, eval_every, "lgc", "static",
+                engine, "cuda")
+        uni = sim_run(*args, backend="exact", layer_policy="uniform")
+        glo = sim_run(*args, backend="exact")
+        check(uni["hist"].asdict() == glo["hist"].asdict()
+              and all(bits_equal(uni["params"][k], glo["params"][k])
+                      for k in glo["params"]),
+              f"{task_name} {engine}: uniform differs from global on the "
+              f"exact backend")
+        log(f"per-layer {task_name} {engine}: uniform bitwise equal to "
+            f"global on the exact backend on the card (History and params, "
+            f"{rounds} rounds)")
+    torch.cuda.synchronize()
+    return launches
+
+
+def phase_server(smi: str) -> dict:
+    """lr_mnist (M=8, 20 rounds, every 4th device 3x slower) under diloco
+    and semi_sync (staleness_cap=2) on both engines, the card against the
+    CPU: History within 1e-3, server_wall_s equal, the LGC kernels launched
+    as under the mean.  Returns the runs' server_wall_s by tag."""
+    from repro_torch.core.scenario import Scenario, StragglerSpec
+    scn = Scenario(name="stragglers",
+                   straggler=StragglerSpec(slow_every=4, slowdown=3.0))
+    task_name, m, n_train, rounds, eval_every = SERVER_RUN
+    syncs, boundaries = m * (rounds // SIM_H), rounds // SIM_H
+    walls = {}
+    for agg in ("mean",) + SERVER_AGGS:
+        for engine in ENGINES:
+            args = (task_name, m, n_train, rounds, eval_every, "lgc", scn,
+                    engine)
+            kw = {"aggregator": agg,
+                  "staleness_cap": 2 if agg == "semi_sync" else 0}
+            tag = f"{task_name} {agg} {engine}"
+            cpu = sim_run(*args, "cpu", **kw)
+            gpu = sim_run(*args, "cuda", **kw)
+            worst, gap = check_history(tag, gpu["hist"], cpu["hist"],
+                                       cpu["n_eval"])
+            check(gpu["hist"].server_wall_s == cpu["hist"].server_wall_s,
+                  f"{tag}: server_wall_s differs between card and CPU")
+            for name, rows_name in ROW_KERNELS.items():
+                want = ((syncs, 0) if engine == "loop" else (0, boundaries))
+                got = (gpu["launches"][name], gpu["launches"][rows_name])
+                check(got == want, f"{tag}: {name} launches {got}, "
+                      f"expected {want}")
+            h = gpu["hist"]
+            walls[tag] = h.server_wall_s[-1]
+            log(f"server {tag}: M={m}, {rounds} rounds, stragglers; loss "
+                f"{h.loss[0]:.4f} -> {h.loss[-1]:.4f}, server wall "
+                f"{h.server_wall_s[-1]:.6f} s (equal to the CPU's); card's "
+                f"losses within {worst:.2e} of the CPU's, accuracy count "
+                f"within {gap} of {cpu['n_eval']}; card "
+                f"{gpu['host_ms_per_round']:.3f} ms per round; {smi}")
+    for engine in ENGINES:
+        check(walls[f"{task_name} semi_sync {engine}"]
+              < walls[f"{task_name} mean {engine}"],
+              f"semi_sync does not cut the server wall under stragglers "
+              f"({engine})")
+    return walls
+
+
 # ---------------------------------------------------------------------------
 # phase 9: timings
 # ---------------------------------------------------------------------------
@@ -1201,18 +1484,18 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
 
 
 def time_row(n: int, kern, plain, lib, n_bytes: float, n_ops: float,
-             m_flat=None) -> dict:
+             m_flat=None, lib_reps=(100, 20)) -> dict:
     """Times of a kernel, its plain version and a library call; with
     ``m_flat``, also of the M flat launches that the row form replaces."""
     from repro_torch.device import device_ms
     bnd, by = bound_ms(n_bytes, n_ops)
-    lib_device_ms, lib_reps = None, None
+    lib_device_ms, lib_reps_used = None, None
     # a library call of many launches (8 histc calls: fills, counts) fills
     # the card's launch queue behind the hold at 100 calls, and the host
-    # then waits: 20 calls
-    for reps in (100, 20) if lib else ():
+    # then waits: fewer calls (``lib_reps``)
+    for reps in lib_reps if lib else ():
         try:
-            lib_device_ms, lib_reps = device_ms(lib, reps=reps), reps
+            lib_device_ms, lib_reps_used = device_ms(lib, reps=reps), reps
             break
         except RuntimeError as err:    # the enqueue outlasted the hold
             log(f"timing: no device time for the library call over {reps} "
@@ -1220,7 +1503,7 @@ def time_row(n: int, kern, plain, lib, n_bytes: float, n_ops: float,
     row = {"n": n, "ms": time_ms(kern), "plain_ms": time_ms(plain),
            "library_ms": time_ms(lib) if lib else None,
            "device_ms": device_ms(kern), "library_device_ms": lib_device_ms,
-           "library_device_reps": lib_reps,
+           "library_device_reps": lib_reps_used,
            "bound_ms": bnd, "bound_by": by, "bytes": n_bytes}
     if m_flat is not None:
         row |= {"m_flat_ms": time_ms(m_flat),
@@ -1367,6 +1650,84 @@ def phase_time_rows(gen) -> dict:
     return rows
 
 
+def phase_time_segments(gen) -> dict:
+    """The segmented kernels at the simulator's models' (M, D) (cnn M=8,
+    lr M=3, rnn M=8), Gaussian u: each beside its plain version, its bound
+    and the M x L library calls it replaces (``amax`` of |u| per slice,
+    ``histc`` per slice), and for maxabs also one
+    ``segment_reduce(|u|, "max")`` over all slices.  Returns {kernel:
+    {"MxD": row}}."""
+    import torch
+    from repro_torch.device import device_ms
+    from repro_torch.kernels import (SegmentTable, histogram_segments,
+                                     maxabs_segments, ref)
+    rows: dict = {name: {} for name in SEGMENT_KERNELS}
+    for name, m in SEGMENT_MODELS:
+        edges = model_edges(name)
+        n, n_l = edges[-1], len(edges) - 1
+        pairs = list(zip(edges[:-1], edges[1:]))
+        u = segment_inputs(gen, m, edges)
+        table = SegmentTable(edges, "cuda")
+        mx = maxabs_segments(u, table)
+        mx_host = mx.tolist()
+        a = u.abs()
+        lengths = torch.tensor([[hi - lo for lo, hi in pairs]] * m,
+                               device="cuda")
+        md = m * n
+        cases = {
+            "maxabs_segments": (
+                lambda: maxabs_segments(u, table),
+                lambda: ref.hist_maxabs_segments(u, edges),
+                lambda: [a[r, lo:hi].amax() for r in range(m)
+                         for lo, hi in pairs],
+                4 * md + 4 * m * n_l, md),
+            "histogram_segments": (
+                lambda: histogram_segments(u, mx, table),
+                lambda: ref.hist_counts_segments(u, mx, edges),
+                # a slice whose max is 0 bins all in bin 0: histc over
+                # [0, 1] does too (over [0, 0] it reads the data's range on
+                # the host, a sync)
+                lambda: [torch.histc(a[r, lo:hi], bins=256, min=0.0,
+                                     max=mx_host[r][i] or 1.0)
+                         for r in range(m) for i, (lo, hi) in
+                         enumerate(pairs)],
+                4 * md + 4 * m * n_l + 4 * 256 * m * n_l, 3 * md),
+        }
+        for kname, (kern, plain, lib, n_bytes, n_ops) in cases.items():
+            row = time_row(n, kern, plain, lib, n_bytes, n_ops,
+                           lib_reps=(20, 5, 2))
+            row |= {"shape": [m, n], "slices": n_l,
+                    "library_calls": m * n_l,
+                    "blocks": table.n_blocks * m}
+            if kname == "maxabs_segments":
+                def seg_max():
+                    return torch.segment_reduce(a, "max", lengths=lengths,
+                                                axis=1)
+                try:
+                    same = bits_equal(seg_max(), mx)
+                except (RuntimeError, NotImplementedError) as err:
+                    log(f"timing {kname}: segment_reduce does not apply "
+                        f"({err})")
+                else:
+                    row |= {"segment_reduce_ms": time_ms(seg_max),
+                            "segment_reduce_bitwise_equal": same}
+                    try:
+                        row["segment_reduce_device_ms"] = device_ms(seg_max)
+                    except RuntimeError as err:  # the call waits for the card
+                        log(f"timing {kname}: no device time for "
+                            f"segment_reduce ({err})")
+                        row["segment_reduce_device_ms"] = None
+            rows[kname][f"{m}x{n}"] = row
+            log_row(kname, f"{name} (M, D)=({m}, {n}), L={n_l}", row)
+            log(f"timing {kname} {name}: the library yardstick is "
+                f"{m * n_l} calls" + (
+                    f"; segment_reduce(|u|, max) {row['segment_reduce_ms']:.5f}"
+                    f" ms one call, {row['segment_reduce_device_ms']} ms "
+                    f"device" if "segment_reduce_ms" in row else ""))
+        del u, a
+    return rows
+
+
 def phase_time_swa(gen) -> dict:
     """swa_decode at the serve shape in bf16, every slot valid (the ring
     after the wrap).  Each call takes the next of four input copies
@@ -1446,7 +1807,7 @@ def main() -> int:
             log(f"  ptxas: {line.strip()}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    errs = {k: 0.0 for k in TPU_KERNELS}
+    errs = {k: 0.0 for k in (*TPU_KERNELS, *SEGMENT_KERNELS)}
     phase_kernels(gen, errs)
     phase_swa(gen, errs)
     phase_small_trainer()
@@ -1456,8 +1817,11 @@ def main() -> int:
     serving = phase_serve()
     phase_prng()
     sim_launches = phase_simulator(smi)
+    per_layer_launches = phase_per_layer(smi)
+    phase_server(smi)
     rows = phase_timings(gen, main_u)
     row_times = phase_time_rows(gen)
+    seg_times = phase_time_segments(gen)
     swa_row = phase_time_swa(gen)
 
     kernels = []
@@ -1494,6 +1858,19 @@ def main() -> int:
             row["rows"] = row_times[name]
         else:                          # the serving path's kernel
             row |= {"launches": serving["launches"][name]} | swa_row
+        kernels.append(row)
+    # the segmented forms: their path is the per-layer runs (the batched
+    # CNN run under size_prop for ``launches``), timed at the CNN's (M, D)
+    cnn = f"{SEGMENT_MODELS[0][1]}x{CNN_D}"
+    for name, (form_of, source, replaces) in SEGMENT_KERNELS.items():
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "form_of": form_of,
+               "max_abs_err": errs[name],
+               "launches": per_layer_launches[
+                   f"{PER_LAYER_RUN[0]} size_prop batched"][name],
+               "launches_per_layer": {tag: c[name] for tag, c in
+                                      per_layer_launches.items()}}
+        row |= seg_times[name][cnn] | {"at": seg_times[name]}
         kernels.append(row)
     # every TPU kernel of the repo is in TPU_KERNELS: none is left to port
     print(json.dumps({"kernels": kernels, "not_ported": []}), flush=True)

@@ -47,10 +47,29 @@ a sync reads its device's row and loses its whole uplink when
 ``fl.py:713-719``): the device still compresses, with nothing received, so
 error feedback keeps the mass, and the downlink still reaches it.
 
+Per-layer budgets (``cfg.layer_policy``, the reference's ``fl.py:670-706``):
+a sync shares its budget out over the model's layers under a policy of
+:data:`.compressor.LAYER_POLICIES`, takes each layer's top candidates, and
+sends the candidates through the unchanged channel layering; error
+feedback keeps u - g.  ``backend="cuda"``: the candidates through the
+segmented kernels (one launch each of ``maxabs_segments`` and
+``histogram_segments`` over every layer slice,
+:func:`repro_torch.kernels.per_layer_candidates_hist_rows`), then the three
+LGC kernels on the masked update; ``"exact"``:
+:func:`.compressor.per_layer_compress`.  ``"uniform"`` is bitwise
+``"global"`` on the exact backend.
+
+Server aggregation (``cfg.aggregator``, the reference's ``fl.py:420-484``
+and ``:641-653``): ``"mean"`` keeps the inline mean; ``"diloco"`` and
+``"semi_sync"`` run :mod:`.server` over the syncing devices' updates, and
+under semi_sync the server never waits past the deadline and the share
+of a late update it never applies returns to that device's error
+feedback.  ``History.server_wall_s`` advances by the slowest syncing
+device's window time, under semi_sync by at most the deadline.
+
 Not ported yet, and raising where asked for: the sharded engine (ROADMAP
-A12), per-layer budgets (A8), the per-device action space, pipelined
-decisions and learning controllers (A9), and the diloco and semi_sync
-servers (A10).
+A12), the per-device action space, pipelined decisions and learning
+controllers (A9).
 """
 from __future__ import annotations
 
@@ -67,14 +86,18 @@ from repro_torch.kernels.ref import ftz, ftz_add
 from . import prng
 from .channels import (DEFAULT_CHANNELS, ChannelSpec, DeviceProfile,
                        comm_cost, comp_cost, stack_specs)
-from .compressor import (LGCCompressor, flatten_tree, qsgd_dequantize,
-                         qsgd_quantize, tree_size, unflatten_like, wire_bytes)
+from .compressor import (LAYER_POLICIES, LGCCompressor, flatten_tree,
+                         layer_budgets, layer_table, per_layer_compress,
+                         qsgd_dequantize, qsgd_quantize, tree_layer_slices,
+                         tree_size, unflatten_like, wire_bytes)
 from .error_feedback import EFState, ef_compress, init_ef
 from .scenario import (TAG_BATCH, TAG_CHANNEL, TAG_EVAL, TAG_QUANT, Scenario,
                        ScenarioCarry, dropout_mask, get_scenario, init_carry,
                        sample_from_carry, stack_carries, step_carry_rows,
                        stream_key)
-from .server import get_aggregator
+from .server import (diloco_update, get_aggregator, init_server_state,
+                     semi_sync_sums, semi_sync_update, staleness_schedule,
+                     window_deadline)
 
 BACKENDS = {"exact": "exact", "cuda": "cuda", "pallas": "cuda"}
 MODES = ("lgc", "topk", "fedavg", "lgc_q8")
@@ -112,8 +135,15 @@ class FLConfig:
     engine: str = "batched"            # "batched" | "loop" ("sharded": A12)
     backend: str = "exact"             # "exact" | "cuda" ("pallas" = "cuda")
     scenario: str | Scenario = "static"
-    layer_policy: str = "global"       # others: ROADMAP A8
-    aggregator: str = "mean"           # diloco / semi_sync: ROADMAP A10
+    # per-model-layer budgets: "global" or a LAYER_POLICIES name
+    layer_policy: str = "global"
+    # server aggregation: "mean", "diloco" or "semi_sync" (.server)
+    aggregator: str = "mean"
+    staleness_cap: int = 0             # semi_sync: max windows an update waits
+    staleness_alpha: float = 0.5       # semi_sync: w(s) = 1/(1+s)^alpha
+    deadline_factor: float = 1.25      # semi_sync: deadline = factor * median
+    outer_lr: float = 0.7              # diloco outer step size
+    outer_momentum: float = 0.9        # diloco outer Nesterov momentum
     action_space: str = "shared"       # "per_device": ROADMAP A9
     pipeline_decisions: bool = False   # ROADMAP A9
 
@@ -176,6 +206,7 @@ class History:
     rewards: list[float] = dataclasses.field(default_factory=list)
     drl_loss: list[float] = dataclasses.field(default_factory=list)
     # simulated server wall-clock: the slowest syncing device's window time
+    # (semi_sync: at most the deadline)
     server_wall_s: list[float] = dataclasses.field(default_factory=list)
 
     def asdict(self):
@@ -228,14 +259,16 @@ class LGCSimulator:
             raise _not_ported("engine='sharded'", "A12")
         if self.engine not in ("loop", "batched"):
             raise ValueError(f"unknown engine {self.engine!r}")
-        if cfg.layer_policy != "global":
-            raise _not_ported(f"layer_policy={cfg.layer_policy!r}", "A8")
+        if (cfg.layer_policy != "global"
+                and cfg.layer_policy not in LAYER_POLICIES):
+            raise ValueError(
+                f"unknown layer_policy {cfg.layer_policy!r}; expected "
+                f"'global' or one of {sorted(LAYER_POLICIES)}")
         if cfg.action_space != "shared":
             raise _not_ported(f"action_space={cfg.action_space!r}", "A9")
         if cfg.pipeline_decisions:
             raise _not_ported("pipeline_decisions=True", "A9")
-        if get_aggregator(cfg.aggregator).name != "mean":
-            raise _not_ported(f"aggregator={cfg.aggregator!r}", "A10")
+        self.agg = get_aggregator(cfg.aggregator)
         self.scenario = get_scenario(cfg.scenario)
         self.device = resolve_device(device)
         self.m_devices = len(task.device_data)
@@ -252,7 +285,13 @@ class LGCSimulator:
         params = task.init(prng.PRNGKey(cfg.seed))       # global model
         self.params = {k: v.to(dev) for k, v in params.items()}
         self.d = tree_size(self.params)
+        self.server_state = (init_server_state(cfg, self.d, dev)
+                             if self.agg.carries_state else None)
         self.server_wall_s = 0.0                     # simulated f64, host-side
+        # the model's layer slices and their segment table, built once
+        self.layer_slices = tree_layer_slices(self.params)
+        self._segments = (layer_table(self.layer_slices, dev)
+                          if cfg.layer_policy != "global" else None)
         self.profiles = (list(cfg.device_profiles) if cfg.device_profiles
                          else self.scenario.device_profiles(self.m_devices))
 
@@ -380,20 +419,30 @@ class LGCSimulator:
             t0 = time.perf_counter()
             self._step_scenario(t, t + 1)
             eta = self._eta(t)
-            updates, walls, sync_ms = [], [], []
+            updates, walls, sync_ms, t32s = [], [], [], []
             for m in range(self.m_devices):
                 batch = self._sample_batch(m, t)
                 self.w_hat[m] = self._sgd_step(self.w_hat[m], batch, eta)
                 if t + 1 >= self.next_sync[m]:
-                    g, total = self._sync_device(m, t)
+                    g, total, t32 = self._sync_device(m, t)
                     updates.append(g)
                     sync_ms.append(m)
                     walls.append(total["time_s"])
+                    t32s.append(t32)
             if updates:
-                flat = server_mean_update(flatten_tree(self.params), updates,
-                                          self.m_devices)
-                self.params = unflatten_like(flat, self.params)
-                self.server_wall_s += max(walls)
+                if self.agg.name == "mean":
+                    flat = server_mean_update(flatten_tree(self.params),
+                                              updates, self.m_devices)
+                    self.params = unflatten_like(flat, self.params)
+                    self.server_wall_s += max(walls)
+                elif self.agg.name == "diloco":
+                    self._apply_server_nonmean(updates, sync_ms, t32s, 1.0)
+                    self.server_wall_s += max(walls)
+                else:  # semi_sync: the server never waits past the deadline
+                    deadline = self._window_deadline(sync_ms)
+                    self._apply_server_nonmean(updates, sync_ms, t32s,
+                                               deadline)
+                    self.server_wall_s += min(deadline, max(walls))
                 for m in sync_ms:
                     # broadcast: the device adopts the global model
                     self.w_hat[m] = self.params
@@ -404,10 +453,98 @@ class LGCSimulator:
             self.round_ms.append((time.perf_counter() - t0) * 1e3)
         return hist
 
+    # -- server --------------------------------------------------------------
+    def _window_deadline(self, ms: Sequence[int]) -> float:
+        """The semi-sync uplink deadline of the sync set ``ms`` (host f64,
+        from the committed decisions, nominal channels and the straggler
+        profiles, so both engines derive the same number)."""
+        items = [(self.decisions[m].h, self.decisions[m].ks,
+                  self.profiles[m]) for m in ms]
+        return window_deadline(self.cfg, self.mode, self.d, items)
+
+    def _server_apply(self, g: torch.Tensor, t32: np.ndarray,
+                      deadline: float) -> tuple[torch.Tensor, torch.Tensor]:
+        """One diloco / semi_sync server round on the syncing devices'
+        updates g (S, D) with their f32 window times ``t32`` (S,): updates
+        ``self.server_state`` and returns the new flat params and the share
+        of each update the server never applies, (S,) f32 on the host
+        (zeros under diloco).  ``self.params`` is left to the caller."""
+        cfg = self.cfg
+        flat = flatten_tree(self.params)
+        T = torch.from_numpy(np.asarray(t32, np.float32))
+        if self.agg.name == "diloco":
+            delta = ftz(ftz(g.sum(0)) / self.m_devices)
+            flat, self.server_state = diloco_update(
+                flat, self.server_state, delta, True, float(cfg.outer_lr),
+                float(cfg.outer_momentum))
+            undeliv = torch.zeros_like(T)
+        else:
+            alpha, cap = float(cfg.staleness_alpha), int(cfg.staleness_cap)
+            mask = torch.ones(T.shape, dtype=torch.bool)
+            undeliv = staleness_schedule(T, deadline, mask, alpha, cap)[3]
+            g_now, contrib, _ = semi_sync_sums(g, T, mask, deadline, alpha,
+                                               cap)
+            flat, self.server_state = semi_sync_update(
+                flat, self.server_state, g_now, contrib, True,
+                self.m_devices)
+        return flat, undeliv
+
+    def _apply_server_nonmean(self, updates: list, sync_ms: Sequence[int],
+                              t32s: Sequence, deadline: float) -> None:
+        """The loop engine's diloco / semi_sync round: the server math on
+        the stacked updates (the reference pads them to a power of two,
+        which changes no sum), and under semi_sync the undelivered share of
+        each late update back into its device's error feedback."""
+        flat, undeliv = self._server_apply(torch.stack(updates),
+                                           np.asarray(t32s), deadline)
+        self.params = unflatten_like(flat, self.params)
+        for j, m in enumerate(sync_ms):
+            un = float(undeliv[j])
+            if un > 0.0:
+                self.ef[m] = EFState(ftz_add(self.ef[m].e,
+                                             ftz(un * updates[j])))
+
+    # -- compression ---------------------------------------------------------
+    def _per_layer_g(self, u: torch.Tensor, ks: torch.Tensor,
+                     recv: torch.Tensor, k_cap: int) -> torch.Tensor:
+        """g of the per-layer path on rows u (S, D) with budgets ``ks``
+        (S, C) and delivery masks ``recv`` (S, C) bool, both engines'
+        (reference ``fl.py:680-699``, ``fl_batched.py:186-200``).
+
+        cuda: the budgets, the candidate mask through the segmented kernels
+        (looked up at each call, so a caller may wrap it), and the
+        histogram-LGC pipeline on the masked u with zero error memory, its
+        own e' dropped (one row launch of each LGC kernel).  exact:
+        :func:`.compressor.per_layer_compress`."""
+        policy = self.cfg.layer_policy
+        if self.backend != "cuda":
+            return per_layer_compress(u, ks, recv, self._segments, policy,
+                                      k_cap)
+        from repro_torch import kernels
+        b = layer_budgets(policy, u, self._segments, ks.sum(1), k_cap)
+        mask = kernels.per_layer_candidates_hist_rows(u, self._segments, b)
+        masked = torch.where(mask, u, torch.zeros_like(u))
+        g, _ = kernels.lgc_compress_hist_rows(
+            torch.zeros_like(masked), masked, torch.cumsum(ks, 1),
+            recv.to(torch.int32))
+        return g
+
     def _ef_step(self, m: int, t: int, delta: torch.Tensor,
                  ks: Sequence[int], received: Sequence[bool]
                  ) -> torch.Tensor:
-        """One error-compensated layered compression (backend-dispatched)."""
+        """One error-compensated layered compression (backend-dispatched;
+        with per-layer budgets under ``cfg.layer_policy``, u as one row of
+        :meth:`_per_layer_g` with k_cap = D, as the reference's)."""
+        if self.cfg.layer_policy != "global":
+            dev = delta.device
+            u = ftz_add(self.ef[m].e, delta)
+            g = self._per_layer_g(
+                u[None], torch.tensor([list(ks)], dtype=torch.int64,
+                                      device=dev),
+                torch.tensor([[bool(r) for r in received]], device=dev),
+                self.d)[0]
+            self.ef[m] = EFState(ftz_add(u, -g))
+            return g
         if self.backend == "cuda":
             from repro_torch.kernels import lgc_compress_hist
             cum_ks = torch.tensor(np.cumsum(ks), dtype=torch.int32,
@@ -476,7 +613,10 @@ class LGCSimulator:
         }
         for k, v in total.items():
             self.spend[m][k] += v
-        return g, total
+        # the f32 window time (comm + compute), the semi-sync staleness input
+        t32 = np.float32(np.float32(float(cost["time_s"]))
+                         + np.float32(ccomp["time_s"]))
+        return g, total, t32
 
     def _record(self, hist: History, t: int):
         loss, acc = self._eval_subset(TAG_EVAL, (t,), EVAL_SUBSET)

@@ -18,8 +18,11 @@ earliest sync point:
         feedback over their rows (``backend="cuda"``: one launch each of
         the three LGC row kernels,
         :func:`repro_torch.kernels.lgc_compress_hist_rows`; ``"exact"``:
-        :func:`.compressor.lgc_compress_topk`), QSGD (``lgc_q8``), the
-        server mean and the broadcast, on the device
+        :func:`.compressor.lgc_compress_topk`; per-layer budgets first
+        through the segmented kernels, :meth:`.fl.LGCSimulator._per_layer_g`),
+        QSGD (``lgc_q8``), the server (the mean, or :mod:`.server`'s
+        diloco / semi_sync step, the semi-sync schedule taken on the host
+        from the window times) and the broadcast, on the device
 
 Nothing in a window waits for the device.  Per-round step sizes are host
 scalars; the channel draw and the costs are the loop engine's host
@@ -34,9 +37,11 @@ the device (its loss and accuracy).
 The per-device arithmetic is the loop engine's; the batched matmuls of the
 vmapped SGD sum in another order, so History agrees with the loop engine's
 to float summation order (tests/test_torch_fl_batched.py), and byte counts
-and sync sets exactly, under every scenario (tests/test_torch_scenarios.py).
-What the loop engine refuses (A8-A10), this engine refuses too:
-:class:`~.fl.LGCSimulator` checks it before either runs.
+and sync sets exactly, under every scenario (tests/test_torch_scenarios.py),
+every layer policy (tests/test_torch_per_layer.py) and every aggregator
+(tests/test_torch_server.py).  What the loop engine refuses (A9, A12),
+this engine refuses too: :class:`~.fl.LGCSimulator` checks it before either
+runs.
 """
 from __future__ import annotations
 
@@ -46,7 +51,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch.kernels.ref import ftz_add
+from repro_torch.kernels.ref import ftz, ftz_add
 
 from . import prng
 from .channels import ChannelSample, comm_cost_mb, comp_cost
@@ -176,7 +181,12 @@ class BatchedEngine:
     def _compress(self, ef: torch.Tensor, delta: torch.Tensor,
                   ks: torch.Tensor, recv: torch.Tensor
                   ) -> tuple[torch.Tensor, torch.Tensor]:
-        """(g, e') of the syncing rows, backend-dispatched."""
+        """(g, e') of the syncing rows, backend-dispatched (per-layer
+        budgets: the candidates first, then u - g)."""
+        if self.sim.cfg.layer_policy != "global":
+            u = ftz_add(ef, delta)
+            g = self.sim._per_layer_g(u, ks, recv, self._k_cap())
+            return g, ftz_add(u, -g)
         if self.sim.backend == "cuda":
             # looked up at each call, so a caller may wrap it
             from repro_torch import kernels
@@ -228,13 +238,42 @@ class BatchedEngine:
             return x
         return x.pin_memory().to(self.sim.device, non_blocking=True)
 
+    def _window_times(self, ms: tuple[int, ...], costs: np.ndarray
+                      ) -> torch.Tensor:
+        """(S,) f32 window seconds of the devices ``ms``: the comm time of
+        the host-priced ``costs`` plus the compute time of their committed
+        window, added in f32 as the loop engine adds them."""
+        sim = self.sim
+        comp = np.array([comp_cost(sim.profiles[m],
+                                   sim.decisions[m].h)["time_s"]
+                         for m in ms], np.float32)
+        return torch.from_numpy(costs[:, 2].astype(np.float32) + comp)
+
+    def _serve(self, g: torch.Tensor, ef_new: torch.Tensor,
+               ms: tuple[int, ...], costs: np.ndarray, deadline: float
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The diloco / semi_sync server round on the syncing rows'
+        updates g (S, D): (new flat params, e'), where under semi_sync a
+        late row's e' takes back the share of its update the server never
+        applies (reference ``fl_batched.py:425-445``)."""
+        sim = self.sim
+        flat, undeliv = sim._server_apply(g, self._window_times(ms, costs),
+                                          deadline)
+        if sim.agg.name == "semi_sync":
+            un = self._upload(undeliv)[:, None]
+            ef_new = torch.where(un > 0, ftz_add(ef_new, ftz(un * g)),
+                                 ef_new)
+        return flat, ef_new
+
     def _sync(self, te: int, ms: tuple[int, ...], ks: torch.Tensor,
-              rows: torch.Tensor | None, ch: ChannelSample) -> dict:
+              rows: torch.Tensor | None, ch: ChannelSample,
+              costs: np.ndarray, deadline: float) -> dict:
         """The sync at round te - 1 of the devices ``ms`` (their budgets
         ``ks`` (S, C) and row indices ``rows`` on the device, None for all
-        rows; their channel sample ``ch`` on the host): compression with EF
-        of their rows, QSGD, the server mean and the broadcast, enqueued on
-        the device.  Returns the new global params."""
+        rows; their channel sample ``ch`` and (S, 4) ``costs`` on the host;
+        the semi-sync ``deadline``): compression with EF of their rows,
+        QSGD, the server and the broadcast, enqueued on the device.
+        Returns the new global params."""
         sim = self.sim
         all_rows = rows is None
 
@@ -260,7 +299,11 @@ class BatchedEngine:
                 g_deq = qsgd_dequantize(q, scale)
                 ef_new = ftz_add(ef_new, ftz_add(g, -g_deq))
                 g = g_deq
-        flat = server_mean_update(flatten_tree(sim.params), list(g), self.m)
+        if sim.agg.name == "mean":
+            flat = server_mean_update(flatten_tree(sim.params), list(g),
+                                      self.m)
+        else:
+            flat, ef_new = self._serve(g, ef_new, ms, costs, deadline)
         if all_rows:
             self.ef = ef_new
             self.w_hat = flat.expand(self.m, self.d).clone()
@@ -272,9 +315,11 @@ class BatchedEngine:
             self.anchor.index_copy_(0, rows, bcast)
         return unflatten_like(flat, sim.params)
 
-    def _account(self, ms: tuple[int, ...], costs_np: np.ndarray) -> None:
+    def _account(self, ms: tuple[int, ...], costs_np: np.ndarray,
+                 deadline: float) -> None:
         """Spend in f64 on the host, as the loop engine adds it, and the
-        simulated server wall-clock (the slowest syncing device)."""
+        simulated server wall-clock (the slowest syncing device; under
+        semi_sync at most the deadline)."""
         sim = self.sim
         walls = []
         for row, m in enumerate(ms):
@@ -288,7 +333,10 @@ class BatchedEngine:
             for k, v in total.items():
                 sim.spend[m][k] += v
             walls.append(total["time_s"])
-        sim.server_wall_s += max(walls)
+        if sim.agg.uses_timing:
+            sim.server_wall_s += min(deadline, max(walls))
+        else:
+            sim.server_wall_s += max(walls)
 
     # -- host loop: chain windows, decide at boundaries ----------------------
     def run(self) -> History:
@@ -307,8 +355,11 @@ class BatchedEngine:
                 ks = self._ks_rows(ms)
                 rows = None if len(ms) == self.m else self._rows_index(ms)
                 ch, costs = self._channels(te, ms)
+                deadline = (sim._window_deadline(ms)
+                            if sim.agg.uses_timing else 1.0)
             self._local_steps(t, te, self._draw_batches(t, te))
-            params = self._sync(te, ms, ks, rows, ch) if ms else None
+            params = (self._sync(te, ms, ks, rows, ch, costs, deadline)
+                      if ms else None)
             # eval points inside the window precede its sync: they see the
             # params and the spend from before it
             rec = [r for r in range(t, te)
@@ -317,7 +368,7 @@ class BatchedEngine:
             for r in rec[:-1] if last_rec else rec:
                 sim._record(hist, r)
             if ms:
-                self._account(ms, costs)
+                self._account(ms, costs, deadline)
                 sim.params = params
                 sim._decide_devices(ms, te)
             if last_rec:

@@ -61,7 +61,8 @@ def device_ms(fn, reps: int = 100, warmup: int = 5) -> float:
 
 
 PORT_KERNELS = ("maxabs_kernel", "histogram_kernel", "sparsify_ef_kernel",
-                "swa_decode_kernel")
+                "swa_decode_kernel", "maxabs_segments_kernel",
+                "histogram_segments_kernel")
 GEMM_MARKS = ("gemm", "gemv", "xmma", "cutlass", "cublas", "nvjet")
 
 

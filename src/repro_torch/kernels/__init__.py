@@ -2,7 +2,9 @@
 
 Kernels (CUDA C++ for sm_90a under ``csrc/``, each with its plain torch
 version in :mod:`.ref`), one for each Pallas kernel of the reference, the
-LGC ones also in an (M, D) row form (one launch over M device rows):
+LGC ones also in an (M, D) row form (one launch over M device rows), and
+maxabs and histogram also in a segmented form (one launch over every
+model-layer slice of every row):
   topk_threshold   -- maxabs + 256-bin magnitude histogram (2-pass Top_k)
   layered_sparsify -- fused layered sparsify + error-feedback update
   swa_attention    -- sliding-window flash decode attention (the serve
@@ -13,15 +15,20 @@ at the first launch (:mod:`._build`).
 """
 from ._build import LAUNCHES, reset_launch_counts
 from .layered_sparsify import sparsify_ef, sparsify_ef_rows
-from .ops import lgc_compress_hist, lgc_compress_hist_rows, selected_counts
+from .ops import (lgc_compress_hist, lgc_compress_hist_rows,
+                  per_layer_candidates_hist_rows, selected_counts)
 from .swa_attention import swa_decode
-from .topk_threshold import (histogram, histogram_rows, maxabs, sum_maxabs,
-                             sum_maxabs_rows, thresholds_from_counts)
+from .topk_threshold import (SegmentTable, histogram, histogram_rows,
+                             histogram_segments, maxabs, maxabs_segments,
+                             sum_maxabs, sum_maxabs_rows,
+                             thresholds_from_counts)
 
 __all__ = [
     "LAUNCHES", "reset_launch_counts",
-    "lgc_compress_hist", "lgc_compress_hist_rows", "selected_counts",
-    "histogram", "histogram_rows", "maxabs", "sum_maxabs", "sum_maxabs_rows",
+    "lgc_compress_hist", "lgc_compress_hist_rows",
+    "per_layer_candidates_hist_rows", "selected_counts",
+    "SegmentTable", "histogram", "histogram_rows", "histogram_segments",
+    "maxabs", "maxabs_segments", "sum_maxabs", "sum_maxabs_rows",
     "thresholds_from_counts", "sparsify_ef", "sparsify_ef_rows",
     "swa_decode",
 ]

@@ -16,7 +16,9 @@ each function returns ``cudaGetLastError()`` of its launch.
 it launches its kernel and nowhere else, so a run can show which kernels its
 path went through.  Each LGC kernel takes (M, D) rows, a flat vector being
 one row; launches over rows count under their own keys (``maxabs_rows``,
-``histogram_rows``, ``sparsify_ef_rows``), so a run shows which form ran.
+``histogram_rows``, ``sparsify_ef_rows``), and so do the segmented forms of
+maxabs and histogram over the model-layer slices of rows
+(``maxabs_segments``, ``histogram_segments``), so a run shows which form ran.
 """
 from __future__ import annotations
 
@@ -36,7 +38,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"maxabs": 0, "histogram": 0, "sparsify_ef": 0, "swa_decode": 0,
-            "maxabs_rows": 0, "histogram_rows": 0, "sparsify_ef_rows": 0}
+            "maxabs_rows": 0, "histogram_rows": 0, "sparsify_ef_rows": 0,
+            "maxabs_segments": 0, "histogram_segments": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -121,8 +124,13 @@ def lib() -> ctypes.CDLL:
                                            ci, vp]
             so.lgc_swa_decode.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci,
                                           ci, ci, ci, ci, ci, vp]
+            so.lgc_maxabs_segments.argtypes = [vp, i64, i64, vp, vp, ci, ci,
+                                               vp, vp, vp, vp]
+            so.lgc_histogram_segments.argtypes = [vp, i64, i64, vp, vp, ci,
+                                                  ci, vp, vp, vp, vp]
             for fn in (so.lgc_maxabs, so.lgc_histogram, so.lgc_sparsify_ef,
-                       so.lgc_swa_decode):
+                       so.lgc_swa_decode, so.lgc_maxabs_segments,
+                       so.lgc_histogram_segments):
                 fn.restype = ci
             _lib = so
         return _lib

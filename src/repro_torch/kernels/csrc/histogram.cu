@@ -38,6 +38,22 @@
 // * Rows.  The same kernel takes (M, D) rows (the simulator's batched engine
 //   and the 100M step), row blockIdx.y of a 2-D grid, each row with its own
 //   maximum, accumulator, counter and counts; a flat vector is one row.
+// * Segments (`lgc_histogram_segments`).  The simulator's per-layer budgets
+//   (the reference's `per_layer_candidates_hist`,
+//   src/repro/core/compressor.py:341-375, which calls `histogram` once per
+//   model-layer slice at :364) bin every slice of every row against that
+//   slice's own maximum.  One launch does all (row, slice) pairs: grid.y runs
+//   over the rows, grid.x over the blocks of all slices (ceil(length / 4096)
+//   a slice, at least one, at most the flat grid), found through a block ->
+//   slice table that the wrapper builds once per slicing.  A slice is a
+//   vector of its own to `histogram_block` (its blocks, accumulator, counter
+//   and counts) and keeps the head / float4 body / tail scheme, since it
+//   starts anywhere modulo 16 bytes; a slice whose maximum is 0 bins all in
+//   bin 0, as the flat kernel bins a vector.  Every slice goes through the
+//   kernel, also those under the reference's PALLAS_MIN_ELEMS: the
+//   reference's routing never changes the counts (its
+//   tests/test_kernels.py::TestPerLayerHistParity).  At the CNN's slices (10
+//   to 200,704 floats) the launch is bound by its latency.
 #include "common.cuh"
 
 namespace {
@@ -64,8 +80,11 @@ __device__ __forceinline__ void count(float4 v, float scale, int* bins, int& zer
   count(v.w, scale, bins, zeros);
 }
 
-// One vector's histogram over the blocks blockIdx.x of the grid's x axis.
+// One vector's histogram over the `nblocks` blocks given to it, this block
+// being block `rank` of them (a row's blocks: blockIdx.x of gridDim.x; a
+// slice's: its run of the grid's x axis).
 __device__ __forceinline__ void histogram_block(const float* __restrict__ x, int64_t n,
+                                                int64_t rank, int64_t nblocks,
                                                 const float* __restrict__ maxabs,
                                                 int* __restrict__ acc, int* __restrict__ counter,
                                                 int* __restrict__ counts) {
@@ -79,8 +98,8 @@ __device__ __forceinline__ void histogram_block(const float* __restrict__ x, int
   int* bins = sub[threadIdx.x >> 5];
   int zeros = 0;
 
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t tid = rank * blockDim.x + threadIdx.x;
+  const int64_t stride = nblocks * blockDim.x;
   const int64_t head = lgc::head_elems(x, n);
   const int64_t n4 = (n - head) / 4;
   const float4* body = reinterpret_cast<const float4*>(x + head);
@@ -114,7 +133,7 @@ __device__ __forceinline__ void histogram_block(const float* __restrict__ x, int
   if (s) atomicAdd(acc + b, s);
   __threadfence();                                 // the adds are visible before they count
   __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(counter, 1) == static_cast<int>(gridDim.x) - 1;
+  if (threadIdx.x == 0) last = atomicAdd(counter, 1) == static_cast<int>(nblocks) - 1;
   __syncthreads();
   if (!last) return;
   __threadfence();
@@ -129,8 +148,31 @@ histogram_kernel(const float* __restrict__ x, int64_t n, const float* __restrict
                  int* __restrict__ acc, int* __restrict__ counts) {
   const int64_t row = blockIdx.y;
   int* acc_row = acc + row * (lgc::kBins + 1);
-  histogram_block(x + row * n, n, maxabs + row, acc_row, acc_row + lgc::kBins,
-                  counts + row * lgc::kBins);
+  histogram_block(x + row * n, n, blockIdx.x, gridDim.x, maxabs + row, acc_row,
+                  acc_row + lgc::kBins, counts + row * lgc::kBins);
+}
+
+// Segments: slice s of row blockIdx.y is x[row, offsets[s]:offsets[s + 1]],
+// binned against its own maximum maxabs[row, s], with its own 257-int
+// accumulator and its own 256 counts.  The grid's x axis runs over all
+// slices' blocks: `first` (n_slices + 1 ints) gives slice s the blocks
+// first[s] .. first[s + 1] - 1, and `block_slice` (gridDim.x ints) names
+// each block's slice.
+__global__ void __launch_bounds__(lgc::kThreads)
+histogram_segments_kernel(const float* __restrict__ x, int64_t n,
+                          const int64_t* __restrict__ offsets, const int* __restrict__ first,
+                          const int* __restrict__ block_slice, int n_slices,
+                          const float* __restrict__ maxabs, int* __restrict__ acc,
+                          int* __restrict__ counts) {
+  const int64_t row = blockIdx.y;
+  const int s = block_slice[blockIdx.x];
+  const int f = first[s];
+  const int64_t lo = offsets[s];
+  const int64_t rs = row * n_slices + s;
+  int* acc_rs = acc + rs * (lgc::kBins + 1);
+  histogram_block(x + row * n + lo, offsets[s + 1] - lo, static_cast<int64_t>(blockIdx.x) - f,
+                  first[s + 1] - f, maxabs + rs, acc_rs, acc_rs + lgc::kBins,
+                  counts + rs * lgc::kBins);
 }
 
 }  // namespace
@@ -144,5 +186,23 @@ extern "C" int lgc_histogram(const float* x, int64_t rows, int64_t n, const floa
   }
   const dim3 blocks(grid, static_cast<unsigned>(rows));
   histogram_kernel<<<blocks, lgc::kThreads, 0, stream>>>(x, n, maxabs, acc, counts);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x (rows, n), maxabs (rows, n_slices), counts (rows, n_slices, 256).
+// offsets: n_slices + 1 int64, increasing from 0 to n.  table: first
+// (n_slices + 1 ints, from 0 to n_blocks), then block_slice (n_blocks ints).
+// acc: rows x n_slices x 257 ints (256 bins and a counter each), zero, left
+// zero.
+extern "C" int lgc_histogram_segments(const float* x, int64_t rows, int64_t n,
+                                      const int64_t* offsets, const int* table, int n_slices,
+                                      int n_blocks, const float* maxabs, int* counts, int* acc,
+                                      cudaStream_t stream) {
+  if (rows < 1 || rows > 65535 || n < 1 || n_slices < 1 || n_blocks < n_slices) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 blocks(n_blocks, static_cast<unsigned>(rows));
+  histogram_segments_kernel<<<blocks, lgc::kThreads, 0, stream>>>(
+      x, n, offsets, table, table + n_slices + 1, n_slices, maxabs, acc, counts);
   return static_cast<int>(cudaGetLastError());
 }

@@ -31,6 +31,23 @@
 // 100M step: one row per device), row blockIdx.y of a 2-D grid; a flat vector
 // is one row.  A row of an odd D starts anywhere modulo 16 bytes, so each row
 // takes its own head of 0-3 floats before its float4 body.
+//
+// Segments (`lgc_maxabs_segments`): the per-layer budgets of the simulator
+// (the reference's `per_layer_candidates_hist`, src/repro/core/compressor.py:
+// 341-375) take max |u| of every model-layer slice of every row, where the
+// reference calls `maxabs` once per slice (:363).  Here one launch does all
+// (row, slice) pairs: grid.y runs over the rows and grid.x over the blocks of
+// all slices, each slice getting ceil(length / 4096) of them (at least one,
+// at most the flat grid) from a block -> slice table that the wrapper builds
+// once per slicing.  A slice is a vector of its own to `maxabs_block` (its
+// blocks, partials, counter and output), with the head / float4 body / tail
+// scheme above, since a slice starts anywhere modulo 16 bytes.  The reference
+// routes only slices of at least PALLAS_MIN_ELEMS floats through its kernel
+// and gives the rest to a bit-identical oracle, so routing every slice
+// through this one launch computes what it computes (its
+// tests/test_kernels.py::TestPerLayerHistParity).  The CNN's slices run from
+// 10 to 200,704 floats, so most blocks are a slice's only block and the
+// launch is bound by its latency, not by bytes.
 #include "common.cuh"
 
 namespace {
@@ -63,17 +80,20 @@ __device__ __forceinline__ unsigned block_max(unsigned m) {
   return __reduce_max_sync(0xffffffffu, m);
 }
 
-// One vector's max over the blocks blockIdx.x of the grid's x axis.  kSum: the values are u = x + d, stored to u.  kVec:
-// x, d and u share their offset from a 16-byte boundary, so the body moves as
-// float4s.
+// One vector's max over the `nblocks` blocks given to it, this block being
+// block `rank` of them (a row's blocks: blockIdx.x of gridDim.x; a slice's:
+// its run of the grid's x axis).  partials: the vector's `nblocks` partials.
+// kSum: the values are u = x + d, stored to u.  kVec: x, d and u share their
+// offset from a 16-byte boundary, so the body moves as float4s.
 template <bool kSum, bool kVec>
 __device__ __forceinline__ void maxabs_block(const float* __restrict__ x,
                                              const float* __restrict__ d, float* __restrict__ u,
-                                             int64_t n, unsigned* __restrict__ partials,
+                                             int64_t n, int64_t rank, int64_t nblocks,
+                                             unsigned* __restrict__ partials,
                                              int* __restrict__ counter,
                                              unsigned* __restrict__ out) {
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t tid = rank * blockDim.x + threadIdx.x;
+  const int64_t stride = nblocks * blockDim.x;
   auto value = [&](int64_t i) {
     if constexpr (kSum) {
       const float v = lgc::add_ftz(x[i], d[i]);
@@ -133,15 +153,15 @@ __device__ __forceinline__ void maxabs_block(const float* __restrict__ x,
   __shared__ bool last;
   m = block_max(m);
   if (threadIdx.x == 0) {
-    partials[blockIdx.x] = m;
+    partials[rank] = m;
     __threadfence();                               // the partial is visible before it counts
-    last = atomicAdd(counter, 1) == static_cast<int>(gridDim.x) - 1;
+    last = atomicAdd(counter, 1) == static_cast<int>(nblocks) - 1;
   }
   __syncthreads();
   if (!last) return;
   __threadfence();
   m = 0u;
-  for (int i = threadIdx.x; i < static_cast<int>(gridDim.x); i += blockDim.x) {
+  for (int i = threadIdx.x; i < static_cast<int>(nblocks); i += blockDim.x) {
     m = max(m, __ldcg(partials + i));
   }
   m = block_max(m);
@@ -161,7 +181,29 @@ maxabs_kernel(const float* __restrict__ x, const float* __restrict__ d, float* _
               unsigned* __restrict__ out) {
   const int64_t row = blockIdx.y;
   maxabs_block<kSum, kVec>(x + row * n, kSum ? d + row * n : d, kSum ? u + row * n : u, n,
-                           partials + row * gridDim.x, counters + row, out + row);
+                           blockIdx.x, gridDim.x, partials + row * gridDim.x, counters + row,
+                           out + row);
+}
+
+// Segments: slice s of row blockIdx.y is x[row, offsets[s]:offsets[s + 1]].
+// The grid's x axis runs over all slices' blocks: `first` (n_slices + 1
+// ints) gives slice s the blocks first[s] .. first[s + 1] - 1, and
+// `block_slice` (gridDim.x ints) names each block's slice.  Each (row,
+// slice) has its own run of partials, counter and output.
+__global__ void __launch_bounds__(lgc::kThreads)
+maxabs_segments_kernel(const float* __restrict__ x, int64_t n,
+                       const int64_t* __restrict__ offsets, const int* __restrict__ first,
+                       const int* __restrict__ block_slice, int n_slices,
+                       unsigned* __restrict__ partials, int* __restrict__ counters,
+                       unsigned* __restrict__ out) {
+  const int64_t row = blockIdx.y;
+  const int s = block_slice[blockIdx.x];
+  const int f = first[s];
+  const int64_t lo = offsets[s];
+  const int64_t rs = row * n_slices + s;
+  maxabs_block<false, true>(x + row * n + lo, nullptr, nullptr, offsets[s + 1] - lo,
+                            static_cast<int64_t>(blockIdx.x) - f, first[s + 1] - f,
+                            partials + row * gridDim.x + f, counters + rs, out + rs);
 }
 
 }  // namespace
@@ -189,5 +231,24 @@ extern "C" int lgc_maxabs(const float* x, const float* d, float* u, int64_t rows
     maxabs_kernel<true, true><<<blocks, lgc::kThreads, 0, stream>>>(x, d, u, n, partials,
                                                                     counters, o);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x (rows, n); out (rows, n_slices): max |x| of each (row, slice).  offsets:
+// n_slices + 1 int64, increasing from 0 to n.  table: first (n_slices + 1
+// ints, from 0 to n_blocks), then block_slice (n_blocks ints).  partials:
+// rows x n_blocks unsigned ints of scratch; counters: rows x n_slices ints,
+// zero, left zero.
+extern "C" int lgc_maxabs_segments(const float* x, int64_t rows, int64_t n,
+                                   const int64_t* offsets, const int* table, int n_slices,
+                                   int n_blocks, float* out, unsigned* partials, int* counters,
+                                   cudaStream_t stream) {
+  if (rows < 1 || rows > 65535 || n < 1 || n_slices < 1 || n_blocks < n_slices) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 blocks(n_blocks, static_cast<unsigned>(rows));
+  maxabs_segments_kernel<<<blocks, lgc::kThreads, 0, stream>>>(
+      x, n, offsets, table, table + n_slices + 1, n_slices, partials, counters,
+      reinterpret_cast<unsigned*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,7 +21,9 @@ inputs of the max, the product and the compares, and the division m / 256.
 The ``*_rows`` forms take (M, D) rows, one per simulated device, as the
 reference's batched engine reaches the Pallas kernels through ``jax.vmap``
 (``repro/core/fl_batched.py:201-209``); they are the plain versions of the
-row kernels.
+row kernels.  The ``*_segments`` forms take every model-layer slice of
+(M, D) rows, the reference's per-slice calls of the per-layer budgets;
+they are the plain versions of the segmented kernels.
 """
 from __future__ import annotations
 
@@ -207,6 +209,52 @@ def hist_lgc_compress_rows(e: torch.Tensor, delta: torch.Tensor,
     counts = hist_counts_rows(u, m)
     thr = hist_thresholds_rows(counts, m, cum_ks)
     return hist_layered_sparsify_rows(u, thr, received)
+
+
+# ---------------------------------------------------------------------------
+# segmented forms: the same statistics on every model-layer slice of (M, D)
+# rows (the reference's per-slice calls in ``per_layer_candidates_hist``,
+# ``repro/core/compressor.py:341-375``); ``offsets`` are the L + 1 slice
+# edges, from 0 to D
+# ---------------------------------------------------------------------------
+
+def _edges(offsets) -> list[tuple[int, int]]:
+    offs = [int(o) for o in offsets]
+    return list(zip(offs[:-1], offs[1:]))
+
+
+def hist_maxabs_segments(u: torch.Tensor, offsets) -> torch.Tensor:
+    """:func:`hist_maxabs` of every slice of every row of u (M, D): (M, L)
+    f32."""
+    return torch.stack([hist_maxabs_rows(u[:, lo:hi])
+                        for lo, hi in _edges(offsets)], 1)
+
+
+def hist_counts_segments(u: torch.Tensor, maxabs: torch.Tensor, offsets
+                         ) -> torch.Tensor:
+    """:func:`hist_counts` of every slice of every row of u (M, D), each
+    against its own maximum ``maxabs[r, l]``: (M, L, 256) int32."""
+    return torch.stack([hist_counts_rows(u[:, lo:hi], maxabs[:, i])
+                        for i, (lo, hi) in enumerate(_edges(offsets))], 1)
+
+
+def hist_candidates_segments(u: torch.Tensor, offsets, budgets: torch.Tensor
+                             ) -> torch.Tensor:
+    """The per-layer candidate mask of the histogram path on u (M, D) with
+    budgets (M, L): each slice's threshold from its own histogram with cum =
+    its budget, then |u| > thr & b > 0 coordinate by coordinate (the
+    reference's ``per_layer_candidates_hist``; its compare reads a
+    subnormal |u| as 0).  (M, D) bool."""
+    mx = hist_maxabs_segments(u, offsets)
+    counts = hist_counts_segments(u, mx, offsets)
+    m, n_l = mx.shape
+    thr = hist_thresholds_rows(counts.reshape(m * n_l, N_BINS),
+                               mx.reshape(m * n_l),
+                               budgets.reshape(m * n_l, 1)).reshape(m, n_l)
+    parts = [(ftz(u[:, lo:hi].abs()) > thr[:, i:i + 1])
+             & (budgets[:, i:i + 1] > 0)
+             for i, (lo, hi) in enumerate(_edges(offsets))]
+    return torch.cat(parts, 1)
 
 
 def swa_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

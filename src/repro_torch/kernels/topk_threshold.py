@@ -15,6 +15,12 @@ through ``jax.vmap`` there, ``repro/core/fl_batched.py:201-209``):
 (M, 256) counts.  A flat vector is one row of the kernel, so each row of a
 launch gets the bits of a flat launch on it.
 
+The segmented forms, ``maxabs_segments`` and ``histogram_segments``, take
+every model-layer slice of every row in one launch (the per-layer budgets,
+where the reference calls ``maxabs`` and ``histogram`` once per slice,
+``repro/core/compressor.py:363-364``), through a :class:`SegmentTable`
+built once per slicing.
+
 A wrapper checks its inputs, allocates the outputs, launches on the current
 stream and raises if the launch failed.  For a CPU tensor it calls the plain
 version in :mod:`repro_torch.kernels.ref`; for a CUDA tensor it launches the
@@ -24,6 +30,7 @@ plain versions (chip_smoke.py on the card, tests/test_torch_kernels.py).
 from __future__ import annotations
 
 import contextlib
+import itertools
 
 import torch
 
@@ -39,6 +46,8 @@ _HIST_LOADS = 4                # float4 loads per thread per pass (histogram.cu 
 # registers a thread) 4 was the fastest on the H100
 # (python -m repro_torch.launch.bench_histogram --blocks-per-sm 2,4,6)
 _HIST_BLOCKS_PER_SM = 4
+
+_SEG_PER_BLOCK = _THREADS * _HIST_LOADS * 4     # floats of a segment block's pass
 
 _MAX_ROWS = 65535              # the grid's y extent, one row a step
 _sm_counts: dict[int, int] = {}
@@ -243,6 +252,128 @@ def histogram_rows(x: torch.Tensor, maxabs_val: torch.Tensor
             x.data_ptr(), rows, n, m.data_ptr(), counts.data_ptr(),
             acc.data_ptr(), grid, _stream(x))
     _build.check(err, "histogram_rows")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# segmented forms: every model-layer slice of every row in one launch
+# ---------------------------------------------------------------------------
+
+class SegmentTable:
+    """The model-layer slices of a flat vector as the segmented kernels take
+    them: the L + 1 slice edges ``offsets`` (host ints, from 0 to D) and, on
+    ``device``, ``sizes`` (L,) int32 and ``ids`` (D,) int64, each
+    coordinate's slice.  On a card also the launch table: the edges as int64
+    (``edges``) and, as int32 (``table``), the first block of each slice (L +
+    1 ints) followed by the block -> slice map of the ``n_blocks`` blocks of
+    the grid's x axis.  A slice gets ceil(length / 4096) blocks, at least one
+    and at most the flat histogram's grid.
+
+    The slices of a model never change, so a simulator builds its table once
+    and every launch reads it with no host work (nothing is copied to the
+    card inside a sync)."""
+
+    def __init__(self, offsets, device: str | torch.device):
+        offs = [int(o) for o in offsets]
+        if len(offs) < 2 or offs[0] != 0 or any(
+                hi <= lo for lo, hi in zip(offs, offs[1:])):
+            raise ValueError(f"slice edges must rise strictly from 0, got "
+                             f"{offs}")
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.offsets = tuple(offs)
+        self.device = device
+        sizes = [hi - lo for lo, hi in zip(offs, offs[1:])]
+        self.sizes = torch.tensor(sizes, dtype=torch.int32, device=device)
+        self.ids = torch.repeat_interleave(
+            torch.arange(len(sizes)), torch.tensor(sizes)).to(device)
+        self.n_blocks = 0
+        if device.type == "cuda":
+            cap = _HIST_BLOCKS_PER_SM * _sm_count(device)
+            per_slice = [max(1, min(-(-n // _SEG_PER_BLOCK), cap))
+                         for n in sizes]
+            first = [0, *itertools.accumulate(per_slice)]
+            block_slice = [s for s, k in enumerate(per_slice)
+                           for _ in range(k)]
+            self.n_blocks = first[-1]
+            self.edges = torch.tensor(offs, dtype=torch.int64, device=device)
+            self.table = torch.tensor(first + block_slice, dtype=torch.int32,
+                                      device=device)
+
+    @property
+    def n_slices(self) -> int:
+        return len(self.offsets) - 1
+
+    @property
+    def spans(self) -> list[tuple[int, int]]:
+        """The slices as half-open (lo, hi) pairs."""
+        return list(zip(self.offsets[:-1], self.offsets[1:]))
+
+
+def _check_segments(u: torch.Tensor, seg: SegmentTable) -> None:
+    """``seg`` must be a :class:`SegmentTable` on u's device that tiles
+    u's rows."""
+    if not isinstance(seg, SegmentTable):
+        raise TypeError(f"segments must be a SegmentTable, got "
+                        f"{type(seg).__name__}")
+    if seg.offsets[-1] != u.shape[1]:
+        raise ValueError(f"slices cover {seg.offsets[-1]} floats; u has "
+                         f"{u.shape[1]} a row")
+    if seg.device != u.device:
+        raise ValueError(f"segment table on {seg.device}, u on {u.device}")
+
+
+def maxabs_segments(u: torch.Tensor, seg: SegmentTable) -> torch.Tensor:
+    """max |u| of every model-layer slice of ``seg`` of every row of u
+    (M, D), in one launch (a subnormal |u| counts as 0).  Returns (M, L)
+    f32."""
+    _check_rows(u, "u")
+    _check_same_device(u)
+    _check_segments(u, seg)
+    if u.device.type == "cpu":
+        return ref.hist_maxabs_segments(u, seg.offsets)
+    rows, n = u.shape
+    out = torch.empty((rows, seg.n_slices), dtype=torch.float32,
+                      device=u.device)
+    partials = torch.empty(rows * seg.n_blocks, dtype=torch.int32,
+                           device=u.device)
+    counters = _zeroed_counters("maxabs_segments", u.device,
+                                rows * seg.n_slices)
+    with _on_device(u):
+        err = _build.lib().lgc_maxabs_segments(
+            u.data_ptr(), rows, n, seg.edges.data_ptr(), seg.table.data_ptr(),
+            seg.n_slices, seg.n_blocks, out.data_ptr(), partials.data_ptr(),
+            counters.data_ptr(), _stream(u))
+    _build.check(err, "maxabs_segments")
+    return out
+
+
+def histogram_segments(u: torch.Tensor, maxabs_val: torch.Tensor,
+                       seg: SegmentTable) -> torch.Tensor:
+    """The 256-bin |u| histogram of every model-layer slice of every row of
+    u (M, D), each over [0, maxabs_val[r, l]], in one launch.  Returns
+    (M, L, 256) int32."""
+    _check_rows(u, "u")
+    _check_segments(u, seg)
+    rows = u.shape[0]
+    if (maxabs_val.shape != (rows, seg.n_slices)
+            or maxabs_val.dtype != torch.float32):
+        raise ValueError(f"maxabs_val must be ({rows}, {seg.n_slices}) f32")
+    _check_same_device(u, maxabs_val)
+    if u.device.type == "cpu":
+        return ref.hist_counts_segments(u, maxabs_val, seg.offsets)
+    m = maxabs_val.contiguous()
+    counts = torch.empty((rows, seg.n_slices, N_BINS), dtype=torch.int32,
+                         device=u.device)
+    acc = _zeroed_counters("histogram_segments", u.device,
+                           rows * seg.n_slices * (N_BINS + 1))
+    with _on_device(u):
+        err = _build.lib().lgc_histogram_segments(
+            u.data_ptr(), rows, u.shape[1], seg.edges.data_ptr(),
+            seg.table.data_ptr(), seg.n_slices, seg.n_blocks, m.data_ptr(),
+            counts.data_ptr(), acc.data_ptr(), _stream(u))
+    _build.check(err, "histogram_segments")
     return counts
 
 

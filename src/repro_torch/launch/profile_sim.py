@@ -2,13 +2,16 @@
 
     python -m repro_torch.launch.profile_sim [--task lr_mnist] [--m-devices 3]
         [--n-train 3000] [--rounds 40] [--mode lgc] [--engine batched]
-        [--scenario static]
+        [--scenario static] [--layer-policy global] [--aggregator mean]
 
 Runs ``run_baseline``'s simulator on the card with ``backend="cuda"`` (H=4,
 5% of D per sync) on ``lr_mnist``, ``cnn_mnist`` or ``rnn_shakespeare``
 (``--n-train`` defaults to 3,000 for the MNIST tasks and to the factory's
-2,000 windows per device for the RNN) under a registry scenario, once to
-warm up, once timed and once under ``torch.profiler``:
+2,000 windows per device for the RNN) under a registry scenario, a layer
+policy (``--layer-policy``: ``global`` or a ``LAYER_POLICIES`` name, whose
+syncs take the segmented kernels) and a server (``--aggregator``: ``mean``,
+``diloco`` or ``semi_sync``, the last with a staleness cap of 2), once
+to warm up, once timed and once under ``torch.profiler``:
 
 * host ms per round (the timed run's time over its rounds) and the split
   over the engine's phases, each wrapped with a host clock.  The loop
@@ -23,12 +26,13 @@ warm up, once timed and once under ``torch.profiler``:
   batched engine (the default): ``channels`` (the sync's channel draw and
   cost model, on the host), ``draw_batches`` (the window's keys and
   minibatch indices, on the card), ``sgd`` (the vmapped gradients and
-  updates), ``sync`` (the LGC row kernels, QSGD, server mean; enqueued)
+  updates), ``sync`` (the LGC row kernels, per-layer budgets and the
+  segmented kernels, QSGD, the server step; enqueued)
   and ``record`` (eval, the only wait for the card); with the median
   window;
 * device busy ms per round (union of kernel intervals in the profiled
   run), the idle share against the unprofiled round, kernel launches per
-  round, device ms by group (the three LGC kernels, matmuls, the rest).
+  round, device ms by group (the LGC kernels, matmuls, the rest).
 
 Prints one JSON line; it needs a card and fails without one.
 """
@@ -42,6 +46,8 @@ import time
 import torch
 
 from repro_torch.core import FLConfig
+from repro_torch.core.compressor import LAYER_POLICIES
+from repro_torch.core.server import AGGREGATORS
 from repro_torch.core.fl import baseline_simulator
 from repro_torch.core.fl_batched import BatchedEngine
 from repro_torch.core.scenario import SCENARIOS
@@ -50,6 +56,7 @@ from repro_torch.device import (card_name_and_power_limit, kernel_group,
 from repro_torch.models.paper_models import make_task
 
 H = 4                  # the baselines' fixed sync gap
+SEMI_SYNC_CAP = 2      # semi_sync's staleness cap, as in the reference's straggler test
 # phase -> (object, method): "sim" is the simulator, "engine" the batched
 # engine that drives it
 PHASES = {
@@ -102,6 +109,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--engine", default="batched",
                     choices=("loop", "batched"))
     ap.add_argument("--scenario", default="static", choices=sorted(SCENARIOS))
+    ap.add_argument("--layer-policy", default="global",
+                    choices=("global", *sorted(LAYER_POLICIES)))
+    ap.add_argument("--aggregator", default="mean", choices=sorted(AGGREGATORS))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_sim needs a CUDA card")
@@ -113,7 +123,10 @@ def main(argv=None) -> dict:
     task = make_task(args.task, m_devices=args.m_devices,
                      scenario=args.scenario, **kw)
     cfg = FLConfig(rounds=args.rounds, eval_every=10, backend="cuda",
-                   engine=args.engine, scenario=args.scenario)
+                   engine=args.engine, scenario=args.scenario,
+                   layer_policy=args.layer_policy, aggregator=args.aggregator,
+                   staleness_cap=(SEMI_SYNC_CAP
+                                  if args.aggregator == "semi_sync" else 0))
 
     def simulator():
         return baseline_simulator(task, cfg, args.mode, h=H, device="cuda")
@@ -156,7 +169,9 @@ def main(argv=None) -> dict:
         "card": card,
         "device": torch.cuda.get_device_name(0),
         "task": args.task, "m_devices": args.m_devices, "mode": args.mode,
-        "engine": args.engine, "scenario": args.scenario, "d": sim.d,
+        "engine": args.engine, "scenario": args.scenario,
+        "layer_policy": args.layer_policy, "aggregator": args.aggregator,
+        "d": sim.d,
         "rounds": rounds,
         "h": H,
         "host_ms_per_round": wall_s * 1e3 / args.rounds,

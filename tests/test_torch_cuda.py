@@ -1,8 +1,10 @@
 """The port's CUDA kernels on the card against their plain versions: the
-LGC kernels bitwise, ``swa_decode`` to the tolerance of its f32 sums; and
-the simulator's threefry PRNG on the card bitwise equal to the CPU's, a
-short LR run through the LGC kernels against the CPU's plain versions, and
-every sync of short LR and CNN runs bitwise equal to the plain pipeline.
+LGC kernels bitwise (flat, rows and the segmented forms), ``swa_decode`` to
+the tolerance of its f32 sums; and the simulator's threefry PRNG on the
+card bitwise equal to the CPU's, a short LR run through the LGC kernels
+against the CPU's plain versions, every sync of short LR and CNN runs
+bitwise equal to the plain pipeline, the per-layer path's launches, and
+the diloco / semi_sync servers against the CPU.
 
 These tests need an NVIDIA card and ``nvcc``; without a card they skip with
 a reason.  The file imports neither ``jax`` nor the reference package, so it
@@ -263,7 +265,8 @@ def test_each_wrapper_counts_its_launches(card):
     pk.maxabs(x)
     assert pk.LAUNCHES == {"maxabs": 2, "histogram": 1, "sparsify_ef": 1,
                            "swa_decode": 0, "maxabs_rows": 0,
-                           "histogram_rows": 0, "sparsify_ef_rows": 0}
+                           "histogram_rows": 0, "sparsify_ef_rows": 0,
+                           "maxabs_segments": 0, "histogram_segments": 0}
     pk.lgc_compress_hist_rows(x.view(2, 2500), x.view(2, 2500),
                               cum.expand(2, 3), recv.expand(2, 3))
     assert [pk.LAUNCHES[k] for k in ("maxabs_rows", "histogram_rows",
@@ -272,6 +275,11 @@ def test_each_wrapper_counts_its_launches(card):
     kv = torch.zeros((1, 1, 4, 32), device=card)
     pk.swa_decode(q, kv, kv, torch.ones(1, dtype=torch.int32, device=card))
     assert pk.LAUNCHES["swa_decode"] == 1
+    pk.per_layer_candidates_hist_rows(
+        x.view(2, 2500), pk.SegmentTable([0, 10, 2500], card),
+        torch.full((2, 2), 7, dtype=torch.int32, device=card))
+    assert [pk.LAUNCHES[k] for k in ("maxabs_segments",
+                                     "histogram_segments")] == [1, 1]
     torch.cuda.synchronize()
 
 
@@ -438,7 +446,8 @@ def test_short_lr_run_launches_the_kernels_once_per_sync(card):
     torch.cuda.synchronize()
     assert counts == {"maxabs": 9, "histogram": 9, "sparsify_ef": 9,
                       "swa_decode": 0, "maxabs_rows": 0,
-                      "histogram_rows": 0, "sparsify_ef_rows": 0}
+                      "histogram_rows": 0, "sparsify_ef_rows": 0,
+                      "maxabs_segments": 0, "histogram_segments": 0}
     cpu, gpu = runs["cpu"], runs[str(card)]
     assert gpu.step == cpu.step and gpu.uplink_mb == cpu.uplink_mb
     np.testing.assert_allclose(gpu.loss, cpu.loss, atol=1e-3)
@@ -590,9 +599,154 @@ def test_batched_engine_launches_once_per_boundary_without_a_sync(
     counts = dict(pk.LAUNCHES)
     assert counts == {"maxabs": 0, "histogram": 0, "sparsify_ef": 0,
                       "swa_decode": 0, "maxabs_rows": want,
-                      "histogram_rows": want, "sparsify_ef_rows": want}
+                      "histogram_rows": want, "sparsify_ef_rows": want,
+                      "maxabs_segments": 0, "histogram_segments": 0}
     assert len(seen) == want and all(seen)
     cpu = run_baseline(task, cfg, mode, h=4, device="cpu")
     assert gpu.step == cpu.step and gpu.uplink_mb == cpu.uplink_mb
     np.testing.assert_allclose(gpu.loss, cpu.loss, atol=1e-3)
     np.testing.assert_allclose(gpu.energy_j, cpu.energy_j, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the segmented kernels and the per-layer path
+# ---------------------------------------------------------------------------
+
+def _model_edges(task_name: str) -> list[int]:
+    from repro_torch.core import prng
+    from repro_torch.core.compressor import tree_layer_slices
+    from repro_torch.models.paper_models import make_task
+    task = make_task(task_name, m_devices=1, n_train=100)
+    return [0] + [hi for _, _, hi in
+                  tree_layer_slices(task.init(prng.PRNGKey(0)))]
+
+
+# one-float slices, slices starting at every offset mod 4 floats, a slice
+# around one block's pass (4,096 floats) and a long one
+EDGE_SIZES = [1, 1, 1, 2, 3, 4095, 4097, 63, 1, 8192, 5, 200_003]
+
+
+def _edge_battery(card):
+    """Rows over EDGE_SIZES: row 0 Gaussian; row 1 with an all-zero slice,
+    a NaN, a +inf and an all-subnormal slice; row 2 at 1e-38 (partly
+    subnormal); row 3 all zeros."""
+    edges = np.concatenate([[0], np.cumsum(EDGE_SIZES)]).tolist()
+    d = edges[-1]
+    rng = np.random.default_rng(9)
+    u = (rng.standard_t(3, (4, d)) * 1e-3).astype(np.float32)
+    u[1, edges[3]:edges[4]] = 0.0
+    u[1, edges[6] + 5] = np.nan
+    u[1, edges[7] + 2] = np.inf
+    u[1, edges[8]:edges[9]] = np.float32(1e-40)
+    u[2] *= np.float32(1e-35)
+    u[3] = 0.0
+    return torch.from_numpy(u).to(card), edges
+
+
+def _segment_cases(card):
+    for name, m in (("cnn_mnist", 8), ("lr_mnist", 3), ("rnn_shakespeare", 8)):
+        edges = _model_edges(name)
+        rng = np.random.default_rng(m)
+        u = torch.from_numpy((rng.standard_t(3, (m, edges[-1])) * 1e-3)
+                             .astype(np.float32)).to(card)
+        u[1 % m, edges[1]:edges[2]] = 0.0     # a zero bias, as at round 0
+        yield name, u, edges
+    u, edges = _edge_battery(card)
+    yield "battery", u, edges
+
+
+def test_segment_kernels_match_plain_versions(card):
+    """maxabs_segments and histogram_segments at the CNN's slices (M=8),
+    the LR's (M=3), the RNN's (M=8) and the edge battery: one launch each,
+    bitwise the plain segmented versions, each (row, slice) bitwise a flat
+    launch on that slice; the candidate mask bitwise its plain version."""
+    for name, u, edges in _segment_cases(card):
+        table = pk.SegmentTable(edges, card)
+        pk.reset_launch_counts()
+        mx = pk.maxabs_segments(u, table)
+        counts = pk.histogram_segments(u, mx, table)
+        assert (pk.LAUNCHES["maxabs_segments"],
+                pk.LAUNCHES["histogram_segments"]) == (1, 1), name
+        assert _bits_equal(mx, pref.hist_maxabs_segments(u, edges)), name
+        assert _bits_equal(counts, pref.hist_counts_segments(u, mx, edges))
+        assert (counts.sum(2) == torch.tensor(np.diff(edges), device=card)
+                ).all(), name
+        for r in range(u.shape[0]):
+            for i, (lo, hi) in enumerate(zip(edges[:-1], edges[1:])):
+                seg = u[r, lo:hi].contiguous()
+                assert _bits_equal(mx[r, i].reshape(1, 1), pk.maxabs(seg))
+                assert _bits_equal(counts[r, i],
+                                   pk.histogram(seg, mx[r, i].reshape(1, 1)))
+        budgets = torch.tensor(
+            np.random.default_rng(1).integers(0, 40, (u.shape[0],
+                                                      len(edges) - 1)),
+            dtype=torch.int32, device=card)
+        mask = pk.per_layer_candidates_hist_rows(u, table, budgets)
+        assert _bits_equal(mask, pref.hist_candidates_segments(
+            u, edges, budgets)), name
+    torch.cuda.synchronize()
+
+
+def test_segment_kernels_repeat_and_follow_a_larger_grid(card):
+    """Counters and accumulators are left at zero: ten launches in a row
+    and a launch after a larger one give the same bits."""
+    cases = list(_segment_cases(card))
+    _, small_u, small_edges = cases[1]
+    small = pk.SegmentTable(small_edges, card)
+    want_m = pk.maxabs_segments(small_u, small)
+    want_c = pk.histogram_segments(small_u, want_m, small)
+    _, big_u, big_edges = cases[0]
+    big = pk.SegmentTable(big_edges, card)
+    for _ in range(10):
+        pk.histogram_segments(big_u, pk.maxabs_segments(big_u, big), big)
+    got_m = pk.maxabs_segments(small_u, small)
+    assert _bits_equal(got_m, want_m)
+    assert _bits_equal(pk.histogram_segments(small_u, got_m, small), want_c)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("engine,want", [("loop", (6, 0, 6)),
+                                         ("batched", (2, 0, 2))])
+@pytest.mark.parametrize("policy", ["size_prop", "divergence"])
+def test_per_layer_runs_launch_the_segment_kernels(card, engine, want,
+                                                   policy):
+    """8 rounds of lr_mnist (M=3, H=4) under a layer policy on the card:
+    one launch of each segmented kernel per sync (per syncing device on the
+    loop engine), then the LGC row kernels on the masked update; History
+    within the CPU run's."""
+    from repro_torch.core import FLConfig, run_baseline
+    from repro_torch.models.paper_models import make_task
+    task = make_task("lr_mnist", m_devices=3, n_train=300)
+    cfg = FLConfig(rounds=8, eval_every=4, backend="cuda", engine=engine,
+                   layer_policy=policy)
+    pk.reset_launch_counts()
+    gpu = run_baseline(task, cfg, "lgc", h=4, device=card)
+    torch.cuda.synchronize()
+    seg, flat, rows = want
+    assert (pk.LAUNCHES["maxabs_segments"], pk.LAUNCHES["histogram"],
+            pk.LAUNCHES["histogram_rows"]) == (seg, flat, rows)
+    assert pk.LAUNCHES["histogram_segments"] == seg
+    cpu = run_baseline(task, cfg, "lgc", h=4, device="cpu")
+    assert gpu.step == cpu.step and gpu.uplink_mb == cpu.uplink_mb
+    np.testing.assert_allclose(gpu.loss, cpu.loss, atol=1e-3)
+
+
+@pytest.mark.parametrize("agg", ["diloco", "semi_sync"])
+@pytest.mark.parametrize("engine", ["loop", "batched"])
+def test_server_runs_match_the_cpu(card, engine, agg):
+    """lr_mnist M=8 under diloco / semi_sync (cap 2, every 4th device 3x
+    slower) on the card against the CPU: History allclose and the simulated
+    server wall-clock equal."""
+    from repro_torch.core import FLConfig, run_baseline
+    from repro_torch.core.scenario import Scenario, StragglerSpec
+    from repro_torch.models.paper_models import make_task
+    scn = Scenario(name="stragglers",
+                   straggler=StragglerSpec(slow_every=4, slowdown=3.0))
+    task = make_task("lr_mnist", m_devices=8, n_train=1500, scenario=scn)
+    cfg = FLConfig(rounds=20, eval_every=10, backend="cuda", engine=engine,
+                   aggregator=agg, staleness_cap=2, scenario=scn)
+    gpu = run_baseline(task, cfg, "lgc", device=card)
+    cpu = run_baseline(task, cfg, "lgc", device="cpu")
+    assert gpu.step == cpu.step and gpu.uplink_mb == cpu.uplink_mb
+    assert gpu.server_wall_s == cpu.server_wall_s
+    np.testing.assert_allclose(gpu.loss, cpu.loss, atol=1e-3)

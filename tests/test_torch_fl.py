@@ -163,20 +163,28 @@ def test_unported_options_raise_naming_their_roadmap_item(lr_tasks):
     ctrls = [pfl.FixedController(4, [1, 1, 1])] * 3
     cases = [({"engine": "sharded"}, "A12"),
              ({"action_space": "per_device"}, "A9"),
-             ({"pipeline_decisions": True}, "A9"),
-             ({"layer_policy": "uniform"}, "A8"),
-             ({"aggregator": "diloco"}, "A10"),
-             ({"aggregator": "semi_sync"}, "A10")]
+             ({"pipeline_decisions": True}, "A9")]
     for fields, item in cases:
         for engine in ("loop", "batched"):
             cfg = dataclasses.replace(pfl.FLConfig(engine=engine), **fields)
             with pytest.raises(NotImplementedError, match=item):
                 pfl.LGCSimulator(tp, cfg, ctrls, device="cpu")
-    # every scenario runs on both engines (ROADMAP A7)
-    for name in SCENARIOS:
+    # every scenario (ROADMAP A7), layer policy (A8) and aggregator (A10)
+    # runs on both engines
+    ported = ([{"scenario": name} for name in SCENARIOS]
+              + [{"layer_policy": p}
+                 for p in ("uniform", "size_prop", "divergence")]
+              + [{"aggregator": a} for a in ("diloco", "semi_sync")])
+    for fields in ported:
         for engine in ("loop", "batched"):
-            pfl.LGCSimulator(tp, pfl.FLConfig(engine=engine, scenario=name),
+            pfl.LGCSimulator(tp, pfl.FLConfig(engine=engine, **fields),
                              ctrls, device="cpu")
+    with pytest.raises(ValueError, match="layer_policy"):
+        pfl.LGCSimulator(tp, pfl.FLConfig(layer_policy="nope"), ctrls,
+                         device="cpu")
+    with pytest.raises(ValueError, match="aggregator"):
+        pfl.LGCSimulator(tp, pfl.FLConfig(aggregator="nope"), ctrls,
+                         device="cpu")
     with pytest.raises(ValueError):
         pfl.LGCSimulator(tp, pfl.FLConfig(), ctrls, mode="dense",
                          device="cpu")

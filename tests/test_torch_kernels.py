@@ -289,7 +289,12 @@ class TestWrapperChecks:
                                   torch.ones((4, 1), dtype=torch.int32))
         q, kv = torch.zeros((1, 2, 32)), torch.zeros((1, 1, 4, 32))
         pk.swa_decode(q, kv, kv, torch.ones(1, dtype=torch.int32))
+        pk.per_layer_candidates_hist_rows(
+            x.view(4, 25), pk.SegmentTable([0, 10, 25], "cpu"),
+            torch.full((4, 2), 3, dtype=torch.int32))
         assert pk.LAUNCHES == {"maxabs": 0, "histogram": 0, "sparsify_ef": 0,
                                "swa_decode": 0, "maxabs_rows": 0,
-                               "histogram_rows": 0, "sparsify_ef_rows": 0}
+                               "histogram_rows": 0, "sparsify_ef_rows": 0,
+                               "maxabs_segments": 0,
+                               "histogram_segments": 0}
 

@@ -319,7 +319,8 @@ def test_port_and_chip_smoke_import_no_reference_module():
                  "core.fl", "core.fl_batched", "data.mnist",
                  "data.partition", "data.shakespeare", "models.paper_models",
                  "models.lgc_transformer", "launch.quickstart",
-                 "launch.profile_sim"]
+                 "launch.profile_sim", "kernels.ops",
+                 "kernels.topk_threshold"]
     assert {f"repro_torch.{m}" for m in simulator} <= set(mods)
     code = (
         "import importlib, sys\n"
