@@ -102,7 +102,24 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    the servers: ``lr_mnist`` (M=8, 20 rounds, every 4th device 3x slower)
    under mean, diloco and semi_sync (``staleness_cap=2``) on both engines,
    card against CPU with ``server_wall_s`` equal, semi_sync's wall below
-   the mean's;
+   the mean's; then the learning-based control on the card: ``lr_mnist``
+   (M=3, 3,000 samples, 120 rounds) under a shared-space ``FleetDDPG`` and
+   ``cnn_mnist`` (M=8, the factory's samples, 24 rounds) on
+   ``hetero_fleet`` under a per_device fleet (h at most 4, compute prior
+   1.5), pipelined with ``max_gap=4``, replay batches of 4, on both
+   engines: every sync bitwise the plain pipeline with each row's own
+   budgets, the flat LGC kernels once per device sync (loop) or the row
+   kernels once per boundary (batched), every device trained, every
+   decision within ``1 <= h <= min(max_gap, battery cap)`` and its
+   budget, the spend audit (``core.audit``) exact; the fleet's host ms per
+   boundary (act, reward eval, observe + train), pipelined against
+   blocking windows and device-steps/s beside the fixed controller's, in
+   the same call; a ``FleetDDPG(3)`` bitwise its agent list on the card
+   (both engines); the card's fleet against the CPU's in lockstep (re-
+   loaded each boundary; raw actions and one-step nets within rtol 1e-4);
+   the reference's scripted per_device decisions on ``lr_mnist`` (M=8)
+   under ``static`` and ``gilbert_flaky``, card against CPU with spend and
+   decisions equal, pipelined == blocking asdict-equal on the card;
 9. the ``kernels`` line: each kernel's time beside its plain version, its
    bound (bytes over 3.35 TB/s or operations over 67 TFLOP/s) and one
    PyTorch call as a yardstick.  ``ms`` is the median of single calls
@@ -112,7 +129,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    kernels at the largest leaf, at ``embed`` and at the simulator's flat
    vectors (``at_cnn_mnist``, D = 206,922; ``at_lr_mnist``, D = 7,850; there
    maxabs is ``sum_maxabs``, as the simulator calls it) with their launches
-   per simulator run (``launches_simulator``), the
+   per simulator run (``launches_simulator``, the DDPG runs included), the
    histogram also on the main path's real u of round 2 (``at_main_path_u``)
    and on a constant
    vector (``at_one_bin``), ``sum_maxabs`` against the add and maxabs apart
@@ -1457,6 +1474,344 @@ def phase_server(smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 8 (cont.): the learning-based control plane
+# ---------------------------------------------------------------------------
+
+# the two main paths of the control plane: (tag, task, M, n_train, rounds,
+# eval_every, FLConfig fields); the fleets' configs in control_fleet
+CONTROL_PATHS = [
+    ("lr_mnist ddpg", "lr_mnist", 3, 3000, 120, 20, {}),
+    ("cnn_mnist ddpg per_device hetero_fleet", "cnn_mnist", 8, None, 24, 8,
+     {"scenario": "hetero_fleet", "action_space": "per_device",
+      "pipeline_decisions": True, "max_gap": 4}),
+]
+# the reference's heterogeneous scripted decisions
+# (tests/test_hetero_control.py:35-39)
+SCRIPTED_HS = [1, 2, 3, 4, 5, 6, 7, 8]
+SCRIPTED_KSS = [[60, 30, 10], [10, 60, 30], [30, 10, 60], [80, 10, 10],
+                [10, 80, 10], [10, 10, 80], [34, 33, 33], [5, 5, 90]]
+SCRIPTED_RUN = ("lr_mnist", 8, 1600, 24, 8)
+FLEET_PHASES = {"act": "_fleet_decide", "reward": "_reward_enqueue",
+                "reward_read": "_reward_read"}
+
+
+class ScriptedFleet:
+    """Fleet-protocol controller replaying fixed per-device decisions."""
+
+    def __init__(self, hs, kss):
+        self.m = len(hs)
+        self.hs, self.kss = list(hs), [list(k) for k in kss]
+        import numpy as np
+        self.needs_reward = np.zeros(self.m, bool)
+
+    def act(self, states, mask=None):
+        import numpy as np
+        return np.asarray(self.hs, np.int64), [list(k) for k in self.kss]
+
+    def observe(self, *a, **k):
+        pass
+
+
+def control_fleet(per_device: bool, m: int, d: int, device: str):
+    """The paths' fleets: the shared space at make_fleet_ddpg's settings, or
+    the reference's hetero per_device settings; replay batches of 4."""
+    from repro_torch.core.controller import DDPGConfig, FleetDDPG, obs_dim
+    k_total = max(3, int(0.05 * d))
+    if per_device:
+        cfg = DDPGConfig(state_dim=obs_dim(3, "per_device"), n_channels=3,
+                         action_space="per_device", h_max=4, h_prior=1.5,
+                         k_total_max=k_total, batch_size=4, seed=0)
+    else:
+        cfg = DDPGConfig(state_dim=obs_dim(3, "shared"), n_channels=3,
+                         k_total_max=k_total, batch_size=4, seed=0)
+    return FleetDDPG(m, cfg, device=device)
+
+
+def timed_fleet(sim) -> dict:
+    """Wrap the simulator's controller calls with host clocks: seconds in
+    act, the reward eval (enqueue and read) and the fleet's observe (replay
+    and training), and the count of boundaries."""
+    spent = {k: 0.0 for k in (*FLEET_PHASES, "observe")} | {"boundaries": 0}
+
+    def wrap(key, fn):
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[key] += time.perf_counter() - t0
+        return timed
+    for key, attr in FLEET_PHASES.items():
+        setattr(sim, attr, wrap(key, getattr(sim, attr)))
+    sim.fleet.observe = wrap("observe", sim.fleet.observe)
+    observe = sim._observe_devices
+
+    def counted(*a, **k):
+        spent["boundaries"] += 1
+        return observe(*a, **k)
+    sim._observe_devices = counted
+    return spent
+
+
+def fleet_ms(spent: dict) -> dict:
+    n = max(spent["boundaries"], 1)
+    return {"act": spent["act"] * 1e3 / n,
+            "reward": (spent["reward"] + spent["reward_read"]) * 1e3 / n,
+            "observe": spent["observe"] * 1e3 / n,
+            "boundaries": spent["boundaries"]}
+
+
+def control_run(path, engine: str, device: str, compared=None,
+                **cfg_kw) -> dict:
+    """One run of a control path on ``engine`` (the fleet and the
+    simulator on ``device``, backend "cuda"), its launches, host times and
+    the fleet's per-boundary host ms."""
+    import torch
+    from repro_torch.core import FLConfig, LGCSimulator, prng, tree_size
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.models.paper_models import make_task
+    tag, task_name, m, n_train, rounds, eval_every, fields = path
+    fields = fields | cfg_kw
+    kw = {} if n_train is None else {"n_train": n_train}
+    task = make_task(task_name, m_devices=m,
+                     scenario=fields.get("scenario"), **kw)
+    cfg = FLConfig(rounds=rounds, eval_every=eval_every, backend="cuda",
+                   engine=engine, **fields)
+    d = tree_size(task.init(prng.PRNGKey(0)))
+    fleet = control_fleet(cfg.action_space == "per_device", m, d, device)
+    sim = LGCSimulator(task, cfg, fleet, device=device)
+    spent = timed_fleet(sim)
+    held = (syncs_held_against_plain(compared, engine)
+            if compared is not None else contextlib.nullcontext())
+    torch.cuda.synchronize()
+    with held:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        hist = sim.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(LAUNCHES)
+    check(all(math.isfinite(x) for x in hist.loss + hist.accuracy),
+          f"{tag} {engine}: History not finite")
+    out = {"sim": sim, "hist": hist, "launches": counts, "wall_s": wall,
+           "fleet_ms": fleet_ms(spent),
+           "host_ms_per_round": wall * 1e3 / rounds,
+           "device_steps_per_s": m * rounds / wall}
+    if engine == "batched":
+        out["median_window_ms"] = statistics.median(
+            sim.batched_engine.window_ms)
+    return out
+
+
+def check_decisions(tag: str, sim) -> tuple[int, int]:
+    """Every committed decision within 1 <= h <= min(max_gap, battery cap),
+    1 <= ks and sum(ks) <= k_total_max; returns the device syncs and the
+    sync boundaries of the run (from the decision log)."""
+    from repro_torch.core.audit import sync_round_of
+    cfg, fcfg = sim.cfg, sim.fleet.cfg
+    for (t, m, h, ks) in sim.decision_log:
+        cap = cfg.max_gap
+        if fcfg.action_space == "per_device":
+            cap = min(cap, 1 + int(math.floor(sim.profiles[m].battery
+                                              * (fcfg.h_max - 1))))
+        check(1 <= h <= cap and min(ks) >= 1
+              and sum(ks) <= fcfg.k_total_max,
+              f"{tag}: decision {(t, m, h, ks)} out of bounds (h cap {cap}, "
+              f"budget {fcfg.k_total_max})")
+    syncs = [sync_round_of(cfg, t, h) for (t, m, h, ks) in sim.decision_log]
+    syncs = [t for t in syncs if t < cfg.rounds]
+    return len(syncs), len(set(syncs))
+
+
+def phase_control(smi: str) -> dict:
+    """The paper's learning-based control on the card, through the LGC
+    kernels: lr_mnist (M=3, 120 rounds) under a shared-space FleetDDPG and
+    cnn_mnist (M=8) on hetero_fleet under a per_device fleet, pipelined, on
+    both engines.  Every sync bitwise the plain pipeline (per-row budgets),
+    the LGC launches once per device sync (loop) or boundary (batched),
+    every device trained, the decisions in their bounds, the spend audit
+    exact.  Then a fleet against its agent list on the card (bitwise), the
+    card's fleet against the CPU's in lockstep, the scripted per_device
+    runs card against CPU, pipelined against blocking.  Returns the checked
+    runs' launch counts by tag."""
+    import numpy as np
+    import torch
+    from repro_torch.core.audit import audit_simulator
+    launches = {}
+    for path in CONTROL_PATHS:
+        for engine in ENGINES:
+            tag = f"{path[0]} {engine}"
+            compared: list = []
+            run = control_run(path, engine, "cuda", compared=compared)
+            sim = run["sim"]
+            syncs, boundaries = check_decisions(tag, sim)
+            check(len(compared) == syncs, f"{tag}: {len(compared)} syncs "
+                  f"held against the plain pipeline, expected {syncs}")
+            for name, rows_name in ROW_KERNELS.items():
+                want = {name: syncs if engine == "loop" else 0,
+                        rows_name: boundaries if engine == "batched" else 0}
+                for k, v in want.items():
+                    check(run["launches"][k] == v, f"{tag}: {k} launched "
+                          f"{run['launches'][k]} times, expected {v}")
+            check(run["launches"]["swa_decode"] == 0, f"{tag}: swa_decode")
+            check(bool((sim.fleet._n_train > 0).all()),
+                  f"{tag}: a device never trained: {sim.fleet._n_train}")
+            rec, live = audit_simulator(sim)
+            check(rec == live, f"{tag}: the audit's spend differs from the "
+                  f"live spend")
+            launches[tag] = run["launches"]
+            hs = sorted({h for _, _, h, _ in sim.decision_log})
+            h = run["hist"]
+            log(f"control {tag}: D={sim.d:,}, M={sim.m_devices}, "
+                f"{sim.cfg.rounds} rounds; loss {h.loss[0]:.4f} -> "
+                f"{h.loss[-1]:.4f}, uplink {h.uplink_mb[-1]:.4f} MB; "
+                f"{len(sim.decision_log)} decisions (h in {hs}), {syncs} "
+                f"device syncs over {boundaries} boundaries bitwise the plain "
+                f"pipeline; n_train {sim.fleet._n_train.tolist()}; audit "
+                f"exact; launches {run['launches']}; fleet host ms per "
+                f"boundary {run['fleet_ms']}; host ms per round "
+                f"{run['host_ms_per_round']:.3f}, device-steps/s "
+                f"{run['device_steps_per_s']:.1f}; {smi}")
+    # the timed runs: pipelined against blocking on the batched engine,
+    # and the fixed controller on the same cells
+    for path in CONTROL_PATHS:
+        runs = {"fleet": control_run(path, "batched", "cuda")}
+        if path[6].get("pipeline_decisions"):
+            runs["blocking"] = control_run(path, "batched", "cuda",
+                                           pipeline_decisions=False)
+        for kind, r in runs.items():
+            log(f"control {path[0]} batched ({kind}, timed): median window "
+                f"{r['median_window_ms']:.3f} ms, host ms per round "
+                f"{r['host_ms_per_round']:.3f}, device-steps/s "
+                f"{r['device_steps_per_s']:.1f}, fleet host ms per boundary "
+                f"{r['fleet_ms']}; {smi}")
+        tag, task_name, m, n_train, rounds, eval_every, fields = path
+        fixed = sim_run(task_name, m, n_train, rounds, eval_every, "lgc",
+                        fields.get("scenario", "static"), "batched", "cuda",
+                        **{k: v for k, v in fields.items()
+                           if k != "scenario"})
+        log(f"control {tag} batched: device-steps/s "
+            f"{runs['fleet']['device_steps_per_s']:.1f} (DDPG) against "
+            f"{fixed['device_steps_per_s']:.1f} (fixed H={SIM_H}, 5% "
+            f"budget) in this call; {smi}")
+    phase_control_equivalences(smi)
+    torch.cuda.synchronize()
+    return launches
+
+
+def phase_control_equivalences(smi: str) -> None:
+    """fleet == list bitwise on the card, the card's fleet against the
+    CPU's in lockstep, and the scripted per_device runs card against CPU
+    (spend exact, pipelined == blocking)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import FLConfig, LGCSimulator
+    from repro_torch.core.audit import audit_simulator
+    from repro_torch.core.controller import (DDPGConfig, DDPGController,
+                                             FleetDDPG)
+    from repro_torch.core.fl import EVAL_SUBSET
+    from repro_torch.models.paper_models import make_task
+    from repro_torch.weights import ddpg_from_jax, ddpg_to_jax
+    task = make_task("lr_mnist", m_devices=3, n_train=1200)
+    for engine in ENGINES:
+        runs = {}
+        for kind in ("fleet", "list"):
+            cfg = dict(k_total_max=392, batch_size=4)
+            ctrls = (FleetDDPG(3, DDPGConfig(seed=5, **cfg), device="cuda")
+                     if kind == "fleet" else
+                     [DDPGController(DDPGConfig(seed=5 + 17 * m, **cfg),
+                                     device="cuda") for m in range(3)])
+            sim = LGCSimulator(task, FLConfig(rounds=40, eval_every=10,
+                                              backend="cuda", engine=engine),
+                               ctrls, device="cuda")
+            hist = sim.run()
+            trains = (sim.fleet._n_train if kind == "fleet" else np.array(
+                [c._fleet._n_train[0] for c in sim.fleet.controllers]))
+            runs[kind] = (sim.decision_log, hist.asdict(), trains.tolist())
+        check(runs["fleet"] == runs["list"] and min(runs["fleet"][2]) > 0,
+              f"control: fleet and agent list differ on the card ({engine})")
+        log(f"control: FleetDDPG(3) bitwise its agent list on the card "
+            f"({engine}, lr_mnist 40 rounds, {len(runs['fleet'][0])} "
+            f"decisions, n_train {runs['fleet'][2]})")
+    # lockstep: the card's fleet re-loaded from the CPU's at each boundary
+    cfg = DDPGConfig(k_total_max=10346, batch_size=4, seed=3, state_dim=9,
+                     action_space="per_device", h_max=4)
+    cpu, gpu = FleetDDPG(8, cfg, device="cpu"), FleetDDPG(8, cfg,
+                                                          device="cuda")
+    rng = np.random.default_rng(0)
+    worst_a = worst_w = 0.0
+    for _ in range(10):
+        states = np.abs(rng.normal(size=(8, 9)) * 10 ** rng.uniform(
+            -2, 3, size=(8, 9))).astype(np.float32)
+        states[:, 4] = rng.uniform(size=8)
+        mask = rng.random(8) < 0.9
+        cpu.act(states, mask)
+        gpu.act(states, mask)
+        check(bool(np.allclose(gpu._last_a, cpu._last_a, rtol=1e-4,
+                               atol=1e-6)),
+              "control lockstep: card and CPU raw actions differ")
+        worst_a = max(worst_a, float(np.abs(gpu._last_a
+                                            - cpu._last_a).max()))
+        new = states + np.abs(rng.normal(size=(8, 9))).astype(np.float32)
+        drops = rng.normal(size=8) * 0.1
+        cpu.observe(drops, new, mask)
+        gpu.observe(drops, new, mask)
+        got, want = ddpg_to_jax(gpu), ddpg_to_jax(cpu)
+        for k in ("actor", "critic", "actor_t", "critic_t"):
+            for lg, lw in zip(got[k], want[k]):
+                for leaf in ("w", "b"):
+                    check(bool(np.allclose(lg[leaf], lw[leaf], rtol=1e-4,
+                                           atol=1e-6)),
+                          f"control lockstep: card and CPU {k} differ "
+                          f"after one step")
+                    worst_w = max(worst_w, float(np.abs(
+                        lg[leaf] - lw[leaf]).max()))
+        ddpg_from_jax(want, gpu)
+    check(bool((cpu._n_train > 0).all()), "control lockstep: no training")
+    log(f"control lockstep, card fleet against CPU fleet (M=8 per_device, "
+        f"10 boundaries, re-loaded each): raw actions within {worst_a:.2e}, "
+        f"one-step nets within {worst_w:.2e} (rtol 1e-4); n_train "
+        f"{cpu._n_train.tolist()}")
+    # the scripted heterogeneous runs, card against CPU
+    task_name, m, n_train, rounds, eval_every = SCRIPTED_RUN
+    for scn in ("static", "gilbert_flaky"):
+        task = make_task(task_name, m_devices=m, n_train=n_train,
+                         scenario=scn)
+        for engine in ENGINES:
+            hists = {}
+            for dev, pipe in (("cpu", False), ("cuda", False),
+                              ("cuda", True)):
+                cfg = FLConfig(rounds=rounds, eval_every=eval_every,
+                               max_gap=8, scenario=scn, backend="cuda",
+                               action_space="per_device", engine=engine,
+                               pipeline_decisions=pipe)
+                sim = LGCSimulator(task, cfg, ScriptedFleet(
+                    SCRIPTED_HS, SCRIPTED_KSS), device=dev)
+                compared: list = []
+                held = (syncs_held_against_plain(compared, engine)
+                        if dev == "cuda" and not pipe
+                        else contextlib.nullcontext())
+                with held:
+                    hist = sim.run()
+                rec, live = audit_simulator(sim)
+                check(rec == live, f"scripted {scn} {engine} {dev}: audit")
+                hists[dev, pipe] = (hist, sim)
+            gpu, cpu = hists["cuda", False], hists["cpu", False]
+            tag = f"scripted per_device {scn} {engine}"
+            worst, gap = check_history(
+                tag, gpu[0], cpu[0], min(EVAL_SUBSET, len(task.eval_data[1])),
+                SCENARIO_HIST_TOL if scn != "static" else 1e-3)
+            check(gpu[1].spend == cpu[1].spend
+                  and gpu[1].decision_log == cpu[1].decision_log,
+                  f"{tag}: spend or decisions differ between card and CPU")
+            check(hists["cuda", True][0].asdict() == gpu[0].asdict(),
+                  f"{tag}: pipelined differs from blocking on the card")
+            log(f"control {tag}: card within {worst:.2e} in loss and {gap} "
+                f"in accuracy counts of the CPU, spend and decisions equal, "
+                f"pipelined == blocking asdict-equal on the card; {smi}")
+
+
+# ---------------------------------------------------------------------------
 # phase 9: timings
 # ---------------------------------------------------------------------------
 
@@ -1819,6 +2174,7 @@ def main() -> int:
     sim_launches = phase_simulator(smi)
     per_layer_launches = phase_per_layer(smi)
     phase_server(smi)
+    sim_launches |= phase_control(smi)
     rows = phase_timings(gen, main_u)
     row_times = phase_time_rows(gen)
     seg_times = phase_time_segments(gen)

@@ -1,7 +1,7 @@
 """Simulator core of the port: counter-based randomness, channels and
 scenarios, the LGC compressors with error feedback and per-layer budgets,
-the server aggregation modes and the engines (``repro/core``, ROADMAP
-A1-A8, A10)."""
+the server aggregation modes, the engines, the DDPG control plane and the
+spend audit (``repro/core``, ROADMAP A1-A10)."""
 from .channels import (DEFAULT_CHANNELS, ChannelSpec, DeviceProfile,
                        comm_cost, comp_cost, sample_channels_from,
                        stack_specs)
@@ -18,6 +18,10 @@ from .scenario import (SCENARIOS, Scenario, get_scenario, init_carry,
                        sample_from_carry, step_carry, stream_key)
 from .server import (AGGREGATORS, ServerState, get_aggregator,
                      init_server_state, window_deadline)
+from .controller import (DDPGConfig, DDPGController, FleetDDPG,
+                         decode_actions, make_ddpg_controllers,
+                         make_fleet_ddpg, obs_dim)
+from .audit import audit_simulator, recompute_spend
 
 __all__ = [
     "DEFAULT_CHANNELS", "ChannelSpec", "DeviceProfile", "comm_cost",
@@ -33,4 +37,7 @@ __all__ = [
     "sample_from_carry", "step_carry", "stream_key",
     "AGGREGATORS", "ServerState", "get_aggregator", "init_server_state",
     "window_deadline",
+    "DDPGConfig", "DDPGController", "FleetDDPG", "decode_actions",
+    "make_ddpg_controllers", "make_fleet_ddpg", "obs_dim",
+    "audit_simulator", "recompute_spend",
 ]

@@ -9,9 +9,10 @@ threefry keys as the reference (:mod:`repro_torch.core.prng`).
 The simulator samples channels and prices uploads on the host, in f32 on
 the CPU, whatever device trains the model: the costs become Python floats
 at once, as in the reference's loop engine.  ``up`` is bitwise equal to
-the reference's (it compares ``uniform`` draws); energy and bandwidth go
-through ``normal`` and ``exp`` and agree to f32 rounding
-(tests/test_torch_sim_core.py).
+the reference's (it compares ``uniform`` draws), and so are the energy and
+the bandwidth (``normal``, and XLA:CPU's ``exp``: ``prng.xla_exp``), so the
+spend of a run equals the reference loop engine's exactly
+(tests/test_torch_sim_core.py, tests/test_torch_hetero_control.py).
 """
 from __future__ import annotations
 
@@ -80,7 +81,7 @@ def sample_channels_from(key: torch.Tensor, consts: ChannelConstants
     k_e, k_b, k_u = prng.split(key, 3)
     energy = consts.energy_mean + consts.energy_std * prng.normal(k_e, (n,))
     # lognormal jitter, sigma=0.3 -- "highly dynamic edge network"
-    bw = consts.bw_nominal * torch.exp(0.3 * prng.normal(k_b, (n,)))
+    bw = consts.bw_nominal * prng.xla_exp(0.3 * prng.normal(k_b, (n,)))
     up = prng.uniform(k_u, (n,)) < consts.availability
     return ChannelSample(energy, bw, consts.money_per_mb, up)
 
@@ -94,7 +95,7 @@ def sample_channels_rows(keys: torch.Tensor, consts: ChannelConstants
     ks = prng.split_rows(keys, 3)
     energy = consts.energy_mean + consts.energy_std * prng.normal_rows(
         ks[:, 0], n)
-    bw = consts.bw_nominal * torch.exp(0.3 * prng.normal_rows(ks[:, 1], n))
+    bw = consts.bw_nominal * prng.xla_exp(0.3 * prng.normal_rows(ks[:, 1], n))
     up = prng.uniform_rows(ks[:, 2], n) < consts.availability
     return ChannelSample(energy, bw, consts.money_per_mb.expand_as(energy),
                          up)
@@ -130,7 +131,7 @@ class DeviceProfile:
     comp_j_per_step: float = 0.75   # J per local SGD step
     comp_time_per_step_s: float = 0.05
     # state of charge in [0, 1]; a static device trait that the per-device
-    # controller observes (ROADMAP A9)
+    # controller observes and that caps its local steps
     battery: float = 1.0
 
 

@@ -67,9 +67,23 @@ of a late update it never applies returns to that device's error
 feedback.  ``History.server_wall_s`` advances by the slowest syncing
 device's window time, under semi_sync by at most the deadline.
 
+Control (the reference's ``fl.py:179-229``, ``:376-418``, ``:509-599``,
+``:777-792``).  Both engines talk to ONE fleet-shaped controller through
+the batched protocol below: at a sync boundary the syncing devices'
+reward-seeking members get one keyed-subset eval of the new global model
+each (``TAG_REWARD``, all in one batched call), the fleet observes the
+loss drops with the new resource states, and acts for the window after.
+:class:`repro_torch.core.controller.FleetDDPG` (the paper's DDPG) and a
+list of :class:`~repro_torch.core.controller.DDPGController` run on both
+engines, as do ``action_space="per_device"`` (every device syncs each
+``max_gap`` rounds and computes only the first h_m of them; observations
+grow by the device profile and the channel state) and
+``pipeline_decisions=True`` (a boundary commits the decision staged at the
+previous one, so the batched engine dispatches the next window before the
+controller's reward eval and act).
+
 Not ported yet, and raising where asked for: the sharded engine (ROADMAP
-A12), the per-device action space, pipelined decisions and learning
-controllers (A9).
+A12).
 """
 from __future__ import annotations
 
@@ -91,10 +105,11 @@ from .compressor import (LAYER_POLICIES, LGCCompressor, flatten_tree,
                          qsgd_dequantize, qsgd_quantize, tree_layer_slices,
                          tree_size, unflatten_like, wire_bytes)
 from .error_feedback import EFState, ef_compress, init_ef
-from .scenario import (TAG_BATCH, TAG_CHANNEL, TAG_EVAL, TAG_QUANT, Scenario,
-                       ScenarioCarry, dropout_mask, get_scenario, init_carry,
-                       sample_from_carry, stack_carries, step_carry_rows,
-                       stream_key)
+from .scenario import (TAG_BATCH, TAG_CHANNEL, TAG_EVAL, TAG_QUANT,
+                       TAG_REWARD, Scenario, ScenarioCarry, dropout_mask,
+                       get_scenario, init_carry, sample_from_carry,
+                       stack_carries, step_carry_rows, stream_key,
+                       stream_keys)
 from .server import (diloco_update, get_aggregator, init_server_state,
                      semi_sync_sums, semi_sync_update, staleness_schedule,
                      window_deadline)
@@ -102,6 +117,8 @@ from .server import (diloco_update, get_aggregator, init_server_state,
 BACKENDS = {"exact": "exact", "cuda": "cuda", "pallas": "cuda"}
 MODES = ("lgc", "topk", "fedavg", "lgc_q8")
 EVAL_SUBSET = 2048    # eval samples drawn per record (reference fl.py:795)
+REWARD_SUBSET = 512   # eval samples per device and reward (reference fl.py:387)
+ACTION_SPACES = ("shared", "per_device")
 
 
 # ---------------------------------------------------------------------------
@@ -144,8 +161,17 @@ class FLConfig:
     deadline_factor: float = 1.25      # semi_sync: deadline = factor * median
     outer_lr: float = 0.7              # diloco outer step size
     outer_momentum: float = 0.9        # diloco outer Nesterov momentum
-    action_space: str = "shared"       # "per_device": ROADMAP A9
-    pipeline_decisions: bool = False   # ROADMAP A9
+    # controller action space: "shared" -- each device's h_m sets its own
+    # next sync round; "per_device" -- every device syncs each max_gap
+    # rounds and h_m in [1, max_gap] is how many of them it computes (the
+    # rest it idles); observations grow by the device profile (battery,
+    # compute multiplier) and the per-channel state (controller.obs_dim)
+    action_space: str = "shared"
+    # commit at each boundary the decision staged at the previous one, so
+    # the batched engine can dispatch the next window before the
+    # controller's reward eval and act; decisions then act on
+    # one-window-old observations
+    pipeline_decisions: bool = False
 
 
 @dataclasses.dataclass
@@ -168,11 +194,25 @@ class FixedController:
         pass
 
 
+# ---------------------------------------------------------------------------
+# batched controller protocol
+# ---------------------------------------------------------------------------
+#
+# Both engines talk to ONE fleet-shaped controller per simulation.  The
+# protocol (duck-typed):
+#
+#   needs_reward : (M,) bool -- which devices want a reward signal (gates the
+#                  per-device TAG_REWARD eval so fixed fleets skip it)
+#   act(states: (M, S), mask: (M,) bool) -> (h: (M,), ks: (M, C) rows)
+#                  decide H_m and the per-channel budgets for every masked
+#                  device; unmasked rows are ignored and must not advance
+#                  any per-device random stream
+#   observe(loss_drops: (M,), new_states: (M, S), mask: (M,) bool)
+#                  deliver the post-round reward signal to masked devices
+
 class ControllerFleet:
-    """List->fleet shim over per-device controllers: one ``act`` per sync
-    boundary with (M, .) arrays (the reference's batched controller
-    protocol, ``fl.py:179-229``; ``observe``, the reward signal of learning
-    controllers, is ROADMAP A9)."""
+    """List->fleet shim over per-device controllers (``.act(state) ->
+    RoundDecision``, optional ``.reward(loss_drop, new_state)``)."""
 
     def __init__(self, controllers: Sequence):
         self.controllers = list(controllers)
@@ -191,6 +231,16 @@ class ControllerFleet:
             dec = self.controllers[i].act(np.asarray(states[i]))
             h[i], ks[i] = dec.h, list(dec.ks)
         return h, ks
+
+    def observe(self, loss_drops: np.ndarray, new_states: np.ndarray,
+                mask: np.ndarray | None = None):
+        mask = np.ones(self.m, bool) if mask is None else np.asarray(mask)
+        for i in np.nonzero(mask)[0]:
+            c = self.controllers[i]
+            if hasattr(c, "reward"):
+                c.reward(float(loss_drops[i]), np.asarray(new_states[i]))
+            else:
+                c.observe(float(loss_drops[i]), np.asarray(new_states[i]))
 
 
 @dataclasses.dataclass
@@ -236,6 +286,28 @@ def server_mean_update(flat: torch.Tensor, updates, m: int) -> torch.Tensor:
     return ftz_add(flat, -ftz(g_sum / m))
 
 
+class _RewardLosses:
+    """Reward-eval losses enqueued on the simulator's device: on the card a
+    copy into pinned memory behind an event, so the host can dispatch more
+    work before it reads them."""
+
+    def __init__(self, losses: torch.Tensor):
+        self.event = None
+        if losses.device.type == "cuda":
+            host = torch.empty(losses.shape, dtype=losses.dtype,
+                               pin_memory=True)
+            host.copy_(losses, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+            losses = host
+        self.losses = losses
+
+    def read(self) -> list[float]:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.losses.tolist()
+
+
 class LGCSimulator:
     """Runs Algorithm 1 for M devices with per-device controllers.
 
@@ -264,10 +336,11 @@ class LGCSimulator:
             raise ValueError(
                 f"unknown layer_policy {cfg.layer_policy!r}; expected "
                 f"'global' or one of {sorted(LAYER_POLICIES)}")
-        if cfg.action_space != "shared":
-            raise _not_ported(f"action_space={cfg.action_space!r}", "A9")
-        if cfg.pipeline_decisions:
-            raise _not_ported("pipeline_decisions=True", "A9")
+        if cfg.action_space not in ACTION_SPACES:
+            raise ValueError(
+                f"unknown action_space {cfg.action_space!r}; expected "
+                f"'shared' or 'per_device'")
+        self.per_device = cfg.action_space == "per_device"
         self.agg = get_aggregator(cfg.aggregator)
         self.scenario = get_scenario(cfg.scenario)
         self.device = resolve_device(device)
@@ -278,8 +351,6 @@ class LGCSimulator:
         if self.fleet.m != self.m_devices:
             raise ValueError(f"{self.fleet.m} controllers for "
                              f"{self.m_devices} devices")
-        if np.any(self.fleet.needs_reward):
-            raise _not_ported("controllers that learn from rewards", "A9")
 
         dev = self.device
         params = task.init(prng.PRNGKey(cfg.seed))       # global model
@@ -301,8 +372,11 @@ class LGCSimulator:
                          for _ in range(self.m_devices)]
         self.ef = [init_ef(self.d, dev) for _ in range(self.m_devices)]
         self.next_sync = [0] * self.m_devices        # t at which device syncs
+        self.win_start = [0] * self.m_devices        # t the decision committed
         self.decisions: list[RoundDecision | None] = [None] * self.m_devices
+        self.staged: list[RoundDecision | None] = [None] * self.m_devices
         self.decision_log: list[tuple] = []          # (t, m, h, ks) committed
+        self.prev_loss: list[float | None] = [None] * self.m_devices
         self.spend = [dict(energy_j=0.0, money=0.0, time_s=0.0, mb=0.0)
                       for _ in range(self.m_devices)]
         self.round_ms: list[float] = []              # host time per round
@@ -322,6 +396,18 @@ class LGCSimulator:
         self.scen_carry = stack_carries(
             [init_carry(self.scenario, self._base, m, n_ch)
              for m in range(self.m_devices)])
+        self._reward_loss = torch.func.vmap(task.loss_fn, in_dims=(None, 0))
+
+        # per_device observations: the static profile features (battery,
+        # compute multiplier against the generic profile) and a host
+        # snapshot of the per-channel chain state, refreshed at each sync
+        base_prof = DeviceProfile()
+        self._profile_feats = np.array(
+            [[p.battery,
+              p.comp_time_per_step_s / base_prof.comp_time_per_step_s]
+             for p in self.profiles], np.float32)
+        self._chan_state = np.ones((self.m_devices, n_ch), np.float32)
+        self._update_chan_state()
 
     # -- environment ---------------------------------------------------------
     def _step_scenario(self, t0: int, te: int) -> None:
@@ -369,9 +455,80 @@ class LGCSimulator:
 
     # -- controller boundary -------------------------------------------------
     def _controller_states(self) -> np.ndarray:
-        """(M, 4) resource spends: energy, money, time, MB."""
-        return np.array([[s["energy_j"], s["money"], s["time_s"], s["mb"]]
-                         for s in self.spend], np.float32)
+        """Controller state of every device: (M, 4) resource spends, plus --
+        under ``action_space="per_device"`` -- the device profile (battery,
+        compute multiplier) and the per-channel chain-state snapshot, (M,
+        4 + 2 + C) total (``controller.obs_dim``)."""
+        spend = np.array([[s["energy_j"], s["money"], s["time_s"], s["mb"]]
+                          for s in self.spend], np.float32)
+        if not self.per_device:
+            return spend
+        return np.concatenate([spend, self._profile_feats, self._chan_state],
+                              axis=1)
+
+    def _update_chan_state(self) -> None:
+        """Snapshot the (M, C) scenario carry into the per_device
+        observation features: effective relative bandwidth exp(bw_log) *
+        good per channel, f32 on the host."""
+        if not self.per_device:
+            return
+        bw, good = self.scen_carry.bw_log.numpy(), self.scen_carry.good.numpy()
+        self._chan_state = (np.exp(bw) * good).astype(np.float32)
+
+    def _reward_rows(self, ms: Sequence[int], t: int) -> torch.Tensor:
+        """(S, min(512, n)) eval rows of each device of ``ms``'s reward at
+        round ``t``, from ``stream_key(base, TAG_REWARD, t, m)``, on the
+        host."""
+        n = int(self._eval_xy[0].shape[0])
+        keys = stream_keys(self._base, TAG_REWARD, torch.tensor([t]),
+                           torch.tensor(list(ms)))[0]
+        return prng.randint_rows(keys, min(REWARD_SUBSET, n),
+                                 torch.full((len(ms),), n))
+
+    @torch.no_grad()
+    def _reward_enqueue(self, ms: Sequence[int], t: int) -> _RewardLosses:
+        """Enqueue the keyed-subset eval losses of the global model for the
+        devices ``ms`` at round ``t``: all devices in one batched call
+        (``vmap`` of the task's loss over their subsets)."""
+        idx = self._reward_rows(ms, t)
+        if self.device.type == "cuda":
+            idx = idx.pin_memory().to(self.device, non_blocking=True)
+        xe, ye = self._eval_xy
+        return _RewardLosses(self._reward_loss(self.params,
+                                               (xe[idx], ye[idx])))
+
+    def _reward_read(self, pending: _RewardLosses) -> list[float]:
+        """Wait for and read enqueued reward-eval losses."""
+        return pending.read()
+
+    def _reward_losses(self, ms: Sequence[int], t: int) -> list[float]:
+        """The reward-eval losses of the devices ``ms`` at round ``t``."""
+        return self._reward_read(self._reward_enqueue(ms, t))
+
+    def _reward_need(self, ms: Sequence[int]) -> list[int]:
+        return [m for m in ms if self.fleet.needs_reward[m]]
+
+    def _observe_devices(self, ms: Sequence[int], t: int,
+                         pending: _RewardLosses | None = None) -> None:
+        """Reward Eq. (14)-(16): utility = (loss drop) / (resource spend),
+        delivered to every synced reward-seeking device in one fleet call.
+        ``pending``: the losses of :meth:`_reward_enqueue` on
+        ``_reward_need(ms)``, enqueued earlier (the pipelined batched
+        engine)."""
+        need = self._reward_need(ms)
+        if not need:
+            return
+        losses = (self._reward_read(pending) if pending is not None
+                  else self._reward_losses(need, t))
+        loss_drops = np.zeros(self.m_devices, np.float64)
+        mask = np.zeros(self.m_devices, bool)
+        for m, loss in zip(need, losses):
+            if self.prev_loss[m] is not None:
+                loss_drops[m] = self.prev_loss[m] - loss
+                mask[m] = True
+            self.prev_loss[m] = loss
+        if mask.any():
+            self.fleet.observe(loss_drops, self._controller_states(), mask)
 
     def _fleet_decide(self, ms: Sequence[int]) -> dict:
         """One fleet act for the devices in ``ms`` -> {m: RoundDecision}."""
@@ -387,18 +544,52 @@ class LGCSimulator:
             out[m] = RoundDecision(h, ks)
         return out
 
-    def _decide_devices(self, ms: Sequence[int], t: int):
-        """Commit the decisions of the devices in ``ms`` for the window
-        starting at ``t``."""
+    def _commit_decision(self, m: int, t: int, dec: RoundDecision) -> None:
+        """Make ``dec`` the live decision for device ``m``'s next window:
+        ``shared``, h_m rounds long; ``per_device``, max_gap rounds of which
+        the device computes the first h_m."""
+        self.decisions[m] = dec
+        self.win_start[m] = t
+        self.next_sync[m] = t + (self.cfg.max_gap if self.per_device
+                                 else dec.h)
+        self.decision_log.append((t, m, dec.h, tuple(dec.ks)))
+
+    def _commit_staged(self, ms: Sequence[int], t: int) -> None:
+        """Pipelined commit: adopt the decisions staged at each device's
+        previous boundary (at t=0 the first act serves both the first
+        window and the first staged decision)."""
+        ms = list(ms)
+        missing = [m for m in ms if self.staged[m] is None]
+        if missing:
+            fresh = self._fleet_decide(missing)
+            for m in missing:
+                self.staged[m] = fresh[m]
+        for m in ms:
+            self._commit_decision(m, t, self.staged[m])
+
+    def _stage_decisions(self, ms: Sequence[int], t: int) -> None:
+        """Pipelined stage: act now, commit at the next boundary."""
         ms = list(ms)
         if not ms:
             return
         fresh = self._fleet_decide(ms)
         for m in ms:
-            dec = fresh[m]
-            self.decisions[m] = dec
-            self.next_sync[m] = t + dec.h
-            self.decision_log.append((t, m, dec.h, tuple(dec.ks)))
+            self.staged[m] = fresh[m]
+
+    def _decide_devices(self, ms: Sequence[int], t: int) -> None:
+        """One controller boundary for the devices in ``ms``: commit their
+        decisions for the window starting at ``t`` (and, pipelined, stage
+        the decisions for the window after it)."""
+        ms = list(ms)
+        if not ms:
+            return
+        if self.cfg.pipeline_decisions:
+            self._commit_staged(ms, t)
+            self._stage_decisions(ms, t)
+            return
+        fresh = self._fleet_decide(ms)
+        for m in ms:
+            self._commit_decision(m, t, fresh[m])
 
     # -- main loop -----------------------------------------------------------
     def run(self) -> History:
@@ -421,8 +612,12 @@ class LGCSimulator:
             eta = self._eta(t)
             updates, walls, sync_ms, t32s = [], [], [], []
             for m in range(self.m_devices):
-                batch = self._sample_batch(m, t)
-                self.w_hat[m] = self._sgd_step(self.w_hat[m], batch, eta)
+                # per_device: the device computes only the first h_m rounds
+                # of its max_gap window and idles the rest
+                if (not self.per_device
+                        or t - self.win_start[m] < self.decisions[m].h):
+                    batch = self._sample_batch(m, t)
+                    self.w_hat[m] = self._sgd_step(self.w_hat[m], batch, eta)
                 if t + 1 >= self.next_sync[m]:
                     g, total, t32 = self._sync_device(m, t)
                     updates.append(g)
@@ -447,6 +642,8 @@ class LGCSimulator:
                     # broadcast: the device adopts the global model
                     self.w_hat[m] = self.params
                     self.w_anchor[m] = flatten_tree(self.params)
+                self._update_chan_state()
+                self._observe_devices(sync_ms, t)
                 self._decide_devices(sync_ms, t + 1)
             if t % cfg.eval_every == 0 or t == cfg.rounds - 1:
                 self._record(hist, t)

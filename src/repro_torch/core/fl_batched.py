@@ -9,7 +9,9 @@ earliest sync point:
       keys of every (round, device) in a few tensor passes (TAG_BATCH) and
         the minibatch indices drawn from them, on the simulator's device
       for each round: torch.func.vmap(torch.func.grad(loss)) over the
-        stacked (M, D) parameters, then p - eta * g
+        stacked (M, D) parameters, then p - eta * g (per_device: only on the
+        rows still within their first h_m rounds; the others stay bitwise
+        untouched)
       the scenario's channel chains stepped through t0 .. te-1 for every
         device, on the host (:meth:`.fl.LGCSimulator._step_scenario`)
       at te - 1, for the devices that sync: the channel draw (TAG_CHANNEL)
@@ -23,6 +25,15 @@ earliest sync point:
         QSGD (``lgc_q8``), the server (the mean, or :mod:`.server`'s
         diloco / semi_sync step, the semi-sync schedule taken on the host
         from the window times) and the broadcast, on the device
+
+At a boundary the controller observes and acts for the syncing devices
+(:meth:`.fl.LGCSimulator._observe_devices`, ``_decide_devices``).  With
+``pipeline_decisions`` the boundary commits the decisions staged at the
+previous one and enqueues the reward eval; the next window is dispatched
+first, and only then does the host read the reward losses, let the fleet
+observe and train, and stage the next decisions (the reference's
+``fl_batched.py:528-630``), so the controller's host time overlaps the
+window on the card.
 
 Nothing in a window waits for the device.  Per-round step sizes are host
 scalars; the channel draw and the costs are the loop engine's host
@@ -39,9 +50,10 @@ vmapped SGD sum in another order, so History agrees with the loop engine's
 to float summation order (tests/test_torch_fl_batched.py), and byte counts
 and sync sets exactly, under every scenario (tests/test_torch_scenarios.py),
 every layer policy (tests/test_torch_per_layer.py) and every aggregator
-(tests/test_torch_server.py).  What the loop engine refuses (A9, A12),
-this engine refuses too: :class:`~.fl.LGCSimulator` checks it before either
-runs.
+(tests/test_torch_server.py), and every controller and action space
+(tests/test_torch_controller.py, tests/test_torch_hetero_control.py).
+What the loop engine refuses (A12), this engine refuses too:
+:class:`~.fl.LGCSimulator` checks it before either runs.
 """
 from __future__ import annotations
 
@@ -61,6 +73,8 @@ from .compressor import (_leaf_order, flatten_tree, k_cap_for,
 from .fl import History, server_mean_update, sgd_update
 from .scenario import (TAG_BATCH, TAG_CHANNEL, TAG_QUANT, ScenarioCarry,
                        dropout_mask, sample_from_carry_rows, stream_keys)
+
+KEPT_MAX = 256       # host values kept on the device at most
 
 
 def _stack_device_data(device_data: Sequence, device: torch.device
@@ -121,10 +135,15 @@ class BatchedEngine:
 
     # -- host values kept on the device -------------------------------------
     def _on_device(self, key, make) -> torch.Tensor:
-        """``make()`` moved to the device once per distinct ``key``."""
+        """``make()`` moved to the device once per distinct ``key`` (a
+        learning controller's budgets change at every boundary: the oldest
+        half of the values kept is dropped past ``KEPT_MAX``)."""
         t = self._kept.get(key)
         if t is None:
-            t = make().to(self.sim.device)
+            if len(self._kept) >= KEPT_MAX:
+                for k in list(self._kept)[:KEPT_MAX // 2]:
+                    del self._kept[k]
+            t = self._upload(make())
             self._kept[key] = t
         return t
 
@@ -144,6 +163,12 @@ class BatchedEngine:
         rows = self._ks_list(ms)
         return self._on_device(("ks", tuple(map(tuple, rows))),
                                lambda: torch.tensor(rows, dtype=torch.int64))
+
+    def _h_arr(self) -> torch.Tensor:
+        """(M,) committed local-step counts on the device (per_device
+        windows), kept per distinct value."""
+        hs = tuple(dec.h for dec in self.sim.decisions)
+        return self._on_device(("h", hs), lambda: torch.tensor(hs))
 
     def _rows_index(self, ms: tuple[int, ...]) -> torch.Tensor:
         return self._on_device(("rows", ms), lambda: torch.tensor(
@@ -169,14 +194,23 @@ class BatchedEngine:
                                 sim.cfg.batch_size, self.n_dev.repeat(n_l))
         return idx.reshape(n_l, self.m, -1)
 
-    def _local_steps(self, t0: int, te: int, idx: torch.Tensor) -> None:
+    def _local_steps(self, t0: int, te: int, idx: torch.Tensor,
+                     h_arr: torch.Tensor | None = None) -> None:
         """The window's local SGD: one vmapped gradient over the M stacked
-        parameter rows per round, then p - eta(t) * g."""
+        parameter rows per round, then p - eta(t) * g.  With ``h_arr`` (M,)
+        (per_device), row m steps only in the window's first h_m rounds
+        (the reference's masked-step scan, ``fl_batched.py:156-172``): a
+        row whose mask holds takes bitwise the shared path's step, the
+        others stay bitwise untouched."""
         rows = self.dev_ids[:, None]
         for i, t in enumerate(range(t0, te)):
             batch = tuple(part[rows, idx[i]] for part in self.data)
             g = self._grad(self.w_hat, *batch)
-            self.w_hat = sgd_update(self.w_hat, g, self.sim._eta(t))
+            stepped = sgd_update(self.w_hat, g, self.sim._eta(t))
+            if h_arr is not None:
+                stepped = torch.where((h_arr > i)[:, None], stepped,
+                                      self.w_hat)
+            self.w_hat = stepped
 
     def _compress(self, ef: torch.Tensor, delta: torch.Tensor,
                   ks: torch.Tensor, recv: torch.Tensor
@@ -346,6 +380,9 @@ class BatchedEngine:
         self.window_ms = []
         sim._decide_devices(range(self.m), 0)
         t = 0
+        # pipelined: (sync set, reward round, enqueued reward losses) of the
+        # last boundary, observed once the next window is dispatched
+        deferred = None
         while t < cfg.rounds:
             t_start = time.perf_counter()
             te = min(min(sim.next_sync), cfg.rounds)
@@ -357,9 +394,13 @@ class BatchedEngine:
                 ch, costs = self._channels(te, ms)
                 deadline = (sim._window_deadline(ms)
                             if sim.agg.uses_timing else 1.0)
-            self._local_steps(t, te, self._draw_batches(t, te))
+            h_arr = self._h_arr() if sim.per_device else None
+            self._local_steps(t, te, self._draw_batches(t, te), h_arr)
             params = (self._sync(te, ms, ks, rows, ch, costs, deadline)
                       if ms else None)
+            if deferred is not None:
+                self._observe_and_stage(*deferred)
+                deferred = None
             # eval points inside the window precede its sync: they see the
             # params and the spend from before it
             rec = [r for r in range(t, te)
@@ -370,11 +411,34 @@ class BatchedEngine:
             if ms:
                 self._account(ms, costs, deadline)
                 sim.params = params
-                sim._decide_devices(ms, te)
+                sim._update_chan_state()
+                if cfg.pipeline_decisions:
+                    # commit now (the next window's inputs); the reward eval
+                    # goes on the device before the next window, the fleet
+                    # reads it once that window is in flight
+                    sim._commit_staged(ms, te)
+                    need = sim._reward_need(ms)
+                    deferred = (ms, te - 1, sim._reward_enqueue(need, te - 1)
+                                if need else None)
+                else:
+                    sim._observe_devices(ms, te - 1)
+                    sim._decide_devices(ms, te)
             if last_rec:
                 sim._record(hist, te - 1)
             ms_window = (time.perf_counter() - t_start) * 1e3
             self.window_ms.append(ms_window)
             sim.round_ms.extend([ms_window / (te - t)] * (te - t))
             t = te
+        if deferred is not None:
+            # the last boundary: nothing left to overlap with
+            self._observe_and_stage(*deferred)
         return hist
+
+    def _observe_and_stage(self, ms: tuple[int, ...], t: int,
+                           pending) -> None:
+        """The deferred half of a pipelined boundary at round ``t``: the
+        fleet observes the enqueued reward losses and stages the decisions
+        for the boundary after next (the same fleet calls, in the same
+        order, as the loop engine's)."""
+        self.sim._observe_devices(ms, t, pending)
+        self.sim._stage_decisions(ms, t + 1)

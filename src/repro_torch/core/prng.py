@@ -174,18 +174,24 @@ def _f32(v, device) -> torch.Tensor:
 def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """f32 ``a * b + c`` rounded once, as a fused multiply-add.
 
-    The f64 product of two f32 values is exact; the f64 sum is made
-    round-to-odd (an inexact sum with an even last bit moves one ulp toward
-    the exact value), after which rounding to f32 is the single rounding of
-    the exact result."""
-    p = a.double() * b.double()
+    The f64 product of two f32 values is exact; :func:`add_f32` then rounds
+    its sum with ``c`` once to f32."""
+    return add_f32(a.double() * b.double(), c)
+
+
+def add_f32(p: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """f32 ``p + c`` rounded once, for an f64 ``p`` with at most 48
+    significant bits (an exact product of two f32 values) and an f32 ``c``.
+
+    The f64 sum is made round-to-odd (an inexact sum with an even last bit
+    moves one ulp toward the exact value), after which rounding to f32 is
+    the single rounding of the exact result."""
     cd = c.double()
     s = p + cd
     t = s - p
     err = (p - (s - t)) + (cd - t)                  # s + err == p + cd exactly
     even = (s.view(torch.int64) & 1) == 0
-    away = torch.where(err > 0, torch.full_like(s, math.inf),
-                       torch.full_like(s, -math.inf))
+    away = torch.copysign(torch.full_like(s, math.inf), err)
     s = torch.where((err != 0) & even, torch.nextafter(s, away), s)
     return s.to(_F32)
 
@@ -317,6 +323,28 @@ def _xla_log(x: torch.Tensor) -> torch.Tensor:
     t = torch.where(x == 0, k(-math.inf), t)
     t = torch.where(x == math.inf, k(math.inf), t)
     return torch.where(x < 0, k(math.nan), t)
+
+
+# XLA:CPU's f32 exp: Cephes' expf with every multiply-add fused (x = n ln 2
+# + r in two fused steps, a degree-5 polynomial in r, times 2^n)
+_EXP_P = (1.9875691500E-4, 1.3981999507E-3, 8.3334519073E-3,
+          4.1665795894E-2, 1.6666665459E-1, 5.0000001201E-1)
+_EXP_CLAMP = 88.3762626647950
+
+
+def xla_exp(x: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's f32 ``exp``, which is not correctly rounded (about one
+    value in ten differs from ATen's by an ulp); bitwise XLA's where the
+    result is a normal float (|x| <= 87), as every input here is."""
+    def k(v):
+        return torch.full_like(x, v)
+    xc = torch.clamp(x, -_EXP_CLAMP, _EXP_CLAMP)
+    fx = torch.floor(fma32(xc, k(1.44269504088896341), k(0.5)))
+    r = fma32(fx, k(-0.693359375), xc)
+    r = fma32(fx, k(2.12194440e-4), r)
+    y = _horner(r, _EXP_P)
+    y = fma32(y, r * r, r) + 1.0
+    return y * ((fx.to(torch.int32) + 127) << 23).view(_F32)
 
 
 def _xla_log1p(x: torch.Tensor) -> torch.Tensor:

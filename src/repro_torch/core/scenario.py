@@ -306,7 +306,7 @@ def _lay_carry(scn: Scenario, consts: ChannelConstants, carry: ScenarioCarry,
     if gm is not None:
         # exp(x - sigma^2/2): long-run mean is exactly the nominal rate
         s = s._replace(bandwidth_mb_s=consts.bw_nominal *
-                       torch.exp(carry.bw_log - 0.5 * gm.sigma ** 2))
+                       prng.xla_exp(carry.bw_log - 0.5 * gm.sigma ** 2))
     if ge is not None:
         s = s._replace(up=carry.good)
     return s

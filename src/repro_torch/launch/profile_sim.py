@@ -3,14 +3,19 @@
     python -m repro_torch.launch.profile_sim [--task lr_mnist] [--m-devices 3]
         [--n-train 3000] [--rounds 40] [--mode lgc] [--engine batched]
         [--scenario static] [--layer-policy global] [--aggregator mean]
+        [--controller fixed] [--action-space shared]
 
 Runs ``run_baseline``'s simulator on the card with ``backend="cuda"`` (H=4,
 5% of D per sync) on ``lr_mnist``, ``cnn_mnist`` or ``rnn_shakespeare``
 (``--n-train`` defaults to 3,000 for the MNIST tasks and to the factory's
 2,000 windows per device for the RNN) under a registry scenario, a layer
 policy (``--layer-policy``: ``global`` or a ``LAYER_POLICIES`` name, whose
-syncs take the segmented kernels) and a server (``--aggregator``: ``mean``,
-``diloco`` or ``semi_sync``, the last with a staleness cap of 2), once
+syncs take the segmented kernels), a server (``--aggregator``: ``mean``,
+``diloco`` or ``semi_sync``, the last with a staleness cap of 2) and a
+controller (``--controller``: ``fixed``, or ``ddpg``, the paper's fleet on
+the card with a replay batch of 4 so that it trains within the run;
+``--action-space per_device`` runs it pipelined with ``max_gap=4``, h at
+most 4 and the compute prior 1.5 of the reference's hetero runs), once
 to warm up, once timed and once under ``torch.profiler``:
 
 * host ms per round (the timed run's time over its rounds) and the split
@@ -30,6 +35,12 @@ to warm up, once timed and once under ``torch.profiler``:
   segmented kernels, QSGD, the server step; enqueued)
   and ``record`` (eval, the only wait for the card); with the median
   window;
+* with ``--controller ddpg``: the fleet's host ms per boundary split into
+  ``act`` (``LGCSimulator._fleet_decide``), ``reward`` (enqueueing the
+  reward eval and reading it: ``_reward_enqueue`` / ``_reward_read``) and
+  ``observe`` (the fleet's ``observe``: replay and training), outside the
+  phases above, and the kernels one fleet boundary launches (a fresh
+  fleet of the run's M, every device acting and training once, profiled);
 * device busy ms per round (union of kernel intervals in the profiled
   run), the idle share against the unprofiled round, kernel launches per
   round, device ms by group (the LGC kernels, matmuls, the rest).
@@ -43,9 +54,11 @@ import json
 import statistics
 import time
 
+import numpy as np
 import torch
 
-from repro_torch.core import FLConfig
+from repro_torch.core import FLConfig, LGCSimulator, prng, tree_size
+from repro_torch.core.controller import (DDPGConfig, FleetDDPG, obs_dim)
 from repro_torch.core.compressor import LAYER_POLICIES
 from repro_torch.core.server import AGGREGATORS
 from repro_torch.core.fl import baseline_simulator
@@ -57,6 +70,12 @@ from repro_torch.models.paper_models import make_task
 
 H = 4                  # the baselines' fixed sync gap
 SEMI_SYNC_CAP = 2      # semi_sync's staleness cap, as in the reference's straggler test
+PD_MAX_GAP = 4         # per_device: the window, and the fleet's h_max
+# the fleet's phases: (object, method) as in PHASES, "fleet" the controller
+CONTROLLER = {"act": ("sim", "_fleet_decide"),
+              "reward": ("sim", "_reward_enqueue"),
+              "reward_read": ("sim", "_reward_read"),
+              "observe": ("fleet", "observe")}
 # phase -> (object, method): "sim" is the simulator, "engine" the batched
 # engine that drives it
 PHASES = {
@@ -73,28 +92,68 @@ PHASES = {
 }
 
 
-def _run(sim, spent: dict | None = None):
+def _run(sim, spent: dict | None = None, ctrl: dict | None = None):
     """Run the simulator on its engine; with ``spent``, each phase method
-    is wrapped with a host clock that adds its seconds there.  Returns the
-    batched engine, or None on the loop engine."""
+    is wrapped with a host clock that adds its seconds there (``ctrl``:
+    the same for the fleet's phases, and ``boundaries`` counts the
+    observe calls).  Returns the batched engine, or None on the loop
+    engine."""
     engine = BatchedEngine(sim) if sim.engine == "batched" else None
+
+    def wrap(table, key, fn):
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                table[key] += time.perf_counter() - t0
+        return timed
+    owners = {"sim": sim, "engine": engine, "fleet": sim.fleet}
     if spent is not None:
-        def wrap(key, fn):
-            def timed(*a, **k):
-                t0 = time.perf_counter()
-                try:
-                    return fn(*a, **k)
-                finally:
-                    spent[key] += time.perf_counter() - t0
-            return timed
         for key, (owner, attr) in PHASES[sim.engine].items():
-            obj = sim if owner == "sim" else engine
-            setattr(obj, attr, wrap(key, getattr(obj, attr)))
+            obj = owners[owner]
+            setattr(obj, attr, wrap(spent, key, getattr(obj, attr)))
+    if ctrl is not None:
+        for key, (owner, attr) in CONTROLLER.items():
+            obj = owners[owner]
+            setattr(obj, attr, wrap(ctrl, key, getattr(obj, attr)))
+        observe = sim._observe_devices
+
+        def counted(*a, **k):
+            ctrl["boundaries"] += 1
+            return observe(*a, **k)
+        sim._observe_devices = counted
     if engine is None:
         sim.run()
     else:
         engine.run()
     return engine
+
+
+def fleet_kernels(m: int, cfg: DDPGConfig) -> dict:
+    """CUDA kernels of one fleet boundary on the card: every device acts,
+    then observes and trains once (its replay warm), under torch.profiler."""
+    fleet = FleetDDPG(m, cfg, device="cuda")
+    rng = np.random.default_rng(0)
+
+    def states():
+        return np.abs(rng.normal(size=(m, cfg.state_dim))).astype(
+            np.float32) * 10
+    for _ in range(cfg.batch_size):          # warm every replay buffer
+        fleet.act(states())
+        fleet.observe(rng.normal(size=m), states())
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    out = {}
+    for name, call in (("act", lambda: fleet.act(states())),
+                       ("observe", lambda: fleet.observe(
+                           rng.normal(size=m), states()))):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            call()
+            torch.cuda.synchronize()
+        out[name] = sum(1 for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA)
+    return out
 
 
 def main(argv=None) -> dict:
@@ -112,6 +171,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--layer-policy", default="global",
                     choices=("global", *sorted(LAYER_POLICIES)))
     ap.add_argument("--aggregator", default="mean", choices=sorted(AGGREGATORS))
+    ap.add_argument("--controller", default="fixed", choices=("fixed", "ddpg"))
+    ap.add_argument("--action-space", default="shared",
+                    choices=("shared", "per_device"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_sim needs a CUDA card")
@@ -122,20 +184,44 @@ def main(argv=None) -> dict:
     kw = {} if n_train is None else {"n_train": n_train}
     task = make_task(args.task, m_devices=args.m_devices,
                      scenario=args.scenario, **kw)
+    per_device = args.action_space == "per_device"
+    extra = (dict(action_space="per_device", pipeline_decisions=True,
+                  max_gap=PD_MAX_GAP) if per_device else {})
     cfg = FLConfig(rounds=args.rounds, eval_every=10, backend="cuda",
                    engine=args.engine, scenario=args.scenario,
                    layer_policy=args.layer_policy, aggregator=args.aggregator,
                    staleness_cap=(SEMI_SYNC_CAP
-                                  if args.aggregator == "semi_sync" else 0))
+                                  if args.aggregator == "semi_sync" else 0),
+                   **extra)
+    ddpg = args.controller == "ddpg"
+    if per_device and not ddpg:
+        raise SystemExit("--action-space per_device needs --controller ddpg")
+
+    def fleet_cfg(d: int) -> DDPGConfig:
+        k_total = max(3, int(0.05 * d))
+        if per_device:
+            return DDPGConfig(state_dim=obs_dim(3, "per_device"),
+                              n_channels=3, action_space="per_device",
+                              h_max=PD_MAX_GAP, h_prior=1.5,
+                              k_total_max=k_total, batch_size=4, seed=0)
+        return DDPGConfig(k_total_max=k_total, batch_size=4, seed=0)
+
+    d = tree_size(task.init(prng.PRNGKey(0)))
 
     def simulator():
+        if ddpg:
+            return LGCSimulator(task, cfg, FleetDDPG(
+                args.m_devices, fleet_cfg(d), device="cuda"),
+                mode=args.mode, device="cuda")
         return baseline_simulator(task, cfg, args.mode, h=H, device="cuda")
     _run(simulator())                             # build + first-call set-up
     sim = simulator()
     spent = {k: 0.0 for k in PHASES[args.engine]}
+    ctrl = ({k: 0.0 for k in CONTROLLER} | {"boundaries": 0} if ddpg
+            else None)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    engine = _run(sim, spent)
+    engine = _run(sim, spent, ctrl)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     if engine is None:
@@ -188,7 +274,20 @@ def main(argv=None) -> dict:
         "kernel_launches_per_round": len(kernels) / rounds,
         "kernel_ms_per_round_by_group": {
             k: v / 1e3 / rounds for k, v in sorted(by_group.items())},
+        "controller": args.controller, "action_space": args.action_space,
     }
+    if ddpg:
+        n_b = max(ctrl["boundaries"], 1)
+        out |= {
+            "boundaries": ctrl["boundaries"],
+            "controller_ms_per_boundary": {
+                "act": ctrl["act"] * 1e3 / n_b,
+                "reward": (ctrl["reward"] + ctrl["reward_read"]) * 1e3 / n_b,
+                "reward_read": ctrl["reward_read"] * 1e3 / n_b,
+                "observe": ctrl["observe"] * 1e3 / n_b},
+            "n_train": sim.fleet._n_train.tolist(),
+            "fleet_kernels_per_boundary": fleet_kernels(
+                args.m_devices, fleet_cfg(d))}
     print(json.dumps(out), flush=True)
     return out
 

@@ -70,3 +70,66 @@ def vector_from_jax(a, device: str | torch.device = "cpu") -> torch.Tensor:
     """A reference flat f32 vector (a device's error memory or anchor, a
     net progress delta) -> an f32 tensor of the same bits."""
     return _to_tensor(np.asarray(a, dtype=np.float32)).to(device)
+
+
+# the host arrays of a fleet's state, by the reference FleetDDPG's names
+DDPG_HOST = ("_buf_s", "_buf_a", "_buf_r", "_buf_s2", "_n", "_idx", "_n_act",
+             "_n_train", "_sigma", "_last_s", "_last_a", "_has_last")
+DDPG_NETS = ("actor", "critic", "actor_t", "critic_t")
+
+
+def _flat_rows(layers) -> np.ndarray:
+    """Stacked layers ``[{"w" (M, a, b), "b" (M, b)}, ...]`` -> (M, P) f32
+    rows of w0, b0, w1, b1, ... (the port fleet's layout)."""
+    parts = []
+    for layer in layers:
+        w, b = np.asarray(layer["w"]), np.asarray(layer["b"])
+        parts += [w.reshape(w.shape[0], -1), b.reshape(b.shape[0], -1)]
+    return np.concatenate(parts, 1).astype(np.float32)
+
+
+def ddpg_from_jax(state: dict, fleet) -> None:
+    """Load a reference ``FleetDDPG``'s state into the port's ``fleet`` (a
+    :class:`repro_torch.core.controller.FleetDDPG` of the same M and
+    config), in place.  ``state`` holds numpy arrays under the reference's
+    attribute names: ``actor`` / ``critic`` / ``actor_t`` / ``critic_t``
+    (lists of ``{"w", "b"}`` stacked on a leading M axis), ``opt_a`` /
+    ``opt_c`` (``(step (M,), m, v)``, m and v shaped like the nets), and
+    the :data:`DDPG_HOST` arrays (replay buffers, counters, noise scales,
+    the last state / action)."""
+    from repro_torch.optim.optimizers import AdamWState
+
+    def rows(layers):
+        return torch.from_numpy(_flat_rows(layers)).to(fleet.device)
+    with fleet._on_stream():
+        for k in DDPG_NETS:
+            setattr(fleet, k, rows(state[k]))
+        for k in ("opt_a", "opt_c"):
+            step, m, v = state[k]
+            setattr(fleet, k, AdamWState(np.array(step, np.int64), rows(m),
+                                         rows(v)))
+    for k in DDPG_HOST:
+        cur = getattr(fleet, k)
+        setattr(fleet, k, np.array(np.asarray(state[k]), dtype=cur.dtype))
+
+
+def ddpg_to_jax(fleet) -> dict:
+    """The port fleet's state in :func:`ddpg_from_jax`'s layout (numpy),
+    so that one port fleet can be loaded from another (the card's from the
+    CPU's) or compared with a reference fleet."""
+    def layers(flat: torch.Tensor, name: str) -> list[dict]:
+        out, o = [], 0
+        a_np = flat.detach().cpu().numpy()
+        sizes = fleet.sizes[name]
+        for a, b in zip(sizes[:-1], sizes[1:]):
+            w = a_np[:, o:o + a * b].reshape(-1, a, b)
+            o += a * b
+            out.append({"w": w, "b": a_np[:, o:o + b]})
+            o += b
+        return out
+    out = {k: layers(getattr(fleet, k), k) for k in DDPG_NETS}
+    for k, net in (("opt_a", "actor"), ("opt_c", "critic")):
+        o = getattr(fleet, k)
+        out[k] = (np.array(o.step, np.int32), layers(o.m, net),
+                  layers(o.v, net))
+    return out | {k: getattr(fleet, k).copy() for k in DDPG_HOST}

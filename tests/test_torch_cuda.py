@@ -3,8 +3,10 @@ LGC kernels bitwise (flat, rows and the segmented forms), ``swa_decode`` to
 the tolerance of its f32 sums; and the simulator's threefry PRNG on the
 card bitwise equal to the CPU's, a short LR run through the LGC kernels
 against the CPU's plain versions, every sync of short LR and CNN runs
-bitwise equal to the plain pipeline, the per-layer path's launches, and
-the diloco / semi_sync servers against the CPU.
+bitwise equal to the plain pipeline, the per-layer path's launches, the
+diloco / semi_sync servers against the CPU, and the DDPG fleet on the card
+(fleet == list bitwise, and one act and train step against the same fleet
+on the CPU).
 
 These tests need an NVIDIA card and ``nvcc``; without a card they skip with
 a reason.  The file imports neither ``jax`` nor the reference package, so it
@@ -750,3 +752,68 @@ def test_server_runs_match_the_cpu(card, engine, agg):
     assert gpu.step == cpu.step and gpu.uplink_mb == cpu.uplink_mb
     assert gpu.server_wall_s == cpu.server_wall_s
     np.testing.assert_allclose(gpu.loss, cpu.loss, atol=1e-3)
+
+
+@pytest.mark.parametrize("engine", ["loop", "batched"])
+def test_ddpg_fleet_matches_agent_list_on_the_card(card, engine):
+    """A FleetDDPG(3) and the list of its three agents, both on the card,
+    drive lr_mnist (40 rounds, backend "cuda") to bitwise equal decisions
+    and History, training engaged on every device."""
+    from repro_torch.core import FLConfig, LGCSimulator
+    from repro_torch.core.controller import (DDPGConfig, DDPGController,
+                                             FleetDDPG)
+    from repro_torch.models.paper_models import make_task
+    task = make_task("lr_mnist", m_devices=3, n_train=1200)
+    cfg = dict(k_total_max=392, batch_size=4)
+    runs = {}
+    for kind in ("fleet", "list"):
+        ctrls = (FleetDDPG(3, DDPGConfig(seed=5, **cfg), device=card)
+                 if kind == "fleet" else
+                 [DDPGController(DDPGConfig(seed=5 + 17 * m, **cfg),
+                                 device=card) for m in range(3)])
+        sim = LGCSimulator(task, FLConfig(rounds=40, eval_every=10,
+                                          backend="cuda", engine=engine),
+                           ctrls, device=card)
+        hist = sim.run()
+        trains = (sim.fleet._n_train if kind == "fleet" else np.array(
+            [c._fleet._n_train[0] for c in sim.fleet.controllers]))
+        runs[kind] = (sim.decision_log, hist.asdict(), trains.copy())
+    assert (runs["fleet"][2] > 0).all()
+    assert runs["fleet"][0] == runs["list"][0]
+    assert runs["fleet"][1] == runs["list"][1]
+    np.testing.assert_array_equal(runs["fleet"][2], runs["list"][2])
+
+
+def test_card_fleet_against_the_cpu_fleet(card):
+    """From the same state, the card's fleet acts as the CPU's and takes
+    the same train step, both to rtol 1e-4 (the matmuls sum in cuBLAS's
+    order; the policy's forward in training, XLA:CPU's order emulated, is
+    the same on both); the card's fleet is re-loaded from the CPU's after
+    each of 12 boundaries."""
+    from repro_torch.core.controller import DDPGConfig, FleetDDPG
+    from repro_torch.weights import ddpg_from_jax, ddpg_to_jax
+    cfg = DDPGConfig(k_total_max=10346, batch_size=4, seed=3,
+                     state_dim=9, action_space="per_device", h_max=4)
+    cpu, gpu = (FleetDDPG(8, cfg, device=d) for d in ("cpu", card))
+    rng = np.random.default_rng(0)
+    for _ in range(12):
+        states = np.abs(rng.normal(size=(8, 9)) * 10 ** rng.uniform(
+            -2, 3, size=(8, 9))).astype(np.float32)
+        states[:, 4] = rng.uniform(size=8)
+        mask = rng.random(8) < 0.9
+        cpu.act(states, mask)
+        gpu.act(states, mask)
+        np.testing.assert_allclose(gpu._last_a, cpu._last_a, rtol=1e-4,
+                                   atol=1e-6)
+        new = states + np.abs(rng.normal(size=(8, 9))).astype(np.float32)
+        drops = rng.normal(size=8) * 0.1
+        for f in (cpu, gpu):
+            f.observe(drops, new, mask)
+        got, want = ddpg_to_jax(gpu), ddpg_to_jax(cpu)
+        for k in ("actor", "critic", "actor_t", "critic_t"):
+            for lg, lw in zip(got[k], want[k]):
+                for leaf in ("w", "b"):
+                    np.testing.assert_allclose(lg[leaf], lw[leaf],
+                                               rtol=1e-4, atol=1e-6)
+        ddpg_from_jax(want, gpu)
+    assert (cpu._n_train > 0).all()

@@ -24,6 +24,7 @@ import repro.core.fl as jfl  # noqa: E402
 import repro_torch.core.fl as pfl  # noqa: E402
 from repro.models.paper_models import make_task as j_make_task  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
+from repro_torch.core.controller import make_fleet_ddpg  # noqa: E402
 from repro_torch.core.scenario import SCENARIOS  # noqa: E402
 from repro_torch.kernels import LAUNCHES, reset_launch_counts  # noqa: E402
 from repro_torch.launch import quickstart  # noqa: E402
@@ -161,24 +162,32 @@ def test_pallas_is_an_alias_of_cuda(lr_tasks):
 def test_unported_options_raise_naming_their_roadmap_item(lr_tasks):
     _, tp = lr_tasks
     ctrls = [pfl.FixedController(4, [1, 1, 1])] * 3
-    cases = [({"engine": "sharded"}, "A12"),
-             ({"action_space": "per_device"}, "A9"),
-             ({"pipeline_decisions": True}, "A9")]
+    cases = [({"engine": "sharded"}, "A12")]
     for fields, item in cases:
         for engine in ("loop", "batched"):
             cfg = dataclasses.replace(pfl.FLConfig(engine=engine), **fields)
             with pytest.raises(NotImplementedError, match=item):
                 pfl.LGCSimulator(tp, cfg, ctrls, device="cpu")
-    # every scenario (ROADMAP A7), layer policy (A8) and aggregator (A10)
-    # runs on both engines
+    # every scenario (ROADMAP A7), layer policy (A8), aggregator (A10),
+    # the per-device action space and pipelined decisions (A9) run on both
+    # engines, as do controllers that learn from rewards (A9)
     ported = ([{"scenario": name} for name in SCENARIOS]
               + [{"layer_policy": p}
                  for p in ("uniform", "size_prop", "divergence")]
-              + [{"aggregator": a} for a in ("diloco", "semi_sync")])
+              + [{"aggregator": a} for a in ("diloco", "semi_sync")]
+              + [{"action_space": "per_device"},
+                 {"pipeline_decisions": True}])
     for fields in ported:
         for engine in ("loop", "batched"):
             pfl.LGCSimulator(tp, pfl.FLConfig(engine=engine, **fields),
                              ctrls, device="cpu")
+    learning = make_fleet_ddpg(3, 7850, device="cpu")
+    for engine in ("loop", "batched"):
+        pfl.LGCSimulator(tp, pfl.FLConfig(engine=engine), learning,
+                         device="cpu")
+    with pytest.raises(ValueError, match="action_space"):
+        pfl.LGCSimulator(tp, pfl.FLConfig(action_space="layered"), ctrls,
+                         device="cpu")
     with pytest.raises(ValueError, match="layer_policy"):
         pfl.LGCSimulator(tp, pfl.FLConfig(layer_policy="nope"), ctrls,
                          device="cpu")

@@ -231,3 +231,17 @@ def test_row_samplers_and_a_draw_in_pieces_are_bitwise():
     finally:
         prng.NORMAL_PIECE = old
     assert torch.equal(whole.view(torch.int32), pieces.view(torch.int32))
+
+
+@pytest.mark.parametrize("scale", [0.3, 3.0, 30.0])
+def test_xla_exp_is_bitwise_xla_cpus(scale):
+    """XLA:CPU's f32 exp is not correctly rounded; ``prng.xla_exp`` is it,
+    bit for bit where the result is a normal float (|x| <= 87; the
+    channels' lognormal bandwidth, the carry's)."""
+    x = np.clip(np.random.default_rng(int(scale * 10)).normal(size=100_000)
+                * scale, -87, 87).astype(np.float32)
+    x = np.concatenate([x, np.array([0.0, -0.0, 87.0, -87.0, 1e-30],
+                                    np.float32)])
+    got = prng.xla_exp(torch.from_numpy(x)).numpy()
+    want = np.asarray(jax.jit(jnp.exp)(x))
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
