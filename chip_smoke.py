@@ -120,6 +120,16 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    the reference's scripted per_device decisions on ``lr_mnist`` (M=8)
    under ``static`` and ``gilbert_flaky``, card against CPU with spend and
    decisions equal, pipelined == blocking asdict-equal on the card;
+   then the population layer (N = 100,000 devices, cohorts of M = 64,
+   H = 4, lgc): the reference bench's configuration (the synthetic
+   population task, 24 rounds) with the dense, int8 and server EF stores
+   on the batched engine and the dense store on the loop engine, and
+   ``lr_mnist`` with the dense store (3.14 GB resident on the card; its
+   bytes and ``torch.cuda.max_memory_allocated`` printed) and the int8
+   store, 12 rounds; each card run against the same run on the CPU
+   (cohorts and participation equal, History within 1e-3), every sync
+   bitwise the plain row pipeline, no host sync inside a window, each row
+   kernel once per window (batched) or once per cohort row (loop);
 9. the ``kernels`` line: each kernel's time beside its plain version, its
    bound (bytes over 3.35 TB/s or operations over 67 TFLOP/s) and one
    PyTorch call as a yardstick.  ``ms`` is the median of single calls
@@ -129,7 +139,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    kernels at the largest leaf, at ``embed`` and at the simulator's flat
    vectors (``at_cnn_mnist``, D = 206,922; ``at_lr_mnist``, D = 7,850; there
    maxabs is ``sum_maxabs``, as the simulator calls it) with their launches
-   per simulator run (``launches_simulator``, the DDPG runs included), the
+   per simulator run (``launches_simulator``, the DDPG runs included) and
+   per population run (``launches_population``), the
    histogram also on the main path's real u of round 2 (``at_main_path_u``)
    and on a constant
    vector (``at_one_bin``), ``sum_maxabs`` against the add and maxabs apart
@@ -219,6 +230,18 @@ SERVER_AGGS = ("diloco", "semi_sync")
 # one-float slices, slices starting at every offset mod 4 floats, slices
 # around one block's pass (4,096 floats) and a long one
 EDGE_SIZES = [1, 1, 1, 2, 3, 4095, 4097, 63, 1, 8192, 5, 200_003]
+
+# the population layer: N devices, M-device cohorts; (config, store,
+# engine, rounds): the reference bench's configuration
+# (benchmarks/bench_population.py:29-38) with each store, and lr_mnist with
+# the dense store (N x 7,850 x 4 B = 3.14 GB on the card) and int8
+POP_N, POP_M = 100_000, 64
+POP_RUNS = [("population", "dense", "batched", 24),
+            ("population", "int8", "batched", 24),
+            ("population", "server", "batched", 24),
+            ("population", "dense", "loop", 24),
+            ("lr_mnist", "dense", "batched", 12),
+            ("lr_mnist", "int8", "batched", 12)]
 
 TPU_KERNELS = {
     "maxabs": ("src/repro_torch/kernels/csrc/maxabs.cu",
@@ -1812,6 +1835,156 @@ def phase_control_equivalences(smi: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 8 (cont.): the population layer
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def population_window_without_sync():
+    """Run ``population._window`` (the cohort's device phase) under torch's
+    sync debug mode "error": a host sync inside a window raises."""
+    import torch
+    from repro_torch.core import population
+    window = population._window
+
+    def guarded(*a, **k):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return window(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    population._window = guarded
+    try:
+        yield
+    finally:
+        population._window = window
+
+
+def population_run(config: str, store: str, engine: str, rounds: int,
+                   device: str, compared: list | None = None) -> dict:
+    """One population run (N = 100,000, M = 64, H = 4, backend "cuda",
+    lgc) with its cohorts, launch counts and host time; with ``compared``,
+    every sync is held bitwise against the plain row pipeline and the
+    window may not sync the host."""
+    import torch
+    from repro_torch.core import FLConfig, population
+    from repro_torch.core.population import make_population, run_population
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch.bench_population import make_config
+    task = make_config(config)
+    cohorts = []
+    draw = population.sample_cohort
+
+    def recorded(*a, **k):
+        ids = draw(*a, **k)
+        cohorts.append(ids.copy())
+        return ids
+    population.sample_cohort = recorded
+    held = contextlib.ExitStack()
+    if compared is not None:
+        held.enter_context(syncs_held_against_plain(compared, "batched"))
+        held.enter_context(population_window_without_sync())
+    try:
+        with held:
+            if device == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
+            pop = make_population(task, POP_N, ef_store=store, device=device)
+            cfg = FLConfig(rounds=rounds, eval_every=max(rounds // 4, 1),
+                           backend="cuda")
+            if device == "cuda":
+                torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            hist = run_population(pop, cfg, "lgc", h=SIM_H,
+                                  m_cohort=POP_M, engine=engine)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(LAUNCHES)
+    finally:
+        population.sample_cohort = draw
+    check(all(math.isfinite(x) for x in hist.loss + hist.accuracy),
+          f"population {config} {store} {engine} on {device}: History not "
+          f"finite")
+    out = {"hist": hist, "cohorts": cohorts, "launches": counts,
+           "participation": pop.participation, "ef_bytes": pop.ef_nbytes,
+           "d": pop.d, "wall_s": wall,
+           "host_ms_per_window": wall * 1e3 / len(cohorts),
+           "device_steps_per_s": POP_M * rounds / wall,
+           "n_eval": min(2048, len(task.eval_data[1]))}
+    if device == "cuda":
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        out["allocated_before"] = before
+        out["ef_device"] = str(pop.ef_store.device)
+    return out
+
+
+def phase_population(smi: str) -> dict:
+    """The population layer (N = 100,000, M = 64, H = 4, lgc through the LGC
+    row kernels) on the card: (a) the reference bench's configuration
+    (population task, 24 rounds) with each EF store on the batched engine
+    and the dense store on the loop engine, (b) lr_mnist with the dense
+    store (3.14 GB on the card) and the int8 store, 12 rounds.  Each card
+    run against the same run on the CPU: cohorts and participation equal,
+    History within phase 8's tolerances; every sync bitwise the plain row
+    pipeline on the same card tensors, no host sync inside a window; each
+    LGC row kernel launched once per window (batched) or once per cohort
+    row (loop), the flat kernels never.  Returns the launch counts by
+    tag."""
+    launches = {}
+    t_phase = time.perf_counter()
+    for config, store, engine, rounds in POP_RUNS:
+        tag = f"{config} {store} {engine}"
+        compared: list = []
+        gpu = population_run(config, store, engine, rounds, "cuda",
+                             compared)
+        cpu = population_run(config, store, engine, rounds, "cpu")
+        windows = len(gpu["cohorts"])
+        check(windows == -(-rounds // SIM_H), f"population {tag}: "
+              f"{windows} windows")
+        check(all((a == b).all() for a, b in zip(gpu["cohorts"],
+                                                  cpu["cohorts"]))
+              and len(gpu["cohorts"]) == len(cpu["cohorts"]),
+              f"population {tag}: the card's cohorts differ from the CPU's")
+        check(bool((gpu["participation"] == cpu["participation"]).all()),
+              f"population {tag}: participation differs")
+        worst, gap = check_history(f"population {tag}", gpu["hist"],
+                                   cpu["hist"], cpu["n_eval"])
+        per_window = POP_M if engine == "loop" else 1
+        for name, rows_name in ROW_KERNELS.items():
+            want = {name: 0, rows_name: per_window * windows}
+            for k, v in want.items():
+                check(gpu["launches"][k] == v, f"population {tag}: {k} "
+                      f"launched {gpu['launches'][k]} times, expected {v}")
+        check(len(compared) == POP_M * windows, f"population {tag}: "
+              f"{len(compared)} syncs held against the plain pipeline, "
+              f"expected {POP_M * windows}")
+        check(gpu["ef_device"].startswith("cuda"),
+              f"population {tag}: the store is not on the card")
+        if config == "lr_mnist" and store == "dense":
+            check(gpu["ef_bytes"] == POP_N * LR_D * 4,
+                  f"population {tag}: {gpu['ef_bytes']} EF bytes")
+        launches[tag] = gpu["launches"]
+        h = gpu["hist"]
+        log(f"population {tag}: N={POP_N:,}, M={POP_M}, D={gpu['d']:,}, "
+            f"{rounds} rounds; EF store {gpu['ef_bytes']:,} bytes on "
+            f"{gpu['ef_device']}, max_memory_allocated "
+            f"{gpu['max_memory_allocated']:,} bytes ("
+            f"{gpu['allocated_before']:,} allocated before the run); loss "
+            f"{h.loss[0]:.4f} "
+            f"-> {h.loss[-1]:.4f}, accuracy {h.accuracy[-1]:.4f}; cohorts "
+            f"and participation equal to the CPU's, losses within "
+            f"{worst:.2e}, accuracy count within {gap} of {cpu['n_eval']}; "
+            f"{len(compared)} syncs bitwise the plain row pipeline; "
+            f"launches {gpu['launches']}; host ms per window "
+            f"{gpu['host_ms_per_window']:.3f} (CPU "
+            f"{cpu['host_ms_per_window']:.3f}), device-steps/s "
+            f"{gpu['device_steps_per_s']:.1f}; {smi}")
+    log(f"population phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 9: timings
 # ---------------------------------------------------------------------------
 
@@ -2175,6 +2348,7 @@ def main() -> int:
     per_layer_launches = phase_per_layer(smi)
     phase_server(smi)
     sim_launches |= phase_control(smi)
+    pop_launches = phase_population(smi)
     rows = phase_timings(gen, main_u)
     row_times = phase_time_rows(gen)
     seg_times = phase_time_segments(gen)
@@ -2201,6 +2375,9 @@ def main() -> int:
             row |= {"launches_simulator": {
                         tag: c[name] + c[rn]
                         for tag, c in sim_launches.items()},
+                    "launches_population": {
+                        tag: c[name] + c[rn]
+                        for tag, c in pop_launches.items()},
                     "at_cnn_mnist": rows[name][CNN_D],
                     "at_lr_mnist": rows[name][LR_D]}
             # the row form at each path's (M, D), with that path's launches

@@ -1,7 +1,7 @@
 """Simulator core of the port: counter-based randomness, channels and
 scenarios, the LGC compressors with error feedback and per-layer budgets,
-the server aggregation modes, the engines, the DDPG control plane and the
-spend audit (``repro/core``, ROADMAP A1-A10)."""
+the server aggregation modes, the engines, the DDPG control plane, the
+spend audit and the population layer (``repro/core``, ROADMAP A1-A11)."""
 from .channels import (DEFAULT_CHANNELS, ChannelSpec, DeviceProfile,
                        comm_cost, comp_cost, sample_channels_from,
                        stack_specs)
@@ -11,7 +11,9 @@ from .compressor import (LAYER_POLICIES, PALLAS_MIN_ELEMS, LGCCompressor,
                          per_layer_wire_bytes, qsgd_dequantize,
                          qsgd_quantize, top_k, tree_layer_slices, tree_size,
                          unflatten_like, wire_bytes)
-from .error_feedback import EFState, ef_compress, init_ef
+from .error_feedback import (EF_STORES, DenseEFStore, EFState, Int8EFStore,
+                             ServerEFStore, ef_compress, init_ef,
+                             make_ef_store)
 from .fl import (ControllerFleet, FixedController, FLConfig, FLTask, History,
                  LGCSimulator, RoundDecision, run_baseline)
 from .scenario import (SCENARIOS, Scenario, get_scenario, init_carry,
@@ -22,6 +24,8 @@ from .controller import (DDPGConfig, DDPGController, FleetDDPG,
                          decode_actions, make_ddpg_controllers,
                          make_fleet_ddpg, obs_dim)
 from .audit import audit_simulator, recompute_spend
+from .population import (COHORT_SAMPLERS, Population, make_population,
+                         make_population_task, run_population, sample_cohort)
 
 __all__ = [
     "DEFAULT_CHANNELS", "ChannelSpec", "DeviceProfile", "comm_cost",
@@ -30,7 +34,8 @@ __all__ = [
     "layer_budgets", "lgc_compress", "lgc_layers", "per_layer_compress",
     "per_layer_wire_bytes", "qsgd_dequantize", "qsgd_quantize", "top_k",
     "tree_layer_slices", "tree_size", "unflatten_like", "wire_bytes",
-    "EFState", "ef_compress", "init_ef",
+    "EF_STORES", "DenseEFStore", "EFState", "Int8EFStore", "ServerEFStore",
+    "ef_compress", "init_ef", "make_ef_store",
     "ControllerFleet", "FixedController", "FLConfig", "FLTask", "History",
     "LGCSimulator", "RoundDecision", "run_baseline",
     "SCENARIOS", "Scenario", "get_scenario", "init_carry",
@@ -40,4 +45,6 @@ __all__ = [
     "DDPGConfig", "DDPGController", "FleetDDPG", "decode_actions",
     "make_ddpg_controllers", "make_fleet_ddpg", "obs_dim",
     "audit_simulator", "recompute_spend",
+    "COHORT_SAMPLERS", "Population", "make_population",
+    "make_population_task", "run_population", "sample_cohort",
 ]

@@ -34,7 +34,7 @@ from typing import Sequence
 
 import torch
 
-from repro_torch.kernels.ref import ftz
+from repro_torch.kernels.ref import div_f32, ftz
 from repro_torch.kernels.topk_threshold import SegmentTable
 
 from . import prng
@@ -444,4 +444,4 @@ def qsgd_quantize_rows(x: torch.Tensor, keys: torch.Tensor,
 def qsgd_dequantize(q: torch.Tensor, scale: torch.Tensor,
                     levels: int = 255) -> torch.Tensor:
     half = levels // 2
-    return q.to(torch.float32) * (scale / half)
+    return q.to(torch.float32) * div_f32(scale, half)

@@ -95,7 +95,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.ref import ftz, ftz_add
+from repro_torch.kernels.ref import div_f32, ftz, ftz_add
 
 from . import prng
 from .channels import (DEFAULT_CHANNELS, ChannelSpec, DeviceProfile,
@@ -271,6 +271,12 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
+def eta_at(cfg: FLConfig, t: int) -> float:
+    """eta(t) = lr * a / (a + t), rounded to f32 as ``jnp.float32(eta)``."""
+    a = cfg.lr_decay_a
+    return float(np.float32(cfg.lr * a / (a + t)))
+
+
 def sgd_update(p: torch.Tensor, g: torch.Tensor, eta: float) -> torch.Tensor:
     """p - eta * g in f32, subnormals flushed as the reference's XLA:CPU
     flushes them: each operand, the product and the result."""
@@ -283,7 +289,58 @@ def server_mean_update(flat: torch.Tensor, updates, m: int) -> torch.Tensor:
     g_sum = ftz(updates[0])
     for g in updates[1:]:
         g_sum = ftz_add(g_sum, g)
-    return ftz_add(flat, -ftz(g_sum / m))
+    return ftz_add(flat, -ftz(div_f32(g_sum, m)))
+
+
+def server_apply(agg: str, cfg: FLConfig, flat: torch.Tensor, state,
+                 g: torch.Tensor, t32: np.ndarray, deadline: float, m: int
+                 ) -> tuple[torch.Tensor, object, torch.Tensor]:
+    """One diloco / semi_sync server round on the syncing devices'
+    updates g (S, D) with their f32 window times ``t32`` (S,), normalised
+    by ``m`` (the simulator's M, a population's cohort): (new flat params,
+    new server state, the share of each update the server never applies,
+    (S,) f32 on the host, zeros under diloco).  Both engines and the
+    population call it (the reference's ``fl.py:641-653``,
+    ``population.py:357-377``)."""
+    T = torch.from_numpy(np.asarray(t32, np.float32))
+    if agg == "diloco":
+        delta = ftz(div_f32(ftz(g.sum(0)), m))
+        flat, state = diloco_update(flat, state, delta, True,
+                                    float(cfg.outer_lr),
+                                    float(cfg.outer_momentum))
+        return flat, state, torch.zeros_like(T)
+    alpha, cap = float(cfg.staleness_alpha), int(cfg.staleness_cap)
+    mask = torch.ones(T.shape, dtype=torch.bool)
+    undeliv = staleness_schedule(T, deadline, mask, alpha, cap)[3]
+    g_now, contrib, _ = semi_sync_sums(g, T, mask, deadline, alpha, cap)
+    flat, state = semi_sync_update(flat, state, g_now, contrib, True, m)
+    return flat, state, undeliv
+
+
+def per_layer_g(u: torch.Tensor, ks: torch.Tensor, recv: torch.Tensor,
+                k_cap: int, policy: str, backend: str, segments
+                ) -> torch.Tensor:
+    """g of the per-layer path on rows u (S, D) with budgets ``ks`` (S, C)
+    and delivery masks ``recv`` (S, C) bool, under ``policy`` over the
+    layer ``segments`` (a :class:`~repro_torch.kernels.SegmentTable`): both
+    engines' and the population's (reference ``fl.py:680-699``,
+    ``fl_batched.py:186-200``).
+
+    cuda: the budgets, the candidate mask through the segmented kernels
+    (looked up at each call, so a caller may wrap it), and the
+    histogram-LGC pipeline on the masked u with zero error memory, its own
+    e' dropped (one row launch of each LGC kernel).  exact:
+    :func:`.compressor.per_layer_compress`."""
+    if backend != "cuda":
+        return per_layer_compress(u, ks, recv, segments, policy, k_cap)
+    from repro_torch import kernels
+    b = layer_budgets(policy, u, segments, ks.sum(1), k_cap)
+    mask = kernels.per_layer_candidates_hist_rows(u, segments, b)
+    masked = torch.where(mask, u, torch.zeros_like(u))
+    g, _ = kernels.lgc_compress_hist_rows(
+        torch.zeros_like(masked), masked, torch.cumsum(ks, 1),
+        recv.to(torch.int32))
+    return g
 
 
 class _RewardLosses:
@@ -427,11 +484,6 @@ class LGCSimulator:
         grads = torch.autograd.grad(loss, list(leaves.values()))
         return {k: sgd_update(p.detach(), g, eta)
                 for (k, p), g in zip(leaves.items(), grads)}
-
-    def _eta(self, t: int) -> float:
-        """eta(t) = lr * a / (a + t), rounded to f32 as ``jnp.float32(eta)``."""
-        a = self.cfg.lr_decay_a
-        return float(np.float32(self.cfg.lr * a / (a + t)))
 
     def _sample_batch(self, m: int, t: int) -> tuple:
         x, y = self._data[m]
@@ -609,7 +661,7 @@ class LGCSimulator:
         for t in range(cfg.rounds):
             t0 = time.perf_counter()
             self._step_scenario(t, t + 1)
-            eta = self._eta(t)
+            eta = eta_at(cfg, t)
             updates, walls, sync_ms, t32s = [], [], [], []
             for m in range(self.m_devices):
                 # per_device: the device computes only the first h_m rounds
@@ -662,28 +714,12 @@ class LGCSimulator:
     def _server_apply(self, g: torch.Tensor, t32: np.ndarray,
                       deadline: float) -> tuple[torch.Tensor, torch.Tensor]:
         """One diloco / semi_sync server round on the syncing devices'
-        updates g (S, D) with their f32 window times ``t32`` (S,): updates
-        ``self.server_state`` and returns the new flat params and the share
-        of each update the server never applies, (S,) f32 on the host
-        (zeros under diloco).  ``self.params`` is left to the caller."""
-        cfg = self.cfg
-        flat = flatten_tree(self.params)
-        T = torch.from_numpy(np.asarray(t32, np.float32))
-        if self.agg.name == "diloco":
-            delta = ftz(ftz(g.sum(0)) / self.m_devices)
-            flat, self.server_state = diloco_update(
-                flat, self.server_state, delta, True, float(cfg.outer_lr),
-                float(cfg.outer_momentum))
-            undeliv = torch.zeros_like(T)
-        else:
-            alpha, cap = float(cfg.staleness_alpha), int(cfg.staleness_cap)
-            mask = torch.ones(T.shape, dtype=torch.bool)
-            undeliv = staleness_schedule(T, deadline, mask, alpha, cap)[3]
-            g_now, contrib, _ = semi_sync_sums(g, T, mask, deadline, alpha,
-                                               cap)
-            flat, self.server_state = semi_sync_update(
-                flat, self.server_state, g_now, contrib, True,
-                self.m_devices)
+        updates g (S, D) (:func:`server_apply`, normalised by M): updates
+        ``self.server_state`` and returns the new flat params and the
+        undelivered shares.  ``self.params`` is left to the caller."""
+        flat, self.server_state, undeliv = server_apply(
+            self.agg.name, self.cfg, flatten_tree(self.params),
+            self.server_state, g, t32, deadline, self.m_devices)
         return flat, undeliv
 
     def _apply_server_nonmean(self, updates: list, sync_ms: Sequence[int],
@@ -702,44 +738,21 @@ class LGCSimulator:
                                              ftz(un * updates[j])))
 
     # -- compression ---------------------------------------------------------
-    def _per_layer_g(self, u: torch.Tensor, ks: torch.Tensor,
-                     recv: torch.Tensor, k_cap: int) -> torch.Tensor:
-        """g of the per-layer path on rows u (S, D) with budgets ``ks``
-        (S, C) and delivery masks ``recv`` (S, C) bool, both engines'
-        (reference ``fl.py:680-699``, ``fl_batched.py:186-200``).
-
-        cuda: the budgets, the candidate mask through the segmented kernels
-        (looked up at each call, so a caller may wrap it), and the
-        histogram-LGC pipeline on the masked u with zero error memory, its
-        own e' dropped (one row launch of each LGC kernel).  exact:
-        :func:`.compressor.per_layer_compress`."""
-        policy = self.cfg.layer_policy
-        if self.backend != "cuda":
-            return per_layer_compress(u, ks, recv, self._segments, policy,
-                                      k_cap)
-        from repro_torch import kernels
-        b = layer_budgets(policy, u, self._segments, ks.sum(1), k_cap)
-        mask = kernels.per_layer_candidates_hist_rows(u, self._segments, b)
-        masked = torch.where(mask, u, torch.zeros_like(u))
-        g, _ = kernels.lgc_compress_hist_rows(
-            torch.zeros_like(masked), masked, torch.cumsum(ks, 1),
-            recv.to(torch.int32))
-        return g
-
     def _ef_step(self, m: int, t: int, delta: torch.Tensor,
                  ks: Sequence[int], received: Sequence[bool]
                  ) -> torch.Tensor:
         """One error-compensated layered compression (backend-dispatched;
         with per-layer budgets under ``cfg.layer_policy``, u as one row of
-        :meth:`_per_layer_g` with k_cap = D, as the reference's)."""
+        :func:`per_layer_g` with k_cap = D, as the reference's)."""
         if self.cfg.layer_policy != "global":
             dev = delta.device
             u = ftz_add(self.ef[m].e, delta)
-            g = self._per_layer_g(
+            g = per_layer_g(
                 u[None], torch.tensor([list(ks)], dtype=torch.int64,
                                       device=dev),
                 torch.tensor([[bool(r) for r in received]], device=dev),
-                self.d)[0]
+                self.d, self.cfg.layer_policy, self.backend,
+                self._segments)[0]
             self.ef[m] = EFState(ftz_add(u, -g))
             return g
         if self.backend == "cuda":

@@ -21,7 +21,7 @@ earliest sync point:
         the three LGC row kernels,
         :func:`repro_torch.kernels.lgc_compress_hist_rows`; ``"exact"``:
         :func:`.compressor.lgc_compress_topk`; per-layer budgets first
-        through the segmented kernels, :meth:`.fl.LGCSimulator._per_layer_g`),
+        through the segmented kernels, :func:`.fl.per_layer_g`),
         QSGD (``lgc_q8``), the server (the mean, or :mod:`.server`'s
         diloco / semi_sync step, the semi-sync schedule taken on the host
         from the window times) and the broadcast, on the device
@@ -54,6 +54,14 @@ every layer policy (tests/test_torch_per_layer.py) and every aggregator
 (tests/test_torch_controller.py, tests/test_torch_hetero_control.py).
 What the loop engine refuses (A12), this engine refuses too:
 :class:`~.fl.LGCSimulator` checks it before either runs.
+
+The device phase is a set of module functions on explicit state (global
+device ids, the stacked data and the rows each device reads, budgets,
+carry rows, backend, layer segments): :func:`draw_batches`,
+:func:`local_steps`, :func:`channels_rows`, :func:`compress_rows`,
+:func:`device_update`.  :class:`BatchedEngine` calls them on its M rows
+and :mod:`.population` on a gathered cohort (the reference's shared
+``make_device_phase``).
 """
 from __future__ import annotations
 
@@ -63,6 +71,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.device import upload
 from repro_torch.kernels.ref import ftz, ftz_add
 
 from . import prng
@@ -70,9 +79,11 @@ from .channels import ChannelSample, comm_cost_mb, comp_cost
 from .compressor import (_leaf_order, flatten_tree, k_cap_for,
                          lgc_compress_topk, qsgd_dequantize,
                          qsgd_quantize_rows, unflatten_like)
-from .fl import History, server_mean_update, sgd_update
-from .scenario import (TAG_BATCH, TAG_CHANNEL, TAG_QUANT, ScenarioCarry,
-                       dropout_mask, sample_from_carry_rows, stream_keys)
+from .fl import (History, eta_at, per_layer_g, server_mean_update,
+                 sgd_update)
+from .scenario import (TAG_BATCH, TAG_CHANNEL, TAG_QUANT, Scenario,
+                       ScenarioCarry, dropout_mask, sample_from_carry_rows,
+                       stream_keys)
 
 KEPT_MAX = 256       # host values kept on the device at most
 
@@ -96,6 +107,155 @@ def _stack_device_data(device_data: Sequence, device: torch.device
             out[i, :a.shape[0]] = a
         parts.append(torch.from_numpy(out).to(device))
     return tuple(parts), torch.tensor(ns, dtype=torch.int64, device=device)
+
+
+# ---------------------------------------------------------------------------
+# the device phase: explicit state, shared by the engine and the population
+# ---------------------------------------------------------------------------
+
+def flat_grad(params: dict, loss_fn):
+    """``torch.func.vmap(torch.func.grad(...))`` of ``loss_fn`` over flat
+    (M, D) parameter rows laid out as :func:`.compressor.flatten_tree` lays
+    out ``params``; called as ``grad(w_rows, *batch)``."""
+    names = _leaf_order(params)
+    shapes = [tuple(params[k].shape) for k in names]
+    sizes = [int(params[k].numel()) for k in names]
+
+    def loss_of_flat(w, *batch):
+        parts = torch.split(w, sizes)
+        tree = {k: p.view(s) for k, p, s in zip(names, parts, shapes)}
+        return loss_fn(tree, batch)
+    return torch.func.vmap(torch.func.grad(loss_of_flat))
+
+
+def draw_batches(base: torch.Tensor, t0: int, te: int,
+                 dev_ids: torch.Tensor, n_dev: torch.Tensor,
+                 batch_size: int) -> torch.Tensor:
+    """(L, M, b) minibatch indices of rounds t0 .. te-1 for the devices
+    ``dev_ids`` (M,) (global ids, on the device), each in [0, n_dev[m]):
+    the keys of every (round, device) (TAG_BATCH) and the draws in a few
+    tensor passes."""
+    ts = torch.arange(t0, te, dtype=torch.int64, device=dev_ids.device)
+    keys = stream_keys(base, TAG_BATCH, ts, dev_ids)
+    n_l, m = te - t0, dev_ids.shape[0]
+    idx = prng.randint_rows(keys.reshape(n_l * m, 2), batch_size,
+                            n_dev.repeat(n_l))
+    return idx.reshape(n_l, m, -1)
+
+
+def local_steps(grad, w_hat: torch.Tensor, data: tuple,
+                data_rows: torch.Tensor, idx: torch.Tensor,
+                etas: Sequence[float], h_arr: torch.Tensor | None = None
+                ) -> torch.Tensor:
+    """A window's local SGD on the rows ``w_hat`` (M, D): per round one
+    vmapped gradient (:func:`flat_grad`) on the minibatch ``idx[i]`` of
+    each row's data row ``data_rows`` (M,) of the stacked ``data``, then
+    p - eta_i * g.  With ``h_arr`` (M,) (per_device), row m steps only in
+    the window's first h_m rounds (the reference's masked-step scan,
+    ``fl_batched.py:156-172``): a row whose mask holds takes bitwise the
+    shared path's step, the others stay bitwise untouched."""
+    rows = data_rows[:, None]
+    for i, eta in enumerate(etas):
+        batch = tuple(part[rows, idx[i]] for part in data)
+        g = grad(w_hat, *batch)
+        stepped = sgd_update(w_hat, g, eta)
+        if h_arr is not None:
+            stepped = torch.where((h_arr > i)[:, None], stepped, w_hat)
+        w_hat = stepped
+    return w_hat
+
+
+def channels_rows(scn: Scenario, consts, base: torch.Tensor,
+                  carry: ScenarioCarry, ids: torch.Tensor, t_sync: int,
+                  mode: str, ks_rows: Sequence[Sequence[int]], d: int, cfg
+                  ) -> tuple[ChannelSample, np.ndarray]:
+    """The sync's channel draw (TAG_CHANNEL at round ``t_sync``) of the
+    devices ``ids`` (S,) (global ids, a CPU tensor) with their carry rows
+    ``carry`` (S, C) laid over it, their dropout, and the cost model, on
+    the host in f32 as the loop engine prices them: the (S, N) sample and
+    the (S, 4) costs (energy, money, time, uplink bytes).  ``ks_rows`` are
+    the (S, C) budgets (topk folded into channel 0)."""
+    n_ch = len(cfg.channels)
+    keys = stream_keys(base, TAG_CHANNEL, torch.tensor([t_sync]), ids)[0]
+    ch = sample_from_carry_rows(scn, consts, carry, keys)
+    if scn.has_dropout:
+        drop = dropout_mask(scn, base, t_sync, ids)
+        ch = ch._replace(up=ch.up & ~drop[:, None])
+    if mode == "fedavg":
+        # the whole model over the fastest channel that is up; with
+        # every channel down nothing is sent
+        any_up = ch.up.any(1)
+        best = torch.argmax(ch.bandwidth_mb_s * ch.up, 1)
+        nbytes = ((torch.arange(n_ch) == best[:, None])
+                  .to(torch.float32) * float(d * cfg.value_bytes))
+        uplink = torch.where(any_up, nbytes.sum(1), torch.zeros(()))
+    else:
+        value_bytes = 1 if mode == "lgc_q8" else cfg.value_bytes
+        ks = torch.tensor(ks_rows, dtype=torch.float32)
+        nbytes = (ks * float(value_bytes + cfg.index_bytes)
+                  * ch.up[:, :n_ch].to(torch.float32))
+        uplink = nbytes.sum(1)
+    comm = comm_cost_mb(ch, nbytes / 1e6)
+    costs = torch.stack([comm["energy_j"], comm["money"], comm["time_s"],
+                         uplink], 1)
+    return ch, costs.numpy()
+
+
+def compress_rows(ef: torch.Tensor, delta: torch.Tensor, ks: torch.Tensor,
+                  recv: torch.Tensor, k_cap: int, backend: str, policy: str,
+                  segments) -> tuple[torch.Tensor, torch.Tensor]:
+    """(g, e') of the syncing rows, backend-dispatched (per-layer budgets:
+    the candidates first, :func:`.fl.per_layer_g`, then u - g).  cuda: one
+    launch of each LGC row kernel over the rows,
+    :func:`repro_torch.kernels.lgc_compress_hist_rows` (looked up at each
+    call, so a caller may wrap it)."""
+    if policy != "global":
+        u = ftz_add(ef, delta)
+        g = per_layer_g(u, ks, recv, k_cap, policy, backend, segments)
+        return g, ftz_add(u, -g)
+    if backend == "cuda":
+        from repro_torch import kernels
+        return kernels.lgc_compress_hist_rows(
+            ef, delta, torch.cumsum(ks, 1), recv.to(torch.int32))
+    u = ftz_add(ef, delta)
+    g = lgc_compress_topk(u, ks, recv, k_cap)
+    return g, u - g
+
+
+def device_update(ef: torch.Tensor, delta: torch.Tensor, ks: torch.Tensor,
+                  up: torch.Tensor, mode: str, n_ch: int, k_cap: int,
+                  backend: str, policy: str, segments,
+                  quant_keys: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(g, e') of the syncing rows from their error memory ``ef``, net
+    progress ``delta`` (S, D), budgets ``ks`` (S, C) and up mask ``up``
+    (S, N), on the device: fedavg sends ``delta`` dense where any channel
+    is up and keeps no error; the LGC modes go through
+    :func:`compress_rows`, and ``lgc_q8`` then quantizes g with the keys
+    ``quant_keys`` (S, 2) and keeps the quantization residual in e'."""
+    if mode == "fedavg":
+        # dense, no error feedback; a lost upload sends nothing
+        g = torch.where(up.any(1)[:, None], delta, torch.zeros_like(delta))
+        return g, ef
+    g, ef_new = compress_rows(ef, delta, ks, up[:, :n_ch], k_cap, backend,
+                              policy, segments)
+    if mode == "lgc_q8":
+        # int8 values on the wire; the quantization residual stays in the
+        # error memory
+        q, scale = qsgd_quantize_rows(g, quant_keys)
+        g_deq = qsgd_dequantize(q, scale)
+        ef_new = ftz_add(ef_new, ftz_add(g, -g_deq))
+        g = g_deq
+    return g, ef_new
+
+
+def semi_sync_add_back(ef_new: torch.Tensor, g: torch.Tensor,
+                       undeliv: torch.Tensor) -> torch.Tensor:
+    """Under semi_sync a late row's e' takes back the share ``undeliv``
+    (S, 1) of its update g the server never applies (reference
+    ``fl_batched.py:425-445``, ``population.py:371-372``)."""
+    return torch.where(undeliv > 0, ftz_add(ef_new, ftz(undeliv * g)),
+                       ef_new)
 
 
 class BatchedEngine:
@@ -122,16 +282,7 @@ class BatchedEngine:
         self.window_ms: list[float] = []
         self._k_cap_hi = 0
         self._kept: dict = {}            # host values already on the device
-        names = _leaf_order(sim.params)
-        shapes = [tuple(sim.params[k].shape) for k in names]
-        sizes = [int(sim.params[k].numel()) for k in names]
-        loss_fn = sim.task.loss_fn
-
-        def loss_of_flat(w, *batch):
-            parts = torch.split(w, sizes)
-            params = {k: p.view(s) for k, p, s in zip(names, parts, shapes)}
-            return loss_fn(params, batch)
-        self._grad = torch.func.vmap(torch.func.grad(loss_of_flat))
+        self._grad = flat_grad(sim.params, sim.task.loss_fn)
 
     # -- host values kept on the device -------------------------------------
     def _on_device(self, key, make) -> torch.Tensor:
@@ -143,7 +294,7 @@ class BatchedEngine:
             if len(self._kept) >= KEPT_MAX:
                 for k in list(self._kept)[:KEPT_MAX // 2]:
                     del self._kept[k]
-            t = self._upload(make())
+            t = upload(make(), self.sim.device)
             self._kept[key] = t
         return t
 
@@ -183,94 +334,31 @@ class BatchedEngine:
 
     # -- the window ----------------------------------------------------------
     def _draw_batches(self, t0: int, te: int) -> torch.Tensor:
-        """(L, M, b) minibatch indices of rounds t0 .. te-1: the keys of
-        every (round, device) and the draws in a few tensor passes, each
-        device's indices in [0, n_m)."""
-        sim = self.sim
-        ts = torch.arange(t0, te, dtype=torch.int64, device=sim.device)
-        keys = stream_keys(sim._base, TAG_BATCH, ts, self.dev_ids)
-        n_l = te - t0
-        idx = prng.randint_rows(keys.reshape(n_l * self.m, 2),
-                                sim.cfg.batch_size, self.n_dev.repeat(n_l))
-        return idx.reshape(n_l, self.m, -1)
+        """(L, M, b) minibatch indices of rounds t0 .. te-1
+        (:func:`draw_batches` over all M devices)."""
+        return draw_batches(self.sim._base, t0, te, self.dev_ids,
+                            self.n_dev, self.sim.cfg.batch_size)
 
     def _local_steps(self, t0: int, te: int, idx: torch.Tensor,
                      h_arr: torch.Tensor | None = None) -> None:
-        """The window's local SGD: one vmapped gradient over the M stacked
-        parameter rows per round, then p - eta(t) * g.  With ``h_arr`` (M,)
-        (per_device), row m steps only in the window's first h_m rounds
-        (the reference's masked-step scan, ``fl_batched.py:156-172``): a
-        row whose mask holds takes bitwise the shared path's step, the
-        others stay bitwise untouched."""
-        rows = self.dev_ids[:, None]
-        for i, t in enumerate(range(t0, te)):
-            batch = tuple(part[rows, idx[i]] for part in self.data)
-            g = self._grad(self.w_hat, *batch)
-            stepped = sgd_update(self.w_hat, g, self.sim._eta(t))
-            if h_arr is not None:
-                stepped = torch.where((h_arr > i)[:, None], stepped,
-                                      self.w_hat)
-            self.w_hat = stepped
-
-    def _compress(self, ef: torch.Tensor, delta: torch.Tensor,
-                  ks: torch.Tensor, recv: torch.Tensor
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
-        """(g, e') of the syncing rows, backend-dispatched (per-layer
-        budgets: the candidates first, then u - g)."""
-        if self.sim.cfg.layer_policy != "global":
-            u = ftz_add(ef, delta)
-            g = self.sim._per_layer_g(u, ks, recv, self._k_cap())
-            return g, ftz_add(u, -g)
-        if self.sim.backend == "cuda":
-            # looked up at each call, so a caller may wrap it
-            from repro_torch import kernels
-            return kernels.lgc_compress_hist_rows(
-                ef, delta, torch.cumsum(ks, 1), recv.to(torch.int32))
-        u = ftz_add(ef, delta)
-        g = lgc_compress_topk(u, ks, recv, self._k_cap())
-        return g, u - g
+        """The window's local SGD on the M stacked rows
+        (:func:`local_steps`; device m reads its own data row)."""
+        self.w_hat = local_steps(self._grad, self.w_hat, self.data,
+                                 self.dev_ids, idx,
+                                 [eta_at(self.sim.cfg, t)
+                                  for t in range(t0, te)],
+                                 h_arr)
 
     def _channels(self, te: int, ms: tuple[int, ...]
                   ) -> tuple[ChannelSample, np.ndarray]:
-        """The sync's channel draw (TAG_CHANNEL at round te - 1) with the
-        devices' carry rows laid over it, their dropout, and the cost model
-        for the devices ``ms``, on the host in f32 as the loop engine prices
-        them: the (S, N) sample and the (S, 4) costs (energy, money, time,
-        uplink bytes)."""
-        sim, cfg = self.sim, self.sim.cfg
+        """The sync's channel draw at round te - 1 and the cost model of
+        the devices ``ms`` (:func:`channels_rows` on their carry rows)."""
+        sim = self.sim
         rows = torch.tensor(ms)
-        keys = stream_keys(sim._base, TAG_CHANNEL, torch.tensor([te - 1]),
-                           rows)[0]
         carry = ScenarioCarry(*(part[rows] for part in sim.scen_carry))
-        ch = sample_from_carry_rows(sim.scenario, sim._consts, carry, keys)
-        if sim.scenario.has_dropout:
-            drop = dropout_mask(sim.scenario, sim._base, te - 1, rows)
-            ch = ch._replace(up=ch.up & ~drop[:, None])
-        if sim.mode == "fedavg":
-            # the whole model over the fastest channel that is up; with
-            # every channel down nothing is sent
-            any_up = ch.up.any(1)
-            best = torch.argmax(ch.bandwidth_mb_s * ch.up, 1)
-            nbytes = ((torch.arange(self.n_ch) == best[:, None])
-                      .to(torch.float32) * float(self.d * cfg.value_bytes))
-            uplink = torch.where(any_up, nbytes.sum(1), torch.zeros(()))
-        else:
-            value_bytes = 1 if sim.mode == "lgc_q8" else cfg.value_bytes
-            ks = torch.tensor(self._ks_list(ms), dtype=torch.float32)
-            nbytes = (ks * float(value_bytes + cfg.index_bytes)
-                      * ch.up[:, :self.n_ch].to(torch.float32))
-            uplink = nbytes.sum(1)
-        comm = comm_cost_mb(ch, nbytes / 1e6)
-        costs = torch.stack([comm["energy_j"], comm["money"],
-                             comm["time_s"], uplink], 1)
-        return ch, costs.numpy()
-
-    def _upload(self, x: torch.Tensor) -> torch.Tensor:
-        """A small host tensor to the device without waiting for it: pinned
-        memory, an asynchronous copy."""
-        if self.sim.device.type == "cpu":
-            return x
-        return x.pin_memory().to(self.sim.device, non_blocking=True)
+        return channels_rows(sim.scenario, sim._consts, sim._base, carry,
+                             rows, te - 1, sim.mode, self._ks_list(ms),
+                             self.d, sim.cfg)
 
     def _window_times(self, ms: tuple[int, ...], costs: np.ndarray
                       ) -> torch.Tensor:
@@ -294,9 +382,8 @@ class BatchedEngine:
         flat, undeliv = sim._server_apply(g, self._window_times(ms, costs),
                                           deadline)
         if sim.agg.name == "semi_sync":
-            un = self._upload(undeliv)[:, None]
-            ef_new = torch.where(un > 0, ftz_add(ef_new, ftz(un * g)),
-                                 ef_new)
+            ef_new = semi_sync_add_back(ef_new, g,
+                                        upload(undeliv, sim.device)[:, None])
         return flat, ef_new
 
     def _sync(self, te: int, ms: tuple[int, ...], ks: torch.Tensor,
@@ -313,26 +400,17 @@ class BatchedEngine:
 
         def take(x):
             return x if all_rows else x.index_select(0, rows)
-        up = self._upload(ch.up)
         ef = take(self.ef)
         delta = ftz_add(take(self.anchor), -take(self.w_hat))
-        if sim.mode == "fedavg":
-            # dense, no error feedback; a lost upload sends nothing
-            g = torch.where(up.any(1)[:, None], delta,
-                            torch.zeros_like(delta))
-            ef_new = ef
-        else:
-            g, ef_new = self._compress(ef, delta, ks, up[:, :self.n_ch])
-            if sim.mode == "lgc_q8":
-                # int8 values on the wire; the quantization residual stays
-                # in the error memory
-                kq = self._upload(stream_keys(
-                    sim._base, TAG_QUANT, torch.tensor([te - 1]),
-                    torch.tensor(ms))[0])
-                q, scale = qsgd_quantize_rows(g, kq)
-                g_deq = qsgd_dequantize(q, scale)
-                ef_new = ftz_add(ef_new, ftz_add(g, -g_deq))
-                g = g_deq
+        keys = None
+        if sim.mode == "lgc_q8":
+            keys = upload(stream_keys(sim._base, TAG_QUANT,
+                                      torch.tensor([te - 1]),
+                                      torch.tensor(ms))[0], sim.device)
+        k_cap = 1 if sim.mode == "fedavg" else self._k_cap()
+        g, ef_new = device_update(
+            ef, delta, ks, upload(ch.up, sim.device), sim.mode, self.n_ch,
+            k_cap, sim.backend, sim.cfg.layer_policy, sim._segments, keys)
         if sim.agg.name == "mean":
             flat = server_mean_update(flatten_tree(sim.params), list(g),
                                       self.m)

@@ -39,6 +39,13 @@ w < 2.5) are bitwise equal to jax's on every host.
 The ``*_rows`` forms draw one row per key of a (K, 2) key tensor in a few
 tensor passes (the batched engine's keys of all devices at once); row r is
 bitwise the single-key draw with ``keys[r]``.
+
+Sampling without replacement (the population's cohorts): ``permutation``
+is jax's ``_shuffle`` (rounds of a stable sort of the arange by fresh
+32-bit keys), ``choice`` its uniform and Gumbel-top-k forms, ``gumbel``
+the "low" mode under XLA:CPU's ``log``, and ``xla_sum`` XLA:CPU's f32
+``jnp.sum`` order (windows of 32 summed in turn, tree-reduction style), so
+the cohort ids are jax's bit for bit (tests/test_torch_population.py).
 """
 from __future__ import annotations
 
@@ -46,6 +53,8 @@ import math
 from typing import Sequence
 
 import torch
+
+from repro_torch.kernels.ref import ftz
 
 MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -430,3 +439,83 @@ def truncated_normal(key: torch.Tensor, lower: float, upper: float,
     lo_t = torch.nextafter(_f32(lo32, out.device), _f32(math.inf, out.device))
     hi_t = torch.nextafter(_f32(hi32, out.device), _f32(-math.inf, out.device))
     return torch.clamp(out, lo_t, hi_t)
+
+
+# ---------------------------------------------------------------------------
+# sampling without replacement
+# ---------------------------------------------------------------------------
+
+_F32_TINY = 1.1754943508222875e-38      # finfo(float32).tiny
+_UINT32_MAX = 2 ** 32 - 1
+_XLA_WINDOW = 32                        # XLA:CPU's tree-reduction window
+
+
+def shuffle_rounds(n: int) -> int:
+    """jax's static round count of ``_shuffle``: ceil(3 ln n / ln(2**32 - 1))
+    (1 round up to n = 1,625, 2 at n = 100,000)."""
+    return int(math.ceil(3 * math.log(max(1, n)) / math.log(_UINT32_MAX)))
+
+
+def permutation(key: torch.Tensor, n: int,
+                device: str | torch.device | None = None) -> torch.Tensor:
+    """``jax.random.permutation(key, n)``: the arange of n (int64) sorted
+    :func:`shuffle_rounds` times, each time by 32 fresh random bits of a
+    split key, stably (``lax.sort_key_val``): tied bits keep the order of
+    the round before."""
+    dev = key.device if device is None else torch.device(device)
+    x = torch.arange(n, dtype=torch.int64, device=dev)
+    for _ in range(shuffle_rounds(n)):
+        key, sub = split(key)
+        bits = random_bits(sub, (n,), dev)
+        x = x[torch.sort(bits, stable=True).indices]
+    return x
+
+
+def gumbel(key: torch.Tensor, shape: Sequence[int] = (),
+           device: str | torch.device | None = None) -> torch.Tensor:
+    """``jax.random.gumbel`` in f32, mode "low" (jax's default):
+    ``-log(-log(u))``, u uniform on [tiny, 1), XLA:CPU's ``log``."""
+    u = uniform(key, shape, _F32_TINY, 1.0, device)
+    return -_xla_log(-_xla_log(u))
+
+
+def xla_sum(x: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's f32 ``jnp.sum`` of a vector: while more than 32 elements
+    remain, zero-pad them evenly (the extra one after) to whole windows of
+    32 and sum each window in turn; then sum the last <= 32 in turn.  Every
+    add flushed, as XLA:CPU adds."""
+    x = ftz(x.to(_F32).reshape(-1))
+    while x.numel() > _XLA_WINDOW:
+        out = -(-x.numel() // _XLA_WINDOW)
+        pad = out * _XLA_WINDOW - x.numel()
+        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
+        x = x.reshape(out, _XLA_WINDOW)
+        acc = torch.zeros(out, dtype=_F32, device=x.device)
+        for j in range(_XLA_WINDOW):
+            acc = ftz(acc + x[:, j])
+        x = acc
+    acc = torch.zeros((), dtype=_F32, device=x.device)
+    for j in range(x.numel()):
+        acc = ftz(acc + x[j])
+    return acc
+
+
+def top_k_indices(x: torch.Tensor, k: int) -> torch.Tensor:
+    """``lax.top_k(x, k)[1]``: the indices of the k largest values in
+    descending order, the lower index first among equal values (a stable
+    descending sort; ``torch.topk`` promises no order among ties)."""
+    return torch.sort(x, descending=True, stable=True).indices[:k]
+
+
+def choice(key: torch.Tensor, n: int, m: int, p: torch.Tensor | None = None,
+           device: str | torch.device | None = None) -> torch.Tensor:
+    """``jax.random.choice(key, n, (m,), replace=False, p=p)`` as int64:
+    without ``p`` the first m of :func:`permutation`; with f32
+    probabilities ``p`` (n,) the Gumbel top-k, ``top_k(gumbel(key, (n,)) +
+    log(p), m)``."""
+    if not 0 < m <= n:
+        raise ValueError(f"cannot take {m} of {n} without replacement")
+    if p is None:
+        return permutation(key, n, device)[:m]
+    g = gumbel(key, (n,), p.device if device is None else device)
+    return top_k_indices(ftz(g + _xla_log(ftz(p.to(g.device)))), m)

@@ -4,7 +4,9 @@ Port of ``repro/core/scenario.py:79-414``: the stream tags and
 :func:`stream_key`, the dynamics specs, :class:`Scenario` and the
 :data:`SCENARIOS` registry, the per-device chain carry (Gauss-Markov
 log-bandwidth, Gilbert-Elliott availability) with :func:`init_carry`,
-:func:`step_carry` and :func:`sample_from_carry`, and :func:`dropout_mask`.
+:func:`step_carry` and :func:`sample_from_carry` (with the row forms, and
+:func:`init_carry_rows` for a population's N devices at once), and
+:func:`dropout_mask`.
 
 Every variate of a simulation comes from ``stream_key(base, TAG, round,
 device)``, a chain of threefry ``fold_in`` calls, so the port draws the
@@ -208,6 +210,32 @@ def init_carry(scn: Scenario, base: torch.Tensor, dev_id: int,
                 < torch.tensor(ge.stationary_availability, dtype=_F32))
     else:
         good = torch.ones((n_channels,), dtype=torch.bool)
+    return ScenarioCarry(bw_log.to(_F32), good)
+
+
+def init_carry_rows(scn: Scenario, base: torch.Tensor, ids: torch.Tensor,
+                    n_channels: int) -> ScenarioCarry:
+    """:func:`init_carry` of every device of ``ids`` (N,) as one (N, C)
+    carry, the keys and draws of all N in a few tensor passes (the
+    reference's ``jax.vmap(init_carry)`` over a population); row i is
+    bitwise ``init_carry(scn, base, ids[i], n_channels)``."""
+    ids = ids.to(torch.int64)
+    k0, k1 = prng.fold_in(base, TAG_SCEN_INIT).tolist()
+    y0, y1 = prng.threefry2x32(k0, k1, torch.zeros_like(ids), ids)
+    ks = prng.split_rows(torch.stack([y0, y1], -1), 2)       # (N, 2, 2)
+    gm, ge = scn.gauss_markov, scn.gilbert_elliott
+    n = ids.shape[0]
+    if gm is not None:
+        bw_log = gm.sigma * prng.normal_rows(ks[:, 0], n_channels)
+    else:
+        bw_log = torch.zeros((n, n_channels), dtype=_F32, device=ids.device)
+    if ge is not None:
+        good = (prng.uniform_rows(ks[:, 1], n_channels)
+                < torch.tensor(ge.stationary_availability, dtype=_F32,
+                               device=ids.device))
+    else:
+        good = torch.ones((n, n_channels), dtype=torch.bool,
+                          device=ids.device)
     return ScenarioCarry(bw_log.to(_F32), good)
 
 

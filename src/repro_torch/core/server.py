@@ -34,7 +34,8 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from repro_torch.kernels.ref import ftz, ftz_add
+from repro_torch.device import upload
+from repro_torch.kernels.ref import div_f32, ftz, ftz_add
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,22 +159,12 @@ def semi_sync_sums(g: torch.Tensor, T: torch.Tensor, mask: torch.Tensor,
     onehot = ((s.to(torch.int64) - 1)[:, None]
               == torch.arange(cap, device=s.device)[None, :])
     # column 0: on time; columns 1..cap: the ring rows' weights
-    coef = _to(torch.cat([on[:, None].to(torch.float32),
-                          onehot.to(torch.float32) * wsel[:, None]], 1),
-               g.device)
+    coef = upload(torch.cat([on[:, None].to(torch.float32),
+                             onehot.to(torch.float32) * wsel[:, None]], 1),
+                  g.device)
     g_now = torch.where(coef[:, :1] > 0, g, torch.zeros_like(g)).sum(0)
     contrib = coef[:, 1:].T @ g
     return ftz(g_now), ftz(contrib), int(mask.sum())
-
-
-def _to(x: torch.Tensor, device: torch.device) -> torch.Tensor:
-    """A small host tensor to ``device`` without waiting for the card
-    (pinned memory, an asynchronous copy)."""
-    if x.device == device:
-        return x
-    if x.device.type == "cpu" and device.type == "cuda":
-        return x.pin_memory().to(device, non_blocking=True)
-    return x.to(device)
 
 
 def semi_sync_update(flat: torch.Tensor, state: ServerState,
@@ -192,7 +183,7 @@ def semi_sync_update(flat: torch.Tensor, state: ServerState,
         shifted = torch.cat([state.stale[1:],
                              torch.zeros_like(state.stale[:1])])
         state = state._replace(stale=ftz_add(shifted, contrib))
-    return ftz_add(flat, -ftz(g_apply / m_total)), state
+    return ftz_add(flat, -ftz(div_f32(g_apply, m_total))), state
 
 
 def diloco_update(flat: torch.Tensor, state: ServerState,

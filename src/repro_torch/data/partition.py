@@ -1,12 +1,13 @@
 """Heterogeneous data partitioners (statistical non-IID-ness).
 
-A copy of ``repro/data/partition.py:35-104`` (numpy only): the
+A copy of ``repro/data/partition.py:35-140`` (numpy only): the
 Dirichlet(alpha) label-skew partition and the Dirichlet quantity-skew
 partition, both exact (every sample on exactly one device, no device
-empty) and deterministic per ``seed``.  The population helpers
-(``shard_for_device``, ``label_marginals``, ``skew_score``) wait for the
-population layer (ROADMAP A11).  The same seed gives the same shards as
-the reference (tests/test_torch_sim_core.py).
+empty) and deterministic per ``seed``, and the population helpers
+(``shard_for_device``: global device id -> shard of the pool;
+``label_marginals``, ``skew_score``).  The same seed gives the same shards
+as the reference (tests/test_torch_sim_core.py), and the helpers the same
+numbers (tests/test_torch_population.py).
 """
 from __future__ import annotations
 
@@ -85,3 +86,37 @@ def partition_quantity_skew(x: np.ndarray, y: np.ndarray, m: int,
     counts += 1
     cuts = np.cumsum(counts)[:-1]
     return [(x[np.sort(s)], y[np.sort(s)]) for s in np.split(perm, cuts)]
+
+
+def shard_for_device(dev_ids: np.ndarray, n_shards: int) -> np.ndarray:
+    """Map global device ids onto the population's fixed shard pool:
+    ``id % n_shards``, keyed by the id alone and onto every shard for a
+    population of at least ``n_shards`` devices.  Devices sharing a shard
+    still draw their own minibatch streams (TAG_BATCH is keyed by id)."""
+    dev_ids = np.asarray(dev_ids)
+    if n_shards < 1:
+        raise ValueError(f"need at least one shard, got {n_shards}")
+    return dev_ids % n_shards
+
+
+def label_marginals(shards: Shards, n_classes: int | None = None
+                    ) -> np.ndarray:
+    """(M, n_classes) per-device label distributions (rows sum to 1)."""
+    ys = [y for _, y in shards]
+    if n_classes is None:
+        n_classes = int(max(int(y.max()) for y in ys if y.size)) + 1
+    out = np.zeros((len(shards), n_classes))
+    for i, y in enumerate(ys):
+        binc = np.bincount(y.astype(np.int64), minlength=n_classes)
+        out[i] = binc / max(1, y.size)
+    return out
+
+
+def skew_score(shards: Shards) -> float:
+    """Mean total-variation distance between the devices' label marginals
+    and the pooled one: 0 for IID shards, toward 1 for single-class
+    devices."""
+    marg = label_marginals(shards)
+    sizes = np.array([y.size for _, y in shards], dtype=np.float64)
+    pooled = (marg * sizes[:, None]).sum(0) / sizes.sum()
+    return float(0.5 * np.abs(marg - pooled).sum(1).mean())

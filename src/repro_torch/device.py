@@ -22,6 +22,17 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
     return torch.device(device)
 
 
+def upload(x: torch.Tensor, device: str | torch.device) -> torch.Tensor:
+    """A small host tensor to ``device`` without waiting for the card:
+    pinned memory and an asynchronous copy (a no-op on its own device)."""
+    device = torch.device(device)
+    if x.device == device:
+        return x
+    if x.device.type == "cpu" and device.type == "cuda":
+        return x.pin_memory().to(device, non_blocking=True)
+    return x.to(device)
+
+
 def card_name_and_power_limit() -> str:
     """The card's name and power limit, as ``nvidia-smi --query-gpu=
     name,power.limit --format=csv,noheader`` gives them (first card)."""

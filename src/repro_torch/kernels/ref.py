@@ -42,6 +42,14 @@ def ftz(x: torch.Tensor) -> torch.Tensor:
     return torch.where(tiny, bits & _SIGN_BIT, bits).view(torch.float32)
 
 
+def div_f32(x: torch.Tensor, v: float) -> torch.Tensor:
+    """x / v, correctly rounded on every device.  On the card ATen divides
+    by a host scalar as a multiply by its reciprocal, one rounding more
+    (``x / 3.0`` there can differ from the CPU's in the last bit); a 0-dim
+    divisor on x's device keeps the true division."""
+    return x / torch.full((), v, dtype=x.dtype, device=x.device)
+
+
 def ftz_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a + b in f32 as XLA:CPU adds under FTZ/DAZ (PTX ``add.rn.ftz.f32``).
 

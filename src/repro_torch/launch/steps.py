@@ -263,7 +263,7 @@ def make_lgc_train_step(cfg: ArchConfig, m_devices: int,
             g_sum = g_wire[0]
             for m in range(1, m_devices):
                 g_sum = g_sum + g_wire[m]
-            g_mean = kref.ftz((g_sum / m_devices).to(torch.float32))
+            g_mean = kref.ftz(kref.div_f32(g_sum, m_devices).to(torch.float32))
             params_new[k] = kref.ftz_add(w.to(torch.float32).reshape(-1),
                                          -g_mean).to(w.dtype).reshape(w.shape)
         return params_new, ef_new, loss_total / m_devices

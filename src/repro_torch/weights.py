@@ -8,7 +8,9 @@ flat ``dict[str, Tensor]`` whose keys are the tree's leaf paths joined by
 of the simulator (an error memory, an anchor) is one f32 array on both
 sides (``vector_from_jax``).  This module
 works on numpy arrays only: the caller turns jax arrays into numpy
-(``np.asarray`` / ``jax.device_get``) on its side.
+(``np.asarray`` / ``jax.device_get``) on its side.  ``population_from_jax``
+carries a reference population's state (EF store, chain carries, spend,
+participation) into a port population.
 """
 from __future__ import annotations
 
@@ -133,3 +135,27 @@ def ddpg_to_jax(fleet) -> dict:
         out[k] = (np.array(o.step, np.int32), layers(o.m, net),
                   layers(o.v, net))
     return out | {k: getattr(fleet, k).copy() for k in DDPG_HOST}
+
+
+def population_from_jax(pop_ref, pop) -> None:
+    """Load a reference ``Population``'s state into the port's ``pop`` (a
+    :class:`repro_torch.core.population.Population` of the same N, D,
+    store kind and channel count), in place and with the same dtypes: the
+    store's arrays (to ``pop``'s device), the chain carries, the spend and
+    the participation counts.  Both packages can then run on from one
+    state."""
+    src, dst = pop_ref.ef_store, pop.ef_store
+    if src.name != dst.name or (src.n, src.d) != (dst.n, dst.d):
+        raise ValueError(f"store {src.name} ({src.n}, {src.d}) does not fit "
+                         f"{dst.name} ({dst.n}, {dst.d})")
+    names = {"dense": ("_e",), "int8": ("_codes", "_scale"),
+             "server": ("_e",)}[src.name]
+    for k in names:
+        a = np.asarray(getattr(src, k))
+        setattr(dst, k, torch.from_numpy(a.copy()).to(dst.device))
+    for k in ("carry_bw", "carry_good", "spend", "participation"):
+        cur = getattr(pop, k)
+        new = np.array(getattr(pop_ref, k), dtype=cur.dtype)
+        if new.shape != cur.shape:
+            raise ValueError(f"{k}: shape {new.shape} != {cur.shape}")
+        setattr(pop, k, new)

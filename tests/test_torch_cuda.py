@@ -6,7 +6,9 @@ against the CPU's plain versions, every sync of short LR and CNN runs
 bitwise equal to the plain pipeline, the per-layer path's launches, the
 diloco / semi_sync servers against the CPU, and the DDPG fleet on the card
 (fleet == list bitwise, and one act and train step against the same fleet
-on the CPU).
+on the CPU); QSGD card against CPU bitwise; the population's EF stores
+card against CPU bitwise, and 100,000-device population runs (lgc with
+its launches, lgc_q8 over the int8 store) card against CPU.
 
 These tests need an NVIDIA card and ``nvcc``; without a card they skip with
 a reason.  The file imports neither ``jax`` nor the reference package, so it
@@ -817,3 +819,145 @@ def test_card_fleet_against_the_cpu_fleet(card):
                                                rtol=1e-4, atol=1e-6)
         ddpg_from_jax(want, gpu)
     assert (cpu._n_train > 0).all()
+
+
+# ---------------------------------------------------------------------------
+# the population layer
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", ["dense", "int8", "server"])
+def test_ef_stores_on_the_card_match_the_cpu(card, kind):
+    """One sequence of cohort gathers and scatters through a store on the
+    card and one on the CPU, at scales down into the subnormals (never
+    flushed): every gather and the final state bitwise equal."""
+    from repro_torch.core.error_feedback import make_ef_store
+    n, d, m = 500, 7850, 64
+    gpu, cpu = make_ef_store(kind, n, d, card), make_ef_store(kind, n, d)
+    assert gpu.nbytes == cpu.nbytes
+    rng = np.random.default_rng(2)
+    for step, scale in enumerate((1.0, 1e-3, 1e-37, 1e-39, 1e-44, 0.0)):
+        ids = rng.choice(n, m, replace=False)
+        assert _bits_equal(gpu.gather(ids).cpu(), cpu.gather(ids))
+        ef = (rng.standard_normal((m, d)) * scale).astype(np.float32)
+        ef[0, :5] = -0.0
+        gpu.scatter(ids, torch.from_numpy(ef).to(card))
+        cpu.scatter(ids, torch.from_numpy(ef))
+    every = np.arange(n)
+    assert _bits_equal(gpu.gather(every).cpu(), cpu.gather(every))
+
+
+@pytest.mark.parametrize("engine,per_window", [("batched", 1),
+                                               ("loop", 64)])
+def test_population_run_on_the_card_matches_the_cpu(card, monkeypatch,
+                                                    engine, per_window):
+    """The population task at N = 100,000, M = 64, 8 rounds with the dense
+    store on the card: each LGC row kernel launched once per window
+    (batched) or once per cohort row (loop), every sync bitwise the plain
+    row pipeline on the same card tensors, no host sync inside a window,
+    and the cohorts, participation and History against the CPU run."""
+    from repro_torch.core import FLConfig, population
+    from repro_torch.core.population import (make_population,
+                                             make_population_task,
+                                             run_population)
+    kern = pk.lgc_compress_hist_rows
+    seen = []
+
+    def checked(e, delta, cum_ks, recv):
+        g, e_new = kern(e, delta, cum_ks, recv)
+        if not e.is_cuda:                         # the CPU run's
+            return g, e_new
+        mode = torch.cuda.get_sync_debug_mode()   # the check's reads wait
+        torch.cuda.set_sync_debug_mode("default")
+        g_ref, e_ref = pref.hist_lgc_compress_rows(e, delta, cum_ks, recv)
+        seen.append(_bits_equal(g, g_ref) and _bits_equal(e_new, e_ref))
+        torch.cuda.set_sync_debug_mode(mode)
+        return g, e_new
+    monkeypatch.setattr(pk, "lgc_compress_hist_rows", checked)
+    window = population._window
+
+    def no_sync(*a, **k):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return window(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    monkeypatch.setattr(population, "_window", no_sync)
+    task = make_population_task(n_shards=8, n_train=1024, seed=0)
+    cfg = FLConfig(rounds=8, eval_every=4, backend="cuda")
+    pops, hists = {}, {}
+    for dev in (card, "cpu"):
+        pk.reset_launch_counts()
+        pops[dev] = make_population(task, 100_000, device=dev)
+        hists[dev] = run_population(pops[dev], cfg, "lgc", h=4,
+                                    m_cohort=64, engine=engine)
+        if dev is card:
+            torch.cuda.synchronize()
+            counts = dict(pk.LAUNCHES)
+    want = 2 * per_window
+    for name in ("maxabs_rows", "histogram_rows", "sparsify_ef_rows"):
+        assert counts[name] == want, (name, counts)
+    assert counts["maxabs"] == counts["sparsify_ef"] == 0
+    assert len(seen) == want and all(seen)
+    gpu, cpu = hists[card], hists["cpu"]
+    np.testing.assert_array_equal(pops[card].participation,
+                                  pops["cpu"].participation)
+    assert gpu.step == cpu.step and gpu.uplink_mb == cpu.uplink_mb
+    np.testing.assert_allclose(gpu.loss, cpu.loss, atol=1e-3)
+    np.testing.assert_allclose(gpu.energy_j, cpu.energy_j, rtol=1e-5)
+
+
+def test_qsgd_on_the_card_matches_the_cpu(card):
+    """QSGD's quantize and dequantize (flat and rows) on the card bitwise
+    the CPU's on the same inputs: the dequantize's scale / 127 is a true
+    division on both."""
+    from repro_torch.core import prng
+    from repro_torch.core.compressor import (qsgd_dequantize, qsgd_quantize,
+                                             qsgd_quantize_rows)
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((64, 7850)).astype(np.float32)
+    x *= np.float32(10.0) ** rng.integers(-30, 3, (64, 1))
+    keys = prng.split(prng.PRNGKey(9), 64)
+    out = {}
+    for dev in (card, "cpu"):
+        xd = torch.from_numpy(x).to(dev)
+        q, s = qsgd_quantize_rows(xd, keys.to(dev))
+        q1, s1 = qsgd_quantize(xd[0], prng.PRNGKey(2))
+        out[dev] = (q, s, qsgd_dequantize(q, s), q1, s1,
+                    qsgd_dequantize(q1, s1))
+    for a, b in zip(out[card], out["cpu"]):
+        assert _bits_equal(a.cpu(), b)
+
+
+def test_population_lgc_q8_on_the_card_matches_the_cpu(card, monkeypatch):
+    """``lgc_q8`` over the int8 store at N = 100,000, M = 64, 8 rounds:
+    every dequantized g on the card bitwise the CPU's dequantize of the
+    same codes and scales, and the cohorts, participation, uplink and
+    History against the CPU run."""
+    from repro_torch.core import FLConfig, fl_batched
+    from repro_torch.core.population import (make_population,
+                                             make_population_task,
+                                             run_population)
+    deq = fl_batched.qsgd_dequantize
+    seen = []
+
+    def checked(q, scale):
+        g = deq(q, scale)
+        if q.is_cuda:
+            seen.append(_bits_equal(g.cpu(), deq(q.cpu(), scale.cpu())))
+        return g
+    monkeypatch.setattr(fl_batched, "qsgd_dequantize", checked)
+    task = make_population_task(n_shards=8, n_train=1024, seed=0)
+    cfg = FLConfig(rounds=8, eval_every=4, backend="cuda")
+    pops, hists = {}, {}
+    for dev in (card, "cpu"):
+        pops[dev] = make_population(task, 100_000, ef_store="int8",
+                                    device=dev)
+        hists[dev] = run_population(pops[dev], cfg, "lgc_q8", h=4,
+                                    m_cohort=64)
+    assert len(seen) == 2 and all(seen)
+    gpu, cpu = hists[card], hists["cpu"]
+    np.testing.assert_array_equal(pops[card].participation,
+                                  pops["cpu"].participation)
+    assert gpu.step == cpu.step and gpu.uplink_mb == cpu.uplink_mb
+    np.testing.assert_allclose(gpu.loss, cpu.loss, atol=1e-3)
+    np.testing.assert_allclose(gpu.energy_j, cpu.energy_j, rtol=1e-5)

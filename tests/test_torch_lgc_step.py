@@ -317,7 +317,8 @@ def test_port_and_chip_smoke_import_no_reference_module():
     simulator = ["core.prng", "core.scenario", "core.channels",
                  "core.compressor", "core.error_feedback", "core.server",
                  "core.fl", "core.fl_batched", "core.controller",
-                 "core.audit", "optim.optimizers", "data.mnist",
+                 "core.audit", "core.population", "optim.optimizers",
+                 "data.mnist",
                  "data.partition", "data.shakespeare", "models.paper_models",
                  "models.lgc_transformer", "launch.quickstart",
                  "launch.profile_sim", "kernels.ops",
