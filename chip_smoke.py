@@ -57,6 +57,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    (at least one 0 among them), the row counters 24 and the flat ones 0,
    params and error memory bitwise equal to the device-by-device flat
    path (``rows=False``) from the same state;
+   then (phase 5b) the same task with its default ``sparse_gather``: 3
+   rounds through the ``maxabs`` and ``histogram`` row kernels (24
+   launches each over every leaf's model-dim rows, every other kernel 0),
+   params and error memory bitwise equal to the plain backend's from the
+   same state; its device-steps/s beside ``dense_masked``'s, the analytic
+   wire bytes (51,367,680 against 513,678,336) and peak memory; the
+   maxabs and histogram row kernels bitwise their plain versions and
+   timed at the sparse path's rows ((6,144, 9,216) and (64,000, 768)),
+   the selection's ms at the largest leaf; ``bucket_sparse`` for 3
+   rounds (no kernel); a checkpoint of the sparse run's state (bf16
+   params, (2, ...) f32 error memory, round counter) restored to the card
+   bitwise, with bytes and seconds; and ``repro_torch.launch.train`` in
+   process at full width in ``sync`` (AdamW with the clip) and
+   ``lgc_sparse``, each returning (its loss fell) with its seconds;
 6. a small f32 serve (qwen2-smoke), card against CPU with the same weights:
    8-token prefill into a 16-slot ring, 24 greedy steps past the wrap; the
    logits agree at rtol = atol = 1e-5 and the tokens are equal;
@@ -831,9 +845,9 @@ def main_path_task(scenario: str = "static"):
                      scenario=scenario)
 
 
-def phase_main_path() -> tuple[dict, object]:
-    """Returns the launch counts and u = e + delta of device 0's largest
-    leaf in round 2."""
+def phase_main_path() -> tuple[dict, object, float]:
+    """Returns the launch counts, u = e + delta of device 0's largest leaf
+    in round 2 and the run's device-steps/s."""
     import torch
     from repro_torch.kernels import LAUNCHES, ref, reset_launch_counts
     from repro_torch.launch.bench_histogram import capture_leaf_inputs
@@ -912,7 +926,7 @@ def phase_main_path() -> tuple[dict, object]:
         f"equal to the device-by-device flat path (launches {flat_counts})")
     del flat_task, fb
     (e, delta), = kept
-    return counts, ref.ftz_add(e, delta)
+    return counts, ref.ftz_add(e, delta), out["device_steps_per_s"]
 
 
 def phase_main_path_scenario(smi: str) -> dict:
@@ -972,6 +986,249 @@ def phase_main_path_scenario(smi: str) -> dict:
         f"and error memory bitwise equal to the device-by-device flat path "
         f"(launches {flat_counts})")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the sparse uplinks, checkpoints and the train driver
+# ---------------------------------------------------------------------------
+
+# the driver at full width: (mode, extra flags); the AdamW run warms its
+# learning rate up over 100 steps, so it takes a larger peak rate
+DRIVER_RUNS = (("sync", ["--steps", "12", "--lr", "1e-2"]),
+               ("lgc_sparse", ["--devices", "2", "--steps", "6",
+                               "--lr", "5e-2"]))
+SPARSE_WIRE, DENSE_WIRE = 51_367_680, 513_678_336
+
+
+def sparse_task(aggregate: str | None = None, backend: str = "cuda"):
+    """The full-width 100M task with the factory's default aggregate
+    (``sparse_gather``) unless another is named."""
+    from repro_torch.models.paper_models import make_task
+    kw = {} if aggregate is None else {"aggregate": aggregate}
+    return make_task("qwen2_100m", m_devices=M_DEVICES, preset="full",
+                     backend=backend, **kw)
+
+
+def phase_sparse_uplinks(smi: str, dense_steps_per_s: float) -> dict:
+    """``sparse_gather`` (the task's default) at full width through the
+    maxabs and histogram row kernels, bitwise the plain backend from the
+    same state; ``bucket_sparse``; the selection's cost; a checkpoint
+    round trip; the train driver in ``sync`` and ``lgc_sparse``.  Returns
+    the sparse run's launch counts, with the selection's and the row
+    kernels' times under "timing"."""
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    t_phase = time.perf_counter()
+    task = sparse_task()
+    check(task.step_cfg.aggregate == "sparse_gather",
+          f"the task's default aggregate is {task.step_cfg.aggregate}")
+    b = task.build()
+    plain = sparse_task(backend="exact")
+    pb = plain.build(params={k: v.clone() for k, v in b["params"].items()})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    out = task.run(ROUNDS)
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = out["losses"]
+    check(all(math.isfinite(x) for x in losses), f"sparse losses {losses}")
+    want = ROUNDS * N_KERNEL_LEAVES
+    check(counts["maxabs_rows"] == want and counts["histogram_rows"] == want,
+          f"sparse_gather launches {counts}, expected {want} for the maxabs "
+          f"and histogram row kernels")
+    check(all(v == 0 for k, v in counts.items()
+              if k not in ("maxabs_rows", "histogram_rows")),
+          f"sparse_gather launched another kernel: {counts}")
+    reset_launch_counts()
+    plain.run(ROUNDS)
+    torch.cuda.synchronize()
+    check(not any(LAUNCHES.values()), f"the plain run launched {LAUNCHES}")
+    for k in b["params"]:
+        check(bits_equal(pb["params"][k].view(torch.int16),
+                         b["params"][k].view(torch.int16)),
+              f"sparse_gather param {k}: kernels and plain versions differ")
+        check(bits_equal(pb["ef"][k], b["ef"][k]),
+              f"sparse_gather ef {k}: kernels and plain versions differ")
+    wire = out["wire_bytes_per_round_per_device"]
+    check((wire, sparse_task("dense_masked").wire_bytes_per_round())
+          == (SPARSE_WIRE, DENSE_WIRE), f"wire bytes {wire}")
+    log(f"sparse_gather: qwen2_100m full width, M={M_DEVICES}, "
+        f"{ROUNDS} rounds; losses {losses}; device-steps/s "
+        f"{out['device_steps_per_s']:.3f} (rounds 2-{ROUNDS}) against "
+        f"dense_masked's {dense_steps_per_s:.3f} in this call; wire "
+        f"bytes/round/device {wire:,} against dense_masked's "
+        f"{DENSE_WIRE:,}; peak device memory {peak_gib:.2f} GiB; {smi}")
+    log(f"sparse_gather: kernel launches {counts}; params and error memory "
+        f"bitwise equal to the plain backend's from the same state")
+    counts["timing"] = time_sparse_selection(task)
+    del plain, pb
+
+    bucket = sparse_task("bucket_sparse")
+    bucket.build(params={k: v.clone() for k, v in b["params"].items()})
+    reset_launch_counts()
+    bout = bucket.run(ROUNDS)
+    torch.cuda.synchronize()
+    check(all(math.isfinite(x) for x in bout["losses"]),
+          f"bucket_sparse losses {bout['losses']}")
+    check(not any(LAUNCHES.values()),
+          f"bucket_sparse launched a kernel: {LAUNCHES}")
+    log(f"bucket_sparse: losses {bout['losses']}; device-steps/s "
+        f"{bout['device_steps_per_s']:.3f} (rounds 2-{ROUNDS}); no LGC "
+        f"kernel launched")
+    del bucket
+
+    phase_checkpoint(b)
+    del task, b
+    torch.cuda.empty_cache()
+    phase_driver()
+    log(f"phase 5b (sparse uplinks, selection timing, checkpoint, driver): "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def time_sparse_selection(task) -> dict:
+    """ms of one leaf's sparse compression (the largest leaf's model-dim
+    view at M=2) in each mode, against its statistics alone and against
+    the dense path's ``lgc_compress_hist_rows`` of the same leaf."""
+    import torch
+    from repro_torch.kernels import lgc_compress_hist_rows
+    from repro_torch.launch import steps
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows, cols = 3072, LARGEST_LEAF // 3072      # w_gate: (12, 768, 3072)
+    d = torch.randn(M_DEVICES, rows, cols, generator=gen, device="cuda")
+    e = torch.randn(M_DEVICES, rows, cols, generator=gen, device="cuda")
+    d, e = d * 1e-3, e * 1e-4
+    sp = task.step_cfg.sparsity
+    recv = torch.ones((M_DEVICES, len(sp)), dtype=torch.int32, device="cuda")
+    cum = steps._leaf_cum_ks(cols, sp, "cuda")
+    cum_flat = steps._leaf_cum_ks(LARGEST_LEAF, sp, "cuda").expand(
+        M_DEVICES, -1)
+    e2, d2 = e.reshape(-1, cols), d.reshape(-1, cols)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")     # no host sync in a leaf
+    try:
+        steps._compress_leaf_sparse(e, d, sp, recv, kernels=True, cum_ks=cum)
+        steps._compress_leaf_bucket(e, d, sp, recv)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    # one call between two events: its enqueue (about 5 ms of host for
+    # some 60 launches) stays ahead of its device time
+    out = {
+        "sparse_compress_ms": time_ms(lambda: steps._compress_leaf_sparse(
+            e, d, sp, recv, kernels=True, cum_ks=cum)),
+        "bucket_compress_ms": time_ms(lambda: steps._compress_leaf_bucket(
+            e, d, sp, recv)),
+        "row_stats_ms": time_ms(lambda: steps._row_stats(e2, d2)),
+        "dense_compress_ms": time_ms(
+            lambda: lgc_compress_hist_rows(e.reshape(M_DEVICES, -1),
+                                           d.reshape(M_DEVICES, -1),
+                                           cum_flat, recv)),
+        "shape": [M_DEVICES, rows, cols]}
+    out["rows"] = time_sparse_rows(gen, ((M_DEVICES * rows, cols),
+                                         (M_DEVICES * 32_000, 768)))
+    log(f"sparse selection at the largest leaf's view {out['shape']} (no "
+        f"host sync in either sparse mode), ms of one call: sparse_gather "
+        f"{out['sparse_compress_ms']:.3f} (the row kernels' statistics "
+        f"{out['row_stats_ms']:.3f}), bucket_sparse "
+        f"{out['bucket_compress_ms']:.3f}, against dense_masked's "
+        f"lgc_compress_hist_rows {out['dense_compress_ms']:.3f}")
+    return out
+
+
+def time_sparse_rows(gen, shapes) -> dict:
+    """``sum_maxabs_rows`` and ``histogram_rows`` at the sparse path's
+    (M x R, n) rows (the largest leaf's and embed's model-dim views at
+    M=2): bitwise their plain row versions, then timed beside them (and
+    ``vector_norm(u, inf, dim=1)`` for maxabs).  Returns {kernel:
+    {"RxN": row}}."""
+    import torch
+    from repro_torch.kernels import histogram_rows, ref, sum_maxabs_rows
+    out: dict = {"maxabs": {}, "histogram": {}}
+    for r, n in shapes:
+        x = torch.randn(r, n, generator=gen, device="cuda") * 1e-3
+        e = torch.randn(r, n, generator=gen, device="cuda") * 1e-4
+        u, mx = sum_maxabs_rows(e, x)
+        u_ref = ref.ftz_add(e, x)
+        check(bits_equal(u, u_ref) and bits_equal(mx, ref.hist_maxabs_rows(
+            u_ref)) and bits_equal(histogram_rows(u, mx),
+                                   ref.hist_counts_rows(u_ref, mx)),
+              f"the row kernels differ from their plain versions at the "
+              f"sparse path's ({r}, {n})")
+        rn = r * n
+        cases = {
+            "maxabs": (lambda: sum_maxabs_rows(e, x),
+                       lambda: ref.hist_maxabs_rows(ref.ftz_add(e, x)),
+                       lambda: torch.linalg.vector_norm(u, float("inf"),
+                                                        dim=1),
+                       12 * rn + 4 * r, 2 * rn),
+            "histogram": (lambda: histogram_rows(u, mx),
+                          lambda: ref.hist_counts_rows(u, mx), None,
+                          4 * rn + 4 * r + 4 * 256 * r, 3 * rn)}
+        for name, case in cases.items():
+            row = time_row(n, *case) | {"shape": [r, n]}
+            out[name][f"{r}x{n}"] = row
+            log_row(ROW_KERNELS[name], f"(R, n)=({r}, {n}), sparse_gather",
+                    row)
+        del x, e, u, u_ref
+    return out
+
+
+def phase_checkpoint(b: dict) -> None:
+    """The sparse run's bf16 params, stacked (M, ...) f32 error memory and
+    round counter saved and restored bitwise, with bytes and seconds."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint import restore, save_checkpoint
+    path = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(path, ignore_errors=True)
+    state = {"params": b["params"], "ef": b["ef"], "round": ROUNDS}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step_dir = pathlib.Path(save_checkpoint(str(path), ROUNDS, state))
+    save_s = time.perf_counter() - t0
+    n_bytes = sum(f.stat().st_size for f in step_dir.iterdir())
+    like = {"params": {k: torch.zeros_like(v) for k, v in
+                       b["params"].items()},
+            "ef": {k: torch.zeros_like(v) for k, v in b["ef"].items()},
+            "round": 0}
+    t0 = time.perf_counter()
+    back, step = restore(str(path), like)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    shutil.rmtree(path, ignore_errors=True)
+    check(step == ROUNDS and back["round"] == ROUNDS,
+          f"checkpoint step {step}")
+    for part in ("params", "ef"):
+        for k, v in state[part].items():
+            w = back[part][k]
+            check(w.device == v.device and bits_equal(
+                w.view(torch.int16) if w.dtype == torch.bfloat16 else w,
+                v.view(torch.int16) if v.dtype == torch.bfloat16 else v),
+                f"checkpoint {part} {k} did not round-trip")
+    log(f"checkpoint: {n_bytes:,} B in {len(state['params'])} + "
+        f"{len(state['ef'])} + 1 leaves saved in {save_s:.2f} s, restored "
+        f"to the card bitwise in {load_s:.2f} s")
+
+
+def phase_driver() -> None:
+    """``python -m repro_torch.launch.train`` in process at full width on
+    qwen2-100m, in ``sync`` (AdamW with the clip) and ``lgc_sparse``; each
+    returns (its loss fell) instead of exiting 1."""
+    from repro_torch.launch import train
+    for mode, extra in DRIVER_RUNS:
+        argv = ["--arch", "qwen2-100m", "--mode", mode, "--log-every", "3",
+                *extra]
+        t0 = time.perf_counter()
+        try:
+            losses = train.main(argv)
+        except SystemExit as exc:
+            raise AssertionError(f"chip_smoke: train {' '.join(argv)} "
+                                 f"exited {exc.code}") from exc
+        log(f"driver: train {' '.join(argv)}: exit 0 in "
+            f"{time.perf_counter() - t0:.1f} s, loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}")
 
 
 # ---------------------------------------------------------------------------
@@ -2339,8 +2596,9 @@ def main() -> int:
     phase_kernels(gen, errs)
     phase_swa(gen, errs)
     phase_small_trainer()
-    launches, main_u = phase_main_path()
+    launches, main_u, dense_steps_per_s = phase_main_path()
     flaky_launches = phase_main_path_scenario(smi)
+    sparse_launches = phase_sparse_uplinks(smi, dense_steps_per_s)
     phase_small_serve()
     serving = phase_serve()
     phase_prng()
@@ -2372,6 +2630,10 @@ def main() -> int:
                         "at_one_bin": rows[name]["one_bin"]}
             if name == "maxabs":
                 row["at_sum"] = rows[name]["sum"]
+            if name != "sparsify_ef":
+                row["launches_sparse_gather"] = sparse_launches[rn]
+                row["at_sparse_gather_rows"] = sparse_launches["timing"][
+                    "rows"][name]
             row |= {"launches_simulator": {
                         tag: c[name] + c[rn]
                         for tag, c in sim_launches.items()},

@@ -724,7 +724,7 @@ class FleetDDPG:
         leaves = [optim.tree_leaves(_layers(g[j], self.sizes[name]))
                   for j in range(g.shape[0])]
         norms = torch.stack([optim.global_norm(lv) for lv in leaves])
-        scale = torch.clamp(self._ocfg.grad_clip / (norms + 1e-9), max=1.0)
+        scale = optim.clip_scale(norms, self._ocfg.grad_clip)
         return optim.adamw_apply(self._ocfg, g * scale[:, None], state,
                                  params, clipped=True)
 

@@ -46,6 +46,8 @@ is jax's ``_shuffle`` (rounds of a stable sort of the arange by fresh
 the "low" mode under XLA:CPU's ``log``, and ``xla_sum`` XLA:CPU's f32
 ``jnp.sum`` order (windows of 32 summed in turn, tree-reduction style), so
 the cohort ids are jax's bit for bit (tests/test_torch_population.py).
+``xla_sum_squares`` extends that order to the sum of squares of an array
+of any rank (the optimizers' global norm, tests/test_torch_train.py).
 """
 from __future__ import annotations
 
@@ -498,6 +500,133 @@ def xla_sum(x: torch.Tensor) -> torch.Tensor:
     for j in range(x.numel()):
         acc = ftz(acc + x[j])
     return acc
+
+
+# XLA:CPU's order for a full f32 reduce of an N-d array (jax 0.9.0, x86-64,
+# read off the optimized LLVM IR of jitted ``jnp.sum``).  The tree-reduction
+# rewriter turns the reduce into ``reduce-window`` passes while a dim
+# exceeds 32: each such dim gets windows of 32, zero-padded evenly (the
+# extra one after), the others one window of their whole size; the last
+# pass reduces the <= 32-wide rest.  Each window is a loop nest, outer dim
+# first.  LLVM unrolls the innermost loop and, for 2 <= g <= 8 elements a
+# row, vectorizes the loop over the n rows of the next dim: lane l takes
+# rows l, l+v, ... (lane 0 starting from the running sum), the lanes are
+# added by halves, then the rows left over are added in turn
+# (:func:`_xla_lanes`).  A window dim padded on both sides guards each row,
+# which stops that vectorization; a dim padded by one after (lo 0, hi 1)
+# has its last index peeled off and added after the rest of the nest.  A
+# reduce with no window pass takes its producer into the loop: for
+# ``jnp.sum(jnp.square(x))`` each add is then a fused multiply-add.
+
+
+def _xla_lanes(n: int, g: int, fused: bool) -> int:
+    """The vector width LLVM gives a loop of n rows of g unrolled adds
+    (``fused``: of squares taken in the loop)."""
+    if not 2 <= g <= 8 or n < 2:
+        return 0
+    if n < 16:
+        return n if n in (2, 4, 8) else 0
+    if g >= 7 and not fused:
+        return 4
+    if n == 32 or n % 8 < 4 or (g == 2 and n > 24):
+        return 8
+    return 4
+
+
+def _fma_sq(acc: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return ftz(fma32(x, x, acc))
+
+
+def _add_sq(acc: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return ftz(acc + ftz(x * x))
+
+
+def _xla_block(t: torch.Tensor, fused: bool = False,
+               vectorize: bool = True) -> torch.Tensor:
+    """(N, *w) -> (N,): each block of t reduced in XLA:CPU's loop order.
+    ``fused``: t holds the values whose squares are summed, in a loop that
+    squares them itself (an FMA each, except in vector lanes over rows of
+    more than 4, where the squares are rounded before the add)."""
+    add = _fma_sq if fused else torch.add
+    n_blk, w = t.shape[0], t.shape[1:]
+    acc = torch.zeros(n_blk, dtype=_F32, device=t.device)
+    if len(w) < 2:
+        for v in t.reshape(n_blk, -1).unbind(1):
+            acc = add(acc, v)
+        return acc
+    n, g = w[-2], w[-1]
+    lanes = _xla_lanes(n, g, fused) if vectorize else 0
+    n_vec = n - n % lanes if lanes else 0
+    vec_add = _add_sq if fused and g > 4 else add
+    for blk in t.reshape(n_blk, -1, n, g).unbind(1):
+        if n_vec:
+            vec = torch.zeros(n_blk, lanes, dtype=_F32, device=t.device)
+            vec[:, 0] = acc
+            for base in range(0, n_vec, lanes):
+                for j in range(g):
+                    vec = vec_add(vec, blk[:, base:base + lanes, j])
+            while vec.shape[1] > 1:
+                half = vec.shape[1] // 2
+                vec = vec[:, :half] + vec[:, half:]
+            acc = vec[:, 0]
+        for v in blk[:, n_vec:].reshape(n_blk, -1).unbind(1):
+            acc = add(acc, v)
+    return acc
+
+
+def _xla_window_pass(x: torch.Tensor) -> torch.Tensor:
+    """One ``reduce-window`` pass over every dim of x (no dim is 1), of
+    rounded squares: no add needs a flush."""
+    dims = list(x.shape)
+    k = len(dims)
+    win = [min(d, _XLA_WINDOW) for d in dims]
+    out = [-(-d // w) for d, w in zip(dims, win)]
+    pads = [o * w - d for o, w, d in zip(out, win, dims)]
+    pad_arg = []
+    for p in reversed(pads):
+        pad_arg += [p // 2, p - p // 2]
+    x = torch.nn.functional.pad(x, pad_arg)
+    x = x.reshape([v for o, w in zip(out, win) for v in (o, w)])
+    x = x.permute(*range(0, 2 * k, 2), *range(1, 2 * k, 2)).reshape(-1, *win)
+    peel = [d for d in range(k) if pads[d] == 1]
+    main = x
+    for d in peel:
+        main = main.narrow(d + 1, 0, win[d] - 1)
+    guarded = k >= 2 and pads[k - 2] > 1
+    acc = _xla_block(main, vectorize=not guarded)
+    # the peeled last indices, outer peeled dim first, their corner last
+    for d in peel:
+        idx = [slice(None)] + [slice(0, w - 1) if e in peel else slice(None)
+                               for e, w in enumerate(win)]
+        idx[d + 1] = slice(win[d] - 1, win[d])
+        for v in x[tuple(idx)].reshape(x.shape[0], -1).unbind(1):
+            acc = acc + v
+    if len(peel) > 1:
+        idx = [slice(None)] + [slice(w - 1, w) if e in peel else slice(None)
+                               for e, w in enumerate(win)]
+        for v in x[tuple(idx)].reshape(x.shape[0], -1).unbind(1):
+            acc = acc + v
+    return acc.reshape(out)
+
+
+def xla_sum_squares(x: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's f32 ``jnp.sum(jnp.square(x))`` of an array of any rank.
+
+    With a window pass the squares are rounded and flushed first (their
+    own kernel), and partial sums of flushed squares are never subnormal;
+    without one each add is a fused multiply-add of the square
+    (:func:`fma32`) but in vector lanes over rows of 5 to 8.  Not
+    reproduced, so possibly a last bit off: a 3-d window with two dims
+    padded by one, such as (63, 63, 4)'s."""
+    x = ftz(x.to(_F32))
+    x = x.reshape([d for d in x.shape if d != 1])
+    if not x.dim() or max(x.shape) <= _XLA_WINDOW:
+        return _xla_block(x.reshape(1, *x.shape), fused=True)[0]
+    x = ftz(x * x)
+    while max(x.shape) > _XLA_WINDOW:
+        x = _xla_window_pass(x)
+        x = x.reshape([d for d in x.shape if d != 1])
+    return _xla_block(x.reshape(1, *x.shape))[0]
 
 
 def top_k_indices(x: torch.Tensor, k: int) -> torch.Tensor:

@@ -1,9 +1,9 @@
 """The LGC train step (the paper's Algorithm 1 on one card) and the serving
 steps.
 
-Port of ``repro/launch/steps.py:51-166``, ``:329-518`` and ``:525-537``.
-The reference maps the M FL devices onto a mesh axis with ``shard_map``;
-here the M devices live on the one card:
+Port of ``repro/launch/steps.py``.  The reference maps the M FL devices
+onto a mesh axis with ``shard_map``; here the M devices live on the one
+card:
 
   * each device runs H local SGD steps from the same params on its own slice
     of the batch (``w.f32 - lr * g.f32``, cast back to ``w.dtype``), one
@@ -13,7 +13,15 @@ here the M devices live on the one card:
     feedback (``aggregate="dense_masked"``) in one launch of each LGC row
     kernel over the M rows (:func:`kernels.lgc_compress_hist_rows`), or sent
     dense (``aggregate="none"``, the FedAvg baseline);
-  * the mean over devices replaces ``pmean``, and the server subtracts it.
+  * the mean over devices replaces ``pmean``, and the server subtracts it;
+  * ``sparse_gather`` sends per channel the top k_eff of the channel's
+    magnitude band (u and its row maxima from one launch of the maxabs row
+    kernel per leaf, the bands' thresholds from one launch of the histogram
+    row kernel), and ``bucket_sparse`` the largest-magnitude element of
+    each of K strided buckets (no kernel, as in the reference).  The
+    reference's ``all_gather`` of the (values, indices) pairs becomes the
+    M stacked rows, and the server adds them channel by channel, device by
+    device within a channel, in the reference's order.
 
 Leaves of at least ``pallas_min_elems`` elements take the CUDA kernels when
 ``backend`` is ``"cuda"`` (``"pallas"`` is accepted as a synonym so the
@@ -25,7 +33,9 @@ the same params and error memory as compressing device by device
 Arithmetic outside the kernels flushes f32 subnormals as the reference's
 does (``core.fl.sgd_update``, ``kernels.ref.ftz``).
 
-``sparse_gather`` and ``bucket_sparse`` are not ported yet (ROADMAP A13).
+``make_sync_train_step`` is the framework baseline: one optimizer step on
+the whole batch (microbatches accumulated in f32), through
+:mod:`repro_torch.optim`.
 
 ``make_prefill_step`` and ``make_serve_step`` wrap ``transformer.prefill``
 and ``transformer.decode_step`` under ``torch.inference_mode()``, so no
@@ -34,6 +44,7 @@ autograd state keeps a layer's activations alive.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Sequence
 
 import numpy as np
@@ -43,13 +54,23 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.compressor import PALLAS_MIN_ELEMS
 from repro_torch.core.fl import sgd_update
 from repro_torch.device import resolve_device
-from repro_torch.kernels import lgc_compress_hist, lgc_compress_hist_rows
+from repro_torch.kernels import (histogram_rows, lgc_compress_hist,
+                                 lgc_compress_hist_rows, sum_maxabs_rows,
+                                 thresholds_from_counts)
 from repro_torch.kernels import ref as kref
 from repro_torch.models import transformer as tf
+from repro_torch.optim.optimizers import (OptimizerConfig, apply_updates,
+                                          get_optimizer)
 
-AGGREGATES = ("dense_masked", "none")
-NOT_PORTED_AGGREGATES = ("sparse_gather", "bucket_sparse")
+AGGREGATES = ("dense_masked", "sparse_gather", "bucket_sparse", "none")
 BACKENDS = ("exact", "cuda", "pallas")
+
+# the reference's per-arch gradient-accumulation defaults (steps.py:42-46)
+ACCUM_STEPS = {
+    "glm4-9b": 4, "yi-34b": 8, "grok-1-314b": 8, "starcoder2-7b": 4,
+    "phi-3-vision-4.2b": 4, "olmoe-1b-7b": 2, "qwen2-1.5b": 2,
+    "mamba2-370m": 2, "zamba2-1.2b": 2, "whisper-small": 2,
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,7 +78,8 @@ class LGCStepConfig:
     local_steps: int = 4                   # H: local SGD steps per sync
     local_lr: float = 1e-3
     sparsity: tuple = (0.01, 0.02, 0.02)   # per-channel k_c / D fractions
-    aggregate: str = "dense_masked"        # dense_masked | none
+    # dense_masked | sparse_gather | bucket_sparse | none
+    aggregate: str = "dense_masked"
     ef_dtype: str = "float32"
     # dtype of the exchanged masked update; its rounding residue joins the
     # error memory as in the reference
@@ -68,12 +90,9 @@ class LGCStepConfig:
     pallas_min_elems: int = PALLAS_MIN_ELEMS
 
     def __post_init__(self):
-        if self.aggregate in NOT_PORTED_AGGREGATES:
-            raise NotImplementedError(
-                f"aggregate={self.aggregate!r} is not ported yet (ROADMAP "
-                f"A13); ported: {AGGREGATES}")
         if self.aggregate not in AGGREGATES:
-            raise ValueError(f"unknown aggregate {self.aggregate!r}")
+            raise ValueError(f"unknown aggregate {self.aggregate!r}; "
+                             f"choose from {AGGREGATES}")
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}; "
                              f"choose from {BACKENDS}")
@@ -83,6 +102,58 @@ class LGCStepConfig:
     @property
     def n_channels(self) -> int:
         return len(self.sparsity)
+
+
+# ---------------------------------------------------------------------------
+# sync (standard data-parallel) training -- the framework baseline
+# ---------------------------------------------------------------------------
+
+def make_sync_train_step(cfg: ArchConfig, *, accum_steps: int = 1,
+                         opt_cfg: OptimizerConfig | None = None):
+    """``f(params, opt_state, batch) -> (params, opt_state, loss)``: one
+    step of ``cfg.optimizer`` on the gradient of the whole batch (the
+    reference's ``make_sync_train_step``, steps.py:84-114).  With
+    ``accum_steps > 1`` the batch is split into that many microbatches of
+    consecutive rows whose gradients are summed in f32, then divided and
+    cast to each parameter's dtype, and whose losses are averaged."""
+    _, opt_update = get_optimizer(cfg.optimizer, opt_cfg)
+
+    def loss_and_grads(params, tokens, labels):
+        names = list(params)
+        leaves = [params[k].detach().requires_grad_(True) for k in names]
+        with torch.enable_grad():
+            loss = tf.lm_loss(dict(zip(names, leaves)), cfg,
+                              {"tokens": tokens, "labels": labels})
+            grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), dict(zip(names, grads))
+
+    @torch.no_grad()
+    def train_step(params, opt_state, batch):
+        tokens, labels = batch["tokens"], batch["labels"]
+        if accum_steps == 1:
+            loss, grads = loss_and_grads(params, tokens, labels)
+        else:
+            if tokens.shape[0] % accum_steps:
+                raise ValueError(f"batch {tokens.shape[0]} is not divisible "
+                                 f"by accum_steps={accum_steps}")
+            mb = tokens.shape[0] // accum_steps
+            loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+            g_sum = {k: torch.zeros(p.shape, dtype=torch.float32,
+                                    device=p.device)
+                     for k, p in params.items()}
+            for i in range(accum_steps):
+                rows = slice(i * mb, (i + 1) * mb)
+                l_i, g_i = loss_and_grads(params, tokens[rows], labels[rows])
+                loss = loss + l_i
+                g_sum = {k: kref.ftz_add(g_sum[k], g_i[k].float())
+                         for k in g_sum}
+            loss = kref.div_f32(loss, accum_steps)
+            grads = {k: kref.ftz(kref.div_f32(g, accum_steps)).to(
+                params[k].dtype) for k, g in g_sum.items()}
+        updates, opt_state = opt_update(grads, opt_state, params)
+        return apply_updates(params, updates), opt_state, loss
+
+    return train_step
 
 
 # ---------------------------------------------------------------------------
@@ -131,6 +202,174 @@ def _compress_leaf_dense(e: torch.Tensor, delta: torch.Tensor, sparsity,
     return g.reshape(shape), e_new.reshape(shape)
 
 
+def _band_top_k(band: torch.Tensor, k: int) -> torch.Tensor:
+    """The non-zero entries of each row of ``band`` (M, n) that
+    ``lax.top_k(band, k)`` selects, as a bool mask: those above the row's
+    k-th largest value v, and of those equal to v the lowest-index ones
+    that fill k.  Ties at v are what ``torch.topk`` leaves unordered, so
+    only its values are used, and the tie is resolved with a running count
+    of the equal entries (no host sync)."""
+    v = torch.topk(band, k, dim=1, sorted=False).values.amin(1, keepdim=True)
+    above = band > v
+    room = k - above.sum(1, keepdim=True, dtype=torch.int32)
+    tied = band == v
+    first = torch.cumsum(tied, 1, dtype=torch.int32) <= room
+    return (above | (tied & first)) & (band > 0)
+
+
+# the leaf dim each name's PartitionSpec shards over "model" in the
+# reference's sharding_rules.param_specs (the ported dense family), before
+# the stacked-layer dim; the sparse uplinks select along rows of that dim
+_MODEL_DIM = {"embed": 0, "wq": 1, "wk": 1, "wv": 1, "wo": 0, "bq": 0,
+              "bk": 0, "bv": 0, "w_gate": 1, "w_up": 1, "w_down": 0}
+
+
+def leaf_model_axis(path: str, ndim: int) -> int | None:
+    """The dim of leaf ``path`` (``"blocks/attn/wq"``) that the reference's
+    spec shards over "model", or None.  The reference's sparse uplinks
+    move it to the front and select per row of that view (its
+    ``_compress_leaf_sparse`` with the task's param specs); the view
+    exists whatever the size of the model axis, also on one card."""
+    names = path.split("/")
+    dim = _MODEL_DIM.get(names[-1])
+    if dim is None:
+        return None
+    dim += names[0] == "blocks"
+    return dim if dim < ndim else None
+
+
+def _server_add(g_sum: torch.Tensor | None, sent: torch.Tensor
+                ) -> torch.Tensor:
+    """Add one channel's sent rows (M, R, n) to the server's sum, device by
+    device, each add flushed: called channel after channel, this is the
+    reference's order of scatter-adds of the gathered pairs (channel
+    outer, device inner, steps.py:221-249)."""
+    for dev in sent.unbind(0):
+        g_sum = dev.clone() if g_sum is None else kref.ftz_add(g_sum, dev)
+    return g_sum
+
+
+def _leaf_result(g_sum, u: torch.Tensor, g_own: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(g_mean, e_new) from the server's sum and the devices' own sent
+    mass, all (M, R, n)."""
+    if g_sum is None:
+        g_sum = torch.zeros_like(u[0])
+    return (kref.ftz(kref.div_f32(g_sum, u.shape[0])),
+            kref.ftz_add(u, -g_own))
+
+
+def _row_mask(received: torch.Tensor, rows: int) -> torch.Tensor:
+    """(M, C) delivery masks as (M R, C) bools, device m's on its R rows
+    (an expand: ``repeat_interleave`` would read the count back to the
+    host on the card)."""
+    m_dev, n_ch = received.shape
+    return (received > 0)[:, None, :].expand(m_dev, rows, n_ch).reshape(
+        m_dev * rows, n_ch)
+
+
+# the row kernels put a row on each blockIdx.y, at most 65,535 of them
+MAX_KERNEL_ROWS = 65_535
+
+
+def _row_stats(e: torch.Tensor, delta: torch.Tensor):
+    """u = e + delta, its row maxima and 256-bin counts through the maxabs
+    and histogram row kernels: one launch of each for up to
+    ``MAX_KERNEL_ROWS`` rows (every leaf of the 100M model at M = 2), one
+    per block of that many rows beyond."""
+    if e.shape[0] <= MAX_KERNEL_ROWS:
+        u, mx = sum_maxabs_rows(e, delta)
+        return u, mx, histogram_rows(u, mx)
+    parts = [_row_stats(e[i:i + MAX_KERNEL_ROWS], delta[i:i + MAX_KERNEL_ROWS])
+             for i in range(0, e.shape[0], MAX_KERNEL_ROWS)]
+    return tuple(torch.cat(ts) for ts in zip(*parts))
+
+
+def _compress_leaf_sparse(e: torch.Tensor, delta: torch.Tensor, sparsity,
+                          received: torch.Tensor, *, kernels: bool = False,
+                          cum_ks: torch.Tensor | None = None
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Layered top-k exchange of one leaf over the M devices: e, delta
+    (M, R, n), the leaf viewed as R rows of n (its model dim first,
+    :func:`leaf_model_axis`; R = 1 without one), and received (M, C).
+    Returns (g_mean (R, n), e_new (M, R, n)), f32.
+
+    Port of ``_compress_leaf_sparse`` (steps.py:179-257) with the FL axis
+    on the devices.  u = e + delta and the maxima of its M R rows come
+    from one launch of the maxabs row kernel and their 256-bin counts from
+    one of the histogram row kernel when ``kernels``, else from their
+    plain versions (the same bits).  Channel c of each row sends the top
+    k_eff = k_c + max(1, n // 256) of its band thr_c < |u| <= thr_{c-1}
+    (a zero slot sends nothing); what a device sends, or would have sent
+    on a dropped channel, is held as rows with zeros elsewhere, one
+    channel at a time."""
+    m_dev, rows, cols = delta.shape
+    e = e.reshape(m_dev * rows, cols)
+    delta = delta.reshape(m_dev * rows, cols)
+    if kernels:
+        u, mx, counts = _row_stats(e.contiguous(), delta.contiguous())
+    else:
+        u = kref.ftz_add(e, delta)
+        mx = kref.hist_maxabs_rows(u)
+        counts = kref.hist_counts_rows(u, mx)
+    ks = _leaf_ks(cols, sparsity)
+    if cum_ks is None:
+        cum_ks = _leaf_cum_ks(cols, sparsity, u.device)
+    thr = thresholds_from_counts(counts, mx, cum_ks.expand(m_dev * rows, -1))
+    recv = _row_mask(received, rows)
+    a = u.abs()
+    g_own, g_sum = torch.zeros_like(u), None
+    for c, k_c in enumerate(ks):
+        if k_c == 0:
+            continue
+        hi = thr[:, c - 1:c] if c else torch.full_like(thr[:, :1], math.inf)
+        band = torch.where((a <= hi) & (a > thr[:, c:c + 1]), a,
+                           torch.zeros_like(a))
+        k_eff = min(k_c + max(1, cols // kref.N_BINS), cols)
+        take = _band_top_k(band, k_eff) & recv[:, c:c + 1]
+        del band
+        sent = torch.where(take, u, torch.zeros_like(u))
+        g_own = kref.ftz_add(g_own, sent)
+        g_sum = _server_add(g_sum, sent.view(m_dev, rows, cols))
+    shape = (m_dev, rows, cols)
+    return _leaf_result(g_sum, u.view(shape), g_own.view(shape))
+
+
+def _compress_leaf_bucket(e: torch.Tensor, delta: torch.Tensor, sparsity,
+                          received: torch.Tensor
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Bucketed layered selection of one leaf over the M devices, in the
+    layouts of :func:`_compress_leaf_sparse` (``_compress_leaf_bucket``,
+    steps.py:259-327): each row split into k_eff = n // bucket strided
+    buckets of ``bucket = max(n // K, 1)``, each bucket's first largest
+    |u|; channel c carries buckets [sum ks[:c], sum ks[:c+1]), and the
+    tail buckets past K and dropped channels stay in the error memory."""
+    m_dev, rows, cols = delta.shape
+    u = kref.ftz_add(e, delta).reshape(m_dev * rows, cols)
+    ks = _leaf_ks(cols, sparsity)
+    bucket = max(cols // sum(ks), 1)
+    k_eff = cols // bucket
+    ub = u[:, :k_eff * bucket].reshape(-1, k_eff, bucket)
+    pos = torch.argmax(ub.abs(), -1)                   # first among ties
+    idx = torch.arange(k_eff, device=u.device) * bucket + pos
+    vals = torch.gather(ub, 2, pos[..., None])[..., 0]
+    recv = _row_mask(received, rows)
+    g_own, g_sum = torch.zeros_like(u), None
+    lo = 0
+    for c, k_c in enumerate(ks):
+        hi = min(lo + k_c, k_eff)
+        if hi <= lo:
+            break
+        v_c = torch.where(recv[:, c:c + 1], vals[:, lo:hi],
+                          torch.zeros_like(vals[:, lo:hi]))
+        sent = torch.zeros_like(u).scatter_(1, idx[:, lo:hi], v_c)
+        g_own = kref.ftz_add(g_own, sent)
+        g_sum = _server_add(g_sum, sent.view(m_dev, rows, cols))
+        lo = hi
+    shape = (m_dev, rows, cols)
+    return _leaf_result(g_sum, u.view(shape), g_own.view(shape))
+
+
 # ---------------------------------------------------------------------------
 # the LGC train step
 # ---------------------------------------------------------------------------
@@ -154,7 +393,8 @@ def make_lgc_train_step(cfg: ArchConfig, m_devices: int,
 
     ``rows=False`` compresses each device's leaves with the flat kernels
     one device after another: the same bits in M times the launches, kept
-    only to hold the row path against.
+    only to hold the row path against (``dense_masked``; the sparse modes
+    always take the rows).
     """
     h, n_ch, lr = step_cfg.local_steps, step_cfg.n_channels, step_cfg.local_lr
     wire_dt = _dtype(step_cfg.psum_dtype)
@@ -208,6 +448,42 @@ def make_lgc_train_step(cfg: ArchConfig, m_devices: int,
         return (torch.stack([g for g, _ in out]),
                 torch.stack([en for _, en in out]))
 
+    def compress_sparse(path: str, shape, e: torch.Tensor,
+                        delta: torch.Tensor, received: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(g_mean (n,), e_new (M, n)) of one leaf under a sparse
+        aggregate, selected along rows of the leaf's model dim."""
+        ax = leaf_model_axis(path, len(shape))
+        lead = shape[ax] if ax is not None else 1
+        rest = [d for i, d in enumerate(shape) if i != ax]
+
+        def to_rows(t):                   # (M, n) -> (M, lead, n / lead)
+            if ax is None:
+                return t.reshape(m_devices, 1, -1)
+            return t.reshape(m_devices, *shape).movedim(ax + 1, 1).reshape(
+                m_devices, lead, -1)
+
+        def from_rows(t, dev_dim: int):  # back to (n,) or (M, n)
+            if ax is None:
+                return t.reshape(*t.shape[:dev_dim], -1)
+            t = t.reshape(*t.shape[:dev_dim], lead, *rest)
+            return t.movedim(dev_dim, dev_dim + ax).reshape(
+                *t.shape[:dev_dim], -1)
+
+        e, delta = to_rows(e), to_rows(delta)
+        if step_cfg.aggregate == "bucket_sparse":
+            g_mean, e_new = _compress_leaf_bucket(e, delta,
+                                                  step_cfg.sparsity, received)
+        else:
+            n = delta.shape[-1]
+            kernel = (step_cfg.backend in ("cuda", "pallas")
+                      and delta.numel() // m_devices
+                      >= step_cfg.pallas_min_elems)
+            g_mean, e_new = _compress_leaf_sparse(
+                e, delta, step_cfg.sparsity, received, kernels=kernel,
+                cum_ks=cum_ks_for(n, delta.device))
+        return from_rows(g_mean, 0), from_rows(e_new, 1)
+
     @torch.no_grad()
     def step(params, ef, batch, received=None):
         tokens, labels = batch["tokens"], batch["labels"]
@@ -247,23 +523,29 @@ def make_lgc_train_step(cfg: ArchConfig, m_devices: int,
         params_new, ef_new = {}, {}
         for k, w in params.items():
             delta = deltas.pop(k)
-            e_rows = ef[k].reshape(m_devices, -1)
-            if step_cfg.aggregate == "none":            # FedAvg baseline
-                g_wire = delta
-                ef_new[k] = ef[k].clone()
-            else:                                       # dense_masked
-                g, e_new = compress_leaf(e_rows.to(torch.float32), delta,
-                                         recv)
-                g_wire = g.to(wire_dt)
-                # the wire rounding residue joins the error memory
-                e_new = kref.ftz_add(e_new, kref.ftz_add(
-                    g, -g_wire.to(torch.float32)))
+            e_rows = ef[k].reshape(m_devices, -1).to(torch.float32)
+            if step_cfg.aggregate in ("sparse_gather", "bucket_sparse"):
+                g_mean, e_new = compress_sparse(k, tuple(w.shape), e_rows,
+                                                delta, recv)
                 ef_new[k] = e_new.to(ef_dt).reshape(ef[k].shape)
-            # Alg. 1 lines 20-21: w - mean_m g_m, summed device by device
-            g_sum = g_wire[0]
-            for m in range(1, m_devices):
-                g_sum = g_sum + g_wire[m]
-            g_mean = kref.ftz(kref.div_f32(g_sum, m_devices).to(torch.float32))
+            else:
+                if step_cfg.aggregate == "none":        # FedAvg baseline
+                    g_wire = delta
+                    ef_new[k] = ef[k].clone()
+                else:                                   # dense_masked
+                    g, e_new = compress_leaf(e_rows, delta, recv)
+                    g_wire = g.to(wire_dt)
+                    # the wire rounding residue joins the error memory
+                    e_new = kref.ftz_add(e_new, kref.ftz_add(
+                        g, -g_wire.to(torch.float32)))
+                    ef_new[k] = e_new.to(ef_dt).reshape(ef[k].shape)
+                # Alg. 1 lines 20-21: w - mean_m g_m, summed device by
+                # device
+                g_sum = g_wire[0]
+                for m in range(1, m_devices):
+                    g_sum = g_sum + g_wire[m]
+                g_mean = kref.ftz(kref.div_f32(g_sum, m_devices).to(
+                    torch.float32))
             params_new[k] = kref.ftz_add(w.to(torch.float32).reshape(-1),
                                          -g_mean).to(w.dtype).reshape(w.shape)
         return params_new, ef_new, loss_total / m_devices

@@ -1,0 +1,123 @@
+"""Training driver: real steps on the card with the port's step functions.
+
+Port of ``repro/launch/train.py``, with its flags:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-100m \\
+      --steps 20 --mode lgc_sparse --devices 2
+
+``--mode sync`` takes one optimizer step (``cfg.optimizer``, AdamW with
+the gradient clip for qwen2) on each batch; ``lgc`` (``dense_masked``),
+``lgc_sparse`` (``sparse_gather``) and ``fedavg`` (``none``) run the LGC
+step with ``--devices`` N FL devices as N rows on the one card, each on
+its 1/N of the batch.  On the card the LGC compression takes the CUDA
+kernels (``backend="cuda"``), on the CPU their plain versions: the same
+bits.  ``--model-parallel`` > 1 is the sharded engine (ROADMAP A12) and
+raises.  The run exits with code 1 when the loss did not fall.
+
+It runs on the card unless ``--device cpu`` is given.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint import save_checkpoint
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.data.tokens import TokenPipeline
+from repro_torch.device import resolve_device
+from repro_torch.launch.steps import (LGCStepConfig, init_ef_tree,
+                                      make_lgc_train_step,
+                                      make_sync_train_step)
+from repro_torch.models import transformer as tf
+from repro_torch.optim.optimizers import OptimizerConfig, get_optimizer
+
+AGGREGATE_OF_MODE = {"lgc": "dense_masked", "lgc_sparse": "sparse_gather",
+                     "fedavg": "none"}
+
+
+def _parse(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2-1.5b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced smoke config")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--mode", default="sync",
+                    choices=["sync", "lgc", "lgc_sparse", "fedavg"])
+    ap.add_argument("--devices", type=int, default=1)
+    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--local-steps", type=int, default=4)
+    ap.add_argument("--sparsity", default="0.01,0.02,0.02")
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> list[float]:
+    """Run the driver; returns the losses (exits 1 if they did not fall)."""
+    args = _parse(argv)
+    if args.model_parallel > 1:
+        raise NotImplementedError("--model-parallel > 1 (tensor "
+                                  "parallelism) is not ported (ROADMAP A12)")
+    dev = resolve_device(args.device)
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    params = tf.init_params(cfg, seed=0, device=dev)
+    n_params = sum(p.numel() for p in params.values())
+    print(f"arch={cfg.name} params={n_params / 1e6:.1f}M mode={args.mode} "
+          f"devices={args.devices} on {dev}")
+
+    pipe = TokenPipeline(cfg.vocab_size, args.seq, args.batch)
+    pipe.next_batch()            # the reference's batch0, drawn at set-up
+
+    def batch():
+        x, y = pipe.next_batch()
+        return {"tokens": torch.from_numpy(x).to(dev, torch.long),
+                "labels": torch.from_numpy(y).to(dev, torch.long)}
+
+    losses = []
+    if args.mode == "sync":
+        opt_cfg = OptimizerConfig(lr=args.lr)
+        opt_init, _ = get_optimizer(cfg.optimizer, opt_cfg)
+        opt_state = opt_init(params)
+        step = make_sync_train_step(cfg, opt_cfg=opt_cfg)
+        for i in range(args.steps):
+            params, opt_state, loss = step(params, opt_state, batch())
+            losses.append(float(loss))
+            if i % args.log_every == 0:
+                print(f"step {i:5d} loss {losses[-1]:.4f}")
+    else:
+        lgc = LGCStepConfig(
+            local_steps=args.local_steps,
+            sparsity=tuple(float(x) for x in args.sparsity.split(",")),
+            local_lr=args.lr, aggregate=AGGREGATE_OF_MODE[args.mode],
+            backend="cuda" if dev.type == "cuda" else "exact")
+        ef = init_ef_tree(params, args.devices)
+        step = make_lgc_train_step(cfg, args.devices, lgc)
+        for i in range(args.steps):
+            params, ef, loss = step(params, ef, batch())
+            losses.append(float(loss))
+            if i % args.log_every == 0:
+                print(f"round {i:5d} (H={args.local_steps}) "
+                      f"loss {losses[-1]:.4f}")
+        if args.ckpt_dir:
+            save_checkpoint(args.ckpt_dir, args.steps, params)
+
+    if args.ckpt_dir and args.mode == "sync" and args.ckpt_every:
+        save_checkpoint(args.ckpt_dir, args.steps, params)
+    print(f"final loss {losses[-1]:.4f} (start {losses[0]:.4f})")
+    if not (np.isfinite(losses[-1]) and losses[-1] < losses[0]):
+        print("WARNING: loss did not decrease", file=sys.stderr)
+        sys.exit(1)
+    return losses
+
+
+if __name__ == "__main__":
+    main()

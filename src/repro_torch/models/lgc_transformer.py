@@ -4,7 +4,8 @@ Port of ``repro/models/lgc_transformer.py:49-208``.  The reference maps the
 FL devices onto a mesh; here there is no mesh: the M FL devices live on the
 one card, and :func:`repro_torch.launch.steps.make_lgc_train_step` runs them
 one after another and takes the mean of their compressed updates where the
-reference calls ``pmean``.  Everything else mirrors the reference: f32 net
+reference calls ``pmean`` (or sums their gathered sparse pairs).
+Everything else mirrors the reference: f32 net
 progress, ``w.f32 - lr * g`` cast back to ``w.dtype``, ``ef += g - g_wire``,
 the server subtract, the stacked (M, ...) error memory.
 
@@ -174,10 +175,11 @@ def make_qwen2_100m_task(m_devices: int = 8, seed: int = 0,
                          ) -> LGCTransformerTask:
     """Factory behind ``make_task("qwen2_100m", ...)``, with the reference's
     defaults.  ``preset="full"`` is the real ~128M-parameter config,
-    ``preset="smoke"`` a tiny same-shape variant.  The reference's default
-    ``aggregate="sparse_gather"`` is not ported yet and raises; pass
-    ``aggregate="dense_masked"`` (or ``"none"``).  ``device=None`` means the
-    card and raises without CUDA.
+    ``preset="smoke"`` a tiny same-shape variant.  Every aggregate of the
+    reference runs: the default ``sparse_gather`` (per channel the top k of
+    its band, selected per row of each leaf's model-dim view, through the
+    maxabs and histogram row kernels), ``bucket_sparse``, ``dense_masked``
+    and ``none``.  ``device=None`` means the card and raises without CUDA.
     """
     dev = resolve_device(device)
     if model_axis != 1:

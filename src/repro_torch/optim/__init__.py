@@ -1,7 +1,8 @@
-"""Optimizers of the port: AdamW, as the DDPG controller runs it
-(``repro/optim``; SGD-momentum, SGD and ``get_optimizer`` are ROADMAP A15)."""
-from .optimizers import (AdamWState, OptimizerConfig, adamw_init,
-                         adamw_update, apply_updates, global_norm)
+"""Optimizers of the port (``repro/optim``): AdamW, SGD-momentum and SGD."""
+from .optimizers import (AdamWState, OptimizerConfig, SGDMState, SGDState,
+                         adamw_init, adamw_update, apply_updates,
+                         get_optimizer, global_norm, sgd_init, sgdm_init)
 
-__all__ = ["AdamWState", "OptimizerConfig", "adamw_init", "adamw_update",
-           "apply_updates", "global_norm"]
+__all__ = ["AdamWState", "OptimizerConfig", "SGDMState", "SGDState",
+           "adamw_init", "adamw_update", "apply_updates", "get_optimizer",
+           "global_norm", "sgd_init", "sgdm_init"]

@@ -1,9 +1,9 @@
-"""AdamW on trees of tensors.
+"""AdamW, SGD-momentum and SGD on trees of tensors.
 
-Port of ``repro/optim/optimizers.py:20-110`` and ``:137-141``: the parts
-the DDPG controller (:mod:`repro_torch.core.controller`) runs.  A tree is
-a tensor or a dict / list / tuple of trees; states are trees shaped like
-the parameters, with f32 moments.
+Port of ``repro/optim/optimizers.py``.  A tree is a tensor or a dict /
+list / tuple of trees; states are trees shaped like the parameters: AdamW
+keeps f32 moments whatever the parameter dtype, SGD-momentum a moment of
+the parameter's dtype.
 
 The arithmetic is XLA:CPU's for the reference's jitted step, so that one
 step from the same gradients gives bitwise the reference's moments and
@@ -15,7 +15,12 @@ parameters (tests/test_torch_controller.py):
   algebraic rewrite of a division by a quotient, and the square root the
   correctly rounded one (``prng.sqrt_f32``; ATen's f32 ``sqrt`` is not);
 * :func:`adamw_apply` is :func:`adamw_update` followed by
-  :func:`apply_updates` as XLA fuses them: ``fma(-lr, x, p)``.
+  :func:`apply_updates` as XLA fuses them: ``fma(-lr, x, p)`` for f32
+  parameters (the update of a bf16 one is rounded to bf16 first);
+* the gradient clip's global norm sums each leaf's squares in XLA:CPU's
+  order (``prng.xla_sum_squares``), and its scale ``max_norm / (norm +
+  1e-9)`` divides once (a tensor numerator: ``float / tensor`` in torch is
+  a reciprocal and a multiply, two roundings).
 
 The step count lives on the host (an int, or an int array of one count
 per leading row of every leaf), so the bias corrections ``1 - beta **
@@ -32,7 +37,8 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.prng import fma32, sqrt_f32
+from repro_torch.core.prng import fma32, sqrt_f32, xla_sum_squares
+from repro_torch.kernels.ref import ftz
 
 Tree = Any
 
@@ -63,6 +69,15 @@ class AdamWState(NamedTuple):
     v: Tree
 
 
+class SGDMState(NamedTuple):
+    step: int
+    momentum: Tree
+
+
+class SGDState(NamedTuple):
+    step: int
+
+
 @dataclasses.dataclass(frozen=True)
 class OptimizerConfig:
     name: str = "adamw"
@@ -76,25 +91,43 @@ class OptimizerConfig:
     warmup_steps: int = 100
 
 
+def _zeros32(p: torch.Tensor) -> torch.Tensor:
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
 def adamw_init(params: Tree) -> AdamWState:
-    return AdamWState(0, tree_map(torch.zeros_like, params),
-                      tree_map(torch.zeros_like, params))
+    return AdamWState(0, tree_map(_zeros32, params),
+                      tree_map(_zeros32, params))
+
+
+def sgdm_init(params: Tree) -> SGDMState:
+    return SGDMState(0, tree_map(torch.zeros_like, params))
+
+
+def sgd_init(params: Tree) -> SGDState:
+    return SGDState(0)
 
 
 def global_norm(tree: Tree) -> torch.Tensor:
     """sqrt of the sum, leaf by leaf in the reference's order, of each
-    leaf's sum of squares."""
+    leaf's sum of squares in XLA:CPU's order."""
     leaves = tree_leaves(tree)
-    total = torch.sum(torch.square(leaves[0].float()))
+    total = xla_sum_squares(leaves[0])
     for x in leaves[1:]:
-        total = total + torch.sum(torch.square(x.float()))
+        total = total + xla_sum_squares(x)
     return sqrt_f32(total)
 
 
+def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """min(1, max_norm / (norm + 1e-9)) in f32, divided once."""
+    t = norm + 1e-9
+    return torch.clamp(torch.full_like(t, max_norm) / t, max=1.0)
+
+
 def _clip(grads: Tree, max_norm: float) -> Tree:
-    """Scale ``grads`` by min(1, max_norm / (||grads|| + 1e-9)), on the
+    """Scale ``grads`` by :func:`clip_scale` of their global norm, on the
     device (no read-back)."""
-    scale = torch.clamp(max_norm / (global_norm(grads) + 1e-9), max=1.0)
+    scale = clip_scale(global_norm(grads), max_norm)
     return tree_map(lambda x: (x.float() * scale).to(x.dtype), grads)
 
 
@@ -162,6 +195,32 @@ def adamw_update(cfg: OptimizerConfig, grads: Tree, state: AdamWState,
                                         _pick(leaves, 2))
 
 
+def sgdm_update(cfg: OptimizerConfig, grads: Tree, state: SGDMState,
+                params: Tree) -> tuple[Tree, SGDMState]:
+    """One SGD-momentum step on the clipped gradients: m' = beta * m + g
+    (one fused multiply-add, kept in the moment's dtype), update -lr * m'
+    in the gradient's dtype."""
+    grads = _clip(grads, cfg.grad_clip)
+    lr = _schedule(cfg, state.step)
+
+    def upd(g, mom):
+        m2 = ftz(fma32(torch.full_like(g, cfg.momentum, dtype=torch.float32),
+                       mom.float(), g.float())).to(mom.dtype)
+        return ftz(_per_row(-lr, g) * m2.float()).to(g.dtype), m2
+    leaves = tree_map(upd, grads, state.momentum)
+    return _pick(leaves, 0), SGDMState(state.step + 1, _pick(leaves, 1))
+
+
+def sgd_update(cfg: OptimizerConfig, grads: Tree, state: SGDState,
+               params: Tree) -> tuple[Tree, SGDState]:
+    """One plain SGD step: -lr * g in the gradient's dtype, unclipped as
+    in the reference."""
+    lr = _schedule(cfg, state.step)
+    updates = tree_map(
+        lambda g: ftz(_per_row(-lr, g) * g.float()).to(g.dtype), grads)
+    return updates, SGDState(state.step + 1)
+
+
 def apply_updates(params: Tree, updates: Tree) -> Tree:
     return tree_map(lambda p, u: (p.float() + u.float()).to(p.dtype),
                     params, updates)
@@ -180,9 +239,25 @@ def adamw_apply(cfg: OptimizerConfig, grads: Tree, state: AdamWState,
 
     def upd(g, m, v, p):
         x, m2, v2 = _moments(cfg, g, m, v, p, step)
+        if p.dtype != torch.float32:       # the update rounds to p's dtype
+            u = (-(_per_row(lr, x) * x)).to(p.dtype)
+            return (p.float() + u.float()).to(p.dtype), m2, v2
         neg_lr = _per_row(-lr, x).expand_as(x)
         return fma32(neg_lr, x, p.float()).to(p.dtype), m2, v2
     leaves = tree_map(upd, grads, state.m, state.v, params)
     step = int(step) if np.ndim(step) == 0 else step
     return _pick(leaves, 0), AdamWState(step, _pick(leaves, 1),
                                         _pick(leaves, 2))
+
+
+def get_optimizer(name: str, cfg: OptimizerConfig | None = None):
+    """(init_fn, update_fn) for 'adamw' | 'sgdm' | 'sgd';
+    ``update_fn(grads, state, params) -> (updates, state)``."""
+    cfg = cfg or OptimizerConfig(name=name)
+    if name == "adamw":
+        return adamw_init, lambda g, s, p: adamw_update(cfg, g, s, p)
+    if name == "sgdm":
+        return sgdm_init, lambda g, s, p: sgdm_update(cfg, g, s, p)
+    if name == "sgd":
+        return sgd_init, lambda g, s, p: sgd_update(cfg, g, s, p)
+    raise ValueError(name)

@@ -8,7 +8,9 @@ diloco / semi_sync servers against the CPU, and the DDPG fleet on the card
 (fleet == list bitwise, and one act and train step against the same fleet
 on the CPU); QSGD card against CPU bitwise; the population's EF stores
 card against CPU bitwise, and 100,000-device population runs (lgc with
-its launches, lgc_q8 over the int8 store) card against CPU.
+its launches, lgc_q8 over the int8 store) card against CPU; the 100M
+step's sparse uplinks card against CPU bitwise and a checkpoint round trip
+of card tensors.
 
 These tests need an NVIDIA card and ``nvcc``; without a card they skip with
 a reason.  The file imports neither ``jax`` nor the reference package, so it
@@ -961,3 +963,59 @@ def test_population_lgc_q8_on_the_card_matches_the_cpu(card, monkeypatch):
     assert gpu.step == cpu.step and gpu.uplink_mb == cpu.uplink_mb
     np.testing.assert_allclose(gpu.loss, cpu.loss, atol=1e-3)
     np.testing.assert_allclose(gpu.energy_j, cpu.energy_j, rtol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["sparse_gather", "bucket_sparse"])
+def test_sparse_uplinks_on_the_card_match_the_cpu(card, monkeypatch, mode):
+    """M = 3 devices of 4 rows of 2,000 (a leaf's model-dim view), a
+    different delivery mask per device: g_mean and e_new on the card (the
+    maxabs and histogram row kernels for sparse_gather, in one launch each
+    and then in blocks of 5 rows) bitwise the CPU's."""
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch import steps
+    e = _vec(3 * 4 * 2000, 40, 1e-4, "cpu").reshape(3, 4, 2000)
+    d = _vec(3 * 4 * 2000, 41, 1e-3, "cpu").reshape(3, 4, 2000)
+    recv = torch.tensor([[1, 1, 1], [1, 0, 1], [0, 1, 1]], dtype=torch.int32)
+    sp = (0.01, 0.02, 0.02)
+    if mode == "sparse_gather":
+        def fn(*a):
+            return steps._compress_leaf_sparse(*a, kernels=True)
+    else:
+        fn = steps._compress_leaf_bucket
+    want = fn(e, d, sp, recv)
+    for max_rows, launches in ((steps.MAX_KERNEL_ROWS, 1), (5, 3)):
+        monkeypatch.setattr(steps, "MAX_KERNEL_ROWS", max_rows)
+        reset_launch_counts()
+        got = fn(e.to(card), d.to(card), sp, recv.to(card))
+        if mode == "sparse_gather":
+            assert (LAUNCHES["maxabs_rows"], LAUNCHES["histogram_rows"]) == (
+                launches, launches)
+        else:
+            assert not any(LAUNCHES.values())
+        for g, w in zip(got, want):
+            assert g.device.type == "cuda" and _bits_equal(g.cpu(), w)
+
+
+def test_checkpoint_round_trip_of_card_tensors(card, tmp_path):
+    """bf16 params, a stacked f32 error memory and a round counter on the
+    card come back on the card bitwise."""
+    from repro_torch.checkpoint import restore, save_checkpoint
+    params = {"blocks/attn/wq": _vec(4 * 6, 50, 1.0, card).reshape(
+        1, 4, 6).to(torch.bfloat16), "embed": _vec(12, 51, 1.0, card)}
+    state = {"params": params,
+             "ef": {k: torch.stack([v.float(), -v.float()])
+                    for k, v in params.items()}, "round": 3}
+    save_checkpoint(str(tmp_path), 3, state)
+    like = {"params": {k: torch.zeros_like(v) for k, v in params.items()},
+            "ef": {k: torch.zeros_like(v) for k, v in state["ef"].items()},
+            "round": 0}
+    back, step = restore(str(tmp_path), like)
+    assert step == 3 and back["round"] == 3
+    for part in ("params", "ef"):
+        for k, v in state[part].items():
+            w = back[part][k]
+            assert w.device == v.device and w.dtype == v.dtype
+            assert torch.equal(w.view(torch.int16) if w.dtype ==
+                               torch.bfloat16 else w.view(torch.int32),
+                               v.view(torch.int16) if v.dtype ==
+                               torch.bfloat16 else v.view(torch.int32))

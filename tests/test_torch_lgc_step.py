@@ -143,9 +143,12 @@ def test_token_pipeline_matches_reference():
 
 
 def test_step_config_rejects_unported_modes():
-    for agg in ("sparse_gather", "bucket_sparse"):
-        with pytest.raises(NotImplementedError, match="A13"):
-            psteps.LGCStepConfig(aggregate=agg)
+    """Every aggregate of the reference is accepted; an unknown aggregate
+    and an unknown backend still raise."""
+    for agg in ("dense_masked", "sparse_gather", "bucket_sparse", "none"):
+        assert psteps.LGCStepConfig(aggregate=agg).aggregate == agg
+    with pytest.raises(ValueError, match="aggregate"):
+        psteps.LGCStepConfig(aggregate="top_k")
     with pytest.raises(ValueError):
         psteps.LGCStepConfig(backend="triton")
 
@@ -318,7 +321,8 @@ def test_port_and_chip_smoke_import_no_reference_module():
                  "core.compressor", "core.error_feedback", "core.server",
                  "core.fl", "core.fl_batched", "core.controller",
                  "core.audit", "core.population", "optim.optimizers",
-                 "data.mnist",
+                 "checkpoint.io", "checkpoint.msgpack", "launch.steps",
+                 "launch.train", "data.mnist",
                  "data.partition", "data.shakespeare", "models.paper_models",
                  "models.lgc_transformer", "launch.quickstart",
                  "launch.profile_sim", "kernels.ops",
@@ -330,7 +334,8 @@ def test_port_and_chip_smoke_import_no_reference_module():
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro',\n"
+        "                                    'msgpack'))\n"
         "print('LOADED', len(sys.modules))\n"
         "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
