@@ -2,7 +2,9 @@
 """Chip smoke test of the PyTorch / CUDA port (``src/repro_torch``) on one
 NVIDIA H100.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py          # every phase
+    python3 chip_smoke.py --rows   # the build and the row kernels at the
+                                   # sparse path's rows, with the sweep
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
@@ -63,9 +65,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    params and error memory bitwise equal to the plain backend's from the
    same state; its device-steps/s beside ``dense_masked``'s, the analytic
    wire bytes (51,367,680 against 513,678,336) and peak memory; the
-   maxabs and histogram row kernels bitwise their plain versions and
-   timed at the sparse path's rows ((6,144, 9,216) and (64,000, 768)),
-   the selection's ms at the largest leaf; ``bucket_sparse`` for 3
+   maxabs and histogram row kernels (``sum_maxabs_rows``, ``maxabs_rows``,
+   ``histogram_rows`` and ``steps._row_stats``, one launch each at any
+   height) bitwise their plain versions and timed at the sparse path's
+   rows ((6,144, 9,216), (64,000, 768), (96,000, 768) and (151,936,
+   1,536)) beside ``vector_norm(u, inf, dim=1)`` and the unfused add;
+   the sweep of their two forms (short: a warp a row; wide: a row on each
+   ``blockIdx.y``) at 256 MB of rows of n in {68, 768, 1,536, 3,072,
+   9,216, 65,536}, both forms bitwise equal (``--rows`` runs only these
+   and the build); the selection's ms at the largest leaf; ``bucket_sparse`` for 3
    rounds (no kernel); a checkpoint of the sparse run's state (bf16
    params, (2, ...) f32 error memory, round counter) restored to the card
    bitwise, with bytes and seconds; and ``repro_torch.launch.train`` in
@@ -163,6 +171,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    launches of it,
    its times, the plain row version, M flat launches and, for maxabs,
    ``vector_norm(u, inf, dim=1)``, for histogram M ``histc`` calls);
+   maxabs and histogram also at the sparse path's rows of phase 5b
+   (``at_sparse_gather_rows``, each with the form that ran, ``maxabs_rows``
+   beside ``vector_norm``) and the sweep of their two row forms
+   (``row_form_sweep``);
    the segmented forms at the three models' (M, D) beside the M x L
    ``amax`` / ``histc`` calls they replace and one ``segment_reduce(|u|,
    "max")``, their ``launches`` from the batched per-layer CNN run under
@@ -224,6 +236,15 @@ ROW_KERNELS = {"maxabs": "maxabs_rows", "histogram": "histogram_rows",
 # (M, D) of the row forms on the paths: the lr, cnn and rnn simulator runs
 # and the largest leaf of the training path
 ROW_SHAPES = [(3, LR_D), (8, CNN_D), (8, RNN_D), (M_DEVICES, LARGEST_LEAF)]
+# (M x R, n) rows of the sparse path (each leaf's model-dim view): the
+# largest leaf's and embed's at M = 2, embed's at M = 3 and qwen2-1.5b's
+# embed (151,936 x 1,536) on one device, the last two above 65,535 rows
+SPARSE_ROW_SHAPES = [(M_DEVICES * 3_072, LARGEST_LEAF // 3_072),
+                     (M_DEVICES * 32_000, 768), (3 * 32_000, 768),
+                     (151_936, 1_536)]
+# the crossover sweep of the two row forms: rows of n floats, 256 MB of u
+SWEEP_NS = (68, 768, 1_536, 3_072, 9_216, 65_536)
+SWEEP_FLOATS = 1 << 26
 
 # the segmented forms (per-layer budgets): the simulator's models
 # with their device counts, the per-layer runs (cnn_mnist, M=8, 24 rounds
@@ -1126,8 +1147,9 @@ def time_sparse_selection(task) -> dict:
                                            d.reshape(M_DEVICES, -1),
                                            cum_flat, recv)),
         "shape": [M_DEVICES, rows, cols]}
-    out["rows"] = time_sparse_rows(gen, ((M_DEVICES * rows, cols),
-                                         (M_DEVICES * 32_000, 768)))
+    del e, d, e2, d2
+    out["rows"] = time_sparse_rows(gen)
+    out["sweep"] = sweep_row_forms(gen)
     log(f"sparse selection at the largest leaf's view {out['shape']} (no "
         f"host sync in either sparse mode), ms of one call: sparse_gather "
         f"{out['sparse_compress_ms']:.3f} (the row kernels' statistics "
@@ -1137,41 +1159,139 @@ def time_sparse_selection(task) -> dict:
     return out
 
 
-def time_sparse_rows(gen, shapes) -> dict:
-    """``sum_maxabs_rows`` and ``histogram_rows`` at the sparse path's
-    (M x R, n) rows (the largest leaf's and embed's model-dim views at
-    M=2): bitwise their plain row versions, then timed beside them (and
-    ``vector_norm(u, inf, dim=1)`` for maxabs).  Returns {kernel:
-    {"RxN": row}}."""
+def time_sparse_rows(gen, shapes=None) -> dict:
+    """``sum_maxabs_rows``, ``maxabs_rows`` and ``histogram_rows`` at the
+    sparse path's (M x R, n) rows (``SPARSE_ROW_SHAPES``): bitwise their
+    plain row versions, then timed beside them, ``sum_maxabs_rows`` also
+    beside the unfused add and ``vector_norm(u, inf, dim=1)``,
+    ``maxabs_rows`` beside ``vector_norm`` alone; and ``steps._row_stats``
+    (both kernels, as the path calls them) with its launches.  Returns
+    {kernel: {"RxN": row}}; each row names the form that ran."""
     import torch
-    from repro_torch.kernels import histogram_rows, ref, sum_maxabs_rows
+    from repro_torch.device import device_ms
+    from repro_torch.kernels import (LAUNCHES, histogram_rows, ref,
+                                     reset_launch_counts, sum_maxabs_rows)
+    from repro_torch.kernels import topk_threshold as tt
+    from repro_torch.launch import steps
+    inf = float("inf")
     out: dict = {"maxabs": {}, "histogram": {}}
-    for r, n in shapes:
+    for r, n in shapes or SPARSE_ROW_SHAPES:
         x = torch.randn(r, n, generator=gen, device="cuda") * 1e-3
         e = torch.randn(r, n, generator=gen, device="cuda") * 1e-4
-        u, mx = sum_maxabs_rows(e, x)
         u_ref = ref.ftz_add(e, x)
-        check(bits_equal(u, u_ref) and bits_equal(mx, ref.hist_maxabs_rows(
-            u_ref)) and bits_equal(histogram_rows(u, mx),
-                                   ref.hist_counts_rows(u_ref, mx)),
-              f"the row kernels differ from their plain versions at the "
+        mx_ref = ref.hist_maxabs_rows(u_ref)
+        counts_ref = ref.hist_counts_rows(u_ref, mx_ref)
+        reset_launch_counts()
+        u, mx, counts = steps._row_stats(e, x)
+        stats_launches = (LAUNCHES["maxabs_rows"], LAUNCHES["histogram_rows"])
+        check(bits_equal(u, u_ref) and bits_equal(mx, mx_ref)
+              and bits_equal(counts, counts_ref),
+              f"_row_stats differs from the plain row versions at the "
               f"sparse path's ({r}, {n})")
+        check(stats_launches == (1, 1),
+              f"_row_stats at ({r}, {n}) launched {stats_launches}")
+        stats_ms = device_ms(lambda: steps._row_stats(e, x))
+        log(f"timing _row_stats (R, n)=({r}, {n}): {stats_launches[0]} "
+            f"maxabs_rows and {stats_launches[1]} histogram_rows launches, "
+            f"{stats_ms:.5f} ms device")
+        sms = tt._sm_count(u.device)
+        form = tt.row_form(r, n, sms, "maxabs")[0]
+        hist_form = tt.row_form(r, n, sms, "histogram")[0]
+        check(bits_equal(tt.maxabs_rows(u), mx_ref),
+              f"maxabs_rows differs from its plain version at ({r}, {n})")
         rn = r * n
-        cases = {
-            "maxabs": (lambda: sum_maxabs_rows(e, x),
+        row = time_row(n, lambda: sum_maxabs_rows(e, x),
                        lambda: ref.hist_maxabs_rows(ref.ftz_add(e, x)),
-                       lambda: torch.linalg.vector_norm(u, float("inf"),
-                                                        dim=1),
-                       12 * rn + 4 * r, 2 * rn),
-            "histogram": (lambda: histogram_rows(u, mx),
-                          lambda: ref.hist_counts_rows(u, mx), None,
-                          4 * rn + 4 * r + 4 * 256 * r, 3 * rn)}
-        for name, case in cases.items():
-            row = time_row(n, *case) | {"shape": [r, n]}
-            out[name][f"{r}x{n}"] = row
-            log_row(ROW_KERNELS[name], f"(R, n)=({r}, {n}), sparse_gather",
-                    row)
-        del x, e, u, u_ref
+                       lambda: torch.linalg.vector_norm(u, inf, dim=1),
+                       12 * rn + 4 * r, 2 * rn)
+        row |= {"shape": [r, n], "form": form, "call": "sum_maxabs_rows",
+                "unfused_device_ms": device_ms(
+                    lambda: torch.linalg.vector_norm(torch.add(e, x), inf,
+                                                     dim=1)),
+                "row_stats_device_ms": stats_ms,
+                "row_stats_launches": list(stats_launches)}
+        log_row("sum_maxabs_rows", f"(R, n)=({r}, {n}), sparse_gather, "
+                f"{form} form", row)
+        log(f"timing torch.add then vector_norm(inf, dim=1) at ({r}, {n}): "
+            f"{row['unfused_device_ms']:.5f} ms device")
+        alone = time_row(n, lambda: tt.maxabs_rows(u),
+                         lambda: ref.hist_maxabs_rows(u),
+                         lambda: torch.linalg.vector_norm(u, inf, dim=1),
+                         4 * rn + 4 * r, rn)
+        row["maxabs_rows"] = alone
+        log_row("maxabs_rows", f"(R, n)=({r}, {n}), {form} form", alone)
+        out["maxabs"][f"{r}x{n}"] = row
+        hist = time_row(n, lambda: histogram_rows(u, mx),
+                        lambda: ref.hist_counts_rows(u, mx), None,
+                        4 * rn + 4 * r + 4 * 256 * r, 3 * rn)
+        hist |= {"shape": [r, n], "form": hist_form}
+        out["histogram"][f"{r}x{n}"] = hist
+        log_row("histogram_rows", f"(R, n)=({r}, {n}), sparse_gather, "
+                f"{hist_form} form", hist)
+        del x, e, u, u_ref, mx, counts
+    torch.cuda.empty_cache()
+    return out
+
+
+def sweep_row_forms(gen) -> dict:
+    """The crossover of the two row forms: at each n of ``SWEEP_NS``,
+    ``SWEEP_FLOATS`` // n rows, ``sum_maxabs_rows``, ``maxabs_rows`` and
+    ``histogram_rows`` in the short and the wide form (the wide one in
+    launches of at most 65,535 rows), the two forms bitwise equal, each
+    timed by ``device_ms``.  Returns {n: {kernel: {form: ms}}}."""
+    import torch
+    from repro_torch.device import device_ms
+    from repro_torch.kernels import topk_threshold as tt
+    out: dict = {}
+    for n in SWEEP_NS:
+        r = SWEEP_FLOATS // n
+        x = torch.randn(r, n, generator=gen, device="cuda") * 1e-3
+        e = torch.randn(r, n, generator=gen, device="cuda") * 1e-4
+        u = torch.empty_like(e)
+        mx = torch.empty(r, device="cuda")
+        spans = [(i, min(i + 65_535, r)) for i in range(0, r, 65_535)]
+
+        def launches(form):
+            parts = [(0, r)] if form == "short" else spans
+            return {
+                "sum_maxabs_rows": lambda: [tt._maxabs_rows_launch(
+                    e[i:j], x[i:j], u[i:j], form) for i, j in parts],
+                "maxabs_rows": lambda: [tt._maxabs_rows_launch(
+                    u[i:j], None, None, form) for i, j in parts],
+                "histogram_rows": lambda: [tt._histogram_rows_launch(
+                    u[i:j], mx[i:j], form) for i, j in parts]}
+        got = {}
+        for form in ("short", "wide"):
+            u.zero_()
+            fns = launches(form)
+            mx.copy_(torch.cat(fns["sum_maxabs_rows"]()))
+            got[form] = (u.clone(), mx.clone(),
+                         torch.cat(fns["maxabs_rows"]()),
+                         torch.cat(fns["histogram_rows"]()))
+        check(all(bits_equal(a, b) for a, b in zip(got["short"],
+                                                   got["wide"])),
+              f"the short and wide row forms differ at ({r}, {n})")
+        row = {"rows": r, "n": n,
+               "picked": tt.row_form(r, n, tt._sm_count(x.device),
+                                     "maxabs")[0],
+               "picked_histogram": tt.row_form(r, n, tt._sm_count(x.device),
+                                               "histogram")[0],
+               "wide_launches": len(spans)}
+        for form in ("short", "wide"):
+            for name, fn in launches(form).items():
+                # 20 calls: the wide form's 16 launches a call at n = 68
+                # would fill the card's launch queue behind the hold at 100
+                row.setdefault(name, {})[form] = device_ms(fn, reps=20)
+        out[n] = row
+        log(f"sweep (R, n)=({r}, {n}), ms device short / wide "
+            f"({len(spans)} wide launches): " + "; ".join(
+                f"{k} {row[k]['short']:.5f} / {row[k]['wide']:.5f}"
+                for k in ("sum_maxabs_rows", "maxabs_rows",
+                          "histogram_rows"))
+            + f"; row_form picks {row['picked']} (maxabs), "
+              f"{row['picked_histogram']} (histogram)")
+        del x, e, u, mx, got
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2565,8 +2685,12 @@ def phase_time_swa(gen) -> dict:
     return row
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
     import torch
+    if argv not in ([], ["--rows"]):
+        print(f"usage: python3 chip_smoke.py [--rows]; got {argv}",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one "
               "NVIDIA GPU", file=sys.stderr)
@@ -2592,6 +2716,10 @@ def main() -> int:
             log(f"  ptxas: {line.strip()}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if argv == ["--rows"]:      # the row kernels at the sparse path's rows
+        print(json.dumps({"sparse_rows": time_sparse_rows(gen),
+                          "sweep": sweep_row_forms(gen)}), flush=True)
+        return 0
     errs = {k: 0.0 for k in (*TPU_KERNELS, *SEGMENT_KERNELS)}
     phase_kernels(gen, errs)
     phase_swa(gen, errs)
@@ -2634,6 +2762,16 @@ def main() -> int:
                 row["launches_sparse_gather"] = sparse_launches[rn]
                 row["at_sparse_gather_rows"] = sparse_launches["timing"][
                     "rows"][name]
+                # device ms of each form at SWEEP_FLOATS floats of rows
+                calls = (("sum_maxabs_rows", "maxabs_rows")
+                         if name == "maxabs" else ("histogram_rows",))
+                row["row_form_sweep"] = [
+                    {"shape": [v["rows"], v["n"]],
+                     "picked": v["picked" if name == "maxabs"
+                                 else "picked_histogram"],
+                     "wide_launches": v["wide_launches"]}
+                    | {c: v[c] for c in calls}
+                    for v in sparse_launches["timing"]["sweep"].values()]
             row |= {"launches_simulator": {
                         tag: c[name] + c[rn]
                         for tag, c in sim_launches.items()},
@@ -2676,4 +2814,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

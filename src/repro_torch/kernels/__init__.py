@@ -2,7 +2,9 @@
 
 Kernels (CUDA C++ for sm_90a under ``csrc/``, each with its plain torch
 version in :mod:`.ref`), one for each Pallas kernel of the reference, the
-LGC ones also in an (M, D) row form (one launch over M device rows), and
+LGC ones also in an (M, D) row form (one launch over M rows; maxabs and
+histogram in a wide form for a few long rows and a short one for many
+short rows, any number of them), and
 maxabs and histogram also in a segmented form (one launch over every
 model-layer slice of every row):
   topk_threshold   -- maxabs + 256-bin magnitude histogram (2-pass Top_k)
@@ -19,8 +21,8 @@ from .ops import (lgc_compress_hist, lgc_compress_hist_rows,
                   per_layer_candidates_hist_rows, selected_counts)
 from .swa_attention import swa_decode
 from .topk_threshold import (SegmentTable, histogram, histogram_rows,
-                             histogram_segments, maxabs, maxabs_segments,
-                             sum_maxabs, sum_maxabs_rows,
+                             histogram_segments, maxabs, maxabs_rows,
+                             maxabs_segments, sum_maxabs, sum_maxabs_rows,
                              thresholds_from_counts)
 
 __all__ = [
@@ -28,7 +30,7 @@ __all__ = [
     "lgc_compress_hist", "lgc_compress_hist_rows",
     "per_layer_candidates_hist_rows", "selected_counts",
     "SegmentTable", "histogram", "histogram_rows", "histogram_segments",
-    "maxabs", "maxabs_segments", "sum_maxabs", "sum_maxabs_rows",
+    "maxabs", "maxabs_rows", "maxabs_segments", "sum_maxabs", "sum_maxabs_rows",
     "thresholds_from_counts", "sparsify_ef", "sparsify_ef_rows",
     "swa_decode",
 ]

@@ -16,7 +16,8 @@ each function returns ``cudaGetLastError()`` of its launch.
 it launches its kernel and nowhere else, so a run can show which kernels its
 path went through.  Each LGC kernel takes (M, D) rows, a flat vector being
 one row; launches over rows count under their own keys (``maxabs_rows``,
-``histogram_rows``, ``sparsify_ef_rows``), and so do the segmented forms of
+``histogram_rows``, ``sparsify_ef_rows``; both forms of a row launch, wide
+and short, count there), and so do the segmented forms of
 maxabs and histogram over the model-layer slices of rows
 (``maxabs_segments``, ``histogram_segments``), so a run shows which form ran.
 """
@@ -128,9 +129,12 @@ def lib() -> ctypes.CDLL:
                                                vp, vp, vp, vp]
             so.lgc_histogram_segments.argtypes = [vp, i64, i64, vp, vp, ci,
                                                   ci, vp, vp, vp, vp]
+            so.lgc_maxabs_short.argtypes = [vp, vp, vp, i64, i64, vp, ci, vp]
+            so.lgc_histogram_short.argtypes = [vp, i64, i64, vp, vp, ci, vp]
             for fn in (so.lgc_maxabs, so.lgc_histogram, so.lgc_sparsify_ef,
                        so.lgc_swa_decode, so.lgc_maxabs_segments,
-                       so.lgc_histogram_segments):
+                       so.lgc_histogram_segments, so.lgc_maxabs_short,
+                       so.lgc_histogram_short):
                 fn.restype = ci
             _lib = so
         return _lib

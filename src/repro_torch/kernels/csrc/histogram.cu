@@ -38,6 +38,18 @@
 // * Rows.  The same kernel takes (M, D) rows (the simulator's batched engine
 //   and the 100M step), row blockIdx.y of a 2-D grid, each row with its own
 //   maximum, accumulator, counter and counts; a flat vector is one row.
+// * Short rows (`lgc_histogram_short`).  Where the rows are many and short
+//   (the sparse path's model-dim views: embed's 64,000 rows of 768 at
+//   M = 2), one block a row zeroes 8 KB of shared memory for 3 KB of input
+//   and pays up to 512 global atomics and two fences in the handshake
+//   above, with rows x 257 ints of scratch.  There a warp owns a row, on a
+//   persistent grid (the resident block count, fewer for few rows) that
+//   strides over the rows with an int64 index, so there is no limit of
+//   65,535 rows.  Each warp counts into its own int[256] in shared memory
+//   (zeroed once), each lane keeps bin 0 in a register; after the row the
+//   warp adds the lanes' bin-0 counts (`redux.sync`) into bin 0 and writes
+//   its 256 counts straight to the row's counts as 16-byte stores, zeroing
+//   its table in the same pass.  No global atomic, fence or scratch.
 // * Segments (`lgc_histogram_segments`).  The simulator's per-layer budgets
 //   (the reference's `per_layer_candidates_hist`,
 //   src/repro/core/compressor.py:341-375, which calls `histogram` once per
@@ -175,6 +187,62 @@ histogram_segments_kernel(const float* __restrict__ x, int64_t n,
                   counts + rs * lgc::kBins);
 }
 
+constexpr int kShortLoads = 8;         // float4s per lane and pass
+constexpr int kShortBlocksPerSM = 4;   // resident blocks of the short form a SM
+
+// Short rows: warp w of the grid owns rows w, w + (warps of the grid), ...
+// and counts each into its own table.  The row index is the same across a
+// warp, so the whole warp runs each row's loop, its sums and its stores.
+__global__ void __launch_bounds__(lgc::kThreads, kShortBlocksPerSM)
+histogram_short_kernel(const float* __restrict__ x, int64_t rows, int64_t n,
+                       const float* __restrict__ maxabs, int* __restrict__ counts) {
+  __shared__ __align__(16) int sub[lgc::kWarps][lgc::kBins];
+  const int lane = threadIdx.x & 31;
+  int* bins = sub[threadIdx.x >> 5];
+  int4* mine = reinterpret_cast<int4*>(bins) + 2 * lane;    // bins 8 lane .. 8 lane + 7
+  mine[0] = make_int4(0, 0, 0, 0);
+  mine[1] = make_int4(0, 0, 0, 0);
+  __syncwarp();
+
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * lgc::kWarps;
+  for (int64_t row = static_cast<int64_t>(blockIdx.x) * lgc::kWarps + (threadIdx.x >> 5);
+       row < rows; row += warps) {
+    const float* xr = x + row * n;
+    const float m = lgc::ftz(__ldg(maxabs + row));
+    const float scale = m > 0.0f ? __fdiv_rn(256.0f, m) : 0.0f;
+    int zeros = 0;
+    const int64_t head = lgc::head_elems(xr, n);
+    const int64_t n4 = (n - head) / 4;
+    const float4* body = reinterpret_cast<const float4*>(xr + head);
+    if (lane < head) count(xr[lane], scale, bins, zeros);
+    for (int64_t i0 = lane; i0 < n4; i0 += 32 * kShortLoads) {
+      float4 v[kShortLoads];
+#pragma unroll
+      for (int k = 0; k < kShortLoads; ++k) {
+        const int64_t i = i0 + 32 * k;
+        if (i < n4) v[k] = lgc::load_stream(body + i);
+      }
+#pragma unroll
+      for (int k = 0; k < kShortLoads; ++k) {
+        if (i0 + 32 * k < n4) count(v[k], scale, bins, zeros);
+      }
+    }
+    const int64_t t = head + 4 * n4 + lane;         // the 0-3 floats at the end
+    if (t < n) count(xr[t], scale, bins, zeros);
+
+    zeros = __reduce_add_sync(0xffffffffu, zeros);
+    __syncwarp();                                   // the warp's shared adds are done
+    int4 c0 = mine[0], c1 = mine[1];
+    if (lane == 0) c0.x += zeros;
+    mine[0] = make_int4(0, 0, 0, 0);                // zero for the next row
+    mine[1] = make_int4(0, 0, 0, 0);
+    int4* out = reinterpret_cast<int4*>(counts + row * lgc::kBins) + 2 * lane;
+    out[0] = c0;
+    out[1] = c1;
+    __syncwarp();                                   // zeroed before the next row counts
+  }
+}
+
 }  // namespace
 
 // x (rows, n), maxabs (rows,), counts (rows, 256).  acc: rows x 257 ints
@@ -204,5 +272,20 @@ extern "C" int lgc_histogram_segments(const float* x, int64_t rows, int64_t n,
   const dim3 blocks(n_blocks, static_cast<unsigned>(rows));
   histogram_segments_kernel<<<blocks, lgc::kThreads, 0, stream>>>(
       x, n, offsets, table, table + n_slices + 1, n_slices, maxabs, acc, counts);
+  return static_cast<int>(cudaGetLastError());
+}
+
+
+// The short-row form: x (rows, n), maxabs (rows,), counts (rows, 256), as
+// `lgc_histogram` computes them, one warp a row.  counts: 16-byte aligned.
+// grid: blocks of the persistent grid (at most kShortBlocksPerSM a SM are
+// resident at once).  Any number of rows.
+extern "C" int lgc_histogram_short(const float* x, int64_t rows, int64_t n,
+                                   const float* maxabs, int* counts, int grid,
+                                   cudaStream_t stream) {
+  if (rows < 1 || n < 1 || grid < 1 || (reinterpret_cast<uintptr_t>(counts) & 15u)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  histogram_short_kernel<<<grid, lgc::kThreads, 0, stream>>>(x, rows, n, maxabs, counts);
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,6 +32,18 @@
 // is one row.  A row of an odd D starts anywhere modulo 16 bytes, so each row
 // takes its own head of 0-3 floats before its float4 body.
 //
+// Short rows (`lgc_maxabs_short`): where the rows are many and short (the
+// sparse path's model-dim views: embed's 64,000 rows of 768 at M = 2, the
+// 1.5B's 151,936 rows of 1,536), one block a row leaves most of a block idle
+// and every row pays the handshake above.  There a warp owns a row: the
+// block holds 8 rows at a time, and a persistent grid (the resident block
+// count, fewer for few rows) strides over the rows with an int64 index, so
+// there is no limit of 65,535 rows.  Each lane issues all its 16-byte
+// streaming loads of a pass (kShortLoads float4s of x, and of d) before it
+// reduces them, keeping the per-row head / float4 body / tail scheme; the
+// warp reduces with `redux.sync` and one lane stores the row's max.  No
+// partials, counter, fence or atomic, and no scratch.
+//
 // Segments (`lgc_maxabs_segments`): the per-layer budgets of the simulator
 // (the reference's `per_layer_candidates_hist`, src/repro/core/compressor.py:
 // 341-375) take max |u| of every model-layer slice of every row, where the
@@ -206,6 +218,84 @@ maxabs_segments_kernel(const float* __restrict__ x, int64_t n,
                             partials + row * gridDim.x + f, counters + rs, out + rs);
 }
 
+constexpr int kShortLoads = 6;         // float4s of x (and of d) per lane and pass
+constexpr int kShortBlocksPerSM = 3;   // resident blocks of the short form a SM
+
+// One row's max of |x| (or of u = x + d, stored to u) in lane `lane` of
+// the warp that owns it: each lane's share, not yet reduced over the warp.
+template <bool kSum, bool kVec>
+__device__ __forceinline__ unsigned row_max_lane(const float* __restrict__ x,
+                                                 const float* __restrict__ d,
+                                                 float* __restrict__ u, int64_t n,
+                                                 int lane) {
+  auto value = [&](int64_t i) {
+    if constexpr (kSum) {
+      const float v = lgc::add_ftz(x[i], d[i]);
+      u[i] = v;
+      return v;
+    } else {
+      return x[i];
+    }
+  };
+  unsigned m = 0u;
+  if constexpr (!kVec) {
+    for (int64_t i = lane; i < n; i += 32) m = max(m, abs_bits(value(i)));
+  } else {
+    const int64_t head = lgc::head_elems(x, n);
+    const int64_t n4 = (n - head) / 4;
+    const float4* body = reinterpret_cast<const float4*>(x + head);
+    const float4* body_d = kSum ? reinterpret_cast<const float4*>(d + head) : nullptr;
+    float4* body_u = kSum ? reinterpret_cast<float4*>(u + head) : nullptr;
+    if (lane < head) m = abs_bits(value(lane));
+    for (int64_t i0 = lane; i0 < n4; i0 += 32 * kShortLoads) {
+      float4 v[kShortLoads];
+#pragma unroll
+      for (int k = 0; k < kShortLoads; ++k) {
+        const int64_t i = i0 + 32 * k;
+        v[k] = i < n4 ? lgc::load_stream(body + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      if constexpr (kSum) {
+        float4 w[kShortLoads];
+#pragma unroll
+        for (int k = 0; k < kShortLoads; ++k) {
+          const int64_t i = i0 + 32 * k;
+          w[k] = i < n4 ? lgc::load_stream(body_d + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+        for (int k = 0; k < kShortLoads; ++k) {
+          const int64_t i = i0 + 32 * k;
+          v[k] = add_ftz(v[k], w[k]);
+          if (i < n4) body_u[i] = v[k];
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kShortLoads; ++k) m = max(m, abs_bits(v[k]));   // zeros: no-ops
+    }
+    const int64_t t = head + 4 * n4 + lane;        // the 0-3 floats at the end
+    if (t < n) m = max(m, abs_bits(value(t)));
+  }
+  return m;
+}
+
+// Short rows: warp w of the grid owns rows w, w + (warps of the grid), ...
+// The row index is the same across a warp, so the whole warp runs each
+// row's loop and its reduction.
+template <bool kSum, bool kVec>
+__global__ void __launch_bounds__(lgc::kThreads, kShortBlocksPerSM)
+maxabs_short_kernel(const float* __restrict__ x, const float* __restrict__ d,
+                    float* __restrict__ u, int64_t rows, int64_t n,
+                    unsigned* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * lgc::kWarps;
+  for (int64_t row = static_cast<int64_t>(blockIdx.x) * lgc::kWarps + (threadIdx.x >> 5);
+       row < rows; row += warps) {
+    const int64_t o = row * n;
+    unsigned m = row_max_lane<kSum, kVec>(x + o, kSum ? d + o : d, kSum ? u + o : u, n, lane);
+    m = __reduce_max_sync(0xffffffffu, m);
+    if (lane == 0) out[row] = m;
+  }
+}
+
 }  // namespace
 
 // x (rows, n); out (rows,).  partials: rows x grid unsigned ints of scratch;
@@ -250,5 +340,24 @@ extern "C" int lgc_maxabs_segments(const float* x, int64_t rows, int64_t n,
   maxabs_segments_kernel<<<blocks, lgc::kThreads, 0, stream>>>(
       x, n, offsets, table, table + n_slices + 1, n_slices, partials, counters,
       reinterpret_cast<unsigned*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+
+// The short-row form: x (rows, n), out (rows,), as `lgc_maxabs` computes
+// them, one warp a row.  grid: blocks of the persistent grid (at most
+// kShortBlocksPerSM a SM are resident at once).  Any number of rows.
+extern "C" int lgc_maxabs_short(const float* x, const float* d, float* u, int64_t rows,
+                                int64_t n, float* out, int grid, cudaStream_t stream) {
+  if (rows < 1 || n < 1 || grid < 1) return static_cast<int>(cudaErrorInvalidValue);
+  unsigned* o = reinterpret_cast<unsigned*>(out);
+  if (d == nullptr) {
+    maxabs_short_kernel<false, true><<<grid, lgc::kThreads, 0, stream>>>(x, d, u, rows, n, o);
+  } else if (((reinterpret_cast<uintptr_t>(x) ^ reinterpret_cast<uintptr_t>(d)) |
+              (reinterpret_cast<uintptr_t>(x) ^ reinterpret_cast<uintptr_t>(u))) & 15u) {
+    maxabs_short_kernel<true, false><<<grid, lgc::kThreads, 0, stream>>>(x, d, u, rows, n, o);
+  } else {
+    maxabs_short_kernel<true, true><<<grid, lgc::kThreads, 0, stream>>>(x, d, u, rows, n, o);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,12 +8,16 @@ Port of ``repro/kernels/topk_threshold.py:32-116``:
   pass 2: ``histogram`` -- CUDA kernel, csrc/histogram.cu
   then  : ``thresholds_from_counts`` -- torch ops on 256 counts, on the device
 
-and their (M, D) row forms, one row per simulated device, each one launch
-of the same kernel over all rows (the reference reaches its kernels
-through ``jax.vmap`` there, ``repro/core/fl_batched.py:201-209``):
-``sum_maxabs_rows``, ``histogram_rows`` and ``thresholds_from_counts`` on
-(M, 256) counts.  A flat vector is one row of the kernel, so each row of a
-launch gets the bits of a flat launch on it.
+and their (M, D) row forms, one row per simulated device or per row of a
+leaf's model-dim view, each one launch over all rows (the reference
+reaches its kernels through ``jax.vmap`` there,
+``repro/core/fl_batched.py:201-209``): ``sum_maxabs_rows``,
+``maxabs_rows``, ``histogram_rows`` and ``thresholds_from_counts`` on
+(M, 256) counts.  Each row of a launch gets the bits of a flat launch on
+it.  A row launch takes one of two forms (:func:`row_form`): the wide one,
+the flat kernel with a row on each ``blockIdx.y`` (a few long rows, at
+most 65,535), or the short one, a warp a row on a persistent grid (many
+short rows, any number of them).
 
 The segmented forms, ``maxabs_segments`` and ``histogram_segments``, take
 every model-layer slice of every row in one launch (the per-layer budgets,
@@ -50,6 +54,23 @@ _HIST_BLOCKS_PER_SM = 4
 _SEG_PER_BLOCK = _THREADS * _HIST_LOADS * 4     # floats of a segment block's pass
 
 _MAX_ROWS = 65535              # the grid's y extent, one row a step
+_WARPS = _THREADS // 32        # rows a block of the short form holds at once
+# resident blocks a SM of the short forms (``kShortBlocksPerSM`` of
+# maxabs.cu and histogram.cu, their ``__launch_bounds__``)
+_SHORT_BLOCKS_PER_SM = {"maxabs": 3, "histogram": 4}
+# The longest row that takes the short form once the rows are many (8 or
+# more for every SM): the crossover of the two forms, measured at 2**26
+# floats of rows (256 MB of u) by the sweep of ``chip_smoke.py --rows``
+# (H100 80GB HBM3, 700.00 W).  Device ms short / wide at n = 68, 768,
+# 1,536, 3,072, 9,216 and 65,536 (1,024 rows; at 68 and 768 the wide form
+# in launches of 65,535 rows):
+#   sum_maxabs_rows  0.455 / 4.770, 0.280 / 0.541, 0.280 / 0.382,
+#                    0.281 / 0.306, 0.283 / 0.280, 0.281 / 0.283
+#   histogram_rows   0.517 / 5.304, 0.127 / 0.508, 0.112 / 0.301,
+#                    0.104 / 0.192, 0.096 / 0.106, 0.142 / 0.106
+# Each is the largest n of the sweep where the short form was faster
+# (maxabs ties within 1% from 9,216 on; histogram loses at 65,536).
+SHORT_ROW_MAX_N = {"maxabs": 3_072, "histogram": 9_216}
 _sm_counts: dict[int, int] = {}
 _counters: dict[tuple[str, int], torch.Tensor] = {}
 
@@ -64,14 +85,20 @@ def _check_vec(x: torch.Tensor, name: str, dtype=torch.float32) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_rows(x: torch.Tensor, name: str, dtype=torch.float32) -> None:
+def _check_rows(x: torch.Tensor, name: str, dtype=torch.float32,
+                max_rows: int | None = _MAX_ROWS) -> None:
+    """x must be contiguous (M, D) of ``dtype``, M at most ``max_rows``
+    (None: any M; the kernels with a row on each ``blockIdx.y`` take
+    65,535)."""
     if x.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
     if x.dim() != 2 or x.shape[0] < 1 or x.shape[1] < 1:
         raise ValueError(f"{name} must be (M, D) with M, D >= 1, got shape "
                          f"{tuple(x.shape)}")
-    if x.shape[0] > _MAX_ROWS:
-        raise ValueError(f"{name} has {x.shape[0]} rows; at most {_MAX_ROWS}")
+    if max_rows is not None and x.shape[0] > max_rows:
+        raise ValueError(f"{name} has {x.shape[0]} rows; this kernel puts a "
+                         f"row on each blockIdx.y and takes at most "
+                         f"{max_rows}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
@@ -81,6 +108,33 @@ def rows_grid(rows: int, n: int, per_block: int, target: int) -> int:
     ``per_block`` floats a block, at most ``target // rows`` (the flat
     kernel's grid shared by the rows), at least one."""
     return max(1, min(-(-n // per_block), target // rows))
+
+
+def _form_grid(form: str, rows: int, n: int, sms: int, kernel: str) -> int:
+    """The grid of a row launch of ``kernel`` in ``form``: short, the
+    blocks of its persistent grid; wide, the blocks of each row."""
+    if form == "short":
+        return min(-(-rows // _WARPS), _SHORT_BLOCKS_PER_SM[kernel] * sms)
+    loads, per_sm = ((_MAXABS_LOADS, _MAXABS_BLOCKS_PER_SM)
+                     if kernel == "maxabs" else
+                     (_HIST_LOADS, _HIST_BLOCKS_PER_SM))
+    return rows_grid(rows, n, _THREADS * loads * 4, per_sm * sms)
+
+
+def row_form(rows: int, n: int, sms: int, kernel: str) -> tuple[str, int]:
+    """The form of a row launch of ``kernel`` ("maxabs" or "histogram")
+    over (rows, n) on a card of ``sms`` SMs, and its grid.
+
+    "short" (a warp a row on a persistent grid of at most the resident
+    blocks) where the rows are many -- at least 8 for every SM, a row for
+    every warp of a block a SM -- and at most ``SHORT_ROW_MAX_N`` long, and
+    beyond 65,535 rows, which the wide form cannot take.  Otherwise "wide"
+    (the flat kernel with a row on each ``blockIdx.y``).  A flat vector is
+    one row: always wide."""
+    short = rows > _MAX_ROWS or (rows >= _WARPS * sms
+                                 and n <= SHORT_ROW_MAX_N[kernel])
+    form = "short" if short else "wide"
+    return form, _form_grid(form, rows, n, sms, kernel)
 
 
 def _check_same_device(x: torch.Tensor, *others: torch.Tensor) -> None:
@@ -170,13 +224,42 @@ def sum_maxabs(e: torch.Tensor, delta: torch.Tensor
     return u, _launch_maxabs(e, delta, u)
 
 
+def _maxabs_rows_launch(x: torch.Tensor, d: torch.Tensor | None,
+                       u: torch.Tensor | None, form: str | None = None
+                       ) -> torch.Tensor:
+    """One launch of the maxabs kernel over the rows of x (with d: of u =
+    x + d, written to u), in ``form`` (None: :func:`row_form`'s).  Returns
+    (M,) f32."""
+    rows, n = x.shape
+    sms = _sm_count(x.device)
+    form = form or row_form(rows, n, sms, "maxabs")[0]
+    grid = _form_grid(form, rows, n, sms, "maxabs")
+    out = torch.empty(rows, dtype=torch.float32, device=x.device)
+    dp = None if d is None else d.data_ptr()
+    up = None if u is None else u.data_ptr()
+    with _on_device(x):
+        if form == "short":
+            err = _build.lib().lgc_maxabs_short(
+                x.data_ptr(), dp, up, rows, n, out.data_ptr(), grid,
+                _stream(x))
+        else:
+            partials = torch.empty(rows * grid, dtype=torch.int32,
+                                   device=x.device)
+            counters = _zeroed_counters("maxabs_rows", x.device, rows)
+            err = _build.lib().lgc_maxabs(
+                x.data_ptr(), dp, up, rows, n, out.data_ptr(),
+                partials.data_ptr(), counters.data_ptr(), grid, _stream(x))
+    _build.check(err, "maxabs_rows")
+    return out
+
+
 def sum_maxabs_rows(e: torch.Tensor, delta: torch.Tensor
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`sum_maxabs` of each row: u = e + delta (flushed) and max |u|
-    of each row, over (M, D) rows in one launch.  Returns u (M, D) f32 and
-    (M,) f32."""
-    _check_rows(e, "e")
-    _check_rows(delta, "delta")
+    of each row, over (M, D) rows in one launch (any M).  Returns u (M, D)
+    f32 and (M,) f32."""
+    _check_rows(e, "e", max_rows=None)
+    _check_rows(delta, "delta", max_rows=None)
     if e.shape != delta.shape:
         raise ValueError(f"e {tuple(e.shape)} and delta {tuple(delta.shape)}")
     _check_same_device(e, delta)
@@ -188,19 +271,17 @@ def sum_maxabs_rows(e: torch.Tensor, delta: torch.Tensor
     off = e.data_ptr() % 16 // 4
     u = torch.empty(rows * n + 3, dtype=torch.float32,
                     device=e.device)[off:off + rows * n].view(rows, n)
-    per_block = _THREADS * _MAXABS_LOADS * 4
-    grid = rows_grid(rows, n, per_block,
-                     _MAXABS_BLOCKS_PER_SM * _sm_count(e.device))
-    out = torch.empty(rows, dtype=torch.float32, device=e.device)
-    partials = torch.empty(rows * grid, dtype=torch.int32, device=e.device)
-    counters = _zeroed_counters("maxabs_rows", e.device, rows)
-    with _on_device(e):
-        err = _build.lib().lgc_maxabs(
-            e.data_ptr(), delta.data_ptr(), u.data_ptr(), rows, n,
-            out.data_ptr(), partials.data_ptr(), counters.data_ptr(), grid,
-            _stream(e))
-    _build.check(err, "maxabs_rows")
-    return u, out
+    return u, _maxabs_rows_launch(e, delta, u)
+
+
+def maxabs_rows(x: torch.Tensor) -> torch.Tensor:
+    """:func:`maxabs` of each row of x (M, D), in one launch (any M): the
+    reference's ``jax.vmap(maxabs)``.  Returns (M,) f32."""
+    _check_rows(x, "x", max_rows=None)
+    _check_same_device(x)
+    if x.device.type == "cpu":
+        return ref.hist_maxabs_rows(x)
+    return _maxabs_rows_launch(x, None, None)
 
 
 def histogram_grid(n: int, device: torch.device) -> int:
@@ -230,29 +311,44 @@ def histogram(x: torch.Tensor, maxabs_val: torch.Tensor) -> torch.Tensor:
     return counts
 
 
+def _histogram_rows_launch(x: torch.Tensor, maxabs_val: torch.Tensor,
+                          form: str | None = None) -> torch.Tensor:
+    """One launch of the histogram kernel over the rows of x against
+    maxabs_val (M,), in ``form`` (None: :func:`row_form`'s).  Returns
+    (M, 256) int32."""
+    rows, n = x.shape
+    sms = _sm_count(x.device)
+    form = form or row_form(rows, n, sms, "histogram")[0]
+    grid = _form_grid(form, rows, n, sms, "histogram")
+    m = maxabs_val.reshape(rows).contiguous()
+    counts = torch.empty((rows, N_BINS), dtype=torch.int32, device=x.device)
+    with _on_device(x):
+        if form == "short":
+            err = _build.lib().lgc_histogram_short(
+                x.data_ptr(), rows, n, m.data_ptr(), counts.data_ptr(), grid,
+                _stream(x))
+        else:
+            acc = _zeroed_counters("histogram_rows", x.device,
+                                   rows * (N_BINS + 1))
+            err = _build.lib().lgc_histogram(
+                x.data_ptr(), rows, n, m.data_ptr(), counts.data_ptr(),
+                acc.data_ptr(), grid, _stream(x))
+    _build.check(err, "histogram_rows")
+    return counts
+
+
 def histogram_rows(x: torch.Tensor, maxabs_val: torch.Tensor
                    ) -> torch.Tensor:
     """:func:`histogram` of each row of x (M, D) over [0, maxabs_val[r]],
-    in one launch.  Returns (M, 256) int32."""
-    _check_rows(x, "x")
-    rows, n = x.shape
+    in one launch (any M).  Returns (M, 256) int32."""
+    _check_rows(x, "x", max_rows=None)
+    rows = x.shape[0]
     if maxabs_val.numel() != rows or maxabs_val.dtype != torch.float32:
         raise ValueError(f"maxabs_val must be {rows} f32 values")
     _check_same_device(x, maxabs_val)
     if x.device.type == "cpu":
         return ref.hist_counts_rows(x, maxabs_val)
-    m = maxabs_val.reshape(rows).contiguous()
-    counts = torch.empty((rows, N_BINS), dtype=torch.int32, device=x.device)
-    acc = _zeroed_counters("histogram_rows", x.device, rows * (N_BINS + 1))
-    per_block = _THREADS * _HIST_LOADS * 4
-    grid = rows_grid(rows, n, per_block,
-                     _HIST_BLOCKS_PER_SM * _sm_count(x.device))
-    with _on_device(x):
-        err = _build.lib().lgc_histogram(
-            x.data_ptr(), rows, n, m.data_ptr(), counts.data_ptr(),
-            acc.data_ptr(), grid, _stream(x))
-    _build.check(err, "histogram_rows")
-    return counts
+    return _histogram_rows_launch(x, maxabs_val)
 
 
 # ---------------------------------------------------------------------------

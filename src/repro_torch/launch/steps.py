@@ -268,21 +268,11 @@ def _row_mask(received: torch.Tensor, rows: int) -> torch.Tensor:
         m_dev * rows, n_ch)
 
 
-# the row kernels put a row on each blockIdx.y, at most 65,535 of them
-MAX_KERNEL_ROWS = 65_535
-
-
 def _row_stats(e: torch.Tensor, delta: torch.Tensor):
     """u = e + delta, its row maxima and 256-bin counts through the maxabs
-    and histogram row kernels: one launch of each for up to
-    ``MAX_KERNEL_ROWS`` rows (every leaf of the 100M model at M = 2), one
-    per block of that many rows beyond."""
-    if e.shape[0] <= MAX_KERNEL_ROWS:
-        u, mx = sum_maxabs_rows(e, delta)
-        return u, mx, histogram_rows(u, mx)
-    parts = [_row_stats(e[i:i + MAX_KERNEL_ROWS], delta[i:i + MAX_KERNEL_ROWS])
-             for i in range(0, e.shape[0], MAX_KERNEL_ROWS)]
-    return tuple(torch.cat(ts) for ts in zip(*parts))
+    and histogram row kernels: one launch of each at any row count."""
+    u, mx = sum_maxabs_rows(e, delta)
+    return u, mx, histogram_rows(u, mx)
 
 
 def _compress_leaf_sparse(e: torch.Tensor, delta: torch.Tensor, sparsity,

@@ -28,6 +28,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import kernels as pk  # noqa: E402
 from repro_torch.kernels import ref as pref  # noqa: E402
+from repro_torch.kernels import topk_threshold as tt  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -269,14 +270,15 @@ def test_each_wrapper_counts_its_launches(card):
     pk.reset_launch_counts()
     pk.lgc_compress_hist(x, x, cum, recv)
     pk.maxabs(x)
+    pk.maxabs_rows(x.view(2, 2500))
     assert pk.LAUNCHES == {"maxabs": 2, "histogram": 1, "sparsify_ef": 1,
-                           "swa_decode": 0, "maxabs_rows": 0,
+                           "swa_decode": 0, "maxabs_rows": 1,
                            "histogram_rows": 0, "sparsify_ef_rows": 0,
                            "maxabs_segments": 0, "histogram_segments": 0}
     pk.lgc_compress_hist_rows(x.view(2, 2500), x.view(2, 2500),
                               cum.expand(2, 3), recv.expand(2, 3))
     assert [pk.LAUNCHES[k] for k in ("maxabs_rows", "histogram_rows",
-                                     "sparsify_ef_rows")] == [1, 1, 1]
+                                     "sparsify_ef_rows")] == [2, 1, 1]
     q = torch.zeros((1, 2, 32), device=card)
     kv = torch.zeros((1, 1, 4, 32), device=card)
     pk.swa_decode(q, kv, kv, torch.ones(1, dtype=torch.int32, device=card))
@@ -558,6 +560,107 @@ def test_row_kernels_repeat_and_follow_a_larger_grid(card):
         pk.lgc_compress_hist_rows(*big)
     got = pk.lgc_compress_hist_rows(*small)
     assert all(_bits_equal(a, b) for a, b in zip(got, want))
+    torch.cuda.synchronize()
+
+
+# the short-row form of maxabs and histogram (a warp a row): many short
+# rows, rows off a 16-byte boundary (odd n), n = 1, more than 65,535 rows,
+# and n on each side of each kernel's longest row that row_form gives the
+# short form
+SHORT_SHAPES = [(2_000, 768), (70_000, 5), (1_500, 1_537), (4_096, 1)] + [
+    (1_100, n + k) for n in sorted(set(tt.SHORT_ROW_MAX_N.values()))
+    for k in (0, 1)]
+
+
+def _short_inputs(r: int, n: int, card, offset: int = 0):
+    """e (offset floats past a 16-byte boundary) and x, (r, n) f32, with
+    special rows: 1 all zero, 2 a NaN, 3 +inf, 4 -inf, 5 some subnormals,
+    6 all subnormal (its max counts as 0)."""
+    rng = np.random.default_rng(r + 7 * n + offset)
+    e = torch.from_numpy((rng.standard_t(3, r * n + offset) * 1e-4).astype(
+        np.float32)).to(card)[offset:].view(r, n)
+    x = torch.from_numpy((rng.standard_t(3, (r, n)) * 1e-3).astype(
+        np.float32)).to(card)
+    e[1], x[1] = 0.0, 0.0
+    x[2, n // 2] = float("nan")
+    x[3, n - 1] = float("inf")
+    x[4, 0] = float("-inf")
+    e[5] *= 1e-35
+    x[5, ::2] *= 1e-35
+    e[6] = 0.0
+    x[6] *= 1e-37
+    return e, x
+
+
+def _u_like(e: torch.Tensor) -> torch.Tensor:
+    """An empty (r, n) f32 tensor at e's offset from a 16-byte boundary."""
+    r, n = e.shape
+    off = e.data_ptr() % 16 // 4
+    return torch.empty(r * n + 3, device=e.device)[off:off + r * n].view(r, n)
+
+
+@pytest.mark.parametrize("r,n", SHORT_SHAPES)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_short_row_form_matches_plain_rows_and_flat_kernels(card, r, n,
+                                                            offset):
+    """``sum_maxabs_rows``, ``maxabs_rows`` and ``histogram_rows`` in one
+    launch each, and the short form forced at every shape, bitwise the
+    plain row versions (NaN, +-inf, subnormals, a zero row, a row whose
+    max is subnormal); rows 0, 1 and the last also the flat kernels'."""
+    e, x = _short_inputs(r, n, card, offset)
+    u_ref = pref.ftz_add(e, x)
+    mx_ref = pref.hist_maxabs_rows(u_ref)
+    c_ref = pref.hist_counts_rows(u_ref, mx_ref)
+    pk.reset_launch_counts()
+    u, mx = pk.sum_maxabs_rows(e, x)
+    counts = pk.histogram_rows(u, mx)
+    alone = pk.maxabs_rows(u)
+    assert (pk.LAUNCHES["maxabs_rows"], pk.LAUNCHES["histogram_rows"]) == (
+        2, 1)
+    assert _bits_equal(u, u_ref) and _bits_equal(mx, mx_ref)
+    assert _bits_equal(alone, mx_ref) and _bits_equal(counts, c_ref)
+    u_short = _u_like(e)
+    assert _bits_equal(tt._maxabs_rows_launch(e, x, u_short, "short"),
+                       mx_ref)
+    assert _bits_equal(u_short, u_ref)
+    assert _bits_equal(tt._maxabs_rows_launch(u_ref, None, None, "short"),
+                       mx_ref)
+    assert _bits_equal(tt._histogram_rows_launch(u_ref, mx_ref, "short"),
+                       c_ref)
+    for row in (0, 1, r - 1):
+        v = u_ref[row].contiguous()
+        assert _bits_equal(pk.maxabs(v).reshape(()), mx_ref[row])
+        assert _bits_equal(pk.histogram(v, mx_ref[row].reshape(1, 1)),
+                           c_ref[row])
+    torch.cuda.synchronize()
+
+
+def test_short_row_form_repeats_and_follows_a_taller_launch(card):
+    """Ten launches in a row, and a launch after a taller one (96,000
+    rows of 768, more than a block of the grid strides over), give the
+    same bits; ``steps._row_stats`` at (96,000, 768) launches each row
+    kernel once, bitwise the plain row versions."""
+    from repro_torch.launch import steps
+    small = _short_inputs(2_000, 768, card, 1)
+    tall = _short_inputs(96_000, 768, card)
+    u, mx = pk.sum_maxabs_rows(*small)
+    counts = pk.histogram_rows(u, mx)
+    for _ in range(10):
+        u2, mx2 = pk.sum_maxabs_rows(*small)
+        assert _bits_equal(u2, u) and _bits_equal(mx2, mx)
+        assert _bits_equal(pk.histogram_rows(u2, mx2), counts)
+        assert _bits_equal(pk.maxabs_rows(u2), mx)
+    pk.reset_launch_counts()
+    u_t, mx_t, c_t = steps._row_stats(*tall)
+    assert (pk.LAUNCHES["maxabs_rows"], pk.LAUNCHES["histogram_rows"]) == (
+        1, 1)
+    u_ref = pref.ftz_add(*tall)
+    assert _bits_equal(u_t, u_ref)
+    assert _bits_equal(mx_t, pref.hist_maxabs_rows(u_ref))
+    assert _bits_equal(c_t, pref.hist_counts_rows(u_ref, mx_t))
+    u2, mx2 = pk.sum_maxabs_rows(*small)
+    assert _bits_equal(u2, u) and _bits_equal(mx2, mx)
+    assert _bits_equal(pk.histogram_rows(u2, mx2), counts)
     torch.cuda.synchronize()
 
 
@@ -966,11 +1069,11 @@ def test_population_lgc_q8_on_the_card_matches_the_cpu(card, monkeypatch):
 
 
 @pytest.mark.parametrize("mode", ["sparse_gather", "bucket_sparse"])
-def test_sparse_uplinks_on_the_card_match_the_cpu(card, monkeypatch, mode):
+def test_sparse_uplinks_on_the_card_match_the_cpu(card, mode):
     """M = 3 devices of 4 rows of 2,000 (a leaf's model-dim view), a
     different delivery mask per device: g_mean and e_new on the card (the
-    maxabs and histogram row kernels for sparse_gather, in one launch each
-    and then in blocks of 5 rows) bitwise the CPU's."""
+    maxabs and histogram row kernels for sparse_gather, in one launch
+    each) bitwise the CPU's."""
     from repro_torch.kernels import LAUNCHES, reset_launch_counts
     from repro_torch.launch import steps
     e = _vec(3 * 4 * 2000, 40, 1e-4, "cpu").reshape(3, 4, 2000)
@@ -983,17 +1086,14 @@ def test_sparse_uplinks_on_the_card_match_the_cpu(card, monkeypatch, mode):
     else:
         fn = steps._compress_leaf_bucket
     want = fn(e, d, sp, recv)
-    for max_rows, launches in ((steps.MAX_KERNEL_ROWS, 1), (5, 3)):
-        monkeypatch.setattr(steps, "MAX_KERNEL_ROWS", max_rows)
-        reset_launch_counts()
-        got = fn(e.to(card), d.to(card), sp, recv.to(card))
-        if mode == "sparse_gather":
-            assert (LAUNCHES["maxabs_rows"], LAUNCHES["histogram_rows"]) == (
-                launches, launches)
-        else:
-            assert not any(LAUNCHES.values())
-        for g, w in zip(got, want):
-            assert g.device.type == "cuda" and _bits_equal(g.cpu(), w)
+    reset_launch_counts()
+    got = fn(e.to(card), d.to(card), sp, recv.to(card))
+    if mode == "sparse_gather":
+        assert (LAUNCHES["maxabs_rows"], LAUNCHES["histogram_rows"]) == (1, 1)
+    else:
+        assert not any(LAUNCHES.values())
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and _bits_equal(g.cpu(), w)
 
 
 def test_checkpoint_round_trip_of_card_tensors(card, tmp_path):

@@ -287,6 +287,7 @@ class TestWrapperChecks:
         pk.lgc_compress_hist_rows(x.view(4, 25), x.view(4, 25),
                                   torch.full((4, 1), 5, dtype=torch.int32),
                                   torch.ones((4, 1), dtype=torch.int32))
+        pk.maxabs_rows(x.view(4, 25))
         q, kv = torch.zeros((1, 2, 32)), torch.zeros((1, 1, 4, 32))
         pk.swa_decode(q, kv, kv, torch.ones(1, dtype=torch.int32))
         pk.per_layer_candidates_hist_rows(

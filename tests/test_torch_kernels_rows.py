@@ -3,14 +3,17 @@ reference's ``jax.vmap`` of its Pallas kernels.
 
 The batched engine reaches the Pallas kernels through ``jax.vmap`` over the
 device axis (``repro/core/fl_batched.py:201-209``); the port has row forms
-(``sum_maxabs_rows``, ``histogram_rows``, ``thresholds_from_counts`` on
-(M, 256) counts, ``sparsify_ef_rows``, ``lgc_compress_hist_rows``) whose
+(``sum_maxabs_rows``, ``maxabs_rows``, ``histogram_rows``,
+``thresholds_from_counts`` on (M, 256) counts, ``sparsify_ef_rows``,
+``lgc_compress_hist_rows``) whose
 plain versions (``kernels.ref.*_rows``) run on the CPU.  The same f32
 inputs, made with numpy from a seed, go through the vmapped Pallas kernels
 (interpret mode) and through the port: bitwise, at odd D, D < 4, M = 1 and
 with all-zero rows.  Each plain row form is also bitwise the flat plain
-version on every row.  The CUDA row kernels are held against these on the
-card by tests/test_torch_cuda.py and chip_smoke.py.
+version on every row.  ``row_form`` (the wide or the short form of the
+maxabs and histogram row kernels) is held at the paths' shapes.  The CUDA
+row kernels are held against these on the card by
+tests/test_torch_cuda.py and chip_smoke.py.
 """
 import itertools
 
@@ -145,6 +148,85 @@ def test_thresholds_rows_with_per_row_budgets(c):
         _bitwise(got[r], want, f"row {r}")
 
 
+@pytest.mark.parametrize("m,d", [(40, 768), (5, 7)])
+def test_maxabs_rows_matches_vmapped_pallas_maxabs(m, d):
+    """``maxabs_rows`` is ``jax.vmap(maxabs)`` (interpret mode), with a
+    zero row, a NaN and subnormals."""
+    x = _rows(m, d, 3 * d)
+    x[0, d // 2] = np.nan
+    x[2] *= np.float32(1e-36)
+    got = pk.maxabs_rows(_t(x))
+    want = jax.vmap(jk.maxabs)(jnp.asarray(x))              # (M, 1, 1)
+    _bitwise(got, np.asarray(want).reshape(m))
+
+
+def test_row_statistics_take_more_than_65535_rows():
+    """``sum_maxabs_rows``, ``maxabs_rows`` and ``histogram_rows`` take
+    70,000 rows of 3 (one launch each on the card, no row limit) and give
+    the plain versions' bits, equal to the flat plain versions on sampled
+    rows; ``sparsify_ef_rows`` (a row on each blockIdx.y) still refuses
+    them."""
+    m, d = 70_000, 3
+    e, x = _t(_rows(m, d, 1, 1e-4)), _t(_rows(m, d, 2))
+    u, mx = pk.sum_maxabs_rows(e, x)
+    _bitwise(u, pref.ftz_add(e, x).numpy())
+    _bitwise(mx, pref.hist_maxabs_rows(u).numpy())
+    _bitwise(pk.maxabs_rows(u), mx.numpy())
+    counts = pk.histogram_rows(u, mx)
+    _bitwise(counts, pref.hist_counts_rows(u, mx).numpy())
+    assert (counts.sum(1) == d).all()
+    for r in (0, 1, 65_535, m - 1):
+        _bitwise(mx[r], pref.hist_maxabs(u[r]).numpy(), f"row {r}")
+        _bitwise(counts[r], pref.hist_counts(u[r], mx[r]).numpy(), f"row {r}")
+    with pytest.raises(ValueError, match="65535"):
+        pk.sparsify_ef_rows(e, x, torch.zeros(m, 1),
+                            torch.ones(m, 1, dtype=torch.int32))
+    assert all(v == 0 for v in pk.LAUNCHES.values())    # the CPU: plain
+
+
+# (rows, n) of the paths on a 132-SM card, with the form row_form must
+# give maxabs and histogram: the simulator's and the dense 100M step's few
+# long rows, the population's 64 rows, and the sparse path's model-dim
+# views, many rows: the largest leaf's at M = 2 (there the two forms of
+# maxabs tie and it stays wide, histogram's short form is faster), embed
+# at M = 2 and 3 and qwen2-1.5b's embed on one device, the last two above
+# 65,535 rows
+PATH_FORMS = [((3, 7850), "wide", "wide"), ((8, 206_922), "wide", "wide"),
+              ((8, 83_955), "wide", "wide"),
+              ((2, 28_311_552), "wide", "wide"), ((64, 68), "wide", "wide"),
+              ((64, 7850), "wide", "wide"),
+              ((6_144, 9_216), "wide", "short"),
+              ((64_000, 768), "short", "short"),
+              ((96_000, 768), "short", "short"),
+              ((151_936, 1_536), "short", "short")]
+
+
+@pytest.mark.parametrize("shape,maxabs_form,histogram_form", PATH_FORMS)
+def test_row_form_at_the_paths_shapes(shape, maxabs_form, histogram_form):
+    from repro_torch.kernels import topk_threshold as tt
+    rows, n = shape
+    for kernel, form in (("maxabs", maxabs_form),
+                         ("histogram", histogram_form)):
+        got, grid = tt.row_form(rows, n, 132, kernel)
+        assert got == form, kernel
+        if form == "short":   # a persistent grid of the resident blocks
+            assert grid == min(-(-rows // 8),
+                               tt._SHORT_BLOCKS_PER_SM[kernel] * 132)
+        else:                 # blocks a row, within the flat kernel's grid
+            assert 1 <= grid * rows <= max(rows, 8 * 132)
+
+
+@pytest.mark.parametrize("kernel", ["maxabs", "histogram"])
+@pytest.mark.parametrize("n", [1, 7, 768, 7850, 28_311_552, 1 << 30])
+def test_row_form_never_gives_a_flat_call_the_short_form(kernel, n):
+    from repro_torch.kernels import topk_threshold as tt
+    for sms in (1, 78, 132):
+        assert tt.row_form(1, n, sms, kernel)[0] == "wide"
+    # the short form only beyond 8 rows a SM, or beyond 65,535 rows
+    assert tt.row_form(8 * 132 - 1, 5, 132, kernel)[0] == "wide"
+    assert tt.row_form(65_536, 1 << 20, 132, kernel)[0] == "short"
+
+
 def test_row_wrappers_check_their_inputs():
     x = torch.zeros(3, 10)
     with pytest.raises(ValueError):
@@ -159,6 +241,14 @@ def test_row_wrappers_check_their_inputs():
         pk.sum_maxabs_rows(torch.zeros(3, 20)[:, ::2], x)         # strided
     with pytest.raises(ValueError):
         pk.histogram_rows(x, torch.zeros(2))
+    with pytest.raises(ValueError):
+        pk.maxabs_rows(torch.zeros(10))                           # flat
+    with pytest.raises(TypeError):
+        pk.maxabs_rows(x.double())
+    with pytest.raises(ValueError):
+        pk.maxabs_rows(torch.zeros(0, 10))
+    with pytest.raises(ValueError):
+        pk.maxabs_rows(torch.zeros(3, 20)[:, ::2])                # strided
     thr5 = torch.zeros(3, 5)
     with pytest.raises(ValueError):
         pk.sparsify_ef_rows(x, x, thr5, torch.ones(3, 5, dtype=torch.int32))

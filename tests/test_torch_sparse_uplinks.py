@@ -226,17 +226,3 @@ def test_default_task_runs_the_sparse_uplink():
     assert np.isfinite(out["losses"]).all()
     want = j_make(m_devices=2, arch=TINY, seq=16).wire_bytes_per_round()
     assert out["wire_bytes_per_round_per_device"] == want
-
-
-def test_row_statistics_in_blocks_of_rows_are_bitwise_one_pass(monkeypatch):
-    """Beyond the row kernels' 65,535 rows a launch the statistics go in
-    blocks of rows: the same u, maxima and counts as in one pass."""
-    rng = np.random.default_rng(9)
-    e = torch.from_numpy((rng.standard_t(3, (11, 300)) * 1e-4
-                          ).astype(np.float32))
-    d = torch.from_numpy((rng.standard_t(3, (11, 300)) * 1e-3
-                          ).astype(np.float32))
-    want = psteps._row_stats(e, d)
-    monkeypatch.setattr(psteps, "MAX_KERNEL_ROWS", 4)
-    for got, w in zip(psteps._row_stats(e, d), want):
-        assert torch.equal(got, w)
