@@ -5,6 +5,7 @@ NVIDIA H100.
     python3 chip_smoke.py          # every phase
     python3 chip_smoke.py --rows   # the build and the row kernels at the
                                    # sparse path's rows, with the sweep
+    python3 chip_smoke.py --sharded  # the build and the sharded engine
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
@@ -152,6 +153,17 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    (cohorts and participation equal, History within 1e-3), every sync
    bitwise the plain row pipeline, no host sync inside a window, each row
    kernel once per window (batched) or once per cohort row (loop);
+   then the sharded engine (``engine="sharded"``, one ``sharded`` JSON
+   line): cnn_mnist (M=8, 40 rounds, lgc) on a one-rank NCCL mesh in this
+   process under gather (bitwise the batched engine, the same launches)
+   and psum (loss and uplink within 1e-4), and two gloo ranks sharing the
+   card (``mesh.spawn``) running lr_mnist M=8 (lgc, topk, lgc_q8, gaps
+   2 + m mod 5, semi_sync under both reduces, a per_device DDPG fleet on
+   hetero_fleet) and a population (lr_mnist, N = 100,000, M = 64, dense
+   store, 3 windows), each against the unsharded engine on the card and
+   every rank's row kernel calls bitwise their plain versions; host ms
+   per window beside the unsharded engine's; a rank that fails or a
+   collective that hangs ends the run non-zero;
 9. the ``kernels`` line: each kernel's time beside its plain version, its
    bound (bytes over 3.35 TB/s or operations over 67 TFLOP/s) and one
    PyTorch call as a yardstick.  ``ms`` is the median of single calls
@@ -162,7 +174,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    vectors (``at_cnn_mnist``, D = 206,922; ``at_lr_mnist``, D = 7,850; there
    maxabs is ``sum_maxabs``, as the simulator calls it) with their launches
    per simulator run (``launches_simulator``, the DDPG runs included) and
-   per population run (``launches_population``), the
+   per population run (``launches_population``) and per sharded run
+   (``launches_sharded``: world 1 by reduce, world 2 summed over the
+   ranks), the
    histogram also on the main path's real u of round 2 (``at_main_path_u``)
    and on a constant
    vector (``at_one_bin``), ``sum_maxabs`` against the add and maxabs apart
@@ -2362,6 +2376,188 @@ def phase_population(smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 8 (cont.): the sharded engine over torch.distributed
+# ---------------------------------------------------------------------------
+
+# world 1 over NCCL in this process: cnn_mnist at the factory's width and
+# samples, M = 8, 40 rounds (phase 8's static CNN run), lgc
+SHARDED_W1 = ("cnn_mnist", 8, 6000, 40, 10)
+# world 2: two processes on the one card over gloo; lr_mnist M = 8, and a
+# population window set (lr_mnist, N = 100,000, M = 64, dense store,
+# 3 windows)
+SHARDED_W2_M, SHARDED_W2_TRAIN = 8, 2000
+SHARDED_TIMEOUT_S = 300.0
+
+
+def sharded_w2_cases() -> list:
+    from repro_torch.launch.sharded_runs import population_case, sim_case
+    lr = {"task": "lr_mnist", "m": SHARDED_W2_M,
+          "n_train": SHARDED_W2_TRAIN, "rounds": 20, "eval_every": 10}
+    cases = [sim_case(f"lr_mnist {mode}", mode=mode, **lr)
+             for mode in ("lgc", "topk", "lgc_q8")]
+    cases.append(sim_case(
+        "lr_mnist hetero gaps", hs=[2 + m % 5 for m in range(SHARDED_W2_M)],
+        ks=[200, 300, 400], **(lr | {"rounds": 25, "eval_every": 8}),
+        cfg={"max_gap": 6}))
+    for reduce in ("gather", "psum"):
+        cases.append(sim_case(f"lr_mnist semi_sync {reduce}",
+                              server_reduce=reduce,
+                              cfg={"aggregator": "semi_sync",
+                                   "staleness_cap": 2}, **lr))
+    cases.append(sim_case(
+        "lr_mnist ddpg per_device hetero_fleet", fleet="ddpg",
+        **(lr | {"rounds": 24, "eval_every": 8}),
+        cfg={"scenario": "hetero_fleet", "action_space": "per_device",
+             "pipeline_decisions": True, "max_gap": 4}))
+    cases.append(population_case("population lr_mnist dense",
+                                 config="lr_mnist", n=POP_N, m_cohort=POP_M,
+                                 rounds=3 * SIM_H, h=SIM_H))
+    return cases
+
+
+def rows_launched(launches: dict) -> dict:
+    return {name: launches[name] + launches[rn]
+            for name, rn in ROW_KERNELS.items()}
+
+
+def check_sharded(tag: str, case: dict, got: dict, want: dict,
+                  rows_bitwise: bool = True) -> list:
+    """A sharded result against the unsharded one on the card
+    (``sharded_runs.compare``): every row kernel call bitwise its plain
+    version, and the result bitwise (gather) or within the psum bound."""
+    from repro_torch.launch.sharded_runs import compare
+    stats = got["rows_checked"]
+    check(stats.get("differ", 0) == 0, f"sharded {tag}: "
+          f"{stats.get('differ')} row kernel calls differ from the plain "
+          f"versions")
+    bad = compare(case, got, want)
+    check(not bad, f"sharded {tag}: differs from the unsharded run: {bad}")
+    return bad
+
+
+def median(xs) -> float:
+    return statistics.median(xs) if xs else float("nan")
+
+
+def phase_sharded(smi: str) -> dict:
+    """The sharded engine (``engine="sharded"``) on the card.
+
+    World 1 over NCCL in this process: cnn_mnist (M = 8, 40 rounds, lgc)
+    under gather and psum against the unsharded batched engine: gather
+    bitwise with the same row kernel launches, psum within 1e-4 in loss
+    and uplink_mb; each sync's row kernels bitwise their plain versions;
+    then an unchecked run of each for the host ms per window.
+
+    World 2, two processes on the card over gloo (``mesh.spawn``):
+    lr_mnist M = 8 (lgc, topk, lgc_q8, gaps 2 + m mod 5, semi_sync under
+    both reduces, a per_device DDPG fleet on hetero_fleet) and a
+    population run (lr_mnist, N = 100,000, M = 64, dense store, 3
+    windows): both ranks equal, each equal to the unsharded run on the
+    card (bitwise under gather), every rank's row kernel calls bitwise
+    their plain versions on its block.  Returns the ``sharded`` line."""
+    import faulthandler
+    from repro_torch.launch.mesh import make_host_mesh, spawn
+    from repro_torch.launch.sharded_runs import (rank_main, run_case,
+                                                 sim_case)
+    t_phase = time.perf_counter()
+    # a collective that never returns must not hang the run: dump every
+    # thread's stack and exit non-zero
+    faulthandler.dump_traceback_later(3 * SHARDED_TIMEOUT_S, exit=True)
+    out: dict = {"card": smi}
+    # -- world 1, NCCL, in process ------------------------------------------
+    mesh = make_host_mesh(device="cuda")
+    check(mesh.transport == "nccl" and mesh.size == 1,
+          f"sharded world 1: mesh {mesh}")
+    log(f"sharded world 1: {mesh}")
+    task_name, m, n_train, rounds, eval_every = SHARDED_W1
+    w1: dict = {"transport": mesh.transport, "task": task_name, "m": m,
+                "rounds": rounds}
+    base = sim_case(f"{task_name} lgc", task=task_name, m=m,
+                    n_train=n_train, rounds=rounds, eval_every=eval_every)
+    want = run_case(base, "batched", "cuda", check_rows=True)
+    for reduce in ("gather", "psum"):
+        case = base | {"server_reduce": reduce}
+        got = run_case(case, "sharded", "cuda", mesh, check_rows=True)
+        check_sharded(f"world 1 {reduce}", case, got, want)
+        if reduce == "gather":
+            check(got["launches"] == want["launches"],
+                  f"sharded world 1: launches {got['launches']} against "
+                  f"the unsharded {want['launches']}")
+        timed = run_case(case, "sharded", "cuda", mesh)
+        w1[reduce] = {"bitwise": got["hist"] == want["hist"],
+                      "loss_gap": max(abs(a - b) for a, b in zip(
+                          got["hist"]["loss"], want["hist"]["loss"])),
+                      "launches": rows_launched(got["launches"]),
+                      "row_calls_checked": got["rows_checked"]["calls"],
+                      "host_ms_per_window": median(timed["window_ms"])}
+    timed = run_case(base, "batched", "cuda")
+    w1["unsharded"] = {"launches": rows_launched(want["launches"]),
+                       "host_ms_per_window": median(timed["window_ms"])}
+    out["world1"] = w1
+    log(f"sharded world 1 ({mesh.transport}): {task_name} M={m}, {rounds} "
+        f"rounds: gather bitwise the batched engine, psum losses within "
+        f"{w1['psum']['loss_gap']:.2e}; launches {w1['gather']['launches']}"
+        f"; host ms per window gather {w1['gather']['host_ms_per_window']:.3f}"
+        f", psum {w1['psum']['host_ms_per_window']:.3f}, unsharded "
+        f"{w1['unsharded']['host_ms_per_window']:.3f}; {smi}")
+    # -- world 2, gloo, two processes on the one card ------------------------
+    cases = sharded_w2_cases()
+    log(f"sharded world 2: spawning 2 gloo ranks for {len(cases)} cases")
+    t0 = time.perf_counter()
+    timed = (cases[0]["name"], cases[-1]["name"])
+    ranks = spawn(rank_main, 2, "gloo", args=(cases, "cuda", True, timed),
+                  timeout=SHARDED_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    transports = {r["transport"] for r in ranks}
+    check(transports == {"gloo"}, f"sharded world 2: transports "
+          f"{transports}")
+    w2: dict = {"transport": "gloo", "ranks": 2, "device": "cuda:0",
+                "spawn_s": spawn_s, "cases": {}}
+    for case in cases:
+        tag = case["name"]
+        r0, r1 = (r["results"][tag] for r in ranks)
+        check(r0["hist"] == r1["hist"], f"sharded world 2 {tag}: the "
+              f"ranks' Histories differ")
+        want = run_case(case, "batched", "cuda", check_rows=True)
+        for r, got in enumerate((r0, r1)):
+            check_sharded(f"world 2 {tag} rank {r}", case, got, want)
+            check(got["launches"]["maxabs_rows"]
+                  == got["rows_checked"].get("calls", 0),
+                  f"sharded world 2 {tag} rank {r}: "
+                  f"{got['launches']['maxabs_rows']} row launches, "
+                  f"{got['rows_checked'].get('calls', 0)} row calls")
+        summed = {k: r0["launches"][k] + r1["launches"][k]
+                  for k in r0["launches"]}
+        row = {"bitwise": r0["hist"] == want["hist"],
+               "launches_summed": rows_launched(summed),
+               "launches_unsharded": rows_launched(want["launches"]),
+               "rows_checked": [r0["rows_checked"], r1["rows_checked"]]}
+        if tag in timed:
+            row["host_ms_per_window"] = [median(r0["timed_window_ms"]),
+                                         median(r1["timed_window_ms"])]
+            row["unsharded_host_ms_per_window"] = median(
+                run_case(case, "batched", "cuda")["window_ms"])
+        if case["kind"] == "population":
+            row["ef_bytes_per_rank"] = r0["ef_bytes"]
+            row["max_memory_allocated"] = [r0["max_memory_allocated"],
+                                           r1["max_memory_allocated"]]
+        w2["cases"][tag] = row
+        how = "bitwise" if row["bitwise"] else "within the psum bound of"
+        times = (f"; host ms per window {row['host_ms_per_window']} "
+                 f"(ranks) against {row['unsharded_host_ms_per_window']:.3f}"
+                 if tag in timed else "")
+        log(f"sharded world 2 {tag}: {how} the unsharded run; launches "
+            f"summed {row['launches_summed']} (unsharded "
+            f"{row['launches_unsharded']}){times}; {smi}")
+    out["world2"] = w2
+    faulthandler.cancel_dump_traceback_later()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"sharded phase: {out['seconds']:.1f} s")
+    print(json.dumps({"sharded": out}), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 9: timings
 # ---------------------------------------------------------------------------
 
@@ -2687,9 +2883,9 @@ def phase_time_swa(gen) -> dict:
 
 def main(argv: list[str]) -> int:
     import torch
-    if argv not in ([], ["--rows"]):
-        print(f"usage: python3 chip_smoke.py [--rows]; got {argv}",
-              file=sys.stderr)
+    if argv not in ([], ["--rows"], ["--sharded"]):
+        print(f"usage: python3 chip_smoke.py [--rows | --sharded]; got "
+              f"{argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one "
@@ -2720,6 +2916,9 @@ def main(argv: list[str]) -> int:
         print(json.dumps({"sparse_rows": time_sparse_rows(gen),
                           "sweep": sweep_row_forms(gen)}), flush=True)
         return 0
+    if argv == ["--sharded"]:   # the sharded engine alone
+        phase_sharded(smi)
+        return 0
     errs = {k: 0.0 for k in (*TPU_KERNELS, *SEGMENT_KERNELS)}
     phase_kernels(gen, errs)
     phase_swa(gen, errs)
@@ -2735,6 +2934,7 @@ def main(argv: list[str]) -> int:
     phase_server(smi)
     sim_launches |= phase_control(smi)
     pop_launches = phase_population(smi)
+    sharded = phase_sharded(smi)
     rows = phase_timings(gen, main_u)
     row_times = phase_time_rows(gen)
     seg_times = phase_time_segments(gen)
@@ -2778,6 +2978,12 @@ def main(argv: list[str]) -> int:
                     "launches_population": {
                         tag: c[name] + c[rn]
                         for tag, c in pop_launches.items()},
+                    "launches_sharded": {
+                        f"world1 {red}": sharded["world1"][red]["launches"][
+                            name] for red in ("gather", "psum")} | {
+                        f"world2 {tag} (ranks summed)":
+                            c["launches_summed"][name]
+                        for tag, c in sharded["world2"]["cases"].items()},
                     "at_cnn_mnist": rows[name][CNN_D],
                     "at_lr_mnist": rows[name][LR_D]}
             # the row form at each path's (M, D), with that path's launches

@@ -1,7 +1,8 @@
 """Simulator core of the port: counter-based randomness, channels and
 scenarios, the LGC compressors with error feedback and per-layer budgets,
 the server aggregation modes, the engines, the DDPG control plane, the
-spend audit and the population layer (``repro/core``, ROADMAP A1-A11)."""
+spend audit, the population layer, the sharded engine's FL axis and the
+convergence bound (``repro/core``, ROADMAP A1-A12)."""
 from .channels import (DEFAULT_CHANNELS, ChannelSpec, DeviceProfile,
                        comm_cost, comp_cost, sample_channels_from,
                        stack_specs)
@@ -26,6 +27,7 @@ from .controller import (DDPGConfig, DDPGController, FleetDDPG,
 from .audit import audit_simulator, recompute_spend
 from .population import (COHORT_SAMPLERS, Population, make_population,
                          make_population_task, run_population, sample_cohort)
+from .convergence import ProblemConstants, corollary1_rate, theorem1_bound
 
 __all__ = [
     "DEFAULT_CHANNELS", "ChannelSpec", "DeviceProfile", "comm_cost",
@@ -47,4 +49,5 @@ __all__ = [
     "audit_simulator", "recompute_spend",
     "COHORT_SAMPLERS", "Population", "make_population",
     "make_population_task", "run_population", "sample_cohort",
+    "ProblemConstants", "corollary1_rate", "theorem1_bound",
 ]

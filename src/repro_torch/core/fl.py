@@ -28,11 +28,17 @@ each of ``maxabs``, ``histogram`` and ``sparsify_ef`` on a CUDA device, their
 plain versions on the CPU; ``backend="exact"`` keeps the rank-exact oracle
 of :mod:`.compressor`.  Modes: ``lgc``, ``topk``, ``fedavg``, ``lgc_q8``.
 
-Two engines run the same algorithm: ``engine="batched"`` (the default, as
-in the reference: :mod:`.fl_batched`, stacked (M, D) state, one launch of
-each LGC row kernel per sync boundary) and ``engine="loop"`` (this module,
-the Python loop over devices).  Their Histories agree to float summation
-order (tests/test_torch_fl_batched.py).
+Three engines run the same algorithm: ``engine="batched"`` (the default,
+as in the reference: :mod:`.fl_batched`, stacked (M, D) state, one launch
+of each LGC row kernel per sync boundary), ``engine="loop"`` (this module,
+the Python loop over devices) and ``engine="sharded"`` (the batched engine
+with its device axis spread over the ranks of a ``torch.distributed``
+mesh, :class:`.fl_batched.ShardedEngine`; ``mesh`` and ``server_reduce``
+pick the ranks and the collective that crosses them).  The batched and
+loop Histories agree to float summation order
+(tests/test_torch_fl_batched.py); the sharded one under
+``server_reduce="gather"`` is bitwise the batched one
+(tests/test_torch_sharded.py).
 
 Subnormals.  The reference's XLA:CPU flushes f32 subnormals in every
 arithmetic op; PyTorch keeps them.  So the engines flush where the
@@ -81,9 +87,6 @@ grow by the device profile and the channel state) and
 ``pipeline_decisions=True`` (a boundary commits the decision staged at the
 previous one, so the batched engine dispatches the next window before the
 controller's reward eval and act).
-
-Not ported yet, and raising where asked for: the sharded engine (ROADMAP
-A12).
 """
 from __future__ import annotations
 
@@ -116,6 +119,8 @@ from .server import (diloco_update, get_aggregator, init_server_state,
 
 BACKENDS = {"exact": "exact", "cuda": "cuda", "pallas": "cuda"}
 MODES = ("lgc", "topk", "fedavg", "lgc_q8")
+ENGINES = ("batched", "loop", "sharded")
+SERVER_REDUCES = ("gather", "psum")
 EVAL_SUBSET = 2048    # eval samples drawn per record (reference fl.py:795)
 REWARD_SUBSET = 512   # eval samples per device and reward (reference fl.py:387)
 ACTION_SPACES = ("shared", "per_device")
@@ -149,7 +154,7 @@ class FLConfig:
     eval_every: int = 10
     value_bytes: int = 4               # fp32 values on the wire
     index_bytes: int = 4
-    engine: str = "batched"            # "batched" | "loop" ("sharded": A12)
+    engine: str = "batched"            # "batched" | "loop" | "sharded"
     backend: str = "exact"             # "exact" | "cuda" ("pallas" = "cuda")
     scenario: str | Scenario = "static"
     # per-model-layer budgets: "global" or a LAYER_POLICIES name
@@ -283,13 +288,56 @@ def sgd_update(p: torch.Tensor, g: torch.Tensor, eta: float) -> torch.Tensor:
     return ftz(ftz(p) - ftz(eta * ftz(g)))
 
 
-def server_mean_update(flat: torch.Tensor, updates, m: int) -> torch.Tensor:
-    """Algorithm 1 lines 20-21: flat - (sum of the synced updates) / M, the
-    sum taken update by update, every op flushed as the reference's."""
+def flushed_sum(updates) -> torch.Tensor:
+    """The sum of the updates (a non-empty sequence of (D,) rows), taken
+    update by update, every add flushed as the reference's."""
     g_sum = ftz(updates[0])
     for g in updates[1:]:
         g_sum = ftz_add(g_sum, g)
+    return g_sum
+
+
+def server_mean_step(flat: torch.Tensor, g_sum: torch.Tensor, m: int
+                     ) -> torch.Tensor:
+    """flat - g_sum / M, flushed."""
     return ftz_add(flat, -ftz(div_f32(g_sum, m)))
+
+
+def server_mean_update(flat: torch.Tensor, updates, m: int) -> torch.Tensor:
+    """Algorithm 1 lines 20-21: flat - (sum of the synced updates) / M, the
+    sum taken update by update, every op flushed as the reference's."""
+    return server_mean_step(flat, flushed_sum(updates), m)
+
+
+def server_sums(agg: str, cfg: FLConfig, g: torch.Tensor, t32: np.ndarray,
+                deadline: float) -> tuple[tuple, torch.Tensor]:
+    """The sums over devices that one diloco / semi_sync server round
+    reduces, from the updates g (S, D) (S may be 0) with their f32 window
+    times ``t32`` (S,): diloco ``(sum of g,)``, semi_sync ``(g_now,
+    contrib)`` (:func:`.server.semi_sync_sums`); and the share of each
+    update the server never applies, (S,) f32 on the host, zeros under
+    diloco.  Sums over disjoint sets of devices add up to the sums over
+    their union, which the sharded engine's psum reduce uses."""
+    T = torch.from_numpy(np.asarray(t32, np.float32))
+    if agg == "diloco":
+        return (g.sum(0),), torch.zeros_like(T)
+    alpha, cap = float(cfg.staleness_alpha), int(cfg.staleness_cap)
+    mask = torch.ones(T.shape, dtype=torch.bool)
+    undeliv = staleness_schedule(T, deadline, mask, alpha, cap)[3]
+    g_now, contrib, _ = semi_sync_sums(g, T, mask, deadline, alpha, cap)
+    return (g_now, contrib), undeliv
+
+
+def server_step(agg: str, cfg: FLConfig, flat: torch.Tensor, state,
+                sums: tuple, m: int) -> tuple[torch.Tensor, object]:
+    """One diloco / semi_sync server round from the sums over every
+    syncing device (:func:`server_sums`), normalised by ``m``: (new flat
+    params, new server state)."""
+    if agg == "diloco":
+        delta = ftz(div_f32(ftz(sums[0]), m))
+        return diloco_update(flat, state, delta, True, float(cfg.outer_lr),
+                             float(cfg.outer_momentum))
+    return semi_sync_update(flat, state, *sums, True, m)
 
 
 def server_apply(agg: str, cfg: FLConfig, flat: torch.Tensor, state,
@@ -302,18 +350,8 @@ def server_apply(agg: str, cfg: FLConfig, flat: torch.Tensor, state,
     (S,) f32 on the host, zeros under diloco).  Both engines and the
     population call it (the reference's ``fl.py:641-653``,
     ``population.py:357-377``)."""
-    T = torch.from_numpy(np.asarray(t32, np.float32))
-    if agg == "diloco":
-        delta = ftz(div_f32(ftz(g.sum(0)), m))
-        flat, state = diloco_update(flat, state, delta, True,
-                                    float(cfg.outer_lr),
-                                    float(cfg.outer_momentum))
-        return flat, state, torch.zeros_like(T)
-    alpha, cap = float(cfg.staleness_alpha), int(cfg.staleness_cap)
-    mask = torch.ones(T.shape, dtype=torch.bool)
-    undeliv = staleness_schedule(T, deadline, mask, alpha, cap)[3]
-    g_now, contrib, _ = semi_sync_sums(g, T, mask, deadline, alpha, cap)
-    flat, state = semi_sync_update(flat, state, g_now, contrib, True, m)
+    sums, undeliv = server_sums(agg, cfg, g, t32, deadline)
+    flat, state = server_step(agg, cfg, flat, state, sums, m)
     return flat, state, undeliv
 
 
@@ -365,16 +403,26 @@ class _RewardLosses:
         return self.losses.tolist()
 
 
+def check_server_reduce(server_reduce: str) -> None:
+    if server_reduce not in SERVER_REDUCES:
+        raise ValueError(f"unknown server_reduce: {server_reduce!r}")
+
+
 class LGCSimulator:
     """Runs Algorithm 1 for M devices with per-device controllers.
 
     ``device=None`` runs on the card and raises without CUDA; the CPU is
-    asked for with ``device="cpu"``."""
+    asked for with ``device="cpu"``.  ``engine="sharded"`` spreads the
+    batched engine's devices over the ranks of ``mesh`` (a
+    :class:`repro_torch.launch.mesh.Mesh`; default: the ranks present, or
+    this process alone) and reduces at the server by ``server_reduce``:
+    "gather" (History bitwise the batched engine's) or "psum"."""
 
     def __init__(self, task: FLTask, cfg: FLConfig, controllers,
                  mode: str = "lgc", engine: str | None = None,
                  backend: str | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 mesh=None, server_reduce: str = "gather"):
         self.task, self.cfg, self.mode = task, cfg, mode
         self.engine = engine or cfg.engine
         backend = backend or cfg.backend
@@ -384,10 +432,11 @@ class LGCSimulator:
             raise ValueError(f"unknown backend {backend!r}; expected one of "
                              f"{sorted(BACKENDS)}")
         self.backend = BACKENDS[backend]
-        if self.engine == "sharded":
-            raise _not_ported("engine='sharded'", "A12")
-        if self.engine not in ("loop", "batched"):
+        if self.engine not in ENGINES:
             raise ValueError(f"unknown engine {self.engine!r}")
+        if self.engine == "sharded":
+            check_server_reduce(server_reduce)
+        self.mesh, self.server_reduce = mesh, server_reduce
         if (cfg.layer_policy != "global"
                 and cfg.layer_policy not in LAYER_POLICIES):
             raise ValueError(
@@ -647,11 +696,13 @@ class LGCSimulator:
     def run(self) -> History:
         """Run ``cfg.rounds`` rounds of Algorithm 1 on the simulator's
         engine; ``self.round_ms`` gets each round's host time."""
-        if self.engine == "batched":
-            from .fl_batched import BatchedEngine
-            self.batched_engine = BatchedEngine(self)
-            return self.batched_engine.run()
-        return self._run_loop()
+        if self.engine == "loop":
+            return self._run_loop()
+        from .fl_batched import BatchedEngine, ShardedEngine
+        self.batched_engine = (
+            ShardedEngine(self, self.mesh, self.server_reduce)
+            if self.engine == "sharded" else BatchedEngine(self))
+        return self.batched_engine.run()
 
     def _run_loop(self) -> History:
         hist = History()
@@ -850,21 +901,25 @@ def baseline_ks(d: int) -> list[int]:
 def baseline_simulator(task: FLTask, cfg: FLConfig, mode: str,
                        h: int = 4, ks: Sequence[int] | None = None,
                        engine: str | None = None, backend: str | None = None,
-                       device: str | torch.device | None = None
+                       device: str | torch.device | None = None,
+                       mesh=None, server_reduce: str = "gather"
                        ) -> LGCSimulator:
     """The simulator of :func:`run_baseline`, not yet run."""
     if ks is None:
         ks = baseline_ks(tree_size(task.init(prng.PRNGKey(0))))
     ctrls = [FixedController(h, ks) for _ in task.device_data]
     return LGCSimulator(task, cfg, ctrls, mode=mode, engine=engine,
-                        backend=backend, device=device)
+                        backend=backend, device=device, mesh=mesh,
+                        server_reduce=server_reduce)
 
 
 def run_baseline(task: FLTask, cfg: FLConfig, mode: str,
                  h: int = 4, ks: Sequence[int] | None = None,
                  engine: str | None = None, backend: str | None = None,
-                 device: str | torch.device | None = None) -> History:
+                 device: str | torch.device | None = None,
+                 mesh=None, server_reduce: str = "gather") -> History:
     """FedAvg / LGC-noDRL / Top-k / LGC+QSGD with fixed controllers; ``ks``
-    defaults to 5% of D split 1/2, 1/4, 1/4 over the three channels."""
+    defaults to 5% of D split 1/2, 1/4, 1/4 over the three channels.
+    ``mesh`` and ``server_reduce`` are the sharded engine's."""
     return baseline_simulator(task, cfg, mode, h, ks, engine, backend,
-                              device).run()
+                              device, mesh, server_reduce).run()

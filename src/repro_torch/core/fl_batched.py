@@ -52,8 +52,13 @@ and sync sets exactly, under every scenario (tests/test_torch_scenarios.py),
 every layer policy (tests/test_torch_per_layer.py) and every aggregator
 (tests/test_torch_server.py), and every controller and action space
 (tests/test_torch_controller.py, tests/test_torch_hetero_control.py).
-What the loop engine refuses (A12), this engine refuses too:
-:class:`~.fl.LGCSimulator` checks it before either runs.
+
+:class:`ShardedEngine` is the same engine with the device axis spread over
+the ranks of a ``torch.distributed`` mesh (:mod:`repro_torch.launch.mesh`;
+the reference's ``fl_batched.py:680-772``): each rank holds the block of
+rows ``[r M / P, (r + 1) M / P)`` and runs the host loop whole, and only
+the server aggregation crosses the ranks (gather: History bitwise the
+batched engine's; psum: the sums reassociated).
 
 The device phase is a set of module functions on explicit state (global
 device ids, the stacked data and the rows each device reads, budgets,
@@ -65,6 +70,7 @@ and :mod:`.population` on a gathered cohort (the reference's shared
 """
 from __future__ import annotations
 
+import bisect
 import time
 from typing import Sequence
 
@@ -79,8 +85,9 @@ from .channels import ChannelSample, comm_cost_mb, comp_cost
 from .compressor import (_leaf_order, flatten_tree, k_cap_for,
                          lgc_compress_topk, qsgd_dequantize,
                          qsgd_quantize_rows, unflatten_like)
-from .fl import (History, eta_at, per_layer_g, server_mean_update,
-                 sgd_update)
+from .fl import (History, check_server_reduce, eta_at,
+                 flushed_sum, per_layer_g, server_mean_step,
+                 server_mean_update, server_step, server_sums, sgd_update)
 from .scenario import (TAG_BATCH, TAG_CHANNEL, TAG_QUANT, Scenario,
                        ScenarioCarry, dropout_mask, sample_from_carry_rows,
                        stream_keys)
@@ -272,17 +279,27 @@ class BatchedEngine:
         dev = sim.device
         self.m, self.d = sim.m_devices, sim.d
         self.n_ch = len(cfg.channels)
-        self.data, self.n_dev = _stack_device_data(sim.task.device_data, dev)
-        self.dev_ids = torch.arange(self.m, dtype=torch.int64, device=dev)
+        self.lo, self.hi = self._block()    # the global ids of the rows held
+        self.n_rows = self.hi - self.lo
+        self.data, self.n_dev = _stack_device_data(
+            sim.task.device_data[self.lo:self.hi], dev)
+        self.dev_ids = torch.arange(self.lo, self.hi, dtype=torch.int64,
+                                    device=dev)
+        self.data_rows = torch.arange(self.n_rows, device=dev)
         flat0 = flatten_tree(sim.params)
-        self.w_hat = flat0.expand(self.m, self.d).clone()     # (M, D)
+        self.w_hat = flat0.expand(self.n_rows, self.d).clone()
         self.anchor = self.w_hat.clone()
-        self.ef = torch.zeros((self.m, self.d), dtype=torch.float32,
+        self.ef = torch.zeros((self.n_rows, self.d), dtype=torch.float32,
                               device=dev)
         self.window_ms: list[float] = []
         self._k_cap_hi = 0
         self._kept: dict = {}            # host values already on the device
         self._grad = flat_grad(sim.params, sim.task.loss_fn)
+
+    def _block(self) -> tuple[int, int]:
+        """The global ids [lo, hi) of the device rows this engine holds:
+        all M."""
+        return 0, self.m
 
     # -- host values kept on the device -------------------------------------
     def _on_device(self, key, make) -> torch.Tensor:
@@ -316,14 +333,26 @@ class BatchedEngine:
                                lambda: torch.tensor(rows, dtype=torch.int64))
 
     def _h_arr(self) -> torch.Tensor:
-        """(M,) committed local-step counts on the device (per_device
-        windows), kept per distinct value."""
-        hs = tuple(dec.h for dec in self.sim.decisions)
+        """The committed local-step counts of the rows held, on the device
+        (per_device windows), kept per distinct value."""
+        hs = tuple(dec.h for dec in self.sim.decisions[self.lo:self.hi])
         return self._on_device(("h", hs), lambda: torch.tensor(hs))
 
     def _rows_index(self, ms: tuple[int, ...]) -> torch.Tensor:
         return self._on_device(("rows", ms), lambda: torch.tensor(
             ms, dtype=torch.int64))
+
+    def _sync_inputs(self, ms: tuple[int, ...]
+                     ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+        """The budgets (S, C) of the syncing rows this engine holds and
+        their row indices (None: every row held), on the device."""
+        held = tuple(m for m in ms if self.lo <= m < self.hi)
+        if not held:
+            return None, None
+        ks = self._ks_rows(held)
+        if len(held) == self.n_rows:
+            return ks, None
+        return ks, self._rows_index(tuple(m - self.lo for m in held))
 
     def _k_cap(self) -> int:
         """The top-k bound of the exact backend: a power of two, and the
@@ -341,10 +370,10 @@ class BatchedEngine:
 
     def _local_steps(self, t0: int, te: int, idx: torch.Tensor,
                      h_arr: torch.Tensor | None = None) -> None:
-        """The window's local SGD on the M stacked rows
-        (:func:`local_steps`; device m reads its own data row)."""
+        """The window's local SGD on the stacked rows held
+        (:func:`local_steps`; each device reads its own data row)."""
         self.w_hat = local_steps(self._grad, self.w_hat, self.data,
-                                 self.dev_ids, idx,
+                                 self.data_rows, idx,
                                  [eta_at(self.sim.cfg, t)
                                   for t in range(t0, te)],
                                  h_arr)
@@ -386,6 +415,43 @@ class BatchedEngine:
                                         upload(undeliv, sim.device)[:, None])
         return flat, ef_new
 
+    def _compress(self, te: int, ms: tuple[int, ...], ks: torch.Tensor,
+                  rows: torch.Tensor | None, up: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(g, e') of the syncing devices ``ms`` among the rows held (their
+        budgets ``ks`` and row indices ``rows`` on the device, None for all
+        rows; their (S, N) up mask ``up`` on the host): compression with EF
+        and QSGD, enqueued on the device."""
+        sim = self.sim
+
+        def take(x):
+            return x if rows is None else x.index_select(0, rows)
+        ef = take(self.ef)
+        delta = ftz_add(take(self.anchor), -take(self.w_hat))
+        keys = None
+        if sim.mode == "lgc_q8":
+            keys = upload(stream_keys(sim._base, TAG_QUANT,
+                                      torch.tensor([te - 1]),
+                                      torch.tensor(ms))[0], sim.device)
+        k_cap = 1 if sim.mode == "fedavg" else self._k_cap()
+        return device_update(
+            ef, delta, ks, upload(up, sim.device), sim.mode, self.n_ch,
+            k_cap, sim.backend, sim.cfg.layer_policy, sim._segments, keys)
+
+    def _broadcast(self, rows: torch.Tensor | None, n: int,
+                   ef_new: torch.Tensor, flat: torch.Tensor) -> None:
+        """The ``n`` syncing rows held (``rows``, None for all) take their
+        e' and adopt the new global model ``flat``."""
+        if rows is None:
+            self.ef = ef_new
+            self.w_hat = flat.expand(self.n_rows, self.d).clone()
+            self.anchor = self.w_hat.clone()
+        else:
+            self.ef.index_copy_(0, rows, ef_new)
+            bcast = flat.expand(n, self.d)
+            self.w_hat.index_copy_(0, rows, bcast)
+            self.anchor.index_copy_(0, rows, bcast)
+
     def _sync(self, te: int, ms: tuple[int, ...], ks: torch.Tensor,
               rows: torch.Tensor | None, ch: ChannelSample,
               costs: np.ndarray, deadline: float) -> dict:
@@ -396,35 +462,13 @@ class BatchedEngine:
         QSGD, the server and the broadcast, enqueued on the device.
         Returns the new global params."""
         sim = self.sim
-        all_rows = rows is None
-
-        def take(x):
-            return x if all_rows else x.index_select(0, rows)
-        ef = take(self.ef)
-        delta = ftz_add(take(self.anchor), -take(self.w_hat))
-        keys = None
-        if sim.mode == "lgc_q8":
-            keys = upload(stream_keys(sim._base, TAG_QUANT,
-                                      torch.tensor([te - 1]),
-                                      torch.tensor(ms))[0], sim.device)
-        k_cap = 1 if sim.mode == "fedavg" else self._k_cap()
-        g, ef_new = device_update(
-            ef, delta, ks, upload(ch.up, sim.device), sim.mode, self.n_ch,
-            k_cap, sim.backend, sim.cfg.layer_policy, sim._segments, keys)
+        g, ef_new = self._compress(te, ms, ks, rows, ch.up)
         if sim.agg.name == "mean":
             flat = server_mean_update(flatten_tree(sim.params), list(g),
                                       self.m)
         else:
             flat, ef_new = self._serve(g, ef_new, ms, costs, deadline)
-        if all_rows:
-            self.ef = ef_new
-            self.w_hat = flat.expand(self.m, self.d).clone()
-            self.anchor = self.w_hat.clone()
-        else:
-            self.ef.index_copy_(0, rows, ef_new)
-            bcast = flat.expand(len(ms), self.d)
-            self.w_hat.index_copy_(0, rows, bcast)
-            self.anchor.index_copy_(0, rows, bcast)
+        self._broadcast(rows, len(ms), ef_new, flat)
         return unflatten_like(flat, sim.params)
 
     def _account(self, ms: tuple[int, ...], costs_np: np.ndarray,
@@ -467,8 +511,7 @@ class BatchedEngine:
             ms = tuple(m for m in range(self.m) if sim.next_sync[m] <= te)
             sim._step_scenario(t, te)
             if ms:      # host values the window needs, on the device first
-                ks = self._ks_rows(ms)
-                rows = None if len(ms) == self.m else self._rows_index(ms)
+                ks, rows = self._sync_inputs(ms)
                 ch, costs = self._channels(te, ms)
                 deadline = (sim._window_deadline(ms)
                             if sim.agg.uses_timing else 1.0)
@@ -520,3 +563,119 @@ class BatchedEngine:
         order, as the loop engine's)."""
         self.sim._observe_devices(ms, t, pending)
         self.sim._stage_decisions(ms, t + 1)
+
+
+class ShardedEngine(BatchedEngine):
+    """The batched engine with its device axis spread over the ranks of a
+    :class:`repro_torch.launch.mesh.Mesh` (the reference's
+    ``fl_batched.py:680-772``).
+
+    Rank r holds the rows ``[r M / P, (r + 1) M / P)`` of ``w_hat``,
+    ``anchor``, ``ef`` and the stacked data, with their global ids, so
+    every stream (minibatches, QSGD dither, per-device windows) is keyed
+    as unsharded.  The host loop (decisions, the scenario carry, channel
+    draws and costs, the spend, History, the controller and its reward
+    eval on the global model) is the base class's and runs whole on every
+    rank: it is deterministic, so every rank keeps the same copy.  Only the
+    sync differs: the rank compresses its own syncing rows (no row kernel
+    when it holds none) and the server aggregation crosses the ranks:
+
+    * ``"gather"``: every rank's update rows are gathered (padded to the
+      largest count of syncing rows a rank holds) and every rank runs the
+      unsharded server on them in global order, so History is bitwise the
+      batched engine's;
+    * ``"psum"``: each rank sums its own rows (the mean's flushed adds, or
+      :func:`.fl.server_sums`) and the (D,) partial sums are added over the
+      ranks: O(D) a link, reassociated.
+
+    Under semi_sync each rank puts the undelivered share of its own late
+    rows back into their e'."""
+
+    def __init__(self, sim, mesh=None, server_reduce: str = "gather"):
+        from repro_torch.launch.mesh import (fl_axis_name, fl_shards,
+                                             make_host_mesh)
+        check_server_reduce(server_reduce)
+        self.mesh = (mesh if mesh is not None
+                     else make_host_mesh(device=sim.device))
+        self.axis = fl_axis_name(self.mesh)
+        self.n_shards = fl_shards(self.mesh)
+        self.server_reduce = server_reduce
+        if self.mesh.device.type != sim.device.type:
+            raise ValueError(f"ShardedEngine: the mesh holds tensors on "
+                             f"{self.mesh.device}, the simulator on "
+                             f"{sim.device}")
+        m = sim.m_devices
+        if m % self.n_shards != 0:
+            raise ValueError(
+                f"ShardedEngine: M={m} simulated devices do not divide over "
+                f"{self.n_shards} mesh devices on axis {self.axis!r}; pick "
+                f"M a multiple of the FL axis size")
+        super().__init__(sim)
+
+    def _block(self) -> tuple[int, int]:
+        b = self.m // self.n_shards
+        return self.mesh.rank * b, (self.mesh.rank + 1) * b
+
+    def _gather_rows(self, counts: list[int], g: torch.Tensor
+                     ) -> list[torch.Tensor]:
+        """Every rank's update rows, ``counts[r]`` of rank r, in global
+        order: one gather of each rank's rows padded to the largest
+        count."""
+        from repro_torch.launch.mesh import all_gather_rows
+        top = max(counts)
+        if g.shape[0] < top:
+            g = torch.cat([g, g.new_zeros((top - g.shape[0], self.d))])
+        every = all_gather_rows(self.mesh, g)
+        return [every[r * top + i] for r, n in enumerate(counts)
+                for i in range(n)]
+
+    def _sync(self, te: int, ms: tuple[int, ...], ks: torch.Tensor | None,
+              rows: torch.Tensor | None, ch: ChannelSample,
+              costs: np.ndarray, deadline: float) -> dict:
+        """The sync at round te - 1 of the devices ``ms`` (all ranks'; the
+        budgets ``ks`` and row indices ``rows`` of the rank's own, as
+        :meth:`_sync_inputs` gives them): the rank's compression, the
+        server reduce across the ranks, the broadcast into the rank's own
+        syncing rows."""
+        from repro_torch.launch.mesh import psum
+        sim = self.sim
+        b = self.n_rows
+        counts = [bisect.bisect_left(ms, (r + 1) * b)
+                  - bisect.bisect_left(ms, r * b)
+                  for r in range(self.n_shards)]
+        j0 = bisect.bisect_left(ms, self.lo)
+        j1 = j0 + counts[self.mesh.rank]
+        flat = flatten_tree(sim.params)
+        if j1 > j0:
+            g, ef_new = self._compress(te, ms[j0:j1], ks, rows,
+                                       ch.up[j0:j1])
+        else:                   # no syncing row here: no row kernel
+            g, ef_new = flat.new_zeros((0, self.d)), None
+        agg = sim.agg.name
+        if self.server_reduce == "gather":
+            g_all = self._gather_rows(counts, g)
+            if agg == "mean":
+                flat = server_mean_update(flat, g_all, self.m)
+            else:
+                flat, undeliv = sim._server_apply(
+                    torch.stack(g_all), self._window_times(ms, costs),
+                    deadline)
+                undeliv = undeliv[j0:j1]
+        elif agg == "mean":
+            part = (flushed_sum(list(g)) if j1 > j0
+                    else torch.zeros_like(flat))
+            flat = server_mean_step(flat, ftz(psum(self.mesh, part)),
+                                    self.m)
+        else:
+            sums, undeliv = server_sums(
+                agg, sim.cfg, g,
+                self._window_times(ms[j0:j1], costs[j0:j1]), deadline)
+            sums = tuple(ftz(psum(self.mesh, x)) for x in sums)
+            flat, sim.server_state = server_step(
+                agg, sim.cfg, flat, sim.server_state, sums, self.m)
+        if j1 > j0:
+            if agg == "semi_sync":
+                ef_new = semi_sync_add_back(
+                    ef_new, g, upload(undeliv, sim.device)[:, None])
+            self._broadcast(rows, j1 - j0, ef_new, flat)
+        return unflatten_like(flat, sim.params)

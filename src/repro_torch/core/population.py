@@ -24,7 +24,15 @@ chains advance only in the rounds it takes part in.
 
 Engines: "batched" runs the device phase once on the (M, .) cohort (one
 launch of each LGC row kernel a window, ``backend="cuda"``), "loop" on M
-single-row blocks (M launches of each); "sharded" is not ported (A12).
+single-row blocks (M launches of each), "sharded" on the rank's (M / P, .)
+block of a ``torch.distributed`` mesh (:mod:`repro_torch.launch.mesh`;
+the reference's ``population.py:290-293, 391-416``): every rank keeps the
+whole population (its own copy of the EF store, the carries, the spend),
+runs the host side of the window (the carries, the channel draw and the
+costs) for the whole cohort, and the device phase for its block; g and e'
+are then gathered over the ranks, so the server, the scatter and the
+spend run unchanged and alike on every rank.  The reference's population
+reduces only by gather.
 On the card nothing in a window waits for the device: the ids and up
 masks go up from pinned memory, the store is read and written with
 ``index_select`` / ``index_copy_``, and the host reads only the eval
@@ -50,7 +58,7 @@ from .compressor import (LAYER_POLICIES, flatten_tree, k_cap_for,
                          unflatten_like)
 from .error_feedback import EF_STORES, ids_on, make_ef_store
 from .fl import (BACKENDS, EVAL_SUBSET, MODES, FLConfig, FLTask, History,
-                 _not_ported, eta_at, server_apply, server_mean_update)
+                 eta_at, server_apply, server_mean_update)
 from .fl_batched import (_stack_device_data, channels_rows, device_update,
                          draw_batches, flat_grad, local_steps,
                          semi_sync_add_back)
@@ -280,16 +288,33 @@ class _Cohort:
     def phase(self, flat0: torch.Tensor, ef: torch.Tensor,
               carry: ScenarioCarry, ids: torch.Tensor, ids_dev: torch.Tensor,
               t: int, te: int):
-        """The device phase of one block of the cohort (global ids ``ids``
-        on the host, ``ids_dev`` on the device; error memory rows ``ef``;
-        host carry rows ``carry``) through rounds t .. te-1 from the global
+        """The phase of one block of the cohort (global ids ``ids`` on the
+        host, ``ids_dev`` on the device; error memory rows ``ef``; host
+        carry rows ``carry``) through rounds t .. te-1 from the global
         model ``flat0``: (g, e', (S, 4) host costs, the stepped carry)."""
-        pop, cfg, base = self.pop, self.cfg, self.base
-        m, dev = ids.shape[0], self.pop.device
+        carry, up, costs = self.host_phase(carry, ids, t, te)
+        g, ef_new = self.device_phase(flat0, ef, ids, ids_dev, up, t, te)
+        return g, ef_new, costs, carry
+
+    def host_phase(self, carry: ScenarioCarry, ids: torch.Tensor, t: int,
+                   te: int) -> tuple[ScenarioCarry, torch.Tensor, np.ndarray]:
+        """The host side of the block ``ids``: its carry rows stepped
+        through t .. te-1, the sync's (S, N) up mask and (S, 4) costs."""
+        pop, base = self.pop, self.base
         carry = step_carry_rows(pop.scenario, base, carry, range(t, te), ids)
         ch, costs = channels_rows(pop.scenario, self.consts, base, carry,
-                                  ids, te - 1, self.mode, [self.ks] * m,
-                                  pop.d, cfg)
+                                  ids, te - 1, self.mode,
+                                  [self.ks] * ids.shape[0], pop.d, self.cfg)
+        return carry, ch.up, costs
+
+    def device_phase(self, flat0: torch.Tensor, ef: torch.Tensor,
+                     ids: torch.Tensor, ids_dev: torch.Tensor,
+                     up: torch.Tensor, t: int, te: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The device side of the block ``ids``: local SGD from ``flat0``
+        and the sync's compression under the up mask ``up``: (g, e')."""
+        pop, cfg, base = self.pop, self.cfg, self.base
+        m, dev = ids.shape[0], self.pop.device
         rows = ids_dev % pop.n_shards
         idx = draw_batches(base, t, te, ids_dev, self.pool_n[rows],
                            cfg.batch_size)
@@ -300,20 +325,30 @@ class _Cohort:
         if self.mode == "lgc_q8":
             keys = upload(stream_keys(base, TAG_QUANT, torch.tensor([te - 1]),
                                       ids)[0], dev)
-        g, ef_new = device_update(
-            ef, ftz_add(anchor, -w_hat), self.ks_rows(m),
-            upload(ch.up, dev), self.mode, self.n_ch, self.k_cap,
-            self.backend, cfg.layer_policy, self.segments, keys)
-        return g, ef_new, costs, carry
+        return device_update(
+            ef, ftz_add(anchor, -w_hat), self.ks_rows(m), upload(up, dev),
+            self.mode, self.n_ch, self.k_cap, self.backend, cfg.layer_policy,
+            self.segments, keys)
 
 
 def _window(cohort: _Cohort, engine: str, flat0: torch.Tensor,
             ef: torch.Tensor, carry: ScenarioCarry, ids: torch.Tensor,
-            ids_dev: torch.Tensor, t: int, te: int):
-    """The cohort's device phase in one (M, .) block ("batched") or M
-    single-row blocks ("loop"), the same functions at both sizes."""
+            ids_dev: torch.Tensor, t: int, te: int, mesh=None):
+    """The cohort's phase in one (M, .) block ("batched"), M single-row
+    blocks ("loop") or, "sharded", the host side whole and the device
+    side on the rank's block of ``mesh``, its g and e' gathered: the same
+    functions at every size."""
     if engine == "batched":
         return cohort.phase(flat0, ef, carry, ids, ids_dev, t, te)
+    if engine == "sharded":
+        from repro_torch.launch.mesh import all_gather_rows
+        carry, up, costs = cohort.host_phase(carry, ids, t, te)
+        b = ids.shape[0] // mesh.size
+        blk = slice(mesh.rank * b, (mesh.rank + 1) * b)
+        g, ef_new = cohort.device_phase(flat0, ef[blk], ids[blk],
+                                        ids_dev[blk], up[blk], t, te)
+        return (all_gather_rows(mesh, g), all_gather_rows(mesh, ef_new),
+                costs, carry)
     parts = [cohort.phase(flat0, ef[j:j + 1],
                           ScenarioCarry(carry.bw_log[j:j + 1],
                                         carry.good[j:j + 1]),
@@ -328,7 +363,7 @@ def _window(cohort: _Cohort, engine: str, flat0: torch.Tensor,
 def run_population(pop: Population, cfg: FLConfig, mode: str = "lgc",
                    h: int = 4, ks: Sequence[int] | None = None,
                    m_cohort: int = 64, engine: str = "batched",
-                   backend: str | None = None) -> History:
+                   backend: str | None = None, mesh=None) -> History:
     """Sampled-cohort LGC over ``pop``; returns a :class:`History`.
 
     Every window: draw M = ``m_cohort`` devices (:func:`sample_cohort`),
@@ -337,11 +372,21 @@ def run_population(pop: Population, cfg: FLConfig, mode: str = "lgc",
     server step (the mean over M, or diloco / semi_sync normalised by M,
     semi_sync's late share going back into the cohort's e'), and scatter
     the state back.  Eval points inside a window see the params and the
-    spend from before it."""
+    spend from before it.  ``engine="sharded"`` spreads each cohort over
+    the ranks of ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`;
+    default: the ranks present, or this process alone)."""
     if engine not in ENGINES:
         raise ValueError(f"unknown population engine {engine!r}")
     if engine == "sharded":
-        raise _not_ported("engine='sharded'", "A12")
+        from repro_torch.launch.mesh import (fl_axis_name, fl_shards,
+                                             make_host_mesh)
+        mesh = mesh if mesh is not None else make_host_mesh(
+            device=pop.device)
+        axis = fl_axis_name(mesh)
+        n_mesh = fl_shards(mesh)
+        if m_cohort % n_mesh != 0:
+            raise ValueError(f"cohort size {m_cohort} does not divide over "
+                             f"{n_mesh} mesh devices on axis {axis!r}")
     if cfg.seed != pop.seed:
         raise ValueError(f"cfg.seed={cfg.seed} but the population was built "
                          f"with seed={pop.seed}; streams would diverge")
@@ -432,7 +477,8 @@ def run_population(pop: Population, cfg: FLConfig, mode: str = "lgc",
         clock = lap("gather", clock)
 
         g, ef_c, costs, carry_c = _window(cohort, engine, flat, ef_c,
-                                          carry_c, ids_t, ids_dev, t, te)
+                                          carry_c, ids_t, ids_dev, t, te,
+                                          mesh)
         flat_before = flat
         deadline = None
         if agg.name == "mean":

@@ -10,7 +10,8 @@ on the CPU); QSGD card against CPU bitwise; the population's EF stores
 card against CPU bitwise, and 100,000-device population runs (lgc with
 its launches, lgc_q8 over the int8 store) card against CPU; the 100M
 step's sparse uplinks card against CPU bitwise and a checkpoint round trip
-of card tensors.
+of card tensors; the sharded engine on the card (one rank over NCCL, two
+over gloo on the one card) bitwise the unsharded batched engine.
 
 These tests need an NVIDIA card and ``nvcc``; without a card they skip with
 a reason.  The file imports neither ``jax`` nor the reference package, so it
@@ -1119,3 +1120,40 @@ def test_checkpoint_round_trip_of_card_tensors(card, tmp_path):
                                torch.bfloat16 else w.view(torch.int32),
                                v.view(torch.int16) if v.dtype ==
                                torch.bfloat16 else v.view(torch.int32))
+
+
+def test_sharded_world1_over_nccl_is_bitwise_the_batched_engine(card):
+    """cnn_mnist M = 8, 8 rounds: the one-rank NCCL mesh's sharded engine
+    gives the batched engine's History and launches, every row kernel call
+    bitwise its plain version."""
+    from repro_torch.launch import sharded_runs as runs
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(device="cuda")
+    assert mesh.transport == "nccl"
+    case = runs.sim_case("cnn", task="cnn_mnist", m=8, n_train=2000,
+                         rounds=8)
+    want = runs.run_case(case, "batched", "cuda", check_rows=True)
+    got = runs.run_case(case, "sharded", "cuda", mesh, check_rows=True)
+    assert runs.compare(case, got, want) == []
+    assert got["launches"] == want["launches"]
+    assert got["launches"]["maxabs_rows"] == 2
+    assert got["rows_checked"]["differ"] == 0
+
+
+def test_sharded_world2_over_gloo_on_one_card(card):
+    """lr_mnist M = 8 in gather mode on two gloo ranks sharing the card:
+    both ranks' History bitwise the unsharded engine's, each rank one
+    launch of each row kernel per boundary on its own block."""
+    from repro_torch.launch import sharded_runs as runs
+    from repro_torch.launch.mesh import spawn
+    case = runs.sim_case("lr", m=8, n_train=2000)
+    ranks = spawn(runs.rank_main, 2, "gloo", args=([case], "cuda", True),
+                  timeout=300.0)
+    want = runs.run_case(case, "batched", "cuda")
+    for r in ranks:
+        got = r["results"]["lr"]
+        assert r["transport"] == "gloo"
+        assert runs.compare(case, got, want) == []
+        assert got["rows_checked"] == {"calls": 3, "rows": 12, "differ": 0}
+        for name in ("maxabs_rows", "histogram_rows", "sparsify_ef_rows"):
+            assert got["launches"][name] == 3

@@ -162,12 +162,19 @@ def test_pallas_is_an_alias_of_cuda(lr_tasks):
 def test_unported_options_raise_naming_their_roadmap_item(lr_tasks):
     _, tp = lr_tasks
     ctrls = [pfl.FixedController(4, [1, 1, 1])] * 3
-    cases = [({"engine": "sharded"}, "A12")]
+    # the sharded engine (ROADMAP A12's FL axis) builds and runs, and
+    # refuses an unknown server reduce, as the reference's
+    # (tests/test_sharded.py:94-112)
+    cases = [({"engine": "sharded"}, "server_reduce")]
     for fields, item in cases:
         for engine in ("loop", "batched"):
-            cfg = dataclasses.replace(pfl.FLConfig(engine=engine), **fields)
-            with pytest.raises(NotImplementedError, match=item):
-                pfl.LGCSimulator(tp, cfg, ctrls, device="cpu")
+            cfg = dataclasses.replace(pfl.FLConfig(engine=engine,
+                                                   rounds=4), **fields)
+            assert pfl.LGCSimulator(tp, cfg, ctrls,
+                                    device="cpu").run().step == [0, 3]
+            with pytest.raises(ValueError, match=item):
+                pfl.LGCSimulator(tp, cfg, ctrls, device="cpu",
+                                 server_reduce="allgather")
     # every scenario (ROADMAP A7), layer policy (A8), aggregator (A10),
     # the per-device action space and pipelined decisions (A9) run on both
     # engines, as do controllers that learn from rewards (A9)

@@ -226,9 +226,12 @@ def test_engine_options(lr_tasks):
     _, tp = lr_tasks
     assert pfl.FLConfig().engine == "batched"
     ctrls = [pfl.FixedController(4, [1, 1, 1])] * 3
-    with pytest.raises(NotImplementedError, match="A12"):
-        pfl.LGCSimulator(tp, pfl.FLConfig(engine="sharded"), ctrls,
-                         device="cpu")
+    sharded = pfl.LGCSimulator(tp, pfl.FLConfig(engine="sharded", rounds=4),
+                               ctrls, device="cpu")
+    assert sharded.run().step == [0, 3]
+    with pytest.raises(ValueError, match="server_reduce"):
+        pfl.run_baseline(tp, pfl.FLConfig(rounds=4), "lgc", engine="sharded",
+                         server_reduce="allgather", device="cpu")
     with pytest.raises(ValueError):
         pfl.LGCSimulator(tp, pfl.FLConfig(engine="vmap"), ctrls,
                          device="cpu")

@@ -390,8 +390,8 @@ def test_run_population_refusals(tasks):
     pop = ppop.make_population(tp, 1000, device="cpu")
     with pytest.raises(ValueError, match="unknown population engine"):
         ppop.run_population(pop, FLConfig(rounds=4), engine="warp")
-    with pytest.raises(NotImplementedError, match="A12"):
-        ppop.run_population(pop, FLConfig(rounds=4), engine="sharded")
+    sharded = ppop.run_population(pop, FLConfig(rounds=4), engine="sharded")
+    assert sharded.step == [0, 3]
     with pytest.raises(ValueError, match="seed"):
         ppop.run_population(pop, FLConfig(rounds=4, seed=3))
     with pytest.raises(ValueError, match="conflicts"):
