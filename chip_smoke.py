@@ -38,8 +38,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ten launches of a larger grid;
 3. ``swa_decode`` against its plain version on the card, f32 (rtol = atol =
    2e-5) and bf16 (1e-2), at TestSWADecode's shapes, the GQA serve shape
-   (B=8, H=12, Kv=2, W=4096, Dh=128) and W=4160, with lengths 1, W/2+3 and
-   W; slots past the length filled with +-1e9 must leave the output alone;
+   (B=8, H=12, Kv=2, W=4096, Dh=128), W=4160 and the families' decode
+   shapes (B=8, H=Kv=16, W=4096, Dh=128: olmoe; B=8, H=Kv=32, W=4096,
+   Dh=64: zamba2), with lengths 1, W/2+3 and W; slots past the length filled with +-1e9 must leave the output alone;
    B=1 (many splits), W=16 and REP=16 at lengths on either side of each
    tile and split edge; two launches bitwise equal, also after a launch
    with more groups;
@@ -82,12 +83,23 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ``lgc_sparse``, each returning (its loss fell) with its seconds;
 6. a small f32 serve (qwen2-smoke), card against CPU with the same weights:
    8-token prefill into a 16-slot ring, 24 greedy steps past the wrap; the
-   logits agree at rtol = atol = 1e-5 and the tokens are equal;
+   logits agree at rtol = atol = 1e-5 and the tokens are equal; then the
+   same for the moe, ssm and hybrid smoke configs (olmoe, mamba2, zamba2:
+   a 16-token prefill into a 24-slot ring, 16 steps), swa_decode launched
+   steps x attention sites times;
 7. the serving path: qwen2-1.5b at full width (1,543,910,912 parameters,
    bf16), 8 prompts of 4,000 tokens prefilled into the 4,096-slot ring of
    ``cfg.window``, then 160 greedy steps (positions 4000-4159, the ring
    wraps at 4096); swa_decode must launch 160 x 28 = 4,480 times and the
    LGC kernels none;
+7b. the moe, ssm and hybrid families at full width in bf16 with weights
+   drawn on the card (olmoe-1b-7b 6,919,620,608 parameters, mamba2-370m
+   420,136,448, zamba2-1.2b 1,170,473,856), 8 prompts of 4,096 tokens into
+   a 4,096-slot ring and 64 greedy steps past its wrap: swa_decode launched
+   16 x 64, 0 and 7 x 64 times, no other kernel; for each (and for phase
+   7) the draw's seconds, prefill ms and prompt tokens/s, decode ms/step
+   beside the step's bytes bound, peak memory, finite logits (one
+   ``families`` JSON line);
 8. the simulator: the threefry PRNG on the card (``split``, ``fold_in``,
    ``stream_key``, raw bits, ``randint``, ``uniform``, ``normal``,
    ``truncated_normal``, the batched ``stream_keys`` and the row samplers)
@@ -194,7 +206,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    "max")``, their ``launches`` from the batched per-layer CNN run under
    ``size_prop``; swa_decode at the GQA serve
    shape in bf16 with every slot valid, its inputs rotated over four copies
-   so that each call finds them outside the L2 cache, as a decode step does;
+   so that each call finds them outside the L2 cache, as a decode step does,
+   and so at the families' two shapes (``at_families``, with the families'
+   launches in ``launches_families``);
 10. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package ``repro``.
@@ -222,8 +236,19 @@ LGC_KERNELS = ("maxabs", "histogram", "sparsify_ef")
 SERVE_ARCH, SERVE_PARAMS = "qwen2-1.5b", 1_543_910_912
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 4000, 160
 SWA_SERVE_SHAPE = (8, 12, 2, 4096, 128)          # (B, H, Kv, W, Dh)
+# the families' decode shapes: olmoe-1b-7b (REP 1, Dh 128) and zamba2-1.2b
+# (REP 1, Dh 64) at batch 8 over a 4096-slot ring
+SWA_FAMILY_SHAPES = {"olmoe-1b-7b": (8, 16, 16, 4096, 128),
+                     "zamba2-1.2b": (8, 32, 32, 4096, 64)}
 SWA_SHAPES = [(2, 4, 4, 512, 64), (1, 8, 8, 1024, 128), (4, 2, 2, 256, 32),
-              SWA_SERVE_SHAPE, (8, 12, 2, 4160, 128)]
+              SWA_SERVE_SHAPE, (8, 12, 2, 4160, 128),
+              *SWA_FAMILY_SHAPES.values()]
+# the moe, ssm and hybrid serving paths at full width: (arch, params by
+# shape); batch 8, 4,096-token prompts (a multiple of the SSD chunk, 128)
+# into a 4,096-slot ring, then 64 greedy steps past its wrap
+FAMILIES = {"olmoe-1b-7b": 6_919_620_608, "mamba2-370m": 420_136_448,
+            "zamba2-1.2b": 1_170_473_856}
+FAMILY_BATCH, FAMILY_PROMPT, FAMILY_GEN = 8, 4096, 64
 SWA_EDGE_SHAPES = [(1, 12, 2, 4096, 128), (2, 4, 2, 16, 64),
                    (1, 16, 1, 4160, 32)]
 # the simulator: lr_mnist at the quickstart's defaults and cnn_mnist at the
@@ -1366,26 +1391,39 @@ def phase_driver() -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: small serve, card against CPU
+# phase 6: small serves, card against CPU
 # ---------------------------------------------------------------------------
 
-def phase_small_serve() -> None:
+def attention_sites(cfg) -> int:
+    """swa_decode launches a decode step makes: one per attention block
+    (the hybrid's shared block once per site, ceil(L / attn_every))."""
+    if cfg.arch_type == "ssm":
+        return 0
+    if cfg.arch_type == "hybrid":
+        return -(-cfg.n_layers // cfg.attn_every)
+    return cfg.n_layers
+
+
+def small_serve(arch: str, prompt: int, window: int, steps: int) -> None:
+    """The arch's smoke config in f32, card against CPU with the same
+    weights: a ``prompt``-token prefill into a ``window``-slot ring, then
+    ``steps`` greedy steps past the wrap; the logits agree at rtol = atol
+    = 1e-5, the tokens are equal and swa_decode launched steps x sites
+    times on the card."""
     import dataclasses
     import torch
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import LAUNCHES, reset_launch_counts
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import transformer as tf
-    cfg = dataclasses.replace(get_smoke_config(SERVE_ARCH),
-                              dtype=torch.float32)
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
     params = tf.init_params(cfg, seed=0, device="cpu")
-    prompts = torch.randint(0, cfg.vocab_size, (2, 8),
+    prompts = torch.randint(0, cfg.vocab_size, (2, prompt),
                             generator=torch.Generator().manual_seed(1))
-    window, steps = 16, 24
     runs = {}
-    reset_launch_counts()
     for dev in ("cpu", "cuda"):
         p = {k: v.to(dev) for k, v in params.items()}
+        reset_launch_counts()
         logits, cache = make_prefill_step(cfg, window, device=dev)(
             p, {"tokens": prompts})
         step = make_serve_step(cfg, window, device=dev, return_logits=True)
@@ -1394,85 +1432,154 @@ def phase_small_serve() -> None:
         for _ in range(steps):
             tok, cache, logits = step(p, tok, cache)
             out.append((logits.cpu(), tok.cpu()))
-        runs[dev] = (out, cache["pos"])
+        runs[dev] = (out, cache["pos"], dict(LAUNCHES))
     worst = 0.0
     for i, ((lc, tc), (lg, tg)) in enumerate(zip(runs["cpu"][0],
                                                  runs["cuda"][0])):
         check(bool(torch.isclose(lg, lc, rtol=1e-5, atol=1e-5).all()),
-              f"small serve step {i}: card and CPU logits differ by "
-              f"{max_abs_err(lg, lc):.3e}")
-        check(torch.equal(tg, tc), f"small serve step {i}: tokens differ")
+              f"small serve {cfg.name} step {i}: card and CPU logits differ "
+              f"by {max_abs_err(lg, lc):.3e}")
+        check(torch.equal(tg, tc),
+              f"small serve {cfg.name} step {i}: tokens differ")
         worst = max(worst, max_abs_err(lg, lc))
-    check(runs["cuda"][1] == 8 + steps, "small serve pos")
-    want = steps * cfg.n_layers
-    check(LAUNCHES["swa_decode"] == want, f"small serve: swa_decode "
-          f"launched {LAUNCHES['swa_decode']} times, expected {want}")
-    log(f"small f32 serve ({cfg.name}, prefill 8, ring {window}, {steps} "
-        f"steps to pos {runs['cuda'][1]}): card logits within 1e-5 of the "
-        f"CPU's (max abs err {worst:.3e}), greedy tokens equal, "
-        f"{LAUNCHES['swa_decode']} swa_decode launches")
+    check(runs["cuda"][1] == prompt + steps, f"small serve {cfg.name} pos")
+    counts = runs["cuda"][2]
+    want = steps * attention_sites(cfg)
+    check(counts["swa_decode"] == want, f"small serve {cfg.name}: "
+          f"swa_decode launched {counts['swa_decode']} times, expected "
+          f"{want}")
+    check(sum(runs["cpu"][2].values()) == 0, "a CPU serve launched a kernel")
+    log(f"small f32 serve ({cfg.name}, prefill {prompt}, ring {window}, "
+        f"{steps} steps to pos {runs['cuda'][1]}): card logits within 1e-5 "
+        f"of the CPU's (max abs err {worst:.3e}), greedy tokens equal, "
+        f"{counts['swa_decode']} swa_decode launches")
+
+
+def phase_small_serve() -> None:
+    small_serve(SERVE_ARCH, 8, 16, 24)
+    for arch in FAMILIES:
+        small_serve(arch, 16, 24, 16)
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the serving path at full width
+# phase 7: the serving paths at full width
 # ---------------------------------------------------------------------------
 
-def phase_serve() -> dict:
+def decode_step_bytes(cfg, params: dict, cache: dict, batch: int,
+                      slots_read: float) -> float:
+    """Bytes a decode step must move at least: every weight it reads once
+    (the embedding only its batch rows unless it is the tied head; every
+    expert, since at capacity 1 each expert runs its slot), the valid K/V
+    slots of every attention site read (``slots_read`` a site on average)
+    and the token's slot written, each SSD layer's state and conv tail
+    read and written, the logits written."""
+    n = 0.0
+    for name, t in params.items():
+        gathered = name == "embed" and not cfg.tie_embeddings
+        n += (batch * t[0].numel() if gathered else t.numel()) \
+            * t.element_size()
+    if "kv" in cache:
+        k = cache["kv"]["k"]
+        sites, b, kv, _, hd = k.shape
+        n += 2 * sites * b * kv * (slots_read + 1) * hd * k.element_size()
+    if "ssm" in cache:
+        n += 2 * sum(t.numel() * t.element_size()
+                     for t in cache["ssm"].values())
+    return n + batch * cfg.vocab_padded * 4
+
+
+def full_serve(arch: str, want_params: int, batch: int, prompt: int,
+               gen: int, smi: str) -> dict:
+    """The arch at full width in bf16, weights drawn on the card: ``batch``
+    prompts of ``prompt`` tokens into the ring of ``cfg.window`` slots,
+    then ``gen`` greedy steps past its wrap.  Checks the param count, the
+    position, the wrap (none without K/V), finite logits, the tokens and
+    the launches (swa_decode gen x sites, every other kernel 0); returns
+    the timings beside the step's bytes bound."""
+    import gc
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import LAUNCHES, reset_launch_counts
     from repro_torch.launch.serve_decode import serve
     from repro_torch.models import transformer as tf
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(arch)
     n_params = tf.param_count(cfg)
-    check(n_params == SERVE_PARAMS, f"{SERVE_ARCH} param_count {n_params}")
+    check(n_params == want_params, f"{arch} param_count {n_params}")
     window = cfg.window
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     params = tf.init_params(cfg, seed=0)
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
-                            generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    gen_ = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                            generator=gen_, device="cuda")
     # warm-up at the same cache shape: cuBLAS handles, the allocator
-    serve(params, cfg, prompts[:, :64], 2, window=window, cache_len=window)
+    serve(params, cfg, prompts[:, :128], 2, window=window, cache_len=window)
     torch.cuda.synchronize()
     reset_launch_counts()
-    r = serve(params, cfg, prompts, SERVE_GEN, window=window,
-              cache_len=window)
+    r = serve(params, cfg, prompts, gen, window=window, cache_len=window)
     counts = dict(LAUNCHES)
     toks = r["tokens"]
-    check(r["cache_slots"] == window and r["pos"] == SERVE_PROMPT + SERVE_GEN
-          and r["wrapped"], f"serve: pos {r['pos']}, {r['cache_slots']} "
-          f"slots, wrapped {r['wrapped']}")
-    check(r["logits_finite"], "serve: logits not finite")
-    check(toks.shape == (SERVE_BATCH, SERVE_GEN + 1)
+    sites = attention_sites(cfg)
+    check(r["pos"] == prompt + gen and r["wrapped"] == (sites > 0)
+          and r["cache_slots"] == (window if sites else None),
+          f"{arch}: pos {r['pos']}, {r['cache_slots']} slots, wrapped "
+          f"{r['wrapped']}")
+    check(r["logits_finite"], f"{arch}: logits not finite")
+    check(toks.shape == (batch, gen + 1)
           and bool(((toks >= 0) & (toks < cfg.vocab_padded)).all()),
-          "serve: generated tokens")
-    want = SERVE_GEN * cfg.n_layers
+          f"{arch}: generated tokens")
+    want = gen * sites
     check(counts["swa_decode"] == want, f"swa_decode launched "
-          f"{counts['swa_decode']} times on the serving path, expected {want}")
-    for name in LGC_KERNELS:
-        check(counts[name] == 0, f"{name} launched on the serving path")
-    # bytes a decode step must move: every weight once, and the valid K/V
-    # slots of every layer once (min(pos + 1, W) at positions 4000-4159)
-    kv_row = 2 * cfg.n_layers * SERVE_BATCH * cfg.n_kv_heads * cfg.hd * 2
-    slots = [min(p + 1, window)
-             for p in range(SERVE_PROMPT, SERVE_PROMPT + SERVE_GEN)]
-    step_bytes = 2 * n_params + kv_row * sum(slots) / len(slots)
+          f"{counts['swa_decode']} times on the {arch} serving path, "
+          f"expected {want}")
+    for name, c in counts.items():
+        check(name == "swa_decode" or c == 0,
+              f"{name} launched on the {arch} serving path")
+    slots = [min(p + 1, window) for p in range(prompt, prompt + gen)]
+    step_bytes = decode_step_bytes(cfg, params, r["cache"], batch,
+                                   sum(slots) / len(slots))
     step_bound = step_bytes / HBM_BYTES_PER_S * 1e3
-    log(f"serve: {SERVE_ARCH} full width, {n_params:,} params (bf16), batch "
-        f"{SERVE_BATCH}, prompt {SERVE_PROMPT}, ring {window} slots, "
-        f"{SERVE_GEN} greedy steps")
-    log(f"serve: prefill {r['prefill_s'] * 1e3:.1f} ms, "
-        f"{r['prompt_tokens_per_s']:.1f} prompt tokens/s")
-    log(f"serve: decode {r['decode_ms_per_step']:.4f} ms/step, "
-        f"{r['generated_tokens_per_s']:.2f} generated tokens/s; bytes bound "
-        f"of a step {step_bound:.4f} ms ({step_bytes:,.0f} B over 3.35 TB/s)")
-    log(f"serve: peak device memory {r['peak_mem_gib']:.2f} GiB; pos ended "
-        f"at {r['pos']} with the ring wrapped; logits finite; tokens of row "
-        f"0: {toks[0, :12].tolist()}")
-    log(f"serve: kernel launches {counts} (want {want} for swa_decode, 0 for "
-        f"the LGC kernels)")
-    return {"launches": counts, "decode_ms_per_step": r["decode_ms_per_step"],
-            "step_bound_ms": step_bound}
+    row = {"params": n_params, "draw_s": draw_s,
+           "prefill_ms": r["prefill_s"] * 1e3,
+           "prompt_tokens_per_s": r["prompt_tokens_per_s"],
+           "decode_ms_per_step": r["decode_ms_per_step"],
+           "generated_tokens_per_s": r["generated_tokens_per_s"],
+           "step_bytes": step_bytes, "step_bound_ms": step_bound,
+           "peak_mem_gib": r["peak_mem_gib"], "launches": counts,
+           "swa_decode_sites": sites, "card": smi}
+    log(f"serve: {arch} full width, {n_params:,} params (bf16), drawn on "
+        f"the card in {draw_s:.2f} s; batch {batch}, prompt {prompt}, ring "
+        f"{window} slots, {gen} greedy steps to pos {r['pos']}")
+    log(f"serve: {arch} prefill {row['prefill_ms']:.1f} ms, "
+        f"{row['prompt_tokens_per_s']:.1f} prompt tokens/s; decode "
+        f"{row['decode_ms_per_step']:.4f} ms/step, "
+        f"{row['generated_tokens_per_s']:.2f} generated tokens/s; bytes "
+        f"bound of a step {step_bound:.4f} ms ({step_bytes:,.0f} B over "
+        f"3.35 TB/s); peak device memory {row['peak_mem_gib']:.2f} GiB; "
+        f"logits finite; tokens of row 0: {toks[0, :8].tolist()}")
+    log(f"serve: {arch} kernel launches {counts} (want {want} for "
+        f"swa_decode: {sites} sites x {gen} steps; 0 for the others)")
+    del params, prompts, r
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_serve(smi: str) -> dict:
+    return full_serve(SERVE_ARCH, SERVE_PARAMS, SERVE_BATCH, SERVE_PROMPT,
+                      SERVE_GEN, smi)
+
+
+def phase_families(smi: str) -> dict:
+    """Phase 7b: the moe, ssm and hybrid families at full width; one
+    ``families`` JSON line."""
+    out = {arch: full_serve(arch, n, FAMILY_BATCH, FAMILY_PROMPT,
+                            FAMILY_GEN, smi)
+           for arch, n in FAMILIES.items()}
+    print(json.dumps({"families": out}), flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2829,18 +2936,17 @@ def phase_time_segments(gen) -> dict:
     return rows
 
 
-def phase_time_swa(gen) -> dict:
-    """swa_decode at the serve shape in bf16, every slot valid (the ring
+def phase_time_swa(gen, shape=SWA_SERVE_SHAPE) -> dict:
+    """swa_decode at a decode shape in bf16, every slot valid (the ring
     after the wrap).  Each call takes the next of four input copies
-    (4 x 33.6 MB, beyond the 50 MB L2), as a decode step finds a layer's
-    cache cold; ``ms_l2_warm`` repeats one copy."""
+    (4 x 33.6 MB at the serve shape, beyond the 50 MB L2), as a decode
+    step finds a layer's cache cold; ``ms_l2_warm`` repeats one copy."""
     import torch
     import torch.nn.functional as F
     from repro_torch.device import device_ms
     from repro_torch.kernels import ref, swa_decode
-    b, h, kv, w, dh = SWA_SERVE_SHAPE
-    sets = [swa_inputs(gen, SWA_SERVE_SHAPE, torch.bfloat16)
-            for _ in range(4)]
+    b, h, kv, w, dh = shape
+    sets = [swa_inputs(gen, shape, torch.bfloat16) for _ in range(4)]
     ln = torch.full((b,), w, dtype=torch.int32, device="cuda")
     mask = (torch.arange(w, device="cuda")[None, :]
             < ln[:, None])[:, None, None, :]
@@ -2864,7 +2970,7 @@ def phase_time_swa(gen) -> dict:
     n_bytes = 2 * b * kv * w * dh * 2 + 2 * b * h * dh * 2 + 4 * b
     n_ops = 4 * b * h * w * dh
     bnd, by = bound_ms(n_bytes, n_ops)
-    row = {"shape": list(SWA_SERVE_SHAPE), "dtype": "bfloat16",
+    row = {"shape": list(shape), "dtype": "bfloat16",
            "ms": time_ms(kern), "plain_ms": time_ms(plain),
            "library_ms": time_ms(lib) if lib else None,
            "device_ms": device_ms(kern),
@@ -2872,7 +2978,7 @@ def phase_time_swa(gen) -> dict:
            "bound_ms": bnd, "bound_by": by, "bytes": n_bytes,
            "ms_l2_warm": time_ms(lambda: swa_decode(*sets[0], ln)),
            "device_ms_l2_warm": device_ms(lambda: swa_decode(*sets[0], ln))}
-    log(f"timing swa_decode (B,H,Kv,W,Dh)={SWA_SERVE_SHAPE} bf16: kernel "
+    log(f"timing swa_decode (B,H,Kv,W,Dh)={shape} bf16: kernel "
         f"{row['ms']:.5f} ms one call, {row['device_ms']:.5f} ms device "
         f"({row['device_ms_l2_warm']:.5f} ms with the inputs in L2); plain "
         f"{row['plain_ms']:.5f} ms; library {row['library_ms']} ms one "
@@ -2927,7 +3033,8 @@ def main(argv: list[str]) -> int:
     flaky_launches = phase_main_path_scenario(smi)
     sparse_launches = phase_sparse_uplinks(smi, dense_steps_per_s)
     phase_small_serve()
-    serving = phase_serve()
+    serving = phase_serve(smi)
+    families = phase_families(smi)
     phase_prng()
     sim_launches = phase_simulator(smi)
     per_layer_launches = phase_per_layer(smi)
@@ -2939,6 +3046,8 @@ def main(argv: list[str]) -> int:
     row_times = phase_time_rows(gen)
     seg_times = phase_time_segments(gen)
     swa_row = phase_time_swa(gen)
+    swa_family_rows = {arch: phase_time_swa(gen, shape)
+                       for arch, shape in SWA_FAMILY_SHAPES.items()}
 
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():
@@ -2995,8 +3104,11 @@ def main(argv: list[str]) -> int:
             for (m, n), k in zip(ROW_SHAPES, path_launches):
                 row_times[name][f"{m}x{n}"]["launches"] = k
             row["rows"] = row_times[name]
-        else:                          # the serving path's kernel
-            row |= {"launches": serving["launches"][name]} | swa_row
+        else:                          # the serving paths' kernel
+            row |= {"launches": serving["launches"][name]} | swa_row | {
+                "launches_families": {
+                    arch: f["launches"][name] for arch, f in families.items()},
+                "at_families": swa_family_rows}
         kernels.append(row)
     # the segmented forms: their path is the per-layer runs (the batched
     # CNN run under size_prop for ``launches``), timed at the CNN's (M, D)

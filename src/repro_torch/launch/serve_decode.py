@@ -1,10 +1,15 @@
-"""Batched greedy serving of a qwen2-family model: prefill a batch of
-prompts, decode with the full cache, then with the sliding-window ring cache
-past the window.
+"""Batched greedy serving: prefill a batch of prompts, decode with the
+full cache, then with the sliding-window ring cache past the window.
 
     python -m repro_torch.launch.serve_decode [--arch qwen2-1.5b] [--batch 8]
         [--prompt 4000] [--gen 160] [--window 4096] [--seed 0] [--smoke]
         [--device cuda] [--profile-steps 0]
+
+``--arch`` takes any ported id: the dense ``qwen2-1.5b`` / ``qwen2-100m``,
+the moe ``olmoe-1b-7b``, the ssm ``mamba2-370m`` and the hybrid
+``zamba2-1.2b`` (an ssm or hybrid prompt must be a multiple of the SSD
+chunk, 128: ``--prompt 4096``).  An ssm cache has no K/V slots: its runs
+report ``cache_slots`` None and never wrap.
 
 The port's counterpart of ``examples/serve_decode.py``, at full width on the
 card by default: random weights and prompts from ``--seed``, prefill through
@@ -13,7 +18,9 @@ attention is the ``swa_decode`` CUDA kernel.  The full-cache run keeps
 ``prompt + gen`` slots; the ring run keeps ``window`` slots and wraps once
 the position passes it.  Prints one JSON line with the prefill time,
 prompt tokens/s, decode ms per step, generated tokens/s and peak device
-memory of each run (host clock around work that ends in a device sync).
+memory of each run (host clock around work that ends in a device sync),
+after a short warm-up serve on the card (the kernels' build at their first
+launch would otherwise land in the first run's decode).
 ``--smoke`` takes the arch's smoke config; ``--device cpu`` runs the plain
 versions on the CPU.  ``--profile-steps N`` runs N more steps of each run
 under ``torch.profiler`` and reports the device's busy time per step (the
@@ -103,7 +110,7 @@ def serve(params: dict, cfg: ArchConfig, prompts: torch.Tensor, gen: int, *,
     if profile_steps and dev.type == "cuda":
         prof, cache = _profile(serve_step, params, tok, cache,
                                profile_steps)
-    slots = cache["kv"]["k"].shape[3]
+    slots = cache["kv"]["k"].shape[3] if "kv" in cache else None
     prefill_s, decode_s = t1 - t0, t2 - t1
     return {
         "batch": b, "prompt": p, "gen": gen, "window": window,
@@ -115,7 +122,8 @@ def serve(params: dict, cfg: ArchConfig, prompts: torch.Tensor, gen: int, *,
         "peak_mem_gib": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
                          if dev.type == "cuda" else None),
         "pos": cache["pos"],
-        "wrapped": bool(window) and cache["pos"] > slots,
+        "wrapped": bool(window) and slots is not None
+        and cache["pos"] > slots,
         "logits_finite": bool(torch.isfinite(logits0).all()
                               and torch.isfinite(logits).all()),
         "tokens": torch.cat(toks, 1),
@@ -142,6 +150,10 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
+    if cfg.arch_type in ("ssm", "hybrid") \
+            and args.prompt % min(cfg.ssm_chunk, args.prompt):
+        ap.error(f"{cfg.name}: --prompt must be a multiple of the SSD "
+                 f"chunk {cfg.ssm_chunk}")
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
     params = tf.init_params(cfg, seed=args.seed, device=dev)
@@ -156,6 +168,11 @@ def main(argv=None) -> dict:
     runs = {"full": dict(window=0, cache_len=args.prompt + args.gen)}
     if args.window:
         runs["ring"] = dict(window=args.window, cache_len=args.window)
+    if dev.type == "cuda":
+        # before any clock starts: the kernels' build at their first
+        # launch, cuBLAS's handles, the allocator's pools
+        serve(params, cfg, prompts[:, :min(args.prompt, 128)], 2,
+              **runs["full"])
     for name, kw in runs.items():
         r = serve(params, cfg, prompts, args.gen,
                   profile_steps=args.profile_steps, **kw)

@@ -40,7 +40,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
 def apply_norm(x: torch.Tensor, p: dict, kind: str) -> torch.Tensor:
     if kind != "rmsnorm":
         raise NotImplementedError(f"norm {kind!r} is not ported yet "
-                                  "(ROADMAP A15)")
+                                  "(ROADMAP A14)")
     return rmsnorm(x, p["scale"])
 
 
@@ -188,7 +188,7 @@ def cache_update(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
 def mlp_forward(x: torch.Tensor, p: dict, kind: str) -> torch.Tensor:
     if kind != "swiglu":
         raise NotImplementedError(f"mlp {kind!r} is not ported yet "
-                                  "(ROADMAP A15)")
+                                  "(ROADMAP A14)")
     return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
 
 
@@ -227,7 +227,7 @@ def mlp_init(keys: list | None, lead: tuple, d: int, dff: int, kind: str,
     """``layers.mlp_init``: keys split three ways (gate, up, down)."""
     if kind != "swiglu":
         raise NotImplementedError(f"mlp {kind!r} is not ported yet "
-                                  "(ROADMAP A15)")
+                                  "(ROADMAP A14)")
     s_in, s_ff = d ** -0.5, dff ** -0.5
     k1, k2, k3 = _split_each(keys, 3)
     return {
@@ -262,5 +262,5 @@ def attn_init(keys: list | None, lead: tuple, d: int, n_heads: int,
 def norm_init(lead: tuple, d: int, kind: str, dtype, device) -> dict:
     if kind != "rmsnorm":
         raise NotImplementedError(f"norm {kind!r} is not ported yet "
-                                  "(ROADMAP A15)")
+                                  "(ROADMAP A14)")
     return {"scale": torch.ones(lead + (d,), dtype=dtype, device=device)}

@@ -1,0 +1,142 @@
+"""Top-k Mixture-of-Experts layer (OLMoE: 64 experts, top-8).
+
+Port of ``repro/models/moe.py``.  The dispatch is the reference's
+sort-based, capacity-limited one:
+
+  1. router top-k -> (token, expert, gate) triples, N*K rows;
+  2. a STABLE sort by expert id; each row's position in its expert's
+     segment from the segment starts (``searchsorted``);
+  3. the rows gathered into an (E, C, D) buffer of capacity
+     C = max(1, int(N*K / E * capacity_factor)); a row past its expert's
+     capacity goes to the drop slot E*C and contributes nothing;
+  4. one batched expert product (E, C, D) x (E, D, F) (``torch.bmm``);
+  5. each row's output gathered back and combined with the gate weights.
+
+At decode (N = B tokens) the capacity is small: olmoe at batch 8 has
+N*K = 64 rows over 64 experts, so C = 1 and each expert keeps only the
+first of its rows in the stable expert-sorted order.  That is the
+reference's semantics and the port keeps it.
+
+``moe_dense_ref`` is the O(N*E) oracle (every expert on every token); it
+drops nothing, so it equals ``moe_forward`` only where no row is dropped.
+The reference's ``maybe_constrain`` / ``shard_buffer`` are sharding hints
+without a numeric effect and have no counterpart here.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import prng
+from .layers import _split_each, mlp_forward, mlp_init, normal
+
+
+def moe_init(keys: list | None, lead: tuple, d: int, n_experts: int,
+             d_expert: int, kind: str, dtype, device) -> dict:
+    """``moe.moe_init`` for every row of the stacked prefix ``lead``: each
+    key split into (router, experts); the router ``normal * d**-0.5`` kept
+    in f32; the experts' key split ``n_experts`` ways, each expert an
+    ``mlp_init`` (leaves of shape ``lead + (E, ...)``)."""
+    kr, ke = _split_each(keys, 2)
+    expert_keys = None
+    if ke is not None:
+        expert_keys = [k for key in ke for k in prng.split(key, n_experts)]
+    return {
+        "router": normal(kr, lead, (d, n_experts), d ** -0.5, torch.float32,
+                         device),
+        "experts": mlp_init(expert_keys, lead + (n_experts,), d, d_expert,
+                            kind, dtype, device),
+    }
+
+
+def topk_stable(x: torch.Tensor, k: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k`` over the last axis: the k largest values, ties broken
+    toward the lower index (a stable descending sort)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _router(x2: torch.Tensor, w: torch.Tensor, k: int
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x2: (N, D) -> gates (N, K) f32, ids (N, K), the Switch-style aux
+    load-balance loss E * sum_e f_e * p_e."""
+    logits = x2.to(torch.float32) @ w                      # (N, E)
+    probs = torch.softmax(logits, -1)
+    gates, ids = topk_stable(probs, k)
+    gates = gates / gates.sum(-1, keepdim=True)
+    e = w.shape[1]
+    density = torch.nn.functional.one_hot(ids, e).to(torch.float32).mean(
+        (0, 1))
+    aux = e * torch.sum(density * probs.mean(0))
+    return gates, ids, aux
+
+
+def expert_mlps(buf: torch.Tensor, experts: dict, kind: str) -> torch.Tensor:
+    """The reference's ``vmap(mlp_forward)`` over experts: buf (E, C, D),
+    weights (E, D, F) / (E, F, D) -> (E, C, D), as batched products."""
+    if kind != "swiglu":
+        raise NotImplementedError(f"mlp {kind!r} is not ported yet "
+                                  "(ROADMAP A14)")
+    h = torch.nn.functional.silu(torch.bmm(buf, experts["w_gate"])) \
+        * torch.bmm(buf, experts["w_up"])
+    return torch.bmm(h, experts["w_down"])
+
+
+def moe_forward(x: torch.Tensor, p: dict, *, n_experts: int, top_k: int,
+                capacity_factor: float = 1.25, mlp_kind: str = "swiglu"
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (out (B, S, D) in x's dtype, aux loss f32 scalar)."""
+    b, s, d = x.shape
+    n = b * s
+    dev = x.device
+    x2 = x.reshape(n, d)
+    gates, ids, aux = _router(x2, p["router"], top_k)
+
+    nk = n * top_k
+    flat_e = ids.reshape(nk)                               # expert of each row
+    flat_tok = torch.arange(nk, device=dev) // top_k       # its source token
+    se, order = torch.sort(flat_e, stable=True)            # stable by expert
+    stok = flat_tok[order]
+
+    # position of each row within its expert's segment
+    starts = torch.searchsorted(se, torch.arange(n_experts, device=dev))
+    pos = torch.arange(nk, device=dev) - starts[se]
+    cap = max(1, int(nk / n_experts * capacity_factor))
+    valid = pos < cap
+    drop = n_experts * cap
+    dest = torch.where(valid, se * cap + pos, torch.full_like(se, drop))
+
+    # slot -> source token (row n of x2p is zeros); the drop slot is cut off
+    slot_src = torch.full((drop + 1,), n, dtype=torch.int64, device=dev)
+    slot_src[dest] = stok
+    x2p = torch.cat([x2, x2.new_zeros((1, d))], 0)
+    buf = x2p[slot_src[:-1]].reshape(n_experts, cap, d)
+    out_buf = expert_mlps(buf, p["experts"], mlp_kind)     # (E, C, D)
+
+    rows = out_buf.reshape(drop, d)
+    picked = torch.where(valid[:, None],
+                         rows[torch.clamp(dest, max=drop - 1)],
+                         rows.new_zeros(()))
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(nk, device=dev)
+    per_slot = picked[inv].reshape(n, top_k, d)            # token-major
+    y = torch.einsum("nkd,nk->nd", per_slot.to(torch.float32), gates)
+    return y.to(x.dtype).reshape(b, s, d), aux
+
+
+def moe_dense_ref(x: torch.Tensor, p: dict, *, n_experts: int, top_k: int,
+                  mlp_kind: str = "swiglu"
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """O(N*E) oracle: run every expert on every token, weight by gates."""
+    b, s, d = x.shape
+    x2 = x.reshape(-1, d)
+    gates, ids, aux = _router(x2, p["router"], top_k)
+    experts = p["experts"]
+    all_out = torch.stack([
+        mlp_forward(x2, {k: v[e] for k, v in experts.items()}, mlp_kind)
+        for e in range(n_experts)], 1)                     # (N, E, D)
+    w = torch.zeros((x2.shape[0], n_experts), dtype=torch.float32,
+                    device=x.device)
+    w.scatter_add_(1, ids, gates)
+    y = torch.einsum("ne,ned->nd", w, all_out.to(torch.float32))
+    return y.to(x.dtype).reshape(b, s, d), aux

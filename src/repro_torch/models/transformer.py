@@ -1,24 +1,31 @@
-"""The dense decoder path of the model zoo: init / train forward / loss, and
-serving: the decode cache, prefill and one-token decode.
+"""The decoder model zoo: init, the dense train forward / loss, and
+serving (the decode cache, prefill and one-token decode) for the dense,
+moe, ssm and hybrid families.
 
-Port of ``repro/models/transformer.py:70-108``, ``:115-153``, ``:186-289``,
-``:296-319``, ``:335-427`` and ``:472-559`` for ``arch_type == "dense"``.
-Parameters are a flat ``dict[str, Tensor]`` keyed by the reference's leaf
-paths (``"blocks/attn/wq"``, in the order of
-``jax.tree_util.tree_leaves``), see :mod:`repro_torch.weights`.  The layer
-stack keeps the reference's STACKED leaves: ``blocks/*`` tensors carry a
-leading ``(n_layers, ...)`` axis and the forward indexes layer ``l`` out of
-them, so a per-leaf histogram or k budget covers the whole stacked leaf as
-in the reference.  Weights are used as ``x @ W``, W stored (in, out).
+Port of ``repro/models/transformer.py:63-108``, ``:115-153``, ``:186-289``,
+``:296-333``, ``:335-469`` and ``:472-627``.  Parameters are a flat
+``dict[str, Tensor]`` keyed by the reference's leaf paths
+(``"blocks/attn/wq"``, in the order of ``jax.tree_util.tree_leaves``), see
+:mod:`repro_torch.weights`.  The layer stack keeps the reference's STACKED
+leaves: ``blocks/*`` tensors carry a leading ``(n_layers, ...)`` axis (the
+moe experts ``(n_layers, E, ...)``) and the forward indexes layer ``l`` out
+of them, so a per-leaf histogram or k budget covers the whole stacked leaf
+as in the reference.  The hybrid's one shared attention + MLP block is the
+unstacked ``shared/*``.  Weights are used as ``x @ W``, W stored (in, out).
 
-The decode cache is ``{"pos": int, "kv": {"k", "v"}}`` with ``k`` and ``v``
-of shape ``(L, B, Kv, S, hd)`` in ``cfg.dtype``, as in the reference; ``pos``
-is a host int, so a decode loop never waits for the card.  A decode step
-writes the new token's K/V into the cache IN PLACE (the reference returns
-new arrays) and attends through the ``swa_decode`` kernel.
+The decode cache is the reference's: ``{"pos": int}`` with ``"kv":
+{"k", "v"}`` of shape ``(L, B, Kv, S, hd)`` in ``cfg.dtype`` (dense, moe;
+the hybrid keeps one K/V site per shared-block application,
+``ceil(L / attn_every)``) and ``"ssm": {"conv" (L, B, K-1, C) in
+``cfg.dtype``, "state" (L, B, H, P, N) f32}`` (ssm, hybrid).  ``pos`` is a
+host int, so a decode loop never waits for the card.  A decode step
+writes the new token's K/V and the SSM conv tails and states IN PLACE (the
+reference returns new arrays) and attends through the ``swa_decode``
+kernel.
 
-The other architecture families (moe, ssm, hybrid, vlm, audio) wait for
-ROADMAP A15.
+The train forward and loss (``forward_hidden``, ``lm_loss``) run the dense
+family only; the moe, ssm and hybrid ones wait for ROADMAP A16, and vlm
+and audio (layernorm, gelu, encoder, cross-attention) for A14.
 """
 from __future__ import annotations
 
@@ -27,10 +34,12 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import prng
 from repro_torch.device import resolve_device
-from .layers import (KVCache, _expand_kv, apply_norm, apply_rope,
-                     attention_decode, attention_train, attn_init,
-                     cache_update, mlp_forward, mlp_init, norm_init, normal,
-                     qkv_project)
+from . import moe as moe_lib
+from . import ssd as ssd_lib
+from .layers import (KVCache, _expand_kv, _split_each, apply_norm,
+                     apply_rope, attention_decode, attention_train,
+                     attn_init, cache_update, mlp_forward, mlp_init,
+                     norm_init, normal, qkv_project)
 
 Params = dict[str, torch.Tensor]
 
@@ -48,52 +57,84 @@ def _flatten(tree: dict, prefix: str = "") -> Params:
     return out
 
 
-def _check_arch(cfg: ArchConfig) -> None:
-    if cfg.arch_type != "dense":
-        raise NotImplementedError(
-            f"arch_type {cfg.arch_type!r} is not ported yet (ROADMAP A15)")
+#: the families whose serving path (init, cache, prefill, decode) is ported
+SERVING = ("dense", "moe", "ssm", "hybrid")
+
+
+def _check_arch(cfg: ArchConfig, ported: tuple = SERVING) -> None:
+    if cfg.arch_type in ported:
+        return
+    item = ("A16, the moe / ssm / hybrid training path"
+            if cfg.arch_type in SERVING else "A14")
+    raise NotImplementedError(
+        f"arch_type {cfg.arch_type!r} is not ported yet for this entry point "
+        f"(ROADMAP {item})")
 
 
 # ===========================================================================
 # init
 # ===========================================================================
 
+def _block_init(cfg: ArchConfig, keys: list | None, lead: tuple,
+                dev: torch.device) -> dict:
+    """``_block_init`` for each key of the stacked prefix ``lead``: each key
+    split six ways (attention 0, MLP or MoE 1)."""
+    ks = _split_each(keys, 6)
+    d, dt = cfg.d_model, cfg.dtype
+    p = {
+        "norm1": norm_init(lead, d, cfg.norm, dt, dev),
+        "attn": attn_init(ks[0], lead, d, cfg.n_heads, cfg.n_kv_heads,
+                          cfg.hd, cfg.qkv_bias, dt, dev),
+        "norm2": norm_init(lead, d, cfg.norm, dt, dev),
+    }
+    if cfg.arch_type == "moe":
+        p["moe"] = moe_lib.moe_init(ks[1], lead, d, cfg.n_experts,
+                                    cfg.d_exp, cfg.mlp, dt, dev)
+    else:
+        p["mlp"] = mlp_init(ks[1], lead, d, cfg.d_ff, cfg.mlp, dt, dev)
+    return p
+
+
+def _ssm_block_init(cfg: ArchConfig, keys: list | None, lead: tuple,
+                    dev: torch.device) -> dict:
+    return {"norm1": norm_init(lead, cfg.d_model, cfg.norm, cfg.dtype, dev),
+            "ssm": ssd_lib.ssm_init(keys, lead, cfg, cfg.dtype, dev)}
+
+
 def init_params(cfg: ArchConfig, *, seed: int = 0,
                 device: str | torch.device | None = None) -> Params:
     """The reference's weights for ``PRNGKey(seed)``
-    (``repro/models/transformer.py:70-100``): ``split(key, 8)``, embed from
+    (``repro/models/transformer.py:63-108``): ``split(key, 8)``, embed from
     key 0 and lm_head from key 1, the stacked blocks from key 2 split once
-    per layer, each layer's key split six ways (attention 0, MLP 1); every
-    matrix ``normal * scale`` in f32, cast to ``cfg.dtype``, drawn on
-    ``device`` with the ported threefry (:mod:`repro_torch.core.prng`).
+    per layer (attention blocks split each layer's key six ways, attention
+    0 and MLP / MoE 1; SSD blocks use it whole), the hybrid's shared block
+    from key 3; every matrix ``normal * scale`` in f32, cast to
+    ``cfg.dtype`` (the MoE router stays f32), drawn on ``device`` with the
+    ported threefry (:mod:`repro_torch.core.prng`).
 
     ``device=None`` means the card; ``device="meta"`` builds the shapes
     without allocating or drawing."""
     _check_arch(cfg)
     dev = resolve_device(device)
     d, vp, dt, nl = cfg.d_model, cfg.vocab_padded, cfg.dtype, cfg.n_layers
-    lead = (nl,)
     if dev.type == "meta":
-        ks, attn_keys, mlp_keys = [None] * 8, None, None
+        ks, layer_keys = [None] * 8, None
     else:
         ks = list(prng.split(prng.PRNGKey(seed), 8))
-        blocks = [prng.split(k, 6) for k in prng.split(ks[2], nl)]
-        attn_keys = [b[0] for b in blocks]
-        mlp_keys = [b[1] for b in blocks]
+        layer_keys = list(prng.split(ks[2], nl))
 
     def one(k):
         return None if k is None else [k]
     tree: dict = {
         "embed": normal(one(ks[0]), (), (vp, d), 0.02, dt, dev),
         "final_norm": norm_init((), d, cfg.norm, dt, dev),
-        "blocks": {
-            "norm1": norm_init(lead, d, cfg.norm, dt, dev),
-            "attn": attn_init(attn_keys, lead, d, cfg.n_heads,
-                              cfg.n_kv_heads, cfg.hd, cfg.qkv_bias, dt, dev),
-            "norm2": norm_init(lead, d, cfg.norm, dt, dev),
-            "mlp": mlp_init(mlp_keys, lead, d, cfg.d_ff, cfg.mlp, dt, dev),
-        },
     }
+    if cfg.arch_type in ("dense", "moe"):
+        tree["blocks"] = _block_init(cfg, layer_keys, (nl,), dev)
+    else:
+        tree["blocks"] = _ssm_block_init(cfg, layer_keys, (nl,), dev)
+    if cfg.arch_type == "hybrid":
+        tree["shared"] = _block_init(cfg, one(ks[3]), (), dev)
     if not cfg.tie_embeddings:
         tree["lm_head"] = normal(one(ks[1]), (), (d, vp), d ** -0.5, dt, dev)
     return _flatten(tree)
@@ -102,6 +143,21 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
 def param_count(cfg: ArchConfig) -> int:
     """Number of trained parameters, from shapes on the meta device."""
     return sum(p.numel() for p in init_params(cfg, device="meta").values())
+
+
+def subtree(params: Params, prefix: str) -> dict:
+    """The nested view of the leaves under ``prefix/`` (the hybrid's
+    unstacked ``shared`` block)."""
+    out: dict = {}
+    for name, t in params.items():
+        parts = name.split("/")
+        if parts[0] != prefix:
+            continue
+        node = out
+        for p in parts[1:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = t
+    return out
 
 
 def layer_params(params: Params) -> list[dict]:
@@ -125,6 +181,18 @@ def layer_params(params: Params) -> list[dict]:
     return layers
 
 
+def _ffn(x: torch.Tensor, bp: dict, cfg: ArchConfig) -> torch.Tensor:
+    """The block's second half: norm2, then the MLP or the MoE layer (its
+    aux loss is dropped: serving has no loss), and the residual add."""
+    h = apply_norm(x, bp["norm2"], cfg.norm)
+    if "moe" in bp:
+        y, _ = moe_lib.moe_forward(
+            h, bp["moe"], n_experts=cfg.n_experts, top_k=cfg.experts_per_tok,
+            capacity_factor=cfg.moe_capacity_factor, mlp_kind=cfg.mlp)
+        return x + y
+    return x + mlp_forward(h, bp["mlp"], cfg.mlp)
+
+
 # ===========================================================================
 # train forward
 # ===========================================================================
@@ -144,8 +212,7 @@ def _attn_block_train(x: torch.Tensor, bp: dict, cfg: ArchConfig,
     att = attention_train(q, k, v, causal=causal, window=window,
                           q_chunk=cfg.attn_q_chunk)
     x = x + att.reshape(*x.shape[:2], -1) @ bp["attn"]["wo"]
-    h = apply_norm(x, bp["norm2"], cfg.norm)
-    return x + mlp_forward(h, bp["mlp"], cfg.mlp)
+    return _ffn(x, bp, cfg)
 
 
 def forward_hidden(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
@@ -156,7 +223,7 @@ def forward_hidden(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     Returns (hidden (B, S, D), aux_loss, n_prefix) as the reference does;
     the dense path has no aux loss and no modality prefix.
     """
-    _check_arch(cfg)
+    _check_arch(cfg, ("dense",))
     x = params["embed"][tokens]                             # (B,S,D)
     positions = torch.arange(x.shape[1], device=x.device)
     for bp in layer_params(params):
@@ -178,6 +245,7 @@ def lm_loss(params: Params, cfg: ArchConfig, batch: dict) -> torch.Tensor:
     The cross-entropy is summed in sequence chunks of ``cfg.loss_chunk`` as
     in the reference, so the (B, S, V) logits never exist at once.
     """
+    _check_arch(cfg, ("dense",))
     hidden, aux, n_prefix = forward_hidden(params, cfg, batch["tokens"])
     hidden = hidden[:, n_prefix:]
     labels = batch["labels"]
@@ -205,16 +273,43 @@ def lm_loss(params: Params, cfg: ArchConfig, batch: dict) -> torch.Tensor:
 # caches
 # ===========================================================================
 
+def _n_sites(cfg: ArchConfig) -> int:
+    """The hybrid's shared-block applications: one before every
+    ``attn_every`` SSD blocks."""
+    return -(-cfg.n_layers // (cfg.attn_every or cfg.n_layers))
+
+
+def _kv_cache(cfg: ArchConfig, n_l: int, batch: int, length: int,
+              dev: torch.device) -> dict:
+    shape = (n_l, batch, cfg.n_kv_heads, length, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+
+
+def _ssm_cache(cfg: ArchConfig, batch: int, dev: torch.device) -> dict:
+    c = cfg.d_inner + 2 * cfg.ssm_state
+    return {
+        "conv": torch.zeros((cfg.n_layers, batch, cfg.ssm_conv - 1, c),
+                            dtype=cfg.dtype, device=dev),
+        "state": torch.zeros((cfg.n_layers, batch, cfg.ssm_heads,
+                              cfg.ssm_head_dim, cfg.ssm_state),
+                             dtype=torch.float32, device=dev)}
+
+
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
                device: str | torch.device | None = None) -> dict:
     """Zeroed decode cache sized for ``cache_len`` positions; ``device=None``
     means the card."""
     _check_arch(cfg)
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, cache_len, cfg.hd)
-    return {"pos": 0,
-            "kv": {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-                   "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}}
+    cache: dict = {"pos": 0}
+    if cfg.arch_type in ("dense", "moe"):
+        cache["kv"] = _kv_cache(cfg, cfg.n_layers, batch, cache_len, dev)
+    else:
+        cache["ssm"] = _ssm_cache(cfg, batch, dev)
+    if cfg.arch_type == "hybrid":
+        cache["kv"] = _kv_cache(cfg, _n_sites(cfg), batch, cache_len, dev)
+    return cache
 
 
 # ===========================================================================
@@ -235,8 +330,20 @@ def _attn_block_decode(x: torch.Tensor, bp: dict, cfg: ArchConfig,
     cache = cache_update(cache, k, v, pos, window)
     att = attention_decode(q, cache, cfg.n_heads)
     x = x + att.reshape(b, 1, -1) @ bp["attn"]["wo"]
-    h = apply_norm(x, bp["norm2"], cfg.norm)
-    return x + mlp_forward(h, bp["mlp"], cfg.mlp)
+    return _ffn(x, bp, cfg)
+
+
+def _ssm_layer_decode(x: torch.Tensor, bp: dict, cfg: ArchConfig,
+                      ssm_cache: dict, layer: int) -> torch.Tensor:
+    """One SSD block on one token; writes the layer's conv tail and state
+    into ``ssm_cache``."""
+    h = apply_norm(x, bp["norm1"], cfg.norm)
+    conv, state = ssm_cache["conv"], ssm_cache["state"]
+    y, conv_n, state_n = ssd_lib.ssm_block_step(h, bp["ssm"], cfg,
+                                                conv[layer], state[layer])
+    conv[layer] = conv_n
+    state[layer] = state_n
+    return x + y
 
 
 def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
@@ -244,18 +351,34 @@ def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
                 ) -> tuple[torch.Tensor, dict]:
     """One serving step: token (B,1) int -> (logits (B,Vp) f32, cache).
 
-    The cache's K/V tensors are updated in place; the returned dict holds
-    them with ``pos`` advanced by one.
+    The cache's tensors are updated in place; the returned dict holds them
+    with ``pos`` advanced by one.  The hybrid applies its shared block
+    (site s writes K/V site s) before each run of ``attn_every`` SSD
+    blocks, as the reference's ``_hybrid_decode``.
     """
     _check_arch(cfg)
     x = params["embed"][token]                              # (B,1,D)
     pos = int(cache["pos"])
     b = token.shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    k_all, v_all = cache["kv"]["k"], cache["kv"]["v"]
-    for i, bp in enumerate(layer_params(params)):
-        x = _attn_block_decode(x, bp, cfg, KVCache(k_all[i], v_all[i], None),
-                               pos, positions, window)
+    blocks = layer_params(params)
+    if cfg.arch_type in ("dense", "moe"):
+        k_all, v_all = cache["kv"]["k"], cache["kv"]["v"]
+        for i, bp in enumerate(blocks):
+            x = _attn_block_decode(x, bp, cfg,
+                                   KVCache(k_all[i], v_all[i], None), pos,
+                                   positions, window)
+    else:
+        period = cfg.attn_every or cfg.n_layers
+        shared = subtree(params, "shared")
+        for i, bp in enumerate(blocks):
+            if cfg.arch_type == "hybrid" and i % period == 0:
+                site = i // period
+                x = _attn_block_decode(
+                    x, shared, cfg, KVCache(cache["kv"]["k"][site],
+                                            cache["kv"]["v"][site], None),
+                    pos, positions, window)
+            x = _ssm_layer_decode(x, bp, cfg, cache["ssm"], i)
     x = apply_norm(x, {"scale": params["final_norm/scale"]}, cfg.norm)
     logits = logits_fn(params, cfg, x)[:, 0]
     return logits, dict(cache, pos=pos + 1)
@@ -265,40 +388,77 @@ def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
 # prefill
 # ===========================================================================
 
+def _attn_prefill(x: torch.Tensor, bp: dict, cfg: ArchConfig,
+                  positions: torch.Tensor, k_dst: torch.Tensor,
+                  v_dst: torch.Tensor) -> torch.Tensor:
+    """One attention + FFN block over the prompt; writes its RoPE'd,
+    un-expanded K/V into the first S slots of ``k_dst`` / ``v_dst``
+    (B, Kv, S_cache, hd)."""
+    b, s, _ = x.shape
+    h = apply_norm(x, bp["norm1"], cfg.norm)
+    q, k, v = qkv_project(h, bp["attn"], cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                          cfg.qkv_bias)
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    k_dst[:, :, :s] = k.transpose(1, 2)
+    v_dst[:, :, :s] = v.transpose(1, 2)
+    att = attention_train(q, _expand_kv(k, cfg.n_heads),
+                          _expand_kv(v, cfg.n_heads), causal=True,
+                          q_chunk=cfg.attn_q_chunk)
+    x = x + att.reshape(b, s, -1) @ bp["attn"]["wo"]
+    return _ffn(x, bp, cfg)
+
+
+def _ssm_layer_prefill(x: torch.Tensor, bp: dict, cfg: ArchConfig,
+                       ssm_cache: dict, layer: int) -> torch.Tensor:
+    """One SSD block over the prompt; writes its conv tail and final state
+    into ``ssm_cache``."""
+    h = apply_norm(x, bp["norm1"], cfg.norm)
+    y, h_final, conv_tail = ssd_lib.ssm_block(h, bp["ssm"], cfg)
+    ssm_cache["conv"][layer] = conv_tail
+    ssm_cache["state"][layer] = h_final
+    return x + y
+
+
 def prefill(params: Params, cfg: ArchConfig, batch: dict,
             cache_len: int | None = None) -> tuple[torch.Tensor, dict]:
     """Process a full prompt; return (last-position logits (B,Vp) f32,
     decode cache).
 
-    The cache holds the prompt's RoPE'd, un-expanded K/V, padded with zeros
-    to ``cache_len`` slots when ``cache_len`` exceeds the prompt and of the
-    prompt's length otherwise, as the reference's.  Attention is the plain
-    causal ``attention_train``, without a window, as in the reference.
+    The K/V caches hold the prompt's RoPE'd, un-expanded K/V, padded with
+    zeros to ``cache_len`` slots when ``cache_len`` exceeds the prompt and
+    of the prompt's length otherwise, as the reference's.  Attention is the
+    plain causal ``attention_train``, without a window, as in the
+    reference.  SSD blocks leave their conv tails and final states (the
+    reference's ``_prefill_ssm``); an ssm or hybrid prompt's length must be
+    a multiple of ``min(cfg.ssm_chunk, S)``.
     """
     _check_arch(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = params["embed"][tokens]                             # (B,S,D)
-    positions = torch.arange(s, device=x.device)
+    dev = x.device
+    positions = torch.arange(s, device=dev)
     s_cache = cache_len if cache_len is not None and cache_len > s else s
-    shape = (cfg.n_layers, b, cfg.n_kv_heads, s_cache, cfg.hd)
-    k_c = torch.zeros(shape, dtype=cfg.dtype, device=x.device)
-    v_c = torch.zeros(shape, dtype=cfg.dtype, device=x.device)
-    for i, bp in enumerate(layer_params(params)):
-        h = apply_norm(x, bp["norm1"], cfg.norm)
-        q, k, v = qkv_project(h, bp["attn"], cfg.n_heads, cfg.n_kv_heads,
-                              cfg.hd, cfg.qkv_bias)
-        if cfg.use_rope:
-            q = apply_rope(q, positions, cfg.rope_theta)
-            k = apply_rope(k, positions, cfg.rope_theta)
-        k_c[i, :, :, :s] = k.transpose(1, 2)
-        v_c[i, :, :, :s] = v.transpose(1, 2)
-        att = attention_train(q, _expand_kv(k, cfg.n_heads),
-                              _expand_kv(v, cfg.n_heads), causal=True,
-                              q_chunk=cfg.attn_q_chunk)
-        x = x + att.reshape(b, s, -1) @ bp["attn"]["wo"]
-        h = apply_norm(x, bp["norm2"], cfg.norm)
-        x = x + mlp_forward(h, bp["mlp"], cfg.mlp)
+    cache: dict = {"pos": s}
+    blocks = layer_params(params)
+    if cfg.arch_type in ("dense", "moe"):
+        kv = cache["kv"] = _kv_cache(cfg, cfg.n_layers, b, s_cache, dev)
+        for i, bp in enumerate(blocks):
+            x = _attn_prefill(x, bp, cfg, positions, kv["k"][i], kv["v"][i])
+    else:
+        cache["ssm"] = _ssm_cache(cfg, b, dev)
+        period = cfg.attn_every or cfg.n_layers
+        if cfg.arch_type == "hybrid":
+            kv = cache["kv"] = _kv_cache(cfg, _n_sites(cfg), b, s_cache, dev)
+            shared = subtree(params, "shared")
+        for i, bp in enumerate(blocks):
+            if cfg.arch_type == "hybrid" and i % period == 0:
+                site = i // period
+                x = _attn_prefill(x, shared, cfg, positions, kv["k"][site],
+                                  kv["v"][site])
+            x = _ssm_layer_prefill(x, bp, cfg, cache["ssm"], i)
     x = apply_norm(x[:, -1:], {"scale": params["final_norm/scale"]}, cfg.norm)
     logits = logits_fn(params, cfg, x)[:, 0]
-    return logits, {"pos": s, "kv": {"k": k_c, "v": v_c}}
+    return logits, cache

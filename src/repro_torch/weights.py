@@ -60,12 +60,17 @@ def params_to_jax(params: dict[str, torch.Tensor]) -> dict:
 
 
 def cache_from_jax(tree: dict, device: str | torch.device = "cpu") -> dict:
-    """A reference decode cache ``{"pos", "kv": {"k", "v"}}`` of numpy arrays
-    -> the port's: ``pos`` as a host int, ``k`` / ``v`` as tensors of the
-    same ``(L, B, Kv, S, hd)`` layout and dtype."""
-    return {"pos": int(np.asarray(tree["pos"])),
-            "kv": {name: _to_tensor(tree["kv"][name]).to(device)
-                   for name in ("k", "v")}}
+    """A reference decode cache of numpy arrays -> the port's: ``pos`` as a
+    host int, the ``kv`` tensors (``k`` / ``v``, ``(L, B, Kv, S, hd)``) and
+    the ``ssm`` ones (``conv`` ``(L, B, K-1, C)`` in the config's dtype,
+    ``state`` ``(L, B, H, P, N)`` f32), whichever the cache has, in the
+    same layout and dtypes."""
+    out: dict = {"pos": int(np.asarray(tree["pos"]))}
+    for group, names in (("kv", ("k", "v")), ("ssm", ("conv", "state"))):
+        if group in tree:
+            out[group] = {name: _to_tensor(tree[group][name]).to(device)
+                          for name in names}
+    return out
 
 
 def vector_from_jax(a, device: str | torch.device = "cpu") -> torch.Tensor:

@@ -11,7 +11,9 @@ card against CPU bitwise, and 100,000-device population runs (lgc with
 its launches, lgc_q8 over the int8 store) card against CPU; the 100M
 step's sparse uplinks card against CPU bitwise and a checkpoint round trip
 of card tensors; the sharded engine on the card (one rank over NCCL, two
-over gloo on the one card) bitwise the unsharded batched engine.
+over gloo on the one card) bitwise the unsharded batched engine; the moe,
+ssm and hybrid families' smoke serve (olmoe, mamba2, zamba2) card against
+CPU.
 
 These tests need an NVIDIA card and ``nvcc``; without a card they skip with
 a reason.  The file imports neither ``jax`` nor the reference package, so it
@@ -308,7 +310,9 @@ def test_wrapper_rejects_mixed_devices(card):
 SWA_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 SWA_SHAPES = [(2, 4, 4, 512, 64), (1, 8, 8, 1024, 128), (4, 2, 2, 256, 32),
               (8, 12, 2, 4096, 128), (2, 12, 2, 4160, 128),
-              (2, 16, 1, 100, 64)]                       # (B, H, Kv, W, Dh)
+              (2, 16, 1, 100, 64),                       # (B, H, Kv, W, Dh)
+              # the olmoe-1b-7b and zamba2-1.2b decode shapes (REP 1)
+              (8, 16, 16, 4096, 128), (8, 32, 32, 4096, 64)]
 
 
 def _swa_inputs(b, h, kv, w, dh, dtype, device, seed=0):
@@ -1157,3 +1161,46 @@ def test_sharded_world2_over_gloo_on_one_card(card):
         assert got["rows_checked"] == {"calls": 3, "rows": 12, "differ": 0}
         for name in ("maxabs_rows", "histogram_rows", "sparsify_ef_rows"):
             assert got["launches"][name] == 3
+
+
+# ---------------------------------------------------------------------------
+# the moe, ssm and hybrid serving paths
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch,sites", [("olmoe-1b-7b", 2),
+                                        ("mamba2-370m", 0),
+                                        ("zamba2-1.2b", 2)])
+def test_family_smoke_serve_on_the_card_matches_the_cpu(card, arch, sites):
+    """The smoke config in f32 with the same weights on both: a 16-token
+    prefill into a 24-slot ring, 16 greedy steps past the wrap; logits
+    within 1e-5, tokens equal, swa_decode launched 16 x sites times."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer as ptf
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
+    params = ptf.init_params(cfg, seed=0, device="cpu")
+    prompts = torch.randint(0, cfg.vocab_size, (2, 16),
+                            generator=torch.Generator().manual_seed(1))
+    runs = {}
+    for dev in ("cpu", card):
+        p = {k: v.to(dev) for k, v in params.items()}
+        pk.reset_launch_counts()
+        logits, cache = make_prefill_step(cfg, 24, device=dev)(
+            p, {"tokens": prompts})
+        step = make_serve_step(cfg, 24, device=dev, return_logits=True)
+        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        out = [(logits.cpu(), tok.cpu())]
+        for _ in range(16):
+            tok, cache, logits = step(p, tok, cache)
+            out.append((logits.cpu(), tok.cpu()))
+        runs[str(dev)] = (out, dict(pk.LAUNCHES), cache)
+    for (lc, tc), (lg, tg) in zip(runs["cpu"][0], runs["cuda"][0]):
+        torch.testing.assert_close(lg, lc, rtol=1e-5, atol=1e-5)
+        assert torch.equal(tg, tc)
+    assert runs["cuda"][1]["swa_decode"] == 16 * sites
+    assert sum(runs["cuda"][1].values()) == 16 * sites
+    for group in ("kv", "ssm"):
+        for name, t in runs["cpu"][2].get(group, {}).items():
+            torch.testing.assert_close(runs["cuda"][2][group][name].cpu(), t,
+                                       rtol=1e-5, atol=1e-5)

@@ -326,7 +326,9 @@ def test_port_and_chip_smoke_import_no_reference_module():
                  "data.partition", "data.shakespeare", "models.paper_models",
                  "models.lgc_transformer", "launch.quickstart",
                  "launch.profile_sim", "kernels.ops",
-                 "kernels.topk_threshold"]
+                 "kernels.topk_threshold", "models.moe", "models.ssd",
+                 "configs.olmoe_1b_7b", "configs.mamba2_370m",
+                 "configs.zamba2_1_2b"]
     assert {f"repro_torch.{m}" for m in simulator} <= set(mods)
     code = (
         "import importlib, sys\n"
