@@ -6,6 +6,7 @@ NVIDIA H100.
     python3 chip_smoke.py --rows   # the build and the row kernels at the
                                    # sparse path's rows, with the sweep
     python3 chip_smoke.py --sharded  # the build and the sharded engine
+    python3 chip_smoke.py --swa-digests  # swa_decode's digests (phase 3)
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
@@ -40,10 +41,17 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    2e-5) and bf16 (1e-2), at TestSWADecode's shapes, the GQA serve shape
    (B=8, H=12, Kv=2, W=4096, Dh=128), W=4160 and the families' decode
    shapes (B=8, H=Kv=16, W=4096, Dh=128: olmoe; B=8, H=Kv=32, W=4096,
-   Dh=64: zamba2), with lengths 1, W/2+3 and W; slots past the length filled with +-1e9 must leave the output alone;
-   B=1 (many splits), W=16 and REP=16 at lengths on either side of each
-   tile and split edge; two launches bitwise equal, also after a launch
-   with more groups;
+   Dh=64: zamba2), the vlm and audio ones (B=8, H=Kv=32, W=4096, Dh=96:
+   phi-3-vision; B=8, H=Kv=12, W=1,500, Dh=64: whisper's cross-attention
+   over its encoder slots) and Dh 96 under GQA (B=2, H=16, Kv=2, W=300),
+   with lengths 1, W/2+3 and W; slots past the length filled with +-1e9
+   must leave the output alone;
+   B=1 (many splits), W=16, REP=16 and W=1,500 (Dh 64 and 96) at lengths
+   on either side of each tile and split edge; two launches bitwise equal,
+   also after a launch with more groups; at Dh 32 / 64 / 128 the outputs
+   on fixed inputs (``swa_digests``) bitwise those of the kernel before
+   Dh 96 was added (``SWA_DIGESTS``, made on the same card type, torch
+   and nvcc);
 4. a small f32 trainer on the card, kernel backend against the plain backend
    (every leaf through the kernels), to the CPU tests' tolerances;
 5. the training path: ``make_task("qwen2_100m", preset="full")`` at full
@@ -85,8 +93,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    8-token prefill into a 16-slot ring, 24 greedy steps past the wrap; the
    logits agree at rtol = atol = 1e-5 and the tokens are equal; then the
    same for the moe, ssm and hybrid smoke configs (olmoe, mamba2, zamba2:
-   a 16-token prefill into a 24-slot ring, 16 steps), swa_decode launched
-   steps x attention sites times;
+   a 16-token prefill into a 24-slot ring, 16 steps) and the vlm and audio
+   ones (phi3v-smoke: 16 patch embeddings and 8 tokens, whisper-small-smoke:
+   64 encoder frames and 16 tokens; 24-slot ring, 16 steps; the caches,
+   whisper's cross K/V included, within 1e-5), swa_decode launched steps x
+   attention sites times (whisper: self- and cross-attention a block);
 7. the serving path: qwen2-1.5b at full width (1,543,910,912 parameters,
    bf16), 8 prompts of 4,000 tokens prefilled into the 4,096-slot ring of
    ``cfg.window``, then 160 greedy steps (positions 4000-4159, the ring
@@ -100,6 +111,19 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    7) the draw's seconds, prefill ms and prompt tokens/s, decode ms/step
    beside the step's bytes bound, peak memory, finite logits (one
    ``families`` JSON line);
+7c. the vlm and audio families at full width in bf16 with weights and
+   modality stubs drawn on the card: phi-3-vision-4.2b (3,825,404,928
+   parameters) with 8 x 576 patch embeddings and 3,520 tokens filling a
+   4,096-slot ring, then 64 greedy steps past its wrap (swa_decode 32 a
+   step, at Dh 96); whisper-small (304,508,928) with 8 x 1,500 frames
+   through the encoder and 192 tokens into a 256-slot ring, then 240 steps
+   (24 a step: 12 self- and 12 cross-attention over the 1,500 slots); then
+   16 more steps of each under torch.profiler, to position 448 for whisper,
+   its decoder's ceiling; one ``modalities`` JSON line: prefill s, decode
+   ms/step beside the step's bytes bound (the encoder, ``vis_proj`` and
+   the cross K/V projections are not read by a decode step, ``dec_pos``
+   one row; whisper's cross cache is), swa_decode launches a step, peak
+   memory and the device's idle share;
 8. the simulator: the threefry PRNG on the card (``split``, ``fold_in``,
    ``stream_key``, raw bits, ``randint``, ``uniform``, ``normal``,
    ``truncated_normal``, the batched ``stream_keys`` and the row samplers)
@@ -208,7 +232,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    shape in bf16 with every slot valid, its inputs rotated over four copies
    so that each call finds them outside the L2 cache, as a decode step does,
    and so at the families' two shapes (``at_families``, with the families'
-   launches in ``launches_families``);
+   launches in ``launches_families``) and at phi-3-vision's and whisper's
+   cross-attention shapes (``at_modalities``, ``launches_modalities``);
 10. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package ``repro``.
@@ -240,9 +265,29 @@ SWA_SERVE_SHAPE = (8, 12, 2, 4096, 128)          # (B, H, Kv, W, Dh)
 # (REP 1, Dh 64) at batch 8 over a 4096-slot ring
 SWA_FAMILY_SHAPES = {"olmoe-1b-7b": (8, 16, 16, 4096, 128),
                      "zamba2-1.2b": (8, 32, 32, 4096, 64)}
+# the vlm and audio decode shapes: phi-3-vision-4.2b's (Dh 96) and
+# whisper-small's cross-attention over its 1,500 encoder slots (the last
+# 64-slot tile partial: 1,500 = 23 x 64 + 28)
+SWA_MODALITY_SHAPES = {"phi-3-vision-4.2b": (8, 32, 32, 4096, 96),
+                       "whisper-small": (8, 12, 12, 1500, 64)}
 SWA_SHAPES = [(2, 4, 4, 512, 64), (1, 8, 8, 1024, 128), (4, 2, 2, 256, 32),
               SWA_SERVE_SHAPE, (8, 12, 2, 4160, 128),
-              *SWA_FAMILY_SHAPES.values()]
+              *SWA_FAMILY_SHAPES.values(), *SWA_MODALITY_SHAPES.values(),
+              (2, 16, 2, 300, 96)]
+# the kernel's outputs at Dh 32 / 64 / 128 on fixed inputs, one digest a
+# shape (``swa_digests``), from the kernel before Dh 96 was added.  They
+# hold only where they were made (``SWA_DIGESTS_MADE_ON``): the card's SM
+# count picks the splits, torch's CPU generator draws the inputs and nvcc
+# compiles the sums.  ``python3 chip_smoke.py --swa-digests`` prints them
+# for the kernel of the checkout it runs in.
+SWA_DIGESTS_MADE_ON = {"sms": 132, "torch": "2.11.0+cu128", "nvcc": "12.9"}
+SWA_DIGESTS = {
+    "1,12,12,1500,64": "c9ad53c49ee42287", "1,12,2,4096,128": "45664d52ca1829d0",
+    "1,16,1,4160,32": "0b0ede76e1860bc7", "1,8,8,1024,128": "965d42550c28330f",
+    "2,4,2,16,64": "f4d945a508609613", "2,4,4,512,64": "2d886be3223d5c03",
+    "4,2,2,256,32": "fc122e7887f491cf", "8,12,12,1500,64": "7f48f2ded5c32189",
+    "8,12,2,4096,128": "09598b2080849a87", "8,12,2,4160,128": "df68e3efdcf3d7ce",
+    "8,16,16,4096,128": "4231f81ceae9b9b4", "8,32,32,4096,64": "11731bc3e3fbc395"}
 # the moe, ssm and hybrid serving paths at full width: (arch, params by
 # shape); batch 8, 4,096-token prompts (a multiple of the SSD chunk, 128)
 # into a 4,096-slot ring, then 64 greedy steps past its wrap
@@ -250,7 +295,15 @@ FAMILIES = {"olmoe-1b-7b": 6_919_620_608, "mamba2-370m": 420_136_448,
             "zamba2-1.2b": 1_170_473_856}
 FAMILY_BATCH, FAMILY_PROMPT, FAMILY_GEN = 8, 4096, 64
 SWA_EDGE_SHAPES = [(1, 12, 2, 4096, 128), (2, 4, 2, 16, 64),
-                   (1, 16, 1, 4160, 32)]
+                   (1, 16, 1, 4160, 32), (1, 12, 12, 1500, 64),
+                   (1, 16, 1, 1500, 96)]
+# the vlm and audio serving paths at full width: (params by shape, batch,
+# prompt tokens, greedy steps, ring slots); phi-3-vision's 576 patch
+# positions and 3,520 tokens fill its 4,096-slot ring, whisper stays within
+# its decoder's 448 positions (192 + 240 steps + 16 profiled)
+MODALITIES = {"phi-3-vision-4.2b": (3_825_404_928, 8, 3_520, 64, 4_096),
+              "whisper-small": (304_508_928, 8, 192, 240, 256)}
+MODALITY_PROFILE_STEPS = 16
 # the simulator: lr_mnist at the quickstart's defaults and cnn_mnist at the
 # task factory's (n_train 6000, batch 64) with 8 devices; (task, M, n_train,
 # rounds, eval_every, modes)
@@ -774,12 +827,55 @@ SWA_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
 
 
 def swa_inputs(gen, shape, dtype):
+    """q, k, v of ``shape``: normal draws from ``gen`` on its device, in
+    ``dtype`` on the card."""
     import torch
     b, h, kv, w, dh = shape
-    q = torch.randn((b, h, dh), generator=gen, device="cuda").to(dtype)
-    k = torch.randn((b, kv, w, dh), generator=gen, device="cuda").to(dtype)
-    v = torch.randn((b, kv, w, dh), generator=gen, device="cuda").to(dtype)
-    return q, k, v
+    return tuple(torch.randn(s, generator=gen, device=gen.device).to(
+        dtype).to("cuda") for s in ((b, h, dh), (b, kv, w, dh),
+                                    (b, kv, w, dh)))
+
+
+def swa_digests() -> dict[str, str]:
+    """swa_decode's outputs at the Dh 32 / 64 / 128 shapes of phase 3, in
+    f32 and bf16 at lengths 1, W/2 + 3 and W, on inputs drawn on the CPU
+    from a generator seeded by the shape: for each shape the sha256 (16
+    hex digits) of its six cases' sha256s (16 hex digits of the output's
+    bytes each), joined in the order of their keys."""
+    import hashlib
+    import torch
+    from repro_torch.kernels import swa_decode
+    out = {}
+    for shape in sorted({s for s in SWA_SHAPES + SWA_EDGE_SHAPES
+                         if s[4] != 96}):
+        b, w = shape[0], shape[3]
+        seed = sum(x * 31 ** i for i, x in enumerate(shape))
+        cases = {}
+        for dtype, view in ((torch.float32, torch.int32),
+                            (torch.bfloat16, torch.int16)):
+            q, k, v = swa_inputs(torch.Generator().manual_seed(seed), shape,
+                                 dtype)
+            for n in (1, w // 2 + 3, w):
+                ln = torch.full((b,), n, dtype=torch.int32, device="cuda")
+                raw = swa_decode(q, k, v, ln).cpu().view(view).numpy()
+                cases[f"{str(dtype)[6:]} {n}"] = hashlib.sha256(
+                    raw.tobytes()).hexdigest()[:16]
+        out[",".join(map(str, shape))] = hashlib.sha256("".join(
+            cases[c] for c in sorted(cases)).encode()).hexdigest()[:16]
+    return out
+
+
+def swa_digests_made_on() -> dict:
+    """What ``SWA_DIGESTS`` depend on besides the kernel: the card's SM
+    count, torch's version and nvcc's release."""
+    import subprocess
+    import torch
+    from repro_torch.kernels import _build
+    ver = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
+                         text=True, check=True).stdout
+    return {"sms": torch.cuda.get_device_properties(0).multi_processor_count,
+            "torch": torch.__version__,
+            "nvcc": ver.split("release ")[1].split(",")[0]}
 
 
 def phase_swa(gen, errs: dict) -> None:
@@ -855,6 +951,21 @@ def phase_swa(gen, errs: dict) -> None:
               f"swa_decode {shape} changed after a launch with more groups")
     log("swa_decode: two launches bitwise equal, and unchanged after a "
         "launch with 512 groups")
+    made_on = swa_digests_made_on()
+    got = swa_digests()
+    check(made_on == SWA_DIGESTS_MADE_ON and set(got) == set(SWA_DIGESTS),
+          f"SWA_DIGESTS were made on {SWA_DIGESTS_MADE_ON} for "
+          f"{len(SWA_DIGESTS)} shapes, this run is on {made_on} with "
+          f"{len(got)}: they hold only where they were made.  Make them "
+          "anew from the kernel they guard: unpack its commit with git "
+          "archive under build/, copy this chip_smoke.py into it, run "
+          "`python3 chip_smoke.py --swa-digests` there and set "
+          "SWA_DIGESTS_MADE_ON and SWA_DIGESTS to what it prints")
+    check(got == SWA_DIGESTS, "swa_decode at Dh 32 / 64 / 128 differs from "
+          "the kernel before Dh 96 at "
+          f"{sorted(k for k in got if got[k] != SWA_DIGESTS[k])}")
+    log(f"swa_decode: Dh 32 / 64 / 128 outputs bitwise the earlier kernel's "
+        f"at {len(got)} shapes x 2 dtypes x 3 lengths")
     torch.cuda.synchronize()
 
 
@@ -1396,43 +1507,51 @@ def phase_driver() -> None:
 
 def attention_sites(cfg) -> int:
     """swa_decode launches a decode step makes: one per attention block
-    (the hybrid's shared block once per site, ceil(L / attn_every))."""
+    (the hybrid's shared block once per site, ceil(L / attn_every); the
+    audio decoder's blocks two each, self- and cross-attention)."""
     if cfg.arch_type == "ssm":
         return 0
     if cfg.arch_type == "hybrid":
         return -(-cfg.n_layers // cfg.attn_every)
+    if cfg.arch_type == "audio":
+        return 2 * cfg.n_layers
     return cfg.n_layers
 
 
 def small_serve(arch: str, prompt: int, window: int, steps: int) -> None:
     """The arch's smoke config in f32, card against CPU with the same
     weights: a ``prompt``-token prefill into a ``window``-slot ring, then
-    ``steps`` greedy steps past the wrap; the logits agree at rtol = atol
-    = 1e-5, the tokens are equal and swa_decode launched steps x sites
-    times on the card."""
+    ``steps`` greedy steps past the wrap (a vlm or audio prompt with its
+    modality stub); the logits agree at rtol = atol = 1e-5, the tokens are
+    equal, the K/V caches (whisper's cross K/V too) agree at 1e-5 and
+    swa_decode launched steps x sites times on the card."""
     import dataclasses
     import torch
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch.serve_decode import stub_prefix
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import transformer as tf
     cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
     params = tf.init_params(cfg, seed=0, device="cpu")
-    prompts = torch.randint(0, cfg.vocab_size, (2, prompt),
-                            generator=torch.Generator().manual_seed(1))
+    g = torch.Generator().manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (2, prompt), generator=g)
+    batch = {"tokens": prompts}
+    prefix = stub_prefix(cfg, 2, g, torch.device("cpu"))
+    if prefix is not None:
+        batch["prefix"] = prefix
     runs = {}
     for dev in ("cpu", "cuda"):
         p = {k: v.to(dev) for k, v in params.items()}
         reset_launch_counts()
-        logits, cache = make_prefill_step(cfg, window, device=dev)(
-            p, {"tokens": prompts})
+        logits, cache = make_prefill_step(cfg, window, device=dev)(p, batch)
         step = make_serve_step(cfg, window, device=dev, return_logits=True)
         tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
         out = [(logits.cpu(), tok.cpu())]
         for _ in range(steps):
             tok, cache, logits = step(p, tok, cache)
             out.append((logits.cpu(), tok.cpu()))
-        runs[dev] = (out, cache["pos"], dict(LAUNCHES))
+        runs[dev] = (out, cache["pos"], dict(LAUNCHES), cache)
     worst = 0.0
     for i, ((lc, tc), (lg, tg)) in enumerate(zip(runs["cpu"][0],
                                                  runs["cuda"][0])):
@@ -1442,7 +1561,16 @@ def small_serve(arch: str, prompt: int, window: int, steps: int) -> None:
         check(torch.equal(tg, tc),
               f"small serve {cfg.name} step {i}: tokens differ")
         worst = max(worst, max_abs_err(lg, lc))
-    check(runs["cuda"][1] == prompt + steps, f"small serve {cfg.name} pos")
+    check(runs["cuda"][1] == tf.prompt_positions(cfg, batch) + steps,
+          f"small serve {cfg.name} pos")
+    c_cpu, c_gpu = runs["cpu"][3], runs["cuda"][3]
+    pairs = [(c_gpu["kv"][n], c_cpu["kv"][n]) for n in ("k", "v")
+             if "kv" in c_cpu] + [(c_gpu[n], c_cpu[n])
+                                  for n in ("cross_k", "cross_v") if n in c_cpu]
+    for got, want in pairs:
+        check(bool(torch.isclose(got.cpu(), want, rtol=1e-5, atol=1e-5).all()),
+              f"small serve {cfg.name}: card and CPU caches differ by "
+              f"{max_abs_err(got.cpu(), want):.3e}")
     counts = runs["cuda"][2]
     want = steps * attention_sites(cfg)
     check(counts["swa_decode"] == want, f"small serve {cfg.name}: "
@@ -1459,6 +1587,8 @@ def phase_small_serve() -> None:
     small_serve(SERVE_ARCH, 8, 16, 24)
     for arch in FAMILIES:
         small_serve(arch, 16, 24, 16)
+    small_serve("phi-3-vision-4.2b", 8, 24, 16)   # 16 patches + 8 tokens
+    small_serve("whisper-small", 16, 24, 16)
 
 
 # ---------------------------------------------------------------------------
@@ -1469,15 +1599,25 @@ def decode_step_bytes(cfg, params: dict, cache: dict, batch: int,
                       slots_read: float) -> float:
     """Bytes a decode step must move at least: every weight it reads once
     (the embedding only its batch rows unless it is the tied head; every
-    expert, since at capacity 1 each expert runs its slot), the valid K/V
-    slots of every attention site read (``slots_read`` a site on average)
-    and the token's slot written, each SSD layer's state and conv tail
-    read and written, the logits written."""
+    expert, since at capacity 1 each expert runs its slot; ``dec_pos`` one
+    row; not the audio encoder, ``enc_pos``, the vlm's ``vis_proj`` or the
+    cross-attention's K/V projections, which only prefill reads), the
+    valid K/V slots of every attention site read (``slots_read`` a site on
+    average) and the token's slot written, the whole cross-attention cache
+    read, each SSD layer's state and conv tail read and written, the
+    logits written."""
+    prefill_only = ("enc_blocks/", "enc_norm/", "enc_pos", "vis_proj",
+                    "blocks/cross/wk", "blocks/cross/wv")
     n = 0.0
     for name, t in params.items():
+        if name.startswith(prefill_only):
+            continue
         gathered = name == "embed" and not cfg.tie_embeddings
-        n += (batch * t[0].numel() if gathered else t.numel()) \
-            * t.element_size()
+        rows = batch if gathered else 1 if name == "dec_pos" else None
+        n += (rows * t[0].numel() if rows else t.numel()) * t.element_size()
+    for name in ("cross_k", "cross_v"):
+        if name in cache:
+            n += cache[name].numel() * cache[name].element_size()
     if "kv" in cache:
         k = cache["kv"]["k"]
         sites, b, kv, _, hd = k.shape
@@ -1489,23 +1629,26 @@ def decode_step_bytes(cfg, params: dict, cache: dict, batch: int,
 
 
 def full_serve(arch: str, want_params: int, batch: int, prompt: int,
-               gen: int, smi: str) -> dict:
-    """The arch at full width in bf16, weights drawn on the card: ``batch``
-    prompts of ``prompt`` tokens into the ring of ``cfg.window`` slots,
-    then ``gen`` greedy steps past its wrap.  Checks the param count, the
-    position, the wrap (none without K/V), finite logits, the tokens and
-    the launches (swa_decode gen x sites, every other kernel 0); returns
-    the timings beside the step's bytes bound."""
+               gen: int, smi: str, window: int | None = None,
+               profile_steps: int = 0) -> dict:
+    """The arch at full width in bf16, weights (and a vlm or audio
+    prompt's modality stub) drawn on the card: ``batch`` prompts of
+    ``prompt`` tokens into a ring of ``window`` slots (``cfg.window`` by
+    default), then ``gen`` greedy steps past its wrap, and
+    ``profile_steps`` more under torch.profiler.  Checks the param count,
+    the position, the wrap (none without K/V), finite logits, the tokens
+    and the launches (swa_decode steps x sites, every other kernel 0);
+    returns the timings beside the step's bytes bound."""
     import gc
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import LAUNCHES, reset_launch_counts
-    from repro_torch.launch.serve_decode import serve
+    from repro_torch.launch.serve_decode import serve, stub_prefix
     from repro_torch.models import transformer as tf
     cfg = get_config(arch)
     n_params = tf.param_count(cfg)
     check(n_params == want_params, f"{arch} param_count {n_params}")
-    window = cfg.window
+    window = window or cfg.window
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     params = tf.init_params(cfg, seed=0)
@@ -1514,15 +1657,21 @@ def full_serve(arch: str, want_params: int, batch: int, prompt: int,
     gen_ = torch.Generator(device="cuda").manual_seed(1)
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
                             generator=gen_, device="cuda")
+    prefix = stub_prefix(cfg, batch, gen_, torch.device("cuda"))
     # warm-up at the same cache shape: cuBLAS handles, the allocator
-    serve(params, cfg, prompts[:, :128], 2, window=window, cache_len=window)
+    serve(params, cfg, prompts[:, :128], 2, prefix=prefix, window=window,
+          cache_len=window)
     torch.cuda.synchronize()
     reset_launch_counts()
-    r = serve(params, cfg, prompts, gen, window=window, cache_len=window)
+    r = serve(params, cfg, prompts, gen, prefix=prefix, window=window,
+              cache_len=window, profile_steps=profile_steps)
     counts = dict(LAUNCHES)
     toks = r["tokens"]
     sites = attention_sites(cfg)
-    check(r["pos"] == prompt + gen and r["wrapped"] == (sites > 0)
+    steps = gen + (profile_steps if r["profile"] else 0)
+    n_prefix = r["prefix_positions"]
+    check(r["pos"] == n_prefix + prompt + steps
+          and r["wrapped"] == (sites > 0)
           and r["cache_slots"] == (window if sites else None),
           f"{arch}: pos {r['pos']}, {r['cache_slots']} slots, wrapped "
           f"{r['wrapped']}")
@@ -1530,14 +1679,15 @@ def full_serve(arch: str, want_params: int, batch: int, prompt: int,
     check(toks.shape == (batch, gen + 1)
           and bool(((toks >= 0) & (toks < cfg.vocab_padded)).all()),
           f"{arch}: generated tokens")
-    want = gen * sites
+    want = steps * sites
     check(counts["swa_decode"] == want, f"swa_decode launched "
           f"{counts['swa_decode']} times on the {arch} serving path, "
           f"expected {want}")
     for name, c in counts.items():
         check(name == "swa_decode" or c == 0,
               f"{name} launched on the {arch} serving path")
-    slots = [min(p + 1, window) for p in range(prompt, prompt + gen)]
+    start = n_prefix + prompt
+    slots = [min(p + 1, window) for p in range(start, start + gen)]
     step_bytes = decode_step_bytes(cfg, params, r["cache"], batch,
                                    sum(slots) / len(slots))
     step_bound = step_bytes / HBM_BYTES_PER_S * 1e3
@@ -1549,9 +1699,14 @@ def full_serve(arch: str, want_params: int, batch: int, prompt: int,
            "step_bytes": step_bytes, "step_bound_ms": step_bound,
            "peak_mem_gib": r["peak_mem_gib"], "launches": counts,
            "swa_decode_sites": sites, "card": smi}
+    if n_prefix:
+        row["prefill_positions_per_s"] = r["prefill_positions_per_s"]
+    if r["profile"]:
+        row["profile"] = r["profile"]
     log(f"serve: {arch} full width, {n_params:,} params (bf16), drawn on "
-        f"the card in {draw_s:.2f} s; batch {batch}, prompt {prompt}, ring "
-        f"{window} slots, {gen} greedy steps to pos {r['pos']}")
+        f"the card in {draw_s:.2f} s; batch {batch}, prompt {prompt} "
+        f"(+{n_prefix} patch positions), ring {window} slots, {steps} "
+        f"greedy steps to pos {r['pos']}")
     log(f"serve: {arch} prefill {row['prefill_ms']:.1f} ms, "
         f"{row['prompt_tokens_per_s']:.1f} prompt tokens/s; decode "
         f"{row['decode_ms_per_step']:.4f} ms/step, "
@@ -1560,7 +1715,9 @@ def full_serve(arch: str, want_params: int, batch: int, prompt: int,
         f"3.35 TB/s); peak device memory {row['peak_mem_gib']:.2f} GiB; "
         f"logits finite; tokens of row 0: {toks[0, :8].tolist()}")
     log(f"serve: {arch} kernel launches {counts} (want {want} for "
-        f"swa_decode: {sites} sites x {gen} steps; 0 for the others)")
+        f"swa_decode: {sites} sites x {steps} steps; 0 for the others)")
+    if r["profile"]:
+        log(f"serve: {arch} profiled {profile_steps} steps: {r['profile']}")
     del params, prompts, r
     gc.collect()
     torch.cuda.empty_cache()
@@ -1579,6 +1736,35 @@ def phase_families(smi: str) -> dict:
                             FAMILY_GEN, smi)
            for arch, n in FAMILIES.items()}
     print(json.dumps({"families": out}), flush=True)
+    return out
+
+
+def phase_modalities(smi: str) -> dict:
+    """Phase 7c: the vlm and audio families at full width, each with its
+    last steps profiled; one ``modalities`` JSON line."""
+    t0 = time.perf_counter()
+    out = {}
+    for arch, (n, batch, prompt, gen, window) in MODALITIES.items():
+        row = full_serve(arch, n, batch, prompt, gen, smi, window,
+                         MODALITY_PROFILE_STEPS)
+        prof = row.pop("profile")
+        out[arch] = {k: row[k] for k in (
+            "params", "draw_s", "prompt_tokens_per_s", "decode_ms_per_step",
+            "generated_tokens_per_s", "step_bytes", "step_bound_ms",
+            "peak_mem_gib", "launches", "card")} | {
+            "prefill_s": row["prefill_ms"] / 1e3,
+            "swa_decode_per_step": row["swa_decode_sites"],
+            "device_idle_share": prof["device_idle_share"],
+            "device_busy_ms_per_step": prof["device_busy_ms_per_step"],
+            "kernel_ms_per_step_by_group": prof[
+                "kernel_ms_per_step_by_group"],
+            "kernel_launches_per_step": prof["kernel_launches_per_step"]}
+        if "prefill_positions_per_s" in row:
+            out[arch]["prefill_positions_per_s"] = row[
+                "prefill_positions_per_s"]
+    print(json.dumps({"modalities": out}), flush=True)
+    log(f"phase 7c (vlm and audio at full width): "
+        f"{time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -2940,7 +3126,9 @@ def phase_time_swa(gen, shape=SWA_SERVE_SHAPE) -> dict:
     """swa_decode at a decode shape in bf16, every slot valid (the ring
     after the wrap).  Each call takes the next of four input copies
     (4 x 33.6 MB at the serve shape, beyond the 50 MB L2), as a decode
-    step finds a layer's cache cold; ``ms_l2_warm`` repeats one copy."""
+    step finds a layer's cache cold; ``ms_l2_warm`` repeats one copy;
+    ``device_ms_length1`` is the same grid at length 1, the launch's fixed
+    cost (its blocks, the merge)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.device import device_ms
@@ -2948,6 +3136,7 @@ def phase_time_swa(gen, shape=SWA_SERVE_SHAPE) -> dict:
     b, h, kv, w, dh = shape
     sets = [swa_inputs(gen, shape, torch.bfloat16) for _ in range(4)]
     ln = torch.full((b,), w, dtype=torch.int32, device="cuda")
+    one = torch.ones_like(ln)       # the same grid, one slot a row to read
     mask = (torch.arange(w, device="cuda")[None, :]
             < ln[:, None])[:, None, None, :]
 
@@ -2977,10 +3166,12 @@ def phase_time_swa(gen, shape=SWA_SERVE_SHAPE) -> dict:
            "library_device_ms": device_ms(lib) if lib else None,
            "bound_ms": bnd, "bound_by": by, "bytes": n_bytes,
            "ms_l2_warm": time_ms(lambda: swa_decode(*sets[0], ln)),
-           "device_ms_l2_warm": device_ms(lambda: swa_decode(*sets[0], ln))}
+           "device_ms_l2_warm": device_ms(lambda: swa_decode(*sets[0], ln)),
+           "device_ms_length1": device_ms(lambda: swa_decode(*sets[0], one))}
     log(f"timing swa_decode (B,H,Kv,W,Dh)={shape} bf16: kernel "
         f"{row['ms']:.5f} ms one call, {row['device_ms']:.5f} ms device "
-        f"({row['device_ms_l2_warm']:.5f} ms with the inputs in L2); plain "
+        f"({row['device_ms_l2_warm']:.5f} ms with the inputs in L2, "
+        f"{row['device_ms_length1']:.5f} ms at length 1); plain "
         f"{row['plain_ms']:.5f} ms; library {row['library_ms']} ms one "
         f"call, {row['library_device_ms']} ms device; bound {bnd:.5f} ms "
         f"({by}, {n_bytes:,} B)")
@@ -2989,8 +3180,9 @@ def phase_time_swa(gen, shape=SWA_SERVE_SHAPE) -> dict:
 
 def main(argv: list[str]) -> int:
     import torch
-    if argv not in ([], ["--rows"], ["--sharded"]):
-        print(f"usage: python3 chip_smoke.py [--rows | --sharded]; got "
+    if argv not in ([], ["--rows"], ["--sharded"], ["--swa-digests"]):
+        print(f"usage: python3 chip_smoke.py [--rows | --sharded | "
+              f"--swa-digests]; got "
               f"{argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -3022,6 +3214,10 @@ def main(argv: list[str]) -> int:
         print(json.dumps({"sparse_rows": time_sparse_rows(gen),
                           "sweep": sweep_row_forms(gen)}), flush=True)
         return 0
+    if argv == ["--swa-digests"]:   # SWA_DIGESTS of this checkout's kernel
+        print(json.dumps({"made_on": swa_digests_made_on(),
+                          "digests": swa_digests()}), flush=True)
+        return 0
     if argv == ["--sharded"]:   # the sharded engine alone
         phase_sharded(smi)
         return 0
@@ -3035,6 +3231,7 @@ def main(argv: list[str]) -> int:
     phase_small_serve()
     serving = phase_serve(smi)
     families = phase_families(smi)
+    modalities = phase_modalities(smi)
     phase_prng()
     sim_launches = phase_simulator(smi)
     per_layer_launches = phase_per_layer(smi)
@@ -3048,6 +3245,8 @@ def main(argv: list[str]) -> int:
     swa_row = phase_time_swa(gen)
     swa_family_rows = {arch: phase_time_swa(gen, shape)
                        for arch, shape in SWA_FAMILY_SHAPES.items()}
+    swa_modality_rows = {arch: phase_time_swa(gen, shape)
+                         for arch, shape in SWA_MODALITY_SHAPES.items()}
 
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():
@@ -3108,7 +3307,11 @@ def main(argv: list[str]) -> int:
             row |= {"launches": serving["launches"][name]} | swa_row | {
                 "launches_families": {
                     arch: f["launches"][name] for arch, f in families.items()},
-                "at_families": swa_family_rows}
+                "at_families": swa_family_rows,
+                "launches_modalities": {
+                    arch: f["launches"][name]
+                    for arch, f in modalities.items()},
+                "at_modalities": swa_modality_rows}
         kernels.append(row)
     # the segmented forms: their path is the per-layer runs (the batched
     # CNN run under size_prop for ``launches``), timed at the CNN's (M, D)

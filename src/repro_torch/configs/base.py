@@ -1,9 +1,8 @@
 """ArchConfig: one dataclass describing every supported architecture.
 
 Port of ``repro/configs/base.py``.  The fields and their defaults are the
-reference's; ``dtype`` is a torch dtype (bf16 by default, as there).  Only
-the dense path is wired in this port so far, but the dataclass keeps every
-field so a config carries over unchanged.
+reference's; ``dtype`` is a torch dtype (bf16 by default, as there).  The
+dataclass keeps every field, so a config carries over unchanged.
 """
 from __future__ import annotations
 

@@ -66,14 +66,21 @@ template <typename T>
 constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
 
 // A K or V tile in shared memory: kTile rows of DH elements, 16-byte chunks swizzled
-// so that the 8 rows read by 8 neighbouring lanes fall on 8 different bank groups.
+// so that the 8 rows read by 8 neighbouring lanes fall on 8 different bank groups.  The
+// swizzle stays inside an aligned group of 8 chunks (XOR with row & 7), or of 4 chunks
+// (XOR with (row >> 1) & 3) for a row's last 4 when they do not fill a group of 8: Dh 96
+// has 12 chunks a row in bf16 (8 + 4) and 24 in f32 (3 x 8), and XOR-ing chunks 8-11 with
+// up to 7 would land past the row's end.  At Dh 32 / 64 / 128 this is the plain swizzle
+// (4 chunks: (row >> 1) & 3; 8, 16 or 32: row & 7).
 template <typename T, int DH>
 struct Tile {
   static constexpr int kRowBytes = DH * static_cast<int>(sizeof(T));
   static constexpr int kChunks = kRowBytes / 16;          // 4 .. 32
+  static constexpr int kFull = kChunks / 8 * 8;           // chunks in whole groups of 8
   static constexpr int kBytes = kTile * kRowBytes;
+  static_assert(kChunks - kFull == 0 || kChunks - kFull == 4, "a row's chunks: 8 n or 8 n + 4");
   static __device__ __forceinline__ int offset(int row, int chunk) {
-    const int swz = kChunks >= 8 ? (row & 7) : ((row >> 1) & 3);
+    const int swz = chunk < kFull ? (row & 7) : ((row >> 1) & 3);
     return row * kRowBytes + ((chunk ^ swz) << 4);
   }
 };
@@ -168,13 +175,16 @@ swa_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   using SM = Smem<T, DH, REP>;
   constexpr bool MMA = kMma<T>;
   // bf16, tensor cores: the scores' k-steps of 16 dims (a warp takes half of them for a
-  // 16-slot row tile); P.V's n-tiles of 8 dims, NTW per warp, KW warps per n-tile
+  // 16-slot row tile); P.V's n-tiles of 8 dims, NTW per warp, KW warps (k-parts of the
+  // tile's 4 k-steps of 16 slots) per n-tile: NT / NTW x KW = 8 warps (Dh 32: 1 x 2;
+  // 64: 1 x 1; 96: 3 x 2; 128: 2 x 1)
   constexpr int KS = DH / 16;
   constexpr int NT = DH / 8;
-  constexpr int NTW = NT >= 8 ? NT / 8 : 1;
-  constexpr int KW = 8 * NTW / NT;
+  constexpr int GCD8 = NT % 8 == 0 ? 8 : NT % 4 == 0 ? 4 : NT % 2 == 0 ? 2 : 1;
+  constexpr int NTW = NT / GCD8;
+  constexpr int KW = 8 / GCD8;
   // f32, CUDA cores: the scores' elements per thread (a quarter row); P.V's dim pairs
-  // and slot groups
+  // and slot groups (Dh 96: 5 groups of 48 threads, the last 16 threads idle)
   constexpr int DQ = DH / kQuarters;
   constexpr int NDP = DH / 2;
   constexpr int G = kThreads / NDP;
@@ -182,6 +192,7 @@ swa_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   constexpr int RP = SM::kRP;
   constexpr int COPIES = kTile * TL::kChunks / kThreads; // 16-byte copies per thread
   static_assert(kTile * TL::kChunks % kThreads == 0 && DQ % 4 == 0 && REP <= kMaxRep, "");
+  static_assert(KS % 2 == 0 && 4 % KW == 0 && NT / NTW * KW == 8, "the warps' shares");
   static_assert(NPARTS * REP * DH * 4 <= SM::kRing && 2 * REP * kMaxSplits * 4 <= SM::kRing,
                 "the partial sums and the merge's weights reuse the ring");
 
@@ -245,6 +256,7 @@ swa_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   const int kp = warp / (NT / NTW);             // and k-part
   const int sj = tid % kTile, quarter = tid / kTile;   // f32 scores: slot, quarter row
   const int dp = tid % NDP, sg = tid / NDP;            // f32 P.V: dim pair, slot group
+  const bool pv = sg < G;                              // f32 P.V: a thread of a slot group
   unsigned bq[KS / 2][2];                       // bf16: B = q^T, pairs of bf16
   float cacc[NTW][4];                           // bf16: the accumulator fragments
   float acc[REP][2];                            // f32: the accumulator
@@ -381,7 +393,7 @@ swa_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
         acc[r][1] *= c;
       }
 #pragma unroll
-      for (int j = sg; j < kTile; j += G) {   // rows past n_valid: p = 0 and v = 0
+      for (int j = pv ? sg : kTile; j < kTile; j += G) {   // rows past n_valid: p = 0, v = 0
         const float2 vv = *reinterpret_cast<const float2*>(
             tv + TL::offset(j, dp / 2) + (dp % 2) * 8);
         float p[RP];
@@ -415,7 +427,7 @@ swa_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
             make_float2(cacc[n][0], cacc[n][1]);
       }
     }
-  } else {
+  } else if (pv) {
 #pragma unroll
     for (int r = 0; r < REP; ++r) {
       *reinterpret_cast<float2*>(red + (sg * REP + r) * DH + 2 * dp) =
@@ -566,6 +578,8 @@ int launch_dh(const void* q, const void* k, const void* v, const int* length, vo
     case 32: return launch_rep<T, 32>(q, k, v, length, out, part, counters, batch, n_heads,
                                       n_kv, window, splits, stream);
     case 64: return launch_rep<T, 64>(q, k, v, length, out, part, counters, batch, n_heads,
+                                      n_kv, window, splits, stream);
+    case 96: return launch_rep<T, 96>(q, k, v, length, out, part, counters, batch, n_heads,
                                       n_kv, window, splits, stream);
     case 128: return launch_rep<T, 128>(q, k, v, length, out, part, counters, batch, n_heads,
                                         n_kv, window, splits, stream);

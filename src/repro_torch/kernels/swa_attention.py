@@ -24,7 +24,7 @@ from . import _build, ref
 from .topk_threshold import (_check_same_device, _on_device, _sm_count,
                              _stream, _zeroed_counters)
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 96, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_REP = 8                   # query heads per block (swa_decode.cu kMaxRep)
 _MAX_SPLITS = 128              # swa_decode.cu kMaxSplits

@@ -6,21 +6,31 @@ full cache, then with the sliding-window ring cache past the window.
         [--device cuda] [--profile-steps 0]
 
 ``--arch`` takes any ported id: the dense ``qwen2-1.5b`` / ``qwen2-100m``,
-the moe ``olmoe-1b-7b``, the ssm ``mamba2-370m`` and the hybrid
+the moe ``olmoe-1b-7b``, the ssm ``mamba2-370m``, the hybrid
 ``zamba2-1.2b`` (an ssm or hybrid prompt must be a multiple of the SSD
-chunk, 128: ``--prompt 4096``).  An ssm cache has no K/V slots: its runs
-report ``cache_slots`` None and never wrap.
+chunk, 128: ``--prompt 4096``), the vlm ``phi-3-vision-4.2b`` and the
+audio ``whisper-small``.  An ssm cache has no K/V slots: its runs report
+``cache_slots`` None and never wrap.  The vlm and audio prompts come with
+their modality stub, drawn from ``--seed`` in the config's dtype at the
+reference's shapes: (B, 576, 1024) patch embeddings, which take 576 cache
+slots and positions before the prompt (``--prompt 3520`` fills a
+4,096-slot ring), and (B, 1500, 768) audio frames for the encoder, whose
+cross-attention K/V the decoder reads at every step.  Whisper's own
+decoder ceiling is 448 tokens: ``--prompt 192 --gen 256 --window 256``.
 
 The port's counterpart of ``examples/serve_decode.py``, at full width on the
 card by default: random weights and prompts from ``--seed``, prefill through
 ``make_prefill_step`` and greedy decode through ``make_serve_step``, whose
 attention is the ``swa_decode`` CUDA kernel.  The full-cache run keeps
-``prompt + gen`` slots; the ring run keeps ``window`` slots and wraps once
-the position passes it.  Prints one JSON line with the prefill time,
-prompt tokens/s, decode ms per step, generated tokens/s and peak device
-memory of each run (host clock around work that ends in a device sync),
-after a short warm-up serve on the card (the kernels' build at their first
-launch would otherwise land in the first run's decode).
+``prompt + gen`` slots (and the vlm's patch positions); the ring run keeps
+``window`` slots and wraps once the position passes it.  Prints one JSON
+line with the prefill time, prompt tokens/s (``prompt_tokens_per_s``
+counts the prompt's tokens only; ``prefill_positions_per_s`` adds the
+vlm's ``prefix_positions`` patch positions), decode ms per step,
+generated tokens/s and peak device memory of each run (host clock around
+work that ends in a device sync), after a short warm-up serve on the card
+(the kernels' build at their first launch would otherwise land in the
+first run's decode).
 ``--smoke`` takes the arch's smoke config; ``--device cpu`` runs the plain
 versions on the CPU.  ``--profile-steps N`` runs N more steps of each run
 under ``torch.profiler`` and reports the device's busy time per step (the
@@ -77,10 +87,27 @@ def _profile(step, params, tok, cache, n: int) -> tuple[dict, dict]:
             "kernel_launches_per_step": len(kernels) / n}, cache
 
 
+def stub_prefix(cfg: ArchConfig, batch: int, generator: torch.Generator,
+                device: torch.device) -> torch.Tensor | None:
+    """The modality stub of a vlm or audio prompt, normal draws in
+    ``cfg.dtype`` at the reference's shapes (``repro/launch/shapes.py``):
+    vlm (B, n_prefix_tokens, 1024) patch embeddings, audio (B,
+    encoder_seq, d_model) frames; None for the other families."""
+    if cfg.arch_type == "vlm":
+        shape = (batch, cfg.n_prefix_tokens, tf.VIS_STUB_DIM)
+    elif cfg.arch_type == "audio":
+        shape = (batch, cfg.encoder_seq, cfg.d_model)
+    else:
+        return None
+    return torch.randn(shape, generator=generator, device=device).to(
+        cfg.dtype)
+
+
 def serve(params: dict, cfg: ArchConfig, prompts: torch.Tensor, gen: int, *,
-          window: int = 0, cache_len: int | None = None,
-          profile_steps: int = 0) -> dict:
-    """Prefill ``prompts`` (B, P), then ``gen`` greedy serve steps.
+          prefix: torch.Tensor | None = None, window: int = 0,
+          cache_len: int | None = None, profile_steps: int = 0) -> dict:
+    """Prefill ``prompts`` (B, P) with the modality stub ``prefix`` where
+    the family takes one, then ``gen`` greedy serve steps.
 
     Returns the timings, the generated tokens (B, gen + 1) -- the prefill's
     argmax, then one per step -- the final cache and ``pos``, whether the
@@ -90,14 +117,17 @@ def serve(params: dict, cfg: ArchConfig, prompts: torch.Tensor, gen: int, *,
     """
     dev = prompts.device
     b, p = prompts.shape
+    batch = {"tokens": prompts} if prefix is None else \
+        {"tokens": prompts, "prefix": prefix}
     prefill_step = make_prefill_step(cfg, cache_len, device=dev)
     serve_step = make_serve_step(cfg, window, device=dev, return_logits=True)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     _sync(dev)
     t0 = time.perf_counter()
-    logits0, cache = prefill_step(params, {"tokens": prompts})
+    logits0, cache = prefill_step(params, batch)
     tok = torch.argmax(logits0, -1).to(torch.int32)[:, None]
+    n_prefix = cache["pos"] - p
     _sync(dev)
     t1 = time.perf_counter()
     toks, logits = [tok], logits0
@@ -114,9 +144,10 @@ def serve(params: dict, cfg: ArchConfig, prompts: torch.Tensor, gen: int, *,
     prefill_s, decode_s = t1 - t0, t2 - t1
     return {
         "batch": b, "prompt": p, "gen": gen, "window": window,
-        "cache_slots": slots,
+        "cache_slots": slots, "prefix_positions": n_prefix,
         "prefill_s": prefill_s,
         "prompt_tokens_per_s": b * p / prefill_s,
+        "prefill_positions_per_s": b * (n_prefix + p) / prefill_s,
         "decode_ms_per_step": decode_s / max(gen, 1) * 1e3,
         "generated_tokens_per_s": b * gen / decode_s if gen else None,
         "peak_mem_gib": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
@@ -160,21 +191,25 @@ def main(argv=None) -> dict:
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt),
                             generator=gen, device=dev)
+    prefix = stub_prefix(cfg, args.batch, gen, dev)
+    positions = tf.prompt_positions(cfg, {"tokens": prompts,
+                                          "prefix": prefix})
     out = {"card": (card_name_and_power_limit() if dev.type == "cuda"
                     else None),
            "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                       else "cpu"),
            "arch": cfg.name, "params": tf.param_count(cfg)}
-    runs = {"full": dict(window=0, cache_len=args.prompt + args.gen)}
+    runs = {"full": dict(window=0,
+                         cache_len=positions + args.gen)}
     if args.window:
         runs["ring"] = dict(window=args.window, cache_len=args.window)
     if dev.type == "cuda":
         # before any clock starts: the kernels' build at their first
         # launch, cuBLAS's handles, the allocator's pools
         serve(params, cfg, prompts[:, :min(args.prompt, 128)], 2,
-              **runs["full"])
+              prefix=prefix, **runs["full"])
     for name, kw in runs.items():
-        r = serve(params, cfg, prompts, args.gen,
+        r = serve(params, cfg, prompts, args.gen, prefix=prefix,
                   profile_steps=args.profile_steps, **kw)
         r.pop("cache")
         r["tokens_row0"] = r.pop("tokens")[0].tolist()[:16]

@@ -576,12 +576,14 @@ def lgc_wire_bytes_per_round(params: dict, step_cfg: LGCStepConfig,
 def make_prefill_step(cfg: ArchConfig, cache_len: int | None = None, *,
                       device: str | torch.device | None = None):
     """``f(params, batch) -> (logits (B,Vp), cache)`` on ``device`` (None
-    means the card); the prompt tokens are moved there."""
+    means the card); the prompt tokens, and the modality prefix where the
+    batch has one, are moved there."""
     dev = resolve_device(device)
 
     @torch.inference_mode()
     def prefill_step(params, batch):
-        batch = dict(batch, tokens=batch["tokens"].to(dev))
+        batch = {k: v.to(dev) if k in ("tokens", "prefix") else v
+                 for k, v in batch.items()}
         return tf.prefill(params, cfg, batch, cache_len)
     return prefill_step
 

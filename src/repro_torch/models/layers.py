@@ -1,6 +1,6 @@
-"""Transformer primitives: RMSNorm, RoPE, GQA attention (train and decode),
-the decode KV cache, SwiGLU MLP and the initialisers.  Port of
-``repro/models/layers.py:18-291``.
+"""Transformer primitives: RMSNorm and LayerNorm, RoPE, GQA attention
+(train and decode), the decode KV cache, the SwiGLU, GeGLU and GELU MLPs
+and the initialisers.  Port of ``repro/models/layers.py:18-291``.
 
 Conventions are the reference's:
   * activations (B, S, D); attention heads (B, S, H, hd)
@@ -37,10 +37,20 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale
 
 
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """Mean and variance in f32, cast to x's dtype before the affine, as
+    the reference."""
+    xf = x.to(torch.float32)
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * scale + bias
+
+
 def apply_norm(x: torch.Tensor, p: dict, kind: str) -> torch.Tensor:
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm {kind!r} is not ported yet "
-                                  "(ROADMAP A14)")
+    """``p`` is the norm's subtree: ``scale``, and ``bias`` for layernorm."""
+    if kind == "layernorm":
+        return layernorm(x, p["scale"], p["bias"])
     return rmsnorm(x, p["scale"])
 
 
@@ -185,11 +195,19 @@ def cache_update(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
 # MLPs
 # ---------------------------------------------------------------------------
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation (torch's default
+    is the erf form, another function)."""
+    return F.gelu(x, approximate="tanh")
+
+
 def mlp_forward(x: torch.Tensor, p: dict, kind: str) -> torch.Tensor:
-    if kind != "swiglu":
-        raise NotImplementedError(f"mlp {kind!r} is not ported yet "
-                                  "(ROADMAP A14)")
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    if kind == "swiglu":
+        return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    if kind == "geglu":
+        return (gelu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    # the plain GELU MLP with biases (whisper)
+    return gelu(x @ p["w_up"] + p["b_up"]) @ p["w_down"] + p["b_down"]
 
 
 # ---------------------------------------------------------------------------
@@ -224,16 +242,22 @@ def _split_each(keys: list | None, n: int) -> list:
 
 def mlp_init(keys: list | None, lead: tuple, d: int, dff: int, kind: str,
              dtype, device) -> dict:
-    """``layers.mlp_init``: keys split three ways (gate, up, down)."""
-    if kind != "swiglu":
-        raise NotImplementedError(f"mlp {kind!r} is not ported yet "
-                                  "(ROADMAP A14)")
+    """``layers.mlp_init``: keys split three ways (gate, up, down); the
+    plain GELU MLP draws up from the first and down from the third, and
+    its biases are zeros."""
     s_in, s_ff = d ** -0.5, dff ** -0.5
     k1, k2, k3 = _split_each(keys, 3)
+    if kind in ("swiglu", "geglu"):
+        return {
+            "w_gate": normal(k1, lead, (d, dff), s_in, dtype, device),
+            "w_up": normal(k2, lead, (d, dff), s_in, dtype, device),
+            "w_down": normal(k3, lead, (dff, d), s_ff, dtype, device),
+        }
     return {
-        "w_gate": normal(k1, lead, (d, dff), s_in, dtype, device),
-        "w_up": normal(k2, lead, (d, dff), s_in, dtype, device),
+        "w_up": normal(k1, lead, (d, dff), s_in, dtype, device),
+        "b_up": torch.zeros(lead + (dff,), dtype=dtype, device=device),
         "w_down": normal(k3, lead, (dff, d), s_ff, dtype, device),
+        "b_down": torch.zeros(lead + (d,), dtype=dtype, device=device),
     }
 
 
@@ -260,7 +284,7 @@ def attn_init(keys: list | None, lead: tuple, d: int, n_heads: int,
 
 
 def norm_init(lead: tuple, d: int, kind: str, dtype, device) -> dict:
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm {kind!r} is not ported yet "
-                                  "(ROADMAP A14)")
-    return {"scale": torch.ones(lead + (d,), dtype=dtype, device=device)}
+    p = {"scale": torch.ones(lead + (d,), dtype=dtype, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros(lead + (d,), dtype=dtype, device=device)
+    return p

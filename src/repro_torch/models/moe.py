@@ -75,8 +75,8 @@ def expert_mlps(buf: torch.Tensor, experts: dict, kind: str) -> torch.Tensor:
     """The reference's ``vmap(mlp_forward)`` over experts: buf (E, C, D),
     weights (E, D, F) / (E, F, D) -> (E, C, D), as batched products."""
     if kind != "swiglu":
-        raise NotImplementedError(f"mlp {kind!r} is not ported yet "
-                                  "(ROADMAP A14)")
+        raise NotImplementedError(f"expert mlp {kind!r} is not ported yet "
+                                  "(ROADMAP A15)")
     h = torch.nn.functional.silu(torch.bmm(buf, experts["w_gate"])) \
         * torch.bmm(buf, experts["w_up"])
     return torch.bmm(h, experts["w_down"])

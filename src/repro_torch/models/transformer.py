@@ -1,6 +1,6 @@
-"""The decoder model zoo: init, the dense train forward / loss, and
-serving (the decode cache, prefill and one-token decode) for the dense,
-moe, ssm and hybrid families.
+"""The model zoo: init, the dense train forward / loss, and serving (the
+decode cache, prefill and one-token decode) for the dense, moe, ssm,
+hybrid, vlm and audio families.
 
 Port of ``repro/models/transformer.py:63-108``, ``:115-153``, ``:186-289``,
 ``:296-333``, ``:335-469`` and ``:472-627``.  Parameters are a flat
@@ -11,21 +11,26 @@ leaves: ``blocks/*`` tensors carry a leading ``(n_layers, ...)`` axis (the
 moe experts ``(n_layers, E, ...)``) and the forward indexes layer ``l`` out
 of them, so a per-leaf histogram or k budget covers the whole stacked leaf
 as in the reference.  The hybrid's one shared attention + MLP block is the
-unstacked ``shared/*``.  Weights are used as ``x @ W``, W stored (in, out).
+unstacked ``shared/*``; the audio family's encoder is ``enc_blocks/*``,
+its decoder blocks carry ``norm_x`` and ``cross`` (cross-attention), and
+``enc_pos`` / ``dec_pos`` are its learned positions; the vlm family's
+``vis_proj`` projects the (B, P, 1024) patch-embedding prefix.  Weights
+are used as ``x @ W``, W stored (in, out).
 
 The decode cache is the reference's: ``{"pos": int}`` with ``"kv":
 {"k", "v"}`` of shape ``(L, B, Kv, S, hd)`` in ``cfg.dtype`` (dense, moe;
 the hybrid keeps one K/V site per shared-block application,
-``ceil(L / attn_every)``) and ``"ssm": {"conv" (L, B, K-1, C) in
-``cfg.dtype``, "state" (L, B, H, P, N) f32}`` (ssm, hybrid).  ``pos`` is a
-host int, so a decode loop never waits for the card.  A decode step
+``ceil(L / attn_every)``), ``"ssm": {"conv" (L, B, K-1, C) in
+``cfg.dtype``, "state" (L, B, H, P, N) f32}`` (ssm, hybrid) and the audio
+family's ``"cross_k"`` / ``"cross_v"`` (L, B, H, encoder_seq, hd), the
+encoder output's cross-attention K/V, written once by prefill.  ``pos`` is
+a host int, so a decode loop never waits for the card.  A decode step
 writes the new token's K/V and the SSM conv tails and states IN PLACE (the
 reference returns new arrays) and attends through the ``swa_decode``
-kernel.
+kernel, over the cross cache too.
 
 The train forward and loss (``forward_hidden``, ``lm_loss``) run the dense
-family only; the moe, ssm and hybrid ones wait for ROADMAP A16, and vlm
-and audio (layernorm, gelu, encoder, cross-attention) for A14.
+family only; the other five wait for ROADMAP A16.
 """
 from __future__ import annotations
 
@@ -58,17 +63,19 @@ def _flatten(tree: dict, prefix: str = "") -> Params:
 
 
 #: the families whose serving path (init, cache, prefill, decode) is ported
-SERVING = ("dense", "moe", "ssm", "hybrid")
+SERVING = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+#: the families whose blocks are all attention + FFN blocks
+_ATTN = ("dense", "moe", "vlm", "audio")
+#: the width of the vlm family's patch embeddings (the stub CLIP encoder)
+VIS_STUB_DIM = 1024
 
 
 def _check_arch(cfg: ArchConfig, ported: tuple = SERVING) -> None:
     if cfg.arch_type in ported:
         return
-    item = ("A16, the moe / ssm / hybrid training path"
-            if cfg.arch_type in SERVING else "A14")
     raise NotImplementedError(
         f"arch_type {cfg.arch_type!r} is not ported yet for this entry point "
-        f"(ROADMAP {item})")
+        f"(ROADMAP A16, the moe / ssm / hybrid / vlm / audio training path)")
 
 
 # ===========================================================================
@@ -76,9 +83,10 @@ def _check_arch(cfg: ArchConfig, ported: tuple = SERVING) -> None:
 # ===========================================================================
 
 def _block_init(cfg: ArchConfig, keys: list | None, lead: tuple,
-                dev: torch.device) -> dict:
+                dev: torch.device, *, cross: bool = False) -> dict:
     """``_block_init`` for each key of the stacked prefix ``lead``: each key
-    split six ways (attention 0, MLP or MoE 1)."""
+    split six ways (attention 0, MLP or MoE 1, cross-attention 2, which has
+    no bias whatever ``cfg.qkv_bias`` says)."""
     ks = _split_each(keys, 6)
     d, dt = cfg.d_model, cfg.dtype
     p = {
@@ -92,6 +100,10 @@ def _block_init(cfg: ArchConfig, keys: list | None, lead: tuple,
                                     cfg.d_exp, cfg.mlp, dt, dev)
     else:
         p["mlp"] = mlp_init(ks[1], lead, d, cfg.d_ff, cfg.mlp, dt, dev)
+    if cross:
+        p["norm_x"] = norm_init(lead, d, cfg.norm, dt, dev)
+        p["cross"] = attn_init(ks[2], lead, d, cfg.n_heads, cfg.n_kv_heads,
+                               cfg.hd, False, dt, dev)
     return p
 
 
@@ -108,33 +120,49 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
     key 0 and lm_head from key 1, the stacked blocks from key 2 split once
     per layer (attention blocks split each layer's key six ways, attention
     0 and MLP / MoE 1; SSD blocks use it whole), the hybrid's shared block
-    from key 3; every matrix ``normal * scale`` in f32, cast to
-    ``cfg.dtype`` (the MoE router stays f32), drawn on ``device`` with the
-    ported threefry (:mod:`repro_torch.core.prng`).
+    from key 3; audio: the encoder blocks from key 2, the decoder blocks
+    (with cross-attention, from each layer's subkey 2) from key 3,
+    ``enc_pos`` from key 4 and ``dec_pos`` from key 5 (both x 0.01); vlm:
+    ``vis_proj`` from key 6; every matrix ``normal * scale`` in f32, cast
+    to ``cfg.dtype`` (the MoE router stays f32), drawn on ``device`` with
+    the ported threefry (:mod:`repro_torch.core.prng`).
 
     ``device=None`` means the card; ``device="meta"`` builds the shapes
     without allocating or drawing."""
     _check_arch(cfg)
     dev = resolve_device(device)
     d, vp, dt, nl = cfg.d_model, cfg.vocab_padded, cfg.dtype, cfg.n_layers
-    if dev.type == "meta":
-        ks, layer_keys = [None] * 8, None
-    else:
-        ks = list(prng.split(prng.PRNGKey(seed), 8))
-        layer_keys = list(prng.split(ks[2], nl))
+    ks = [None] * 8 if dev.type == "meta" else \
+        list(prng.split(prng.PRNGKey(seed), 8))
 
     def one(k):
         return None if k is None else [k]
+
+    def stacked(k, n):
+        return None if k is None else list(prng.split(k, n))
     tree: dict = {
         "embed": normal(one(ks[0]), (), (vp, d), 0.02, dt, dev),
         "final_norm": norm_init((), d, cfg.norm, dt, dev),
     }
-    if cfg.arch_type in ("dense", "moe"):
-        tree["blocks"] = _block_init(cfg, layer_keys, (nl,), dev)
+    if cfg.arch_type in ("dense", "moe", "vlm"):
+        tree["blocks"] = _block_init(cfg, stacked(ks[2], nl), (nl,), dev)
+    elif cfg.arch_type == "audio":
+        ne = cfg.encoder_layers
+        tree["enc_blocks"] = _block_init(cfg, stacked(ks[2], ne), (ne,), dev)
+        tree["blocks"] = _block_init(cfg, stacked(ks[3], nl), (nl,), dev,
+                                     cross=True)
+        tree["enc_norm"] = norm_init((), d, cfg.norm, dt, dev)
+        tree["enc_pos"] = normal(one(ks[4]), (), (cfg.encoder_seq, d), 0.01,
+                                 dt, dev)
+        tree["dec_pos"] = normal(one(ks[5]), (), (cfg.max_position, d), 0.01,
+                                 dt, dev)
     else:
-        tree["blocks"] = _ssm_block_init(cfg, layer_keys, (nl,), dev)
+        tree["blocks"] = _ssm_block_init(cfg, stacked(ks[2], nl), (nl,), dev)
     if cfg.arch_type == "hybrid":
         tree["shared"] = _block_init(cfg, one(ks[3]), (), dev)
+    if cfg.arch_type == "vlm":
+        tree["vis_proj"] = normal(one(ks[6]), (), (VIS_STUB_DIM, d),
+                                  VIS_STUB_DIM ** -0.5, dt, dev)
     if not cfg.tie_embeddings:
         tree["lm_head"] = normal(one(ks[1]), (), (d, vp), d ** -0.5, dt, dev)
     return _flatten(tree)
@@ -147,7 +175,7 @@ def param_count(cfg: ArchConfig) -> int:
 
 def subtree(params: Params, prefix: str) -> dict:
     """The nested view of the leaves under ``prefix/`` (the hybrid's
-    unstacked ``shared`` block)."""
+    unstacked ``shared`` block, a norm's ``scale`` and ``bias``)."""
     out: dict = {}
     for name, t in params.items():
         parts = name.split("/")
@@ -160,16 +188,17 @@ def subtree(params: Params, prefix: str) -> dict:
     return out
 
 
-def layer_params(params: Params) -> list[dict]:
+def layer_params(params: Params, stack: str = "blocks") -> list[dict]:
     """Nested per-layer views ``[{"attn": {"wq": ...}, ...}, ...]`` of the
-    stacked ``blocks/*`` leaves.  One ``unbind`` per leaf: its backward
+    stacked ``blocks/*`` leaves (``stack="enc_blocks"``: the audio
+    family's encoder).  One ``unbind`` per leaf: its backward
     stacks the per-layer gradients in one write, where indexing each layer
     out separately would accumulate a full-size zero-padded gradient per
     layer."""
     layers: list[dict] = []
     for name, t in params.items():
         parts = name.split("/")
-        if parts[0] != "blocks":
+        if parts[0] != stack:
             continue
         for i, t_l in enumerate(t.unbind(0)):
             if i == len(layers):
@@ -229,8 +258,7 @@ def forward_hidden(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     for bp in layer_params(params):
         x = _attn_block_train(x, bp, cfg, positions, window=window)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return apply_norm(x, {"scale": params["final_norm/scale"]}, cfg.norm), \
-        aux, 0
+    return apply_norm(x, subtree(params, "final_norm"), cfg.norm), aux, 0
 
 
 def logits_fn(params: Params, cfg: ArchConfig, hidden: torch.Tensor
@@ -303,13 +331,24 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
     _check_arch(cfg)
     dev = resolve_device(device)
     cache: dict = {"pos": 0}
-    if cfg.arch_type in ("dense", "moe"):
+    if cfg.arch_type in _ATTN:
         cache["kv"] = _kv_cache(cfg, cfg.n_layers, batch, cache_len, dev)
     else:
         cache["ssm"] = _ssm_cache(cfg, batch, dev)
     if cfg.arch_type == "hybrid":
         cache["kv"] = _kv_cache(cfg, _n_sites(cfg), batch, cache_len, dev)
+    if cfg.arch_type == "audio":
+        cache |= _cross_cache(cfg, batch, cfg.encoder_seq, dev)
     return cache
+
+
+def _cross_cache(cfg: ArchConfig, batch: int, enc_len: int,
+                 dev: torch.device) -> dict:
+    """The audio family's cross-attention K/V, (L, B, H, enc_len, hd): the
+    reference keeps them expanded to the H query heads."""
+    shape = (cfg.n_layers, batch, cfg.n_heads, enc_len, cfg.hd)
+    return {"cross_k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+            "cross_v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
 
 
 # ===========================================================================
@@ -318,8 +357,12 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
 
 def _attn_block_decode(x: torch.Tensor, bp: dict, cfg: ArchConfig,
                        cache: KVCache, pos: int, positions: torch.Tensor,
-                       window: int) -> torch.Tensor:
-    """x: (B,1,D) -> (B,1,D); writes the token's K/V into ``cache``."""
+                       window: int, cross: KVCache | None = None
+                       ) -> torch.Tensor:
+    """x: (B,1,D) -> (B,1,D); writes the token's K/V into ``cache``.  With
+    ``cross`` (the audio decoder) the token then attends to the encoder's
+    cached K/V: only its query is projected, since the reference's
+    cross-attention discards the token's own K and V."""
     b = x.shape[0]
     h = apply_norm(x, bp["norm1"], cfg.norm)
     q, k, v = qkv_project(h, bp["attn"], cfg.n_heads, cfg.n_kv_heads, cfg.hd,
@@ -330,6 +373,11 @@ def _attn_block_decode(x: torch.Tensor, bp: dict, cfg: ArchConfig,
     cache = cache_update(cache, k, v, pos, window)
     att = attention_decode(q, cache, cfg.n_heads)
     x = x + att.reshape(b, 1, -1) @ bp["attn"]["wo"]
+    if cross is not None:
+        h = apply_norm(x, bp["norm_x"], cfg.norm)
+        q = (h @ bp["cross"]["wq"]).reshape(b, 1, cfg.n_heads, cfg.hd)
+        att = attention_decode(q, cross, cfg.n_heads)
+        x = x + att.reshape(b, 1, -1) @ bp["cross"]["wo"]
     return _ffn(x, bp, cfg)
 
 
@@ -354,7 +402,9 @@ def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
     The cache's tensors are updated in place; the returned dict holds them
     with ``pos`` advanced by one.  The hybrid applies its shared block
     (site s writes K/V site s) before each run of ``attn_every`` SSD
-    blocks, as the reference's ``_hybrid_decode``.
+    blocks, as the reference's ``_hybrid_decode``.  The audio decoder adds
+    ``dec_pos[min(pos, max_position - 1)]`` to the token and attends to
+    every one of the encoder's slots in each block.
     """
     _check_arch(cfg)
     x = params["embed"][token]                              # (B,1,D)
@@ -362,12 +412,19 @@ def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
     b = token.shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     blocks = layer_params(params)
-    if cfg.arch_type in ("dense", "moe"):
+    if cfg.arch_type in _ATTN:
         k_all, v_all = cache["kv"]["k"], cache["kv"]["v"]
+        cross = [None] * len(blocks)
+        if cfg.arch_type == "audio":
+            x = x + params["dec_pos"][min(pos, cfg.max_position - 1)]
+            ck, cv = cache["cross_k"], cache["cross_v"]
+            enc_len = torch.full((b,), ck.shape[3], dtype=torch.int32,
+                                 device=x.device)
+            cross = [KVCache(ck[i], cv[i], enc_len) for i in range(len(ck))]
         for i, bp in enumerate(blocks):
             x = _attn_block_decode(x, bp, cfg,
                                    KVCache(k_all[i], v_all[i], None), pos,
-                                   positions, window)
+                                   positions, window, cross[i])
     else:
         period = cfg.attn_every or cfg.n_layers
         shared = subtree(params, "shared")
@@ -379,7 +436,7 @@ def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
                                             cache["kv"]["v"][site], None),
                     pos, positions, window)
             x = _ssm_layer_decode(x, bp, cfg, cache["ssm"], i)
-    x = apply_norm(x, {"scale": params["final_norm/scale"]}, cfg.norm)
+    x = apply_norm(x, subtree(params, "final_norm"), cfg.norm)
     logits = logits_fn(params, cfg, x)[:, 0]
     return logits, dict(cache, pos=pos + 1)
 
@@ -388,12 +445,37 @@ def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
 # prefill
 # ===========================================================================
 
+def _cross_kv(enc: torch.Tensor, cross_p: dict, cfg: ArchConfig
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``_split_kv_from``: the encoder output's
+    cross-attention K/V, (B, S_enc, H, hd), expanded to the H heads."""
+    b, s, _ = enc.shape
+    k = (enc @ cross_p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    v = (enc @ cross_p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    return _expand_kv(k, cfg.n_heads), _expand_kv(v, cfg.n_heads)
+
+
+def _encode(params: Params, cfg: ArchConfig, frames: torch.Tensor
+            ) -> torch.Tensor:
+    """The audio family's encoder: the frame stub (B, S_enc, D) plus
+    ``enc_pos``, the non-causal encoder blocks, ``enc_norm``."""
+    enc = frames.to(cfg.dtype) + params["enc_pos"][None, :frames.shape[1]]
+    positions = torch.arange(enc.shape[1], device=enc.device)
+    for bp in layer_params(params, "enc_blocks"):
+        enc = _attn_block_train(enc, bp, cfg, positions, causal=False)
+    return apply_norm(enc, subtree(params, "enc_norm"), cfg.norm)
+
+
 def _attn_prefill(x: torch.Tensor, bp: dict, cfg: ArchConfig,
                   positions: torch.Tensor, k_dst: torch.Tensor,
-                  v_dst: torch.Tensor) -> torch.Tensor:
+                  v_dst: torch.Tensor, enc: torch.Tensor | None = None,
+                  ck_dst: torch.Tensor | None = None,
+                  cv_dst: torch.Tensor | None = None) -> torch.Tensor:
     """One attention + FFN block over the prompt; writes its RoPE'd,
     un-expanded K/V into the first S slots of ``k_dst`` / ``v_dst``
-    (B, Kv, S_cache, hd)."""
+    (B, Kv, S_cache, hd).  With ``enc`` (the audio decoder) the block
+    cross-attends to the encoder output, whose K/V it writes into
+    ``ck_dst`` / ``cv_dst`` (B, H, S_enc, hd)."""
     b, s, _ = x.shape
     h = apply_norm(x, bp["norm1"], cfg.norm)
     q, k, v = qkv_project(h, bp["attn"], cfg.n_heads, cfg.n_kv_heads, cfg.hd,
@@ -407,6 +489,15 @@ def _attn_prefill(x: torch.Tensor, bp: dict, cfg: ArchConfig,
                           _expand_kv(v, cfg.n_heads), causal=True,
                           q_chunk=cfg.attn_q_chunk)
     x = x + att.reshape(b, s, -1) @ bp["attn"]["wo"]
+    if enc is not None:
+        hx = apply_norm(x, bp["norm_x"], cfg.norm)
+        qx = (hx @ bp["cross"]["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
+        ck, cv = _cross_kv(enc, bp["cross"], cfg)
+        ck_dst.copy_(ck.transpose(1, 2))
+        cv_dst.copy_(cv.transpose(1, 2))
+        att = attention_train(qx, ck, cv, causal=False,
+                              q_chunk=cfg.attn_q_chunk)
+        x = x + att.reshape(b, s, -1) @ bp["cross"]["wo"]
     return _ffn(x, bp, cfg)
 
 
@@ -421,6 +512,14 @@ def _ssm_layer_prefill(x: torch.Tensor, bp: dict, cfg: ArchConfig,
     return x + y
 
 
+def prompt_positions(cfg: ArchConfig, batch: dict) -> int:
+    """Positions a prefill of ``batch`` takes, and so its cache's ``pos``:
+    the tokens, after a vlm's patch prefix (audio frames go to the encoder
+    and take none)."""
+    s = batch["tokens"].shape[1]
+    return s + batch["prefix"].shape[1] if cfg.arch_type == "vlm" else s
+
+
 def prefill(params: Params, cfg: ArchConfig, batch: dict,
             cache_len: int | None = None) -> tuple[torch.Tensor, dict]:
     """Process a full prompt; return (last-position logits (B,Vp) f32,
@@ -433,20 +532,38 @@ def prefill(params: Params, cfg: ArchConfig, batch: dict,
     reference.  SSD blocks leave their conv tails and final states (the
     reference's ``_prefill_ssm``); an ssm or hybrid prompt's length must be
     a multiple of ``min(cfg.ssm_chunk, S)``.
+
+    ``batch["prefix"]`` is the modality stub: vlm (B, P, 1024) patch
+    embeddings, projected by ``vis_proj`` and prepended, so that positions
+    and ``pos`` run over P + S and the cache holds P + S slots (or
+    ``cache_len``); audio (B, S_enc, D) frame embeddings, encoded once, the
+    decoder tokens taking ``dec_pos`` and cross-attending to the encoder
+    output, whose K/V go to ``cross_k`` / ``cross_v``.
     """
     _check_arch(cfg)
     tokens = batch["tokens"]
-    b, s = tokens.shape
     x = params["embed"][tokens]                             # (B,S,D)
+    if cfg.arch_type == "vlm":
+        vis = batch["prefix"].to(cfg.dtype) @ params["vis_proj"]
+        x = torch.cat([vis, x], 1)
+    b, s = x.shape[0], prompt_positions(cfg, batch)
     dev = x.device
     positions = torch.arange(s, device=dev)
     s_cache = cache_len if cache_len is not None and cache_len > s else s
     cache: dict = {"pos": s}
     blocks = layer_params(params)
-    if cfg.arch_type in ("dense", "moe"):
+    if cfg.arch_type in _ATTN:
         kv = cache["kv"] = _kv_cache(cfg, cfg.n_layers, b, s_cache, dev)
+        enc, ck, cv = None, [None] * len(blocks), [None] * len(blocks)
+        if cfg.arch_type == "audio":
+            enc = _encode(params, cfg, batch["prefix"])
+            x = x + params["dec_pos"][
+                torch.clamp(positions, max=cfg.max_position - 1)][None]
+            cache |= _cross_cache(cfg, b, enc.shape[1], dev)
+            ck, cv = cache["cross_k"], cache["cross_v"]
         for i, bp in enumerate(blocks):
-            x = _attn_prefill(x, bp, cfg, positions, kv["k"][i], kv["v"][i])
+            x = _attn_prefill(x, bp, cfg, positions, kv["k"][i], kv["v"][i],
+                              enc, ck[i], cv[i])
     else:
         cache["ssm"] = _ssm_cache(cfg, b, dev)
         period = cfg.attn_every or cfg.n_layers
@@ -459,6 +576,6 @@ def prefill(params: Params, cfg: ArchConfig, batch: dict,
                 x = _attn_prefill(x, shared, cfg, positions, kv["k"][site],
                                   kv["v"][site])
             x = _ssm_layer_prefill(x, bp, cfg, cache["ssm"], i)
-    x = apply_norm(x[:, -1:], {"scale": params["final_norm/scale"]}, cfg.norm)
+    x = apply_norm(x[:, -1:], subtree(params, "final_norm"), cfg.norm)
     logits = logits_fn(params, cfg, x)[:, 0]
     return logits, cache

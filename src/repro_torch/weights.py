@@ -61,15 +61,19 @@ def params_to_jax(params: dict[str, torch.Tensor]) -> dict:
 
 def cache_from_jax(tree: dict, device: str | torch.device = "cpu") -> dict:
     """A reference decode cache of numpy arrays -> the port's: ``pos`` as a
-    host int, the ``kv`` tensors (``k`` / ``v``, ``(L, B, Kv, S, hd)``) and
+    host int, the ``kv`` tensors (``k`` / ``v``, ``(L, B, Kv, S, hd)``),
     the ``ssm`` ones (``conv`` ``(L, B, K-1, C)`` in the config's dtype,
-    ``state`` ``(L, B, H, P, N)`` f32), whichever the cache has, in the
+    ``state`` ``(L, B, H, P, N)`` f32) and the audio family's ``cross_k`` /
+    ``cross_v`` (``(L, B, H, S_enc, hd)``), whichever the cache has, in the
     same layout and dtypes."""
     out: dict = {"pos": int(np.asarray(tree["pos"]))}
     for group, names in (("kv", ("k", "v")), ("ssm", ("conv", "state"))):
         if group in tree:
             out[group] = {name: _to_tensor(tree[group][name]).to(device)
                           for name in names}
+    for name in ("cross_k", "cross_v"):
+        if name in tree:
+            out[name] = _to_tensor(tree[name]).to(device)
     return out
 
 

@@ -12,8 +12,8 @@ its launches, lgc_q8 over the int8 store) card against CPU; the 100M
 step's sparse uplinks card against CPU bitwise and a checkpoint round trip
 of card tensors; the sharded engine on the card (one rank over NCCL, two
 over gloo on the one card) bitwise the unsharded batched engine; the moe,
-ssm and hybrid families' smoke serve (olmoe, mamba2, zamba2) card against
-CPU.
+ssm, hybrid, vlm and audio families' smoke serve (olmoe, mamba2, zamba2,
+phi-3-vision, whisper) card against CPU.
 
 These tests need an NVIDIA card and ``nvcc``; without a card they skip with
 a reason.  The file imports neither ``jax`` nor the reference package, so it
@@ -312,7 +312,12 @@ SWA_SHAPES = [(2, 4, 4, 512, 64), (1, 8, 8, 1024, 128), (4, 2, 2, 256, 32),
               (8, 12, 2, 4096, 128), (2, 12, 2, 4160, 128),
               (2, 16, 1, 100, 64),                       # (B, H, Kv, W, Dh)
               # the olmoe-1b-7b and zamba2-1.2b decode shapes (REP 1)
-              (8, 16, 16, 4096, 128), (8, 32, 32, 4096, 64)]
+              (8, 16, 16, 4096, 128), (8, 32, 32, 4096, 64),
+              # phi-3-vision-4.2b's decode (Dh 96), whisper-small's
+              # cross-attention over its 1,500 encoder slots, and Dh 96
+              # under GQA (REP 8)
+              (8, 32, 32, 4096, 96), (8, 12, 12, 1500, 64),
+              (2, 16, 2, 300, 96)]
 
 
 def _swa_inputs(b, h, kv, w, dh, dtype, device, seed=0):
@@ -355,11 +360,14 @@ def _edge_lengths(shape, card) -> list[int]:
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 12, 2, 4096, 128), (2, 4, 2, 16, 64),
                                    (1, 16, 1, 4160, 32),
-                                   (8, 12, 2, 4096, 128)])
+                                   (8, 12, 2, 4096, 128),
+                                   (1, 12, 12, 1500, 64),
+                                   (1, 16, 1, 1500, 96)])
 def test_swa_decode_at_tile_and_split_edges(card, shape, dtype):
     """B=1 (many splits of one tile), W=16 (one partial tile), REP=16 (two
-    query-head groups) and the serve shape, at lengths on either side of
-    every tile and split edge; each row of the batch its own length."""
+    query-head groups), the serve shape and W=1,500 (a partial last tile;
+    at Dh 64 and 96), at lengths on either side of every tile and split
+    edge; each row of the batch its own length."""
     b, h, kv, w, dh = shape
     q, k, v = _swa_inputs(b, h, kv, w, dh, dtype, card, seed=w + b)
     tol = SWA_TOL[dtype]
@@ -1204,3 +1212,49 @@ def test_family_smoke_serve_on_the_card_matches_the_cpu(card, arch, sites):
         for name, t in runs["cpu"][2].get(group, {}).items():
             torch.testing.assert_close(runs["cuda"][2][group][name].cpu(), t,
                                        rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch,sites", [("phi-3-vision-4.2b", 2),
+                                        ("whisper-small", 4)])
+def test_modality_smoke_serve_on_the_card_matches_the_cpu(card, arch, sites):
+    """The vlm and audio smoke configs in f32 with the same weights and
+    modality stub on both: a prefill (the vlm's 16 patches and 8 tokens,
+    whisper's 16 tokens) into a 24-slot ring, 16 greedy steps
+    past the wrap; logits within 1e-5, tokens equal, the caches (whisper's
+    cross K/V too) within 1e-5, swa_decode launched 16 x sites times
+    (whisper: self- and cross-attention in each of its 2 blocks)."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve_decode import stub_prefix
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer as ptf
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
+    params = ptf.init_params(cfg, seed=0, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    n = 8 if cfg.arch_type == "vlm" else 16      # P + n fills the 24 slots
+    prompts = torch.randint(0, cfg.vocab_size, (2, n), generator=gen)
+    prefix = stub_prefix(cfg, 2, gen, torch.device("cpu"))
+    runs = {}
+    for dev in ("cpu", card):
+        p = {k: v.to(dev) for k, v in params.items()}
+        pk.reset_launch_counts()
+        logits, cache = make_prefill_step(cfg, 24, device=dev)(
+            p, {"tokens": prompts, "prefix": prefix})
+        step = make_serve_step(cfg, 24, device=dev, return_logits=True)
+        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        out = [(logits.cpu(), tok.cpu())]
+        for _ in range(16):
+            tok, cache, logits = step(p, tok, cache)
+            out.append((logits.cpu(), tok.cpu()))
+        runs[str(dev)] = (out, dict(pk.LAUNCHES), cache)
+    for (lc, tc), (lg, tg) in zip(runs["cpu"][0], runs["cuda"][0]):
+        torch.testing.assert_close(lg, lc, rtol=1e-5, atol=1e-5)
+        assert torch.equal(tg, tc)
+    assert runs["cuda"][1]["swa_decode"] == 16 * sites
+    assert sum(runs["cuda"][1].values()) == 16 * sites
+    assert runs["cuda"][2]["pos"] > 24
+    cpu, gpu = runs["cpu"][2], runs["cuda"][2]
+    pairs = [(gpu["kv"][n], cpu["kv"][n]) for n in ("k", "v")] + \
+        [(gpu[n], cpu[n]) for n in ("cross_k", "cross_v") if n in cpu]
+    for got, want in pairs:
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)

@@ -184,16 +184,16 @@ def test_configs_and_param_counts(arch):
 
 
 def test_other_archs_and_training_still_refuse():
-    waits = {"whisper-small": "A14", "phi-3-vision-4.2b": "A14",
-             "glm4-9b": "A15", "yi-34b": "A15", "grok-1-314b": "A15",
+    waits = {"glm4-9b": "A15", "yi-34b": "A15", "grok-1-314b": "A15",
              "starcoder2-7b": "A15"}
-    assert set(waits) | set(PARAMS) | {"qwen2-100m", "qwen2-1.5b"} == \
-        set(ARCH_IDS)
+    modalities = ("phi-3-vision-4.2b", "whisper-small")
+    assert set(waits) | set(PARAMS) | set(modalities) | \
+        {"qwen2-100m", "qwen2-1.5b"} == set(ARCH_IDS)
     for arch, item in waits.items():
         for get in (get_config, get_smoke_config):
             with pytest.raises(NotImplementedError, match=item):
                 get(arch)
-    for arch in ARCHS:
+    for arch in ARCHS + modalities:
         cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
         toks = torch.zeros((1, 16), dtype=torch.int64)
         with pytest.raises(NotImplementedError, match="A16"):

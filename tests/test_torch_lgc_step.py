@@ -328,7 +328,8 @@ def test_port_and_chip_smoke_import_no_reference_module():
                  "launch.profile_sim", "kernels.ops",
                  "kernels.topk_threshold", "models.moe", "models.ssd",
                  "configs.olmoe_1b_7b", "configs.mamba2_370m",
-                 "configs.zamba2_1_2b"]
+                 "configs.zamba2_1_2b", "configs.phi3_vision_4b",
+                 "configs.whisper_small"]
     assert {f"repro_torch.{m}" for m in simulator} <= set(mods)
     code = (
         "import importlib, sys\n"

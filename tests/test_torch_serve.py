@@ -59,6 +59,17 @@ def _prompts(b, s, seed=0):
         0, J_F32.vocab_size, (b, s), dtype=np.int32)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: its decode steps are thousands
+    of tiny ops, and with the suite's workers sharing the cores OpenMP's
+    barriers wait on descheduled threads.  Restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def f32_params():
     jp = jtf.init_params(J_F32, jax.random.PRNGKey(0))

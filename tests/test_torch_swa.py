@@ -26,7 +26,11 @@ from repro.models import layers as jl  # noqa: E402
 from repro_torch import kernels as pk  # noqa: E402
 from repro_torch.kernels import ref as pref  # noqa: E402
 
-SHAPES = [(2, 4, 512, 64), (1, 8, 1024, 128), (4, 2, 256, 32)]   # (B,H,W,Dh)
+SHAPES = [(2, 4, 512, 64), (1, 8, 1024, 128), (4, 2, 256, 32),   # (B,H,W,Dh)
+          (2, 4, 384, 96)]                                        # Dh 96
+# the Pallas kernel takes W in whole chunks; the oracle also whisper's
+# cross-attention window of 1,500 encoder slots
+ORACLE_SHAPES = SHAPES + [(2, 2, 1500, 64)]
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 TOL_PALLAS = {"float32": 2e-5, "bfloat16": 1e-2}
@@ -91,7 +95,7 @@ def test_gqa_matches_pallas_kernel_on_expanded_kv(dtype):
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", ORACLE_SHAPES)
 def test_matches_jax_oracle(shape, dtype):
     b, h, w, dh = shape
     q, k, v, ln = _inputs(b, h, h, w, dh, seed=100 + b * h)
