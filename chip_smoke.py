@@ -7,6 +7,7 @@ NVIDIA H100.
                                    # sparse path's rows, with the sweep
     python3 chip_smoke.py --sharded  # the build and the sharded engine
     python3 chip_smoke.py --swa-digests  # swa_decode's digests (phase 3)
+    python3 chip_smoke.py --family-training  # the build and phase 5c
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
@@ -88,7 +89,24 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    params, (2, ...) f32 error memory, round counter) restored to the card
    bitwise, with bytes and seconds; and ``repro_torch.launch.train`` in
    process at full width in ``sync`` (AdamW with the clip) and
-   ``lgc_sparse``, each returning (its loss fell) with its seconds;
+   ``lgc_sparse``, each returning (its loss fell) with its seconds, the
+   driver's ``lgc_sparse`` selecting over whole leaves as the reference's
+   driver does, and once more under the task's per-row rule for its time;
+5c. the families' training: one LGC round (``dense_masked``, M = 2,
+   H = 2, every leaf through the row kernels, a dropped channel) of the
+   olmoe, mamba2, zamba2, phi-3-vision and whisper smoke configs in f32,
+   card against CPU within the CPU tests' tolerances; then each at its
+   published width in bf16 for 4 rounds through the LGC row kernels
+   (``dense_masked``, H = 2; mamba2-370m, zamba2-1.2b, phi-3-vision-4.2b
+   and whisper-small through ``repro_torch.launch.train.main``, olmoe-1b-7b
+   at 4 of its 16 layers through the step functions): the loss finite and
+   falling, each row kernel launched once a round for each of the 10 / 6 /
+   14 / 10 / 20 leaves of at least 1e5 floats, no flat kernel and no plain
+   compression of such a leaf; round 2's rows of each arch's largest leaf
+   (up to phi-3-vision's 805,306,368-float ``w_down``) bitwise the plain
+   row versions through all three kernels; host ms a round, device busy ms
+   and idle share (round 4 under torch.profiler), peak memory (one
+   ``family_training`` JSON line);
 6. a small f32 serve (qwen2-smoke), card against CPU with the same weights:
    8-token prefill into a 16-slot ring, 24 greedy steps past the wrap; the
    logits agree at rtol = atol = 1e-5 and the tokens are equal; then the
@@ -1485,20 +1503,400 @@ def phase_checkpoint(b: dict) -> None:
 def phase_driver() -> None:
     """``python -m repro_torch.launch.train`` in process at full width on
     qwen2-100m, in ``sync`` (AdamW with the clip) and ``lgc_sparse``; each
-    returns (its loss fell) instead of exiting 1."""
-    from repro_torch.launch import train
-    for mode, extra in DRIVER_RUNS:
+    returns (its loss fell) instead of exiting 1.  The driver's
+    ``lgc_sparse`` selects over each leaf as one row, as the reference's
+    driver does; it runs once more with the 100M task's per-row rule
+    (``steps.leaf_model_axis``, the driver's selection before that was
+    repaired), for its time beside the new one."""
+    import functools
+    from repro_torch.launch import steps, train
+    runs = [(mode, extra, None) for mode, extra in DRIVER_RUNS] + [
+        ("lgc_sparse", dict(DRIVER_RUNS)["lgc_sparse"], steps.leaf_model_axis)]
+    orig = train.make_lgc_train_step
+    for mode, extra, rule in runs:
         argv = ["--arch", "qwen2-100m", "--mode", mode, "--log-every", "3",
                 *extra]
+        if rule is not None:
+            train.make_lgc_train_step = functools.partial(orig,
+                                                          model_axis=rule)
         t0 = time.perf_counter()
         try:
             losses = train.main(argv)
         except SystemExit as exc:
             raise AssertionError(f"chip_smoke: train {' '.join(argv)} "
                                  f"exited {exc.code}") from exc
-        log(f"driver: train {' '.join(argv)}: exit 0 in "
+        finally:
+            train.make_lgc_train_step = orig
+        how = "" if rule is None else " with the task's per-row selection"
+        log(f"driver: train {' '.join(argv)}{how}: exit 0 in "
             f"{time.perf_counter() - t0:.1f} s, loss {losses[0]:.4f} -> "
             f"{losses[-1]:.4f}")
+
+
+# ---------------------------------------------------------------------------
+# phase 5c: the families' training at full width
+# ---------------------------------------------------------------------------
+
+# arch -> (FL devices M, batch, sequence, local learning rate): LGC rounds
+# (dense_masked, H = 2, the CUDA kernels) at the published widths; olmoe at
+# 4 of its 16 layers (full depth needs ~111 GB in this step, and each of
+# its expert leaves would hold 2**31 floats).  Sized so that the (8 + 8M)
+# bytes a parameter of the step, plus activations, fit on 80 GB.
+FAMILY_TRAIN = {"olmoe-1b-7b": (2, 8, 128, 2e-2),
+                "mamba2-370m": (2, 8, 256, 5e-2),
+                "zamba2-1.2b": (2, 8, 256, 3e-2),
+                "phi-3-vision-4.2b": (1, 4, 64, 2e-2),
+                "whisper-small": (2, 4, 128, 3e-2)}
+OLMOE_TRAIN_LAYERS = 4
+# params by shape (olmoe at 4 layers) and the leaves of >= PALLAS_MIN_ELEMS
+# floats, each compressed by one launch of each LGC row kernel a round
+FAMILY_TRAIN_PARAMS = {"olmoe-1b-7b": 1_884_833_792,
+                       "mamba2-370m": 420_136_448,
+                       "zamba2-1.2b": 1_170_473_856,
+                       "phi-3-vision-4.2b": 3_825_404_928,
+                       "whisper-small": 304_508_928}
+FAMILY_KERNEL_LEAVES = {"olmoe-1b-7b": 10, "mamba2-370m": 6,
+                        "zamba2-1.2b": 14, "phi-3-vision-4.2b": 10,
+                        "whisper-small": 20}
+# round 1 warms up, round 2 keeps its largest leaf's (e, delta) on the
+# host, round 3 is timed, round 4 runs under torch.profiler
+FAMILY_TRAIN_ROUNDS, CAPTURE_ROUND, TIMED_ROUND, PROFILED_ROUND = 4, 1, 2, 3
+# the smoke check, card against CPU: the CPU tests' tolerances
+# (tests/test_torch_family_training.py), a coordinate next to a bin edge
+# may flip layer (0.1% of a leaf)
+FAMILY_SMOKE_TOL = {"rtol": 1e-5, "atol": 1e-6, "ssd_atol": 1e-5,
+                    "flips": 1e-3}
+
+
+def family_train_config(arch: str):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch == "olmoe-1b-7b":
+        cfg = dataclasses.replace(cfg, n_layers=OLMOE_TRAIN_LAYERS)
+    return cfg
+
+
+def profile_summary(prof, wall_ms: float) -> dict:
+    """Busy ms (the union of the card's kernel intervals), idle share and
+    kernels by group of one profiled round."""
+    import torch
+    from repro_torch.device import kernel_group, union_us
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_group: dict = {}
+    for e in kernels:
+        g = kernel_group(e.name)
+        by_group[g] = by_group.get(g, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy_ms = union_us([(e.time_range.start, e.time_range.end)
+                        for e in kernels]) / 1e3
+    return {"profiled_round_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "kernel_launches": len(kernels),
+            "kernel_ms_by_group": dict(sorted(by_group.items()))}
+
+
+@contextlib.contextmanager
+def instrumented_lgc_rounds(capture_n: int, capture_from: int):
+    """Wraps the LGC step that ``steps.make_lgc_train_step`` (and the train
+    driver's import of it) makes: each round's host ms (to the card's end)
+    and launches by kernel, round ``PROFILED_ROUND`` under torch.profiler
+    (the card's kernels only); and times the weights' draw.
+    Keeps a host copy of the (e, delta) rows of the first call of
+    ``lgc_compress_hist_rows`` on a ``capture_n``-float leaf at or after
+    call ``capture_from``, and counts plain compressions of kernel-sized
+    leaves (``_compress_leaf_dense`` at or above ``pallas_min_elems``).
+    Yields the record."""
+    import torch
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch import steps, train
+    from repro_torch.models import transformer as tf
+    rec: dict = {"rounds": [], "kept": [], "plain_kernel_leaves": 0,
+                 "profile": None, "draw_s": 0.0}
+    orig = (steps.make_lgc_train_step, steps.lgc_compress_hist_rows,
+            steps._compress_leaf_dense, tf.init_params)
+    calls = itertools.count()
+
+    def init_params(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig[3](*args, **kw)
+        torch.cuda.synchronize()
+        rec["draw_s"] += time.perf_counter() - t0
+        return out
+
+    def rows(e, delta, cum_ks, received):
+        # pageable copies: freed pinned memory stays cached in the process
+        # (up to 10.4 GB a family), pageable memory goes back to the host
+        if (next(calls) >= capture_from and e.shape[1] == capture_n
+                and not rec["kept"]):
+            rec["kept"].append((e.cpu(), delta.cpu()))
+        return orig[1](e, delta, cum_ks, received)
+
+    def dense(e, delta, sparsity, recv, **kw):
+        rec["plain_kernel_leaves"] += delta.numel() >= kw["pallas_min_elems"]
+        return orig[2](e, delta, sparsity, recv, **kw)
+
+    def make(*args, **kw):
+        step = orig[0](*args, **kw)
+
+        def timed(params, ef, batch, received=None):
+            before = dict(LAUNCHES)
+            profiled = len(rec["rounds"]) == PROFILED_ROUND
+            acts = [torch.profiler.ProfilerActivity.CUDA]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with (torch.profiler.profile(activities=acts) if profiled
+                  else contextlib.nullcontext()) as prof:
+                out = step(params, ef, batch, received)
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            rec["rounds"].append({"host_ms": ms, "launches": {
+                k: LAUNCHES[k] - before[k] for k in LAUNCHES}})
+            if profiled:
+                rec["profile"] = profile_summary(prof, ms)
+            return out
+        return timed
+
+    steps.make_lgc_train_step = train.make_lgc_train_step = make
+    steps.lgc_compress_hist_rows, steps._compress_leaf_dense = rows, dense
+    tf.init_params = init_params
+    try:
+        yield rec
+    finally:
+        steps.make_lgc_train_step = train.make_lgc_train_step = orig[0]
+        steps.lgc_compress_hist_rows, steps._compress_leaf_dense = orig[1:3]
+        tf.init_params = orig[3]
+
+
+def olmoe_train_rounds(cfg, m: int, batch: int, seq: int, lr: float
+                       ) -> list[float]:
+    """The driver's ``--mode lgc`` loop through the step functions, for a
+    config the driver cannot name (olmoe at 4 of its 16 layers)."""
+    import torch
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    params = tf.init_params(cfg, seed=0)
+    pipe = TokenPipeline(cfg.vocab_size, seq, batch)
+    pipe.next_batch()
+    step = steps.make_lgc_train_step(cfg, m, steps.LGCStepConfig(
+        local_steps=2, local_lr=lr, aggregate="dense_masked",
+        backend="cuda"), donate=True)
+    ef = steps.init_ef_tree(params, m)
+    losses = []
+    for _ in range(FAMILY_TRAIN_ROUNDS):
+        x, y = pipe.next_batch()
+        params, ef, loss = step(params, ef, {
+            "tokens": torch.from_numpy(x).to("cuda", torch.long),
+            "labels": torch.from_numpy(y).to("cuda", torch.long)})
+        losses.append(float(loss))
+    check(losses[-1] < losses[0],
+          f"olmoe-1b-7b ({cfg.n_layers} layers): loss did not fall {losses}")
+    return losses
+
+
+def check_leaf_rows(e, x, cum, recv, what: str, errs: dict) -> None:
+    """The three LGC row kernels on one leaf's (M, n) rows, bitwise their
+    plain row versions, with no more than a few copies of the rows alive
+    (the longest leaves are 805M floats)."""
+    import torch
+    from repro_torch.kernels import (histogram_rows, ref, sparsify_ef_rows,
+                                     sum_maxabs_rows, thresholds_from_counts)
+    u, m = sum_maxabs_rows(e, x)
+    u_ref = ref.ftz_add(e, x)
+    check(bits_equal(u, u_ref) and bits_equal(m, ref.hist_maxabs_rows(
+        u_ref)), f"sum_maxabs_rows {what}")
+    del u_ref
+    counts = histogram_rows(u, m)
+    counts_ref = ref.hist_counts_rows(u, m)
+    check(bits_equal(counts, counts_ref)
+          and bool((counts.sum(1) == e.shape[1]).all()),
+          f"histogram_rows {what}")
+    thr = thresholds_from_counts(counts, m, cum)
+    g, e_new = sparsify_ef_rows(e, x, thr, recv)
+    g_ref, e_ref = ref.hist_layered_sparsify_rows(u, thr, recv)
+    check(bits_equal(g, g_ref) and bits_equal(e_new, e_ref),
+          f"sparsify_ef_rows {what}")
+    errs["histogram"] = max(errs["histogram"],
+                            max_abs_err(counts, counts_ref))
+    errs["sparsify_ef"] = max(errs["sparsify_ef"], max_abs_err(g, g_ref),
+                              max_abs_err(e_new, e_ref))
+    del u, g, e_new, g_ref, e_ref
+    torch.cuda.empty_cache()
+
+
+def family_train(arch: str, smi: str, errs: dict) -> dict:
+    """One family's LGC rounds at full width (the train driver, or the step
+    functions for olmoe's cut), instrumented; then its largest leaf's
+    round-2 rows through the kernels against the plain versions."""
+    import gc
+    import torch
+    from repro_torch.launch import steps, train
+    from repro_torch.models import transformer as tf
+    m, batch, seq, lr = FAMILY_TRAIN[arch]
+    cfg = family_train_config(arch)
+    shapes = tf.init_params(cfg, device="meta")
+    n_params = sum(v.numel() for v in shapes.values())
+    check(n_params == FAMILY_TRAIN_PARAMS[arch],
+          f"{arch} training params {n_params:,}")
+    big = [k for k, v in shapes.items() if v.numel() >= steps.PALLAS_MIN_ELEMS]
+    n_leaves = FAMILY_KERNEL_LEAVES[arch]
+    check(len(big) == n_leaves, f"{arch}: kernel-sized leaves {big}")
+    largest = max(shapes, key=lambda k: shapes[k].numel())
+    n_big = shapes[largest].numel()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with instrumented_lgc_rounds(n_big, CAPTURE_ROUND * n_leaves) as rec:
+        if arch == "olmoe-1b-7b":
+            losses = olmoe_train_rounds(cfg, m, batch, seq, lr)
+            how = (f"step functions, {OLMOE_TRAIN_LAYERS} of 16 layers "
+                   f"(full depth needs ~111 GB)")
+        else:
+            argv = ["--arch", arch, "--mode", "lgc", "--devices", str(m),
+                    "--batch", str(batch), "--seq", str(seq),
+                    "--steps", str(FAMILY_TRAIN_ROUNDS), "--lr", str(lr),
+                    "--local-steps", "2", "--log-every", "1"]
+            try:
+                losses = train.main(argv)
+            except SystemExit as exc:
+                raise AssertionError(f"chip_smoke: train {' '.join(argv)} "
+                                     f"exited {exc.code}") from exc
+            how = "train " + " ".join(argv)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"{arch}: losses {losses}")
+    rounds = rec["rounds"]
+    check(len(rounds) == FAMILY_TRAIN_ROUNDS, f"{arch}: {len(rounds)} rounds")
+    for i, r in enumerate(rounds):
+        for name, c in r["launches"].items():
+            want = n_leaves if name in ROW_KERNELS.values() else 0
+            check(c == want, f"{arch} round {i + 1}: {name} launched {c} "
+                  f"times, expected {want}")
+    check(rec["plain_kernel_leaves"] == 0,
+          f"{arch}: {rec['plain_kernel_leaves']} kernel-sized leaves went "
+          f"through the plain versions on the card")
+    prof = rec["profile"]
+    (e_host, d_host), = rec["kept"]
+    e, x = e_host.cuda(), d_host.cuda()
+    del rec["kept"], e_host, d_host
+    cum = steps._leaf_cum_ks(n_big, steps.LGCStepConfig().sparsity,
+                             "cuda").expand(m, -1).contiguous()
+    recv = torch.ones((m, 3), dtype=torch.int32, device="cuda")
+    check_leaf_rows(e, x, cum, recv, f"{arch} {largest} ({m}, {n_big:,}) "
+                    f"round 2", errs)
+    del e, x
+    torch.cuda.empty_cache()
+    timed = rounds[TIMED_ROUND]["host_ms"]
+    row = {"how": how, "params": n_params, "m": m, "batch": batch,
+           "seq": seq, "local_steps": 2, "lr": lr, "losses": losses,
+           "run_s": run_s, "draw_s": rec["draw_s"],
+           "host_ms_by_round": [r["host_ms"] for r in rounds],
+           "host_ms_per_round": timed,
+           "device_steps_per_s": m * 2 / (timed / 1e3),
+           "launches": {k: sum(r["launches"][k] for r in rounds)
+                        for k in rounds[0]["launches"]},
+           "kernel_leaves": n_leaves, "largest_leaf": [largest, n_big],
+           "peak_mem_gib": peak_gib, "card": smi} | {
+        "device_busy_ms": prof["device_busy_ms"],
+        "device_idle_share_profiled": prof["device_idle_share"],
+        "device_idle_share": 1.0 - prof["device_busy_ms"] / timed,
+        "profile": prof}
+    log(f"train 5c: {arch}: {how}: {n_params:,} params, M={m}, batch "
+        f"{batch}, seq {seq}, H=2, lr {lr}; losses {losses}; {run_s:.1f} s "
+        f"(the weights' draw {rec['draw_s']:.1f} s)")
+    log(f"train 5c: {arch}: host ms by round {row['host_ms_by_round']} "
+        f"(round 2 copies its largest leaf's rows to the host, round 4 is "
+        f"profiled); device busy {prof['device_busy_ms']:.3f} ms of round "
+        f"4, idle share {row['device_idle_share']:.3f} against round 3 "
+        f"({prof['device_idle_share']:.3f} profiled); kernels by group "
+        f"{prof['kernel_ms_by_group']}; peak {peak_gib:.2f} GiB; {smi}")
+    log(f"train 5c: {arch}: each LGC row kernel launched {n_leaves} times a "
+        f"round, no flat kernel, no plain compression of a kernel-sized "
+        f"leaf; {largest} ({m} x {n_big:,}) of round 2 bitwise the plain "
+        f"row versions through all three kernels")
+    return row
+
+
+def family_train_smoke(arch: str) -> None:
+    """One LGC round of the smoke config in f32, M = 2, H = 2, every leaf
+    through the row kernels, a dropped channel: card against CPU."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch import steps, train
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, cfg.vocab_size, (4, 32))
+    batch = {"tokens": torch.from_numpy(toks),
+             "labels": torch.from_numpy(np.roll(toks, -1, 1))}
+    prefix = train.modality_prefix(cfg, 4, "cpu")
+    if prefix is not None:
+        batch["prefix"] = torch.from_numpy(rng.standard_normal(
+            tuple(prefix.shape)).astype(np.float32))
+    params = tf.init_params(cfg, seed=0, device="cpu")
+    ef = {k: torch.from_numpy((rng.standard_normal((2,) + tuple(v.shape))
+                               * 1e-5).astype(np.float32))
+          for k, v in params.items()}
+    received = torch.tensor([[1, 1, 1], [1, 0, 1]], dtype=torch.int32)
+    step = steps.make_lgc_train_step(cfg, 2, steps.LGCStepConfig(
+        local_steps=2, local_lr=3e-3, sparsity=(0.05, 0.1, 0.1),
+        backend="cuda", pallas_min_elems=1))
+    want = step(params, ef, batch, received)
+    reset_launch_counts()
+    on_card = [{k: v.cuda() for k, v in t.items()}
+               for t in (params, ef, batch)]
+    got = step(*on_card, received.cuda())
+    torch.cuda.synchronize()
+    tol = FAMILY_SMOKE_TOL
+    atol = tol["ssd_atol"] if cfg.arch_type in ("ssm", "hybrid") \
+        else tol["atol"]
+    check(abs(float(got[2]) - float(want[2])) <= tol["rtol"] * abs(float(
+        want[2])), f"{arch} smoke round: loss {float(got[2])} on the card, "
+          f"{float(want[2])} on the CPU")
+    worst = 0.0
+    for part in (0, 1):
+        for k, w in want[part].items():
+            off = ~torch.isclose(got[part][k].cpu(), w, rtol=tol["rtol"],
+                                 atol=atol)
+            worst = max(worst, float(off.float().mean()))
+            check(float(off.float().mean()) <= tol["flips"],
+                  f"{arch} smoke round: {('params', 'ef')[part]} {k}: "
+                  f"{int(off.sum())} of {off.numel()} coordinates differ")
+    check(all(LAUNCHES[k] == len(params) for k in ROW_KERNELS.values()),
+          f"{arch} smoke round launches {LAUNCHES}")
+    log(f"train 5c: {arch} smoke (f32, TF32 off) one LGC round card against "
+        f"CPU: loss {float(got[2]):.7f} / {float(want[2]):.7f}, params and "
+        f"error memory within rtol {tol['rtol']} / atol {atol} (largest "
+        f"share of a leaf off: {worst:.2e}); {len(params)} row launches each")
+
+
+def phase_family_training(smi: str, errs: dict) -> dict:
+    """Phase 5c: each family's smoke config card against CPU, then each at
+    full width; one ``family_training`` JSON line."""
+    import torch
+    t0 = time.perf_counter()
+    for arch in FAMILY_TRAIN:
+        family_train_smoke(arch)
+    # the profiler's first start in a process takes seconds: not in a round
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]):
+        torch.zeros(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    out = {arch: family_train(arch, smi, errs) for arch in FAMILY_TRAIN}
+    print(json.dumps({"family_training": out}), flush=True)
+    log(f"phase 5c (the families' training at full width): "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3180,9 +3578,10 @@ def phase_time_swa(gen, shape=SWA_SERVE_SHAPE) -> dict:
 
 def main(argv: list[str]) -> int:
     import torch
-    if argv not in ([], ["--rows"], ["--sharded"], ["--swa-digests"]):
+    if argv not in ([], ["--rows"], ["--sharded"], ["--swa-digests"],
+                    ["--family-training"]):
         print(f"usage: python3 chip_smoke.py [--rows | --sharded | "
-              f"--swa-digests]; got "
+              f"--swa-digests | --family-training]; got "
               f"{argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -3221,24 +3620,42 @@ def main(argv: list[str]) -> int:
     if argv == ["--sharded"]:   # the sharded engine alone
         phase_sharded(smi)
         return 0
+    if argv == ["--family-training"]:   # phase 5c alone
+        phase_family_training(smi, {k: 0.0 for k in TPU_KERNELS})
+        return 0
     errs = {k: 0.0 for k in (*TPU_KERNELS, *SEGMENT_KERNELS)}
+
+    def done(what: str) -> None:   # the run's clock at each phase's end
+        log(f"clock: {what} done at {time.perf_counter() - t0:.1f} s")
     phase_kernels(gen, errs)
+    done("phase 2")
     phase_swa(gen, errs)
+    done("phase 3")
     phase_small_trainer()
     launches, main_u, dense_steps_per_s = phase_main_path()
     flaky_launches = phase_main_path_scenario(smi)
+    done("phases 4-5")
     sparse_launches = phase_sparse_uplinks(smi, dense_steps_per_s)
+    done("phase 5b")
+    family_training = phase_family_training(smi, errs)
+    done("phase 5c")
     phase_small_serve()
     serving = phase_serve(smi)
+    done("phases 6-7")
     families = phase_families(smi)
+    done("phase 7b")
     modalities = phase_modalities(smi)
+    done("phase 7c")
     phase_prng()
     sim_launches = phase_simulator(smi)
+    done("phase 8, simulator")
     per_layer_launches = phase_per_layer(smi)
     phase_server(smi)
     sim_launches |= phase_control(smi)
+    done("phase 8, per-layer, servers, control")
     pop_launches = phase_population(smi)
     sharded = phase_sharded(smi)
+    done("phase 8, population and sharded")
     rows = phase_timings(gen, main_u)
     row_times = phase_time_rows(gen)
     seg_times = phase_time_segments(gen)
@@ -3266,6 +3683,9 @@ def main(argv: list[str]) -> int:
                         "at_one_bin": rows[name]["one_bin"]}
             if name == "maxabs":
                 row["at_sum"] = rows[name]["sum"]
+            row["launches_family_training"] = {
+                arch: f["launches"][name] + f["launches"][rn]
+                for arch, f in family_training.items()}
             if name != "sparsify_ef":
                 row["launches_sparse_gather"] = sparse_launches[rn]
                 row["at_sparse_gather_rows"] = sparse_launches["timing"][

@@ -45,7 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Sequence
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -108,30 +108,36 @@ class LGCStepConfig:
 # sync (standard data-parallel) training -- the framework baseline
 # ---------------------------------------------------------------------------
 
+def _rows_of(batch: dict, rows: slice) -> dict:
+    """Rows ``rows`` of every batch leaf (tokens, labels and a modality
+    prefix alike), as the reference reshapes every leaf of the batch."""
+    return {k: v[rows] for k, v in batch.items()}
+
+
 def make_sync_train_step(cfg: ArchConfig, *, accum_steps: int = 1,
                          opt_cfg: OptimizerConfig | None = None):
     """``f(params, opt_state, batch) -> (params, opt_state, loss)``: one
     step of ``cfg.optimizer`` on the gradient of the whole batch (the
     reference's ``make_sync_train_step``, steps.py:84-114).  With
-    ``accum_steps > 1`` the batch is split into that many microbatches of
+    ``accum_steps > 1`` the batch (every leaf: tokens, labels and a
+    modality ``prefix``) is split into that many microbatches of
     consecutive rows whose gradients are summed in f32, then divided and
     cast to each parameter's dtype, and whose losses are averaged."""
     _, opt_update = get_optimizer(cfg.optimizer, opt_cfg)
 
-    def loss_and_grads(params, tokens, labels):
+    def loss_and_grads(params, batch):
         names = list(params)
         leaves = [params[k].detach().requires_grad_(True) for k in names]
         with torch.enable_grad():
-            loss = tf.lm_loss(dict(zip(names, leaves)), cfg,
-                              {"tokens": tokens, "labels": labels})
+            loss = tf.lm_loss(dict(zip(names, leaves)), cfg, batch)
             grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), dict(zip(names, grads))
 
     @torch.no_grad()
     def train_step(params, opt_state, batch):
-        tokens, labels = batch["tokens"], batch["labels"]
+        tokens = batch["tokens"]
         if accum_steps == 1:
-            loss, grads = loss_and_grads(params, tokens, labels)
+            loss, grads = loss_and_grads(params, batch)
         else:
             if tokens.shape[0] % accum_steps:
                 raise ValueError(f"batch {tokens.shape[0]} is not divisible "
@@ -142,8 +148,8 @@ def make_sync_train_step(cfg: ArchConfig, *, accum_steps: int = 1,
                                     device=p.device)
                      for k, p in params.items()}
             for i in range(accum_steps):
-                rows = slice(i * mb, (i + 1) * mb)
-                l_i, g_i = loss_and_grads(params, tokens[rows], labels[rows])
+                l_i, g_i = loss_and_grads(
+                    params, _rows_of(batch, slice(i * mb, (i + 1) * mb)))
                 loss = loss + l_i
                 g_sum = {k: kref.ftz_add(g_sum[k], g_i[k].float())
                          for k in g_sum}
@@ -218,18 +224,23 @@ def _band_top_k(band: torch.Tensor, k: int) -> torch.Tensor:
 
 
 # the leaf dim each name's PartitionSpec shards over "model" in the
-# reference's sharding_rules.param_specs (the ported dense family), before
-# the stacked-layer dim; the sparse uplinks select along rows of that dim
+# reference's sharding_rules.param_specs for the dense family, before the
+# stacked-layer dim; the 100M task's sparse uplinks select along rows of
+# that dim
 _MODEL_DIM = {"embed": 0, "wq": 1, "wk": 1, "wv": 1, "wo": 0, "bq": 0,
               "bk": 0, "bv": 0, "w_gate": 1, "w_up": 1, "w_down": 0}
 
 
 def leaf_model_axis(path: str, ndim: int) -> int | None:
     """The dim of leaf ``path`` (``"blocks/attn/wq"``) that the reference's
-    spec shards over "model", or None.  The reference's sparse uplinks
-    move it to the front and select per row of that view (its
-    ``_compress_leaf_sparse`` with the task's param specs); the view
-    exists whatever the size of the model axis, also on one card."""
+    spec shards over "model", or None: the dense task's rule, which the
+    100M task passes to :func:`make_lgc_train_step` (``model_axis``) as
+    the reference's task passes its param specs.  Its sparse uplinks then
+    move that dim to the front and select per row of that view; the view
+    exists whatever the size of the model axis, also on one card.  It
+    knows only the dense leaf names (the MoE's stacked experts would take
+    the wrong dim), and the train driver passes no rule, as the
+    reference's driver passes no specs."""
     names = path.split("/")
     dim = _MODEL_DIM.get(names[-1])
     if dim is None:
@@ -280,8 +291,9 @@ def _compress_leaf_sparse(e: torch.Tensor, delta: torch.Tensor, sparsity,
                           cum_ks: torch.Tensor | None = None
                           ) -> tuple[torch.Tensor, torch.Tensor]:
     """Layered top-k exchange of one leaf over the M devices: e, delta
-    (M, R, n), the leaf viewed as R rows of n (its model dim first,
-    :func:`leaf_model_axis`; R = 1 without one), and received (M, C).
+    (M, R, n), the leaf viewed as R rows of n (its model dim first, under
+    a ``model_axis`` rule such as :func:`leaf_model_axis`; R = 1 without
+    one), and received (M, C).
     Returns (g_mean (R, n), e_new (M, R, n)), f32.
 
     Port of ``_compress_leaf_sparse`` (steps.py:179-257) with the FL axis
@@ -369,13 +381,16 @@ def _dtype(name: str) -> torch.dtype:
 
 
 def make_lgc_train_step(cfg: ArchConfig, m_devices: int,
-                        step_cfg: LGCStepConfig, *, rows: bool = True):
+                        step_cfg: LGCStepConfig, *, rows: bool = True,
+                        model_axis: Callable[[str, int], int | None]
+                        | None = None, donate: bool = False):
     """Algorithm 1: returns ``f(params, ef, batch, received=None) ->
     (params, ef, loss)``.
 
-    ``batch`` holds ``tokens`` and ``labels`` of shape (M * b, S); device m
-    takes rows [m*b, (m+1)*b), split into H microbatches, as the reference's
-    ``P(fl_axis)`` batch spec gives it.  ``ef`` is the stacked
+    ``batch`` holds ``tokens`` and ``labels`` of shape (M * b, S), and a
+    modality ``prefix`` (M * b, P, ...) where the arch takes one; device m
+    takes rows [m*b, (m+1)*b) of every leaf, split into H microbatches, as
+    the reference's ``P(fl_axis)`` batch spec gives it.  ``ef`` is the stacked
     ``(M, *leaf)`` error memory (:func:`init_ef_tree`); row m is device m's
     residual.  ``received`` ((M, C) int, ``None`` = all delivered) is the
     per-device per-channel delivery mask; FedAvg (``"none"``) ignores it.
@@ -385,6 +400,19 @@ def make_lgc_train_step(cfg: ArchConfig, m_devices: int,
     one device after another: the same bits in M times the launches, kept
     only to hold the row path against (``dense_masked``; the sparse modes
     always take the rows).
+
+    ``model_axis`` is the counterpart of the reference's
+    ``param_spec_tree``: a rule ``(path, ndim) -> dim or None`` naming the
+    dim along whose rows the sparse modes select (the 100M task passes
+    :func:`leaf_model_axis`).  ``None``, the default as in the reference,
+    selects over each leaf as one row.
+
+    ``donate=True`` is the reference driver's ``donate_argnums=(0, 1)``: the
+    step empties the ``params`` and ``ef`` dicts it is given, leaf by leaf
+    as their successors are made, so that the old and the new state are
+    not all held at once (phi-3-vision's 3.8B parameters and their f32
+    error memory fill most of a card); the caller keeps only the returned
+    state.
     """
     h, n_ch, lr = step_cfg.local_steps, step_cfg.n_channels, step_cfg.local_lr
     wire_dt = _dtype(step_cfg.psum_dtype)
@@ -397,20 +425,20 @@ def make_lgc_train_step(cfg: ArchConfig, m_devices: int,
             cum_ks_cache[key] = _leaf_cum_ks(n, step_cfg.sparsity, device)
         return cum_ks_cache[key]
 
-    def local_sgd(params, tokens, labels):
-        """H plain SGD steps from ``params``; returns (params_H, loss_sum)."""
+    def local_sgd(params, batch):
+        """H plain SGD steps from ``params`` on the H microbatches of the
+        device's ``batch``; returns (params_H, loss_sum)."""
         names = list(params)
         p = params
         loss_sum = torch.zeros((), dtype=torch.float32,
-                               device=tokens.device)
-        mb = tokens.shape[0] // h
+                               device=batch["tokens"].device)
+        mb = batch["tokens"].shape[0] // h
         for i in range(h):
             leaves = [p[k].detach().requires_grad_(True) for k in names]
-            rows_i = slice(i * mb, (i + 1) * mb)
             with torch.enable_grad():
                 loss = tf.lm_loss(dict(zip(names, leaves)), cfg,
-                                  {"tokens": tokens[rows_i],
-                                   "labels": labels[rows_i]})
+                                  _rows_of(batch, slice(i * mb,
+                                                        (i + 1) * mb)))
                 grads = torch.autograd.grad(loss, leaves)
             with torch.no_grad():
                 p = {k: sgd_update(w.to(torch.float32),
@@ -442,8 +470,9 @@ def make_lgc_train_step(cfg: ArchConfig, m_devices: int,
                         delta: torch.Tensor, received: torch.Tensor
                         ) -> tuple[torch.Tensor, torch.Tensor]:
         """(g_mean (n,), e_new (M, n)) of one leaf under a sparse
-        aggregate, selected along rows of the leaf's model dim."""
-        ax = leaf_model_axis(path, len(shape))
+        aggregate, selected along rows of the dim ``model_axis`` names,
+        or over the whole leaf."""
+        ax = model_axis(path, len(shape)) if model_axis else None
         lead = shape[ax] if ax is not None else 1
         rest = [d for i, d in enumerate(shape) if i != ax]
 
@@ -476,9 +505,8 @@ def make_lgc_train_step(cfg: ArchConfig, m_devices: int,
 
     @torch.no_grad()
     def step(params, ef, batch, received=None):
-        tokens, labels = batch["tokens"], batch["labels"]
-        device = tokens.device
-        b_all = tokens.shape[0]
+        device = batch["tokens"].device
+        b_all = batch["tokens"].shape[0]
         if b_all % m_devices:
             raise ValueError(f"batch {b_all} is not divisible by "
                              f"{m_devices} FL devices")
@@ -493,16 +521,20 @@ def make_lgc_train_step(cfg: ArchConfig, m_devices: int,
             raise ValueError(f"received must be ({m_devices}, {n_ch})")
         recv = received.to(torch.int32).contiguous()
 
-        # ---- H local SGD steps per device; the (M, n) f32 net progress --
-        deltas = {k: torch.empty((m_devices, w.numel()), dtype=torch.float32,
-                                 device=device) for k, w in params.items()}
+        # ---- H local SGD steps per device; the (M, n) f32 net progress,
+        # allocated once the first device's activations are freed --------
+        deltas: dict = {}
         loss_total = torch.zeros((), dtype=torch.float32, device=device)
         for m in range(m_devices):
-            rows_m = slice(m * b_local, (m + 1) * b_local)
-            p_end, loss_sum = local_sgd(params, tokens[rows_m],
-                                        labels[rows_m])
+            p_end, loss_sum = local_sgd(
+                params, _rows_of(batch, slice(m * b_local,
+                                              (m + 1) * b_local)))
             loss_total = loss_total + loss_sum / h
             for k, w0 in params.items():
+                if m == 0:
+                    deltas[k] = torch.empty((m_devices, w0.numel()),
+                                            dtype=torch.float32,
+                                            device=device)
                 torch.sub(w0.to(torch.float32).reshape(-1),
                           p_end[k].to(torch.float32).reshape(-1),
                           out=deltas[k][m])
@@ -511,24 +543,25 @@ def make_lgc_train_step(cfg: ArchConfig, m_devices: int,
 
         # ---- compression with EF over the M rows, server update ---------
         params_new, ef_new = {}, {}
-        for k, w in params.items():
-            delta = deltas.pop(k)
-            e_rows = ef[k].reshape(m_devices, -1).to(torch.float32)
+        for k in list(params):
+            w, delta = (params.pop(k) if donate else params[k]), deltas.pop(k)
+            e_old = ef.pop(k) if donate else ef[k]
+            e_rows = e_old.reshape(m_devices, -1).to(torch.float32)
             if step_cfg.aggregate in ("sparse_gather", "bucket_sparse"):
                 g_mean, e_new = compress_sparse(k, tuple(w.shape), e_rows,
                                                 delta, recv)
-                ef_new[k] = e_new.to(ef_dt).reshape(ef[k].shape)
+                ef_new[k] = e_new.to(ef_dt).reshape(e_old.shape)
             else:
                 if step_cfg.aggregate == "none":        # FedAvg baseline
                     g_wire = delta
-                    ef_new[k] = ef[k].clone()
+                    ef_new[k] = e_old if donate else e_old.clone()
                 else:                                   # dense_masked
                     g, e_new = compress_leaf(e_rows, delta, recv)
                     g_wire = g.to(wire_dt)
                     # the wire rounding residue joins the error memory
                     e_new = kref.ftz_add(e_new, kref.ftz_add(
                         g, -g_wire.to(torch.float32)))
-                    ef_new[k] = e_new.to(ef_dt).reshape(ef[k].shape)
+                    ef_new[k] = e_new.to(ef_dt).reshape(e_old.shape)
                 # Alg. 1 lines 20-21: w - mean_m g_m, summed device by
                 # device
                 g_sum = g_wire[0]

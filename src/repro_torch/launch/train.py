@@ -14,6 +14,15 @@ kernels (``backend="cuda"``), on the CPU their plain versions: the same
 bits.  ``--model-parallel`` > 1 is the sharded engine (ROADMAP A12) and
 raises.  The run exits with code 1 when the loss did not fall.
 
+Every ported arch trains (``--arch mamba2-370m``, ``olmoe-1b-7b``, ...).
+The vlm and audio families get a modality stub in every batch, at the
+reference's shapes (:func:`modality_prefix`): patch embeddings (B,
+``n_prefix_tokens``, 1024) drawn from a seed, or zero frame embeddings
+(B, ``encoder_seq``, ``d_model``), in ``cfg.dtype``.  As in
+the reference, the driver passes no per-leaf model axis to the LGC step,
+so ``lgc_sparse`` selects over each leaf as one row, and it donates the
+state to the step (the reference's ``donate_argnums``).
+
 It runs on the card unless ``--device cpu`` is given.
 """
 from __future__ import annotations
@@ -61,6 +70,29 @@ def _parse(argv=None):
     return ap.parse_args(argv)
 
 
+def modality_prefix(cfg, batch: int, device) -> torch.Tensor | None:
+    """The modality stub of every batch, at the reference's
+    ``batch0["prefix"]`` shapes (train.py:71-77) in ``cfg.dtype`` on
+    ``device``: the audio family's frame embeddings (B, ``encoder_seq``,
+    ``d_model``) are zeros, as there; the vlm's patch embeddings (B,
+    ``n_prefix_tokens``, 1024) are standard normal draws from seed 0 (on
+    the CPU, then moved), not the reference's zeros.  Zero patches
+    stay zero rows through every block, and RMSNorm's Jacobian at a zero
+    row is 1 / sqrt(eps) = 1000, so the gradient that the text positions
+    send back into the patch rows grows a thousandfold a block and
+    overflows: non-finite from 16 blocks on, in the reference too
+    (tests/test_torch_family_training.py).  None for the other
+    families."""
+    if cfg.arch_type == "audio":
+        return torch.zeros((batch, cfg.encoder_seq, cfg.d_model),
+                           dtype=cfg.dtype, device=device)
+    if cfg.arch_type != "vlm":
+        return None
+    gen = torch.Generator().manual_seed(0)
+    return torch.randn((batch, cfg.n_prefix_tokens, tf.VIS_STUB_DIM),
+                       generator=gen).to(device, cfg.dtype)
+
+
 def main(argv=None) -> list[float]:
     """Run the driver; returns the losses (exits 1 if they did not fall)."""
     args = _parse(argv)
@@ -76,11 +108,15 @@ def main(argv=None) -> list[float]:
 
     pipe = TokenPipeline(cfg.vocab_size, args.seq, args.batch)
     pipe.next_batch()            # the reference's batch0, drawn at set-up
+    prefix = modality_prefix(cfg, args.batch, dev)
 
     def batch():
         x, y = pipe.next_batch()
-        return {"tokens": torch.from_numpy(x).to(dev, torch.long),
-                "labels": torch.from_numpy(y).to(dev, torch.long)}
+        out = {"tokens": torch.from_numpy(x).to(dev, torch.long),
+               "labels": torch.from_numpy(y).to(dev, torch.long)}
+        if prefix is not None:
+            out["prefix"] = prefix
+        return out
 
     losses = []
     if args.mode == "sync":
@@ -100,7 +136,7 @@ def main(argv=None) -> list[float]:
             local_lr=args.lr, aggregate=AGGREGATE_OF_MODE[args.mode],
             backend="cuda" if dev.type == "cuda" else "exact")
         ef = init_ef_tree(params, args.devices)
-        step = make_lgc_train_step(cfg, args.devices, lgc)
+        step = make_lgc_train_step(cfg, args.devices, lgc, donate=True)
         for i in range(args.steps):
             params, ef, loss = step(params, ef, batch())
             losses.append(float(loss))

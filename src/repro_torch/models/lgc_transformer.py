@@ -32,6 +32,7 @@ from repro_torch.core.scenario import (Scenario, ScenarioCarry, dropout_mask,
 from repro_torch.data.tokens import TokenPipeline
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import (LGCStepConfig, init_ef_tree,
+                                      leaf_model_axis,
                                       lgc_wire_bytes_per_round,
                                       make_lgc_train_step)
 from repro_torch.models import transformer as tf
@@ -92,7 +93,10 @@ class LGCTransformerTask:
         pipe.next_batch()
         ef = init_ef_tree(params, self.m_devices,
                           getattr(torch, self.step_cfg.ef_dtype))
-        step = make_lgc_train_step(self.arch, self.m_devices, self.step_cfg)
+        # the reference's task passes its param specs: the sparse uplinks
+        # select per row of each leaf's model-dim view
+        step = make_lgc_train_step(self.arch, self.m_devices, self.step_cfg,
+                                   model_axis=leaf_model_axis)
         self._built = dict(params=params, ef=ef, step=step, pipe=pipe)
         return self._built
 

@@ -29,8 +29,11 @@ writes the new token's K/V and the SSM conv tails and states IN PLACE (the
 reference returns new arrays) and attends through the ``swa_decode``
 kernel, over the cross cache too.
 
-The train forward and loss (``forward_hidden``, ``lm_loss``) run the dense
-family only; the other five wait for ROADMAP A16.
+The train forward and loss (``forward_hidden``, ``lm_loss``) run all six
+families: the MoE's load-balance loss summed over the blocks, the SSD
+blocks' chunked scan under autograd, the hybrid's shared block before each
+run of ``attn_every`` SSD blocks, the vlm's patch prefix (no loss on its
+positions) and the audio encoder with the decoder's cross-attention.
 """
 from __future__ import annotations
 
@@ -62,20 +65,18 @@ def _flatten(tree: dict, prefix: str = "") -> Params:
     return out
 
 
-#: the families whose serving path (init, cache, prefill, decode) is ported
-SERVING = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+#: the ported families (init, train forward and loss, cache, prefill, decode)
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 #: the families whose blocks are all attention + FFN blocks
 _ATTN = ("dense", "moe", "vlm", "audio")
 #: the width of the vlm family's patch embeddings (the stub CLIP encoder)
 VIS_STUB_DIM = 1024
 
 
-def _check_arch(cfg: ArchConfig, ported: tuple = SERVING) -> None:
-    if cfg.arch_type in ported:
-        return
-    raise NotImplementedError(
-        f"arch_type {cfg.arch_type!r} is not ported yet for this entry point "
-        f"(ROADMAP A16, the moe / ssm / hybrid / vlm / audio training path)")
+def _check_arch(cfg: ArchConfig) -> None:
+    if cfg.arch_type not in FAMILIES:
+        raise ValueError(f"unknown arch_type {cfg.arch_type!r}; the families "
+                         f"are {FAMILIES}")
 
 
 # ===========================================================================
@@ -210,16 +211,18 @@ def layer_params(params: Params, stack: str = "blocks") -> list[dict]:
     return layers
 
 
-def _ffn(x: torch.Tensor, bp: dict, cfg: ArchConfig) -> torch.Tensor:
-    """The block's second half: norm2, then the MLP or the MoE layer (its
-    aux loss is dropped: serving has no loss), and the residual add."""
+def _ffn(x: torch.Tensor, bp: dict, cfg: ArchConfig
+         ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The block's second half: norm2, then the MLP or the MoE layer, and
+    the residual add.  Returns (x, the MoE's aux loss or None); serving
+    drops the aux loss."""
     h = apply_norm(x, bp["norm2"], cfg.norm)
     if "moe" in bp:
-        y, _ = moe_lib.moe_forward(
+        y, aux = moe_lib.moe_forward(
             h, bp["moe"], n_experts=cfg.n_experts, top_k=cfg.experts_per_tok,
             capacity_factor=cfg.moe_capacity_factor, mlp_kind=cfg.mlp)
-        return x + y
-    return x + mlp_forward(h, bp["mlp"], cfg.mlp)
+        return x + y, aux
+    return x + mlp_forward(h, bp["mlp"], cfg.mlp), None
 
 
 # ===========================================================================
@@ -228,8 +231,12 @@ def _ffn(x: torch.Tensor, bp: dict, cfg: ArchConfig) -> torch.Tensor:
 
 def _attn_block_train(x: torch.Tensor, bp: dict, cfg: ArchConfig,
                       positions: torch.Tensor, *, causal: bool = True,
-                      window: int = 0) -> torch.Tensor:
-    """One attention + FFN block over the full sequence."""
+                      window: int = 0, enc_out: torch.Tensor | None = None
+                      ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """One attention + FFN block over the full sequence; returns (x, the
+    MoE's aux loss or None).  With ``enc_out`` (the audio decoder) the
+    block cross-attends to the encoder output, non-causally, after its
+    self-attention."""
     h = apply_norm(x, bp["norm1"], cfg.norm)
     q, k, v = qkv_project(h, bp["attn"], cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                           cfg.qkv_bias)
@@ -240,25 +247,86 @@ def _attn_block_train(x: torch.Tensor, bp: dict, cfg: ArchConfig,
     v = _expand_kv(v, cfg.n_heads)
     att = attention_train(q, k, v, causal=causal, window=window,
                           q_chunk=cfg.attn_q_chunk)
-    x = x + att.reshape(*x.shape[:2], -1) @ bp["attn"]["wo"]
+    b, s = x.shape[:2]
+    x = x + att.reshape(b, s, -1) @ bp["attn"]["wo"]
+    if enc_out is not None:
+        h = apply_norm(x, bp["norm_x"], cfg.norm)
+        q = (h @ bp["cross"]["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
+        ck, cv = _cross_kv(enc_out, bp["cross"], cfg)
+        att = attention_train(q, ck, cv, causal=False,
+                              q_chunk=cfg.attn_q_chunk)
+        x = x + att.reshape(b, s, -1) @ bp["cross"]["wo"]
     return _ffn(x, bp, cfg)
 
 
-def forward_hidden(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
-                   window: int = 0
-                   ) -> tuple[torch.Tensor, torch.Tensor, int]:
-    """Full-sequence forward up to the final norm.
+def _ssm_block_train(x: torch.Tensor, bp: dict, cfg: ArchConfig
+                     ) -> torch.Tensor:
+    """One SSD block over the full sequence (its final state and conv tail
+    are dropped)."""
+    y, _, _ = ssd_lib.ssm_block(apply_norm(x, bp["norm1"], cfg.norm),
+                                bp["ssm"], cfg)
+    return x + y
 
-    Returns (hidden (B, S, D), aux_loss, n_prefix) as the reference does;
-    the dense path has no aux loss and no modality prefix.
+
+def _hybrid_train(x: torch.Tensor, params: Params, cfg: ArchConfig,
+                  positions: torch.Tensor, window: int) -> torch.Tensor:
+    """zamba2: the shared attention block at the start of each run of
+    ``attn_every`` SSD blocks (its aux loss dropped, as the reference's)."""
+    period = cfg.attn_every or cfg.n_layers
+    shared = subtree(params, "shared")
+    for i, bp in enumerate(layer_params(params)):
+        if i % period == 0:
+            x, _ = _attn_block_train(x, shared, cfg, positions, window=window)
+        x = _ssm_block_train(x, bp, cfg)
+    return x
+
+
+def forward_hidden(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
+                   prefix: torch.Tensor | None = None, *, window: int = 0
+                   ) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """Full-sequence forward up to the final norm (reference
+    ``transformer.py:186-229``).
+
+    Returns (hidden (B, S_total, D), aux_loss, n_prefix): the aux loss is
+    the sum of the MoE blocks' load-balance losses (0 elsewhere), and the
+    first n_prefix positions are the vlm's patch positions, which take no
+    LM loss.  ``prefix`` is the modality stub: vlm (B, P, 1024) patch
+    embeddings, projected by ``vis_proj`` and prepended; audio (B, S_enc,
+    D) frame embeddings through the encoder, the decoder tokens taking
+    ``dec_pos[min(position, max_position - 1)]`` and cross-attending to
+    the encoder output in every block.
     """
-    _check_arch(cfg, ("dense",))
+    _check_arch(cfg)
     x = params["embed"][tokens]                             # (B,S,D)
+    n_prefix = 0
+    if cfg.arch_type in ("vlm", "audio") and prefix is None:
+        raise ValueError(f"the {cfg.arch_type} family needs a modality "
+                         f"prefix (batch['prefix'])")
+    if cfg.arch_type == "vlm":
+        vis = prefix.to(cfg.dtype) @ params["vis_proj"]
+        x = torch.cat([vis, x], 1)
+        n_prefix = vis.shape[1]
     positions = torch.arange(x.shape[1], device=x.device)
-    for bp in layer_params(params):
-        x = _attn_block_train(x, bp, cfg, positions, window=window)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return apply_norm(x, subtree(params, "final_norm"), cfg.norm), aux, 0
+    if cfg.arch_type in ("dense", "moe", "vlm"):
+        for bp in layer_params(params):
+            x, a = _attn_block_train(x, bp, cfg, positions, window=window)
+            if a is not None:
+                aux = aux + a
+    elif cfg.arch_type == "ssm":
+        for bp in layer_params(params):
+            x = _ssm_block_train(x, bp, cfg)
+    elif cfg.arch_type == "hybrid":
+        x = _hybrid_train(x, params, cfg, positions, window)
+    else:                                                   # audio
+        enc = _encode(params, cfg, prefix)
+        x = x + params["dec_pos"][
+            torch.clamp(positions, max=cfg.max_position - 1)][None]
+        for bp in layer_params(params):
+            x, _ = _attn_block_train(x, bp, cfg, positions, window=window,
+                                     enc_out=enc)
+    return (apply_norm(x, subtree(params, "final_norm"), cfg.norm), aux,
+            n_prefix)
 
 
 def logits_fn(params: Params, cfg: ArchConfig, hidden: torch.Tensor
@@ -268,13 +336,16 @@ def logits_fn(params: Params, cfg: ArchConfig, hidden: torch.Tensor
 
 
 def lm_loss(params: Params, cfg: ArchConfig, batch: dict) -> torch.Tensor:
-    """batch: tokens (B,S), labels (B,S) -> mean next-token cross-entropy.
+    """batch: tokens (B,S), labels (B,S), and the vlm / audio families'
+    ``prefix`` -> mean next-token cross-entropy over the token positions,
+    plus ``router_aux_weight * aux / n_layers`` (reference
+    ``transformer.py:255-289``).
 
     The cross-entropy is summed in sequence chunks of ``cfg.loss_chunk`` as
     in the reference, so the (B, S, V) logits never exist at once.
     """
-    _check_arch(cfg, ("dense",))
-    hidden, aux, n_prefix = forward_hidden(params, cfg, batch["tokens"])
+    hidden, aux, n_prefix = forward_hidden(params, cfg, batch["tokens"],
+                                           batch.get("prefix"))
     hidden = hidden[:, n_prefix:]
     labels = batch["labels"]
     b, s, _ = hidden.shape
@@ -378,7 +449,7 @@ def _attn_block_decode(x: torch.Tensor, bp: dict, cfg: ArchConfig,
         q = (h @ bp["cross"]["wq"]).reshape(b, 1, cfg.n_heads, cfg.hd)
         att = attention_decode(q, cross, cfg.n_heads)
         x = x + att.reshape(b, 1, -1) @ bp["cross"]["wo"]
-    return _ffn(x, bp, cfg)
+    return _ffn(x, bp, cfg)[0]
 
 
 def _ssm_layer_decode(x: torch.Tensor, bp: dict, cfg: ArchConfig,
@@ -462,7 +533,7 @@ def _encode(params: Params, cfg: ArchConfig, frames: torch.Tensor
     enc = frames.to(cfg.dtype) + params["enc_pos"][None, :frames.shape[1]]
     positions = torch.arange(enc.shape[1], device=enc.device)
     for bp in layer_params(params, "enc_blocks"):
-        enc = _attn_block_train(enc, bp, cfg, positions, causal=False)
+        enc, _ = _attn_block_train(enc, bp, cfg, positions, causal=False)
     return apply_norm(enc, subtree(params, "enc_norm"), cfg.norm)
 
 
@@ -498,7 +569,7 @@ def _attn_prefill(x: torch.Tensor, bp: dict, cfg: ArchConfig,
         att = attention_train(qx, ck, cv, causal=False,
                               q_chunk=cfg.attn_q_chunk)
         x = x + att.reshape(b, s, -1) @ bp["cross"]["wo"]
-    return _ffn(x, bp, cfg)
+    return _ffn(x, bp, cfg)[0]
 
 
 def _ssm_layer_prefill(x: torch.Tensor, bp: dict, cfg: ArchConfig,

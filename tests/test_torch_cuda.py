@@ -13,7 +13,8 @@ step's sparse uplinks card against CPU bitwise and a checkpoint round trip
 of card tensors; the sharded engine on the card (one rank over NCCL, two
 over gloo on the one card) bitwise the unsharded batched engine; the moe,
 ssm, hybrid, vlm and audio families' smoke serve (olmoe, mamba2, zamba2,
-phi-3-vision, whisper) card against CPU.
+phi-3-vision, whisper) card against CPU; one LGC training round of each
+of these families' smoke configs card against CPU.
 
 These tests need an NVIDIA card and ``nvcc``; without a card they skip with
 a reason.  The file imports neither ``jax`` nor the reference package, so it
@@ -1258,3 +1259,53 @@ def test_modality_smoke_serve_on_the_card_matches_the_cpu(card, arch, sites):
         [(gpu[n], cpu[n]) for n in ("cross_k", "cross_v") if n in cpu]
     for got, want in pairs:
         torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+# the families' training path
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-370m", "zamba2-1.2b",
+                                  "phi-3-vision-4.2b", "whisper-small"])
+def test_family_lgc_round_on_the_card_matches_the_cpu(card, arch):
+    """One ``dense_masked`` round of the smoke config in f32 (M = 2, H = 2,
+    every leaf through the row kernels, channel 1 dropped on device 1, a
+    random modality prefix) with the same weights, error memory and batch
+    on both: the loss within rtol 1e-5, params and error memory within
+    rtol 1e-5 / atol 1e-6 (1e-5 for the SSD families, as the CPU tests
+    against the reference), at most 0.1% of a leaf off (a coordinate next
+    to a bin edge); each row kernel launched once a leaf."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import steps, train
+    from repro_torch.models import transformer as ptf
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, cfg.vocab_size, (4, 32))
+    batch = {"tokens": torch.from_numpy(toks),
+             "labels": torch.from_numpy(np.roll(toks, -1, 1))}
+    stub = train.modality_prefix(cfg, 4, "cpu")
+    if stub is not None:
+        batch["prefix"] = torch.from_numpy(rng.standard_normal(
+            tuple(stub.shape)).astype(np.float32))
+    params = ptf.init_params(cfg, seed=0, device="cpu")
+    ef = {k: torch.from_numpy((rng.standard_normal((2,) + tuple(v.shape))
+                               * 1e-5).astype(np.float32))
+          for k, v in params.items()}
+    received = torch.tensor([[1, 1, 1], [1, 0, 1]], dtype=torch.int32)
+    step = steps.make_lgc_train_step(cfg, 2, steps.LGCStepConfig(
+        local_steps=2, local_lr=3e-3, sparsity=(0.05, 0.1, 0.1),
+        backend="cuda", pallas_min_elems=1))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    want = step(params, ef, batch, received)
+    pk.reset_launch_counts()
+    got = step(*[{k: v.to(card) for k, v in t.items()}
+                 for t in (params, ef, batch)], received.to(card))
+    np.testing.assert_allclose(float(got[2]), float(want[2]), rtol=1e-5)
+    atol = 1e-5 if cfg.arch_type in ("ssm", "hybrid") else 1e-6
+    for part in (0, 1):
+        for k, w in want[part].items():
+            off = ~torch.isclose(got[part][k].cpu(), w, rtol=1e-5, atol=atol)
+            assert float(off.float().mean()) <= 1e-3, (part, k)
+    for name in ("maxabs_rows", "histogram_rows", "sparsify_ef_rows"):
+        assert pk.LAUNCHES[name] == len(params)
+    assert pk.LAUNCHES["maxabs"] == pk.LAUNCHES["sparsify_ef"] == 0

@@ -37,7 +37,7 @@ from repro.models import ssd as jssd  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config  # noqa: E402
 from repro_torch.configs.base import ArchConfig as PArch  # noqa: E402
-from repro_torch.launch import serve_decode  # noqa: E402
+from repro_torch.launch import serve_decode, train  # noqa: E402
 from repro_torch.launch.steps import (make_prefill_step,  # noqa: E402
                                       make_serve_step)
 from repro_torch.models import moe as pmoe  # noqa: E402
@@ -193,13 +193,20 @@ def test_other_archs_and_training_still_refuse():
         for get in (get_config, get_smoke_config):
             with pytest.raises(NotImplementedError, match=item):
                 get(arch)
+    # the families' training path (A16) is ported: lm_loss runs on each,
+    # the vlm and audio families with the driver's zero modality stub
     for arch in ARCHS + modalities:
         cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
         toks = torch.zeros((1, 16), dtype=torch.int64)
-        with pytest.raises(NotImplementedError, match="A16"):
-            ptf.forward_hidden({}, cfg, toks)
-        with pytest.raises(NotImplementedError, match="A16"):
-            ptf.lm_loss({}, cfg, {"tokens": toks, "labels": toks})
+        batch = {"tokens": toks, "labels": toks}
+        prefix = train.modality_prefix(cfg, 1, "cpu")
+        if prefix is not None:
+            batch["prefix"] = prefix
+            with pytest.raises(ValueError, match="prefix"):
+                ptf.lm_loss(ptf.init_params(cfg, device="cpu"), cfg,
+                            {"tokens": toks, "labels": toks})
+        loss = ptf.lm_loss(ptf.init_params(cfg, device="cpu"), cfg, batch)
+        assert loss.shape == () and bool(torch.isfinite(loss))
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,10 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.checkpoint import io as jio  # noqa: E402
 from repro.configs import get_smoke_config  # noqa: E402
+from repro.launch import compat  # noqa: E402
+from repro.launch import sharding_rules as rules  # noqa: E402
 from repro.launch import steps as jsteps  # noqa: E402
+from repro.launch.mesh import make_host_mesh  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
 from repro.optim import optimizers as jopt  # noqa: E402
 from repro_torch.checkpoint import io as pio  # noqa: E402
@@ -31,7 +34,8 @@ from repro_torch.launch import train  # noqa: E402
 from repro_torch.models import transformer as ptf  # noqa: E402
 from repro_torch.optim import optimizers as popt  # noqa: E402
 from repro_torch.weights import params_from_jax, params_to_jax  # noqa: E402
-from test_torch_lgc_step import ATOL, P_TINY, RTOL, TINY  # noqa: E402
+from test_torch_lgc_step import (ATOL, MAX_FLIP_SHARE, P_TINY,  # noqa: E402
+                                  RTOL, TINY, PArch)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -222,6 +226,95 @@ def test_driver_trains_at_smoke_size_and_checkpoints(mode, tmp_path):
     assert step == 6
     for k, v in params_from_jax(back).items():
         np.testing.assert_array_equal(_bits(v), _bits(ours[k]), err_msg=k)
+
+
+def _support_flips(a: np.ndarray, b: np.ndarray) -> float:
+    """Share of a leaf's coordinates that are zero in one and not the
+    other."""
+    return float(((a != 0) != (b != 0)).mean())
+
+
+def test_driver_step_selects_over_whole_leaves_as_the_references():
+    """C10: one ``lgc_sparse`` round of the port's step as the driver
+    builds it (no ``model_axis``) against the reference's
+    ``make_lgc_train_step`` as its driver builds it (no
+    ``param_spec_tree``), qwen2-100m smoke in f32, M = 1, H = 2: both
+    select over each leaf as one row, so the error memory's support agrees
+    but for coordinates next to a bin edge (at most 0.1% of a leaf) and
+    the params agree at the trajectory tolerance.  The 100M task's rule
+    (``model_axis=leaf_model_axis``: rows of the model-dim view) selects
+    other coordinates, as the reference's task does with its specs."""
+    sparsity, lr = (0.01, 0.02, 0.02), 3e-2
+    j_cfg = dataclasses.replace(get_smoke_config("qwen2-100m"),
+                                dtype=jnp.float32)
+    p_cfg = PArch(**{f.name: getattr(j_cfg, f.name)
+                     for f in dataclasses.fields(j_cfg) if f.name != "dtype"},
+                  dtype=torch.float32)
+    mesh = make_host_mesh(1)
+    compat.set_mesh(mesh)
+    p0 = jax.device_get(jtf.init_params(j_cfg, jax.random.PRNGKey(0)))
+    rng = np.random.default_rng(10)
+    x = rng.integers(0, j_cfg.vocab_size, (4, 16), dtype=np.int32)
+    batch = {"tokens": x, "labels": np.roll(x, -1, 1)}
+    j_step = jax.jit(jsteps.make_lgc_train_step(
+        j_cfg, mesh, jsteps.LGCStepConfig(
+            local_steps=2, sparsity=sparsity, local_lr=lr,
+            aggregate="sparse_gather"),
+        rules.batch_specs(j_cfg, batch, mesh)))
+    j_params, j_ef, j_loss = j_step(p0, jsteps.init_ef_tree(p0, 1), batch)
+    want_p = params_from_jax(jax.device_get(j_params))
+    want_e = {k: v.numpy() for k, v in
+              params_from_jax(jax.device_get(j_ef)).items()}
+
+    cfg = psteps.LGCStepConfig(local_steps=2, sparsity=sparsity,
+                               local_lr=lr, aggregate="sparse_gather")
+    pb = {k: torch.from_numpy(v).long() for k, v in batch.items()}
+    p_start = params_from_jax(p0)
+    outs = {rule: psteps.make_lgc_train_step(
+        p_cfg, 1, cfg, model_axis=rule)(
+            p_start, psteps.init_ef_tree(p_start, 1), pb)
+        for rule in (None, psteps.leaf_model_axis)}
+    params, ef, loss = outs[None]
+    np.testing.assert_allclose(float(loss), float(j_loss), rtol=RTOL)
+    for k, w in want_p.items():
+        off = ~np.isclose(params[k].numpy(), w.numpy(), rtol=RTOL, atol=ATOL)
+        assert off.mean() <= MAX_FLIP_SHARE, (k, int(off.sum()))
+        assert _support_flips(ef[k].numpy(), want_e[k]) <= MAX_FLIP_SHARE, k
+    task_ef = outs[psteps.leaf_model_axis][1]
+    wq = "blocks/attn/wq"
+    assert _support_flips(task_ef[wq].numpy(), want_e[wq]) > MAX_FLIP_SHARE
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "whisper-small"])
+def test_driver_trains_the_families_at_smoke_size(arch):
+    """``--mode lgc`` on a moe and an audio arch (its zero frame stub in
+    every batch): the loss falls (the driver returns instead of exiting
+    1)."""
+    losses = train.main([
+        "--arch", arch, "--smoke", "--steps", "4", "--batch", "4",
+        "--seq", "16", "--mode", "lgc", "--devices", "2", "--lr", "3e-2",
+        "--local-steps", "2", "--device", "cpu"])
+    assert len(losses) == 4 and losses[-1] < losses[0]
+    assert all(np.isfinite(losses))
+
+
+def test_driver_builds_the_modality_stub():
+    """The reference's shapes in ``cfg.dtype``: the audio frames zeros as
+    there, the vlm patches standard normal draws from the seed (the
+    reference's zeros overflow the gradient at depth:
+    tests/test_torch_family_training.py)."""
+    cfg = get_smoke_config("phi-3-vision-4.2b")
+    p_cfg = train.get_smoke_config("phi-3-vision-4.2b")
+    stub = train.modality_prefix(p_cfg, 3, "cpu")
+    assert tuple(stub.shape) == (3, cfg.n_prefix_tokens, 1024)
+    assert stub.dtype == p_cfg.dtype and bool(stub.all())
+    assert torch.equal(stub, train.modality_prefix(p_cfg, 3, "cpu"))
+    p_cfg = train.get_smoke_config("whisper-small")
+    frames = train.modality_prefix(p_cfg, 2, "cpu")
+    assert tuple(frames.shape) == (2, p_cfg.encoder_seq, p_cfg.d_model)
+    assert frames.dtype == p_cfg.dtype and not frames.any()
+    assert train.modality_prefix(train.get_smoke_config("mamba2-370m"), 2,
+                                 "cpu") is None
 
 
 def test_driver_refuses_what_is_not_ported():
