@@ -44,7 +44,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    shapes (B=8, H=Kv=16, W=4096, Dh=128: olmoe; B=8, H=Kv=32, W=4096,
    Dh=64: zamba2), the vlm and audio ones (B=8, H=Kv=32, W=4096, Dh=96:
    phi-3-vision; B=8, H=Kv=12, W=1,500, Dh=64: whisper's cross-attention
-   over its encoder slots) and Dh 96 under GQA (B=2, H=16, Kv=2, W=300),
+   over its encoder slots), Dh 96 under GQA (B=2, H=16, Kv=2, W=300) and
+   A15's configs' decode shapes at Dh 128 (B=8, H=32, Kv=2: glm4-9b, REP
+   16; B=8, H=36, Kv=4: starcoder2-7b, REP 9; B=4, H=56, Kv=8: yi-34b, REP
+   7; B=8, H=48, Kv=8: grok-1-314b, REP 6; W=4096),
    with lengths 1, W/2+3 and W; slots past the length filled with +-1e9
    must leave the output alone;
    B=1 (many splits), W=16, REP=16 and W=1,500 (Dh 64 and 96) at lengths
@@ -53,6 +56,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    on fixed inputs (``swa_digests``) bitwise those of the kernel before
    Dh 96 was added (``SWA_DIGESTS``, made on the same card type, torch
    and nvcc);
+3b. threefry_normal, the weights' draw, bitwise its plain version on the
+   card at one layer of yi-34b's ``w_up`` and glm4-9b's ``embed`` (bf16),
+   olmoe's router (f32) and an odd length;
 4. a small f32 trainer on the card, kernel backend against the plain backend
    (every leaf through the kernels), to the CPU tests' tolerances;
 5. the training path: ``make_task("qwen2_100m", preset="full")`` at full
@@ -106,7 +112,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    (up to phi-3-vision's 805,306,368-float ``w_down``) bitwise the plain
    row versions through all three kernels; host ms a round, device busy ms
    and idle share (round 4 under torch.profiler), peak memory (one
-   ``family_training`` JSON line);
+   ``family_training`` JSON line); A15's configs the same way: the smoke
+   round of glm4, starcoder2, yi and grok-1 (SGD momentum), then glm4-9b
+   (M = 2), starcoder2-7b (M = 2) and yi-34b (M = 1) at 4 layers through
+   the step functions, 9 / 8 / 9 kernel-sized leaves (glm4's 620,756,992-
+   float ``embed`` the largest leaf);
 6. a small f32 serve (qwen2-smoke), card against CPU with the same weights:
    8-token prefill into a 16-slot ring, 24 greedy steps past the wrap; the
    logits agree at rtol = atol = 1e-5 and the tokens are equal; then the
@@ -115,7 +125,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ones (phi3v-smoke: 16 patch embeddings and 8 tokens, whisper-small-smoke:
    64 encoder frames and 16 tokens; 24-slot ring, 16 steps; the caches,
    whisper's cross K/V included, within 1e-5), swa_decode launched steps x
-   attention sites times (whisper: self- and cross-attention a block);
+   attention sites times (whisper: self- and cross-attention a block); and
+   A15's four smoke configs (a 16-token prefill into a 24-slot ring, 16
+   steps);
 7. the serving path: qwen2-1.5b at full width (1,543,910,912 parameters,
    bf16), 8 prompts of 4,000 tokens prefilled into the 4,096-slot ring of
    ``cfg.window``, then 160 greedy steps (positions 4000-4159, the ring
@@ -126,9 +138,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    420,136,448, zamba2-1.2b 1,170,473,856), 8 prompts of 4,096 tokens into
    a 4,096-slot ring and 64 greedy steps past its wrap: swa_decode launched
    16 x 64, 0 and 7 x 64 times, no other kernel; for each (and for phase
-   7) the draw's seconds, prefill ms and prompt tokens/s, decode ms/step
-   beside the step's bytes bound, peak memory, finite logits (one
-   ``families`` JSON line);
+   7) the draw's seconds (threefry_normal launched once a layer of every
+   drawn leaf, nothing else launched by the draw), prefill ms and prompt
+   tokens/s, decode ms/step beside the step's bytes bound, peak memory,
+   finite logits (one ``families`` JSON line);
 7c. the vlm and audio families at full width in bf16 with weights and
    modality stubs drawn on the card: phi-3-vision-4.2b (3,825,404,928
    parameters) with 8 x 576 patch embeddings and 3,520 tokens filling a
@@ -142,6 +155,17 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    the cross K/V projections are not read by a decode step, ``dec_pos``
    one row; whisper's cross cache is), swa_decode launches a step, peak
    memory and the device's idle share;
+7d. A15's configs at full width in bf16 with weights drawn on the card:
+   glm4-9b (40 layers, 9,399,951,360 parameters; swa_decode at REP 16)
+   and starcoder2-7b (32, 7,400,268,800; REP 9) at batch 8 over
+   4,096-token prompts and 64 steps past the 4,096-slot ring's wrap,
+   yi-34b (60 layers, 34,388,917,248; REP 7; leaves of up to 8.8 G
+   elements, past 2**31) at batch 4 over 4,000 tokens and 160 steps,
+   grok-1-314b at 2 of its 64 layers
+   (11,450,578,944; REP 6; the gated experts' prefill buffer (8, 10,240,
+   6,144)) as glm4; then 8 steps of each under torch.profiler; swa_decode
+   launched sites x steps times and nothing else; one ``configs`` JSON
+   line as 7c's;
 8. the simulator: the threefry PRNG on the card (``split``, ``fold_in``,
    ``stream_key``, raw bits, ``randint``, ``uniform``, ``normal``,
    ``truncated_normal``, the batched ``stream_keys`` and the row samplers)
@@ -251,7 +275,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    so that each call finds them outside the L2 cache, as a decode step does,
    and so at the families' two shapes (``at_families``, with the families'
    launches in ``launches_families``) and at phi-3-vision's and whisper's
-   cross-attention shapes (``at_modalities``, ``launches_modalities``);
+   cross-attention shapes (``at_modalities``, ``launches_modalities``)
+   and at A15's configs' decode shapes (``at_configs``,
+   ``launches_configs``); threefry_normal, the weights' draw (not the port
+   of a TPU kernel), at one layer of yi-34b's ``w_up`` in bf16 beside its
+   plain version (no library call draws the same numbers), its
+   ``launches`` those of phase 7's draw and ``launches_families``,
+   ``launches_modalities`` and ``launches_configs`` those of 7b-7d;
 10. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package ``repro``.
@@ -262,6 +292,7 @@ import contextlib
 import itertools
 import json
 import math
+import os
 import pathlib
 import statistics
 import sys
@@ -288,10 +319,17 @@ SWA_FAMILY_SHAPES = {"olmoe-1b-7b": (8, 16, 16, 4096, 128),
 # 64-slot tile partial: 1,500 = 23 x 64 + 28)
 SWA_MODALITY_SHAPES = {"phi-3-vision-4.2b": (8, 32, 32, 4096, 96),
                        "whisper-small": (8, 12, 12, 1500, 64)}
+# A15's configs' decode shapes, all at Dh 128 over a 4,096-slot ring:
+# glm4-9b REP 16 (two groups of 8 query heads a KV head), starcoder2-7b REP
+# 9 (a group of 8 and one of 1), yi-34b REP 7 (batch 4), grok-1-314b REP 6
+SWA_CONFIG_SHAPES = {"glm4-9b": (8, 32, 2, 4096, 128),
+                     "starcoder2-7b": (8, 36, 4, 4096, 128),
+                     "yi-34b": (4, 56, 8, 4096, 128),
+                     "grok-1-314b": (8, 48, 8, 4096, 128)}
 SWA_SHAPES = [(2, 4, 4, 512, 64), (1, 8, 8, 1024, 128), (4, 2, 2, 256, 32),
               SWA_SERVE_SHAPE, (8, 12, 2, 4160, 128),
               *SWA_FAMILY_SHAPES.values(), *SWA_MODALITY_SHAPES.values(),
-              (2, 16, 2, 300, 96)]
+              (2, 16, 2, 300, 96), *SWA_CONFIG_SHAPES.values()]
 # the kernel's outputs at Dh 32 / 64 / 128 on fixed inputs, one digest a
 # shape (``swa_digests``), from the kernel before Dh 96 was added.  They
 # hold only where they were made (``SWA_DIGESTS_MADE_ON``): the card's SM
@@ -305,7 +343,11 @@ SWA_DIGESTS = {
     "2,4,2,16,64": "f4d945a508609613", "2,4,4,512,64": "2d886be3223d5c03",
     "4,2,2,256,32": "fc122e7887f491cf", "8,12,12,1500,64": "7f48f2ded5c32189",
     "8,12,2,4096,128": "09598b2080849a87", "8,12,2,4160,128": "df68e3efdcf3d7ce",
-    "8,16,16,4096,128": "4231f81ceae9b9b4", "8,32,32,4096,64": "11731bc3e3fbc395"}
+    "8,16,16,4096,128": "4231f81ceae9b9b4", "8,32,32,4096,64": "11731bc3e3fbc395",
+    # A15's configs' decode shapes, made from the same kernel (and equal to
+    # the digests that the current kernel gives)
+    "4,56,8,4096,128": "6eb317030220454c", "8,32,2,4096,128": "c9af3467381df167",
+    "8,36,4,4096,128": "c32dffa9cd7a1b07", "8,48,8,4096,128": "a5f5fd18efbf831b"}
 # the moe, ssm and hybrid serving paths at full width: (arch, params by
 # shape); batch 8, 4,096-token prompts (a multiple of the SSD chunk, 128)
 # into a 4,096-slot ring, then 64 greedy steps past its wrap
@@ -322,6 +364,17 @@ SWA_EDGE_SHAPES = [(1, 12, 2, 4096, 128), (2, 4, 2, 16, 64),
 MODALITIES = {"phi-3-vision-4.2b": (3_825_404_928, 8, 3_520, 64, 4_096),
               "whisper-small": (304_508_928, 8, 192, 240, 256)}
 MODALITY_PROFILE_STEPS = 16
+# A15's configs at full width: (layers served, params by shape at that
+# depth, batch, prompt tokens, greedy steps) into a 4,096-slot ring, then
+# CONFIG_PROFILE_STEPS more under the profiler; grok-1-314b at 2 of its 64
+# layers (316 G parameters do not fit one card); yi-34b (64.05 GiB of
+# weights, leaves of up to 8.8 G elements) at batch 4 and 4,000 prompt
+# tokens, 160 steps past the wrap
+CONFIGS = {"glm4-9b": (40, 9_399_951_360, 8, 4_096, 64),
+           "starcoder2-7b": (32, 7_400_268_800, 8, 4_096, 64),
+           "yi-34b": (60, 34_388_917_248, 4, 4_000, 160),
+           "grok-1-314b": (2, 11_450_578_944, 8, 4_096, 64)}
+CONFIG_PROFILE_STEPS = 8
 # the simulator: lr_mnist at the quickstart's defaults and cnn_mnist at the
 # task factory's (n_train 6000, batch 64) with 8 devices; (task, M, n_train,
 # rounds, eval_every, modes)
@@ -355,6 +408,19 @@ SPARSE_ROW_SHAPES = [(M_DEVICES * 3_072, LARGEST_LEAF // 3_072),
 # the crossover sweep of the two row forms: rows of n floats, 256 MB of u
 SWEEP_NS = (68, 768, 1_536, 3_072, 9_216, 65_536)
 SWEEP_FLOATS = 1 << 26
+
+# the weights' draw kernel against its plain version: (shape, dtype, std)
+# of one layer of yi-34b's w_up (timed), glm4-9b's embed, olmoe's f32
+# router and an odd length
+THREEFRY_CASES = [((7_168, 20_480), "bfloat16", 7_168 ** -0.5),
+                  ((151_552, 4_096), "bfloat16", 0.02),
+                  ((2_048, 64), "float32", 2_048 ** -0.5),
+                  ((4_097, 3), "float32", 1.0)]
+# operations an element of the draw, counted from its source: threefry's
+# 2 + 20 x 3 (add, rotate, xor) + 5 x 3 key injections and its output xor,
+# the uniform's 5, erf_inv's ~33 over the log1p branch taken, the scales
+# and the cast; counted at the f32 rate
+THREEFRY_OPS = 120
 
 # the segmented forms (per-layer budgets): the simulator's models
 # with their device counts, the per-layer runs (cnn_mnist, M=8, 24 rounds
@@ -991,6 +1057,29 @@ def phase_swa(gen, errs: dict) -> None:
 # phase 4: small trainer, kernel backend against the plain backend
 # ---------------------------------------------------------------------------
 
+def phase_threefry(errs: dict) -> None:
+    """Phase 3b: the threefry_normal kernel bitwise its plain version on
+    the card at ``THREEFRY_CASES``."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.kernels import ref, threefry_normal
+    keys = prng.split(prng.PRNGKey(0), len(THREEFRY_CASES))
+    for key, (shape, dt, std) in zip(keys, THREEFRY_CASES):
+        dtype = getattr(torch, dt)
+        got = threefry_normal(torch.empty(shape, dtype=dtype, device="cuda"),
+                              key, std)
+        want = ref.threefry_normal_ref(key, shape, std, dtype, "cuda")
+        ib = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        off = int((got.view(ib) != want.view(ib)).sum())
+        check(off == 0, f"threefry_normal {shape} {dt}: {off} elements "
+              f"differ from the plain version")
+        errs["threefry_normal"] = max(errs["threefry_normal"],
+                                      max_abs_err(got, want))
+        del got, want
+    log(f"threefry_normal: bitwise the plain version on the card at "
+        f"{[(list(c[0]), c[1]) for c in THREEFRY_CASES]}")
+
+
 def phase_small_trainer() -> None:
     import dataclasses
     import torch
@@ -1538,26 +1627,40 @@ def phase_driver() -> None:
 # ---------------------------------------------------------------------------
 
 # arch -> (FL devices M, batch, sequence, local learning rate): LGC rounds
-# (dense_masked, H = 2, the CUDA kernels) at the published widths; olmoe at
-# 4 of its 16 layers (full depth needs ~111 GB in this step, and each of
-# its expert leaves would hold 2**31 floats).  Sized so that the (8 + 8M)
-# bytes a parameter of the step, plus activations, fit on 80 GB.
+# (dense_masked, H = 2, the CUDA kernels) at the published widths; olmoe,
+# glm4, starcoder2 and yi at 4 layers (TRAIN_LAYERS: olmoe's full depth
+# needs ~111 GB in this step, and each of its expert leaves would hold
+# 2**31 floats; the dense three take ~17 B a parameter at M = 1 and ~32 at
+# M = 2 with their activations).  Sized so that the (8 + 8M) bytes a
+# parameter of the step, plus activations, fit on 80 GB.  grok-1 trains
+# only at its smoke size: one of its layers with the embedding and head is
+# 6.53 G parameters, ~102 GiB at M = 1.
 FAMILY_TRAIN = {"olmoe-1b-7b": (2, 8, 128, 2e-2),
                 "mamba2-370m": (2, 8, 256, 5e-2),
                 "zamba2-1.2b": (2, 8, 256, 3e-2),
                 "phi-3-vision-4.2b": (1, 4, 64, 2e-2),
-                "whisper-small": (2, 4, 128, 3e-2)}
-OLMOE_TRAIN_LAYERS = 4
-# params by shape (olmoe at 4 layers) and the leaves of >= PALLAS_MIN_ELEMS
+                "whisper-small": (2, 4, 128, 3e-2),
+                "glm4-9b": (2, 8, 128, 2e-2),
+                "starcoder2-7b": (2, 8, 128, 5e-3),
+                "yi-34b": (1, 4, 128, 2e-2)}
+TRAIN_LAYERS = {"olmoe-1b-7b": 4, "glm4-9b": 4, "starcoder2-7b": 4,
+                "yi-34b": 4}
+# the smoke rounds, card against CPU: every family and config
+FAMILY_SMOKE = (*FAMILY_TRAIN, "grok-1-314b")
+# params by shape (at TRAIN_LAYERS) and the leaves of >= PALLAS_MIN_ELEMS
 # floats, each compressed by one launch of each LGC row kernel a round
 FAMILY_TRAIN_PARAMS = {"olmoe-1b-7b": 1_884_833_792,
                        "mamba2-370m": 420_136_448,
                        "zamba2-1.2b": 1_170_473_856,
                        "phi-3-vision-4.2b": 3_825_404_928,
-                       "whisper-small": 304_508_928}
+                       "whisper-small": 304_508_928,
+                       "glm4-9b": 2_057_361_408,
+                       "starcoder2-7b": 1_321_403_392,
+                       "yi-34b": 3_148_938_240}
 FAMILY_KERNEL_LEAVES = {"olmoe-1b-7b": 10, "mamba2-370m": 6,
                         "zamba2-1.2b": 14, "phi-3-vision-4.2b": 10,
-                        "whisper-small": 20}
+                        "whisper-small": 20, "glm4-9b": 9,
+                        "starcoder2-7b": 8, "yi-34b": 9}
 # round 1 warms up, round 2 keeps its largest leaf's (e, delta) on the
 # host, round 3 is timed, round 4 runs under torch.profiler
 FAMILY_TRAIN_ROUNDS, CAPTURE_ROUND, TIMED_ROUND, PROFILED_ROUND = 4, 1, 2, 3
@@ -1572,8 +1675,8 @@ def family_train_config(arch: str):
     import dataclasses
     from repro_torch.configs import get_config
     cfg = get_config(arch)
-    if arch == "olmoe-1b-7b":
-        cfg = dataclasses.replace(cfg, n_layers=OLMOE_TRAIN_LAYERS)
+    if arch in TRAIN_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS[arch])
     return cfg
 
 
@@ -1669,10 +1772,10 @@ def instrumented_lgc_rounds(capture_n: int, capture_from: int):
         tf.init_params = orig[3]
 
 
-def olmoe_train_rounds(cfg, m: int, batch: int, seq: int, lr: float
-                       ) -> list[float]:
+def step_train_rounds(cfg, m: int, batch: int, seq: int, lr: float
+                      ) -> list[float]:
     """The driver's ``--mode lgc`` loop through the step functions, for a
-    config the driver cannot name (olmoe at 4 of its 16 layers)."""
+    config the driver cannot name (a depth cut: ``TRAIN_LAYERS``)."""
     import torch
     from repro_torch.data.tokens import TokenPipeline
     from repro_torch.launch import steps
@@ -1692,7 +1795,7 @@ def olmoe_train_rounds(cfg, m: int, batch: int, seq: int, lr: float
             "labels": torch.from_numpy(y).to("cuda", torch.long)})
         losses.append(float(loss))
     check(losses[-1] < losses[0],
-          f"olmoe-1b-7b ({cfg.n_layers} layers): loss did not fall {losses}")
+          f"{cfg.name} ({cfg.n_layers} layers): loss did not fall {losses}")
     return losses
 
 
@@ -1728,10 +1831,11 @@ def check_leaf_rows(e, x, cum, recv, what: str, errs: dict) -> None:
 
 def family_train(arch: str, smi: str, errs: dict) -> dict:
     """One family's LGC rounds at full width (the train driver, or the step
-    functions for olmoe's cut), instrumented; then its largest leaf's
+    functions for a depth cut), instrumented; then its largest leaf's
     round-2 rows through the kernels against the plain versions."""
     import gc
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.launch import steps, train
     from repro_torch.models import transformer as tf
     m, batch, seq, lr = FAMILY_TRAIN[arch]
@@ -1750,10 +1854,10 @@ def family_train(arch: str, smi: str, errs: dict) -> dict:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with instrumented_lgc_rounds(n_big, CAPTURE_ROUND * n_leaves) as rec:
-        if arch == "olmoe-1b-7b":
-            losses = olmoe_train_rounds(cfg, m, batch, seq, lr)
-            how = (f"step functions, {OLMOE_TRAIN_LAYERS} of 16 layers "
-                   f"(full depth needs ~111 GB)")
+        if arch in TRAIN_LAYERS:
+            losses = step_train_rounds(cfg, m, batch, seq, lr)
+            how = (f"step functions, {cfg.n_layers} of "
+                   f"{get_config(arch).n_layers} layers")
         else:
             argv = ["--arch", arch, "--mode", "lgc", "--devices", str(m),
                     "--batch", str(batch), "--seq", str(seq),
@@ -1881,11 +1985,12 @@ def family_train_smoke(arch: str) -> None:
 
 
 def phase_family_training(smi: str, errs: dict) -> dict:
-    """Phase 5c: each family's smoke config card against CPU, then each at
-    full width; one ``family_training`` JSON line."""
+    """Phase 5c: each family's and config's smoke config card against CPU,
+    then each but grok-1 at full width; one ``family_training`` JSON
+    line."""
     import torch
     t0 = time.perf_counter()
-    for arch in FAMILY_TRAIN:
+    for arch in FAMILY_SMOKE:
         family_train_smoke(arch)
     # the profiler's first start in a process takes seconds: not in a round
     with torch.profiler.profile(
@@ -1987,6 +2092,8 @@ def phase_small_serve() -> None:
         small_serve(arch, 16, 24, 16)
     small_serve("phi-3-vision-4.2b", 8, 24, 16)   # 16 patches + 8 tokens
     small_serve("whisper-small", 16, 24, 16)
+    for arch in CONFIGS:
+        small_serve(arch, 16, 24, 16)
 
 
 # ---------------------------------------------------------------------------
@@ -2028,15 +2135,17 @@ def decode_step_bytes(cfg, params: dict, cache: dict, batch: int,
 
 def full_serve(arch: str, want_params: int, batch: int, prompt: int,
                gen: int, smi: str, window: int | None = None,
-               profile_steps: int = 0) -> dict:
+               profile_steps: int = 0, layers: int | None = None) -> dict:
     """The arch at full width in bf16, weights (and a vlm or audio
     prompt's modality stub) drawn on the card: ``batch`` prompts of
     ``prompt`` tokens into a ring of ``window`` slots (``cfg.window`` by
     default), then ``gen`` greedy steps past its wrap, and
-    ``profile_steps`` more under torch.profiler.  Checks the param count,
-    the position, the wrap (none without K/V), finite logits, the tokens
-    and the launches (swa_decode steps x sites, every other kernel 0);
-    returns the timings beside the step's bytes bound."""
+    ``profile_steps`` more under torch.profiler; ``layers`` cuts the
+    depth.  Checks the param count, the position, the wrap (none without
+    K/V), finite logits, the tokens and the launches (swa_decode steps x
+    sites, every other kernel 0); returns the timings beside the step's
+    bytes bound."""
+    import dataclasses
     import gc
     import torch
     from repro_torch.configs import get_config
@@ -2044,14 +2153,21 @@ def full_serve(arch: str, want_params: int, batch: int, prompt: int,
     from repro_torch.launch.serve_decode import serve, stub_prefix
     from repro_torch.models import transformer as tf
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     n_params = tf.param_count(cfg)
     check(n_params == want_params, f"{arch} param_count {n_params}")
     window = window or cfg.window
     torch.cuda.synchronize()
+    reset_launch_counts()
     t0 = time.perf_counter()
     params = tf.init_params(cfg, seed=0)
     torch.cuda.synchronize()
     draw_s = time.perf_counter() - t0
+    draws = dict(LAUNCHES)
+    check(draws["threefry_normal"] > 0 and all(
+        c == 0 for name, c in draws.items() if name != "threefry_normal"),
+          f"{arch}: the draw launched {draws}")
     gen_ = torch.Generator(device="cuda").manual_seed(1)
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
                             generator=gen_, device="cuda")
@@ -2089,20 +2205,24 @@ def full_serve(arch: str, want_params: int, batch: int, prompt: int,
     step_bytes = decode_step_bytes(cfg, params, r["cache"], batch,
                                    sum(slots) / len(slots))
     step_bound = step_bytes / HBM_BYTES_PER_S * 1e3
-    row = {"params": n_params, "draw_s": draw_s,
+    row = {"params": n_params, "layers": cfg.n_layers, "batch": batch,
+           "prompt": prompt, "steps": steps, "draw_s": draw_s,
            "prefill_ms": r["prefill_s"] * 1e3,
            "prompt_tokens_per_s": r["prompt_tokens_per_s"],
            "decode_ms_per_step": r["decode_ms_per_step"],
            "generated_tokens_per_s": r["generated_tokens_per_s"],
            "step_bytes": step_bytes, "step_bound_ms": step_bound,
            "peak_mem_gib": r["peak_mem_gib"], "launches": counts,
+           "draw_launches": draws["threefry_normal"],
            "swa_decode_sites": sites, "card": smi}
     if n_prefix:
         row["prefill_positions_per_s"] = r["prefill_positions_per_s"]
     if r["profile"]:
         row["profile"] = r["profile"]
-    log(f"serve: {arch} full width, {n_params:,} params (bf16), drawn on "
-        f"the card in {draw_s:.2f} s; batch {batch}, prompt {prompt} "
+    log(f"serve: {arch} full width, {cfg.n_layers} layers, {n_params:,} "
+        f"params (bf16), drawn on the card in {draw_s:.2f} s "
+        f"({draws['threefry_normal']} threefry_normal launches); batch "
+        f"{batch}, prompt {prompt} "
         f"(+{n_prefix} patch positions), ring {window} slots, {steps} "
         f"greedy steps to pos {r['pos']}")
     log(f"serve: {arch} prefill {row['prefill_ms']:.1f} ms, "
@@ -2137,6 +2257,11 @@ def phase_families(smi: str) -> dict:
     return out
 
 
+# what a profiled serve's JSON row keeps of ``serve_decode._profile``
+PROFILE_KEYS = ("device_idle_share", "device_busy_ms_per_step",
+                "kernel_ms_per_step_by_group", "kernel_launches_per_step")
+
+
 def phase_modalities(smi: str) -> dict:
     """Phase 7c: the vlm and audio families at full width, each with its
     last steps profiled; one ``modalities`` JSON line."""
@@ -2149,19 +2274,31 @@ def phase_modalities(smi: str) -> dict:
         out[arch] = {k: row[k] for k in (
             "params", "draw_s", "prompt_tokens_per_s", "decode_ms_per_step",
             "generated_tokens_per_s", "step_bytes", "step_bound_ms",
-            "peak_mem_gib", "launches", "card")} | {
+            "peak_mem_gib", "launches", "draw_launches", "card")} | {
             "prefill_s": row["prefill_ms"] / 1e3,
-            "swa_decode_per_step": row["swa_decode_sites"],
-            "device_idle_share": prof["device_idle_share"],
-            "device_busy_ms_per_step": prof["device_busy_ms_per_step"],
-            "kernel_ms_per_step_by_group": prof[
-                "kernel_ms_per_step_by_group"],
-            "kernel_launches_per_step": prof["kernel_launches_per_step"]}
+            "swa_decode_per_step": row["swa_decode_sites"]} | {
+            k: prof[k] for k in PROFILE_KEYS}
         if "prefill_positions_per_s" in row:
             out[arch]["prefill_positions_per_s"] = row[
                 "prefill_positions_per_s"]
     print(json.dumps({"modalities": out}), flush=True)
     log(f"phase 7c (vlm and audio at full width): "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_configs(smi: str) -> dict:
+    """Phase 7d: A15's configs at full width (grok-1 at 2 of 64 layers),
+    each with its last steps profiled; one ``configs`` JSON line."""
+    t0 = time.perf_counter()
+    out = {}
+    for arch, (layers, n, batch, prompt, gen) in CONFIGS.items():
+        row = full_serve(arch, n, batch, prompt, gen, smi,
+                         profile_steps=CONFIG_PROFILE_STEPS, layers=layers)
+        prof = row.pop("profile")
+        out[arch] = row | {k: prof[k] for k in PROFILE_KEYS}
+    print(json.dumps({"configs": out}), flush=True)
+    log(f"phase 7d (A15's configs at full width): "
         f"{time.perf_counter() - t0:.1f} s")
     return out
 
@@ -2467,7 +2604,7 @@ def phase_simulator(smi: str) -> dict:
 
 
 def phase_per_layer(smi: str) -> dict:
-    """cnn_mnist (M=8, 24 rounds, H=4, lgc) under each per-layer policy
+    """cnn_mnist (M=8, 16 rounds, H=4, lgc) under each per-layer policy
     on both engines with backend "cuda", the card against the CPU: every
     sync's candidate mask and (g, e') bitwise the plain segmented pipeline
     on the same card tensors; one launch of each segmented kernel per sync
@@ -3071,7 +3208,7 @@ def phase_population(smi: str) -> dict:
 # ---------------------------------------------------------------------------
 
 # world 1 over NCCL in this process: cnn_mnist at the factory's width and
-# samples, M = 8, 40 rounds (phase 8's static CNN run), lgc
+# samples, M = 8, 40 rounds, lgc
 SHARDED_W1 = ("cnn_mnist", 8, 6000, 40, 10)
 # world 2: two processes on the one card over gloo; lr_mnist M = 8, and a
 # population window set (lr_mnist, N = 100,000, M = 64, dense store,
@@ -3576,7 +3713,43 @@ def phase_time_swa(gen, shape=SWA_SERVE_SHAPE) -> dict:
     return row
 
 
+def phase_time_threefry() -> dict:
+    """threefry_normal at the first of ``THREEFRY_CASES`` (one layer of
+    yi-34b's ``w_up``) beside its plain version; no library call draws
+    these numbers.  The bound: the output written once against
+    ``THREEFRY_OPS`` operations an element."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.device import device_ms
+    from repro_torch.kernels import ref, threefry_normal
+    shape, dt, std = THREEFRY_CASES[0]
+    dtype = getattr(torch, dt)
+    out = torch.empty(shape, dtype=dtype, device="cuda")
+    key = prng.PRNGKey(0)
+    n = out.numel()
+    n_bytes = n * out.element_size()
+    bnd, by = bound_ms(n_bytes, n * THREEFRY_OPS)
+    row = {"shape": list(shape), "dtype": dt,
+           "ms": time_ms(lambda: threefry_normal(out, key, std)),
+           "plain_ms": time_ms(lambda: ref.threefry_normal_ref(
+               key, shape, std, dtype, "cuda"), reps=3, warmup=1),
+           "library_ms": None,
+           "device_ms": device_ms(lambda: threefry_normal(out, key, std)),
+           "bound_ms": bnd, "bound_by": by, "bytes": n_bytes,
+           "ops": n * THREEFRY_OPS}
+    log(f"timing threefry_normal {shape} {dt}: kernel {row['ms']:.5f} ms one "
+        f"call, {row['device_ms']:.5f} ms device; plain {row['plain_ms']:.3f}"
+        f" ms; bound {bnd:.5f} ms ({by}); {n / row['device_ms'] / 1e6:.1f} G "
+        f"elements/s")
+    return row
+
+
 def main(argv: list[str]) -> int:
+    # growable segments: yi-34b's serve (64.05 GiB of weights, a 75.4 GiB
+    # peak) runs after phases whose freed blocks would otherwise split the
+    # card's last free GiBs (an out-of-memory error at its prefill's
+    # 1.71 GiB logits chunk with 3.04 GiB reserved and unused)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
     if argv not in ([], ["--rows"], ["--sharded"], ["--swa-digests"],
                     ["--family-training"]):
@@ -3623,13 +3796,15 @@ def main(argv: list[str]) -> int:
     if argv == ["--family-training"]:   # phase 5c alone
         phase_family_training(smi, {k: 0.0 for k in TPU_KERNELS})
         return 0
-    errs = {k: 0.0 for k in (*TPU_KERNELS, *SEGMENT_KERNELS)}
+    errs = {k: 0.0 for k in (*TPU_KERNELS, *SEGMENT_KERNELS,
+                             "threefry_normal")}
 
     def done(what: str) -> None:   # the run's clock at each phase's end
         log(f"clock: {what} done at {time.perf_counter() - t0:.1f} s")
     phase_kernels(gen, errs)
     done("phase 2")
     phase_swa(gen, errs)
+    phase_threefry(errs)
     done("phase 3")
     phase_small_trainer()
     launches, main_u, dense_steps_per_s = phase_main_path()
@@ -3646,6 +3821,8 @@ def main(argv: list[str]) -> int:
     done("phase 7b")
     modalities = phase_modalities(smi)
     done("phase 7c")
+    configs = phase_configs(smi)
+    done("phase 7d")
     phase_prng()
     sim_launches = phase_simulator(smi)
     done("phase 8, simulator")
@@ -3664,6 +3841,9 @@ def main(argv: list[str]) -> int:
                        for arch, shape in SWA_FAMILY_SHAPES.items()}
     swa_modality_rows = {arch: phase_time_swa(gen, shape)
                          for arch, shape in SWA_MODALITY_SHAPES.items()}
+    swa_config_rows = {arch: phase_time_swa(gen, shape)
+                       for arch, shape in SWA_CONFIG_SHAPES.items()}
+    threefry_row = phase_time_threefry()
 
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():
@@ -3731,7 +3911,10 @@ def main(argv: list[str]) -> int:
                 "launches_modalities": {
                     arch: f["launches"][name]
                     for arch, f in modalities.items()},
-                "at_modalities": swa_modality_rows}
+                "at_modalities": swa_modality_rows,
+                "launches_configs": {
+                    arch: f["launches"][name] for arch, f in configs.items()},
+                "at_configs": swa_config_rows}
         kernels.append(row)
     # the segmented forms: their path is the per-layer runs (the batched
     # CNN run under size_prop for ``launches``), timed at the CNN's (M, D)
@@ -3746,6 +3929,20 @@ def main(argv: list[str]) -> int:
                                       per_layer_launches.items()}}
         row |= seg_times[name][cnn] | {"at": seg_times[name]}
         kernels.append(row)
+    # the weights' draw: the port's own kernel, with no Pallas counterpart
+    # (the reference's jax.random.normal draw is at ``replaces``)
+    kernels.append({
+        "name": "threefry_normal", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/threefry_normal.cu",
+        "replaces": "src/repro/models/layers.py:257",
+        "max_abs_err": errs["threefry_normal"],
+        "launches": serving["draw_launches"],
+        "launches_families": {arch: f["draw_launches"]
+                              for arch, f in families.items()},
+        "launches_modalities": {arch: f["draw_launches"]
+                                for arch, f in modalities.items()},
+        "launches_configs": {arch: f["draw_launches"]
+                             for arch, f in configs.items()}} | threefry_row)
     # every TPU kernel of the repo is in TPU_KERNELS: none is left to port
     print(json.dumps({"kernels": kernels, "not_ported": []}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,11 @@
 
 Port of ``repro/configs/base.py``.  The fields and their defaults are the
 reference's; ``dtype`` is a torch dtype (bf16 by default, as there).  The
-dataclass keeps every field, so a config carries over unchanged.
+dataclass keeps every field, so a config carries over unchanged, and the
+reference's analytic counts: ``param_count`` (its roofline's N, which
+leaves out the biases, the final norm and the vlm and audio families'
+``vis_proj`` and learned positions, so it is below the count of the
+leaves, ``models.transformer.param_count``) and ``active_param_count``.
 """
 from __future__ import annotations
 
@@ -82,3 +86,54 @@ class ArchConfig:
     def vocab_padded(self) -> int:
         """Vocab padded to a multiple of 256 (the reference's layout)."""
         return math.ceil(self.vocab_size / 256) * 256
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.arch_type == "ssm"
+
+    @property
+    def supports_long_decode(self) -> bool:
+        """long_500k: native for ssm / hybrid, the sliding-window ring
+        cache for the rest."""
+        return True
+
+    def param_count(self) -> int:
+        """The reference's analytic parameter count (its 6ND roofline's N,
+        ``repro/configs/base.py:102-136``), kept under the reference's name.
+        It is not the count of the model's leaves: it leaves out biases,
+        the final and encoder norms, positions and ``vis_proj``, which
+        ``models.transformer.param_count`` counts."""
+        d, v = self.d_model, self.vocab_padded
+        n = v * d * (1 if self.tie_embeddings else 2)
+        mlp_gate = 3 if self.mlp in ("swiglu", "geglu") else 2
+        attn = d * self.n_heads * self.hd + 2 * d * self.n_kv_heads * self.hd \
+            + self.n_heads * self.hd * d
+
+        def mlp(dff):
+            return mlp_gate * d * dff
+        di, ns = self.d_inner, self.ssm_state
+        ssm = d * (2 * di + 2 * ns + self.ssm_heads) \
+            + self.ssm_conv * (di + 2 * ns) + di * d + 2 * self.ssm_heads + di
+        if self.arch_type == "ssm":
+            n += self.n_layers * (ssm + 2 * d)
+        elif self.arch_type == "hybrid":
+            n += self.n_layers * (ssm + 2 * d) + attn + mlp(self.d_ff) + 2 * d
+        elif self.arch_type == "moe":
+            moe = d * self.n_experts + self.n_experts * mlp(self.d_exp)
+            n += self.n_layers * (attn + moe + 2 * d)
+        elif self.arch_type == "audio":
+            n += (self.n_layers + self.encoder_layers) * (
+                attn + mlp(self.d_ff) + 2 * d)
+            n += self.n_layers * (attn + d)             # cross-attention
+        else:                                           # dense / vlm
+            n += self.n_layers * (attn + mlp(self.d_ff) + 2 * d)
+        return int(n)
+
+    def active_param_count(self) -> int:
+        """Parameters a token touches (moe: its top-k experts only)."""
+        if self.arch_type != "moe":
+            return self.param_count()
+        mlp_gate = 3 if self.mlp in ("swiglu", "geglu") else 2
+        per_expert = mlp_gate * self.d_model * self.d_exp
+        return int(self.param_count() - self.n_layers * per_expert
+                   * (self.n_experts - self.experts_per_tok))

@@ -11,6 +11,8 @@ model-layer slice of every row):
   layered_sparsify -- fused layered sparsify + error-feedback update
   swa_attention    -- sliding-window flash decode attention (the serve
                       step's attention, ``models.layers.attention_decode``)
+and one kernel of the port's own, with no Pallas counterpart:
+  threefry_normal  -- the weights' draw, ``jax.random.normal`` bit for bit
 
 Nothing here builds or loads the kernels at import: the library is compiled
 at the first launch (:mod:`._build`).
@@ -20,6 +22,7 @@ from .layered_sparsify import sparsify_ef, sparsify_ef_rows
 from .ops import (lgc_compress_hist, lgc_compress_hist_rows,
                   per_layer_candidates_hist_rows, selected_counts)
 from .swa_attention import swa_decode
+from .threefry_normal import threefry_normal
 from .topk_threshold import (SegmentTable, histogram, histogram_rows,
                              histogram_segments, maxabs, maxabs_rows,
                              maxabs_segments, sum_maxabs, sum_maxabs_rows,
@@ -32,5 +35,5 @@ __all__ = [
     "SegmentTable", "histogram", "histogram_rows", "histogram_segments",
     "maxabs", "maxabs_rows", "maxabs_segments", "sum_maxabs", "sum_maxabs_rows",
     "thresholds_from_counts", "sparsify_ef", "sparsify_ef_rows",
-    "swa_decode",
+    "swa_decode", "threefry_normal",
 ]

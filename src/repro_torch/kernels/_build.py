@@ -20,6 +20,8 @@ one row; launches over rows count under their own keys (``maxabs_rows``,
 and short, count there), and so do the segmented forms of
 maxabs and histogram over the model-layer slices of rows
 (``maxabs_segments``, ``histogram_segments``), so a run shows which form ran.
+The weights' draw counts under ``threefry_normal``, one launch a layer of a
+leaf.
 """
 from __future__ import annotations
 
@@ -33,14 +35,16 @@ import tempfile
 import threading
 
 CSRC = pathlib.Path(__file__).resolve().with_name("csrc")
-SOURCES = ("maxabs.cu", "histogram.cu", "sparsify_ef.cu", "swa_decode.cu")
+SOURCES = ("maxabs.cu", "histogram.cu", "sparsify_ef.cu", "swa_decode.cu",
+           "threefry_normal.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"maxabs": 0, "histogram": 0, "sparsify_ef": 0, "swa_decode": 0,
             "maxabs_rows": 0, "histogram_rows": 0, "sparsify_ef_rows": 0,
-            "maxabs_segments": 0, "histogram_segments": 0}
+            "maxabs_segments": 0, "histogram_segments": 0,
+            "threefry_normal": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -131,10 +135,13 @@ def lib() -> ctypes.CDLL:
                                                   ci, vp, vp, vp, vp]
             so.lgc_maxabs_short.argtypes = [vp, vp, vp, i64, i64, vp, ci, vp]
             so.lgc_histogram_short.argtypes = [vp, i64, i64, vp, vp, ci, vp]
+            so.lgc_threefry_normal.argtypes = [
+                ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, vp, i64, ci,
+                ci, vp]
             for fn in (so.lgc_maxabs, so.lgc_histogram, so.lgc_sparsify_ef,
                        so.lgc_swa_decode, so.lgc_maxabs_segments,
                        so.lgc_histogram_segments, so.lgc_maxabs_short,
-                       so.lgc_histogram_short):
+                       so.lgc_histogram_short, so.lgc_threefry_normal):
                 fn.restype = ci
             _lib = so
         return _lib

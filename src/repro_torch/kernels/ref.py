@@ -353,3 +353,12 @@ def swa_decode_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc = acc + acc_s * wt
     out = acc / torch.clamp_min(l_sum, 1e-30)
     return out.reshape(b, h, dh).to(q.dtype)
+
+
+def threefry_normal_ref(key: torch.Tensor, shape, std: float,
+                        dtype: torch.dtype, device) -> torch.Tensor:
+    """``(jax.random.normal(key, shape) * std).astype(dtype)``: the plain
+    version of the threefry_normal kernel, the port's bitwise draw
+    (:func:`repro_torch.core.prng.normal`) scaled in f32 and cast."""
+    from repro_torch.core import prng       # prng imports this module
+    return (prng.normal(key, tuple(shape), device) * std).to(dtype)

@@ -6,7 +6,10 @@ the first ``length[b]`` are valid.  The cache keeps its Kv heads: query head
 h reads KV head ``h // (H // Kv)``, so a GQA cache is never expanded.  The
 kernel (csrc/swa_decode.cu) computes the Pallas kernel's function -- f32
 logits scaled by 1/sqrt(Dh), an online softmax with an f32 accumulator, the
-output in q's dtype -- and reads each valid K/V row once.  Slots at or past
+output in q's dtype.  A block serves a group of up to 8 (``_MAX_REP``) of a
+KV head's query heads, and each group reads the head's valid K/V rows
+once: once in all at REP <= 8, twice at REP 9 to 16 (starcoder2-7b's 9,
+glm4-9b's 16), since both groups stream the same rows.  Slots at or past
 ``length`` are never read.  W is any size >= 1: a cache without a window
 has ``prompt + gen`` slots.  One launch splits W over the card's SMs
 (:func:`_num_splits`) and merges the splits in order, as

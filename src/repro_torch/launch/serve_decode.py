@@ -5,8 +5,11 @@ full cache, then with the sliding-window ring cache past the window.
         [--prompt 4000] [--gen 160] [--window 4096] [--seed 0] [--smoke]
         [--device cuda] [--profile-steps 0]
 
-``--arch`` takes any ported id: the dense ``qwen2-1.5b`` / ``qwen2-100m``,
-the moe ``olmoe-1b-7b``, the ssm ``mamba2-370m``, the hybrid
+``--arch`` takes every id: the dense ``qwen2-1.5b`` / ``qwen2-100m``,
+``glm4-9b``, ``starcoder2-7b`` and ``yi-34b`` (64 GiB of bf16 weights:
+``--batch 4`` fits its cache and prefill beside them on an 80 GB card),
+the moe ``olmoe-1b-7b`` and ``grok-1-314b`` (316 G parameters: its full
+config fits no card), the ssm ``mamba2-370m``, the hybrid
 ``zamba2-1.2b`` (an ssm or hybrid prompt must be a multiple of the SSD
 chunk, 128: ``--prompt 4096``), the vlm ``phi-3-vision-4.2b`` and the
 audio ``whisper-small``.  An ssm cache has no K/V slots: its runs report

@@ -14,7 +14,12 @@ kernels (``backend="cuda"``), on the CPU their plain versions: the same
 bits.  ``--model-parallel`` > 1 is the sharded engine (ROADMAP A12) and
 raises.  The run exits with code 1 when the loss did not fall.
 
-Every ported arch trains (``--arch mamba2-370m``, ``olmoe-1b-7b``, ...).
+Every arch id trains (``--arch mamba2-370m``, ``olmoe-1b-7b``,
+``glm4-9b``, ...; grok-1's ``sgdm`` keeps its moment in the parameters'
+dtype).  The driver has no depth flag: at full depth glm4-9b,
+starcoder2-7b, yi-34b and grok-1-314b need more than one card's memory
+in this step (``chip_smoke.py`` trains the dense three at 4 layers
+through the step functions).
 The vlm and audio families get a modality stub in every batch, at the
 reference's shapes (:func:`modality_prefix`): patch embeddings (B,
 ``n_prefix_tokens``, 1024) drawn from a seed, or zero frame embeddings

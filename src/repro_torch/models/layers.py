@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import prng
-from repro_torch.kernels import swa_decode
+from repro_torch.kernels import swa_decode, threefry_normal
 
 NEG_INF = -1e30
 
@@ -220,14 +220,15 @@ def mlp_forward(x: torch.Tensor, p: dict, kind: str) -> torch.Tensor:
 def normal(keys: list | None, lead: tuple, shape: tuple, std: float,
            dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """One stacked leaf: layer i is ``normal(keys[i], shape) * std`` in f32,
-    cast to ``dtype``.  Each layer is drawn on ``device`` on its own, so a
-    full-width leaf never holds more than one layer's f32 draw."""
+    cast to ``dtype``, drawn in place by the threefry_normal kernel on the
+    card (one launch a layer) and by its plain version on the CPU, which
+    holds one layer's f32 draw at a time."""
     out = torch.empty(lead + shape, dtype=dtype, device=device)
     if device.type == "meta":
         return out
     rows = out.view((-1,) + shape)
     for i, k in enumerate(keys):
-        rows[i] = (prng.normal(k, shape, device) * std).to(dtype)
+        threefry_normal(rows[i], k, std)
     return out
 
 

@@ -1,4 +1,5 @@
-"""Top-k Mixture-of-Experts layer (OLMoE: 64 experts, top-8).
+"""Top-k Mixture-of-Experts layer (OLMoE: 64 SwiGLU experts, top-8;
+Grok-1: 8 GeGLU experts, top-2).
 
 Port of ``repro/models/moe.py``.  The dispatch is the reference's
 sort-based, capacity-limited one:
@@ -9,13 +10,16 @@ sort-based, capacity-limited one:
   3. the rows gathered into an (E, C, D) buffer of capacity
      C = max(1, int(N*K / E * capacity_factor)); a row past its expert's
      capacity goes to the drop slot E*C and contributes nothing;
-  4. one batched expert product (E, C, D) x (E, D, F) (``torch.bmm``);
+  4. the experts' MLPs as batched products (E, C, D) x (E, D, F), of any
+     ``mlp_forward`` kind;
   5. each row's output gathered back and combined with the gate weights.
 
 At decode (N = B tokens) the capacity is small: olmoe at batch 8 has
 N*K = 64 rows over 64 experts, so C = 1 and each expert keeps only the
 first of its rows in the stable expert-sorted order.  That is the
-reference's semantics and the port keeps it.
+reference's semantics and the port keeps it.  grok-1 at batch 8 has
+N*K = 16 rows over 8 experts, so C = int(16 / 8 * 1.25) = 2; its prefill
+of 8 x 4096 tokens has C = 10,240.
 
 ``moe_dense_ref`` is the O(N*E) oracle (every expert on every token); it
 drops nothing, so it equals ``moe_forward`` only where no row is dropped.
@@ -73,13 +77,11 @@ def _router(x2: torch.Tensor, w: torch.Tensor, k: int
 
 def expert_mlps(buf: torch.Tensor, experts: dict, kind: str) -> torch.Tensor:
     """The reference's ``vmap(mlp_forward)`` over experts: buf (E, C, D),
-    weights (E, D, F) / (E, F, D) -> (E, C, D), as batched products."""
-    if kind != "swiglu":
-        raise NotImplementedError(f"expert mlp {kind!r} is not ported yet "
-                                  "(ROADMAP A15)")
-    h = torch.nn.functional.silu(torch.bmm(buf, experts["w_gate"])) \
-        * torch.bmm(buf, experts["w_up"])
-    return torch.bmm(h, experts["w_down"])
+    weights (E, D, F) / (E, F, D) -> (E, C, D).  ``mlp_forward``'s products
+    are batched over the leading expert axis as they stand; only the plain
+    ``gelu`` MLP's biases (E, F) / (E, D) take an axis for the C rows."""
+    return mlp_forward(buf, {k: v[:, None] if k.startswith("b_") else v
+                             for k, v in experts.items()}, kind)
 
 
 def moe_forward(x: torch.Tensor, p: dict, *, n_experts: int, top_k: int,

@@ -278,7 +278,8 @@ def test_each_wrapper_counts_its_launches(card):
     assert pk.LAUNCHES == {"maxabs": 2, "histogram": 1, "sparsify_ef": 1,
                            "swa_decode": 0, "maxabs_rows": 1,
                            "histogram_rows": 0, "sparsify_ef_rows": 0,
-                           "maxabs_segments": 0, "histogram_segments": 0}
+                           "maxabs_segments": 0, "histogram_segments": 0,
+                           "threefry_normal": 0}
     pk.lgc_compress_hist_rows(x.view(2, 2500), x.view(2, 2500),
                               cum.expand(2, 3), recv.expand(2, 3))
     assert [pk.LAUNCHES[k] for k in ("maxabs_rows", "histogram_rows",
@@ -292,6 +293,8 @@ def test_each_wrapper_counts_its_launches(card):
         torch.full((2, 2), 7, dtype=torch.int32, device=card))
     assert [pk.LAUNCHES[k] for k in ("maxabs_segments",
                                      "histogram_segments")] == [1, 1]
+    pk.threefry_normal(torch.empty(10, device=card), torch.tensor([0, 7]), 1.0)
+    assert pk.LAUNCHES["threefry_normal"] == 1
     torch.cuda.synchronize()
 
 
@@ -318,7 +321,12 @@ SWA_SHAPES = [(2, 4, 4, 512, 64), (1, 8, 8, 1024, 128), (4, 2, 2, 256, 32),
               # cross-attention over its 1,500 encoder slots, and Dh 96
               # under GQA (REP 8)
               (8, 32, 32, 4096, 96), (8, 12, 12, 1500, 64),
-              (2, 16, 2, 300, 96)]
+              (2, 16, 2, 300, 96),
+              # the decode shapes of glm4-9b (REP 16), starcoder2-7b (REP 9:
+              # a group of 8 query heads and one of 1), yi-34b (REP 7, batch
+              # 4) and grok-1-314b (REP 6)
+              (8, 32, 2, 4096, 128), (8, 36, 4, 4096, 128),
+              (4, 56, 8, 4096, 128), (8, 48, 8, 4096, 128)]
 
 
 def _swa_inputs(b, h, kv, w, dh, dtype, device, seed=0):
@@ -431,6 +439,26 @@ def test_swa_decode_rejects_mixed_devices(card):
 # the simulator: the PRNG on the card, and a short run through the kernels
 # ---------------------------------------------------------------------------
 
+@pytest.mark.parametrize("dtype,std,shape", [
+    (torch.float32, 0.02, (4097, 3)), (torch.bfloat16, 1536 ** -0.5,
+                                       (2048, 1536)),
+    (torch.float32, 2048 ** -0.5, (2048, 64)), (torch.bfloat16, 1.0, (1,))])
+def test_threefry_normal_on_the_card_equals_the_plain_draw(card, dtype, std,
+                                                           shape):
+    """The weights' draw kernel bitwise the plain version on the CPU."""
+    from repro_torch.core import prng
+    key = prng.split(prng.PRNGKey(5), 3)[1]
+    pk.reset_launch_counts()
+    got = pk.threefry_normal(torch.empty(shape, dtype=dtype, device=card),
+                             key, std)
+    assert pk.LAUNCHES["threefry_normal"] == 1
+    want = pref.threefry_normal_ref(key, shape, std, dtype, "cpu")
+    assert _bits_equal(got.cpu().view(torch.int16 if dtype == torch.bfloat16
+                                      else torch.int32),
+                       want.view(torch.int16 if dtype == torch.bfloat16
+                                 else torch.int32))
+
+
 def test_prng_on_the_card_equals_the_cpu(card):
     from repro_torch.core import prng
     from repro_torch.core.scenario import stream_key
@@ -469,7 +497,8 @@ def test_short_lr_run_launches_the_kernels_once_per_sync(card):
     assert counts == {"maxabs": 9, "histogram": 9, "sparsify_ef": 9,
                       "swa_decode": 0, "maxabs_rows": 0,
                       "histogram_rows": 0, "sparsify_ef_rows": 0,
-                      "maxabs_segments": 0, "histogram_segments": 0}
+                      "maxabs_segments": 0, "histogram_segments": 0,
+                      "threefry_normal": 0}
     cpu, gpu = runs["cpu"], runs[str(card)]
     assert gpu.step == cpu.step and gpu.uplink_mb == cpu.uplink_mb
     np.testing.assert_allclose(gpu.loss, cpu.loss, atol=1e-3)
@@ -723,7 +752,8 @@ def test_batched_engine_launches_once_per_boundary_without_a_sync(
     assert counts == {"maxabs": 0, "histogram": 0, "sparsify_ef": 0,
                       "swa_decode": 0, "maxabs_rows": want,
                       "histogram_rows": want, "sparsify_ef_rows": want,
-                      "maxabs_segments": 0, "histogram_segments": 0}
+                      "maxabs_segments": 0, "histogram_segments": 0,
+                      "threefry_normal": 0}
     assert len(seen) == want and all(seen)
     cpu = run_baseline(task, cfg, mode, h=4, device="cpu")
     assert gpu.step == cpu.step and gpu.uplink_mb == cpu.uplink_mb
@@ -1178,7 +1208,9 @@ def test_sharded_world2_over_gloo_on_one_card(card):
 
 @pytest.mark.parametrize("arch,sites", [("olmoe-1b-7b", 2),
                                         ("mamba2-370m", 0),
-                                        ("zamba2-1.2b", 2)])
+                                        ("zamba2-1.2b", 2),
+                                        ("glm4-9b", 2), ("starcoder2-7b", 2),
+                                        ("yi-34b", 2), ("grok-1-314b", 2)])
 def test_family_smoke_serve_on_the_card_matches_the_cpu(card, arch, sites):
     """The smoke config in f32 with the same weights on both: a 16-token
     prefill into a 24-slot ring, 16 greedy steps past the wrap; logits
@@ -1265,7 +1297,9 @@ def test_modality_smoke_serve_on_the_card_matches_the_cpu(card, arch, sites):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-370m", "zamba2-1.2b",
-                                  "phi-3-vision-4.2b", "whisper-small"])
+                                  "phi-3-vision-4.2b", "whisper-small",
+                                  "glm4-9b", "starcoder2-7b", "yi-34b",
+                                  "grok-1-314b"])
 def test_family_lgc_round_on_the_card_matches_the_cpu(card, arch):
     """One ``dense_masked`` round of the smoke config in f32 (M = 2, H = 2,
     every leaf through the row kernels, channel 1 dropped on device 1, a
@@ -1309,3 +1343,37 @@ def test_family_lgc_round_on_the_card_matches_the_cpu(card, arch):
     for name in ("maxabs_rows", "histogram_rows", "sparsify_ef_rows"):
         assert pk.LAUNCHES[name] == len(params)
     assert pk.LAUNCHES["maxabs"] == pk.LAUNCHES["sparsify_ef"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the gated and plain MoE experts
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", ["geglu", "gelu", "swiglu"])
+def test_expert_mlps_on_the_card_match_the_cpu(card, kind):
+    """``moe.expert_mlps`` (grok-1's geglu, the biased gelu, swiglu) and its
+    gradients in f32 on an (E, C, D) buffer with capacity rows: the card
+    within rtol 1e-5 / atol 1e-5 of the CPU (cuBLAS sums in another
+    order), TF32 off."""
+    from repro_torch.models import moe as pmoe
+    e, c, d, f = 8, 10, 64, 96
+    g = torch.Generator().manual_seed(3)
+    names = ("w_gate", "w_up", "w_down") if kind != "gelu" else \
+        ("w_up", "b_up", "w_down", "b_down")
+    shapes = {"w_gate": (e, d, f), "w_up": (e, d, f), "w_down": (e, f, d),
+              "b_up": (e, f), "b_down": (e, d)}
+    experts = {k: torch.randn(shapes[k], generator=g) * 0.1 for k in names}
+    buf = torch.randn((e, c, d), generator=g)
+    w_out = torch.randn((e, c, d), generator=g)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for dev in ("cpu", card):
+        p = {k: v.detach().to(dev).requires_grad_(True)
+             for k, v in experts.items()}
+        x = buf.detach().to(dev).requires_grad_(True)
+        y = pmoe.expert_mlps(x, p, kind)
+        (y * w_out.to(dev)).sum().backward()
+        out[str(dev)] = [y.detach().cpu(), x.grad.cpu()] + [
+            p[k].grad.cpu() for k in names]
+    for got, want in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

@@ -329,7 +329,9 @@ def test_port_and_chip_smoke_import_no_reference_module():
                  "kernels.topk_threshold", "models.moe", "models.ssd",
                  "configs.olmoe_1b_7b", "configs.mamba2_370m",
                  "configs.zamba2_1_2b", "configs.phi3_vision_4b",
-                 "configs.whisper_small"]
+                 "configs.whisper_small", "configs.glm4_9b",
+                 "configs.starcoder2_7b", "configs.yi_34b",
+                 "configs.grok1_314b", "kernels.threefry_normal"]
     assert {f"repro_torch.{m}" for m in simulator} <= set(mods)
     code = (
         "import importlib, sys\n"

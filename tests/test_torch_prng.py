@@ -139,6 +139,43 @@ def test_normal_bitwise_below_the_tail_and_within_2_ulp(seed):
     assert _ulp(got, want).max() <= NORMAL_ULP
 
 
+@pytest.mark.parametrize("dtype,std,shape", [
+    (torch.float32, 0.02, (64, 96)), (torch.bfloat16, 768 ** -0.5, (3, 4097)),
+    (torch.float32, 1.0, (1,))])
+def test_threefry_normal_is_the_references_weight_draw(dtype, std, shape):
+    """The weights' draw (``kernels.threefry_normal``; on the CPU its plain
+    version) is the reference's ``(jax.random.normal(key, shape) * std)
+    .astype(dtype)``: bitwise where |normal| < 2.9, within 2 ulp of the f32
+    draw beyond."""
+    from repro_torch.kernels import threefry_normal
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    jkey = jax.random.split(jax.random.PRNGKey(3), 4)[2]
+    z = np.asarray(jax.random.normal(jkey, shape))
+    want = np.asarray((jax.random.normal(jkey, shape) * std).astype(jdt))
+    out = torch.empty(shape, dtype=dtype)
+    got = threefry_normal(out, prng.split(prng.PRNGKey(3), 4)[2], std)
+    assert got is out
+    bits = np.int32 if dtype == torch.float32 else np.int16
+    got_b = got.view(torch.int32 if bits is np.int32 else torch.int16).numpy()
+    body = np.abs(z) < NORMAL_BITWISE_BELOW
+    np.testing.assert_array_equal(got_b[body], want.view(bits)[body])
+    tail = got.float().numpy()[~body]
+    np.testing.assert_allclose(tail, want.astype(np.float32)[~body],
+                               rtol=2 ** -22 if bits is np.int32 else 2 ** -7)
+
+
+def test_threefry_normal_rejects_what_it_cannot_fill():
+    from repro_torch.kernels import threefry_normal
+    key = prng.PRNGKey(0)
+    with pytest.raises(TypeError):
+        threefry_normal(torch.empty(4, dtype=torch.float16), key, 1.0)
+    with pytest.raises(ValueError):
+        threefry_normal(torch.empty((4, 4)).t(), key, 1.0)
+    with pytest.raises(ValueError):
+        threefry_normal(torch.empty(4), torch.zeros(3, dtype=torch.int64),
+                        1.0)
+
+
 @settings(max_examples=10, deadline=None)
 @given(st.integers(0, 2 ** 31 - 1))
 def test_truncated_normal_bitwise(seed):

@@ -28,7 +28,7 @@ T = pref.SWA_TILE
 TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 SPLITS = (1, 2, 7, 16, 80)      # 80 > ceil(W / T) for both windows
 WINDOWS = {100: 64, 4160: 32}   # W -> Dh
-REPS = (1, 2, 6, 8, 16)
+REPS = (1, 2, 6, 7, 8, 9, 16)
 
 
 def _lengths(w: int) -> list[int]:
@@ -63,7 +63,7 @@ def test_split_merge_matches_unsplit_plain_version(w, rep, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rep", (1, 6, 16))
+@pytest.mark.parametrize("rep", (1, 6, 7, 9, 16))
 @pytest.mark.parametrize("w", list(WINDOWS))
 def test_split_merge_matches_pallas_kernel(w, rep, dtype):
     (q, k, v), ln = _inputs(w, rep, dtype, seed=7 * w + rep)

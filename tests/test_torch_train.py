@@ -318,8 +318,12 @@ def test_driver_builds_the_modality_stub():
 
 
 def test_driver_refuses_what_is_not_ported():
+    """Only the model axis (A12) is left: every arch id trains (A15's four
+    configs: tests/test_torch_configs.py)."""
     with pytest.raises(NotImplementedError, match="A12"):
         train.main(["--arch", "qwen2-100m", "--model-parallel", "2",
                     "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A15"):
-        train.main(["--arch", "glm4-9b", "--smoke", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="A12"):
+        train.main(["--arch", "glm4-9b", "--smoke", "--model-parallel", "2",
+                    "--device", "cpu"])
+    assert train.get_config("glm4-9b").name == "glm4-9b"
