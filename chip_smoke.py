@@ -8,6 +8,8 @@ NVIDIA H100.
     python3 chip_smoke.py --sharded  # the build and the sharded engine
     python3 chip_smoke.py --swa-digests  # swa_decode's digests (phase 3)
     python3 chip_smoke.py --family-training  # the build and phase 5c
+    python3 chip_smoke.py --model-axis  # the build and phase 5d
+    python3 chip_smoke.py --model-axis-faults  # 5d's loss gaps, faults planted
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
@@ -117,6 +119,29 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    (M = 2), starcoder2-7b (M = 2) and yi-34b (M = 1) at 4 layers through
    the step functions, 9 / 8 / 9 kernel-sized leaves (glm4's 620,756,992-
    float ``embed`` the largest leaf);
+5d. the model axis (tensor parallelism, ``--model-axis`` runs only the
+   build and this phase): two gloo ranks share the card (``mesh.spawn``;
+   their body is ``model_axis_rank``).  (a) At each of the 100M task's
+   8 kernel-sized leaves at full width, M = 2, random (e, delta) from a
+   seeded CPU generator and a dropped channel: each rank's split pipeline
+   (``sum_maxabs_rows`` on its shard, MAX over the model group,
+   ``histogram_rows`` under the global maxima, SUM of the counts, the
+   whole leaf's budgets, ``sparsify_ef_rows``) bitwise its block of the
+   unsharded ``lgc_compress_hist_rows`` on the card and of the plain split
+   pipeline, and the step's compression under ``dense_masked`` and
+   ``sparse_gather`` bitwise the unsharded step's; (b) the full-width 100M
+   task at ``model_axis=2`` (M = 2, H = 2, seq 64) for 4 rounds of each of
+   ``dense_masked`` and ``sparse_gather``, each from the same draw as a
+   P = 1 run of the same aggregate here: both ranks' losses bit-equal and
+   falling, every round's within ``MODEL_AXIS_LOSS_ATOL`` of P = 1's (set
+   from sound and planted-fault readings: ``--model-axis-faults``), each
+   row kernel 8 a round a rank (``sparsify_ef_rows`` 0 under
+   ``sparse_gather``) and no flat launch; per round and rank the round ms
+   beside P = 1's (rounds 1-3 without syncs), the ms inside the model
+   group's collectives (round 4, each collective waiting for the card
+   before and after) and the launches; (c) ``repro_torch.launch.train
+   --model-parallel 2 --devices 2 --mode sync`` for 3 steps (it spawns its
+   own two ranks), its loss falling; one ``model_axis`` JSON line;
 6. a small f32 serve (qwen2-smoke), card against CPU with the same weights:
    8-token prefill into a 16-slot ring, 24 greedy steps past the wrap; the
    logits agree at rtol = atol = 1e-5 and the tokens are equal; then the
@@ -281,7 +306,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    of a TPU kernel), at one layer of yi-34b's ``w_up`` in bf16 beside its
    plain version (no library call draws the same numbers), its
    ``launches`` those of phase 7's draw and ``launches_families``,
-   ``launches_modalities`` and ``launches_configs`` those of 7b-7d;
+   ``launches_modalities`` and ``launches_configs`` those of 7b-7d; the
+   LGC kernels' launches on each rank of phase 5d
+   (``launches_model_axis``);
 10. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package ``repro``.
@@ -1620,6 +1647,360 @@ def phase_driver() -> None:
         log(f"driver: train {' '.join(argv)}{how}: exit 0 in "
             f"{time.perf_counter() - t0:.1f} s, loss {losses[0]:.4f} -> "
             f"{losses[-1]:.4f}")
+
+
+# ---------------------------------------------------------------------------
+# phase 5d: the model axis on two gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+MODEL_AXIS = 2
+MODEL_AXIS_TIMEOUT_S = 300.0
+MODEL_AXIS_AGGREGATES = ("dense_masked", "sparse_gather")
+# rounds after the ROUNDS timed ones whose collectives each wait for the
+# card before and after (``parallel.STATS["sync"]``): their ms inside the
+# collectives are the collectives' own, their round ms carry two host
+# waits a collective, so the timed rounds run without them
+MODEL_AXIS_SYNCED_ROUNDS = 1
+# Every round's loss at P = 2 against P = 1 from the same draw (bf16):
+# |L(P=2) - L(P=1)| <= MODEL_AXIS_LOSS_ATOL.  Set from readings on the
+# H100 (PERF.md §6, PR 28): sound runs differ by at most ~6e-4 over 4
+# rounds (each row-parallel product's partial outputs are rounded to bf16
+# before the SUM, so the trajectories drift apart slowly); planted faults
+# (``--model-axis-faults``) move a round's loss by far more.
+MODEL_AXIS_LOSS_ATOL = 5e-3
+MODEL_AXIS_FAULTS = ("kv_pairing", "qkv_bias_dropped", "mlp_no_reduce")
+MODEL_AXIS_DRIVER = ["--arch", "qwen2-100m", "--mode", "sync",
+                     "--model-parallel", "2", "--devices", "2", "--steps",
+                     "3", "--lr", "1e-1", "--log-every", "1"]
+
+
+def model_axis_task(aggregate: str, model_axis: int = 1):
+    """The full-width 100M task of phase 5 under ``aggregate``, at
+    ``model_axis`` inside that many ranks: seed 0's draw either way."""
+    from repro_torch.models.paper_models import make_task
+    return make_task("qwen2_100m", m_devices=M_DEVICES, preset="full",
+                     aggregate=aggregate, backend="cuda", scenario="static",
+                     model_axis=model_axis)
+
+
+def plant_model_axis_fault(name: str):
+    """Put fault ``name`` into this rank's forward; returns its undo.
+    ``kv_pairing``: each local query head reads the wrong local kv head
+    (``repeat`` for ``repeat_interleave``); ``qkv_bias_dropped``: no
+    ``bq`` / ``bk`` / ``bv``; ``mlp_no_reduce``: the MLP's partial
+    outputs are never summed over the ranks."""
+    from repro_torch import parallel
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tf
+    if name == "kv_pairing":
+        def new(k, n):
+            return k.repeat(1, 1, n // k.shape[2], 1)
+        attr = "_expand_kv"
+    elif name == "qkv_bias_dropped":            # zeroed, so still a leaf
+        orig = tf.qkv_project
+
+        def new(x, p, n_h, n_kv, hd, bias):
+            return orig(x, {k: v * 0 if k[0] == "b" else v
+                            for k, v in p.items()}, n_h, n_kv, hd, bias)
+        attr = "qkv_project"
+    elif name == "mlp_no_reduce":
+        def new(x, bp, cfg, mesh=None):
+            h = layers.apply_norm(x, bp["norm2"], cfg.norm)
+            return x + layers.mlp_forward(parallel.copy_to_model(mesh, h),
+                                          bp["mlp"], cfg.mlp), None
+        attr = "_ffn"
+    else:
+        raise ValueError(f"no fault {name!r}")
+    old = getattr(tf, attr)
+    setattr(tf, attr, new)
+    return lambda: setattr(tf, attr, old)
+
+
+def model_axis_compress(aggregate: str, mesh) -> dict:
+    """(a) on this rank: at each kernel-sized leaf of the full-width 100M
+    task, M = 2, random (e, delta) from a CPU generator seeded by the
+    leaf's index and one dropped channel, the split pipeline (row kernels
+    and plain versions) and the step's compression of the rank's block
+    against the unsharded ones on the whole leaf."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import lgc_compress_hist_rows
+    from repro_torch.launch import sharding_rules as rules
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    cfg = get_config("qwen2-100m")
+    shapes = tf.init_params(cfg, device="meta")
+    specs = rules.param_specs(cfg, shapes, mesh)
+    step_cfg = steps.LGCStepConfig(aggregate=aggregate, backend="cuda")
+    whole_fn, split_fn = (steps.make_lgc_compress(
+        cfg, M_DEVICES, step_cfg, model_axis=steps.leaf_model_axis, mesh=m)
+        for m in (None, mesh))
+    recv = torch.ones((M_DEVICES, step_cfg.n_channels), dtype=torch.int32,
+                      device="cuda")
+    recv[-1, -1] = 0
+    out = {}
+    names = [k for k, v in shapes.items()
+             if v.numel() >= steps.PALLAS_MIN_ELEMS]
+    for i, k in enumerate(names):
+        shape, spec = tuple(shapes[k].shape), specs[k]
+        ef_spec = (None, *spec)
+        gen = torch.Generator().manual_seed(28_000 + i)
+        e = (torch.randn((M_DEVICES, *shape), generator=gen) * 0.01).cuda()
+        d = (torch.randn((M_DEVICES, *shape), generator=gen) * 0.1).cuda()
+        e_blk, d_blk = (rules.shard(t, ef_spec, mesh) for t in (e, d))
+        local = tuple(e_blk.shape[1:])
+
+        def block(t, lead=()):
+            return rules.shard(t.reshape(*lead, *shape),
+                               ef_spec if lead else spec, mesh)
+        row = {"split": rules.is_sharded(spec, mesh.shape)}
+        if aggregate == "dense_masked":
+            cum = steps._leaf_cum_ks(math.prod(shape), step_cfg.sparsity,
+                                     "cuda").expand(M_DEVICES, -1)
+            want = [block(t, (M_DEVICES,)) for t in lgc_compress_hist_rows(
+                e.reshape(M_DEVICES, -1), d.reshape(M_DEVICES, -1), cum,
+                recv)]
+            got = [steps.split_compress_rows(
+                e_blk.reshape(M_DEVICES, -1), d_blk.reshape(M_DEVICES, -1),
+                cum, recv, mesh, kern) for kern in (True, False)]
+            row["pipeline_bitwise"] = all(bits_equal(a.reshape(b.shape), b)
+                                          for a, b in zip(got[0], want))
+            row["plain_bitwise"] = all(bits_equal(a, b)
+                                       for a, b in zip(*got))
+        g_w, e_w = whole_fn(k, shape, e.reshape(M_DEVICES, -1),
+                            d.reshape(M_DEVICES, -1), recv)
+        g_s, e_s = split_fn(k, local, e_blk.reshape(M_DEVICES, -1),
+                            d_blk.reshape(M_DEVICES, -1), recv)
+        row["step_bitwise"] = (
+            bits_equal(g_s.reshape(local), block(g_w))
+            and bits_equal(e_s.reshape(M_DEVICES, *local),
+                           block(e_w, (M_DEVICES,))))
+        out[k] = row
+    return out
+
+
+def model_axis_run(job: dict, mesh) -> dict:
+    """(b) on this rank: the task at ``model_axis`` = P for ROUNDS timed
+    rounds and ``synced`` more whose collectives wait for the card, with
+    fault ``fault`` planted; per round the launches, the collectives'
+    count, bytes and ms (host ms blocked in them in the timed rounds)."""
+    import torch
+    from repro_torch import parallel
+    from repro_torch.kernels import LAUNCHES
+    undo = (plant_model_axis_fault(job["fault"]) if job.get("fault")
+            else None)
+    try:
+        task = model_axis_task(job["aggregate"], mesh.model_size)
+        task.build()
+        torch.cuda.synchronize()
+        per_round: list = []
+        kernels = (*ROW_KERNELS.values(), *LGC_KERNELS)
+
+        def stats() -> dict:
+            return {"launches": {k: LAUNCHES[k] for k in kernels},
+                    "calls": parallel.STATS["calls"],
+                    "bytes": parallel.STATS["bytes"],
+                    "s": parallel.STATS["seconds"]}
+        mark = stats()
+
+        def on_round(i: int, loss: float) -> None:
+            now = stats()
+            per_round.append({
+                "synced": parallel.STATS["sync"],
+                "launches": {k: now["launches"][k] - mark["launches"][k]
+                             for k in kernels},
+                "collectives": now["calls"] - mark["calls"],
+                "collective_bytes": now["bytes"] - mark["bytes"],
+                "collective_ms": (now["s"] - mark["s"]) * 1e3})
+            mark.update(now)
+            parallel.STATS["sync"] = i + 1 >= ROUNDS
+        run = task.run(ROUNDS + job.get("synced", 0), on_round=on_round)
+    finally:
+        parallel.STATS["sync"] = False
+        if undo is not None:
+            undo()
+    return {"losses": run["losses"], "round_ms": run["round_ms"],
+            "per_round": per_round, "rank": mesh.rank}
+
+
+def model_axis_rank(jobs: list) -> dict:
+    """Each rank's body under ``mesh.spawn``: the (1, P) mesh over the
+    ranks present on the card, then every job (``compress`` or ``run``)
+    with its seconds."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = dist.get_world_size()
+    mesh = make_host_mesh(world, model=world, device="cuda")
+    results = {}
+    for job in jobs:
+        t0 = time.perf_counter()
+        results[job["name"]] = (
+            model_axis_compress(job["aggregate"], mesh)
+            if job["kind"] == "compress" else model_axis_run(job, mesh))
+        results[job["name"]]["seconds"] = time.perf_counter() - t0
+    return {"rank": mesh.rank, "transport": mesh.transport,
+            "results": results}
+
+
+def model_axis_p1(rounds: int) -> dict:
+    """aggregate -> the P = 1 run's losses and round ms (rounds on the
+    host, no collectives) from the same draw."""
+    import torch
+    out = {}
+    for agg in MODEL_AXIS_AGGREGATES:
+        task = model_axis_task(agg)
+        run = task.run(rounds)
+        check(run["losses"][-1] < run["losses"][0],
+              f"model axis: P = 1 {agg} losses {run['losses']}")
+        out[agg] = {"losses": run["losses"], "round_ms": run["round_ms"]}
+        del task
+        torch.cuda.empty_cache()
+    return out
+
+
+def loss_gaps(a: list, b: list) -> list:
+    return [abs(x - y) for x, y in zip(a, b)]
+
+
+def phase_model_axis(smi: str) -> dict:
+    """Phase 5d (module docstring).  Returns the ``model_axis`` line."""
+    import faulthandler
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import spawn
+    t_phase = time.perf_counter()
+    faulthandler.dump_traceback_later(3 * MODEL_AXIS_TIMEOUT_S, exit=True)
+    rounds = ROUNDS + MODEL_AXIS_SYNCED_ROUNDS
+    one = model_axis_p1(rounds)
+    jobs = [dict(name=f"compress {agg}", kind="compress", aggregate=agg)
+            for agg in MODEL_AXIS_AGGREGATES]
+    jobs += [dict(name=f"run {agg}", kind="run", aggregate=agg,
+                  synced=MODEL_AXIS_SYNCED_ROUNDS)
+             for agg in MODEL_AXIS_AGGREGATES]
+    t0 = time.perf_counter()
+    ranks = spawn(model_axis_rank, MODEL_AXIS, "gloo", args=(jobs,),
+                  timeout=MODEL_AXIS_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    check({r["transport"] for r in ranks} == {"gloo"},
+          f"model axis: transports {[r['transport'] for r in ranks]}")
+    out: dict = {"card": smi, "ranks": MODEL_AXIS, "transport": "gloo",
+                 "spawn_s": spawn_s, "p1": one,
+                 "loss_atol": MODEL_AXIS_LOSS_ATOL}
+    # (a) the split pipeline and the step's compression, leaf by leaf
+    for agg in MODEL_AXIS_AGGREGATES:
+        for r in ranks:
+            rows = {k: v for k, v in r["results"][f"compress {agg}"].items()
+                    if k != "seconds"}
+            check(len(rows) == N_KERNEL_LEAVES and all(
+                v["split"] for v in rows.values()),
+                f"model axis (a) {agg} rank {r['rank']}: leaves {rows}")
+            for leaf, v in rows.items():
+                want = ("pipeline_bitwise", "plain_bitwise", "step_bitwise"
+                        ) if agg == "dense_masked" else ("step_bitwise",)
+                check(all(v[k] for k in want), f"model axis (a) {agg} "
+                      f"rank {r['rank']} {leaf}: {v}")
+        log(f"model axis (a) {agg}: the {N_KERNEL_LEAVES} kernel-sized "
+            f"leaves at full width (M = {M_DEVICES}) split over 2 ranks, "
+            f"each rank bitwise its block of the unsharded "
+            + ("lgc_compress_hist_rows, of the plain split pipeline and "
+               "of the unsharded step" if agg == "dense_masked"
+               else "step"))
+    # (b) the task at model_axis=2
+    launches: dict = {}
+    tasks: dict = {}
+    for agg in MODEL_AXIS_AGGREGATES:
+        r0, r1 = (r["results"][f"run {agg}"] for r in ranks)
+        losses, p1 = r0["losses"], one[agg]
+        check(losses == r1["losses"], f"model axis (b) {agg}: rank "
+              f"losses {losses} and {r1['losses']}")
+        check(all(math.isfinite(x) for x in losses)
+              and losses[-1] < losses[0], f"model axis (b) {agg}: losses "
+              f"{losses} do not fall")
+        gaps = loss_gaps(losses, p1["losses"])
+        check(len(gaps) == rounds and max(gaps) <= MODEL_AXIS_LOSS_ATOL,
+              f"model axis (b) {agg}: losses {losses} against "
+              f"{p1['losses']} at P = 1 (allowed {MODEL_AXIS_LOSS_ATOL})")
+        want = {"maxabs_rows": N_KERNEL_LEAVES,
+                "histogram_rows": N_KERNEL_LEAVES,
+                "sparsify_ef_rows": N_KERNEL_LEAVES
+                if agg == "dense_masked" else 0,
+                "maxabs": 0, "histogram": 0, "sparsify_ef": 0}
+        for r in (r0, r1):
+            for i, pr in enumerate(r["per_round"]):
+                check(pr["launches"] == want, f"model axis (b) {agg} rank "
+                      f"{r['rank']} round {i + 1}: launches "
+                      f"{pr['launches']}, expected {want}")
+        for name, rn in ROW_KERNELS.items():
+            launches.setdefault(name, {})[agg] = [
+                sum(pr["launches"][rn] for pr in r["per_round"])
+                for r in (r0, r1)]
+        tasks[agg] = {
+            "losses": losses, "loss_gaps_to_p1": gaps,
+            "round_ms": r0["round_ms"],
+            "synced": [pr["synced"] for pr in r0["per_round"]],
+            "collective_ms": [[pr["collective_ms"] for pr in r["per_round"]]
+                              for r in (r0, r1)],
+            "collectives": [pr["collectives"] for pr in r0["per_round"]],
+            "collective_bytes": [pr["collective_bytes"]
+                                 for pr in r0["per_round"]],
+            "seconds": [r0["seconds"], r1["seconds"]]}
+        for r in (r0, r1):
+            for i, pr in enumerate(r["per_round"]):
+                what = ("ms inside" if pr["synced"]
+                        else "host ms blocked in (no syncs)")
+                log(f"model axis (b) {agg} rank {r['rank']} round {i + 1}"
+                    f"{' (synced)' if pr['synced'] else ''}: "
+                    f"{r['round_ms'][i]:.1f} ms (slowest rank; P = 1 "
+                    f"{p1['round_ms'][i]:.1f}), {pr['collective_ms']:.1f} "
+                    f"{what} {pr['collectives']} collectives "
+                    f"({pr['collective_bytes']:,} B), launches "
+                    f"{pr['launches']}")
+        log(f"model axis (b) {agg}: losses {losses} (both ranks), P = 1 "
+            f"{p1['losses']}, gaps {[f'{g:.3e}' for g in gaps]} (allowed "
+            f"{MODEL_AXIS_LOSS_ATOL}); {smi}")
+    out["tasks"] = tasks
+    out["launches"] = launches
+    # (c) the driver spawns its own two ranks
+    t0 = time.perf_counter()
+    try:
+        driver = train.main(MODEL_AXIS_DRIVER)
+    except SystemExit as exc:
+        raise AssertionError(f"chip_smoke: train "
+                             f"{' '.join(MODEL_AXIS_DRIVER)} exited "
+                             f"{exc.code}") from exc
+    out["driver"] = {"losses": driver, "seconds": time.perf_counter() - t0}
+    log(f"model axis (c): train {' '.join(MODEL_AXIS_DRIVER)}: exit 0 in "
+        f"{out['driver']['seconds']:.1f} s, loss {driver[0]:.4f} -> "
+        f"{driver[-1]:.4f}")
+    faulthandler.cancel_dump_traceback_later()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"model axis phase: {out['seconds']:.1f} s")
+    print(json.dumps({"model_axis": out}), flush=True)
+    return out
+
+
+def model_axis_faults(smi: str) -> dict:
+    """``--model-axis-faults``: the readings behind MODEL_AXIS_LOSS_ATOL.
+    The task at P = 2 under ``dense_masked`` for ROUNDS rounds, sound and
+    with each of MODEL_AXIS_FAULTS planted in both ranks, against P = 1
+    from the same draw: each round's loss gap."""
+    from repro_torch.launch.mesh import spawn
+    one = model_axis_p1(ROUNDS)["dense_masked"]["losses"]
+    jobs = [dict(name=f or "sound", kind="run", aggregate="dense_masked",
+                 fault=f) for f in (None, *MODEL_AXIS_FAULTS)]
+    ranks = spawn(model_axis_rank, MODEL_AXIS, "gloo", args=(jobs,),
+                  timeout=MODEL_AXIS_TIMEOUT_S)
+    out = {"card": smi, "p1": one, "loss_atol": MODEL_AXIS_LOSS_ATOL}
+    for job in jobs:
+        losses = ranks[0]["results"][job["name"]]["losses"]
+        out[job["name"]] = {"losses": losses, "gaps": loss_gaps(losses, one)}
+        log(f"model axis fault {job['name']}: losses {losses}, gaps "
+            f"{[f'{g:.3e}' for g in out[job['name']]['gaps']]} against "
+            f"P = 1 {one}; {smi}")
+    print(json.dumps({"model_axis_faults": out}), flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3752,10 +4133,11 @@ def main(argv: list[str]) -> int:
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
     if argv not in ([], ["--rows"], ["--sharded"], ["--swa-digests"],
-                    ["--family-training"]):
+                    ["--family-training"], ["--model-axis"],
+                    ["--model-axis-faults"]):
         print(f"usage: python3 chip_smoke.py [--rows | --sharded | "
-              f"--swa-digests | --family-training]; got "
-              f"{argv}", file=sys.stderr)
+              f"--swa-digests | --family-training | --model-axis | "
+              f"--model-axis-faults]; got {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one "
@@ -3796,6 +4178,12 @@ def main(argv: list[str]) -> int:
     if argv == ["--family-training"]:   # phase 5c alone
         phase_family_training(smi, {k: 0.0 for k in TPU_KERNELS})
         return 0
+    if argv == ["--model-axis"]:        # phase 5d alone
+        phase_model_axis(smi)
+        return 0
+    if argv == ["--model-axis-faults"]:     # the readings behind its limit
+        model_axis_faults(smi)
+        return 0
     errs = {k: 0.0 for k in (*TPU_KERNELS, *SEGMENT_KERNELS,
                              "threefry_normal")}
 
@@ -3814,6 +4202,8 @@ def main(argv: list[str]) -> int:
     done("phase 5b")
     family_training = phase_family_training(smi, errs)
     done("phase 5c")
+    model_axis = phase_model_axis(smi)
+    done("phase 5d")
     phase_small_serve()
     serving = phase_serve(smi)
     done("phases 6-7")
@@ -3866,6 +4256,8 @@ def main(argv: list[str]) -> int:
             row["launches_family_training"] = {
                 arch: f["launches"][name] + f["launches"][rn]
                 for arch, f in family_training.items()}
+            # each rank's row launches over phase 5d's 4 rounds
+            row["launches_model_axis"] = model_axis["launches"][name]
             if name != "sparsify_ef":
                 row["launches_sparse_gather"] = sparse_launches[rn]
                 row["at_sparse_gather_rows"] = sparse_launches["timing"][

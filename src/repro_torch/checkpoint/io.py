@@ -17,6 +17,11 @@ across.  bfloat16 leaves are stored
 as uint16 views with a "bfloat16" tag (numpy has no bf16); Python-scalar
 leaves of the template come back as Python scalars, everything else with
 exactly the dtype it was saved with, on the template leaf's device.
+
+Under a model axis (``save_checkpoint(..., mesh=, specs=)``) the ranks
+hold shards: every leaf is gathered whole over the model group and rank 0
+writes the files, in the format above, so that a checkpoint saved at
+P = 2 loads at P = 1 (and in the reference).
 """
 from __future__ import annotations
 
@@ -25,6 +30,8 @@ import re
 
 import numpy as np
 import torch
+
+from repro_torch import parallel
 
 from . import msgpack
 
@@ -115,8 +122,21 @@ def _numpy_to_leaf(arr: np.ndarray, tag: str, like_leaf=None):
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
 
-def save_checkpoint(directory: str, step: int, tree) -> str:
+def save_checkpoint(directory: str, step: int, tree, *, mesh=None,
+                    specs: dict | None = None) -> str:
+    """Write ``tree`` as step ``step`` under ``directory``; returns the
+    step's path.  With ``mesh`` (a model axis above 1) ``tree`` is a flat
+    dict of this rank's shards with ``specs`` (path -> spec, the leaves
+    not named there replicated): each leaf is gathered whole on every
+    rank, rank 0 writes, and every rank returns once the files exist."""
     path = os.path.join(directory, f"step_{step:08d}")
+    if parallel.model_size(mesh) > 1:
+        tree = {k: parallel.gather_model(mesh, v, (specs or {}).get(k, ()))
+                for k, v in tree.items()}
+        if mesh.rank == 0:
+            save_checkpoint(directory, step, tree)
+        mesh.group.barrier().wait()
+        return path
     os.makedirs(path, exist_ok=True)
     leaves, treedef = _flatten(tree)
     manifest = {"n_leaves": len(leaves), "treedef": treedef,

@@ -21,6 +21,12 @@ card) or over gloo, which stages them through host memory itself (two
 ranks sharing one card: NCCL refuses that).  The mesh's ``transport``
 names the one in use; nothing switches on its own.
 
+The model axis (tensor parallelism, ROADMAP A12): a mesh of ``model`` =
+P > 1 is one row, ("data", "model") = (1, P), whose ``model_group`` is
+the whole group (the FL devices stay rows on every rank); its collectives
+are in :mod:`repro_torch.parallel`.  A mesh with both axes above 1 is not
+ported (ROADMAP A12c).
+
 The production meshes of the reference (256 / 512 chips,
 ``make_production_mesh``) belong to its dry-run tooling and are not
 ported here.
@@ -47,10 +53,12 @@ AXES = ("data", "model")
 class Mesh:
     """``torch.distributed`` group ``group`` seen as a ("data", "model")
     mesh of ``shape`` (axis name -> size); this process is rank ``rank`` of
-    ``size`` and holds its tensors on ``device``."""
+    ``size`` and holds its tensors on ``device``.  ``model_group`` is the
+    group of the model axis (``group`` itself: the mesh is one row; None
+    when the model axis is 1)."""
 
     def __init__(self, group, shape: dict, rank: int, device: torch.device,
-                 transport: str):
+                 transport: str, model_group=None):
         self.group = group
         self.axis_names = tuple(shape)
         self.shape = dict(shape)
@@ -58,6 +66,16 @@ class Mesh:
         self.size = math.prod(shape.values())
         self.device = device
         self.transport = transport
+        self.model_group = model_group
+
+    @property
+    def model_size(self) -> int:
+        return int(self.shape.get("model", 1))
+
+    @property
+    def model_rank(self) -> int:
+        """This rank's index along the model axis."""
+        return self.rank % self.model_size
 
     def __repr__(self) -> str:
         return (f"Mesh(shape={self.shape}, rank={self.rank}, "
@@ -86,11 +104,7 @@ def make_host_mesh(n_devices: int | None = None, model: int = 1,
         group = backend = None
         present, rank = 1, 0
     n = n_devices or present
-    if model < 1 or n % model != 0:
-        raise ValueError(
-            f"make_host_mesh: {n} devices do not factor into a "
-            f"(data={n}/{model}, model={model}) mesh; n_devices must be a "
-            f"positive multiple of model")
+    check_factors(n, model)
     if n != present:
         raise ValueError(f"make_host_mesh: {n} devices asked for, "
                          f"{present} ranks present")
@@ -100,8 +114,23 @@ def make_host_mesh(n_devices: int | None = None, model: int = 1,
         if device.type != "cuda":
             raise ValueError("make_host_mesh: NCCL needs CUDA tensors")
         device = torch.device("cuda", rank)
+    if model > 1 and n > model:
+        raise NotImplementedError(
+            f"make_host_mesh: a ({n // model}, {model}) mesh has both axes "
+            f"above 1; the model axis runs on one row, the FL devices as "
+            f"rows on every rank (ROADMAP A12c)")
     return Mesh(group, dict(zip(AXES, (n // model, model))), rank, device,
-                backend)
+                backend, group if model > 1 else None)
+
+
+def check_factors(n: int, model: int) -> None:
+    """The reference's ``make_host_mesh`` refusal: ``n`` devices must be a
+    positive multiple of ``model``."""
+    if model < 1 or n % model != 0:
+        raise ValueError(
+            f"make_host_mesh: {n} devices do not factor into a "
+            f"(data={n}/{model}, model={model}) mesh; n_devices must be a "
+            f"positive multiple of model")
 
 
 def fl_axis_name(mesh: Mesh) -> str:
@@ -110,11 +139,16 @@ def fl_axis_name(mesh: Mesh) -> str:
 
 
 def fl_shards(mesh: Mesh) -> int:
-    """The number of ranks the FL-device axis spreads over.  A model axis
-    above 1 (tensor parallelism within an FL device) is not ported."""
+    """The number of ranks the FL-device axis spreads over, for the
+    simulator's engines.  They take no model axis (nor do the reference's
+    engines in its tests): the model axis trains the dense transformers
+    (``launch.steps``), and a model axis under the engines stays open
+    (ROADMAP A12c)."""
     if mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError("a mesh with a model axis > 1 is not "
-                                  "ported yet (ROADMAP A12)")
+        raise NotImplementedError(
+            "the simulator's engines take no model axis: a mesh with a "
+            "model axis > 1 runs only the dense transformers' training "
+            "(launch.steps; the engines under it are ROADMAP A12c)")
     return int(mesh.shape[fl_axis_name(mesh)])
 
 

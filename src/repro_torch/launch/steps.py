@@ -37,6 +37,23 @@ does (``core.fl.sgd_update``, ``kernels.ref.ftz``).
 the whole batch (microbatches accumulated in f32), through
 :mod:`repro_torch.optim`.
 
+Both train steps take a ``mesh`` with a model axis P > 1 (ROADMAP A12,
+the dense family): params, error memory and gradients are then each
+rank's shards (``sharding_rules.param_specs``) for all M devices, the
+forward and backward run tensor-parallel (``transformer.lm_loss(...,
+mesh=)``), and the three LGC row kernels run on each rank's shards of a
+split leaf under ``dense_masked``: the rows' maxima from
+``sum_maxabs_rows`` are reduced with a MAX over the model group, the
+256-bin counts that ``histogram_rows`` takes of the shard under the global
+maxima with a SUM, and the thresholds come from the whole leaf's budgets,
+so ``sparsify_ef_rows`` gives each rank bitwise its block of the
+unsharded ``lgc_compress_hist_rows`` (max and integer counts are exact).
+A replicated leaf is compressed whole on every rank.  The sparse modes
+select along rows of each leaf's model-dim view, whose rows a rank holds
+a block of, so selection stays on the rank; a rule that selects along
+another dim (the driver's whole-leaf rows) gathers the leaf, compresses it
+whole and keeps the rank's block.
+
 ``make_prefill_step`` and ``make_serve_step`` wrap ``transformer.prefill``
 and ``transformer.decode_step`` under ``torch.inference_mode()``, so no
 autograd state keeps a layer's activations alive.
@@ -50,14 +67,16 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch import parallel
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.compressor import PALLAS_MIN_ELEMS
 from repro_torch.core.fl import sgd_update
 from repro_torch.device import resolve_device
 from repro_torch.kernels import (histogram_rows, lgc_compress_hist,
-                                 lgc_compress_hist_rows, sum_maxabs_rows,
-                                 thresholds_from_counts)
+                                 lgc_compress_hist_rows, sparsify_ef_rows,
+                                 sum_maxabs_rows, thresholds_from_counts)
 from repro_torch.kernels import ref as kref
+from repro_torch.launch import sharding_rules as rules
 from repro_torch.models import transformer as tf
 from repro_torch.optim.optimizers import (OptimizerConfig, apply_updates,
                                           get_optimizer)
@@ -114,22 +133,39 @@ def _rows_of(batch: dict, rows: slice) -> dict:
     return {k: v[rows] for k, v in batch.items()}
 
 
+def model_specs(cfg: ArchConfig, mesh) -> dict | None:
+    """The param specs of ``cfg`` on ``mesh`` when it has a model axis
+    above 1 (the leaves are then each rank's shards), else None."""
+    if mesh is None or mesh.model_size == 1:
+        return None
+    tf.model_axis_mesh(cfg, mesh)          # the dense family, P | n_kv_heads
+    if mesh.shape.get("data", 1) != 1:
+        raise ValueError(f"the model axis trains on a (data=1, model=P) "
+                         f"mesh, the FL devices as rows; got {mesh.shape}")
+    return rules.param_specs(cfg, tf.init_params(cfg, device="meta"), mesh)
+
+
 def make_sync_train_step(cfg: ArchConfig, *, accum_steps: int = 1,
-                         opt_cfg: OptimizerConfig | None = None):
+                         opt_cfg: OptimizerConfig | None = None, mesh=None):
     """``f(params, opt_state, batch) -> (params, opt_state, loss)``: one
     step of ``cfg.optimizer`` on the gradient of the whole batch (the
     reference's ``make_sync_train_step``, steps.py:84-114).  With
     ``accum_steps > 1`` the batch (every leaf: tokens, labels and a
     modality ``prefix``) is split into that many microbatches of
     consecutive rows whose gradients are summed in f32, then divided and
-    cast to each parameter's dtype, and whose losses are averaged."""
-    _, opt_update = get_optimizer(cfg.optimizer, opt_cfg)
+    cast to each parameter's dtype, and whose losses are averaged.
+    ``mesh`` with a model axis: params and state are this rank's shards,
+    the batch is whole on every rank."""
+    specs = model_specs(cfg, mesh)
+    _, opt_update = get_optimizer(cfg.optimizer, opt_cfg, mesh=mesh,
+                                  specs=specs)
 
     def loss_and_grads(params, batch):
         names = list(params)
         leaves = [params[k].detach().requires_grad_(True) for k in names]
         with torch.enable_grad():
-            loss = tf.lm_loss(dict(zip(names, leaves)), cfg, batch)
+            loss = tf.lm_loss(dict(zip(names, leaves)), cfg, batch,
+                              mesh=mesh)
             grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), dict(zip(names, grads))
 
@@ -226,9 +262,11 @@ def _band_top_k(band: torch.Tensor, k: int) -> torch.Tensor:
 # the leaf dim each name's PartitionSpec shards over "model" in the
 # reference's sharding_rules.param_specs for the dense family, before the
 # stacked-layer dim; the 100M task's sparse uplinks select along rows of
-# that dim
-_MODEL_DIM = {"embed": 0, "wq": 1, "wk": 1, "wv": 1, "wo": 0, "bq": 0,
-              "bk": 0, "bv": 0, "w_gate": 1, "w_up": 1, "w_down": 0}
+# that dim (it agrees with sharding_rules.param_specs on every dense leaf,
+# tests/test_torch_tensor_parallel.py)
+_MODEL_DIM = {"embed": 0, "lm_head": 1, "wq": 1, "wk": 1, "wv": 1, "wo": 0,
+              "bq": 0, "bk": 0, "bv": 0, "w_gate": 1, "w_up": 1,
+              "w_down": 0, "b_up": 0}
 
 
 def leaf_model_axis(path: str, ndim: int) -> int | None:
@@ -380,10 +418,177 @@ def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
+def split_compress_rows(e: torch.Tensor, delta: torch.Tensor,
+                        cum_ks: torch.Tensor, received: torch.Tensor, mesh,
+                        kernels: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """Histogram-LGC of a leaf split over the model group, on this rank's
+    (M, n / P) rows of it: the rows' maxima of the shard and a MAX over
+    the ranks (on the maxima's bits: |u| has its sign bit clear, so the
+    bits order as the values, a NaN above +inf as the unsharded maximum
+    takes it), the shard's 256-bin counts under those maxima and a SUM,
+    the thresholds from ``cum_ks`` of the WHOLE leaf, then the shard's
+    (g, e_new).  ``kernels``: through the maxabs, histogram and
+    sparsify_ef row kernels, else their plain versions; bitwise the
+    rank's block of :func:`kernels.lgc_compress_hist_rows` of the whole
+    leaf either way."""
+    e = e.to(torch.float32).contiguous()
+    delta = delta.to(torch.float32).contiguous()
+    if kernels:
+        u, mx = sum_maxabs_rows(e, delta)
+    else:
+        u = kref.ftz_add(e, delta)
+        mx = kref.hist_maxabs_rows(u)
+    mx = parallel.all_reduce_max(mesh, mx.view(torch.int32)).view(
+        torch.float32)
+    counts = histogram_rows(u, mx) if kernels else kref.hist_counts_rows(
+        u, mx)
+    counts = parallel.all_reduce_sum(mesh, counts)
+    thr = thresholds_from_counts(counts, mx, cum_ks)
+    if kernels:
+        return sparsify_ef_rows(e, delta, thr, received)
+    return kref.hist_layered_sparsify_rows(u, thr, received)
+
+
+def make_lgc_compress(cfg: ArchConfig, m_devices: int,
+                      step_cfg: LGCStepConfig, *, rows: bool = True,
+                      model_axis: Callable[[str, int], int | None]
+                      | None = None, mesh=None):
+    """The LGC train step's compression of one leaf (arguments as
+    :func:`make_lgc_train_step`'s): returns ``compress(k, shape, e_rows,
+    delta, recv) -> (g_mean (n,), e_new (M, n) f32 or None under
+    FedAvg)``, for leaf ``k`` of (this rank's) ``shape``, from its f32
+    error memory and net progress rows (M, n) and the (M, C) int32
+    delivery masks: what the step subtracts and keeps."""
+    specs = model_specs(cfg, mesh)
+    if specs is not None and not rows:
+        raise ValueError("rows=False (the flat kernels device by device) "
+                         "takes no model axis")
+    split = {k: rules.is_sharded(s, mesh.shape) for k, s in
+             (specs or {}).items()}
+
+    def whole(k: str, n: int) -> int:
+        """The element count of leaf ``k``'s whole leaf from its shard's."""
+        return n * mesh.model_size if split.get(k) else n
+
+    wire_dt = _dtype(step_cfg.psum_dtype)
+    cum_ks_cache: dict = {}
+
+    def cum_ks_for(n: int, device) -> torch.Tensor:
+        key = (n, str(device))
+        if key not in cum_ks_cache:
+            cum_ks_cache[key] = _leaf_cum_ks(n, step_cfg.sparsity, device)
+        return cum_ks_cache[key]
+
+    def compress_leaf(k: str, e: torch.Tensor, delta: torch.Tensor,
+                      received: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(g, e_new) of one leaf over the M device rows, (M, n) each."""
+        n = whole(k, delta.shape[1])
+        cum_ks = cum_ks_for(n, delta.device)
+        kernel = (step_cfg.backend in ("cuda", "pallas")
+                  and n >= step_cfg.pallas_min_elems)
+        if split.get(k):
+            return split_compress_rows(e, delta,
+                                       cum_ks.expand(m_devices, -1),
+                                       received, mesh, kernel)
+        if rows and kernel:
+            return lgc_compress_hist_rows(
+                e, delta, cum_ks.expand(m_devices, -1), received)
+        out = [_compress_leaf_dense(
+            e[m], delta[m], step_cfg.sparsity, received[m],
+            backend=step_cfg.backend,
+            pallas_min_elems=step_cfg.pallas_min_elems, cum_ks=cum_ks)
+            for m in range(m_devices)]
+        return (torch.stack([g for g, _ in out]),
+                torch.stack([en for _, en in out]))
+
+    def compress_sparse(path: str, shape, e: torch.Tensor,
+                        delta: torch.Tensor, received: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(g_mean (n,), e_new (M, n)) of one leaf under a sparse
+        aggregate, selected along rows of the dim ``model_axis`` names,
+        or over the whole leaf.  A split leaf whose selection rows are
+        not along its model dim is gathered, compressed whole and cut
+        back to this rank's block."""
+        ax = model_axis(path, len(shape)) if model_axis else None
+        if split.get(path) and ax != rules.model_dim(specs[path]):
+            spec, ef_spec = specs[path], (None, *specs[path])
+            full = list(shape)
+            full[rules.model_dim(spec)] *= mesh.model_size
+            e_full, d_full = (parallel.gather_model(
+                mesh, t.reshape(m_devices, *shape), ef_spec).reshape(
+                    m_devices, -1) for t in (e, delta))
+            g_mean, e_new = compress_sparse_whole(
+                path, tuple(full), e_full, d_full, received, math.prod(full))
+            return (rules.shard(g_mean.reshape(full), spec,
+                                mesh).reshape(-1),
+                    rules.shard(e_new.reshape(m_devices, *full), ef_spec,
+                                mesh).reshape(m_devices, -1))
+        return compress_sparse_whole(path, shape, e, delta, received,
+                                     whole(path, math.prod(shape)))
+
+    def compress_sparse_whole(path: str, shape, e: torch.Tensor,
+                              delta: torch.Tensor, received: torch.Tensor,
+                              leaf_n: int
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+        ax = model_axis(path, len(shape)) if model_axis else None
+        lead = shape[ax] if ax is not None else 1
+        rest = [d for i, d in enumerate(shape) if i != ax]
+
+        def to_rows(t):                   # (M, n) -> (M, lead, n / lead)
+            if ax is None:
+                return t.reshape(m_devices, 1, -1)
+            return t.reshape(m_devices, *shape).movedim(ax + 1, 1).reshape(
+                m_devices, lead, -1)
+
+        def from_rows(t, dev_dim: int):  # back to (n,) or (M, n)
+            if ax is None:
+                return t.reshape(*t.shape[:dev_dim], -1)
+            t = t.reshape(*t.shape[:dev_dim], lead, *rest)
+            return t.movedim(dev_dim, dev_dim + ax).reshape(
+                *t.shape[:dev_dim], -1)
+
+        e, delta = to_rows(e), to_rows(delta)
+        if step_cfg.aggregate == "bucket_sparse":
+            g_mean, e_new = _compress_leaf_bucket(e, delta,
+                                                  step_cfg.sparsity, received)
+        else:
+            n = delta.shape[-1]
+            kernel = (step_cfg.backend in ("cuda", "pallas")
+                      and leaf_n >= step_cfg.pallas_min_elems)
+            g_mean, e_new = _compress_leaf_sparse(
+                e, delta, step_cfg.sparsity, received, kernels=kernel,
+                cum_ks=cum_ks_for(n, delta.device))
+        return from_rows(g_mean, 0), from_rows(e_new, 1)
+
+    def compress(k: str, shape: tuple, e_rows: torch.Tensor,
+                 delta: torch.Tensor, recv: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        if step_cfg.aggregate in ("sparse_gather", "bucket_sparse"):
+            return compress_sparse(k, shape, e_rows, delta, recv)
+        e_new = None
+        if step_cfg.aggregate == "none":                # FedAvg baseline
+            g_wire = delta
+        else:                                           # dense_masked
+            g, e_new = compress_leaf(k, e_rows, delta, recv)
+            g_wire = g.to(wire_dt)
+            # the wire rounding residue joins the error memory
+            e_new = kref.ftz_add(e_new, kref.ftz_add(
+                g, -g_wire.to(torch.float32)))
+        # Alg. 1 lines 20-21: w - mean_m g_m, summed device by device
+        g_sum = g_wire[0]
+        for m in range(1, m_devices):
+            g_sum = g_sum + g_wire[m]
+        return kref.ftz(kref.div_f32(g_sum, m_devices).to(torch.float32)), \
+            e_new
+
+    return compress
+
+
 def make_lgc_train_step(cfg: ArchConfig, m_devices: int,
                         step_cfg: LGCStepConfig, *, rows: bool = True,
                         model_axis: Callable[[str, int], int | None]
-                        | None = None, donate: bool = False):
+                        | None = None, donate: bool = False, mesh=None):
     """Algorithm 1: returns ``f(params, ef, batch, received=None) ->
     (params, ef, loss)``.
 
@@ -413,17 +618,16 @@ def make_lgc_train_step(cfg: ArchConfig, m_devices: int,
     not all held at once (phi-3-vision's 3.8B parameters and their f32
     error memory fill most of a card); the caller keeps only the returned
     state.
+
+    ``mesh`` with a model axis P > 1 (the dense family): ``params`` hold
+    this rank's shards and ``ef`` its (M, *shard) rows, the batch is whole
+    on every rank, and every rank returns the same loss (module
+    docstring).  Kernel routing and budgets read each leaf's WHOLE size.
     """
     h, n_ch, lr = step_cfg.local_steps, step_cfg.n_channels, step_cfg.local_lr
-    wire_dt = _dtype(step_cfg.psum_dtype)
     ef_dt = _dtype(step_cfg.ef_dtype)
-    cum_ks_cache: dict = {}
-
-    def cum_ks_for(n: int, device) -> torch.Tensor:
-        key = (n, str(device))
-        if key not in cum_ks_cache:
-            cum_ks_cache[key] = _leaf_cum_ks(n, step_cfg.sparsity, device)
-        return cum_ks_cache[key]
+    compress = make_lgc_compress(cfg, m_devices, step_cfg, rows=rows,
+                                 model_axis=model_axis, mesh=mesh)
 
     def local_sgd(params, batch):
         """H plain SGD steps from ``params`` on the H microbatches of the
@@ -438,7 +642,8 @@ def make_lgc_train_step(cfg: ArchConfig, m_devices: int,
             with torch.enable_grad():
                 loss = tf.lm_loss(dict(zip(names, leaves)), cfg,
                                   _rows_of(batch, slice(i * mb,
-                                                        (i + 1) * mb)))
+                                                        (i + 1) * mb)),
+                                  mesh=mesh)
                 grads = torch.autograd.grad(loss, leaves)
             with torch.no_grad():
                 p = {k: sgd_update(w.to(torch.float32),
@@ -446,62 +651,6 @@ def make_lgc_train_step(cfg: ArchConfig, m_devices: int,
                      for k, w, g in zip(names, leaves, grads)}
                 loss_sum = loss_sum + loss.detach()
         return p, loss_sum
-
-    def compress_leaf(e: torch.Tensor, delta: torch.Tensor,
-                      received: torch.Tensor
-                      ) -> tuple[torch.Tensor, torch.Tensor]:
-        """(g, e_new) of one leaf over the M device rows, (M, n) each."""
-        n = delta.shape[1]
-        cum_ks = cum_ks_for(n, delta.device)
-        kernel = (step_cfg.backend in ("cuda", "pallas")
-                  and n >= step_cfg.pallas_min_elems)
-        if rows and kernel:
-            return lgc_compress_hist_rows(
-                e, delta, cum_ks.expand(m_devices, -1), received)
-        out = [_compress_leaf_dense(
-            e[m], delta[m], step_cfg.sparsity, received[m],
-            backend=step_cfg.backend,
-            pallas_min_elems=step_cfg.pallas_min_elems, cum_ks=cum_ks)
-            for m in range(m_devices)]
-        return (torch.stack([g for g, _ in out]),
-                torch.stack([en for _, en in out]))
-
-    def compress_sparse(path: str, shape, e: torch.Tensor,
-                        delta: torch.Tensor, received: torch.Tensor
-                        ) -> tuple[torch.Tensor, torch.Tensor]:
-        """(g_mean (n,), e_new (M, n)) of one leaf under a sparse
-        aggregate, selected along rows of the dim ``model_axis`` names,
-        or over the whole leaf."""
-        ax = model_axis(path, len(shape)) if model_axis else None
-        lead = shape[ax] if ax is not None else 1
-        rest = [d for i, d in enumerate(shape) if i != ax]
-
-        def to_rows(t):                   # (M, n) -> (M, lead, n / lead)
-            if ax is None:
-                return t.reshape(m_devices, 1, -1)
-            return t.reshape(m_devices, *shape).movedim(ax + 1, 1).reshape(
-                m_devices, lead, -1)
-
-        def from_rows(t, dev_dim: int):  # back to (n,) or (M, n)
-            if ax is None:
-                return t.reshape(*t.shape[:dev_dim], -1)
-            t = t.reshape(*t.shape[:dev_dim], lead, *rest)
-            return t.movedim(dev_dim, dev_dim + ax).reshape(
-                *t.shape[:dev_dim], -1)
-
-        e, delta = to_rows(e), to_rows(delta)
-        if step_cfg.aggregate == "bucket_sparse":
-            g_mean, e_new = _compress_leaf_bucket(e, delta,
-                                                  step_cfg.sparsity, received)
-        else:
-            n = delta.shape[-1]
-            kernel = (step_cfg.backend in ("cuda", "pallas")
-                      and delta.numel() // m_devices
-                      >= step_cfg.pallas_min_elems)
-            g_mean, e_new = _compress_leaf_sparse(
-                e, delta, step_cfg.sparsity, received, kernels=kernel,
-                cum_ks=cum_ks_for(n, delta.device))
-        return from_rows(g_mean, 0), from_rows(e_new, 1)
 
     @torch.no_grad()
     def step(params, ef, batch, received=None):
@@ -547,28 +696,11 @@ def make_lgc_train_step(cfg: ArchConfig, m_devices: int,
             w, delta = (params.pop(k) if donate else params[k]), deltas.pop(k)
             e_old = ef.pop(k) if donate else ef[k]
             e_rows = e_old.reshape(m_devices, -1).to(torch.float32)
-            if step_cfg.aggregate in ("sparse_gather", "bucket_sparse"):
-                g_mean, e_new = compress_sparse(k, tuple(w.shape), e_rows,
-                                                delta, recv)
-                ef_new[k] = e_new.to(ef_dt).reshape(e_old.shape)
+            g_mean, e_new = compress(k, tuple(w.shape), e_rows, delta, recv)
+            if e_new is None:                           # FedAvg: no EF
+                ef_new[k] = e_old if donate else e_old.clone()
             else:
-                if step_cfg.aggregate == "none":        # FedAvg baseline
-                    g_wire = delta
-                    ef_new[k] = e_old if donate else e_old.clone()
-                else:                                   # dense_masked
-                    g, e_new = compress_leaf(e_rows, delta, recv)
-                    g_wire = g.to(wire_dt)
-                    # the wire rounding residue joins the error memory
-                    e_new = kref.ftz_add(e_new, kref.ftz_add(
-                        g, -g_wire.to(torch.float32)))
-                    ef_new[k] = e_new.to(ef_dt).reshape(e_old.shape)
-                # Alg. 1 lines 20-21: w - mean_m g_m, summed device by
-                # device
-                g_sum = g_wire[0]
-                for m in range(1, m_devices):
-                    g_sum = g_sum + g_wire[m]
-                g_mean = kref.ftz(kref.div_f32(g_sum, m_devices).to(
-                    torch.float32))
+                ef_new[k] = e_new.to(ef_dt).reshape(e_old.shape)
             params_new[k] = kref.ftz_add(w.to(torch.float32).reshape(-1),
                                          -g_mean).to(w.dtype).reshape(w.shape)
         return params_new, ef_new, loss_total / m_devices

@@ -11,8 +11,18 @@ the gradient clip for qwen2) on each batch; ``lgc`` (``dense_masked``),
 step with ``--devices`` N FL devices as N rows on the one card, each on
 its 1/N of the batch.  On the card the LGC compression takes the CUDA
 kernels (``backend="cuda"``), on the CPU their plain versions: the same
-bits.  ``--model-parallel`` > 1 is the sharded engine (ROADMAP A12) and
-raises.  The run exits with code 1 when the loss did not fall.
+bits.  The run exits with code 1 when the loss did not fall.
+
+``--model-parallel P`` > 1 trains the dense family tensor-parallel
+(ROADMAP A12): the driver spawns P ranks (``launch.mesh.spawn``), each on
+a (data=1, model=P) mesh holding its shard of every leaf
+(``launch.sharding_rules``), in every mode.  As in the reference,
+``--devices`` counts the mesh's devices, so the LGC modes train
+``devices // P`` FL devices as rows (a count that P does not divide is
+the reference's ``make_host_mesh`` refusal).  The ranks share the card
+over gloo (NCCL refuses two ranks on one card) unless there is a card a
+rank, where they take NCCL; the header line names the transport.  Another
+family at P > 1 raises (ROADMAP A12c).
 
 Every arch id trains (``--arch mamba2-370m``, ``olmoe-1b-7b``,
 ``glm4-9b``, ...; grok-1's ``sgdm`` keeps its moment in the parameters'
@@ -42,6 +52,8 @@ from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.tokens import TokenPipeline
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as meshlib
+from repro_torch.launch import sharding_rules as rules
 from repro_torch.launch.steps import (LGCStepConfig, init_ef_tree,
                                       make_lgc_train_step,
                                       make_sync_train_step)
@@ -98,18 +110,69 @@ def modality_prefix(cfg, batch: int, device) -> torch.Tensor | None:
                        generator=gen).to(device, cfg.dtype)
 
 
+def transport(device: torch.device, ranks: int) -> str:
+    """The model axis's transport: NCCL when every rank has a card of its
+    own, else gloo (CPU tensors, or ranks sharing one card)."""
+    if device.type == "cuda" and torch.cuda.device_count() >= ranks:
+        return "nccl"
+    return "gloo"
+
+
 def main(argv=None) -> list[float]:
     """Run the driver; returns the losses (exits 1 if they did not fall)."""
     args = _parse(argv)
     if args.model_parallel > 1:
-        raise NotImplementedError("--model-parallel > 1 (tensor "
-                                  "parallelism) is not ported (ROADMAP A12)")
-    dev = resolve_device(args.device)
+        meshlib.check_factors(args.devices, args.model_parallel)
+        cfg = get_smoke_config(args.arch) if args.smoke else get_config(
+            args.arch)
+        if cfg.arch_type != "dense":
+            raise NotImplementedError(
+                f"--model-parallel > 1 trains the dense family; "
+                f"{cfg.name} is {cfg.arch_type} (ROADMAP A12c)")
+        dev = resolve_device(args.device)
+        backend = transport(dev, args.model_parallel)
+        ranks = meshlib.spawn(rank_main, args.model_parallel, backend,
+                              args=(list(argv if argv is not None
+                                         else sys.argv[1:]),),
+                              timeout=3600.0)
+        losses = ranks[0]
+        if any(r != losses for r in ranks[1:]):
+            raise RuntimeError(f"the ranks' losses differ: {ranks}")
+    else:
+        losses = train(args)
+    if not (np.isfinite(losses[-1]) and losses[-1] < losses[0]):
+        print("WARNING: loss did not decrease", file=sys.stderr)
+        sys.exit(1)
+    return losses
+
+
+def rank_main(argv: list) -> list[float]:
+    """One rank of ``--model-parallel P``: its mesh, then :func:`train`."""
+    args = _parse(argv)
+    mesh = meshlib.make_host_mesh(args.model_parallel,
+                                  model=args.model_parallel,
+                                  device=args.device)
+    return train(args, mesh)
+
+
+def train(args, mesh=None) -> list[float]:
+    """The driver's run on this process (a rank of ``mesh``'s model axis
+    when given); returns the losses."""
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
+    tp = mesh is not None and mesh.model_size > 1
+    say = print if not tp or mesh.rank == 0 else (lambda *a, **k: None)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     params = tf.init_params(cfg, seed=0, device=dev)
     n_params = sum(p.numel() for p in params.values())
-    print(f"arch={cfg.name} params={n_params / 1e6:.1f}M mode={args.mode} "
-          f"devices={args.devices} on {dev}")
+    specs = None
+    if tp:
+        specs = rules.param_specs(cfg, params, mesh)
+        params = rules.shard_tree(params, specs, mesh)
+    n_fl = args.devices // args.model_parallel
+    say(f"arch={cfg.name} params={n_params / 1e6:.1f}M mode={args.mode} "
+        f"devices={args.devices} on {dev}"
+        + (f" model_parallel={mesh.model_size} fl_devices={n_fl} "
+           f"transport={mesh.transport}" if tp else ""))
 
     pipe = TokenPipeline(cfg.vocab_size, args.seq, args.batch)
     pipe.next_batch()            # the reference's batch0, drawn at set-up
@@ -128,35 +191,34 @@ def main(argv=None) -> list[float]:
         opt_cfg = OptimizerConfig(lr=args.lr)
         opt_init, _ = get_optimizer(cfg.optimizer, opt_cfg)
         opt_state = opt_init(params)
-        step = make_sync_train_step(cfg, opt_cfg=opt_cfg)
+        step = make_sync_train_step(cfg, opt_cfg=opt_cfg, mesh=mesh)
         for i in range(args.steps):
             params, opt_state, loss = step(params, opt_state, batch())
             losses.append(float(loss))
             if i % args.log_every == 0:
-                print(f"step {i:5d} loss {losses[-1]:.4f}")
+                say(f"step {i:5d} loss {losses[-1]:.4f}")
     else:
         lgc = LGCStepConfig(
             local_steps=args.local_steps,
             sparsity=tuple(float(x) for x in args.sparsity.split(",")),
             local_lr=args.lr, aggregate=AGGREGATE_OF_MODE[args.mode],
             backend="cuda" if dev.type == "cuda" else "exact")
-        ef = init_ef_tree(params, args.devices)
-        step = make_lgc_train_step(cfg, args.devices, lgc, donate=True)
+        ef = init_ef_tree(params, n_fl)
+        step = make_lgc_train_step(cfg, n_fl, lgc, donate=True, mesh=mesh)
         for i in range(args.steps):
             params, ef, loss = step(params, ef, batch())
             losses.append(float(loss))
             if i % args.log_every == 0:
-                print(f"round {i:5d} (H={args.local_steps}) "
-                      f"loss {losses[-1]:.4f}")
+                say(f"round {i:5d} (H={args.local_steps}) "
+                    f"loss {losses[-1]:.4f}")
         if args.ckpt_dir:
-            save_checkpoint(args.ckpt_dir, args.steps, params)
+            save_checkpoint(args.ckpt_dir, args.steps, params, mesh=mesh,
+                            specs=specs)
 
     if args.ckpt_dir and args.mode == "sync" and args.ckpt_every:
-        save_checkpoint(args.ckpt_dir, args.steps, params)
-    print(f"final loss {losses[-1]:.4f} (start {losses[0]:.4f})")
-    if not (np.isfinite(losses[-1]) and losses[-1] < losses[0]):
-        print("WARNING: loss did not decrease", file=sys.stderr)
-        sys.exit(1)
+        save_checkpoint(args.ckpt_dir, args.steps, params, mesh=mesh,
+                        specs=specs)
+    say(f"final loss {losses[-1]:.4f} (start {losses[0]:.4f})")
     return losses
 
 

@@ -87,8 +87,25 @@ def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     return x.reshape(b, s, n, hd)
 
 
+def local_heads(n_heads: int, n_kv: int, model: int) -> tuple[int, int]:
+    """(H / P, Kv / P): the query and kv heads each of ``model`` = P ranks
+    holds under the model axis.  Heads are contiguous in the ``HK``
+    columns of ``wq`` / ``wk`` / ``wv``, so a rank's block of columns is
+    whole heads, and :func:`_expand_kv` pairs its q heads with its kv
+    heads only when P divides the kv heads.  (The reference's GSPMD also
+    splits inside a head; that layout is not ported.)"""
+    if model < 1 or n_kv % model or n_heads % model:
+        raise ValueError(f"a model axis of {model} must divide n_kv_heads="
+                         f"{n_kv} (and n_heads={n_heads}): each rank holds "
+                         f"whole kv heads")
+    return n_heads // model, n_kv // model
+
+
 def qkv_project(x: torch.Tensor, p: dict, n_heads: int, n_kv: int, hd: int,
                 bias: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q, k, v (B, S, heads, hd).  Under a model axis ``p`` holds the
+    rank's column blocks and ``n_heads`` / ``n_kv`` its local counts
+    (:func:`local_heads`)."""
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
@@ -201,13 +218,18 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def mlp_forward(x: torch.Tensor, p: dict, kind: str) -> torch.Tensor:
+def mlp_forward(x: torch.Tensor, p: dict, kind: str, *,
+                down_bias: bool = True) -> torch.Tensor:
+    """The MLP of ``kind``; ``down_bias=False`` leaves the plain GELU
+    MLP's ``b_down`` out, for a caller that adds it after summing the
+    model axis's partial outputs."""
     if kind == "swiglu":
         return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
     if kind == "geglu":
         return (gelu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
     # the plain GELU MLP with biases (whisper)
-    return gelu(x @ p["w_up"] + p["b_up"]) @ p["w_down"] + p["b_down"]
+    y = gelu(x @ p["w_up"] + p["b_up"]) @ p["w_down"]
+    return y + p["b_down"] if down_bias else y
 
 
 # ---------------------------------------------------------------------------

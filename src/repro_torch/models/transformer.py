@@ -34,11 +34,20 @@ families: the MoE's load-balance loss summed over the blocks, the SSD
 blocks' chunked scan under autograd, the hybrid's shared block before each
 run of ``attn_every`` SSD blocks, the vlm's patch prefix (no loss on its
 positions) and the audio encoder with the decoder's cross-attention.
+
+Under a model axis P > 1 (``mesh=``, ROADMAP A12) the dense family trains
+tensor-parallel on each rank's shards (``launch.sharding_rules``): the
+vocab-parallel embedding lookup, :func:`repro_torch.parallel.
+copy_to_model` before the column-parallel ``wq`` / ``wk`` / ``wv`` and
+``w_gate`` / ``w_up``, ``reduce_from_model`` after the row-parallel
+``wo`` and ``w_down``, and a vocab-parallel cross-entropy.  The blocks are
+the same functions at P = 1, where those collectives return their input.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import parallel
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import prng
 from repro_torch.device import resolve_device
@@ -46,8 +55,8 @@ from . import moe as moe_lib
 from . import ssd as ssd_lib
 from .layers import (KVCache, _expand_kv, _split_each, apply_norm,
                      apply_rope, attention_decode, attention_train,
-                     attn_init, cache_update, mlp_forward, mlp_init,
-                     norm_init, normal, qkv_project)
+                     attn_init, cache_update, local_heads, mlp_forward,
+                     mlp_init, norm_init, normal, qkv_project)
 
 Params = dict[str, torch.Tensor]
 
@@ -211,18 +220,25 @@ def layer_params(params: Params, stack: str = "blocks") -> list[dict]:
     return layers
 
 
-def _ffn(x: torch.Tensor, bp: dict, cfg: ArchConfig
+def _ffn(x: torch.Tensor, bp: dict, cfg: ArchConfig, mesh=None
          ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """The block's second half: norm2, then the MLP or the MoE layer, and
     the residual add.  Returns (x, the MoE's aux loss or None); serving
-    drops the aux loss."""
+    drops the aux loss.  Under a model axis (``mesh``) the MLP's columns
+    are this rank's: its partial output is summed over the ranks before
+    the replicated ``b_down`` joins it once."""
     h = apply_norm(x, bp["norm2"], cfg.norm)
     if "moe" in bp:
         y, aux = moe_lib.moe_forward(
             h, bp["moe"], n_experts=cfg.n_experts, top_k=cfg.experts_per_tok,
             capacity_factor=cfg.moe_capacity_factor, mlp_kind=cfg.mlp)
         return x + y, aux
-    return x + mlp_forward(h, bp["mlp"], cfg.mlp), None
+    p = bp["mlp"]
+    y = parallel.reduce_from_model(mesh, mlp_forward(
+        parallel.copy_to_model(mesh, h), p, cfg.mlp, down_bias=False))
+    if "b_down" in p:
+        y = y + p["b_down"]
+    return x + y, None
 
 
 # ===========================================================================
@@ -231,24 +247,28 @@ def _ffn(x: torch.Tensor, bp: dict, cfg: ArchConfig
 
 def _attn_block_train(x: torch.Tensor, bp: dict, cfg: ArchConfig,
                       positions: torch.Tensor, *, causal: bool = True,
-                      window: int = 0, enc_out: torch.Tensor | None = None
-                      ) -> tuple[torch.Tensor, torch.Tensor | None]:
+                      window: int = 0, enc_out: torch.Tensor | None = None,
+                      mesh=None) -> tuple[torch.Tensor, torch.Tensor | None]:
     """One attention + FFN block over the full sequence; returns (x, the
     MoE's aux loss or None).  With ``enc_out`` (the audio decoder) the
     block cross-attends to the encoder output, non-causally, after its
-    self-attention."""
-    h = apply_norm(x, bp["norm1"], cfg.norm)
-    q, k, v = qkv_project(h, bp["attn"], cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                          cfg.qkv_bias)
+    self-attention.  Under a model axis (``mesh``, the dense family) the
+    block runs on this rank's heads and MLP columns, its row-parallel
+    outputs summed over the ranks."""
+    n_h, n_kv = local_heads(cfg.n_heads, cfg.n_kv_heads,
+                            parallel.model_size(mesh))
+    h = parallel.copy_to_model(mesh, apply_norm(x, bp["norm1"], cfg.norm))
+    q, k, v = qkv_project(h, bp["attn"], n_h, n_kv, cfg.hd, cfg.qkv_bias)
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    k = _expand_kv(k, cfg.n_heads)
-    v = _expand_kv(v, cfg.n_heads)
+    k = _expand_kv(k, n_h)
+    v = _expand_kv(v, n_h)
     att = attention_train(q, k, v, causal=causal, window=window,
                           q_chunk=cfg.attn_q_chunk)
     b, s = x.shape[:2]
-    x = x + att.reshape(b, s, -1) @ bp["attn"]["wo"]
+    x = x + parallel.reduce_from_model(
+        mesh, att.reshape(b, s, -1) @ bp["attn"]["wo"])
     if enc_out is not None:
         h = apply_norm(x, bp["norm_x"], cfg.norm)
         q = (h @ bp["cross"]["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
@@ -256,7 +276,7 @@ def _attn_block_train(x: torch.Tensor, bp: dict, cfg: ArchConfig,
         att = attention_train(q, ck, cv, causal=False,
                               q_chunk=cfg.attn_q_chunk)
         x = x + att.reshape(b, s, -1) @ bp["cross"]["wo"]
-    return _ffn(x, bp, cfg)
+    return _ffn(x, bp, cfg, mesh)
 
 
 def _ssm_block_train(x: torch.Tensor, bp: dict, cfg: ArchConfig
@@ -282,8 +302,8 @@ def _hybrid_train(x: torch.Tensor, params: Params, cfg: ArchConfig,
 
 
 def forward_hidden(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
-                   prefix: torch.Tensor | None = None, *, window: int = 0
-                   ) -> tuple[torch.Tensor, torch.Tensor, int]:
+                   prefix: torch.Tensor | None = None, *, window: int = 0,
+                   mesh=None) -> tuple[torch.Tensor, torch.Tensor, int]:
     """Full-sequence forward up to the final norm (reference
     ``transformer.py:186-229``).
 
@@ -295,9 +315,14 @@ def forward_hidden(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     D) frame embeddings through the encoder, the decoder tokens taking
     ``dec_pos[min(position, max_position - 1)]`` and cross-attending to
     the encoder output in every block.
+
+    ``mesh`` with a model axis P > 1: ``params`` are this rank's shards
+    and the dense family's blocks run tensor-parallel (module docstring).
     """
     _check_arch(cfg)
-    x = params["embed"][tokens]                             # (B,S,D)
+    tp = model_axis_mesh(cfg, mesh)
+    x = (params["embed"][tokens] if tp is None             # (B,S,D)
+         else _embed_tp(params["embed"], tokens, tp))
     n_prefix = 0
     if cfg.arch_type in ("vlm", "audio") and prefix is None:
         raise ValueError(f"the {cfg.arch_type} family needs a modality "
@@ -310,7 +335,8 @@ def forward_hidden(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.arch_type in ("dense", "moe", "vlm"):
         for bp in layer_params(params):
-            x, a = _attn_block_train(x, bp, cfg, positions, window=window)
+            x, a = _attn_block_train(x, bp, cfg, positions, window=window,
+                                     mesh=tp)
             if a is not None:
                 aux = aux + a
     elif cfg.arch_type == "ssm":
@@ -329,30 +355,41 @@ def forward_hidden(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
             n_prefix)
 
 
-def logits_fn(params: Params, cfg: ArchConfig, hidden: torch.Tensor
-              ) -> torch.Tensor:
+def logits_fn(params: Params, cfg: ArchConfig, hidden: torch.Tensor,
+              mesh=None) -> torch.Tensor:
+    """(..., Vp) f32 logits; under a model axis this rank's (..., Vp / P)
+    block of the vocab."""
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    hidden = parallel.copy_to_model(model_axis_mesh(cfg, mesh), hidden)
     return (hidden @ head).to(torch.float32)
 
 
-def lm_loss(params: Params, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+def lm_loss(params: Params, cfg: ArchConfig, batch: dict, *,
+            mesh=None) -> torch.Tensor:
     """batch: tokens (B,S), labels (B,S), and the vlm / audio families'
     ``prefix`` -> mean next-token cross-entropy over the token positions,
     plus ``router_aux_weight * aux / n_layers`` (reference
     ``transformer.py:255-289``).
 
     The cross-entropy is summed in sequence chunks of ``cfg.loss_chunk`` as
-    in the reference, so the (B, S, V) logits never exist at once.
+    in the reference, so the (B, S, V) logits never exist at once.  Under
+    a model axis (``mesh``) each chunk's logits are split over the vocab:
+    the log-sum-exp takes its shift from a MAX over the ranks and its sum
+    of exponentials from a SUM, the gold logit from the one rank that
+    holds it; every rank returns the same loss.
     """
+    tp = model_axis_mesh(cfg, mesh)
     hidden, aux, n_prefix = forward_hidden(params, cfg, batch["tokens"],
-                                           batch.get("prefix"))
+                                           batch.get("prefix"), mesh=mesh)
     hidden = hidden[:, n_prefix:]
     labels = batch["labels"]
     b, s, _ = hidden.shape
     chunk = min(cfg.loss_chunk, s)
 
     def chunk_nll(h_c, y_c):
-        logits = logits_fn(params, cfg, h_c)                # (B,c,V) f32
+        logits = logits_fn(params, cfg, h_c, mesh)          # (B,c,V) f32
+        if tp is not None:
+            return _vocab_parallel_nll(logits, y_c, tp)
         logz = torch.logsumexp(logits, -1)
         gold = torch.gather(logits, -1, y_c[..., None].long())[..., 0]
         return torch.sum(logz - gold)
@@ -366,6 +403,57 @@ def lm_loss(params: Params, cfg: ArchConfig, batch: dict) -> torch.Tensor:
                                       labels[:, c0:c0 + chunk])
     loss = total / (b * s)
     return loss + cfg.router_aux_weight * aux / max(cfg.n_layers, 1)
+
+
+# ===========================================================================
+# the model axis: the dense family tensor-parallel
+# ===========================================================================
+
+def model_axis_mesh(cfg: ArchConfig, mesh):
+    """``mesh`` when it has a model axis above 1 (only the dense family
+    runs on one), else None."""
+    if mesh is None or mesh.model_size == 1:
+        return None
+    if cfg.arch_type != "dense":
+        raise NotImplementedError(
+            f"the {cfg.arch_type} family does not train under a model axis "
+            f"yet (ROADMAP A12c); only the dense family does")
+    local_heads(cfg.n_heads, cfg.n_kv_heads, mesh.model_size)
+    return mesh
+
+
+def _embed_tp(embed: torch.Tensor, tokens: torch.Tensor, mesh
+              ) -> torch.Tensor:
+    """The vocab-parallel lookup: this rank's rows of ``embed`` (Vp / P,
+    D) for the ids they hold, zeros for the rest, summed over the ranks
+    (exactly one rank adds each id's row)."""
+    rows = embed.shape[0]
+    local = tokens - mesh.model_rank * rows
+    inside = (local >= 0) & (local < rows)
+    x = embed[torch.where(inside, local, torch.zeros_like(local))]
+    x = torch.where(inside[..., None], x, torch.zeros_like(x))
+    return parallel.reduce_from_model(mesh, x)
+
+
+def _vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor, mesh
+                        ) -> torch.Tensor:
+    """sum(logsumexp - gold) of one chunk from this rank's (B, c, Vp / P)
+    f32 block of its logits: the shift is the MAX over the ranks of the
+    blocks' maxima (no gradient, as the log-sum-exp's own shift), the
+    exponentials' sums and the gold logit (held by one rank, zero
+    elsewhere) are summed over the ranks.  The padded vocab columns are
+    in some rank's block, and count as in the unsharded loss."""
+    cols = logits.shape[-1]
+    shift = parallel.all_reduce_max(mesh, logits.detach().amax(-1))
+    sums = parallel.reduce_from_model(
+        mesh, torch.exp(logits - shift[..., None]).sum(-1))
+    local = labels.long() - mesh.model_rank * cols
+    inside = (local >= 0) & (local < cols)
+    gold = torch.gather(logits, -1, torch.where(
+        inside, local, torch.zeros_like(local))[..., None])[..., 0]
+    gold = parallel.reduce_from_model(
+        mesh, torch.where(inside, gold, torch.zeros_like(gold)))
+    return torch.sum(torch.log(sums) + shift - gold)
 
 
 # ===========================================================================

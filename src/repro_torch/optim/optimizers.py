@@ -22,6 +22,12 @@ parameters (tests/test_torch_controller.py):
   1e-9)`` divides once (a tensor numerator: ``float / tensor`` in torch is
   a reciprocal and a multiply, two roundings).
 
+Under a model axis (``get_optimizer(..., mesh=, specs=)``, ROADMAP A12)
+the gradients are each rank's shards, and the clip's norm sums the
+squares of the shards over the model group (:func:`global_norm`); that
+sum's order is not XLA:CPU's, so the sharded step holds the reference at
+a tolerance, not bitwise.  Everything else is elementwise on the shards.
+
 The step count lives on the host (an int, or an int array of one count
 per leading row of every leaf), so the bias corrections ``1 - beta **
 step`` are host f32 values: ``beta ** step`` taken in f64 and rounded once
@@ -37,6 +43,7 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import parallel
 from repro_torch.core.prng import fma32, sqrt_f32, xla_sum_squares
 from repro_torch.kernels.ref import ftz
 
@@ -108,9 +115,27 @@ def sgd_init(params: Tree) -> SGDState:
     return SGDState(0)
 
 
-def global_norm(tree: Tree) -> torch.Tensor:
+def global_norm(tree: Tree, mesh=None, specs: dict | None = None
+                ) -> torch.Tensor:
     """sqrt of the sum, leaf by leaf in the reference's order, of each
-    leaf's sum of squares in XLA:CPU's order."""
+    leaf's sum of squares in XLA:CPU's order.
+
+    With ``mesh`` (a model axis above 1) ``tree`` is a flat dict of this
+    rank's shards and ``specs`` their specs: the squares of the split
+    leaves are summed on each rank and then over the model group, those
+    of the replicated leaves (a norm's scale, held whole by every rank)
+    added once after; each leaf's squares in torch's order.  Not
+    XLA:CPU's order (C8's bitwise norm cannot hold across shards): the
+    norm agrees with the unsharded one at f32 rounding, a tolerance."""
+    if parallel.model_size(mesh) > 1:
+        split = [k for k in tree if parallel.model_dim(specs[k]) is not None]
+        whole = [k for k in tree if k not in split]
+        zero = torch.zeros((), dtype=torch.float32,
+                           device=next(iter(tree.values())).device)
+
+        def sq(keys):
+            return sum((tree[k].float().square().sum() for k in keys), zero)
+        return sqrt_f32(parallel.all_reduce_sum(mesh, sq(split)) + sq(whole))
     leaves = tree_leaves(tree)
     total = xla_sum_squares(leaves[0])
     for x in leaves[1:]:
@@ -124,10 +149,11 @@ def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
     return torch.clamp(torch.full_like(t, max_norm) / t, max=1.0)
 
 
-def _clip(grads: Tree, max_norm: float) -> Tree:
+def _clip(grads: Tree, max_norm: float, mesh=None,
+          specs: dict | None = None) -> Tree:
     """Scale ``grads`` by :func:`clip_scale` of their global norm, on the
     device (no read-back)."""
-    scale = clip_scale(global_norm(grads), max_norm)
+    scale = clip_scale(global_norm(grads, mesh, specs), max_norm)
     return tree_map(lambda x: (x.float() * scale).to(x.dtype), grads)
 
 
@@ -179,10 +205,12 @@ def _pick(tree: Tree, i: int) -> Tree:
 
 
 def adamw_update(cfg: OptimizerConfig, grads: Tree, state: AdamWState,
-                 params: Tree) -> tuple[Tree, AdamWState]:
+                 params: Tree, mesh=None, specs: dict | None = None
+                 ) -> tuple[Tree, AdamWState]:
     """One AdamW step: (updates, new state); the gradients clipped to a
-    global norm of ``cfg.grad_clip`` first."""
-    grads = _clip(grads, cfg.grad_clip)
+    global norm of ``cfg.grad_clip`` first (over the model group with
+    ``mesh``)."""
+    grads = _clip(grads, cfg.grad_clip, mesh, specs)
     step = np.asarray(state.step) + 1
     lr = _schedule(cfg, np.asarray(state.step))
 
@@ -196,11 +224,12 @@ def adamw_update(cfg: OptimizerConfig, grads: Tree, state: AdamWState,
 
 
 def sgdm_update(cfg: OptimizerConfig, grads: Tree, state: SGDMState,
-                params: Tree) -> tuple[Tree, SGDMState]:
+                params: Tree, mesh=None, specs: dict | None = None
+                ) -> tuple[Tree, SGDMState]:
     """One SGD-momentum step on the clipped gradients: m' = beta * m + g
     (one fused multiply-add, kept in the moment's dtype), update -lr * m'
     in the gradient's dtype."""
-    grads = _clip(grads, cfg.grad_clip)
+    grads = _clip(grads, cfg.grad_clip, mesh, specs)
     lr = _schedule(cfg, state.step)
 
     def upd(g, mom):
@@ -212,7 +241,8 @@ def sgdm_update(cfg: OptimizerConfig, grads: Tree, state: SGDMState,
 
 
 def sgd_update(cfg: OptimizerConfig, grads: Tree, state: SGDState,
-               params: Tree) -> tuple[Tree, SGDState]:
+               params: Tree, mesh=None, specs: dict | None = None
+               ) -> tuple[Tree, SGDState]:
     """One plain SGD step: -lr * g in the gradient's dtype, unclipped as
     in the reference."""
     lr = _schedule(cfg, state.step)
@@ -250,14 +280,17 @@ def adamw_apply(cfg: OptimizerConfig, grads: Tree, state: AdamWState,
                                         _pick(leaves, 2))
 
 
-def get_optimizer(name: str, cfg: OptimizerConfig | None = None):
+def get_optimizer(name: str, cfg: OptimizerConfig | None = None, *,
+                  mesh=None, specs: dict | None = None):
     """(init_fn, update_fn) for 'adamw' | 'sgdm' | 'sgd';
-    ``update_fn(grads, state, params) -> (updates, state)``."""
+    ``update_fn(grads, state, params) -> (updates, state)``.  With
+    ``mesh`` (a model axis) and the params' ``specs`` the trees are this
+    rank's shards and the clip's norm spans the model group."""
     cfg = cfg or OptimizerConfig(name=name)
-    if name == "adamw":
-        return adamw_init, lambda g, s, p: adamw_update(cfg, g, s, p)
-    if name == "sgdm":
-        return sgdm_init, lambda g, s, p: sgdm_update(cfg, g, s, p)
-    if name == "sgd":
-        return sgd_init, lambda g, s, p: sgd_update(cfg, g, s, p)
-    raise ValueError(name)
+    updates = {"adamw": (adamw_init, adamw_update),
+               "sgdm": (sgdm_init, sgdm_update),
+               "sgd": (sgd_init, sgd_update)}
+    if name not in updates:
+        raise ValueError(name)
+    init, update = updates[name]
+    return init, lambda g, s, p: update(cfg, g, s, p, mesh, specs)

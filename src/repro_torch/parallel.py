@@ -1,0 +1,130 @@
+"""The model axis's collectives (tensor parallelism, ROADMAP A12).
+
+A mesh with a model axis P > 1 (:func:`repro_torch.launch.mesh.
+make_host_mesh`) holds ``model_group``, the P ranks that split each leaf,
+and ``model_rank``, this rank's place among them.  The collectives here
+call ``model_group`` directly: :func:`copy_to_model` (identity forward,
+all-reduce backward) and :func:`reduce_from_model` (all-reduce forward,
+identity backward) are ``torch.autograd.Function`` s, Megatron's f and g;
+:func:`all_reduce_max` and :func:`all_reduce_sum` carry no gradient (the
+LGC statistics, the clip's norm); :func:`gather_model` rebuilds a whole
+leaf on every rank (checkpoints, checks).
+
+Each takes ``mesh=None`` (or a mesh whose model axis is 1) and then
+returns its input as it is, so one code path serves the model at P = 1,
+where it runs exactly the ops it ran before the model axis existed.
+
+:data:`STATS` counts the calls, bytes and seconds inside them; with
+``STATS["sync"]`` set, each call waits for the card before and after, so
+the seconds are the collective's own (and the caller's round pays two
+host waits a call).
+"""
+from __future__ import annotations
+
+import time
+
+import torch
+import torch.distributed as dist
+
+#: calls, bytes and seconds inside the model axis's collectives; ``sync``
+#: makes each call wait for the card first, so its seconds are its own
+STATS = {"calls": 0, "bytes": 0, "seconds": 0.0, "sync": False}
+
+
+def model_size(mesh) -> int:
+    """P, the ranks of ``mesh``'s model axis (1 without a mesh)."""
+    return 1 if mesh is None else mesh.model_size
+
+
+def model_dim(spec: tuple) -> int | None:
+    """The dim ``spec`` (one entry per dim: an axis name, a tuple of
+    names, or None) shards over "model", or None (the reference's
+    ``steps._model_axis_of``)."""
+    for i, entry in enumerate(spec):
+        if entry == "model" or (isinstance(entry, tuple)
+                                and "model" in entry):
+            return i
+    return None
+
+
+def _all_reduce(group, x: torch.Tensor, op) -> torch.Tensor:
+    """All-reduce a contiguous copy of ``x`` over ``group`` with ``op``."""
+    out = x.clone(memory_format=torch.contiguous_format)
+    if STATS["sync"] and out.is_cuda:
+        torch.cuda.synchronize(out.device)
+    t0 = time.perf_counter()
+    opts = dist.AllreduceOptions()
+    opts.reduceOp = op
+    group.allreduce([out], opts).wait()
+    if STATS["sync"] and out.is_cuda:
+        torch.cuda.synchronize(out.device)
+    STATS["seconds"] += time.perf_counter() - t0
+    STATS["calls"] += 1
+    STATS["bytes"] += out.numel() * out.element_size()
+    return out
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(ctx.group, g, dist.ReduceOp.SUM), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(group, x, dist.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(mesh, x: torch.Tensor) -> torch.Tensor:
+    """``x`` as it is; its gradient summed over the model group (the input
+    of a column-parallel matmul, whose ranks each give a partial
+    gradient)."""
+    if model_size(mesh) == 1:
+        return x
+    return _CopyToModel.apply(x, mesh.model_group)
+
+
+def reduce_from_model(mesh, x: torch.Tensor) -> torch.Tensor:
+    """The sum of every model rank's ``x`` (a row-parallel matmul's
+    partial outputs); its gradient passes unchanged."""
+    if model_size(mesh) == 1:
+        return x
+    return _ReduceFromModel.apply(x, mesh.model_group)
+
+
+def all_reduce_max(mesh, x: torch.Tensor) -> torch.Tensor:
+    """The elementwise max of every model rank's ``x``; no gradient."""
+    if model_size(mesh) == 1:
+        return x
+    return _all_reduce(mesh.model_group, x.detach(), dist.ReduceOp.MAX)
+
+
+def all_reduce_sum(mesh, x: torch.Tensor) -> torch.Tensor:
+    """The sum of every model rank's ``x``; no gradient."""
+    if model_size(mesh) == 1:
+        return x
+    return _all_reduce(mesh.model_group, x.detach(), dist.ReduceOp.SUM)
+
+
+def gather_model(mesh, x: torch.Tensor, spec: tuple) -> torch.Tensor:
+    """The whole tensor of which ``x`` is this rank's block under ``spec``
+    (``launch.sharding_rules.shard`` on a (1, P) mesh: the contiguous
+    blocks of :func:`model_dim` in rank order), on every rank; ``x``
+    itself when ``spec`` splits nothing or P is 1."""
+    dim = model_dim(spec)
+    if model_size(mesh) == 1 or dim is None:
+        return x
+    src = x.detach().contiguous()
+    outs = [torch.empty_like(src) for _ in range(mesh.model_size)]
+    mesh.model_group.allgather([outs], [src]).wait()
+    return torch.cat(outs, dim)

@@ -14,7 +14,9 @@ of card tensors; the sharded engine on the card (one rank over NCCL, two
 over gloo on the one card) bitwise the unsharded batched engine; the moe,
 ssm, hybrid, vlm and audio families' smoke serve (olmoe, mamba2, zamba2,
 phi-3-vision, whisper) card against CPU; one LGC training round of each
-of these families' smoke configs card against CPU.
+of these families' smoke configs card against CPU; the model axis on two
+gloo ranks sharing the card: the split LGC pipeline at a full-width 100M
+leaf bitwise the unsharded one.
 
 These tests need an NVIDIA card and ``nvcc``; without a card they skip with
 a reason.  The file imports neither ``jax`` nor the reference package, so it
@@ -1200,6 +1202,30 @@ def test_sharded_world2_over_gloo_on_one_card(card):
         assert got["rows_checked"] == {"calls": 3, "rows": 12, "differ": 0}
         for name in ("maxabs_rows", "histogram_rows", "sparsify_ef_rows"):
             assert got["launches"][name] == 3
+
+
+def test_model_axis_split_pipeline_on_one_card(card):
+    """Two gloo ranks on the card, each with its half of the full-width
+    100M task's ``blocks/mlp/w_gate`` (12 x 768 x 3,072) for M = 2: the
+    row kernels on the shard with MAX / SUM over the model group are
+    bitwise the rank's block of ``lgc_compress_hist_rows`` of the whole
+    leaf and of the plain split pipeline, and so is the train step's
+    whole compression under dense_masked and sparse_gather."""
+    import _torch_tp_jobs as tp_jobs
+    from repro_torch.launch.mesh import spawn
+    jobs = [dict(name=agg, kind="compress", aggregate=agg,
+                 leaves=["blocks/mlp/w_gate"]) for agg in ("dense_masked",
+                                                           "sparse_gather")]
+    ranks = spawn(tp_jobs.rank_main, 2, "gloo", args=(jobs, "cuda"),
+                  timeout=300.0)
+    for r in ranks:
+        assert r["transport"] == "gloo"
+        dense = r["results"]["dense_masked"]["blocks/mlp/w_gate"]
+        assert dense["split"] and dense["local"] == [12, 768, 1536]
+        assert dense["pipeline_bitwise"] and dense["plain_bitwise"]
+        assert dense["step_bitwise"]
+        assert r["results"]["sparse_gather"]["blocks/mlp/w_gate"][
+            "step_bitwise"]
 
 
 # ---------------------------------------------------------------------------

@@ -331,7 +331,8 @@ def test_port_and_chip_smoke_import_no_reference_module():
                  "configs.zamba2_1_2b", "configs.phi3_vision_4b",
                  "configs.whisper_small", "configs.glm4_9b",
                  "configs.starcoder2_7b", "configs.yi_34b",
-                 "configs.grok1_314b", "kernels.threefry_normal"]
+                 "configs.grok1_314b", "kernels.threefry_normal",
+                 "launch.mesh", "launch.sharding_rules", "parallel"]
     assert {f"repro_torch.{m}" for m in simulator} <= set(mods)
     code = (
         "import importlib, sys\n"
