@@ -9,7 +9,8 @@ NVIDIA H100.
     python3 chip_smoke.py --swa-digests  # swa_decode's digests (phase 3)
     python3 chip_smoke.py --family-training  # the build and phase 5c
     python3 chip_smoke.py --model-axis  # the build and phase 5d
-    python3 chip_smoke.py --model-axis-faults  # 5d's loss gaps, faults planted
+    python3 chip_smoke.py --model-axis-faults  # 5d's loss and logits gaps,
+                                               # faults planted
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
@@ -57,7 +58,17 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    also after a launch with more groups; at Dh 32 / 64 / 128 the outputs
    on fixed inputs (``swa_digests``) bitwise those of the kernel before
    Dh 96 was added (``SWA_DIGESTS``, made on the same card type, torch
-   and nvcc);
+   and nvcc); then its partial form (``swa_decode_partial``: the f32
+   output with m and l, for a rank's shard of the cache's slots) at a
+   rank's shard of the serve cache (B=8, H=12, Kv=2, W=2,048, Dh=128), at
+   the shards phase 5d's serving job runs (W=520 and W=512), at Dh 64 and
+   at Dh 96 under GQA, with rows of W, W/2+3, 1 and 0 valid slots: its
+   output cast to q's dtype bitwise ``swa_decode``'s, (out, m, l) against
+   the plain partial version; and the serve shape and phase 5d's two
+   caches cut into two halves as ``layers.attention_decode`` cuts them,
+   the kernel's and the plain version's states merged
+   (``ref.merge_decode_partials``) within the tolerance of ``swa_decode``
+   over the whole window;
 3b. threefry_normal, the weights' draw, bitwise its plain version on the
    card at one layer of yi-34b's ``w_up`` and glm4-9b's ``embed`` (bf16),
    olmoe's router (f32) and an odd length;
@@ -139,7 +150,24 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ``sparse_gather``) and no flat launch; per round and rank the round ms
    beside P = 1's (rounds 1-3 without syncs), the ms inside the model
    group's collectives (round 4, each collective waiting for the card
-   before and after) and the launches; (c) ``repro_torch.launch.train
+   before and after) and the launches; (d) serving under the model axis
+   in the same ranks (``model_axis_serve``): qwen2-1.5b at full width,
+   each rank with its shards of seed 0's draw, 8 prompts of 1,000 tokens,
+   40 greedy steps over a full cache of 1,040 slots and over a 1,024-slot
+   ring that wraps at step 24, both split 520 / 512 slots a rank; rank 0
+   runs P = 1 from the whole draw alone on the card (timed) and hands its
+   tokens to rank 1, then both runs at P = 2 with every step fed P = 1's
+   token: every step's logits within ``MODEL_AXIS_LOGITS_MEAN_ATOL`` /
+   ``MODEL_AXIS_LOGITS_ATOL`` of P = 1's in the mean / max (set from sound
+   and planted-fault readings: ``--model-axis-faults``),
+   ``swa_decode_partial`` launched 28 a step and nothing else, both
+   ranks' logits bitwise equal; then the full-cache run through
+   ``serve_decode.serve(..., mesh=)``, greedy on its own tokens: at least
+   ``MODEL_AXIS_TOKEN_SHARE`` of them P = 1's, each at most
+   ``MODEL_AXIS_TOKEN_MARGIN`` below P = 1's greedy logit at its history
+   (P = 1 fed the free run's tokens), the ranks' tokens equal; prefill s,
+   decode ms a step (beside P = 1's), collectives a step and the host ms
+   blocked in them; (c) ``repro_torch.launch.train
    --model-parallel 2 --devices 2 --mode sync`` for 3 steps (it spawns its
    own two ranks), its loss falling; one ``model_axis`` JSON line;
 6. a small f32 serve (qwen2-smoke), card against CPU with the same weights:
@@ -180,28 +208,31 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    the cross K/V projections are not read by a decode step, ``dec_pos``
    one row; whisper's cross cache is), swa_decode launches a step, peak
    memory and the device's idle share;
-7d. A15's configs at full width in bf16 with weights drawn on the card:
-   glm4-9b (40 layers, 9,399,951,360 parameters; swa_decode at REP 16)
-   and starcoder2-7b (32, 7,400,268,800; REP 9) at batch 8 over
-   4,096-token prompts and 64 steps past the 4,096-slot ring's wrap,
-   yi-34b (60 layers, 34,388,917,248; REP 7; leaves of up to 8.8 G
-   elements, past 2**31) at batch 4 over 4,000 tokens and 160 steps,
+7d. A15's configs at full width in bf16 with weights drawn on the card,
+   at half their depth: glm4-9b (20 of 40 layers, 5,320,734,720
+   parameters; swa_decode at REP 16) and starcoder2-7b (16 of 32,
+   3,926,631,424; REP 9) at batch 8 over 4,096-token prompts and 64 steps
+   past the 4,096-slot ring's wrap, yi-34b (30 of 60 layers,
+   17,653,214,208; REP 7; leaves of up to 4.4 G elements, past 2**32) at
+   batch 4 over 4,000 tokens and 160 steps,
    grok-1-314b at 2 of its 64 layers
    (11,450,578,944; REP 6; the gated experts' prefill buffer (8, 10,240,
    6,144)) as glm4; then 8 steps of each under torch.profiler; swa_decode
    launched sites x steps times and nothing else; one ``configs`` JSON
    line as 7c's;
-8. the simulator: the threefry PRNG on the card (``split``, ``fold_in``,
+8. (in a spawned process of its own, started before 5c and joined after
+   7d: ``start_phase8``) the simulator: the threefry PRNG on the card
+   (``split``, ``fold_in``,
    ``stream_key``, raw bits, ``randint``, ``uniform``, ``normal``,
    ``truncated_normal``, the batched ``stream_keys`` and the row samplers)
    bitwise equal to the CPU's; then both engines with ``backend="cuda"`` on
    the card against the same run on the CPU (the kernels' plain versions):
-   ``lr_mnist`` at the quickstart's defaults (M=3, n_train 3000, 120
+   ``lr_mnist`` at the quickstart's defaults (M=3, n_train 3000, 60
    rounds, H=4, eval every 20) in modes lgc and fedavg, and ``cnn_mnist`` at
-   the factory's (n_train 6000, batch 64) with M=8, 40 rounds, H=4 in modes
-   lgc and topk; then, in mode lgc, ``cnn_mnist`` (M=8, 24 rounds) under
+   the factory's (n_train 6000, batch 64) with M=8, 20 rounds, H=4 in modes
+   lgc and topk; then, in mode lgc, ``cnn_mnist`` (M=8, 12 rounds) under
    ``gilbert_flaky`` and ``rnn_shakespeare`` at the factory's defaults
-   (M=8, sequences of 48, 2,000 windows per device, D = 83,955; 24
+   (M=8, sequences of 48, 2,000 windows per device, D = 83,955; 12
    rounds) under ``mobile_noniid``, where at least one sync must have
    lost a channel or the whole device; ``step`` and ``uplink_mb`` equal,
    losses within 1e-3 and accuracy counts within 1e-3 of the eval
@@ -210,15 +241,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    in the card runs every sync's (g, e')
    bitwise equal to the plain pipeline on the same card tensors
    (``lgc_compress_hist`` and ``lgc_compress_hist_rows`` wrapped); the loop
-   engine launches each flat LGC kernel once per device and sync (90 for lr
-   lgc, 0 for fedavg, 80 for each cnn mode, 48 for each scenario run),
-   the batched engine each row kernel once per sync boundary (30, 0, 10,
-   10, 6, 6) and no flat kernel, with
+   engine launches each flat LGC kernel once per device and sync (45 for lr
+   lgc, 0 for fedavg, 40 for each cnn mode, 24 for each scenario run),
+   the batched engine each row kernel once per sync boundary (15, 0, 5,
+   5, 3, 3) and no flat kernel, with
    torch's sync debug mode raising on any host sync inside a window;
    swa_decode never; then a second card run of each engine, not checked
    per sync, for the host ms per round (the run's time over its rounds) and
    device-steps/s, in the same call;
-   then the per-layer budgets: ``cnn_mnist`` (M=8, 24 rounds, lgc) under
+   then the per-layer budgets: ``cnn_mnist`` (M=8, 12 rounds, lgc) under
    ``size_prop`` and ``divergence`` on both engines, card against CPU,
    every sync's candidate mask and (g, e') bitwise the plain segmented
    pipeline on the same card tensors, launches per sync boundary (batched:
@@ -229,7 +260,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    under mean, diloco and semi_sync (``staleness_cap=2``) on both engines,
    card against CPU with ``server_wall_s`` equal, semi_sync's wall below
    the mean's; then the learning-based control on the card: ``lr_mnist``
-   (M=3, 3,000 samples, 120 rounds) under a shared-space ``FleetDDPG`` and
+   (M=3, 3,000 samples, 60 rounds) under a shared-space ``FleetDDPG`` and
    ``cnn_mnist`` (M=8, the factory's samples, 24 rounds) on
    ``hetero_fleet`` under a per_device fleet (h at most 4, compute prior
    1.5), pipelined with ``max_gap=4``, replay batches of 4, on both
@@ -248,16 +279,16 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    decisions equal, pipelined == blocking asdict-equal on the card;
    then the population layer (N = 100,000 devices, cohorts of M = 64,
    H = 4, lgc): the reference bench's configuration (the synthetic
-   population task, 24 rounds) with the dense, int8 and server EF stores
+   population task, 12 rounds) with the dense, int8 and server EF stores
    on the batched engine and the dense store on the loop engine, and
    ``lr_mnist`` with the dense store (3.14 GB resident on the card; its
    bytes and ``torch.cuda.max_memory_allocated`` printed) and the int8
-   store, 12 rounds; each card run against the same run on the CPU
+   store, 8 rounds; each card run against the same run on the CPU
    (cohorts and participation equal, History within 1e-3), every sync
    bitwise the plain row pipeline, no host sync inside a window, each row
    kernel once per window (batched) or once per cohort row (loop);
    then the sharded engine (``engine="sharded"``, one ``sharded`` JSON
-   line): cnn_mnist (M=8, 40 rounds, lgc) on a one-rank NCCL mesh in this
+   line): cnn_mnist (M=8, 20 rounds, lgc) on a one-rank NCCL mesh in this
    process under gather (bitwise the batched engine, the same launches)
    and psum (loss and uplink within 1e-4), and two gloo ranks sharing the
    card (``mesh.spawn``) running lr_mnist M=8 (lgc, topk, lgc_q8, gaps
@@ -308,7 +339,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ``launches`` those of phase 7's draw and ``launches_families``,
    ``launches_modalities`` and ``launches_configs`` those of 7b-7d; the
    LGC kernels' launches on each rank of phase 5d
-   (``launches_model_axis``);
+   (``launches_model_axis``); ``swa_decode_partial`` (a form of
+   ``swa_decode``) at a rank's shard of the serve cache (B=8, H=12, Kv=2,
+   W=2,048, Dh=128, bf16) beside ``swa_decode`` at that shape, its
+   ``launches`` those of rank 0's free run in phase 5d (d) and
+   ``launches_model_axis_serve`` those of its fed runs;
 10. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package ``repro``.
@@ -394,12 +429,14 @@ MODALITY_PROFILE_STEPS = 16
 # A15's configs at full width: (layers served, params by shape at that
 # depth, batch, prompt tokens, greedy steps) into a 4,096-slot ring, then
 # CONFIG_PROFILE_STEPS more under the profiler; grok-1-314b at 2 of its 64
-# layers (316 G parameters do not fit one card); yi-34b (64.05 GiB of
-# weights, leaves of up to 8.8 G elements) at batch 4 and 4,000 prompt
+# layers (316 G parameters do not fit one card); glm4-9b, starcoder2-7b and
+# yi-34b at half their depth (20 of 40, 16 of 32, 30 of 60 layers), which
+# keeps the whole script inside its time limit; yi-34b (32.9 GiB of weights
+# at 30 layers, leaves of up to 4.4 G elements) at batch 4 and 4,000 prompt
 # tokens, 160 steps past the wrap
-CONFIGS = {"glm4-9b": (40, 9_399_951_360, 8, 4_096, 64),
-           "starcoder2-7b": (32, 7_400_268_800, 8, 4_096, 64),
-           "yi-34b": (60, 34_388_917_248, 4, 4_000, 160),
+CONFIGS = {"glm4-9b": (20, 5_320_734_720, 8, 4_096, 64),
+           "starcoder2-7b": (16, 3_926_631_424, 8, 4_096, 64),
+           "yi-34b": (30, 17_653_214_208, 4, 4_000, 160),
            "grok-1-314b": (2, 11_450_578_944, 8, 4_096, 64)}
 CONFIG_PROFILE_STEPS = 8
 # the simulator: lr_mnist at the quickstart's defaults and cnn_mnist at the
@@ -409,12 +446,12 @@ CONFIG_PROFILE_STEPS = 8
 # the factory's default); (task, M, n_train, rounds, eval_every, modes,
 # scenario)
 SIM_H = 4
-SIM_RUNS = [("lr_mnist", 3, 3000, 120, 20, ("lgc", "fedavg"), "static"),
-            ("cnn_mnist", 8, 6000, 40, 10, ("lgc", "topk"), "static"),
-            ("cnn_mnist", 8, 6000, 24, 8, ("lgc",), "gilbert_flaky"),
-            ("rnn_shakespeare", 8, None, 24, 8, ("lgc",), "mobile_noniid")]
+SIM_RUNS = [("lr_mnist", 3, 3000, 60, 20, ("lgc", "fedavg"), "static"),
+            ("cnn_mnist", 8, 6000, 20, 10, ("lgc", "topk"), "static"),
+            ("cnn_mnist", 8, 6000, 12, 6, ("lgc",), "gilbert_flaky"),
+            ("rnn_shakespeare", 8, None, 12, 6, ("lgc",), "mobile_noniid")]
 LR_D, CNN_D, RNN_D = 7_850, 206_922, 83_955
-# card against CPU under a dynamic scenario: 24 rounds stop in the steep
+# card against CPU under a dynamic scenario: 12 rounds stop in the steep
 # part of training, where dropped channels leave more mass near the layer
 # thresholds and summation order alone moves the loss by about 1e-3 (the
 # phase logs the CPU's loop against batched engine as the yardstick); the
@@ -450,7 +487,7 @@ THREEFRY_CASES = [((7_168, 20_480), "bfloat16", 7_168 ** -0.5),
 THREEFRY_OPS = 120
 
 # the segmented forms (per-layer budgets): the simulator's models
-# with their device counts, the per-layer runs (cnn_mnist, M=8, 24 rounds
+# with their device counts, the per-layer runs (cnn_mnist, M=8, 12 rounds
 # under each policy) and the server runs (lr_mnist, M=8, every 4th device
 # 3x slower, 20 rounds, as the reference's tests/test_server.py:36-37)
 SEGMENT_MODELS = (("cnn_mnist", 8), ("lr_mnist", 3), ("rnn_shakespeare", 8))
@@ -462,7 +499,7 @@ SEGMENT_KERNELS = {
                            "src/repro/kernels/topk_threshold.py:42"),
 }
 PER_LAYER_POLICIES = ("size_prop", "divergence")
-PER_LAYER_RUN = ("cnn_mnist", 8, 6000, 24, 8)   # task, M, n_train, rounds, eval
+PER_LAYER_RUN = ("cnn_mnist", 8, 6000, 12, 6)   # task, M, n_train, rounds, eval
 SERVER_RUN = ("lr_mnist", 8, 1500, 20, 10)
 SERVER_AGGS = ("diloco", "semi_sync")
 # one-float slices, slices starting at every offset mod 4 floats, slices
@@ -474,12 +511,12 @@ EDGE_SIZES = [1, 1, 1, 2, 3, 4095, 4097, 63, 1, 8192, 5, 200_003]
 # (benchmarks/bench_population.py:29-38) with each store, and lr_mnist with
 # the dense store (N x 7,850 x 4 B = 3.14 GB on the card) and int8
 POP_N, POP_M = 100_000, 64
-POP_RUNS = [("population", "dense", "batched", 24),
-            ("population", "int8", "batched", 24),
-            ("population", "server", "batched", 24),
-            ("population", "dense", "loop", 24),
-            ("lr_mnist", "dense", "batched", 12),
-            ("lr_mnist", "int8", "batched", 12)]
+POP_RUNS = [("population", "dense", "batched", 12),
+            ("population", "int8", "batched", 12),
+            ("population", "server", "batched", 12),
+            ("population", "dense", "loop", 12),
+            ("lr_mnist", "dense", "batched", 8),
+            ("lr_mnist", "int8", "batched", 8)]
 
 TPU_KERNELS = {
     "maxabs": ("src/repro_torch/kernels/csrc/maxabs.cu",
@@ -1077,6 +1114,93 @@ def phase_swa(gen, errs: dict) -> None:
           f"{sorted(k for k in got if got[k] != SWA_DIGESTS[k])}")
     log(f"swa_decode: Dh 32 / 64 / 128 outputs bitwise the earlier kernel's "
         f"at {len(got)} shapes x 2 dtypes x 3 lengths")
+    torch.cuda.synchronize()
+
+
+# swa_decode's partial form at a rank's shard of the serve cache (4,096
+# slots over two ranks; the first is the kernels line's timing shape), at
+# the shards phase 5d's serving job runs (its 1,040-slot cache and its
+# 1,024-slot ring over two ranks), at Dh 64 and at Dh 96 under GQA
+SWA_PARTIAL_SHAPES = [(8, 12, 2, 2048, 128), (8, 12, 2, 520, 128),
+                      (8, 12, 2, 512, 128), (2, 8, 2, 520, 64),
+                      (2, 16, 2, 300, 96)]
+# whole caches split in two halves and merged: the serve shape and phase
+# 5d's two caches
+SWA_MERGE_SHAPES = [SWA_SERVE_SHAPE, (8, 12, 2, 1040, 128),
+                    (8, 12, 2, 1024, 128)]
+# m and l of the partial form against its plain version: the logits' f32
+# sums run in another order (bf16: the products on the tensor cores)
+SWA_STATE_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+def phase_swa_partial(gen, errs: dict) -> None:
+    """Phase 3: ``swa_decode_partial`` (a rank's shard of the cache under
+    the model axis) cast to q's dtype is ``swa_decode`` bit for bit on the
+    card, with rows of W, W/2 + 3, 1 and 0 valid slots; its (out, m, l)
+    against the plain partial version; and at the serve shape split into
+    two halves as ``layers.attention_decode`` splits it (and at phase 5d's
+    caches, SWA_MERGE_SHAPES), the kernel's and the plain version's states
+    merged (``ref.merge_decode_partials``) against ``swa_decode`` over the
+    whole window, within SWA_TOL."""
+    import torch
+    from repro_torch.kernels import ref, swa_decode, swa_decode_partial
+    for shape in SWA_PARTIAL_SHAPES:
+        b, h, kv, w, dh = shape
+        ns = [w, w // 2 + 3, 1, 0]
+        ln = torch.tensor([ns[i % 4] for i in range(b)], dtype=torch.int32,
+                          device="cuda")
+        empty = ln == 0
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            q, k, v = swa_inputs(gen, shape, dtype)
+            out, m, l_sum = swa_decode_partial(q, k, v, ln)
+            check(out.dtype == torch.float32 and bits_equal(
+                out.to(dtype), swa_decode(q, k, v, ln)),
+                f"swa_decode_partial {shape} {name}: not swa_decode's bits")
+            r_out, r_m, r_l = ref.swa_decode_partial_ref(q, k, v, ln)
+            tol, stol = SWA_TOL[name], SWA_STATE_TOL[name]
+            check(bool(torch.isclose(out, r_out, rtol=tol, atol=tol).all())
+                  and bool(torch.isclose(m[~empty], r_m[~empty], rtol=stol,
+                                         atol=stol).all())
+                  and bool(torch.isclose(l_sum, r_l, rtol=stol,
+                                         atol=stol).all())
+                  and bool(torch.isneginf(m[empty]).all())
+                  and not bool(l_sum[empty].any() or out[empty].any()),
+                  f"swa_decode_partial {shape} {name} against its plain "
+                  f"version")
+            errs["swa_decode_partial"] = max(errs["swa_decode_partial"],
+                                             max_abs_err(out, r_out))
+        log(f"swa_decode_partial (B,H,Kv,W,Dh)={shape}: f32 output cast to "
+            f"q's dtype bitwise swa_decode's in f32 and bf16 at lengths "
+            f"{ns} (0: m = -inf, l = 0, zeros); out, m and l within "
+            f"{SWA_TOL} / {SWA_STATE_TOL} of the plain version")
+    for shape in SWA_MERGE_SHAPES:
+        w = shape[3]
+        half = w // 2
+        ln = torch.tensor([w, w - 5, half + 1, half, 700, 1, 0, half + 1],
+                          dtype=torch.int32, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            q, k, v = swa_inputs(gen, shape, dtype)
+            shards = [(k[:, :, r * half:(r + 1) * half].contiguous(),
+                       v[:, :, r * half:(r + 1) * half].contiguous(),
+                       torch.clamp(ln - r * half, 0, half).to(torch.int32))
+                      for r in range(2)]
+            want = swa_decode(q, k, v, ln)
+            for tag, fn in (("kernel", swa_decode_partial),
+                            ("plain", ref.swa_decode_partial_ref)):
+                states = [fn(q, *sh) for sh in shards]
+                got = ref.merge_decode_partials(
+                    *(torch.stack(t) for t in zip(*states)), dtype)
+                tol = SWA_TOL[name]
+                check(bool(torch.isclose(got.float(), want.float(),
+                                         rtol=tol, atol=tol).all()),
+                      f"two {tag} shards of {shape} {name} merged: "
+                      f"{max_abs_err(got, want):.3e} from swa_decode")
+                log(f"swa_decode_partial: two {tag} shards of {shape} "
+                    f"{name} (lengths {ln.tolist()}) merged within "
+                    f"rtol=atol={tol} of swa_decode over the whole window; "
+                    f"max abs err {max_abs_err(got, want):.3e}")
     torch.cuda.synchronize()
 
 
@@ -1716,6 +1840,267 @@ def plant_model_axis_fault(name: str):
     return lambda: setattr(tf, attr, old)
 
 
+# The serving job of phase 5d (ROADMAP A12b): qwen2-1.5b at full width on
+# each rank's shards (``sharding_rules.param_specs`` of seed 0's draw), 8
+# prompts of 1,000 tokens and 40 greedy steps over a full cache of 1,040
+# slots, then over a 1,024-slot ring that wraps at step 24 (slot 0's owner
+# goes from rank 1's positions to rank 0's); both caches split on their
+# slots, 520 / 512 a rank
+MODEL_AXIS_SERVE = {"arch": "qwen2-1.5b", "batch": 8, "prompt": 1000,
+                    "steps": 40, "window": 1024}
+# Every step's logits at P = 2, fed P = 1's tokens, against P = 1 from the
+# same draw (bf16), over the (8, 151,936) f32 logits of the prefill and of
+# each step: the mean of |logits(P=2) - logits(P=1)| <=
+# MODEL_AXIS_LOGITS_MEAN_ATOL and its max <= MODEL_AXIS_LOGITS_ATOL.  Set
+# from readings on the H100 (PERF.md §6; ``--model-axis-faults``):
+# sound runs 0.01187-0.01225 mean, 0.070-0.095 max a step (each
+# row-parallel product's partials are rounded to bf16 before the sum);
+# the planted faults' worst step: ``length_uncut`` 0.0170 / 0.0226 mean
+# (ring / full cache; 0.121 / 0.156 max), ``cache_write_rank0`` 0.114 /
+# 0.163 mean (1.18 / 1.25 max), ``partial_dropped`` 0.44 mean (3.4-3.5
+# max).  The mean separates all three; the max bounds a gross error in a
+# few rows.
+MODEL_AXIS_LOGITS_MEAN_ATOL = 0.015
+MODEL_AXIS_LOGITS_ATOL = 0.3
+# The share of the free-running P = 2 run's greedy tokens (serve_decode.
+# serve) equal to P = 1's, from the same readings: a row keeps P = 1's
+# tokens until its first flipped argmax (5% of the fed runs' row-steps,
+# where the top two logits are within the drift), then follows its own.
+# Sound 0.4848 (rows first differ at steps 4-18, one never); faults
+# 0.5396 (``length_uncut``), 0.3140 (``cache_write_rank0``), 0.1555
+# (``partial_dropped``): a floor against gross faults only; the margin
+# below and the fed runs' logits limits catch the rest.
+MODEL_AXIS_TOKEN_SHARE = 0.25
+# The free run's greedy tokens against P = 1 at the same histories (P = 1
+# fed the free run's tokens): each token's margin max(logits) -
+# logits[token] under P = 1's logits, the most over the (8, 41) row-steps
+# at most MODEL_AXIS_TOKEN_MARGIN.  A sound token is P = 2's argmax, so
+# its margin is at most twice the logits gap at that history (0.19 by the
+# fed runs' 0.095).  Readings on the H100 (``--model-axis-faults``):
+# sound 0.0469 (mean 0.00105); ``cache_write_rank0`` 0.500 and
+# ``partial_dropped`` 2.508 fail it; ``length_uncut`` 0.0625 (mean
+# 0.00157) passes, as it does the share: the fed runs' mean limit is what
+# catches that fault.
+MODEL_AXIS_TOKEN_MARGIN = 0.19
+MODEL_AXIS_SERVE_FAULTS = ("cache_write_rank0", "partial_dropped",
+                           "length_uncut")
+
+
+def plant_serve_fault(name: str):
+    """Put serving fault ``name`` into this rank's decode; returns its
+    undo.  ``cache_write_rank0``: rank 0 writes every token's K/V (at the
+    slot's place in its block) and the owner never does;
+    ``partial_dropped``: the last rank's softmax state is emptied before
+    the merge; ``length_uncut``: each rank attends with the whole cache's
+    length (the kernel clamps it to the rank's slots) instead of its own."""
+    import torch
+    from repro_torch.kernels import swa_decode_partial
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tf
+    if name == "cache_write_rank0":
+        orig, mod, attr = tf.cache_update, tf, "cache_update"
+
+        def new(cache, k_new, v_new, pos, window=0, *, mesh=None):
+            if mesh is None:
+                return orig(cache, k_new, v_new, pos, window)
+            s_loc = cache.k.shape[2]
+            slots = s_loc * mesh.model_size
+            slot = pos % slots if window else pos
+            if 0 <= slot < slots and mesh.model_rank == 0:
+                cache.k[:, :, slot % s_loc] = k_new[:, 0].to(cache.k.dtype)
+                cache.v[:, :, slot % s_loc] = v_new[:, 0].to(cache.v.dtype)
+            return layers.KVCache(cache.k, cache.v, torch.full(
+                (cache.k.shape[0],), min(pos + 1, slots), dtype=torch.int32,
+                device=cache.k.device))
+    elif name == "partial_dropped":
+        orig, mod, attr = (layers.merge_rank_partials, layers,
+                           "merge_rank_partials")
+
+        def new(mesh, out, m, l_sum, dtype):
+            if mesh.model_rank == mesh.model_size - 1:
+                m = torch.full_like(m, float("-inf"))
+                l_sum = torch.zeros_like(l_sum)
+            return orig(mesh, out, m, l_sum, dtype)
+    elif name == "length_uncut":
+        orig, mod, attr = tf.attention_decode, tf, "attention_decode"
+
+        def new(q, cache, n_heads, *, mesh=None):
+            if mesh is None:
+                return orig(q, cache, n_heads)
+            b, _, h, hd = q.shape
+            out, m, l_sum = swa_decode_partial(q[:, 0].contiguous(), cache.k,
+                                               cache.v, cache.length)
+            return layers.merge_rank_partials(
+                mesh, out, m, l_sum, q.dtype).reshape(b, 1, h, hd)
+    else:
+        raise ValueError(f"no serving fault {name!r}")
+    setattr(mod, attr, new)
+    return lambda: setattr(mod, attr, orig)
+
+
+def model_axis_serve(job: dict, mesh) -> dict:
+    """The serving job on this rank (MODEL_AXIS_SERVE): seed 0's draw of
+    qwen2-1.5b whole (P = 1) and this rank's shards of it.  Rank 0 alone
+    runs P = 1 (warmed up, then timed) over the full cache and the ring,
+    and hands its tokens to the other ranks; a short P = 2 serve warms up
+    (the collectives' host buffers, cuBLAS at the shards' shapes); then
+    for each of ``faults`` (None: sound) both runs again at P = 2, each
+    step fed P = 1's token, with every step's logits gap to P = 1 (rank
+    0) and the launches, and with ``free`` the full-cache run once more at
+    P = 2 through ``serve_decode.serve``, greedy on its own tokens: the
+    share of them equal to P = 1's, the timings, and (rank 0) P = 1 fed
+    the free run's tokens, for each step's margin max(logits) -
+    logits[token] of the free run's token under P = 1's logits at the same
+    history.  sha256 digests of the P = 2 logits and tokens let the caller
+    hold the ranks bit-equal."""
+    import hashlib
+    import torch
+    import torch.distributed as dist
+    from repro_torch import parallel
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch import sharding_rules as rules
+    from repro_torch.launch.serve_decode import serve
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer as tf
+    spec = MODEL_AXIS_SERVE
+    cfg = get_config(spec["arch"])
+    b, prompt, steps = spec["batch"], spec["prompt"], spec["steps"]
+    lead = mesh.model_rank == 0
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, seed=0)
+    shards = rules.shard_tree(params, rules.param_specs(cfg, params, mesh),
+                              mesh)
+    if not lead:
+        del params
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (b, prompt), generator=gen,
+                            device="cuda")
+    torch.cuda.synchronize()
+    out: dict = {"draw_s": time.perf_counter() - t0, "rank": mesh.rank,
+                 "runs": {}, "p1": {}}
+    runs = {"full": (0, prompt + steps), "ring": (spec["window"],
+                                                  spec["window"])}
+
+    def mark() -> tuple:
+        torch.cuda.synchronize()
+        return (time.perf_counter(), parallel.STATS["calls"],
+                parallel.STATS["seconds"])
+
+    def p1_run(window: int, slots: int, feed=None) -> tuple:
+        """P = 1 on rank 0: the prefill and ``steps`` greedy steps (fed
+        ``feed``'s tokens when given); tokens, logits and the timings."""
+        m0 = mark()
+        logits, cache = make_prefill_step(cfg, slots)(params,
+                                                      {"tokens": prompts})
+        m1 = mark()
+        step = make_serve_step(cfg, window, return_logits=True)
+        toks = [torch.argmax(logits, -1).to(torch.int32)[:, None]]
+        seen = [logits]
+        for i in range(steps):
+            fed = toks[-1] if feed is None else feed[:, i:i + 1]
+            tok, cache, logits = step(params, fed, cache)
+            toks.append(tok)
+            seen.append(logits)
+        m2 = mark()
+        return toks, seen, {"prefill_s": m1[0] - m0[0],
+                            "decode_ms": (m2[0] - m1[0]) / steps * 1e3}
+
+    p1 = {}
+    tokens = torch.zeros((len(runs), b, steps + 1), dtype=torch.int32)
+    if lead:
+        serve(params, cfg, prompts[:, :128], 2, cache_len=130)
+        for i, (name, (window, slots)) in enumerate(runs.items()):
+            toks, want, out["p1"][name] = p1_run(window, slots)
+            p1[name] = want
+            tokens[i] = torch.cat(toks, 1).cpu()
+    dist.broadcast(tokens, 0, group=mesh.model_group)
+    p1_tokens = {name: tokens[i].cuda() for i, name in enumerate(runs)}
+    serve(shards, cfg, prompts[:, :128], 2, cache_len=130, mesh=mesh)
+    out["free"] = {}
+
+    def digest(ts) -> str:
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.contiguous().view(torch.int32).cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    for fault in job.get("faults", [None]):
+        undo = plant_serve_fault(fault) if fault else None
+        try:
+            for name, (window, slots) in runs.items():
+                toks = p1_tokens[name]
+                reset_launch_counts()
+                m0 = mark()
+                logits, cache = make_prefill_step(cfg, slots, mesh=mesh)(
+                    shards, {"tokens": prompts})
+                m1 = mark()
+                step = make_serve_step(cfg, window, mesh=mesh,
+                                       return_logits=True)
+                got = [logits]
+                for i in range(steps):        # fed P = 1's tokens
+                    _, cache, logits = step(shards, toks[:, i:i + 1], cache)
+                    got.append(logits)
+                m2 = mark()
+                row = {
+                    "fault": fault, "run": name, "slots": cache["slots"],
+                    "local_slots": cache["kv"]["k"].shape[3],
+                    "pos": cache["pos"], "launches": dict(LAUNCHES),
+                    "digest": digest(got), "prefill_s": m1[0] - m0[0],
+                    "prefill_collectives": m1[1] - m0[1],
+                    "decode_ms": (m2[0] - m1[0]) / steps * 1e3,
+                    "collectives_per_step": (m2[1] - m1[1]) / steps,
+                    "collective_ms_per_step": (m2[2] - m1[2]) / steps * 1e3}
+                if lead:
+                    want = p1[name]
+                    row |= {
+                        "logits_gaps": [float((g - w).abs().max())
+                                        for g, w in zip(got, want)],
+                        "mean_gaps": [float((g - w).abs().mean())
+                                      for g, w in zip(got, want)],
+                        "argmax_agree": [
+                            float((g.argmax(-1) == w.argmax(-1)).float()
+                                  .mean()) for g, w in zip(got, want)]}
+                out["runs"][f"{fault or 'sound'} {name}"] = row
+                del cache, got
+            if job.get("free"):
+                reset_launch_counts()
+                m0 = mark()
+                r = serve(shards, cfg, prompts, steps,
+                          cache_len=prompt + steps, mesh=mesh)
+                m1 = mark()
+                want = p1_tokens["full"]
+                free = {
+                    "launches": dict(LAUNCHES), "pos": r["pos"],
+                    "slots": r["cache_slots"], "prefill_s": r["prefill_s"],
+                    "decode_ms": r["decode_ms_per_step"],
+                    "logits_finite": r["logits_finite"],
+                    "token_share": float((r["tokens"] == want).float()
+                                         .mean()),
+                    "first_differing_step": [
+                        next((i for i in range(want.shape[1])
+                              if r["tokens"][row, i] != want[row, i]), None)
+                        for row in range(b)],
+                    "digest": digest([r["tokens"]]),
+                    "seconds": m1[0] - m0[0], "collectives": m1[1] - m0[1],
+                    "collective_ms": (m1[2] - m0[2]) * 1e3}
+                if lead:
+                    _, seen, _ = p1_run(0, prompt + steps, r["tokens"])
+                    margins = [
+                        (lg.amax(-1) - lg.gather(
+                            -1, r["tokens"][:, i:i + 1].long())[:, 0])
+                        for i, lg in enumerate(seen)]
+                    free["margins"] = [float(mg.max()) for mg in margins]
+                    free["mean_margin"] = float(torch.stack(margins).mean())
+                out["free"][fault or "sound"] = free
+                del r
+        finally:
+            if undo is not None:
+                undo()
+    torch.cuda.empty_cache()
+    return out
+
+
 def model_axis_compress(aggregate: str, mesh) -> dict:
     """(a) on this rank: at each kernel-sized leaf of the full-width 100M
     task, M = 2, random (e, delta) from a CPU generator seeded by the
@@ -1825,8 +2210,8 @@ def model_axis_run(job: dict, mesh) -> dict:
 
 def model_axis_rank(jobs: list) -> dict:
     """Each rank's body under ``mesh.spawn``: the (1, P) mesh over the
-    ranks present on the card, then every job (``compress`` or ``run``)
-    with its seconds."""
+    ranks present on the card, then every job (``compress``, ``run`` or
+    ``serve``) with its seconds."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_host_mesh
@@ -1837,9 +2222,12 @@ def model_axis_rank(jobs: list) -> dict:
     results = {}
     for job in jobs:
         t0 = time.perf_counter()
-        results[job["name"]] = (
-            model_axis_compress(job["aggregate"], mesh)
-            if job["kind"] == "compress" else model_axis_run(job, mesh))
+        if job["kind"] == "compress":
+            results[job["name"]] = model_axis_compress(job["aggregate"], mesh)
+        elif job["kind"] == "serve":
+            results[job["name"]] = model_axis_serve(job, mesh)
+        else:
+            results[job["name"]] = model_axis_run(job, mesh)
         results[job["name"]]["seconds"] = time.perf_counter() - t0
     return {"rank": mesh.rank, "transport": mesh.transport,
             "results": results}
@@ -1879,6 +2267,7 @@ def phase_model_axis(smi: str) -> dict:
     jobs += [dict(name=f"run {agg}", kind="run", aggregate=agg,
                   synced=MODEL_AXIS_SYNCED_ROUNDS)
              for agg in MODEL_AXIS_AGGREGATES]
+    jobs.append(dict(name="serve", kind="serve", faults=[None], free=True))
     t0 = time.perf_counter()
     ranks = spawn(model_axis_rank, MODEL_AXIS, "gloo", args=(jobs,),
                   timeout=MODEL_AXIS_TIMEOUT_S)
@@ -1962,6 +2351,8 @@ def phase_model_axis(smi: str) -> dict:
             f"{MODEL_AXIS_LOSS_ATOL}); {smi}")
     out["tasks"] = tasks
     out["launches"] = launches
+    out["serve"] = check_model_axis_serve([r["results"]["serve"]
+                                           for r in ranks], smi)
     # (c) the driver spawns its own two ranks
     t0 = time.perf_counter()
     try:
@@ -1981,6 +2372,111 @@ def phase_model_axis(smi: str) -> dict:
     return out
 
 
+def check_model_axis_serve(ranks: list, smi: str) -> dict:
+    """(d) of phase 5d: the serving job's results on both ranks (the
+    sound fed runs and the free run) against MODEL_AXIS_LOGITS_ATOL and
+    MODEL_AXIS_TOKEN_SHARE, the launches and the ranks' bits; returns the
+    ``serve`` part of the ``model_axis`` line."""
+    spec = MODEL_AXIS_SERVE
+    steps, prompt = spec["steps"], spec["prompt"]
+    layers = 28                                   # qwen2-1.5b's
+    want = {"swa_decode_partial": layers * steps}
+    r0, r1 = ranks
+    out = {"spec": spec, "logits_atol": MODEL_AXIS_LOGITS_ATOL,
+           "logits_mean_atol": MODEL_AXIS_LOGITS_MEAN_ATOL,
+           "token_share_min": MODEL_AXIS_TOKEN_SHARE,
+           "token_margin_max": MODEL_AXIS_TOKEN_MARGIN,
+           "draw_s": [r["draw_s"] for r in ranks],
+           "seconds": [r["seconds"] for r in ranks], "runs": {}}
+    for key, a in r0["runs"].items():
+        b_ = r1["runs"][key]
+        check(a["digest"] == b_["digest"], f"model axis (d) {key}: the "
+              f"ranks' logits differ ({a['digest']}, {b_['digest']})")
+        slots = prompt + steps if a["run"] == "full" else spec["window"]
+        check(a["slots"] == slots and a["local_slots"] == slots // 2
+              and a["pos"] == prompt + steps,
+              f"model axis (d) {key}: slots {a['slots']} "
+              f"({a['local_slots']} a rank), pos {a['pos']}")
+        for r in (a, b_):
+            nonzero = {k: v for k, v in r["launches"].items() if v}
+            check(nonzero == want, f"model axis (d) {key}: launches "
+                  f"{nonzero}, expected {want}")
+        worst, worst_mean = max(a["logits_gaps"]), max(a["mean_gaps"])
+        check(worst_mean <= MODEL_AXIS_LOGITS_MEAN_ATOL
+              and worst <= MODEL_AXIS_LOGITS_ATOL, f"model axis (d) {key}: "
+              f"logits {worst_mean:.4e} from P = 1's in the mean, "
+              f"{worst:.4e} at most (allowed {MODEL_AXIS_LOGITS_MEAN_ATOL}, "
+              f"{MODEL_AXIS_LOGITS_ATOL}); mean gaps {a['mean_gaps']}, "
+              f"max gaps {a['logits_gaps']}")
+        out["runs"][key] = {k: a[k] for k in (
+            "logits_gaps", "mean_gaps", "argmax_agree", "prefill_s",
+            "prefill_collectives", "decode_ms", "collectives_per_step",
+            "collective_ms_per_step")} | {
+            "decode_ms_rank1": b_["decode_ms"], "launches": want}
+        log(f"model axis (d) serve {key}: {slots} slots ({slots // 2} a "
+            f"rank), {steps} steps fed P = 1's tokens: logits gap to P = 1 "
+            f"a step at most {worst_mean:.4e} in the mean and {worst:.4e} "
+            f"in the max (allowed {MODEL_AXIS_LOGITS_MEAN_ATOL}, "
+            f"{MODEL_AXIS_LOGITS_ATOL}), argmax agreeing "
+            f"{min(a['argmax_agree']):.4f}-{max(a['argmax_agree']):.4f} a "
+            f"step; ranks bitwise equal; prefill {a['prefill_s']:.3f} s "
+            f"({a['prefill_collectives']} collectives), decode "
+            f"{a['decode_ms']:.2f} ms a step (rank 1 {b_['decode_ms']:.2f}), "
+            f"{a['collectives_per_step']:.1f}"
+            f" collectives a step, {a['collective_ms_per_step']:.2f} host ms "
+            f"blocked in them a step (no syncs); launches {want}")
+    f0, f1 = r0["free"]["sound"], r1["free"]["sound"]
+    check(f0["digest"] == f1["digest"], "model axis (d) free run: the "
+          "ranks' tokens differ")
+    for r in (f0, f1):
+        nonzero = {k: v for k, v in r["launches"].items() if v}
+        check(nonzero == want, f"model axis (d) free run: launches "
+              f"{nonzero}, expected {want}")
+    check(f0["logits_finite"] and f0["pos"] == prompt + steps
+          and f0["slots"] == prompt + steps, f"model axis (d) free run: "
+          f"pos {f0['pos']}, slots {f0['slots']}, finite "
+          f"{f0['logits_finite']}")
+    check(f0["token_share"] >= MODEL_AXIS_TOKEN_SHARE, f"model axis (d) "
+          f"free run: {f0['token_share']:.4f} of its tokens are P = 1's "
+          f"(at least {MODEL_AXIS_TOKEN_SHARE}); first differing steps "
+          f"{f0['first_differing_step']}")
+    margin = max(f0["margins"])
+    check(margin <= MODEL_AXIS_TOKEN_MARGIN, f"model axis (d) free run: a "
+          f"token {margin:.4e} below P = 1's greedy logit at its history "
+          f"(at most {MODEL_AXIS_TOKEN_MARGIN}); margins a step "
+          f"{f0['margins']}")
+    collectives = f0["collectives"]
+    out["free"] = {k: f0[k] for k in (
+        "prefill_s", "decode_ms", "token_share", "first_differing_step",
+        "margins", "mean_margin", "seconds", "collectives",
+        "collective_ms")} | {
+        "decode_ms_rank1": f1["decode_ms"], "launches": f0["launches"]}
+    out["p1"] = r0["p1"]
+    log(f"model axis (d) serve free run (serve_decode.serve, mesh of 2): "
+        f"{prompt} tokens x {spec['batch']} prefilled in "
+        f"{f0['prefill_s']:.3f} s, {steps} greedy steps at "
+        f"{f0['decode_ms']:.2f} ms a step (rank 1 {f1['decode_ms']:.2f}), "
+        f"{collectives} collectives in all, {f0['collective_ms']:.1f} host "
+        f"ms blocked in them; {f0['token_share']:.4f} of its tokens are "
+        f"P = 1's (at least {MODEL_AXIS_TOKEN_SHARE}; first differing "
+        f"steps by row {f0['first_differing_step']}); each token at most "
+        f"{margin:.4e} below P = 1's greedy logit at its history (mean "
+        f"{f0['mean_margin']:.4e}; at most {MODEL_AXIS_TOKEN_MARGIN}); "
+        f"ranks bitwise equal; swa_decode_partial "
+        f"{f0['launches']['swa_decode_partial']} launches; {smi}")
+    for name, t in r0["p1"].items():
+        two = out["runs"][f"sound {name}"]
+        log(f"model axis (d) serve {name} at P = 1 (rank 0 alone on the "
+            f"card, the whole draw): prefill {t['prefill_s']:.3f} s, decode "
+            f"{t['decode_ms']:.2f} ms a step; P = 2 fed the same tokens "
+            f"(two ranks sharing the card): prefill "
+            f"{two['prefill_s']:.3f} s, decode {two['decode_ms']:.2f} ms a "
+            f"step, {two['decode_ms'] / t['decode_ms']:.2f}x P = 1's; {smi}")
+    log(f"model axis (d) serving job: {r0['seconds']:.1f} s on rank 0 "
+        f"({r0['draw_s']:.1f} s of it the draw)")
+    return out
+
+
 def model_axis_faults(smi: str) -> dict:
     """``--model-axis-faults``: the readings behind MODEL_AXIS_LOSS_ATOL.
     The task at P = 2 under ``dense_masked`` for ROUNDS rounds, sound and
@@ -1990,15 +2486,48 @@ def model_axis_faults(smi: str) -> dict:
     one = model_axis_p1(ROUNDS)["dense_masked"]["losses"]
     jobs = [dict(name=f or "sound", kind="run", aggregate="dense_masked",
                  fault=f) for f in (None, *MODEL_AXIS_FAULTS)]
+    jobs.append(dict(name="serve", kind="serve",
+                     faults=[None, *MODEL_AXIS_SERVE_FAULTS], free=True))
     ranks = spawn(model_axis_rank, MODEL_AXIS, "gloo", args=(jobs,),
                   timeout=MODEL_AXIS_TIMEOUT_S)
     out = {"card": smi, "p1": one, "loss_atol": MODEL_AXIS_LOSS_ATOL}
-    for job in jobs:
+    for job in jobs[:-1]:
         losses = ranks[0]["results"][job["name"]]["losses"]
         out[job["name"]] = {"losses": losses, "gaps": loss_gaps(losses, one)}
         log(f"model axis fault {job['name']}: losses {losses}, gaps "
             f"{[f'{g:.3e}' for g in out[job['name']]['gaps']]} against "
             f"P = 1 {one}; {smi}")
+    serve = ranks[0]["results"]["serve"]
+    out["serve"] = {"logits_atol": MODEL_AXIS_LOGITS_ATOL,
+                    "logits_mean_atol": MODEL_AXIS_LOGITS_MEAN_ATOL,
+                    "token_share_min": MODEL_AXIS_TOKEN_SHARE,
+                    "token_margin_max": MODEL_AXIS_TOKEN_MARGIN,
+                    "seconds": serve["seconds"]}
+    for key, r in serve["runs"].items():
+        out["serve"][key] = {k: r[k] for k in (
+            "logits_gaps", "mean_gaps", "argmax_agree", "decode_ms",
+            "prefill_s", "collective_ms_per_step")}
+        log(f"model axis serving fault {key}: logits gaps to P = 1 a step "
+            f"(the prefill's first) max {max(r['logits_gaps']):.4e}, mean "
+            f"abs up to {max(r['mean_gaps']):.4e} (allowed "
+            f"{MODEL_AXIS_LOGITS_ATOL}, {MODEL_AXIS_LOGITS_MEAN_ATOL}), "
+            f"argmax agreeing {min(r['argmax_agree']):.4f}-"
+            f"{max(r['argmax_agree']):.4f}; decode {r['decode_ms']:.2f} ms "
+            f"a step; mean gaps {[f'{g:.3e}' for g in r['mean_gaps']]}; "
+            f"{smi}")
+    for key, f in serve["free"].items():
+        out["serve"][f"{key} free"] = {k: f[k] for k in (
+            "token_share", "first_differing_step", "margins", "mean_margin",
+            "decode_ms")}
+        log(f"model axis serving fault {key}, free run: {f['token_share']:.4f}"
+            f" of its tokens are P = 1's (at least {MODEL_AXIS_TOKEN_SHARE}); "
+            f"first differing steps {f['first_differing_step']}; tokens at "
+            f"most {max(f['margins']):.4e} below P = 1's greedy logit at "
+            f"their history (mean {f['mean_margin']:.4e}; at most "
+            f"{MODEL_AXIS_TOKEN_MARGIN}), margins a step "
+            f"{[f'{m:.3e}' for m in f['margins']]}; decode "
+            f"{f['decode_ms']:.2f} ms a step; {smi}")
+    out["serve"]["p1"] = serve["p1"]
     print(json.dumps({"model_axis_faults": out}), flush=True)
     return out
 
@@ -2275,7 +2804,7 @@ def family_train(arch: str, smi: str, errs: dict) -> dict:
                              "cuda").expand(m, -1).contiguous()
     recv = torch.ones((m, 3), dtype=torch.int32, device="cuda")
     check_leaf_rows(e, x, cum, recv, f"{arch} {largest} ({m}, {n_big:,}) "
-                    f"round 2", errs)
+                    f"round {CAPTURE_ROUND + 1}", errs)
     del e, x
     torch.cuda.empty_cache()
     timed = rounds[TIMED_ROUND]["host_ms"]
@@ -2297,14 +2826,17 @@ def family_train(arch: str, smi: str, errs: dict) -> dict:
         f"{batch}, seq {seq}, H=2, lr {lr}; losses {losses}; {run_s:.1f} s "
         f"(the weights' draw {rec['draw_s']:.1f} s)")
     log(f"train 5c: {arch}: host ms by round {row['host_ms_by_round']} "
-        f"(round 2 copies its largest leaf's rows to the host, round 4 is "
-        f"profiled); device busy {prof['device_busy_ms']:.3f} ms of round "
-        f"4, idle share {row['device_idle_share']:.3f} against round 3 "
+        f"(round {CAPTURE_ROUND + 1} copies its largest leaf's rows to the "
+        f"host, round {PROFILED_ROUND + 1} is profiled); device busy "
+        f"{prof['device_busy_ms']:.3f} ms of round {PROFILED_ROUND + 1}, "
+        f"idle share {row['device_idle_share']:.3f} against round "
+        f"{TIMED_ROUND + 1} "
         f"({prof['device_idle_share']:.3f} profiled); kernels by group "
         f"{prof['kernel_ms_by_group']}; peak {peak_gib:.2f} GiB; {smi}")
     log(f"train 5c: {arch}: each LGC row kernel launched {n_leaves} times a "
         f"round, no flat kernel, no plain compression of a kernel-sized "
-        f"leaf; {largest} ({m} x {n_big:,}) of round 2 bitwise the plain "
+        f"leaf; {largest} ({m} x {n_big:,}) of round {CAPTURE_ROUND + 1} "
+        f"bitwise the plain "
         f"row versions through all three kernels")
     return row
 
@@ -2373,11 +2905,13 @@ def phase_family_training(smi: str, errs: dict) -> dict:
     t0 = time.perf_counter()
     for arch in FAMILY_SMOKE:
         family_train_smoke(arch)
+    log(f"phase 5c: smoke rounds {time.perf_counter() - t0:.1f} s")
     # the profiler's first start in a process takes seconds: not in a round
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]):
         torch.zeros(1, device="cuda").add_(1)
         torch.cuda.synchronize()
+    log(f"phase 5c: the profiler started at {time.perf_counter() - t0:.1f} s")
     out = {arch: family_train(arch, smi, errs) for arch in FAMILY_TRAIN}
     print(json.dumps({"family_training": out}), flush=True)
     log(f"phase 5c (the families' training at full width): "
@@ -2985,7 +3519,7 @@ def phase_simulator(smi: str) -> dict:
 
 
 def phase_per_layer(smi: str) -> dict:
-    """cnn_mnist (M=8, 16 rounds, H=4, lgc) under each per-layer policy
+    """cnn_mnist (M=8, 12 rounds, H=4, lgc) under each per-layer policy
     on both engines with backend "cuda", the card against the CPU: every
     sync's candidate mask and (g, e') bitwise the plain segmented pipeline
     on the same card tensors; one launch of each segmented kernel per sync
@@ -3103,7 +3637,7 @@ def phase_server(smi: str) -> dict:
 # the two main paths of the control plane: (tag, task, M, n_train, rounds,
 # eval_every, FLConfig fields); the fleets' configs in control_fleet
 CONTROL_PATHS = [
-    ("lr_mnist ddpg", "lr_mnist", 3, 3000, 120, 20, {}),
+    ("lr_mnist ddpg", "lr_mnist", 3, 3000, 60, 20, {}),
     ("cnn_mnist ddpg per_device hetero_fleet", "cnn_mnist", 8, None, 24, 8,
      {"scenario": "hetero_fleet", "action_space": "per_device",
       "pipeline_decisions": True, "max_gap": 4}),
@@ -3248,7 +3782,7 @@ def check_decisions(tag: str, sim) -> tuple[int, int]:
 
 def phase_control(smi: str) -> dict:
     """The paper's learning-based control on the card, through the LGC
-    kernels: lr_mnist (M=3, 120 rounds) under a shared-space FleetDDPG and
+    kernels: lr_mnist (M=3, 60 rounds) under a shared-space FleetDDPG and
     cnn_mnist (M=8) on hetero_fleet under a per_device fleet, pipelined, on
     both engines.  Every sync bitwise the plain pipeline (per-row budgets),
     the LGC launches once per device sync (loop) or boundary (batched),
@@ -3522,9 +4056,9 @@ def population_run(config: str, store: str, engine: str, rounds: int,
 def phase_population(smi: str) -> dict:
     """The population layer (N = 100,000, M = 64, H = 4, lgc through the LGC
     row kernels) on the card: (a) the reference bench's configuration
-    (population task, 24 rounds) with each EF store on the batched engine
+    (population task, 12 rounds) with each EF store on the batched engine
     and the dense store on the loop engine, (b) lr_mnist with the dense
-    store (3.14 GB on the card) and the int8 store, 12 rounds.  Each card
+    store (3.14 GB on the card) and the int8 store, 8 rounds.  Each card
     run against the same run on the CPU: cohorts and participation equal,
     History within phase 8's tolerances; every sync bitwise the plain row
     pipeline on the same card tensors, no host sync inside a window; each
@@ -3589,8 +4123,8 @@ def phase_population(smi: str) -> dict:
 # ---------------------------------------------------------------------------
 
 # world 1 over NCCL in this process: cnn_mnist at the factory's width and
-# samples, M = 8, 40 rounds, lgc
-SHARDED_W1 = ("cnn_mnist", 8, 6000, 40, 10)
+# samples, M = 8, 20 rounds, lgc
+SHARDED_W1 = ("cnn_mnist", 8, 6000, 20, 10)
 # world 2: two processes on the one card over gloo; lr_mnist M = 8, and a
 # population window set (lr_mnist, N = 100,000, M = 64, dense store,
 # 3 windows)
@@ -3651,7 +4185,7 @@ def median(xs) -> float:
 def phase_sharded(smi: str) -> dict:
     """The sharded engine (``engine="sharded"``) on the card.
 
-    World 1 over NCCL in this process: cnn_mnist (M = 8, 40 rounds, lgc)
+    World 1 over NCCL in this process: cnn_mnist (M = 8, 20 rounds, lgc)
     under gather and psum against the unsharded batched engine: gather
     bitwise with the same row kernel launches, psum within 1e-4 in loss
     and uplink_mb; each sync's row kernels bitwise their plain versions;
@@ -4038,17 +4572,22 @@ def phase_time_segments(gen) -> dict:
     return rows
 
 
-def phase_time_swa(gen, shape=SWA_SERVE_SHAPE) -> dict:
+def phase_time_swa(gen, shape=SWA_SERVE_SHAPE, partial: bool = False
+                   ) -> dict:
     """swa_decode at a decode shape in bf16, every slot valid (the ring
     after the wrap).  Each call takes the next of four input copies
     (4 x 33.6 MB at the serve shape, beyond the 50 MB L2), as a decode
     step finds a layer's cache cold; ``ms_l2_warm`` repeats one copy;
     ``device_ms_length1`` is the same grid at length 1, the launch's fixed
-    cost (its blocks, the merge)."""
+    cost (its blocks, the merge).  With ``partial``: the partial form
+    (``swa_decode_partial``: f32 output, m and l) at a rank's shard of the
+    cache, beside ``swa_decode`` at the same shape (``swa_decode_ms``,
+    ``swa_decode_device_ms``); the library call computes the output only,
+    without the softmax state."""
     import torch
     import torch.nn.functional as F
     from repro_torch.device import device_ms
-    from repro_torch.kernels import ref, swa_decode
+    from repro_torch.kernels import ref, swa_decode, swa_decode_partial
     b, h, kv, w, dh = shape
     sets = [swa_inputs(gen, shape, torch.bfloat16) for _ in range(4)]
     ln = torch.full((b,), w, dtype=torch.int32, device="cuda")
@@ -4064,15 +4603,19 @@ def phase_time_swa(gen, shape=SWA_SERVE_SHAPE) -> dict:
         return F.scaled_dot_product_attention(q[:, :, None], k, v,
                                               attn_mask=mask,
                                               enable_gqa=True)
-    kern = rotate(lambda q, k, v: swa_decode(q, k, v, ln))
-    plain = rotate(lambda q, k, v: ref.swa_decode_ref(q, k, v, ln))
+    fn = swa_decode_partial if partial else swa_decode
+    kern = rotate(lambda q, k, v: fn(q, k, v, ln))
+    plain = rotate(lambda q, k, v: (ref.swa_decode_partial_ref if partial
+                                    else ref.swa_decode_ref)(q, k, v, ln))
     try:
         sdpa(*sets[0])
         lib = rotate(sdpa)
     except TypeError as err:      # a torch without enable_gqa
         log(f"timing swa_decode: no library yardstick ({err})")
         lib = None
-    n_bytes = 2 * b * kv * w * dh * 2 + 2 * b * h * dh * 2 + 4 * b
+    # K and V, q, the output (f32 with m and l in the partial form), length
+    out_bytes = b * h * (dh + 2) * 4 if partial else b * h * dh * 2
+    n_bytes = 2 * b * kv * w * dh * 2 + b * h * dh * 2 + out_bytes + 4 * b
     n_ops = 4 * b * h * w * dh
     bnd, by = bound_ms(n_bytes, n_ops)
     row = {"shape": list(shape), "dtype": "bfloat16",
@@ -4081,16 +4624,25 @@ def phase_time_swa(gen, shape=SWA_SERVE_SHAPE) -> dict:
            "device_ms": device_ms(kern),
            "library_device_ms": device_ms(lib) if lib else None,
            "bound_ms": bnd, "bound_by": by, "bytes": n_bytes,
-           "ms_l2_warm": time_ms(lambda: swa_decode(*sets[0], ln)),
-           "device_ms_l2_warm": device_ms(lambda: swa_decode(*sets[0], ln)),
-           "device_ms_length1": device_ms(lambda: swa_decode(*sets[0], one))}
-    log(f"timing swa_decode (B,H,Kv,W,Dh)={shape} bf16: kernel "
+           "ms_l2_warm": time_ms(lambda: fn(*sets[0], ln)),
+           "device_ms_l2_warm": device_ms(lambda: fn(*sets[0], ln)),
+           "device_ms_length1": device_ms(lambda: fn(*sets[0], one))}
+    name = "swa_decode_partial" if partial else "swa_decode"
+    if partial:
+        whole = rotate(lambda q, k, v: swa_decode(q, k, v, ln))
+        row |= {"swa_decode_ms": time_ms(whole),
+                "swa_decode_device_ms": device_ms(whole),
+                "library_computes": "the output only (no m, l)"}
+    log(f"timing {name} (B,H,Kv,W,Dh)={shape} bf16: kernel "
         f"{row['ms']:.5f} ms one call, {row['device_ms']:.5f} ms device "
         f"({row['device_ms_l2_warm']:.5f} ms with the inputs in L2, "
         f"{row['device_ms_length1']:.5f} ms at length 1); plain "
         f"{row['plain_ms']:.5f} ms; library {row['library_ms']} ms one "
         f"call, {row['library_device_ms']} ms device; bound {bnd:.5f} ms "
-        f"({by}, {n_bytes:,} B)")
+        f"({by}, {n_bytes:,} B)" + (
+            f"; swa_decode at this shape {row['swa_decode_ms']:.5f} ms one "
+            f"call, {row['swa_decode_device_ms']:.5f} ms device"
+            if partial else ""))
     return row
 
 
@@ -4125,9 +4677,102 @@ def phase_time_threefry() -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 8 in a process of its own, beside phases 5c-7d
+# ---------------------------------------------------------------------------
+
+# Phase 8 needs nothing of phases 5c-7d, so it runs in a spawned process
+# started before 5c and joined after 7d, with PHASE8_THREADS intra-op
+# threads (its CPU runs): the script's wall time is the longer of the two
+# instead of their sum.  Both share the card and the host's cores, so the
+# host ms and device times that 5c-7d and phase 8 print are taken beside
+# each other's work; phase 9's timings run alone, after the join.
+PHASE8_THREADS = 2
+
+
+def phase8_body(smi: str) -> dict:
+    """Phase 8: the PRNG, the simulator, the per-layer budgets, the
+    servers, the control plane, the population and the sharded engine,
+    with their own clock; returns their launch counts and the ``sharded``
+    record."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(PHASE8_THREADS)
+    t0 = time.perf_counter()
+
+    def done(what: str) -> None:
+        log(f"clock: phase 8, {what} done at {time.perf_counter() - t0:.1f} "
+            f"s of phase 8's process")
+    phase_prng()
+    sim_launches = phase_simulator(smi)
+    done("simulator")
+    per_layer_launches = phase_per_layer(smi)
+    done("per-layer")
+    phase_server(smi)
+    done("servers")
+    sim_launches |= phase_control(smi)
+    done("control")
+    pop_launches = phase_population(smi)
+    done("population")
+    sharded = phase_sharded(smi)
+    done("sharded")
+    return {"sim": sim_launches, "per_layer": per_layer_launches,
+            "population": pop_launches, "sharded": sharded}
+
+
+def _phase8_process(conn, smi: str) -> None:
+    """The spawned process: phase 8's record, or the traceback of its
+    failure, back through ``conn``."""
+    try:
+        sys.path.insert(0, str(ROOT / "src"))
+        conn.send(("ok", phase8_body(smi)))
+    except BaseException:
+        import traceback
+        conn.send(("failed", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+def start_phase8(smi: str) -> tuple:
+    """Phase 8's process, started; it is killed at exit if still alive
+    (a failure elsewhere ends the run without waiting for it)."""
+    import atexit
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=_phase8_process, args=(send, smi),
+                       name="chip_smoke phase 8")
+    proc.start()
+    send.close()
+
+    def stop() -> None:
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+    atexit.register(stop)
+    return proc, recv
+
+
+def join_phase8(handle: tuple) -> dict:
+    """Phase 8's record; raises if its process failed or died."""
+    proc, recv = handle
+    try:
+        status, value = recv.recv()
+    except EOFError:
+        status, value = "failed", "it ended without a record"
+    proc.join(timeout=120)
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+    check(status == "ok", f"phase 8's process (exit code {proc.exitcode}) "
+          f"failed: {value}")
+    return value
+
+
 def main(argv: list[str]) -> int:
-    # growable segments: yi-34b's serve (64.05 GiB of weights, a 75.4 GiB
-    # peak) runs after phases whose freed blocks would otherwise split the
+    # growable segments: yi-34b's serve (at 60 layers, 64.05 GiB of weights
+    # and a 75.4 GiB peak) runs after phases whose freed blocks would otherwise split the
     # card's last free GiBs (an out-of-memory error at its prefill's
     # 1.71 GiB logits chunk with 3.04 GiB reserved and unused)
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
@@ -4185,13 +4830,14 @@ def main(argv: list[str]) -> int:
         model_axis_faults(smi)
         return 0
     errs = {k: 0.0 for k in (*TPU_KERNELS, *SEGMENT_KERNELS,
-                             "threefry_normal")}
+                             "threefry_normal", "swa_decode_partial")}
 
     def done(what: str) -> None:   # the run's clock at each phase's end
         log(f"clock: {what} done at {time.perf_counter() - t0:.1f} s")
     phase_kernels(gen, errs)
     done("phase 2")
     phase_swa(gen, errs)
+    phase_swa_partial(gen, errs)
     phase_threefry(errs)
     done("phase 3")
     phase_small_trainer()
@@ -4200,32 +4846,29 @@ def main(argv: list[str]) -> int:
     done("phases 4-5")
     sparse_launches = phase_sparse_uplinks(smi, dense_steps_per_s)
     done("phase 5b")
+    phase8 = start_phase8(smi)         # beside 5c-7d, joined after 7d
     family_training = phase_family_training(smi, errs)
     done("phase 5c")
     model_axis = phase_model_axis(smi)
     done("phase 5d")
     phase_small_serve()
+    done("phase 6")
     serving = phase_serve(smi)
-    done("phases 6-7")
+    done("phase 7")
     families = phase_families(smi)
     done("phase 7b")
     modalities = phase_modalities(smi)
     done("phase 7c")
     configs = phase_configs(smi)
     done("phase 7d")
-    phase_prng()
-    sim_launches = phase_simulator(smi)
-    done("phase 8, simulator")
-    per_layer_launches = phase_per_layer(smi)
-    phase_server(smi)
-    sim_launches |= phase_control(smi)
-    done("phase 8, per-layer, servers, control")
-    pop_launches = phase_population(smi)
-    sharded = phase_sharded(smi)
-    done("phase 8, population and sharded")
+    p8 = join_phase8(phase8)
+    done("phase 8 (joined)")
+    sim_launches, per_layer_launches = p8["sim"], p8["per_layer"]
+    pop_launches, sharded = p8["population"], p8["sharded"]
     rows = phase_timings(gen, main_u)
     row_times = phase_time_rows(gen)
     seg_times = phase_time_segments(gen)
+    done("phase 9, LGC kernels' timings")
     swa_row = phase_time_swa(gen)
     swa_family_rows = {arch: phase_time_swa(gen, shape)
                        for arch, shape in SWA_FAMILY_SHAPES.items()}
@@ -4233,7 +4876,10 @@ def main(argv: list[str]) -> int:
                          for arch, shape in SWA_MODALITY_SHAPES.items()}
     swa_config_rows = {arch: phase_time_swa(gen, shape)
                        for arch, shape in SWA_CONFIG_SHAPES.items()}
+    swa_partial_row = phase_time_swa(gen, SWA_PARTIAL_SHAPES[0],
+                                     partial=True)
     threefry_row = phase_time_threefry()
+    done("phase 9, timings")
 
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():
@@ -4321,6 +4967,19 @@ def main(argv: list[str]) -> int:
                                       per_layer_launches.items()}}
         row |= seg_times[name][cnn] | {"at": seg_times[name]}
         kernels.append(row)
+    # swa_decode's partial form: its path is phase 5d's serving job at
+    # P = 2 (``launches``: rank 0's free run through serve_decode.serve),
+    # timed at a rank's shard of the 4,096-slot serve cache
+    serve = model_axis["serve"]
+    kernels.append({
+        "name": "swa_decode_partial", "route": "cuda",
+        "source": TPU_KERNELS["swa_decode"][0],
+        "replaces": TPU_KERNELS["swa_decode"][1], "form_of": "swa_decode",
+        "max_abs_err": errs["swa_decode_partial"],
+        "launches": serve["free"]["launches"]["swa_decode_partial"],
+        "launches_model_axis_serve": {
+            key: r["launches"]["swa_decode_partial"]
+            for key, r in serve["runs"].items()}} | swa_partial_row)
     # the weights' draw: the port's own kernel, with no Pallas counterpart
     # (the reference's jax.random.normal draw is at ``replaces``)
     kernels.append({

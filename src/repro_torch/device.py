@@ -48,11 +48,13 @@ def device_ms(fn, reps: int = 100, warmup: int = 5) -> float:
 
     A sleep kernel holds the stream while the host enqueues the calls, so
     they run back to back on the card whatever the host's dispatch rate;
-    the hold doubles until it outlasts the enqueue."""
+    the hold doubles until it outlasts the enqueue.  An enqueue that ends
+    with the hold, twice running, is blocked on the card's full launch
+    queue, which no longer hold can outlast: it raises at once."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    hold_ms = 20.0
+    hold_ms, blocked = 20.0, 0
     for _ in range(8):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -66,8 +68,14 @@ def device_ms(fn, reps: int = 100, warmup: int = 5) -> float:
         end.synchronize()
         if enqueue_ms < 0.5 * hold_ms:
             return start.elapsed_time(end) / reps
+        blocked = blocked + 1 if (hold_ms <= enqueue_ms
+                                  <= 1.5 * hold_ms + 10.0) else 0
+        if blocked == 2:
+            break
         hold_ms *= 2
-    raise RuntimeError(f"device_ms: a hold of {hold_ms / 2:.0f} ms did not "
+    else:
+        hold_ms /= 2
+    raise RuntimeError(f"device_ms: a hold of {hold_ms:.0f} ms did not "
                        f"outlast an enqueue of {enqueue_ms:.1f} ms")
 
 

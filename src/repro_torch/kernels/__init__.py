@@ -21,7 +21,7 @@ from ._build import LAUNCHES, reset_launch_counts
 from .layered_sparsify import sparsify_ef, sparsify_ef_rows
 from .ops import (lgc_compress_hist, lgc_compress_hist_rows,
                   per_layer_candidates_hist_rows, selected_counts)
-from .swa_attention import swa_decode
+from .swa_attention import swa_decode, swa_decode_partial
 from .threefry_normal import threefry_normal
 from .topk_threshold import (SegmentTable, histogram, histogram_rows,
                              histogram_segments, maxabs, maxabs_rows,
@@ -35,5 +35,5 @@ __all__ = [
     "SegmentTable", "histogram", "histogram_rows", "histogram_segments",
     "maxabs", "maxabs_rows", "maxabs_segments", "sum_maxabs", "sum_maxabs_rows",
     "thresholds_from_counts", "sparsify_ef", "sparsify_ef_rows",
-    "swa_decode", "threefry_normal",
+    "swa_decode", "swa_decode_partial", "threefry_normal",
 ]

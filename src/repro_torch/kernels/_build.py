@@ -2,7 +2,8 @@
 
 At first use the sources under ``csrc/`` are compiled for Hopper with
 ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3`` (one ``nvcc``
-per source, all started together) and linked into
+per compile unit, all started together: a source each, ``swa_decode.cu`` four
+times, once a dtype and form) and linked into
 ``build/repro_torch/libkernels-<hash>.so`` at the repository root
 (``$REPRO_TORCH_BUILD_DIR`` overrides the directory).  The hash covers the
 sources and the flags, so an edit rebuilds.  ``--use_fast_math`` is never
@@ -21,7 +22,8 @@ and short, count there), and so do the segmented forms of
 maxabs and histogram over the model-layer slices of rows
 (``maxabs_segments``, ``histogram_segments``), so a run shows which form ran.
 The weights' draw counts under ``threefry_normal``, one launch a layer of a
-leaf.
+leaf, and ``swa_decode``'s partial form (a shard of a cache's slots, with
+its softmax state) under ``swa_decode_partial``.
 """
 from __future__ import annotations
 
@@ -38,10 +40,14 @@ CSRC = pathlib.Path(__file__).resolve().with_name("csrc")
 SOURCES = ("maxabs.cu", "histogram.cu", "sparsify_ef.cu", "swa_decode.cu",
            "threefry_normal.cu")
 HEADERS = ("common.cuh",)
+# a source compiled more than once: its units' defines (swa_decode.cu's 80
+# kernel instances, 20 a (dtype, form) unit; unit 0 holds the entry points)
+UNIT_DEFINES = {"swa_decode.cu": tuple(f"-DSWA_UNIT={i}" for i in range(4))}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"maxabs": 0, "histogram": 0, "sparsify_ef": 0, "swa_decode": 0,
+            "swa_decode_partial": 0,
             "maxabs_rows": 0, "histogram_rows": 0, "sparsify_ef_rows": 0,
             "maxabs_segments": 0, "histogram_segments": 0,
             "threefry_normal": 0}
@@ -77,6 +83,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(UNIT_DEFINES.items())).encode())
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
@@ -95,6 +102,19 @@ def _run_all(cmds: list[list[str]]) -> str:
     return "".join(outs)
 
 
+def _units() -> list[tuple[str, tuple[str, ...], str]]:
+    """(source, defines, object name) of every compile unit."""
+    out = []
+    for s in SOURCES:
+        stem = s.removesuffix(".cu")
+        defs = UNIT_DEFINES.get(s)
+        if defs is None:
+            out.append((s, (), f"{stem}.o"))
+        else:
+            out += [(s, (d,), f"{stem}-{i}.o") for i, d in enumerate(defs)]
+    return out
+
+
 def build() -> pathlib.Path:
     """Compile the kernels unless a library for these sources exists."""
     global build_log
@@ -105,10 +125,11 @@ def build() -> pathlib.Path:
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-        objs = [os.path.join(tmp, s.replace(".cu", ".o")) for s in SOURCES]
-        log = _run_all([[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c",
+        units = _units()
+        objs = [os.path.join(tmp, o) for _, _, o in units]
+        log = _run_all([[nvcc, *NVCC_FLAGS, *defs, "-Xptxas", "-v", "-c",
                          str(CSRC / s), "-o", o]
-                        for s, o in zip(SOURCES, objs)])
+                        for (s, defs, _), o in zip(units, objs)])
         tmp_lib = os.path.join(tmp, "libkernels.so")
         log += _run_all([[nvcc, *NVCC_FLAGS, "-shared", *objs, "-o", tmp_lib]])
         os.replace(tmp_lib, lib_path)      # atomic: concurrent builds agree
@@ -129,6 +150,9 @@ def lib() -> ctypes.CDLL:
                                            ci, vp]
             so.lgc_swa_decode.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci,
                                           ci, ci, ci, ci, ci, vp]
+            so.lgc_swa_decode_partial.argtypes = [vp, vp, vp, vp, vp, vp, vp,
+                                                  vp, vp, ci, ci, ci, ci, ci,
+                                                  ci, ci, vp]
             so.lgc_maxabs_segments.argtypes = [vp, i64, i64, vp, vp, ci, ci,
                                                vp, vp, vp, vp]
             so.lgc_histogram_segments.argtypes = [vp, i64, i64, vp, vp, ci,
@@ -139,7 +163,8 @@ def lib() -> ctypes.CDLL:
                 ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, vp, i64, ci,
                 ci, vp]
             for fn in (so.lgc_maxabs, so.lgc_histogram, so.lgc_sparsify_ef,
-                       so.lgc_swa_decode, so.lgc_maxabs_segments,
+                       so.lgc_swa_decode, so.lgc_swa_decode_partial,
+                       so.lgc_maxabs_segments,
                        so.lgc_histogram_segments, so.lgc_maxabs_short,
                        so.lgc_histogram_short, so.lgc_threefry_normal):
                 fn.restype = ci

@@ -37,6 +37,15 @@
 // merges the S states in split order: the result is the same bits on every launch.
 // An empty split (m = -inf) merges with weight 0.
 //
+// The partial form (`lgc_swa_decode_partial`, PARTIAL = true) is the same launch with
+// the same grid and splits.  It writes the output in f32, acc / max(l, 1e-30) before
+// the cast to q's type, and the row's softmax state beside it: m, the max of its scaled
+// logits (-inf for an empty row), and l, the sum of exp(logit - m) (0 for an empty
+// row), as the last block of each group holds them after its merge.  A rank that owns
+// a shard of the window's slots computes its partial attention this way, and the
+// ranks' states merge as the splits do here (kernels.ref.merge_decode_partials).
+// out_f32 cast to q's type is the plain form's output, bit for bit.
+//
 // Bound on the H100: bytes.  It reads each valid K and V row once.  At the serving shape
 // of qwen2-1.5b (B=8, H=12, Kv=2, W=4096, Dh=128, bf16, every slot valid) that is
 // 33,554,432 B of K and V plus 49,184 B of q, out and length: 0.01003 ms at 3.35 TB/s.
@@ -165,10 +174,13 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 // part: the splits' states, acc (B*H*S, DH) then m (B*H*S) then l (B*H*S), f32;
 // counters: one int per group, zero between launches.
-template <typename T, int DH, int REP>
+// out: (B, H, DH) in T, or in f32 with PARTIAL, which also writes out_m and out_l (B, H).
+template <typename T, int DH, int REP, bool PARTIAL>
 __global__ void __launch_bounds__(kThreads, 2)
 swa_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                  const int* __restrict__ length, T* __restrict__ out, float* part,
+                  const int* __restrict__ length,
+                  std::conditional_t<PARTIAL, float, T>* __restrict__ out,
+                  float* __restrict__ out_m, float* __restrict__ out_l, float* part,
                   int* counters, int n_heads, int n_kv, int window, int split_len,
                   float scale) {
   using TL = Tile<T, DH>;
@@ -454,7 +466,16 @@ swa_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
       reinterpret_cast<float4*>(part + (h * n_split + split) * DH)[d4] = a;
     }
   }
-  if (n_split == 1) return;
+  if (n_split == 1) {
+    if constexpr (PARTIAL) {   // the block's own state is the row's
+      if (tid < nr) {
+        const size_t hh = static_cast<size_t>(b) * n_heads + head0 + tid;
+        out_m[hh] = sM[tid];
+        out_l[hh] = sL[tid];
+      }
+    }
+    return;
+  }
   const size_t nhs = static_cast<size_t>(gridDim.x / n_kv) * n_heads * n_split;
   float* part_m = part + nhs * DH;
   float* part_l = part_m + nhs;
@@ -504,6 +525,11 @@ swa_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
     float l = 0.0f;
     for (int s = 0; s < n_split; ++s) l += sLs[tid * n_split + s] * sW[tid * n_split + s];
     sL[tid] = l;
+    if constexpr (PARTIAL) {   // the merged state: M and l
+      const size_t hh = static_cast<size_t>(b) * n_heads + head0 + tid;
+      out_m[hh] = sM[tid];
+      out_l[hh] = l;
+    }
   }
   float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
   if (owner) {
@@ -529,17 +555,18 @@ swa_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   if (tid == 0) counters[group] = 0;            // ready for the next launch
 }
 
-template <typename T, int DH, int REP>
+template <typename T, int DH, int REP, bool PARTIAL>
 int launch(const void* q, const void* k, const void* v, const int* length, void* out,
-           float* part, int* counters, int batch, int n_heads, int n_kv, int window,
-           int splits, cudaStream_t stream) {
+           float* out_m, float* out_l, float* part, int* counters, int batch, int n_heads,
+           int n_kv, int window, int splits, cudaStream_t stream) {
+  using OutT = std::conditional_t<PARTIAL, float, T>;
   constexpr int smem = Smem<T, DH, REP>::kBytes;
   static unsigned long long attr_set = 0;       // a bit per device
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev < 64 && !(attr_set >> dev & 1ull)) {
-    err = cudaFuncSetAttribute(swa_decode_kernel<T, DH, REP>,
+    err = cudaFuncSetAttribute(swa_decode_kernel<T, DH, REP, PARTIAL>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set |= 1ull << dev;
@@ -549,19 +576,21 @@ int launch(const void* q, const void* k, const void* v, const int* length, void*
   const int split_len = kTile * ((tiles + splits - 1) / splits);
   const dim3 grid(batch * n_kv, splits, (rep + REP - 1) / REP);
   const float scale = 1.0f / sqrtf(static_cast<float>(DH));
-  swa_decode_kernel<T, DH, REP><<<grid, kThreads, smem, stream>>>(
+  swa_decode_kernel<T, DH, REP, PARTIAL><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), length,
-      static_cast<T*>(out), part, counters, n_heads, n_kv, window, split_len, scale);
+      static_cast<OutT*>(out), out_m, out_l, part, counters, n_heads, n_kv, window,
+      split_len, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool PARTIAL>
 int launch_rep(const void* q, const void* k, const void* v, const int* length, void* out,
-               float* part, int* counters, int batch, int n_heads, int n_kv, int window,
-               int splits, cudaStream_t stream) {
+               float* out_m, float* out_l, float* part, int* counters, int batch,
+               int n_heads, int n_kv, int window, int splits, cudaStream_t stream) {
   const int rep = n_heads / n_kv;
-#define SWA_LAUNCH(R) \
-  launch<T, DH, R>(q, k, v, length, out, part, counters, batch, n_heads, n_kv, window, splits, stream)
+#define SWA_LAUNCH(R)                                                                    \
+  launch<T, DH, R, PARTIAL>(q, k, v, length, out, out_m, out_l, part, counters, batch,  \
+                            n_heads, n_kv, window, splits, stream)
   if (rep == 1) return SWA_LAUNCH(1);
   if (rep == 2) return SWA_LAUNCH(2);
   if (rep <= 4) return SWA_LAUNCH(4);
@@ -570,21 +599,79 @@ int launch_rep(const void* q, const void* k, const void* v, const int* length, v
 #undef SWA_LAUNCH
 }
 
-template <typename T>
+template <typename T, bool PARTIAL>
 int launch_dh(const void* q, const void* k, const void* v, const int* length, void* out,
-              float* part, int* counters, int batch, int n_heads, int n_kv, int window,
-              int head_dim, int splits, cudaStream_t stream) {
+              float* out_m, float* out_l, float* part, int* counters, int batch, int n_heads,
+              int n_kv, int window, int head_dim, int splits, cudaStream_t stream) {
+#define SWA_DH(D)                                                                         \
+  launch_rep<T, D, PARTIAL>(q, k, v, length, out, out_m, out_l, part, counters, batch,   \
+                            n_heads, n_kv, window, splits, stream)
   switch (head_dim) {
-    case 32: return launch_rep<T, 32>(q, k, v, length, out, part, counters, batch, n_heads,
-                                      n_kv, window, splits, stream);
-    case 64: return launch_rep<T, 64>(q, k, v, length, out, part, counters, batch, n_heads,
-                                      n_kv, window, splits, stream);
-    case 96: return launch_rep<T, 96>(q, k, v, length, out, part, counters, batch, n_heads,
-                                      n_kv, window, splits, stream);
-    case 128: return launch_rep<T, 128>(q, k, v, length, out, part, counters, batch, n_heads,
-                                        n_kv, window, splits, stream);
+    case 32: return SWA_DH(32);
+    case 64: return SWA_DH(64);
+    case 96: return SWA_DH(96);
+    case 128: return SWA_DH(128);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef SWA_DH
+}
+
+}  // namespace
+
+// This file is compiled once a unit (the build passes -DSWA_UNIT=0..3): each unit
+// instantiates the kernels of one (dtype, form) pair, 20 of the 80, so four nvcc
+// processes share them.  Unit 0 also holds the entry points, which dispatch to the four.
+#ifndef SWA_UNIT
+#define SWA_UNIT 0
+#endif
+
+#define SWA_UNIT_PARAMS                                                                   \
+  const void *q, const void *k, const void *v, const int *length, void *out, float *out_m, \
+      float *out_l, float *part, int *counters, int batch, int n_heads, int n_kv,         \
+      int window, int head_dim, int splits, cudaStream_t stream
+#define SWA_UNIT_ARGS                                                                      \
+  q, k, v, length, out, out_m, out_l, part, counters, batch, n_heads, n_kv, window,       \
+      head_dim, splits, stream
+
+int swa_unit_f32(SWA_UNIT_PARAMS);
+int swa_unit_bf16(SWA_UNIT_PARAMS);
+int swa_unit_f32_partial(SWA_UNIT_PARAMS);
+int swa_unit_bf16_partial(SWA_UNIT_PARAMS);
+
+#if SWA_UNIT == 0
+int swa_unit_f32(SWA_UNIT_PARAMS) { return launch_dh<float, false>(SWA_UNIT_ARGS); }
+#elif SWA_UNIT == 1
+int swa_unit_bf16(SWA_UNIT_PARAMS) { return launch_dh<__nv_bfloat16, false>(SWA_UNIT_ARGS); }
+#elif SWA_UNIT == 2
+int swa_unit_f32_partial(SWA_UNIT_PARAMS) { return launch_dh<float, true>(SWA_UNIT_ARGS); }
+#elif SWA_UNIT == 3
+int swa_unit_bf16_partial(SWA_UNIT_PARAMS) {
+  return launch_dh<__nv_bfloat16, true>(SWA_UNIT_ARGS);
+}
+#else
+#error "SWA_UNIT must be 0, 1, 2 or 3"
+#endif
+
+#if SWA_UNIT == 0
+namespace {
+
+template <bool PARTIAL>
+int launch_dtype(const void* q, const void* k, const void* v, const int* length, void* out,
+                 float* out_m, float* out_l, float* part, int* counters, int batch,
+                 int n_heads, int n_kv, int window, int head_dim, int dtype, int splits,
+                 cudaStream_t stream) {
+  if (batch < 1 || n_kv < 1 || n_heads % n_kv != 0 || n_heads < n_kv || window < 1 ||
+      splits < 1 || splits > kMaxSplits || splits > (window + kTile - 1) / kTile ||
+      static_cast<int64_t>(batch) * n_kv > 0x7fffffff) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (dtype == 0) {
+    return PARTIAL ? swa_unit_f32_partial(SWA_UNIT_ARGS) : swa_unit_f32(SWA_UNIT_ARGS);
+  }
+  if (dtype == 1) {
+    return PARTIAL ? swa_unit_bf16_partial(SWA_UNIT_ARGS) : swa_unit_bf16(SWA_UNIT_ARGS);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -595,18 +682,18 @@ extern "C" int lgc_swa_decode(const void* q, const void* k, const void* v, const
                               void* out, float* part, int* counters, int batch, int n_heads,
                               int n_kv, int window, int head_dim, int dtype, int splits,
                               cudaStream_t stream) {
-  if (batch < 1 || n_kv < 1 || n_heads % n_kv != 0 || n_heads < n_kv || window < 1 ||
-      splits < 1 || splits > kMaxSplits || splits > (window + kTile - 1) / kTile ||
-      static_cast<int64_t>(batch) * n_kv > 0x7fffffff) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (dtype == 0) {
-    return launch_dh<float>(q, k, v, length, out, part, counters, batch, n_heads, n_kv,
-                            window, head_dim, splits, stream);
-  }
-  if (dtype == 1) {
-    return launch_dh<__nv_bfloat16>(q, k, v, length, out, part, counters, batch, n_heads,
-                                    n_kv, window, head_dim, splits, stream);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_dtype<false>(q, k, v, length, out, nullptr, nullptr, part, counters, batch,
+                             n_heads, n_kv, window, head_dim, dtype, splits, stream);
 }
+
+// The partial form: out (B, H, Dh) f32 whatever q's type, out_m and out_l (B, H) f32;
+// the rest as lgc_swa_decode.
+extern "C" int lgc_swa_decode_partial(const void* q, const void* k, const void* v,
+                                      const int* length, float* out, float* out_m,
+                                      float* out_l, float* part, int* counters, int batch,
+                                      int n_heads, int n_kv, int window, int head_dim,
+                                      int dtype, int splits, cudaStream_t stream) {
+  return launch_dtype<true>(q, k, v, length, out, out_m, out_l, part, counters, batch,
+                            n_heads, n_kv, window, head_dim, dtype, splits, stream);
+}
+#endif  // SWA_UNIT == 0

@@ -7,8 +7,11 @@ tensors, and ``chip_smoke.py`` holds each kernel against it on the card.
 The ``hist_*`` functions take the same IEEE f32 operations in the same order
 as the reference, so they are bit-identical to the JAX oracles
 (tests/test_torch_kernels.py); ``swa_decode_ref`` agrees with the Pallas
-kernel to f32 rounding (tests/test_torch_swa.py).  Everything stays on the
-tensor's device: no ``.item()``, no host sync.
+kernel to f32 rounding (tests/test_torch_swa.py).  ``merge_decode_partials``
+merges the partial states of ``swa_decode``'s shards over ranks (decode
+attention under the model axis); it is a few elementwise ops, not a
+kernel.  Everything stays on the tensor's device: no ``.item()``, no host
+sync.
 
 Subnormals.  Both platforms of the reference flush f32 subnormals: XLA:CPU
 runs with FTZ and DAZ (an arithmetic op reads a subnormal input as a zero of
@@ -282,14 +285,61 @@ def swa_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     softmax weights to v's dtype before the value product; in f32 the two
     agree to rounding.
     """
+    return swa_decode_partial_ref(q, k, v, length)[0].to(q.dtype)
+
+
+def swa_decode_partial_ref(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, length: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """:func:`swa_decode_ref` before its cast, with the softmax state: the
+    plain version of the ``swa_decode`` kernel's partial form.
+
+    Returns (out (B, H, Dh) f32, m (B, H), l (B, H)): m is the max of the
+    row's scaled logits over its valid slots (-inf when it has none), l
+    the sum of exp(logit - m) and out = (sum exp(logit - m) v) / max(l,
+    1e-30), so an empty row gives m = -inf, l = 0 and zeros.
+    """
     b, h, dh = q.shape
     logits, vf, valid = _swa_logits(q, k, v, length)
     m = logits.amax(-1, keepdim=True)
-    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
-    p = torch.exp(logits - m).masked_fill(~valid, 0.0)
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(logits - m_safe).masked_fill(~valid, 0.0)
     l_sum = p.sum(-1, keepdim=True)
     out = (p @ vf) / torch.clamp_min(l_sum, 1e-30)
-    return out.reshape(b, h, dh).to(q.dtype)
+    return out.reshape(b, h, dh), m.reshape(b, h), l_sum.reshape(b, h)
+
+
+def merge_decode_partials(outs: torch.Tensor, ms: torch.Tensor,
+                          ls: torch.Tensor, dtype: torch.dtype | None = None
+                          ) -> torch.Tensor:
+    """Merge P partial decode-attention states, stacked in rank order, as
+    the ``swa_decode`` kernel merges its splits.
+
+    outs (P, B, H, Dh), ms and ls (P, B, H), f32, each rank's
+    :func:`swa_decode_partial_ref` over its shard of the slots.  Returns
+    sum_r w_r l_r out_r / max(sum_r w_r l_r, 1e-30) with w_r = exp(m_r -
+    max_r m_r), a rank without valid slots (m_r = -inf) weighing 0, summed
+    in rank order in f32 and cast to ``dtype`` (default f32) once.  One
+    state (P = 1) is returned as it is, cast: the merge is then the
+    identity on the bits.
+    """
+    dtype = dtype or torch.float32
+    if outs.shape[0] == 1:
+        return outs[0].to(dtype)
+    big_m = ms.amax(0)
+    empty = torch.isneginf(ms)
+    w = torch.where(empty, torch.zeros_like(ms),
+                    torch.exp(ms - torch.where(torch.isneginf(big_m),
+                                               torch.zeros_like(big_m),
+                                               big_m)))
+    wl = w * ls
+    num = wl[0, ..., None] * outs[0]
+    den = wl[0]
+    for r in range(1, outs.shape[0]):
+        num = num + wl[r, ..., None] * outs[r]
+        den = den + wl[r]
+    return (num / torch.clamp_min(den, 1e-30)[..., None]).to(dtype)
 
 
 def _swa_logits(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

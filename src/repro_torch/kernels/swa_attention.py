@@ -15,9 +15,14 @@ has ``prompt + gen`` slots.  One launch splits W over the card's SMs
 (:func:`_num_splits`) and merges the splits in order, as
 :func:`repro_torch.kernels.ref.swa_decode_split_ref` does.
 
-For a CPU tensor the wrapper calls the plain version
-(:func:`repro_torch.kernels.ref.swa_decode_ref`); for a CUDA tensor it
-launches the kernel or raises.
+:func:`swa_decode_partial` is the same launch returning the f32 output
+with the row's softmax state (m, l), for decode attention over one rank's
+shard of a cache's slots (serving under the model axis).
+
+For a CPU tensor each wrapper calls its plain version
+(:func:`repro_torch.kernels.ref.swa_decode_ref`,
+:func:`~repro_torch.kernels.ref.swa_decode_partial_ref`); for a CUDA tensor
+it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -46,18 +51,9 @@ def _num_splits(groups: int, w: int, sms: int = 132) -> int:
     return -(-tiles // -(-tiles // want))
 
 
-def swa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               length: torch.Tensor) -> torch.Tensor:
-    """Decode attention of one token over a window cache.
-
-    Args:
-      q: (B, H, Dh) new-token queries.
-      k, v: (B, Kv, W, Dh) cache, ``H % Kv == 0``.
-      length: (B,) int32 valid slots per row (clamped to [0, W]; 0 gives
-        zeros).
-
-    Returns (B, H, Dh) in q's dtype.
-    """
+def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  length: torch.Tensor) -> None:
+    """Raise for what the kernel does not take."""
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -85,20 +81,76 @@ def swa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} must be contiguous")
     _check_same_device(q, k, v, length)
     if q.device.type == "cpu":
-        return ref.swa_decode_ref(q, k, v, length)
+        return
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            length: torch.Tensor, partial: bool):
+    """One launch of the plain form (the output in q's dtype) or of the
+    partial form ((out f32, m, l))."""
+    b, h, dh = q.shape
+    kv, w = k.shape[1], k.shape[2]
     groups = b * kv * -(-(h // kv) // _MAX_REP)
     splits = _num_splits(groups, w, _sm_count(q.device))
-    out = torch.empty_like(q)
     part = torch.empty(b * h * splits * (dh + 2), dtype=torch.float32,
                        device=q.device)
     counters = _zeroed_counters("swa_decode", q.device, groups)
+    args = (b, h, kv, w, dh, _DTYPE_CODE[q.dtype], splits, _stream(q))
     with _on_device(q):
-        err = _build.lib().lgc_swa_decode(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
-            out.data_ptr(), part.data_ptr(), counters.data_ptr(), b, h, kv, w,
-            dh, _DTYPE_CODE[q.dtype], splits, _stream(q))
-    _build.check(err, "swa_decode")
-    return out
+        if partial:
+            out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+            m = torch.empty((b, h), dtype=torch.float32, device=q.device)
+            l_sum = torch.empty_like(m)
+            err = _build.lib().lgc_swa_decode_partial(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
+                out.data_ptr(), m.data_ptr(), l_sum.data_ptr(),
+                part.data_ptr(), counters.data_ptr(), *args)
+        else:
+            out = torch.empty_like(q)
+            err = _build.lib().lgc_swa_decode(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
+                out.data_ptr(), part.data_ptr(), counters.data_ptr(), *args)
+    name = "swa_decode_partial" if partial else "swa_decode"
+    _build.check(err, name)
+    return (out, m, l_sum) if partial else out
+
+
+def swa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               length: torch.Tensor) -> torch.Tensor:
+    """Decode attention of one token over a window cache.
+
+    Args:
+      q: (B, H, Dh) new-token queries.
+      k, v: (B, Kv, W, Dh) cache, ``H % Kv == 0``.
+      length: (B,) int32 valid slots per row (clamped to [0, W]; 0 gives
+        zeros).
+
+    Returns (B, H, Dh) in q's dtype.
+    """
+    _check_inputs(q, k, v, length)
+    if q.device.type == "cpu":
+        return ref.swa_decode_ref(q, k, v, length)
+    return _launch(q, k, v, length, partial=False)
+
+
+def swa_decode_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       length: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`swa_decode` with its softmax state, for a shard of a cache's
+    slots whose states merge across ranks
+    (:func:`repro_torch.kernels.ref.merge_decode_partials`).
+
+    Takes what :func:`swa_decode` takes and returns (out (B, H, Dh) f32,
+    m (B, H) f32, l (B, H) f32): out is acc / max(l, 1e-30) before the
+    cast to q's dtype (so ``out.to(q.dtype)`` is :func:`swa_decode`'s
+    output), m the max of the row's scaled logits and l the sum of
+    exp(logit - m); an empty row gives m = -inf, l = 0 and zeros.  One
+    launch, the grid and splits of :func:`swa_decode`.
+    """
+    _check_inputs(q, k, v, length)
+    if q.device.type == "cpu":
+        return ref.swa_decode_partial_ref(q, k, v, length)
+    return _launch(q, k, v, length, partial=True)

@@ -108,7 +108,8 @@ def stub_prefix(cfg: ArchConfig, batch: int, generator: torch.Generator,
 
 def serve(params: dict, cfg: ArchConfig, prompts: torch.Tensor, gen: int, *,
           prefix: torch.Tensor | None = None, window: int = 0,
-          cache_len: int | None = None, profile_steps: int = 0) -> dict:
+          cache_len: int | None = None, profile_steps: int = 0,
+          mesh=None) -> dict:
     """Prefill ``prompts`` (B, P) with the modality stub ``prefix`` where
     the family takes one, then ``gen`` greedy serve steps.
 
@@ -117,13 +118,20 @@ def serve(params: dict, cfg: ArchConfig, prompts: torch.Tensor, gen: int, *,
     ring wrapped, and whether the prefill's and the last step's logits are
     finite.  With ``profile_steps`` (on the card) that many more steps run
     under the profiler afterwards; ``pos`` and the cache include them.
+
+    ``mesh`` with a model axis P > 1 (the dense family, ROADMAP A12b):
+    every rank of it calls ``serve`` with its shards of the params
+    (``launch.sharding_rules.param_specs``) and the same prompts; the
+    cache is split on its slots as ``cache_specs`` splits it, and every
+    rank returns the same tokens.  ``cache_slots`` is the whole cache's.
     """
     dev = prompts.device
     b, p = prompts.shape
     batch = {"tokens": prompts} if prefix is None else \
         {"tokens": prompts, "prefix": prefix}
-    prefill_step = make_prefill_step(cfg, cache_len, device=dev)
-    serve_step = make_serve_step(cfg, window, device=dev, return_logits=True)
+    prefill_step = make_prefill_step(cfg, cache_len, device=dev, mesh=mesh)
+    serve_step = make_serve_step(cfg, window, device=dev, return_logits=True,
+                                 mesh=mesh)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     _sync(dev)
@@ -143,7 +151,8 @@ def serve(params: dict, cfg: ArchConfig, prompts: torch.Tensor, gen: int, *,
     if profile_steps and dev.type == "cuda":
         prof, cache = _profile(serve_step, params, tok, cache,
                                profile_steps)
-    slots = cache["kv"]["k"].shape[3] if "kv" in cache else None
+    slots = (cache.get("slots", cache["kv"]["k"].shape[3]) if "kv" in cache
+             else None)
     prefill_s, decode_s = t1 - t0, t2 - t1
     return {
         "batch": b, "prompt": p, "gen": gen, "window": window,

@@ -32,7 +32,8 @@ In place of the reference's ``place`` (``jax.device_put`` onto named
 shardings), :func:`shard` cuts the block of a tensor that one rank keeps,
 and :func:`unshard` puts the blocks of every rank back together.  The rules
 cover every arch; the port's model axis runs the dense family's training
-(ROADMAP A12), which reads only the dense rules.
+(ROADMAP A12) and serving (A12b), which read only the dense rules and the
+K/V cache's.
 """
 from __future__ import annotations
 
@@ -157,7 +158,9 @@ def batch_specs(cfg: ArchConfig, batch: dict, mesh,
 def cache_specs(cfg: ArchConfig, cache: dict, mesh) -> dict:
     """Decode-cache specs, in the nested layout of the port's cache
     (``pos``, ``kv`` / ``ssm`` groups, the audio family's ``cross_k`` /
-    ``cross_v``)."""
+    ``cross_v``; a host int such as ``pos`` or ``slots`` takes ``()``).
+    The K/V of a P = 1 cache's spec cut by :func:`shard` is the block that
+    ``transformer.init_cache`` / ``prefill`` give a rank under the mesh."""
     dp = _axis_size(mesh, "data")
     model_n = _axis_size(mesh, "model")
 
@@ -280,5 +283,15 @@ def unshard(shards: list, spec: Spec, sizes: dict | None = None
 
 
 def shard_tree(tree: dict, specs: dict, mesh) -> dict:
-    """:func:`shard` of every leaf of a flat tree by its spec."""
-    return {k: shard(v, specs[k], mesh) for k, v in tree.items()}
+    """:func:`shard` of every tensor leaf of a tree by its spec: a flat
+    tree (params), or nested dicts such as a decode cache under
+    :func:`cache_specs`, whose other leaves (``pos``) stay as they are."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = shard_tree(v, specs[k], mesh)
+        elif isinstance(v, torch.Tensor):
+            out[k] = shard(v, specs[k], mesh)
+        else:
+            out[k] = v
+    return out

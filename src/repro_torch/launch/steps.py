@@ -739,33 +739,42 @@ def lgc_wire_bytes_per_round(params: dict, step_cfg: LGCStepConfig,
 # ---------------------------------------------------------------------------
 
 def make_prefill_step(cfg: ArchConfig, cache_len: int | None = None, *,
-                      device: str | torch.device | None = None):
+                      device: str | torch.device | None = None, mesh=None):
     """``f(params, batch) -> (logits (B,Vp), cache)`` on ``device`` (None
-    means the card); the prompt tokens, and the modality prefix where the
-    batch has one, are moved there."""
-    dev = resolve_device(device)
+    means the card, or ``mesh.device`` under a mesh); the prompt tokens,
+    and the modality prefix where the batch has one, are moved there.
+    ``mesh`` with a model axis P > 1 (the dense family): ``params`` are
+    this rank's shards (``sharding_rules.param_specs``) and the cache this
+    rank's block (``cache_specs``), see :func:`transformer.prefill`."""
+    dev = resolve_device(device if device is not None or mesh is None
+                         else mesh.device)
+    tf.model_axis_mesh(cfg, mesh)
 
     @torch.inference_mode()
     def prefill_step(params, batch):
         batch = {k: v.to(dev) if k in ("tokens", "prefix") else v
                  for k, v in batch.items()}
-        return tf.prefill(params, cfg, batch, cache_len)
+        return tf.prefill(params, cfg, batch, cache_len, mesh=mesh)
     return prefill_step
 
 
 def make_serve_step(cfg: ArchConfig, window: int = 0, *,
                     device: str | torch.device | None = None,
-                    return_logits: bool = False):
+                    return_logits: bool = False, mesh=None):
     """``f(params, token (B,1), cache) -> (next_token (B,1) int32, cache)``:
-    one greedy decode step on ``device`` (None means the card).  The cache
-    is updated in place.  With ``return_logits`` the step also returns the
-    step's (B,Vp) f32 logits."""
-    dev = resolve_device(device)
+    one greedy decode step on ``device`` (None means the card, or
+    ``mesh.device`` under a mesh).  The cache is updated in place.  With
+    ``return_logits`` the step also returns the step's (B,Vp) f32 logits.
+    ``mesh`` with a model axis P > 1: this rank's params and cache, as
+    :func:`make_prefill_step`; every rank takes the same token."""
+    dev = resolve_device(device if device is not None or mesh is None
+                         else mesh.device)
+    tf.model_axis_mesh(cfg, mesh)
 
     @torch.inference_mode()
     def serve_step(params, token, cache):
         logits, cache = tf.decode_step(params, cfg, token.to(dev), cache,
-                                       window=window)
+                                       window=window, mesh=mesh)
         next_token = torch.argmax(logits, -1).to(torch.int32)[:, None]
         if return_logits:
             return next_token, cache, logits

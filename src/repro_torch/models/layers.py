@@ -9,9 +9,10 @@ Conventions are the reference's:
 
 ``attention_train`` is plain jnp in the reference (no Pallas kernel), so it is
 plain torch here.  ``attention_decode`` goes through the ``swa_decode`` CUDA
-kernel (:mod:`repro_torch.kernels.swa_attention`).  The reference's remat
-and sequence-sharding knobs change memory and layout, not values, and have
-no counterpart on one card.
+kernel (:mod:`repro_torch.kernels.swa_attention`), and under a model axis,
+over a rank's shard of the cache's slots, through its partial form.  The
+reference's remat and sequence-sharding knobs change memory and layout, not
+values, and have no counterpart on one card.
 """
 from __future__ import annotations
 
@@ -20,8 +21,10 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import parallel
 from repro_torch.core import prng
-from repro_torch.kernels import swa_decode, threefry_normal
+from repro_torch.kernels import (ref, swa_decode, swa_decode_partial,
+                                 threefry_normal)
 
 NEG_INF = -1e30
 
@@ -166,8 +169,8 @@ class KVCache(NamedTuple):
     length: torch.Tensor    # (B,) int32 valid slots (ring buffer aware)
 
 
-def attention_decode(q: torch.Tensor, cache: KVCache, n_heads: int
-                     ) -> torch.Tensor:
+def attention_decode(q: torch.Tensor, cache: KVCache, n_heads: int, *,
+                     mesh=None) -> torch.Tensor:
     """One-token attention over a (possibly ring-buffer) cache through the
     ``swa_decode`` kernel.
 
@@ -176,16 +179,47 @@ def attention_decode(q: torch.Tensor, cache: KVCache, n_heads: int
     host.  The reference's jnp version rounds the softmax weights to the
     cache dtype before the value product; the kernel keeps them in f32, as
     the Pallas kernel does, so the two differ in bf16 by that rounding.
+
+    ``mesh`` with a model axis of P ranks: ``cache`` is this rank's block
+    of S / P slots of a cache split on its slots (``cache.length`` counts
+    the whole cache's valid slots), q is every head's.  The rank attends
+    over its valid slots, ``clamp(length - r S / P, 0, S / P)``, through
+    the kernel's partial form, and the ranks' softmax states merge
+    (:func:`merge_rank_partials`): every rank gets the whole attention.
     """
     b, _, h, hd = q.shape
     if h != n_heads:
         raise ValueError(f"q has {h} heads, expected {n_heads}")
-    out = swa_decode(q[:, 0].contiguous(), cache.k, cache.v, cache.length)
+    if parallel.model_size(mesh) == 1:
+        out = swa_decode(q[:, 0].contiguous(), cache.k, cache.v,
+                         cache.length)
+        return out.reshape(b, 1, h, hd)
+    s_loc = cache.k.shape[2]
+    length = torch.clamp(cache.length - mesh.model_rank * s_loc, 0, s_loc)
+    out, m, l_sum = swa_decode_partial(q[:, 0].contiguous(), cache.k,
+                                       cache.v, length)
+    out = merge_rank_partials(mesh, out, m, l_sum, q.dtype)
     return out.reshape(b, 1, h, hd)
 
 
+def merge_rank_partials(mesh, out: torch.Tensor, m: torch.Tensor,
+                        l_sum: torch.Tensor, dtype: torch.dtype
+                        ) -> torch.Tensor:
+    """The decode attention over the whole cache from this rank's partial
+    state over its slots (``swa_decode_partial``: out (B, H, Dh) f32, m
+    and l (B, H)): the states, packed as (B, H, Dh + 2), gathered in rank
+    order in one collective and merged as the kernel merges its splits
+    (:func:`repro_torch.kernels.ref.merge_decode_partials`), cast to
+    ``dtype``; every rank holds the same bits."""
+    packed = torch.cat([out, m[..., None], l_sum[..., None]], -1)
+    states = parallel.gather_ranks(mesh, packed)
+    dh = out.shape[-1]
+    return ref.merge_decode_partials(states[..., :dh], states[..., dh],
+                                     states[..., dh + 1], dtype)
+
+
 def cache_update(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
-                 pos: int, window: int = 0) -> KVCache:
+                 pos: int, window: int = 0, *, mesh=None) -> KVCache:
     """Insert one token's K/V at absolute position ``pos`` (a host int, the
     same for every row), IN PLACE in ``cache.k`` / ``cache.v``.
 
@@ -196,13 +230,23 @@ def cache_update(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
     out-of-bounds ``.at[].set`` drops it.  The returned length is
     ``min(pos + 1, S)`` for every row.  The reference returns new arrays;
     the port writes in place, so a decode step never copies the cache.
+
+    ``mesh`` with a model axis of P ranks: ``cache`` is this rank's block
+    of a cache of S = P x its slots, split on its slots in rank order
+    (``launch.sharding_rules.cache_specs``); only the slot's owner, rank
+    ``slot // (S / P)``, writes it, at ``slot % (S / P)``.  The length is
+    the whole cache's.
     """
-    b, _, s_cache, _ = cache.k.shape
+    b, _, s_loc, _ = cache.k.shape
+    p = parallel.model_size(mesh)
+    s_cache = s_loc * p
     slot = pos % s_cache if window else pos
     if 0 <= slot < s_cache:
-        # k_new: (B,1,Kv,hd) -> (B,Kv,hd)
-        cache.k[:, :, slot] = k_new[:, 0].to(cache.k.dtype)
-        cache.v[:, :, slot] = v_new[:, 0].to(cache.v.dtype)
+        owner, slot = divmod(slot, s_loc)
+        if p == 1 or owner == mesh.model_rank:
+            # k_new: (B,1,Kv,hd) -> (B,Kv,hd)
+            cache.k[:, :, slot] = k_new[:, 0].to(cache.k.dtype)
+            cache.v[:, :, slot] = v_new[:, 0].to(cache.v.dtype)
     length = torch.full((b,), min(pos + 1, s_cache), dtype=torch.int32,
                         device=cache.k.device)
     return KVCache(cache.k, cache.v, length)

@@ -42,6 +42,18 @@ copy_to_model` before the column-parallel ``wq`` / ``wk`` / ``wv`` and
 ``w_gate`` / ``w_up``, ``reduce_from_model`` after the row-parallel
 ``wo`` and ``w_down``, and a vocab-parallel cross-entropy.  The blocks are
 the same functions at P = 1, where those collectives return their input.
+
+It also serves there (A12b): the decode cache is split on its slots as
+``sharding_rules.cache_specs`` splits it (S / P slots a rank, every KV
+head, when P divides S; whole on every rank otherwise), and the cache
+carries ``"slots"``, the whole cache's S.  Prefill runs the head-parallel
+blocks of training and gathers the prompt's K/V over the heads, each rank
+keeping its slots.  A decode step gathers the token's q / k / v over the
+ranks (:func:`repro_torch.parallel.gather_columns`), the slot's owner
+writes the K/V, each rank attends over its slots through ``swa_decode``'s
+partial form and the ranks' softmax states merge; the rank's heads of the
+merged attention go through its rows of ``wo``.  The vocab-parallel
+logits are gathered whole, so every rank takes the same greedy token.
 """
 from __future__ import annotations
 
@@ -411,13 +423,13 @@ def lm_loss(params: Params, cfg: ArchConfig, batch: dict, *,
 
 def model_axis_mesh(cfg: ArchConfig, mesh):
     """``mesh`` when it has a model axis above 1 (only the dense family
-    runs on one), else None."""
+    trains and serves on one), else None."""
     if mesh is None or mesh.model_size == 1:
         return None
     if cfg.arch_type != "dense":
         raise NotImplementedError(
-            f"the {cfg.arch_type} family does not train under a model axis "
-            f"yet (ROADMAP A12c); only the dense family does")
+            f"the {cfg.arch_type} family does not train or serve under a "
+            f"model axis yet (ROADMAP A12c); only the dense family does")
     local_heads(cfg.n_heads, cfg.n_kv_heads, mesh.model_size)
     return mesh
 
@@ -483,15 +495,38 @@ def _ssm_cache(cfg: ArchConfig, batch: int, dev: torch.device) -> dict:
                              dtype=torch.float32, device=dev)}
 
 
+def local_slots(slots: int, mesh) -> int:
+    """The slots of a ``slots``-slot K/V cache that one rank holds under a
+    model axis of P ranks (``launch.sharding_rules.cache_specs``): S / P
+    when P divides S, else all of them."""
+    p = parallel.model_size(mesh)
+    return slots // p if slots % p == 0 else slots
+
+
+def _split_kv(cache: dict, mesh):
+    """``mesh`` when this rank's K/V cache is a block of the cache's slots
+    (``"slots"``, the whole cache's S, differs from its own), else None."""
+    if mesh is None:
+        return None
+    own = cache["kv"]["k"].shape[3]
+    return mesh if cache.get("slots", own) != own else None
+
+
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
-               device: str | torch.device | None = None) -> dict:
+               device: str | torch.device | None = None, mesh=None) -> dict:
     """Zeroed decode cache sized for ``cache_len`` positions; ``device=None``
-    means the card."""
+    means the card.  Under a model axis (``mesh``, the dense family) this
+    rank's block of it (:func:`local_slots`), with ``"slots"`` =
+    ``cache_len``."""
     _check_arch(cfg)
     dev = resolve_device(device)
+    tp = model_axis_mesh(cfg, mesh)
     cache: dict = {"pos": 0}
+    if tp is not None:
+        cache["slots"] = cache_len
     if cfg.arch_type in _ATTN:
-        cache["kv"] = _kv_cache(cfg, cfg.n_layers, batch, cache_len, dev)
+        cache["kv"] = _kv_cache(cfg, cfg.n_layers, batch,
+                                local_slots(cache_len, tp), dev)
     else:
         cache["ssm"] = _ssm_cache(cfg, batch, dev)
     if cfg.arch_type == "hybrid":
@@ -514,30 +549,57 @@ def _cross_cache(cfg: ArchConfig, batch: int, enc_len: int,
 # decode
 # ===========================================================================
 
+def _gather_heads(mesh, *parts: torch.Tensor) -> list[torch.Tensor]:
+    """Every rank's heads of each of ``parts`` (B, S, local heads, hd),
+    put together in rank order, which is the heads' order: one
+    :func:`repro_torch.parallel.gather_columns` of them all."""
+    b, s = parts[0].shape[:2]
+    widths = [t.shape[2] * t.shape[3] for t in parts]
+    whole = parallel.gather_columns(mesh, torch.cat(
+        [t.reshape(b, s, -1) for t in parts], -1))
+    blocks = whole.reshape(b, s, mesh.model_size, sum(widths)).split(
+        widths, -1)
+    return [blk.reshape(b, s, -1, t.shape[3]) for blk, t in zip(blocks, parts)]
+
+
 def _attn_block_decode(x: torch.Tensor, bp: dict, cfg: ArchConfig,
                        cache: KVCache, pos: int, positions: torch.Tensor,
-                       window: int, cross: KVCache | None = None
-                       ) -> torch.Tensor:
+                       window: int, cross: KVCache | None = None, *,
+                       mesh=None, kv_mesh=None) -> torch.Tensor:
     """x: (B,1,D) -> (B,1,D); writes the token's K/V into ``cache``.  With
     ``cross`` (the audio decoder) the token then attends to the encoder's
     cached K/V: only its query is projected, since the reference's
-    cross-attention discards the token's own K and V."""
+    cross-attention discards the token's own K and V.
+
+    Under a model axis (``mesh``) the rank projects its heads' q / k / v,
+    gathers every head's, writes the K/V where it owns the slot and
+    attends (``kv_mesh``: the cache is split on its slots, see
+    :func:`repro_torch.models.layers.attention_decode`; None: whole on
+    every rank); its heads of the attention go through its rows of
+    ``wo``, summed over the ranks."""
     b = x.shape[0]
+    n_h, n_kv = local_heads(cfg.n_heads, cfg.n_kv_heads,
+                            parallel.model_size(mesh))
     h = apply_norm(x, bp["norm1"], cfg.norm)
-    q, k, v = qkv_project(h, bp["attn"], cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                          cfg.qkv_bias)
+    q, k, v = qkv_project(h, bp["attn"], n_h, n_kv, cfg.hd, cfg.qkv_bias)
+    if mesh is not None:
+        q, k, v = _gather_heads(mesh, q, k, v)
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    cache = cache_update(cache, k, v, pos, window)
-    att = attention_decode(q, cache, cfg.n_heads)
-    x = x + att.reshape(b, 1, -1) @ bp["attn"]["wo"]
+    cache = cache_update(cache, k, v, pos, window, mesh=kv_mesh)
+    att = attention_decode(q, cache, cfg.n_heads, mesh=kv_mesh)
+    if mesh is not None:
+        r = mesh.model_rank
+        att = att[:, :, r * n_h:(r + 1) * n_h]
+    x = x + parallel.reduce_from_model(
+        mesh, att.reshape(b, 1, -1) @ bp["attn"]["wo"])
     if cross is not None:
         h = apply_norm(x, bp["norm_x"], cfg.norm)
         q = (h @ bp["cross"]["wq"]).reshape(b, 1, cfg.n_heads, cfg.hd)
         att = attention_decode(q, cross, cfg.n_heads)
         x = x + att.reshape(b, 1, -1) @ bp["cross"]["wo"]
-    return _ffn(x, bp, cfg)[0]
+    return _ffn(x, bp, cfg, mesh)[0]
 
 
 def _ssm_layer_decode(x: torch.Tensor, bp: dict, cfg: ArchConfig,
@@ -554,7 +616,7 @@ def _ssm_layer_decode(x: torch.Tensor, bp: dict, cfg: ArchConfig,
 
 
 def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
-                cache: dict, *, window: int = 0
+                cache: dict, *, window: int = 0, mesh=None
                 ) -> tuple[torch.Tensor, dict]:
     """One serving step: token (B,1) int -> (logits (B,Vp) f32, cache).
 
@@ -564,9 +626,16 @@ def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
     blocks, as the reference's ``_hybrid_decode``.  The audio decoder adds
     ``dec_pos[min(pos, max_position - 1)]`` to the token and attends to
     every one of the encoder's slots in each block.
+
+    ``mesh`` with a model axis P > 1 (the dense family): ``params`` and
+    ``cache`` are this rank's (:func:`init_cache`, :func:`prefill`), the
+    blocks run as the module docstring says, and every rank returns the
+    whole (B, Vp) logits, the same bits on each.
     """
     _check_arch(cfg)
-    x = params["embed"][token]                              # (B,1,D)
+    tp = model_axis_mesh(cfg, mesh)
+    x = (params["embed"][token] if tp is None               # (B,1,D)
+         else _embed_tp(params["embed"], token, tp))
     pos = int(cache["pos"])
     b = token.shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
@@ -580,10 +649,12 @@ def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
             enc_len = torch.full((b,), ck.shape[3], dtype=torch.int32,
                                  device=x.device)
             cross = [KVCache(ck[i], cv[i], enc_len) for i in range(len(ck))]
+        kv_mesh = _split_kv(cache, tp)
         for i, bp in enumerate(blocks):
             x = _attn_block_decode(x, bp, cfg,
                                    KVCache(k_all[i], v_all[i], None), pos,
-                                   positions, window, cross[i])
+                                   positions, window, cross[i], mesh=tp,
+                                   kv_mesh=kv_mesh)
     else:
         period = cfg.attn_every or cfg.n_layers
         shared = subtree(params, "shared")
@@ -596,7 +667,7 @@ def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
                     pos, positions, window)
             x = _ssm_layer_decode(x, bp, cfg, cache["ssm"], i)
     x = apply_norm(x, subtree(params, "final_norm"), cfg.norm)
-    logits = logits_fn(params, cfg, x)[:, 0]
+    logits = parallel.gather_columns(tp, logits_fn(params, cfg, x, tp)[:, 0])
     return logits, dict(cache, pos=pos + 1)
 
 
@@ -629,25 +700,39 @@ def _attn_prefill(x: torch.Tensor, bp: dict, cfg: ArchConfig,
                   positions: torch.Tensor, k_dst: torch.Tensor,
                   v_dst: torch.Tensor, enc: torch.Tensor | None = None,
                   ck_dst: torch.Tensor | None = None,
-                  cv_dst: torch.Tensor | None = None) -> torch.Tensor:
+                  cv_dst: torch.Tensor | None = None, *, mesh=None,
+                  kv_mesh=None) -> torch.Tensor:
     """One attention + FFN block over the prompt; writes its RoPE'd,
     un-expanded K/V into the first S slots of ``k_dst`` / ``v_dst``
     (B, Kv, S_cache, hd).  With ``enc`` (the audio decoder) the block
     cross-attends to the encoder output, whose K/V it writes into
-    ``ck_dst`` / ``cv_dst`` (B, H, S_enc, hd)."""
+    ``ck_dst`` / ``cv_dst`` (B, H, S_enc, hd).
+
+    Under a model axis (``mesh``) the block runs head-parallel, as in
+    training; every head's K/V is gathered and the rank writes all of them
+    into its slots: the prompt's positions in its block of the cache
+    (``kv_mesh``, the cache split on its slots) or all of them."""
     b, s, _ = x.shape
-    h = apply_norm(x, bp["norm1"], cfg.norm)
-    q, k, v = qkv_project(h, bp["attn"], cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                          cfg.qkv_bias)
+    n_h, n_kv = local_heads(cfg.n_heads, cfg.n_kv_heads,
+                            parallel.model_size(mesh))
+    h = parallel.copy_to_model(mesh, apply_norm(x, bp["norm1"], cfg.norm))
+    q, k, v = qkv_project(h, bp["attn"], n_h, n_kv, cfg.hd, cfg.qkv_bias)
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    k_dst[:, :, :s] = k.transpose(1, 2)
-    v_dst[:, :, :s] = v.transpose(1, 2)
-    att = attention_train(q, _expand_kv(k, cfg.n_heads),
-                          _expand_kv(v, cfg.n_heads), causal=True,
-                          q_chunk=cfg.attn_q_chunk)
-    x = x + att.reshape(b, s, -1) @ bp["attn"]["wo"]
+    if mesh is None:
+        k_dst[:, :, :s] = k.transpose(1, 2)
+        v_dst[:, :, :s] = v.transpose(1, 2)
+    else:
+        k_all, v_all = _gather_heads(mesh, k, v)
+        lo = 0 if kv_mesh is None else mesh.model_rank * k_dst.shape[2]
+        n = min(max(s - lo, 0), k_dst.shape[2])
+        k_dst[:, :, :n] = k_all[:, lo:lo + n].transpose(1, 2)
+        v_dst[:, :, :n] = v_all[:, lo:lo + n].transpose(1, 2)
+    att = attention_train(q, _expand_kv(k, n_h), _expand_kv(v, n_h),
+                          causal=True, q_chunk=cfg.attn_q_chunk)
+    x = x + parallel.reduce_from_model(
+        mesh, att.reshape(b, s, -1) @ bp["attn"]["wo"])
     if enc is not None:
         hx = apply_norm(x, bp["norm_x"], cfg.norm)
         qx = (hx @ bp["cross"]["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
@@ -657,7 +742,7 @@ def _attn_prefill(x: torch.Tensor, bp: dict, cfg: ArchConfig,
         att = attention_train(qx, ck, cv, causal=False,
                               q_chunk=cfg.attn_q_chunk)
         x = x + att.reshape(b, s, -1) @ bp["cross"]["wo"]
-    return _ffn(x, bp, cfg)[0]
+    return _ffn(x, bp, cfg, mesh)[0]
 
 
 def _ssm_layer_prefill(x: torch.Tensor, bp: dict, cfg: ArchConfig,
@@ -680,7 +765,8 @@ def prompt_positions(cfg: ArchConfig, batch: dict) -> int:
 
 
 def prefill(params: Params, cfg: ArchConfig, batch: dict,
-            cache_len: int | None = None) -> tuple[torch.Tensor, dict]:
+            cache_len: int | None = None, *, mesh=None
+            ) -> tuple[torch.Tensor, dict]:
     """Process a full prompt; return (last-position logits (B,Vp) f32,
     decode cache).
 
@@ -698,10 +784,17 @@ def prefill(params: Params, cfg: ArchConfig, batch: dict,
     ``cache_len``); audio (B, S_enc, D) frame embeddings, encoded once, the
     decoder tokens taking ``dec_pos`` and cross-attending to the encoder
     output, whose K/V go to ``cross_k`` / ``cross_v``.
+
+    ``mesh`` with a model axis P > 1 (the dense family): ``params`` are
+    this rank's shards; the cache is this rank's block of it, with
+    ``"slots"`` (:func:`init_cache`), and every rank returns the whole
+    logits.
     """
     _check_arch(cfg)
+    tp = model_axis_mesh(cfg, mesh)
     tokens = batch["tokens"]
-    x = params["embed"][tokens]                             # (B,S,D)
+    x = (params["embed"][tokens] if tp is None              # (B,S,D)
+         else _embed_tp(params["embed"], tokens, tp))
     if cfg.arch_type == "vlm":
         vis = batch["prefix"].to(cfg.dtype) @ params["vis_proj"]
         x = torch.cat([vis, x], 1)
@@ -711,8 +804,12 @@ def prefill(params: Params, cfg: ArchConfig, batch: dict,
     s_cache = cache_len if cache_len is not None and cache_len > s else s
     cache: dict = {"pos": s}
     blocks = layer_params(params)
+    if tp is not None:
+        cache["slots"] = s_cache
     if cfg.arch_type in _ATTN:
-        kv = cache["kv"] = _kv_cache(cfg, cfg.n_layers, b, s_cache, dev)
+        kv = cache["kv"] = _kv_cache(cfg, cfg.n_layers, b,
+                                     local_slots(s_cache, tp), dev)
+        kv_mesh = _split_kv(cache, tp)
         enc, ck, cv = None, [None] * len(blocks), [None] * len(blocks)
         if cfg.arch_type == "audio":
             enc = _encode(params, cfg, batch["prefix"])
@@ -722,7 +819,7 @@ def prefill(params: Params, cfg: ArchConfig, batch: dict,
             ck, cv = cache["cross_k"], cache["cross_v"]
         for i, bp in enumerate(blocks):
             x = _attn_prefill(x, bp, cfg, positions, kv["k"][i], kv["v"][i],
-                              enc, ck[i], cv[i])
+                              enc, ck[i], cv[i], mesh=tp, kv_mesh=kv_mesh)
     else:
         cache["ssm"] = _ssm_cache(cfg, b, dev)
         period = cfg.attn_every or cfg.n_layers
@@ -736,5 +833,5 @@ def prefill(params: Params, cfg: ArchConfig, batch: dict,
                                   kv["v"][site])
             x = _ssm_layer_prefill(x, bp, cfg, cache["ssm"], i)
     x = apply_norm(x[:, -1:], subtree(params, "final_norm"), cfg.norm)
-    logits = logits_fn(params, cfg, x)[:, 0]
+    logits = parallel.gather_columns(tp, logits_fn(params, cfg, x, tp)[:, 0])
     return logits, cache

@@ -10,14 +10,20 @@ identity backward) are ``torch.autograd.Function`` s, Megatron's f and g;
 LGC statistics, the clip's norm); :func:`gather_model` rebuilds a whole
 leaf on every rank (checkpoints, checks).
 
+Serving (ROADMAP A12b) adds the all-gather, without gradient:
+:func:`gather_ranks` stacks every rank's tensor in rank order (the ranks'
+partial decode-attention states, which ``models.layers`` merges), and
+:func:`gather_columns` puts the ranks' columns side by side (the token's
+q / k / v, the vocab-parallel logits).
+
 Each takes ``mesh=None`` (or a mesh whose model axis is 1) and then
 returns its input as it is, so one code path serves the model at P = 1,
 where it runs exactly the ops it ran before the model axis existed.
 
-:data:`STATS` counts the calls, bytes and seconds inside them; with
-``STATS["sync"]`` set, each call waits for the card before and after, so
-the seconds are the collective's own (and the caller's round pays two
-host waits a call).
+:data:`STATS` counts the calls, bytes (this rank's part) and seconds
+inside them; with ``STATS["sync"]`` set, each call waits for the card
+before and after, so the seconds are the collective's own (and the
+caller's round pays two host waits a call).
 """
 from __future__ import annotations
 
@@ -47,20 +53,26 @@ def model_dim(spec: tuple) -> int | None:
     return None
 
 
+def _collective(work, t: torch.Tensor) -> None:
+    """Run the collective ``work()`` on ``t`` (this rank's part) to its
+    end, and count it in :data:`STATS`."""
+    if STATS["sync"] and t.is_cuda:
+        torch.cuda.synchronize(t.device)
+    t0 = time.perf_counter()
+    work().wait()
+    if STATS["sync"] and t.is_cuda:
+        torch.cuda.synchronize(t.device)
+    STATS["seconds"] += time.perf_counter() - t0
+    STATS["calls"] += 1
+    STATS["bytes"] += t.numel() * t.element_size()
+
+
 def _all_reduce(group, x: torch.Tensor, op) -> torch.Tensor:
     """All-reduce a contiguous copy of ``x`` over ``group`` with ``op``."""
     out = x.clone(memory_format=torch.contiguous_format)
-    if STATS["sync"] and out.is_cuda:
-        torch.cuda.synchronize(out.device)
-    t0 = time.perf_counter()
     opts = dist.AllreduceOptions()
     opts.reduceOp = op
-    group.allreduce([out], opts).wait()
-    if STATS["sync"] and out.is_cuda:
-        torch.cuda.synchronize(out.device)
-    STATS["seconds"] += time.perf_counter() - t0
-    STATS["calls"] += 1
-    STATS["bytes"] += out.numel() * out.element_size()
+    _collective(lambda: group.allreduce([out], opts), out)
     return out
 
 
@@ -128,3 +140,24 @@ def gather_model(mesh, x: torch.Tensor, spec: tuple) -> torch.Tensor:
     outs = [torch.empty_like(src) for _ in range(mesh.model_size)]
     mesh.model_group.allgather([outs], [src]).wait()
     return torch.cat(outs, dim)
+
+
+def gather_ranks(mesh, x: torch.Tensor) -> torch.Tensor:
+    """(P, *x.shape): every model rank's ``x`` stacked in rank order, the
+    same on every rank; no gradient.  Without a model axis ``x[None]``."""
+    if model_size(mesh) == 1:
+        return x[None]
+    src = x.detach().contiguous()
+    outs = torch.empty((mesh.model_size,) + tuple(src.shape),
+                       dtype=src.dtype, device=src.device)
+    _collective(lambda: mesh.model_group.allgather(
+        [list(outs.unbind(0))], [src]), src)
+    return outs
+
+
+def gather_columns(mesh, x: torch.Tensor) -> torch.Tensor:
+    """Every model rank's ``x`` (..., c) side by side on the last dim in
+    rank order: (..., P c), the same on every rank; no gradient."""
+    if model_size(mesh) == 1:
+        return x
+    return torch.cat(gather_ranks(mesh, x).unbind(0), -1)

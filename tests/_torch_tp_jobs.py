@@ -20,7 +20,12 @@ job on it, returning what the caller compares (numpy arrays, host floats):
   collectives and the LGC kernels' launches, and (``state``) the whole
   params and error memory after;
 * ``sync``: the sync step (``cfg.optimizer``) over given batches;
-* ``driver``: the train driver's rank body (``train.train``) on argv.
+* ``driver``: the train driver's rank body (``train.train``) on argv;
+* ``serve`` (ROADMAP A12b): each of the job's ``cases`` through the serve
+  entry points at P ranks, from the rank's shards of the params: the
+  prefill's logits and cache, then ``steps`` greedy steps' logits and
+  tokens and the final cache (this rank's block of it), and each run's
+  collectives.
 """
 from __future__ import annotations
 
@@ -220,8 +225,41 @@ def _driver(job: dict, mesh) -> dict:
     return {"losses": train.train(train._parse(job["argv"]), mesh)}
 
 
+def _serve(job: dict, mesh) -> dict:
+    from repro_torch.launch import sharding_rules as rules
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.parallel import STATS
+    cfg = _config(job)
+    params = _params(job, cfg, mesh.device)
+    shards = rules.shard_tree(params, rules.param_specs(cfg, params, mesh),
+                              mesh)
+    out = {}
+    for case in job["cases"]:
+        calls = STATS["calls"]
+        prefill = make_prefill_step(cfg, case["cache_len"], mesh=mesh)
+        step = make_serve_step(cfg, case["window"], mesh=mesh,
+                               return_logits=True)
+        prompts = torch.from_numpy(np.asarray(case["prompts"]))
+        logits, cache = prefill(shards, {"tokens": prompts})
+        res = {"prefill_logits": _numpy(logits), "slots": cache["slots"],
+               "prefill_cache": {k: _numpy(cache["kv"][k]).copy()
+                                 for k in ("k", "v")}}     # steps write it
+        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        toks, step_logits = [tok], []
+        for _ in range(case["steps"]):
+            tok, cache, logits = step(shards, tok, cache)
+            toks.append(tok)
+            step_logits.append(_numpy(logits))
+        res |= {"logits": np.stack(step_logits),
+                "tokens": _numpy(torch.cat(toks, 1)).astype(np.int32),
+                "cache": {k: _numpy(cache["kv"][k]) for k in ("k", "v")},
+                "pos": cache["pos"], "collectives": STATS["calls"] - calls}
+        out[case["name"]] = res
+    return out
+
+
 RUNNERS = {"compress": _compress, "loss_grads": _loss_grads, "task": _task,
-           "sync": _sync, "driver": _driver}
+           "sync": _sync, "driver": _driver, "serve": _serve}
 
 
 def rank_main(jobs: list, device: str = "cpu") -> dict:

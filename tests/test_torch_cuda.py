@@ -278,7 +278,8 @@ def test_each_wrapper_counts_its_launches(card):
     pk.maxabs(x)
     pk.maxabs_rows(x.view(2, 2500))
     assert pk.LAUNCHES == {"maxabs": 2, "histogram": 1, "sparsify_ef": 1,
-                           "swa_decode": 0, "maxabs_rows": 1,
+                           "swa_decode": 0, "swa_decode_partial": 0,
+                           "maxabs_rows": 1,
                            "histogram_rows": 0, "sparsify_ef_rows": 0,
                            "maxabs_segments": 0, "histogram_segments": 0,
                            "threefry_normal": 0}
@@ -290,6 +291,10 @@ def test_each_wrapper_counts_its_launches(card):
     kv = torch.zeros((1, 1, 4, 32), device=card)
     pk.swa_decode(q, kv, kv, torch.ones(1, dtype=torch.int32, device=card))
     assert pk.LAUNCHES["swa_decode"] == 1
+    pk.swa_decode_partial(q, kv, kv,
+                          torch.ones(1, dtype=torch.int32, device=card))
+    assert pk.LAUNCHES["swa_decode"] == 1
+    assert pk.LAUNCHES["swa_decode_partial"] == 1
     pk.per_layer_candidates_hist_rows(
         x.view(2, 2500), pk.SegmentTable([0, 10, 2500], card),
         torch.full((2, 2), 7, dtype=torch.int32, device=card))
@@ -435,6 +440,77 @@ def test_swa_decode_rejects_mixed_devices(card):
     kv = torch.zeros((1, 1, 4, 32), device=card)
     with pytest.raises(ValueError):
         pk.swa_decode(q, kv, kv, torch.ones(1, dtype=torch.int32))
+
+
+# swa_decode's partial form, the decode attention of a rank's shard of the
+# cache's slots under the model axis: the serve shard shape of qwen2-1.5b
+# (a 4,096-slot cache over two ranks), the shards of chip_smoke.py's
+# serving job (a 1,040-slot cache and a 1,024-slot ring over two ranks),
+# Dh 64 and Dh 96 under GQA
+PARTIAL_SHAPES = [(8, 12, 2, 2048, 128), (8, 12, 2, 520, 128),
+                  (8, 12, 2, 512, 128), (2, 8, 2, 520, 64),
+                  (2, 16, 2, 300, 96)]
+
+
+def _partial_lengths(b, w, card):
+    """Rows of W, W/2 + 3, 1 and 0 valid slots (an empty shard), cycled."""
+    ns = [w, w // 2 + 3, 1, 0]
+    return torch.tensor([ns[i % 4] for i in range(b)], dtype=torch.int32,
+                        device=card)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", PARTIAL_SHAPES)
+def test_swa_decode_partial_is_swa_decode_bitwise(card, shape, dtype):
+    """The partial form's f32 output cast to q's dtype is swa_decode's
+    output bit for bit (the same launch); its (out, m, l) agree with the
+    plain partial version (out at SWA_TOL, m and l at 1e-5 in f32 and
+    1e-2 in bf16: the logits' f32 sums run in another order); an empty row
+    gives m = -inf, l = 0 and zeros."""
+    b, h, kv, w, dh = shape
+    q, k, v = _swa_inputs(b, h, kv, w, dh, dtype, card, seed=w)
+    ln = _partial_lengths(b, w, card)
+    out, m, l_sum = pk.swa_decode_partial(q, k, v, ln)
+    assert out.dtype == m.dtype == l_sum.dtype == torch.float32
+    want = pk.swa_decode(q, k, v, ln)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(out.to(dtype).view(bits), want.view(bits))
+    ref_out, ref_m, ref_l = pref.swa_decode_partial_ref(q, k, v, ln)
+    tol = SWA_TOL[dtype]
+    torch.testing.assert_close(out, ref_out, rtol=tol, atol=tol)
+    stol = 1e-5 if dtype == torch.float32 else 1e-2
+    empty = ln == 0
+    torch.testing.assert_close(m[~empty], ref_m[~empty], rtol=stol,
+                               atol=stol)
+    torch.testing.assert_close(l_sum, ref_l, rtol=stol, atol=stol)
+    assert torch.isneginf(m[empty]).all() and (l_sum[empty] == 0).all()
+    assert (out[empty] == 0).all()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_two_shards_merge_to_swa_decode_over_the_window(card, dtype):
+    """qwen2-1.5b's serve shape split over two ranks as attention_decode
+    splits it: the kernel's partial state of each half (the second empty
+    on rows that end in the first), merged, within SWA_TOL of swa_decode
+    over the whole window."""
+    b, h, kv, w, dh = 8, 12, 2, 4096, 128
+    q, k, v = _swa_inputs(b, h, kv, w, dh, dtype, card, seed=3)
+    ln = torch.tensor([w, w - 5, w // 2 + 1, w // 2, 700, 1, 0, 2049],
+                      dtype=torch.int32, device=card)
+    half = w // 2
+    states = [pk.swa_decode_partial(
+        q, k[:, :, r * half:(r + 1) * half].contiguous(),
+        v[:, :, r * half:(r + 1) * half].contiguous(),
+        torch.clamp(ln - r * half, 0, half).to(torch.int32))
+        for r in range(2)]
+    got = pref.merge_decode_partials(*(torch.stack(t) for t in
+                                       zip(*states)), dtype)
+    tol = SWA_TOL[dtype]
+    torch.testing.assert_close(got.float(),
+                               pk.swa_decode(q, k, v, ln).float(),
+                               rtol=tol, atol=tol)
+    torch.cuda.synchronize()
 
 
 # ---------------------------------------------------------------------------
@@ -1226,6 +1302,49 @@ def test_model_axis_split_pipeline_on_one_card(card):
         assert dense["step_bitwise"]
         assert r["results"]["sparse_gather"]["blocks/mlp/w_gate"][
             "step_bitwise"]
+
+
+def test_model_axis_smoke_serve_on_one_card(card):
+    """Serving under the model axis on the card: qwen2-smoke in f32 on two
+    gloo ranks sharing it, a 12-token prefill into a 16-slot ring and 24
+    greedy steps past its wrap (``swa_decode_partial`` on each rank's 8
+    slots, 2 a step), against P = 1 on the card: logits within 1e-5,
+    tokens equal, both ranks bit-equal."""
+    import dataclasses
+    import _torch_tp_jobs as tp_jobs
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer as ptf
+    cfg = dataclasses.replace(get_smoke_config("qwen2-1.5b"),
+                              dtype=torch.float32)
+    params = ptf.init_params(cfg, seed=0, device="cpu")
+    prompts = torch.randint(0, cfg.vocab_size, (2, 12),
+                            generator=torch.Generator().manual_seed(2))
+    case = dict(name="ring", prompts=prompts.numpy(), cache_len=16,
+                window=16, steps=24)
+    job = dict(name="serve", kind="serve", arch="qwen2-1.5b", smoke=True,
+               f32=True, params={k: v.numpy() for k, v in params.items()},
+               cases=[case])
+    ranks = spawn(tp_jobs.rank_main, 2, "gloo", args=([job], "cuda"),
+                  timeout=300.0)
+    p = {k: v.to(card) for k, v in params.items()}
+    logits, cache = make_prefill_step(cfg, 16, device=card)(
+        p, {"tokens": prompts})
+    step = make_serve_step(cfg, 16, device=card, return_logits=True)
+    tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    toks, want = [tok], []
+    for _ in range(24):
+        tok, cache, logits = step(p, tok, cache)
+        toks.append(tok)
+        want.append(logits.cpu())
+    r0, r1 = (r["results"]["serve"]["ring"] for r in ranks)
+    assert all(r["transport"] == "gloo" for r in ranks)
+    np.testing.assert_array_equal(r0["tokens"], torch.cat(toks, 1).cpu())
+    np.testing.assert_allclose(r0["logits"], torch.stack(want).numpy(),
+                               rtol=1e-5, atol=1e-5)
+    assert np.array_equal(r0["logits"], r1["logits"])
+    assert np.array_equal(r0["tokens"], r1["tokens"])
 
 
 # ---------------------------------------------------------------------------

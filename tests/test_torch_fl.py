@@ -35,6 +35,17 @@ LR_CASES = [("lgc", "exact"), ("topk", "exact"), ("fedavg", "exact"),
             ("lgc_q8", "exact"), ("lgc", "pallas")]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: with the suite's workers
+    sharing the cores, OpenMP's barriers wait on descheduled threads.
+    Restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tasks(name: str, m: int, n_train: int):
     """(reference task, port task with the reference's initial params)."""
     tj = j_make_task(name, m_devices=m, n_train=n_train)

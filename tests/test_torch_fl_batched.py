@@ -39,6 +39,17 @@ MODES = ["lgc", "topk", "fedavg", "lgc_q8"]
 MIN_NORMAL = np.float32(1.1754944e-38)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: with the suite's workers
+    sharing the cores, OpenMP's barriers wait on descheduled threads.
+    Restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tasks(name: str, m: int, n_train: int, scale: float = 1.0):
     """(reference task, port task) with the reference's initial params,
     times ``scale``, on both sides."""

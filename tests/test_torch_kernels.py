@@ -294,8 +294,10 @@ class TestWrapperChecks:
             x.view(4, 25), pk.SegmentTable([0, 10, 25], "cpu"),
             torch.full((4, 2), 3, dtype=torch.int32))
         pk.threefry_normal(torch.empty((3, 5)), torch.tensor([0, 7]), 0.5)
+        pk.swa_decode_partial(q, kv, kv, torch.ones(1, dtype=torch.int32))
         assert pk.LAUNCHES == {"maxabs": 0, "histogram": 0, "sparsify_ef": 0,
-                               "swa_decode": 0, "maxabs_rows": 0,
+                               "swa_decode": 0, "swa_decode_partial": 0,
+                               "maxabs_rows": 0,
                                "histogram_rows": 0, "sparsify_ef_rows": 0,
                                "maxabs_segments": 0,
                                "histogram_segments": 0,

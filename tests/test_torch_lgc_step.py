@@ -332,7 +332,9 @@ def test_port_and_chip_smoke_import_no_reference_module():
                  "configs.whisper_small", "configs.glm4_9b",
                  "configs.starcoder2_7b", "configs.yi_34b",
                  "configs.grok1_314b", "kernels.threefry_normal",
-                 "launch.mesh", "launch.sharding_rules", "parallel"]
+                 "launch.mesh", "launch.sharding_rules", "parallel",
+                 "kernels.swa_attention", "models.layers",
+                 "models.transformer", "launch.serve_decode"]
     assert {f"repro_torch.{m}" for m in simulator} <= set(mods)
     code = (
         "import importlib, sys\n"

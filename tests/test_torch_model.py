@@ -33,6 +33,17 @@ TINY = dataclasses.replace(
     attn_q_chunk=16, loss_chunk=16, dtype=jnp.float32)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: with the suite's workers
+    sharing the cores, OpenMP's barriers wait on descheduled threads.
+    Restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def port_arch(cfg) -> PArch:
     """The port's ArchConfig with the reference config's fields, f32."""
     kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)

@@ -24,6 +24,17 @@ MODELS = {"lr": (jpm.lr_init, jpm.lr_logits, ppm.lr_init, ppm.lr_logits),
                   ppm.cnn_logits)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: with the suite's workers
+    sharing the cores, OpenMP's barriers wait on descheduled threads.
+    Restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _batch(n: int, seed: int):
     (x, y), _ = jpm.load_synthetic_mnist(n_train=n, n_test=1, seed=seed)
     return x, y

@@ -56,6 +56,17 @@ MAX_FLIP_SHARE = 1e-3
 SATURATING = (1.0, 0.5, 0.5)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: with the suite's workers
+    sharing the cores, OpenMP's barriers wait on descheduled threads.
+    Restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tasks(scenario, m: int = M):
     """(reference task, port task) under ``scenario``, with the
     reference's initial params on both sides."""

@@ -43,6 +43,17 @@ PARAMS = 83_955          # V = 51, embedding 64, GRU hidden 128
 # data
 # ---------------------------------------------------------------------------
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: with the suite's workers
+    sharing the cores, OpenMP's barriers wait on descheduled threads.
+    Restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("seed", [0, 3])
 def test_stream_split_and_windows_match_the_reference(seed):
     assert psh.CHAR_VOCAB == jsh.CHAR_VOCAB and psh.VOCAB_SIZE == 51

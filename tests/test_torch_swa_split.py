@@ -31,6 +31,17 @@ WINDOWS = {100: 64, 4160: 32}   # W -> Dh
 REPS = (1, 2, 6, 7, 8, 9, 16)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: with the suite's workers
+    sharing the cores, OpenMP's barriers wait on descheduled threads.
+    Restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _lengths(w: int) -> list[int]:
     return [0, 1, T - 1, T + 1, w]
 
