@@ -61,8 +61,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    and nvcc); then its partial form (``swa_decode_partial``: the f32
    output with m and l, for a rank's shard of the cache's slots) at a
    rank's shard of the serve cache (B=8, H=12, Kv=2, W=2,048, Dh=128), at
-   the shards phase 5d's serving job runs (W=520 and W=512), at Dh 64 and
-   at Dh 96 under GQA, with rows of W, W/2+3, 1 and 0 valid slots: its
+   the shards phase 5d's serving job runs (W=520 and W=512), at Dh 64, at
+   Dh 96 under GQA and at zamba2-1.2b's shard in phase 5d (e) (B=8,
+   H=Kv=32, W=520, Dh=64), with rows of W, W/2+3, 1 and 0 valid slots: its
    output cast to q's dtype bitwise ``swa_decode``'s, (out, m, l) against
    the plain partial version; and the serve shape and phase 5d's two
    caches cut into two halves as ``layers.attention_decode`` cuts them,
@@ -167,7 +168,27 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ``MODEL_AXIS_TOKEN_MARGIN`` below P = 1's greedy logit at its history
    (P = 1 fed the free run's tokens), the ranks' tokens equal; prefill s,
    decode ms a step (beside P = 1's), collectives a step and the host ms
-   blocked in them; (c) ``repro_torch.launch.train
+   blocked in them; (e) the ssm and hybrid families in the same ranks
+   (``model_axis_ssm``): mamba2-370m and zamba2-1.2b at full width and
+   depth, each from seed 0's draw, rank 0 first alone at P = 1 and then
+   both ranks at P = 2 on their shards: 3 / 2 LGC rounds in f32
+   (``dense_masked``, M = 2, H = 2, batch 4 x 128; every round's loss
+   within ``MODEL_AXIS_SSM_LOSS_ATOL`` of P = 1's, both ranks' losses
+   bit-equal and falling, each row kernel 6 / 14 a round a rank and no
+   flat launch; round ms, collectives and host ms blocked in them), then
+   in bf16 ``serve_decode.serve(..., mesh=)`` on 8 x 128 tokens, 2 steps
+   (the ranks' tokens bitwise equal), and 8 prompts of 1,024 tokens into
+   a 1,040-slot cache and 16 steps fed P = 1's tokens (every step's
+   logits within ``MODEL_AXIS_SSM_LOGITS_MEAN_ATOL`` / ``_ATOL`` of
+   P = 1's, both ranks' bitwise equal, ``swa_decode_partial`` 7 a step at
+   zamba2 and nothing else, a rank's conv channels, heads and slots its
+   ``cache_specs`` block; prefill s, decode ms a step beside P = 1's,
+   collectives a step and the host ms blocked in them; P = 1 and P = 2's
+   gaps to P = 1 in f32 fed the same tokens, a yardstick); the
+   limits set from sound and planted-fault readings
+   (``--model-axis-faults``: the gated norm's sum left local, the
+   split-use gradients left unsummed, the prefill writing the next rank's
+   conv tail); (c) ``repro_torch.launch.train
    --model-parallel 2 --devices 2 --mode sync`` for 3 steps (it spawns its
    own two ranks), its loss falling; one ``model_axis`` JSON line;
 6. a small f32 serve (qwen2-smoke), card against CPU with the same weights:
@@ -343,7 +364,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ``swa_decode``) at a rank's shard of the serve cache (B=8, H=12, Kv=2,
    W=2,048, Dh=128, bf16) beside ``swa_decode`` at that shape, its
    ``launches`` those of rank 0's free run in phase 5d (d) and
-   ``launches_model_axis_serve`` those of its fed runs;
+   ``launches_model_axis_serve`` those of its fed runs, and at zamba2's
+   shard (B=8, H=Kv=32, W=520, Dh=64, ``at_zamba2_shard``) with phase 5d
+   (e)'s launches (``launches_model_axis_ssm_serve``); the LGC kernels'
+   launches on each rank in phase 5d (e) (``launches_model_axis_ssm``);
 10. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package ``repro``.
@@ -1120,10 +1144,12 @@ def phase_swa(gen, errs: dict) -> None:
 # swa_decode's partial form at a rank's shard of the serve cache (4,096
 # slots over two ranks; the first is the kernels line's timing shape), at
 # the shards phase 5d's serving job runs (its 1,040-slot cache and its
-# 1,024-slot ring over two ranks), at Dh 64 and at Dh 96 under GQA
+# 1,024-slot ring over two ranks), at Dh 64 and at Dh 96 under GQA, and at
+# zamba2-1.2b's shard in phase 5d (e) (its 1,040-slot K/V sites over two
+# ranks: REP 1, Dh 64; the last is the kernels line's ``at_zamba2_shard``)
 SWA_PARTIAL_SHAPES = [(8, 12, 2, 2048, 128), (8, 12, 2, 520, 128),
                       (8, 12, 2, 512, 128), (2, 8, 2, 520, 64),
-                      (2, 16, 2, 300, 96)]
+                      (2, 16, 2, 300, 96), (8, 32, 32, 520, 64)]
 # whole caches split in two halves and merged: the serve shape and phase
 # 5d's two caches
 SWA_MERGE_SHAPES = [SWA_SERVE_SHAPE, (8, 12, 2, 1040, 128),
@@ -1938,6 +1964,27 @@ def plant_serve_fault(name: str):
     return lambda: setattr(mod, attr, orig)
 
 
+def mark() -> tuple:
+    """After the card's queued work: the host clock, and the model axis's
+    collectives so far and the seconds inside them."""
+    import torch
+    from repro_torch import parallel
+    torch.cuda.synchronize()
+    return (time.perf_counter(), parallel.STATS["calls"],
+            parallel.STATS["seconds"])
+
+
+def digest(ts) -> str:
+    """sha256 of the bits of the tensors ``ts`` (4-byte elements), so that
+    ranks' results can be held bit-equal without sending them."""
+    import hashlib
+    import torch
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.contiguous().view(torch.int32).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def model_axis_serve(job: dict, mesh) -> dict:
     """The serving job on this rank (MODEL_AXIS_SERVE): seed 0's draw of
     qwen2-1.5b whole (P = 1) and this rank's shards of it.  Rank 0 alone
@@ -1953,10 +2000,8 @@ def model_axis_serve(job: dict, mesh) -> dict:
     logits[token] of the free run's token under P = 1's logits at the same
     history.  sha256 digests of the P = 2 logits and tokens let the caller
     hold the ranks bit-equal."""
-    import hashlib
     import torch
     import torch.distributed as dist
-    from repro_torch import parallel
     from repro_torch.configs import get_config
     from repro_torch.kernels import LAUNCHES, reset_launch_counts
     from repro_torch.launch import sharding_rules as rules
@@ -1981,11 +2026,6 @@ def model_axis_serve(job: dict, mesh) -> dict:
                  "runs": {}, "p1": {}}
     runs = {"full": (0, prompt + steps), "ring": (spec["window"],
                                                   spec["window"])}
-
-    def mark() -> tuple:
-        torch.cuda.synchronize()
-        return (time.perf_counter(), parallel.STATS["calls"],
-                parallel.STATS["seconds"])
 
     def p1_run(window: int, slots: int, feed=None) -> tuple:
         """P = 1 on rank 0: the prefill and ``steps`` greedy steps (fed
@@ -2018,12 +2058,6 @@ def model_axis_serve(job: dict, mesh) -> dict:
     p1_tokens = {name: tokens[i].cuda() for i, name in enumerate(runs)}
     serve(shards, cfg, prompts[:, :128], 2, cache_len=130, mesh=mesh)
     out["free"] = {}
-
-    def digest(ts) -> str:
-        h = hashlib.sha256()
-        for t in ts:
-            h.update(t.contiguous().view(torch.int32).cpu().numpy().tobytes())
-        return h.hexdigest()[:16]
 
     for fault in job.get("faults", [None]):
         undo = plant_serve_fault(fault) if fault else None
@@ -2210,8 +2244,8 @@ def model_axis_run(job: dict, mesh) -> dict:
 
 def model_axis_rank(jobs: list) -> dict:
     """Each rank's body under ``mesh.spawn``: the (1, P) mesh over the
-    ranks present on the card, then every job (``compress``, ``run`` or
-    ``serve``) with its seconds."""
+    ranks present on the card, then every job (``compress``, ``run``,
+    ``serve`` or ``ssm``) with its seconds."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_host_mesh
@@ -2226,6 +2260,8 @@ def model_axis_rank(jobs: list) -> dict:
             results[job["name"]] = model_axis_compress(job["aggregate"], mesh)
         elif job["kind"] == "serve":
             results[job["name"]] = model_axis_serve(job, mesh)
+        elif job["kind"] == "ssm":
+            results[job["name"]] = model_axis_ssm(job, mesh)
         else:
             results[job["name"]] = model_axis_run(job, mesh)
         results[job["name"]]["seconds"] = time.perf_counter() - t0
@@ -2268,6 +2304,7 @@ def phase_model_axis(smi: str) -> dict:
                   synced=MODEL_AXIS_SYNCED_ROUNDS)
              for agg in MODEL_AXIS_AGGREGATES]
     jobs.append(dict(name="serve", kind="serve", faults=[None], free=True))
+    jobs += ssm_jobs()
     t0 = time.perf_counter()
     ranks = spawn(model_axis_rank, MODEL_AXIS, "gloo", args=(jobs,),
                   timeout=MODEL_AXIS_TIMEOUT_S)
@@ -2353,6 +2390,7 @@ def phase_model_axis(smi: str) -> dict:
     out["launches"] = launches
     out["serve"] = check_model_axis_serve([r["results"]["serve"]
                                            for r in ranks], smi)
+    out["ssm"] = check_model_axis_ssm(ranks, smi)
     # (c) the driver spawns its own two ranks
     t0 = time.perf_counter()
     try:
@@ -2477,6 +2515,465 @@ def check_model_axis_serve(ranks: list, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 5d (e): the ssm and hybrid families under the model axis (A12c)
+# ---------------------------------------------------------------------------
+
+MODEL_AXIS_SSM_ARCHS = ("mamba2-370m", "zamba2-1.2b")
+# arch -> (FL devices M, batch, sequence, local learning rate, rounds):
+# LGC rounds (dense_masked, H = 2, the CUDA kernels) at full width and
+# depth in f32, P = 1 on rank 0 alone, then P = 2, from seed 0's draw and
+# the same batches.  f32, not the configs' bf16: in bf16 these rounds
+# amplify the rounding of the row-parallel partial sums into loss gaps of
+# up to 0.17 by round 3, as large as a planted fault's (PERF.md §6),
+# and no limit tells them apart.  zamba2 runs 2 rounds (time)
+MODEL_AXIS_SSM_TRAIN = {"mamba2-370m": (2, 4, 128, 2e-2, 3),
+                        "zamba2-1.2b": (2, 4, 128, 3e-2, 2)}
+# serving at full width and depth in bf16: 8 prompts of 1,024 tokens (a
+# multiple of the 128-token SSD chunk) into a 1,040-slot cache (520 a
+# rank of zamba2's K/V sites), 16 steps at P = 2 fed P = 1's greedy
+# tokens; before them serve_decode.serve(..., mesh=) on 128 of the
+# prompts' tokens, 2 steps (the entry point, and the warm-up)
+MODEL_AXIS_SSM_SERVE = {"batch": 8, "prompt": 1024, "slots": 1040,
+                        "steps": 16, "entry_prompt": 128, "entry_steps": 2}
+# Each round's loss at P = 2 against P = 1 (f32): |L(P=2) - L(P=1)| <=
+# MODEL_AXIS_SSM_FIRST_ROUND_ATOL in round 1, whose losses come before any
+# compression (the forward, the backward with the split-use SUM and a
+# local SGD step), and <= MODEL_AXIS_SSM_LOSS_ATOL after it, where a
+# coordinate that the two runs' roundings put on either side of an LGC
+# bin edge changes layer (a gross check).  Every step's logits (the
+# prefill's first) at P = 2, fed P = 1's tokens, against P = 1's (bf16):
+# the mean of |gap| <= MODEL_AXIS_SSM_LOGITS_MEAN_ATOL, its max <=
+# MODEL_AXIS_SSM_LOGITS_ATOL.  Set from readings on the H100
+# (``--model-axis-faults``; PERF.md §6): training's sound round 1
+# 9.5e-7 (mamba2) / 1.9e-6 (zamba2), later rounds up to 2.0e-4 / 3.7e-3
+# (mamba2) and 5.7e-6 (zamba2); round 1 with ``split_use_unsummed``
+# 1.8e-3 / 1.6e-4, with ``norm_sum_local`` 6.9e-2 / 1.7e-3; later rounds
+# 7.8e-3-0.15 with either.  Serving's sound runs 0.0612-0.0688 (mamba2)
+# and 0.0523-0.0561 (zamba2) mean a step, 0.31-0.44 max (bf16 P = 1 is
+# itself 0.086 / 0.069 mean from P = 1 in f32, P = 2 0.088 / 0.071);
+# ``norm_sum_local`` 0.39-0.65 mean (2.55-4.02 max),
+# ``conv_tail_wrong_rank`` 1.08-1.12 mean at its first step (6.9-7.1
+# max; decaying to 0.14-0.48 by step 16).
+MODEL_AXIS_SSM_FIRST_ROUND_ATOL = 2e-5
+MODEL_AXIS_SSM_LOSS_ATOL = 1e-2
+MODEL_AXIS_SSM_LOGITS_MEAN_ATOL = 0.12
+MODEL_AXIS_SSM_LOGITS_ATOL = 1.0
+# fault -> the paths it touches: the gated norm's sum of squares left on
+# the rank (no SUM over the model group), the split-use SSD leaves'
+# gradients left unsummed, the prefill writing the next rank's block of
+# the conv tail
+MODEL_AXIS_SSM_FAULTS = {"norm_sum_local": ("train", "serve"),
+                         "split_use_unsummed": ("train",),
+                         "conv_tail_wrong_rank": ("serve",)}
+
+
+def plant_ssm_fault(name: str):
+    """Put SSD fault ``name`` (MODEL_AXIS_SSM_FAULTS) into this rank;
+    returns its undo."""
+    from repro_torch import parallel
+    from repro_torch.models import layers
+    from repro_torch.models import ssd
+    from repro_torch.models import transformer as tf
+    if name == "norm_sum_local":
+        mod, attr = parallel, "sum_over_model"
+
+        def new(mesh, x):
+            return x
+    elif name == "split_use_unsummed":
+        mod, attr = tf, "sum_split_use_grads"
+
+        def new(cfg, grads, mesh):
+            return grads
+    elif name == "conv_tail_wrong_rank":
+        mod, attr = tf, "_ssm_layer_prefill"
+
+        def new(x, bp, cfg, ssm_cache, layer, mesh=None):
+            h = layers.apply_norm(x, bp["norm1"], cfg.norm)
+            y, h_final, tail = ssd.ssm_block(h, bp["ssm"], cfg, mesh)
+            conv = ssm_cache["conv"]
+            w = conv.shape[-1]
+            r = (mesh.model_rank + 1) % mesh.model_size
+            conv[layer] = tail[..., r * w:(r + 1) * w]
+            ssm_cache["state"][layer] = h_final
+            return x + y
+    else:
+        raise ValueError(f"no SSD fault {name!r}")
+    old = getattr(mod, attr)
+    setattr(mod, attr, new)
+    return lambda: setattr(mod, attr, old)
+
+
+def ssm_train(cfg, mesh, lead: bool, p1: bool) -> dict:
+    """(e) training on this rank, in f32 (MODEL_AXIS_SSM_TRAIN): with
+    ``p1`` rank 0 first runs the rounds at P = 1 alone from the whole
+    draw; then both ranks at P = 2 from their shards of it.  Per round the
+    host ms, each LGC kernel's launches, the collectives and the host ms
+    blocked in them."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch import parallel
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch import sharding_rules as rules
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    m, batch, seq, lr, rounds = MODEL_AXIS_SSM_TRAIN[cfg.name]
+    cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    pipe = TokenPipeline(cfg.vocab_size, seq, batch)
+    pipe.next_batch()
+    batches = [pipe.next_batch() for _ in range(rounds)]
+    step_cfg = steps.LGCStepConfig(local_steps=2, local_lr=lr,
+                                   aggregate="dense_masked", backend="cuda")
+    kernels = (*ROW_KERNELS.values(), *LGC_KERNELS)
+    torch.cuda.reset_peak_memory_stats()
+
+    def run(params, mesh_) -> dict:
+        step = steps.make_lgc_train_step(cfg, m, step_cfg, donate=True,
+                                         mesh=mesh_)
+        ef = steps.init_ef_tree(params, m)
+        out = {"losses": [], "round_ms": [], "launches": [],
+               "collectives": [], "collective_ms": []}
+        for x, y in batches:
+            torch.cuda.synchronize()
+            before = (dict(LAUNCHES), parallel.STATS["calls"],
+                      parallel.STATS["seconds"], time.perf_counter())
+            params, ef, loss = step(params, ef, {
+                "tokens": torch.from_numpy(x).to("cuda", torch.long),
+                "labels": torch.from_numpy(y).to("cuda", torch.long)})
+            out["losses"].append(float(loss))
+            out["round_ms"].append((time.perf_counter() - before[3]) * 1e3)
+            out["launches"].append({k: LAUNCHES[k] - before[0][k]
+                                    for k in kernels})
+            out["collectives"].append(parallel.STATS["calls"] - before[1])
+            out["collective_ms"].append(
+                (parallel.STATS["seconds"] - before[2]) * 1e3)
+        del params, ef
+        torch.cuda.empty_cache()
+        return out
+
+    res: dict = {}
+    if p1 and lead:
+        res["p1"] = run(tf.init_params(cfg, seed=0), None)
+    dist.barrier(group=mesh.model_group)
+    params = tf.init_params(cfg, seed=0)
+    shards = rules.shard_tree(params, rules.param_specs(cfg, params, mesh),
+                              mesh)
+    del params
+    res["p2"] = run(shards, mesh)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return res
+
+
+# arch -> (P = 1's greedy tokens, on every rank; its logits a step, on
+# rank 0): the sound job's, which the fault jobs on the same ranks feed
+_SSM_P1: dict = {}
+
+
+def ssm_serve(cfg, mesh, lead: bool, p1: bool) -> dict:
+    """(e) serving on this rank: with ``p1`` rank 0 serves at P = 1 alone
+    (warmed up, then timed), then the same in f32 fed the same tokens (a
+    yardstick: how far bf16 itself is from f32), and hands its greedy
+    tokens to the other rank; then both run ``serve_decode.serve(...,
+    mesh=)`` on the prompts' first tokens (the entry point and the
+    warm-up), prefill at P = 2 and run the steps fed P = 1's tokens
+    (every step's logits gap to P = 1 and to f32 on rank 0, the launches,
+    the collectives and the host ms blocked in them)."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch import sharding_rules as rules
+    from repro_torch.launch.serve_decode import serve
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer as tf
+    spec = MODEL_AXIS_SSM_SERVE
+    b, prompt, slots, n = (spec["batch"], spec["prompt"], spec["slots"],
+                           spec["steps"])
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (b, prompt), generator=gen,
+                            device="cuda")
+
+    def fed(params, mesh_, feed) -> tuple:
+        """Prefill and ``n`` steps (fed ``feed``'s tokens, or greedy):
+        the logits a step, the tokens and the timings."""
+        reset_launch_counts()
+        m0 = mark()
+        logits, cache = make_prefill_step(cfg, slots, mesh=mesh_)(
+            params, {"tokens": prompts})
+        m1 = mark()
+        step = make_serve_step(cfg, 0, mesh=mesh_, return_logits=True)
+        toks, seen = [torch.argmax(logits, -1).to(torch.int32)[:, None]], [
+            logits]
+        for i in range(n):
+            fed_tok = toks[-1] if feed is None else feed[:, i:i + 1]
+            tok, cache, logits = step(params, fed_tok, cache)
+            toks.append(tok)
+            seen.append(logits)
+        m2 = mark()
+        return seen, torch.cat(toks, 1), {
+            "prefill_s": m1[0] - m0[0], "prefill_collectives": m1[1] - m0[1],
+            "prefill_collective_ms": (m1[2] - m0[2]) * 1e3,
+            "decode_ms": (m2[0] - m1[0]) / n * 1e3,
+            "collectives_per_step": (m2[1] - m1[1]) / n,
+            "collective_ms_per_step": (m2[2] - m1[2]) / n * 1e3,
+            "launches": {k: v for k, v in LAUNCHES.items() if v},
+            "pos": cache["pos"], "slots": cache.get("slots"),
+            "local_conv": cache["ssm"]["conv"].shape[-1],
+            "local_heads": cache["ssm"]["state"].shape[2],
+            "local_slots": (cache["kv"]["k"].shape[3] if "kv" in cache
+                            else None)}
+
+    def gaps(got, ref) -> dict:
+        return {"logits_gaps": [float((g - w).abs().max())
+                                for g, w in zip(got, ref)],
+                "mean_gaps": [float((g - w).abs().mean())
+                              for g, w in zip(got, ref)]}
+
+    out: dict = {}
+    short, n_short = spec["entry_prompt"], spec["entry_steps"]
+    if p1:
+        tokens = torch.zeros((b, n + 1), dtype=torch.int32)
+        f32 = None
+        if lead:
+            params = tf.init_params(cfg, seed=0)
+            serve(params, cfg, prompts[:, :short], n_short,
+                  cache_len=short + n_short)
+            want, toks, out["p1"] = fed(params, None, None)
+            tokens = toks.cpu()
+            del params
+            cfg, bf16 = dataclasses.replace(cfg, dtype=torch.float32), cfg
+            params = tf.init_params(cfg, seed=0)
+            f32, _, _ = fed(params, None, toks)
+            out["p1"]["to_f32"] = gaps(want, f32)
+            del params
+            cfg = bf16
+        dist.broadcast(tokens, 0, group=mesh.model_group)
+        _SSM_P1[cfg.name] = (tokens.cuda(), want if lead else None, f32)
+    feed, want, f32 = _SSM_P1[cfg.name]
+    params = tf.init_params(cfg, seed=0)
+    shards = rules.shard_tree(params, rules.param_specs(cfg, params, mesh),
+                              mesh)
+    del params
+    reset_launch_counts()
+    m0 = mark()
+    r = serve(shards, cfg, prompts[:, :short], n_short,
+              cache_len=short + n_short, mesh=mesh)
+    m1 = mark()
+    out["entry"] = {
+        "launches": {k: v for k, v in LAUNCHES.items() if v},
+        "pos": r["pos"], "slots": r["cache_slots"],
+        "logits_finite": r["logits_finite"], "digest": digest([r["tokens"]]),
+        "seconds": m1[0] - m0[0], "collectives": m1[1] - m0[1]}
+    del r
+    got, _, out["p2"] = fed(shards, mesh, feed)
+    out["p2"]["digest"] = digest(got)
+    out["p2"]["finite"] = all(bool(torch.isfinite(g).all()) for g in got)
+    if lead:
+        out["p2"] |= gaps(got, want) | {
+            "to_f32": gaps(got, f32),
+            "argmax_agree": [float((g.argmax(-1) == w.argmax(-1)).float()
+                                   .mean()) for g, w in zip(got, want)]}
+    del got
+    torch.cuda.empty_cache()
+    return out
+
+
+def model_axis_ssm(job: dict, mesh) -> dict:
+    """(e) on this rank: ``job["arch"]``'s training and serving
+    (``job["paths"]``) at full width, with fault ``job["fault"]`` planted
+    and, with ``job["p1"]``, P = 1 on rank 0 to compare with."""
+    from repro_torch.configs import get_config
+    cfg = get_config(job["arch"])
+    lead = mesh.model_rank == 0
+    undo = plant_ssm_fault(job["fault"]) if job.get("fault") else None
+    out: dict = {"rank": mesh.rank}
+    try:
+        t0 = time.perf_counter()
+        if "train" in job["paths"]:
+            out["train"] = ssm_train(cfg, mesh, lead, job["p1"])
+        out["train_s"] = time.perf_counter() - t0
+        if "serve" in job["paths"]:
+            out["serve"] = ssm_serve(cfg, mesh, lead, job["p1"])
+        out["serve_s"] = time.perf_counter() - t0 - out["train_s"]
+    finally:
+        if undo is not None:
+            undo()
+    return out
+
+
+def ssm_jobs(faults: bool = False) -> list:
+    """Phase 5d (e)'s jobs: each arch sound with P = 1 to compare with
+    and, with ``faults``, each of MODEL_AXIS_SSM_FAULTS on its paths."""
+    jobs = []
+    for arch in MODEL_AXIS_SSM_ARCHS:
+        jobs.append(dict(name=f"ssm {arch}", kind="ssm", arch=arch,
+                         paths=("train", "serve"), p1=True))
+        if faults:
+            jobs += [dict(name=f"ssm {arch} {f}", kind="ssm", arch=arch,
+                          paths=paths, p1=False, fault=f)
+                     for f, paths in MODEL_AXIS_SSM_FAULTS.items()]
+    return jobs
+
+
+def ssm_gaps(sound: dict, run: dict) -> dict:
+    """A run's loss gaps to P = 1 a round and its logits gaps (max and
+    mean) to P = 1 a step, from rank 0's results (``sound`` holds
+    P = 1's)."""
+    out = {}
+    if "train" in run:
+        out["loss_gaps"] = loss_gaps(run["train"]["p2"]["losses"],
+                                     sound["train"]["p1"]["losses"])
+    if "serve" in run:
+        s = run["serve"]["p2"]
+        out["logits_gaps"], out["mean_gaps"] = (s["logits_gaps"],
+                                                s["mean_gaps"])
+    return out
+
+
+def check_model_axis_ssm(ranks: list, smi: str) -> dict:
+    """(e) of phase 5d: both ranks' results for each arch against the
+    limits, the launches and the ranks' bits; returns the ``ssm`` part of
+    the ``model_axis`` line."""
+    out: dict = {"first_round_atol": MODEL_AXIS_SSM_FIRST_ROUND_ATOL,
+                 "loss_atol": MODEL_AXIS_SSM_LOSS_ATOL,
+                 "logits_atol": MODEL_AXIS_SSM_LOGITS_ATOL,
+                 "logits_mean_atol": MODEL_AXIS_SSM_LOGITS_MEAN_ATOL,
+                 "train": MODEL_AXIS_SSM_TRAIN, "serve": MODEL_AXIS_SSM_SERVE}
+    from repro_torch.configs import get_config
+    spec = MODEL_AXIS_SSM_SERVE
+    for arch in MODEL_AXIS_SSM_ARCHS:
+        cfg = get_config(arch)
+        r0, r1 = (r["results"][f"ssm {arch}"] for r in ranks)
+        t0, t1 = r0["train"], r1["train"]
+        p1, p2 = t0["p1"], t0["p2"]
+        losses = p2["losses"]
+        check(losses == t1["p2"]["losses"], f"model axis (e) {arch}: rank "
+              f"losses {losses} and {t1['p2']['losses']}")
+        check(all(math.isfinite(x) for x in losses + p1["losses"])
+              and losses[-1] < losses[0] and p1["losses"][-1]
+              < p1["losses"][0], f"model axis (e) {arch}: losses {losses}, "
+              f"P = 1 {p1['losses']} do not fall")
+        gaps = loss_gaps(losses, p1["losses"])
+        check(gaps[0] <= MODEL_AXIS_SSM_FIRST_ROUND_ATOL
+              and max(gaps) <= MODEL_AXIS_SSM_LOSS_ATOL, f"model axis (e) "
+              f"{arch}: losses {losses} against {p1['losses']} at P = 1 "
+              f"(allowed {MODEL_AXIS_SSM_FIRST_ROUND_ATOL} in round 1, "
+              f"{MODEL_AXIS_SSM_LOSS_ATOL} after)")
+        leaves = FAMILY_KERNEL_LEAVES[arch]
+        want = {"maxabs_rows": leaves, "histogram_rows": leaves,
+                "sparsify_ef_rows": leaves, "maxabs": 0, "histogram": 0,
+                "sparsify_ef": 0}
+        for r in (t0, t1):
+            for run in (r["p2"],) + ((r["p1"],) if "p1" in r else ()):
+                for i, got in enumerate(run["launches"]):
+                    check(got == want, f"model axis (e) {arch} round {i + 1}"
+                          f": launches {got}, expected {want}")
+        s0, s1 = r0["serve"], r1["serve"]
+        f0 = s0["p2"]
+        check(f0["digest"] == s1["p2"]["digest"] and f0["finite"],
+              f"model axis (e) {arch}: the ranks' logits differ or are not "
+              f"finite")
+        sites = attention_sites(cfg)
+        want_serve = ({"swa_decode_partial": sites * spec["steps"]}
+                      if sites else {})
+        for s in (s0, s1):
+            check(s["p2"]["launches"] == want_serve, f"model axis (e) {arch}"
+                  f" serve: launches {s['p2']['launches']}, expected "
+                  f"{want_serve}")
+        c = cfg.d_inner + 2 * cfg.ssm_state
+        check(f0["pos"] == spec["prompt"] + spec["steps"]
+              and f0["local_conv"] == c // 2
+              and f0["local_heads"] == cfg.ssm_heads // 2
+              and f0["local_slots"] == (spec["slots"] // 2 if sites
+                                        else None),
+              f"model axis (e) {arch} serve: pos {f0['pos']}, a rank's "
+              f"conv {f0['local_conv']}, heads {f0['local_heads']}, slots "
+              f"{f0['local_slots']}")
+        worst, worst_mean = max(f0["logits_gaps"]), max(f0["mean_gaps"])
+        check(worst <= MODEL_AXIS_SSM_LOGITS_ATOL
+              and worst_mean <= MODEL_AXIS_SSM_LOGITS_MEAN_ATOL,
+              f"model axis (e) {arch} serve: logits {worst_mean:.4e} from "
+              f"P = 1's in the mean, {worst:.4e} at most (allowed "
+              f"{MODEL_AXIS_SSM_LOGITS_MEAN_ATOL}, "
+              f"{MODEL_AXIS_SSM_LOGITS_ATOL}); mean gaps {f0['mean_gaps']}")
+        rec = {"train": {"losses": losses, "p1_losses": p1["losses"],
+                         "loss_gaps": gaps, "round_ms": p2["round_ms"],
+                         "round_ms_rank1": t1["p2"]["round_ms"],
+                         "p1_round_ms": p1["round_ms"],
+                         "collectives": p2["collectives"],
+                         "collective_ms": p2["collective_ms"],
+                         "launches_per_round": p2["launches"][0],
+                         "peak_gib": [t0["peak_gib"], t1["peak_gib"]]},
+               # each row kernel's launches over the P = 2 rounds, a rank
+               "launches_rows": {rn: [sum(x[rn] for x in r["p2"]["launches"])
+                                      for r in (t0, t1)]
+                                 for rn in ROW_KERNELS.values()},
+               "serve": {k: f0[k] for k in (
+                   "logits_gaps", "mean_gaps", "argmax_agree", "to_f32",
+                   "prefill_s", "prefill_collectives",
+                   "prefill_collective_ms", "decode_ms",
+                   "collectives_per_step", "collective_ms_per_step",
+                   "launches")}
+               | {"decode_ms_rank1": s1["p2"]["decode_ms"],
+                  "p1": s0["p1"]},
+               "seconds": [r0["seconds"], r1["seconds"]],
+               "train_s": r0["train_s"], "serve_s": r0["serve_s"]}
+        e0, e1 = s0["entry"], s1["entry"]
+        short, n_short = spec["entry_prompt"], spec["entry_steps"]
+        want_entry = ({"swa_decode_partial": sites * n_short} if sites
+                      else {})
+        check(e0["digest"] == e1["digest"] and e0["logits_finite"]
+              and e0["launches"] == e1["launches"] == want_entry
+              and e0["pos"] == short + n_short
+              and e0["slots"] == (short + n_short if sites else None),
+              f"model axis (e) {arch} serve_decode.serve(mesh=): {e0}, "
+              f"rank 1 {e1}")
+        rec["entry"] = e0
+        out[arch] = rec
+        log(f"model axis (e) {arch} training at P = 2 in f32 (M = "
+            f"{MODEL_AXIS_SSM_TRAIN[arch][0]}, H = 2, dense_masked): losses "
+            f"{losses} (both ranks), P = 1 {p1['losses']}, gaps "
+            f"{[f'{g:.3e}' for g in gaps]} (allowed "
+            f"{MODEL_AXIS_SSM_FIRST_ROUND_ATOL} in round 1, "
+            f"{MODEL_AXIS_SSM_LOSS_ATOL} after); round ms {p2['round_ms']} "
+            f"(P = 1 {p1['round_ms']}); {p2['collectives']} collectives a "
+            f"round, "
+            f"{[f'{x:.1f}' for x in p2['collective_ms']]} host ms blocked "
+            f"in them; LGC launches a round a rank {p2['launches'][0]}; "
+            f"peak {t0['peak_gib']:.2f} / {t1['peak_gib']:.2f} GiB; {smi}")
+        log(f"model axis (e) {arch} serving at P = 2, {spec['batch']} x "
+            f"{spec['prompt']} tokens into {spec['slots']} slots, "
+            f"{spec['steps']} steps fed P = 1's tokens: logits gap a step at "
+            f"most {worst_mean:.4e} in the mean and {worst:.4e} in the max "
+            f"(allowed {MODEL_AXIS_SSM_LOGITS_MEAN_ATOL}, "
+            f"{MODEL_AXIS_SSM_LOGITS_ATOL}), argmax agreeing "
+            f"{min(f0['argmax_agree']):.4f}-{max(f0['argmax_agree']):.4f}; "
+            f"prefill {f0['prefill_s']:.3f} s ({f0['prefill_collectives']} "
+            f"collectives, {f0['prefill_collective_ms']:.1f} ms blocked), "
+            f"decode {f0['decode_ms']:.2f} ms a step (rank 1 "
+            f"{s1['p2']['decode_ms']:.2f}; P = 1 {s0['p1']['decode_ms']:.2f}, "
+            f"prefill {s0['p1']['prefill_s']:.3f} s), "
+            f"{f0['collectives_per_step']:.1f} collectives a step, "
+            f"{f0['collective_ms_per_step']:.2f} host ms blocked in them; "
+            f"launches {f0['launches']}; ranks bitwise equal; {smi}")
+        yard = s0["p1"]["to_f32"]
+        log(f"model axis (e) {arch} serving, the f32 yardstick (P = 1 in f32"
+            f" fed the same tokens): bf16 P = 1 at most "
+            f"{max(yard['mean_gaps']):.4e} mean / "
+            f"{max(yard['logits_gaps']):.4e} max a step from it, bf16 P = 2 "
+            f"{max(f0['to_f32']['mean_gaps']):.4e} / "
+            f"{max(f0['to_f32']['logits_gaps']):.4e}")
+        log(f"model axis (e) {arch} serve_decode.serve(mesh=) at full width"
+            f" on {short} tokens x {spec['batch']}, {n_short} steps: "
+            f"{e0['seconds']:.2f} s, {e0['collectives']} collectives, "
+            f"launches {e0['launches']}; ranks' tokens bitwise equal")
+        log(f"model axis (e) {arch}: {r0['seconds']:.1f} s on rank 0 "
+            f"(training {r0['train_s']:.1f}, serving {r0['serve_s']:.1f})")
+    return out
+
+
 def model_axis_faults(smi: str) -> dict:
     """``--model-axis-faults``: the readings behind MODEL_AXIS_LOSS_ATOL.
     The task at P = 2 under ``dense_masked`` for ROUNDS rounds, sound and
@@ -2488,10 +2985,11 @@ def model_axis_faults(smi: str) -> dict:
                  fault=f) for f in (None, *MODEL_AXIS_FAULTS)]
     jobs.append(dict(name="serve", kind="serve",
                      faults=[None, *MODEL_AXIS_SERVE_FAULTS], free=True))
+    jobs += ssm_jobs(faults=True)
     ranks = spawn(model_axis_rank, MODEL_AXIS, "gloo", args=(jobs,),
-                  timeout=MODEL_AXIS_TIMEOUT_S)
+                  timeout=3 * MODEL_AXIS_TIMEOUT_S)
     out = {"card": smi, "p1": one, "loss_atol": MODEL_AXIS_LOSS_ATOL}
-    for job in jobs[:-1]:
+    for job in [j for j in jobs if j["kind"] == "run"]:
         losses = ranks[0]["results"][job["name"]]["losses"]
         out[job["name"]] = {"losses": losses, "gaps": loss_gaps(losses, one)}
         log(f"model axis fault {job['name']}: losses {losses}, gaps "
@@ -2528,6 +3026,27 @@ def model_axis_faults(smi: str) -> dict:
             f"{[f'{m:.3e}' for m in f['margins']]}; decode "
             f"{f['decode_ms']:.2f} ms a step; {smi}")
     out["serve"]["p1"] = serve["p1"]
+    out["ssm"] = {"first_round_atol": MODEL_AXIS_SSM_FIRST_ROUND_ATOL,
+                  "loss_atol": MODEL_AXIS_SSM_LOSS_ATOL,
+                  "logits_atol": MODEL_AXIS_SSM_LOGITS_ATOL,
+                  "logits_mean_atol": MODEL_AXIS_SSM_LOGITS_MEAN_ATOL}
+    for arch in MODEL_AXIS_SSM_ARCHS:
+        sound = ranks[0]["results"][f"ssm {arch}"]
+        for job in [j for j in jobs if j["kind"] == "ssm"
+                    and j["arch"] == arch]:
+            key = job.get("fault") or "sound"
+            g = ssm_gaps(sound, ranks[0]["results"][job["name"]])
+            out["ssm"][f"{arch} {key}"] = g
+            log(f"model axis (e) {arch} {key}: loss gaps to P = 1 a round "
+                f"{[f'{x:.3e}' for x in g.get('loss_gaps', [])]} (allowed "
+                f"{MODEL_AXIS_SSM_FIRST_ROUND_ATOL} in round 1, "
+                f"{MODEL_AXIS_SSM_LOSS_ATOL} after); logits gaps a step max "
+                f"{max(g['logits_gaps']) if 'logits_gaps' in g else None}, "
+                f"mean up to "
+                f"{max(g['mean_gaps']) if 'mean_gaps' in g else None} "
+                f"(allowed {MODEL_AXIS_SSM_LOGITS_ATOL}, "
+                f"{MODEL_AXIS_SSM_LOGITS_MEAN_ATOL}); mean gaps "
+                f"{[f'{x:.3e}' for x in g.get('mean_gaps', [])]}; {smi}")
     print(json.dumps({"model_axis_faults": out}), flush=True)
     return out
 
@@ -4878,6 +5397,8 @@ def main(argv: list[str]) -> int:
                        for arch, shape in SWA_CONFIG_SHAPES.items()}
     swa_partial_row = phase_time_swa(gen, SWA_PARTIAL_SHAPES[0],
                                      partial=True)
+    swa_partial_zamba2 = phase_time_swa(gen, SWA_PARTIAL_SHAPES[-1],
+                                        partial=True)
     threefry_row = phase_time_threefry()
     done("phase 9, timings")
 
@@ -4902,8 +5423,13 @@ def main(argv: list[str]) -> int:
             row["launches_family_training"] = {
                 arch: f["launches"][name] + f["launches"][rn]
                 for arch, f in family_training.items()}
-            # each rank's row launches over phase 5d's 4 rounds
+            # each rank's row launches over phase 5d's 4 rounds, and over
+            # (e)'s rounds of the ssm and hybrid families
             row["launches_model_axis"] = model_axis["launches"][name]
+            row["launches_model_axis_ssm"] = {
+                arch: a["launches_rows"][rn]
+                for arch, a in model_axis["ssm"].items()
+                if isinstance(a, dict) and "launches_rows" in a}
             if name != "sparsify_ef":
                 row["launches_sparse_gather"] = sparse_launches[rn]
                 row["at_sparse_gather_rows"] = sparse_launches["timing"][
@@ -4979,7 +5505,14 @@ def main(argv: list[str]) -> int:
         "launches": serve["free"]["launches"]["swa_decode_partial"],
         "launches_model_axis_serve": {
             key: r["launches"]["swa_decode_partial"]
-            for key, r in serve["runs"].items()}} | swa_partial_row)
+            for key, r in serve["runs"].items()},
+        # phase 5d (e): zamba2-1.2b's fed and free runs, a rank
+        "launches_model_axis_ssm_serve": {
+            arch: {run: a[run]["launches"].get("swa_decode_partial", 0)
+                   for run in ("serve", "free") if run in a}
+            for arch, a in model_axis["ssm"].items()
+            if isinstance(a, dict) and "serve" in a},
+        "at_zamba2_shard": swa_partial_zamba2} | swa_partial_row)
     # the weights' draw: the port's own kernel, with no Pallas counterpart
     # (the reference's jax.random.normal draw is at ``replaces``)
     kernels.append({

@@ -141,14 +141,14 @@ def fl_axis_name(mesh: Mesh) -> str:
 def fl_shards(mesh: Mesh) -> int:
     """The number of ranks the FL-device axis spreads over, for the
     simulator's engines.  They take no model axis (nor do the reference's
-    engines in its tests): the model axis trains the dense transformers
-    (``launch.steps``), and a model axis under the engines stays open
-    (ROADMAP A12c)."""
+    engines in its tests): the model axis trains and serves the dense,
+    ssm and hybrid transformers (``launch.steps``), and a model axis under
+    the engines stays open (ROADMAP A12c)."""
     if mesh.shape.get("model", 1) > 1:
         raise NotImplementedError(
             "the simulator's engines take no model axis: a mesh with a "
-            "model axis > 1 runs only the dense transformers' training "
-            "(launch.steps; the engines under it are ROADMAP A12c)")
+            "model axis > 1 runs only the transformers' training and "
+            "serving (launch.steps; the engines under it are ROADMAP A12c)")
     return int(mesh.shape[fl_axis_name(mesh)])
 
 

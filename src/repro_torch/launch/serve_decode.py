@@ -119,11 +119,13 @@ def serve(params: dict, cfg: ArchConfig, prompts: torch.Tensor, gen: int, *,
     finite.  With ``profile_steps`` (on the card) that many more steps run
     under the profiler afterwards; ``pos`` and the cache include them.
 
-    ``mesh`` with a model axis P > 1 (the dense family, ROADMAP A12b):
-    every rank of it calls ``serve`` with its shards of the params
-    (``launch.sharding_rules.param_specs``) and the same prompts; the
-    cache is split on its slots as ``cache_specs`` splits it, and every
-    rank returns the same tokens.  ``cache_slots`` is the whole cache's.
+    ``mesh`` with a model axis P > 1 (the dense family, ROADMAP A12b; the
+    ssm and hybrid families, A12c): every rank of it calls ``serve`` with
+    its shards of the params (``launch.sharding_rules.param_specs``) and
+    the same prompts; the cache is split as ``cache_specs`` splits it (the
+    K/V on their slots, the SSD conv tails on their channels and states on
+    their heads), and every rank returns the same tokens.
+    ``cache_slots`` is the whole cache's.
     """
     dev = prompts.device
     b, p = prompts.shape

@@ -31,9 +31,12 @@ cache, the optimizer's state tuples.  A mesh is anything with
 In place of the reference's ``place`` (``jax.device_put`` onto named
 shardings), :func:`shard` cuts the block of a tensor that one rank keeps,
 and :func:`unshard` puts the blocks of every rank back together.  The rules
-cover every arch; the port's model axis runs the dense family's training
-(ROADMAP A12) and serving (A12b), which read only the dense rules and the
-K/V cache's.
+cover every arch; the port's model axis trains and serves the dense family
+(ROADMAP A12, A12b) and the ssm and hybrid families (A12c), which read the
+dense rules, the SSD ones (``in_proj`` column blocks, ``out_proj`` row
+blocks, the rest whole) and the caches' (K/V split on the slots, the SSD
+conv tails on their channels, the states on their heads).  The MoE, vlm
+and audio families' rules are not yet read by any step.
 """
 from __future__ import annotations
 

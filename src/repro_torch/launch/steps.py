@@ -37,11 +37,15 @@ does (``core.fl.sgd_update``, ``kernels.ref.ftz``).
 the whole batch (microbatches accumulated in f32), through
 :mod:`repro_torch.optim`.
 
-Both train steps take a ``mesh`` with a model axis P > 1 (ROADMAP A12,
-the dense family): params, error memory and gradients are then each
-rank's shards (``sharding_rules.param_specs``) for all M devices, the
-forward and backward run tensor-parallel (``transformer.lm_loss(...,
-mesh=)``), and the three LGC row kernels run on each rank's shards of a
+Both train steps take a ``mesh`` with a model axis P > 1 (ROADMAP A12:
+the dense family; A12c: the ssm and hybrid families): params, error
+memory and gradients are then each rank's shards
+(``sharding_rules.param_specs``) for all M devices, the forward and
+backward run tensor-parallel (``transformer.lm_loss(..., mesh=)``), the
+gradients of the SSD leaves held whole but used a head block at a time
+are summed over the ranks (``transformer.sum_split_use_grads``) before
+the optimizer or the local SGD step, and the three LGC row kernels run on
+each rank's shards of a
 split leaf under ``dense_masked``: the rows' maxima from
 ``sum_maxabs_rows`` are reduced with a MAX over the model group, the
 256-bin counts that ``histogram_rows`` takes of the shard under the global
@@ -138,7 +142,7 @@ def model_specs(cfg: ArchConfig, mesh) -> dict | None:
     above 1 (the leaves are then each rank's shards), else None."""
     if mesh is None or mesh.model_size == 1:
         return None
-    tf.model_axis_mesh(cfg, mesh)          # the dense family, P | n_kv_heads
+    tf.model_axis_mesh(cfg, mesh)    # dense, ssm, hybrid; P | the heads
     if mesh.shape.get("data", 1) != 1:
         raise ValueError(f"the model axis trains on a (data=1, model=P) "
                          f"mesh, the FL devices as rows; got {mesh.shape}")
@@ -155,7 +159,8 @@ def make_sync_train_step(cfg: ArchConfig, *, accum_steps: int = 1,
     consecutive rows whose gradients are summed in f32, then divided and
     cast to each parameter's dtype, and whose losses are averaged.
     ``mesh`` with a model axis: params and state are this rank's shards,
-    the batch is whole on every rank."""
+    the batch is whole on every rank, and the split-use SSD leaves'
+    gradients are summed over the ranks before the optimizer sees them."""
     specs = model_specs(cfg, mesh)
     _, opt_update = get_optimizer(cfg.optimizer, opt_cfg, mesh=mesh,
                                   specs=specs)
@@ -167,7 +172,8 @@ def make_sync_train_step(cfg: ArchConfig, *, accum_steps: int = 1,
             loss = tf.lm_loss(dict(zip(names, leaves)), cfg, batch,
                               mesh=mesh)
             grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), dict(zip(names, grads))
+        return loss.detach(), tf.sum_split_use_grads(
+            cfg, dict(zip(names, grads)), mesh)
 
     @torch.no_grad()
     def train_step(params, opt_state, batch):
@@ -619,7 +625,8 @@ def make_lgc_train_step(cfg: ArchConfig, m_devices: int,
     error memory fill most of a card); the caller keeps only the returned
     state.
 
-    ``mesh`` with a model axis P > 1 (the dense family): ``params`` hold
+    ``mesh`` with a model axis P > 1 (the dense, ssm and hybrid
+    families): ``params`` hold
     this rank's shards and ``ef`` its (M, *shard) rows, the batch is whole
     on every rank, and every rank returns the same loss (module
     docstring).  Kernel routing and budgets read each leaf's WHOLE size.
@@ -644,11 +651,13 @@ def make_lgc_train_step(cfg: ArchConfig, m_devices: int,
                                   _rows_of(batch, slice(i * mb,
                                                         (i + 1) * mb)),
                                   mesh=mesh)
-                grads = torch.autograd.grad(loss, leaves)
+                grads = tf.sum_split_use_grads(
+                    cfg, dict(zip(names, torch.autograd.grad(loss, leaves))),
+                    mesh)
             with torch.no_grad():
                 p = {k: sgd_update(w.to(torch.float32),
-                                   g.to(torch.float32), lr).to(w.dtype)
-                     for k, w, g in zip(names, leaves, grads)}
+                                   grads[k].to(torch.float32), lr).to(w.dtype)
+                     for k, w in zip(names, leaves)}
                 loss_sum = loss_sum + loss.detach()
         return p, loss_sum
 
@@ -743,9 +752,10 @@ def make_prefill_step(cfg: ArchConfig, cache_len: int | None = None, *,
     """``f(params, batch) -> (logits (B,Vp), cache)`` on ``device`` (None
     means the card, or ``mesh.device`` under a mesh); the prompt tokens,
     and the modality prefix where the batch has one, are moved there.
-    ``mesh`` with a model axis P > 1 (the dense family): ``params`` are
-    this rank's shards (``sharding_rules.param_specs``) and the cache this
-    rank's block (``cache_specs``), see :func:`transformer.prefill`."""
+    ``mesh`` with a model axis P > 1 (the dense, ssm and hybrid families):
+    ``params`` are this rank's shards (``sharding_rules.param_specs``) and
+    the cache this rank's block (``cache_specs``), see
+    :func:`transformer.prefill`."""
     dev = resolve_device(device if device is not None or mesh is None
                          else mesh.device)
     tf.model_axis_mesh(cfg, mesh)

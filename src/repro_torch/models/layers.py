@@ -33,10 +33,20 @@ NEG_INF = -1e30
 # norms
 # ---------------------------------------------------------------------------
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
-            ) -> torch.Tensor:
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6, *,
+            mesh=None) -> torch.Tensor:
+    """RMSNorm over the last dim.  ``mesh`` with a model axis of P ranks:
+    ``x`` and ``scale`` are this rank's block of that dim (the SSD gated
+    norm's d_inner, split by heads), whose squares are summed over the
+    ranks (:func:`repro_torch.parallel.sum_over_model`) and divided by the
+    whole dim."""
     xf = x.to(torch.float32)
-    var = (xf * xf).mean(-1, keepdim=True)
+    n = parallel.model_size(mesh)
+    if n == 1:
+        var = (xf * xf).mean(-1, keepdim=True)
+    else:
+        var = parallel.sum_over_model(
+            mesh, (xf * xf).sum(-1, keepdim=True)) / (xf.shape[-1] * n)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale
 
 

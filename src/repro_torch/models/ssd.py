@@ -10,16 +10,38 @@ Shapes: x (B, S, D); heads H = d_inner / head_dim, head dim P, state N.
 The dtypes are the reference's: the SSD core runs in f32 and returns y in
 x's dtype and the state in f32; the causal conv adds its K products in
 order 0..K-1 in the input dtype.
+
+Under a model axis of P ranks (``mesh=``, ROADMAP A12c) a rank runs
+H / P heads.  Its leaves are ``launch.sharding_rules``' blocks: contiguous
+column blocks of ``in_proj`` (D, 2 di + 2 ns + nh), which do not line up
+with heads (rank 0 of mamba2-370m at P = 2 holds z and x channels 0-143),
+row blocks of ``out_proj`` (its heads' rows), and the rest whole.  So the
+block gathers ``x @ in_proj``'s columns once (:func:`repro_torch.parallel.
+gather_columns`) and takes its heads' z, x and dt and the whole B and C;
+the conv, the scan and the D skip run on its heads; the gated RMSNorm
+sums its squares over the ranks (:func:`layers.rmsnorm`'s ``mesh``), and
+``out_proj``'s partial outputs are summed.  The leaves held whole but
+used a head block at a time (:data:`SPLIT_USE`) get a partial gradient on
+each rank, which the train steps sum over the ranks.  A decode step
+convolves the channels of its block of the conv cache (``cache_specs``
+splits C, not heads) and gathers the conv's output; a conv cache held
+whole is convolved whole.  At P = 1 every function runs the ops it ran
+before the model axis.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import parallel
 from repro_torch.core import prng
 from .layers import _split_each, normal, rmsnorm
 
 NEG_MASK = -1e30
+#: the SSD leaves held whole on every rank whose use the model axis splits
+#: by heads (``conv_w`` / ``conv_b``: x's channels by head; B's and C's are
+#: used by every head, each rank's giving part of their gradient)
+SPLIT_USE = ("a_log", "conv_b", "conv_w", "d_skip", "dt_bias", "norm_scale")
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -168,51 +190,122 @@ def ssd_step(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     return y.to(x.dtype), h_new
 
 
+def local_ssm_heads(cfg, model: int) -> int:
+    """H / P: the SSD heads each of ``model`` = P ranks runs."""
+    nh = cfg.ssm_heads
+    if model < 1 or nh % model:
+        raise ValueError(f"a model axis of {model} must divide ssm_heads="
+                         f"{nh}: each rank runs whole SSD heads")
+    return nh // model
+
+
+def conv_channels(cfg, mesh) -> int:
+    """The conv cache's channels a rank holds (``sharding_rules.
+    cache_specs``): C / P when P divides C = d_inner + 2 ns, else C."""
+    c, p = cfg.d_inner + 2 * cfg.ssm_state, parallel.model_size(mesh)
+    return c // p if c % p == 0 else c
+
+
+def conv_block(t: torch.Tensor, width: int, mesh) -> torch.Tensor:
+    """This rank's ``width`` channels of ``t`` (..., C): its block in rank
+    order, or all of them when ``width`` is C."""
+    if width == t.shape[-1]:
+        return t
+    lo = mesh.model_rank * width
+    return t[..., lo:lo + width]
+
+
+def _heads(p: dict, cfg, mesh) -> tuple[dict, slice, slice]:
+    """``p`` with this rank's entries of the per-head and per-channel
+    leaves held whole (:data:`SPLIT_USE`; the conv's x channels and every
+    B and C channel), and the slices of its heads and of its x channels;
+    ``p`` itself and whole slices at P = 1."""
+    n = parallel.model_size(mesh)
+    if n == 1:
+        return p, slice(None), slice(None)
+    hl = local_ssm_heads(cfg, n)
+    di, r = cfg.d_inner, mesh.model_rank
+    heads = slice(r * hl, (r + 1) * hl)
+    xs = slice(r * hl * cfg.ssm_head_dim, (r + 1) * hl * cfg.ssm_head_dim)
+    out = dict(p)
+    for k in ("a_log", "dt_bias", "d_skip"):
+        out[k] = p[k][heads]
+    out["norm_scale"] = p["norm_scale"][xs]
+    for k in ("conv_w", "conv_b"):
+        out[k] = torch.cat([p[k][..., xs], p[k][..., di:]], -1)
+    return out, heads, xs
+
+
+def _in_proj(x: torch.Tensor, p: dict, mesh) -> torch.Tensor:
+    """``x @ in_proj`` whole on every rank: under a model axis each rank's
+    column block, gathered (``x``'s gradient summed over the ranks)."""
+    return parallel.gather_columns(
+        mesh, parallel.copy_to_model(mesh, x) @ p["in_proj"])
+
+
 def _gate_out(y: torch.Tensor, xh: torch.Tensor, z: torch.Tensor,
-              p: dict) -> torch.Tensor:
+              p: dict, mesh=None) -> torch.Tensor:
     """D skip (in y's dtype), the gated RMSNorm and the out projection;
-    y, xh: (..., H, P); z: (..., d_inner)."""
+    y, xh: (..., H, P); z: (..., d_inner).  Under a model axis this rank's
+    heads and d_inner / P channels, the norm's squares and the
+    projection's partial outputs summed over the ranks."""
     skip = p["d_skip"][:, None].to(y.dtype)
     y = (y + xh.to(y.dtype) * skip).reshape(z.shape)
-    return (rmsnorm(y, p["norm_scale"]) * F.silu(z)) @ p["out_proj"]
+    return parallel.reduce_from_model(mesh, (rmsnorm(
+        y, p["norm_scale"], mesh=mesh) * F.silu(z)) @ p["out_proj"])
 
 
-def ssm_block(x: torch.Tensor, p: dict, cfg
+def ssm_block(x: torch.Tensor, p: dict, cfg, mesh=None
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full mamba2 block over a sequence. x: (B,S,D) -> (y, final_state,
     conv tail (B, K-1, C): the last K-1 pre-conv inputs, the decode
-    cache's ``conv``)."""
+    cache's ``conv``).  Under a model axis (``mesh``) the state is this
+    rank's heads' (B, H/P, P, N) and the tail whole (module docstring)."""
     di, ns = cfg.d_inner, cfg.ssm_state
-    zxbcdt = x @ p["in_proj"]
+    zxbcdt = _in_proj(x, p, mesh)
     z, xbc, dt = _split_in_proj(zxbcdt, cfg)
     conv_tail = xbc[:, -(cfg.ssm_conv - 1):, :]
+    p, heads, xs = _heads(p, cfg, mesh)
+    if parallel.model_size(mesh) > 1:
+        z, dt = z[..., xs], dt[..., heads]
+        xbc = torch.cat([xbc[..., xs], xbc[..., di:]], -1)
+        di = z.shape[-1]
     xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
-    xs = xbc[..., :di]
     b_mat = xbc[..., di:di + ns].to(torch.float32)
     c_mat = xbc[..., di + ns:].to(torch.float32)
     dt = softplus(dt.to(torch.float32) + p["dt_bias"])
     bsz, s, _ = x.shape
-    xh = xs.reshape(bsz, s, cfg.ssm_heads, cfg.ssm_head_dim)
+    xh = xbc[..., :di].reshape(bsz, s, -1, cfg.ssm_head_dim)
     y, h_final = ssd_chunked(xh, dt, p["a_log"], b_mat, c_mat, cfg.ssm_chunk)
-    return _gate_out(y, xh, z, p), h_final, conv_tail
+    return _gate_out(y, xh, z, p, mesh), h_final, conv_tail
 
 
 def ssm_block_step(x: torch.Tensor, p: dict, cfg, conv_tail: torch.Tensor,
-                   state: torch.Tensor
+                   state: torch.Tensor, mesh=None
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode token. x: (B,1,D); conv_tail: (B,K-1,C); state
-    (B,H,P,N) -> (y (B,1,D), new tail, new state)."""
+    (B,H,P,N) -> (y (B,1,D), new tail, new state).  Under a model axis
+    (``mesh``) the tail is this rank's block of C / P channels
+    (:func:`conv_channels`; whole when P does not divide C) and the state
+    its heads': the rank convolves its block, the blocks' outputs are
+    gathered, and it takes its heads' x and the whole B and C."""
     di, ns = cfg.d_inner, cfg.ssm_state
-    zxbcdt = x @ p["in_proj"]
+    zxbcdt = _in_proj(x, p, mesh)
     z, xbc, dt = _split_in_proj(zxbcdt, cfg)
-    hist = torch.cat([conv_tail, xbc], 1)                  # (B,K,C)
+    width = conv_tail.shape[-1]
+    hist = torch.cat([conv_tail, conv_block(xbc, width, mesh)], 1)  # (B,K,c)
     kk = p["conv_w"].shape[0]
-    conv_out = sum(hist[:, i] * p["conv_w"][i] for i in range(kk))
-    xbc1 = F.silu(conv_out + p["conv_b"])                  # (B,C)
-    xs = xbc1[..., :di]
+    w, b = (conv_block(p[k], width, mesh) for k in ("conv_w", "conv_b"))
+    conv_out = sum(hist[:, i] * w[i] for i in range(kk))
+    xbc1 = F.silu(conv_out + b)                            # (B,c)
+    if width != xbc.shape[-1]:
+        xbc1 = parallel.gather_columns(mesh, xbc1)         # (B,C)
+    p, heads, xs = _heads(p, cfg, mesh)
+    x_loc = xbc1[..., :di][..., xs]
     b_vec = xbc1[..., di:di + ns].to(torch.float32)
     c_vec = xbc1[..., di + ns:].to(torch.float32)
-    dt1 = softplus(dt[:, 0].to(torch.float32) + p["dt_bias"])
-    xh = xs.reshape(-1, cfg.ssm_heads, cfg.ssm_head_dim)
+    dt1 = softplus(dt[:, 0, heads].to(torch.float32) + p["dt_bias"])
+    xh = x_loc.reshape(x.shape[0], -1, cfg.ssm_head_dim)
     y, state_new = ssd_step(xh, dt1, p["a_log"], b_vec, c_vec, state)
-    return _gate_out(y, xh, z[:, 0], p)[:, None], hist[:, 1:], state_new
+    return (_gate_out(y, xh, z[:, 0, xs], p, mesh)[:, None], hist[:, 1:],
+            state_new)

@@ -42,6 +42,12 @@ copy_to_model` before the column-parallel ``wq`` / ``wk`` / ``wv`` and
 ``w_gate`` / ``w_up``, ``reduce_from_model`` after the row-parallel
 ``wo`` and ``w_down``, and a vocab-parallel cross-entropy.  The blocks are
 the same functions at P = 1, where those collectives return their input.
+The ssm and hybrid families train so too (A12c): each SSD block runs
+H / P heads (:mod:`repro_torch.models.ssd`: ``in_proj``'s output gathered,
+the gated norm's squares summed over the ranks), the hybrid's shared block
+as a dense block at each of its sites, and the SSD leaves held whole but
+used a head block at a time get their gradients summed over the ranks
+(:func:`sum_split_use_grads`, called by the train steps).
 
 It also serves there (A12b): the decode cache is split on its slots as
 ``sharding_rules.cache_specs`` splits it (S / P slots a rank, every KV
@@ -54,6 +60,9 @@ writes the K/V, each rank attends over its slots through ``swa_decode``'s
 partial form and the ranks' softmax states merge; the rank's heads of the
 merged attention go through its rows of ``wo``.  The vocab-parallel
 logits are gathered whole, so every rank takes the same greedy token.
+The ssm and hybrid families serve there too: the SSD state is split on
+its heads and the conv tail on its channels (``cache_specs``), the
+hybrid's K/V sites on their slots as the dense family's cache.
 """
 from __future__ import annotations
 
@@ -264,9 +273,9 @@ def _attn_block_train(x: torch.Tensor, bp: dict, cfg: ArchConfig,
     """One attention + FFN block over the full sequence; returns (x, the
     MoE's aux loss or None).  With ``enc_out`` (the audio decoder) the
     block cross-attends to the encoder output, non-causally, after its
-    self-attention.  Under a model axis (``mesh``, the dense family) the
-    block runs on this rank's heads and MLP columns, its row-parallel
-    outputs summed over the ranks."""
+    self-attention.  Under a model axis (``mesh``: the dense family, the
+    hybrid's shared block) the block runs on this rank's heads and MLP
+    columns, its row-parallel outputs summed over the ranks."""
     n_h, n_kv = local_heads(cfg.n_heads, cfg.n_kv_heads,
                             parallel.model_size(mesh))
     h = parallel.copy_to_model(mesh, apply_norm(x, bp["norm1"], cfg.norm))
@@ -291,25 +300,28 @@ def _attn_block_train(x: torch.Tensor, bp: dict, cfg: ArchConfig,
     return _ffn(x, bp, cfg, mesh)
 
 
-def _ssm_block_train(x: torch.Tensor, bp: dict, cfg: ArchConfig
+def _ssm_block_train(x: torch.Tensor, bp: dict, cfg: ArchConfig, mesh=None
                      ) -> torch.Tensor:
     """One SSD block over the full sequence (its final state and conv tail
-    are dropped)."""
+    are dropped); head-parallel under a model axis (``mesh``)."""
     y, _, _ = ssd_lib.ssm_block(apply_norm(x, bp["norm1"], cfg.norm),
-                                bp["ssm"], cfg)
+                                bp["ssm"], cfg, mesh)
     return x + y
 
 
 def _hybrid_train(x: torch.Tensor, params: Params, cfg: ArchConfig,
-                  positions: torch.Tensor, window: int) -> torch.Tensor:
+                  positions: torch.Tensor, window: int, mesh=None
+                  ) -> torch.Tensor:
     """zamba2: the shared attention block at the start of each run of
-    ``attn_every`` SSD blocks (its aux loss dropped, as the reference's)."""
+    ``attn_every`` SSD blocks (its aux loss dropped, as the reference's);
+    its gradient sums over the sites."""
     period = cfg.attn_every or cfg.n_layers
     shared = subtree(params, "shared")
     for i, bp in enumerate(layer_params(params)):
         if i % period == 0:
-            x, _ = _attn_block_train(x, shared, cfg, positions, window=window)
-        x = _ssm_block_train(x, bp, cfg)
+            x, _ = _attn_block_train(x, shared, cfg, positions, window=window,
+                                     mesh=mesh)
+        x = _ssm_block_train(x, bp, cfg, mesh)
     return x
 
 
@@ -329,7 +341,8 @@ def forward_hidden(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     the encoder output in every block.
 
     ``mesh`` with a model axis P > 1: ``params`` are this rank's shards
-    and the dense family's blocks run tensor-parallel (module docstring).
+    and the dense, ssm and hybrid families' blocks run tensor-parallel
+    (module docstring).
     """
     _check_arch(cfg)
     tp = model_axis_mesh(cfg, mesh)
@@ -353,9 +366,9 @@ def forward_hidden(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
                 aux = aux + a
     elif cfg.arch_type == "ssm":
         for bp in layer_params(params):
-            x = _ssm_block_train(x, bp, cfg)
+            x = _ssm_block_train(x, bp, cfg, tp)
     elif cfg.arch_type == "hybrid":
-        x = _hybrid_train(x, params, cfg, positions, window)
+        x = _hybrid_train(x, params, cfg, positions, window, tp)
     else:                                                   # audio
         enc = _encode(params, cfg, prefix)
         x = x + params["dec_pos"][
@@ -418,20 +431,52 @@ def lm_loss(params: Params, cfg: ArchConfig, batch: dict, *,
 
 
 # ===========================================================================
-# the model axis: the dense family tensor-parallel
+# the model axis: the dense, ssm and hybrid families tensor-parallel
 # ===========================================================================
 
+#: the families that train and serve under a model axis above 1
+MODEL_AXIS_FAMILIES = ("dense", "ssm", "hybrid")
+
+
 def model_axis_mesh(cfg: ArchConfig, mesh):
-    """``mesh`` when it has a model axis above 1 (only the dense family
-    trains and serves on one), else None."""
+    """``mesh`` when it has a model axis above 1 (the dense, ssm and hybrid
+    families train and serve on one: P must divide the attention's kv
+    heads and the SSD heads), else None."""
     if mesh is None or mesh.model_size == 1:
         return None
-    if cfg.arch_type != "dense":
+    if cfg.arch_type not in MODEL_AXIS_FAMILIES:
         raise NotImplementedError(
             f"the {cfg.arch_type} family does not train or serve under a "
-            f"model axis yet (ROADMAP A12c); only the dense family does")
-    local_heads(cfg.n_heads, cfg.n_kv_heads, mesh.model_size)
+            f"model axis yet (ROADMAP A12c); the "
+            f"{', '.join(MODEL_AXIS_FAMILIES)} families do")
+    if cfg.arch_type in ("dense", "hybrid"):
+        local_heads(cfg.n_heads, cfg.n_kv_heads, mesh.model_size)
+    if cfg.arch_type in ("ssm", "hybrid"):
+        ssd_lib.local_ssm_heads(cfg, mesh.model_size)
     return mesh
+
+
+def split_use_leaves(cfg: ArchConfig, names) -> list[str]:
+    """The leaves of ``names`` held whole on every rank whose use the model
+    axis splits by heads: the SSD blocks' :data:`ssd.SPLIT_USE`."""
+    if cfg.arch_type not in ("ssm", "hybrid"):
+        return []
+    return [k for k in names if k.startswith("blocks/ssm/")
+            and k.rsplit("/", 1)[-1] in ssd_lib.SPLIT_USE]
+
+
+def sum_split_use_grads(cfg: ArchConfig, grads: dict, mesh) -> dict:
+    """``grads`` (this rank's, by leaf) with the gradients of
+    :func:`split_use_leaves` summed over the model group, in one
+    collective: each rank's gives only its heads' part, and the step must
+    see the whole gradient (the same on every rank) before the optimizer
+    or the LGC compression.  ``grads`` itself without a model axis."""
+    tp = model_axis_mesh(cfg, mesh)
+    keys = split_use_leaves(cfg, grads) if tp is not None else []
+    if not keys:
+        return grads
+    summed = parallel.all_reduce_sum_tensors(tp, [grads[k] for k in keys])
+    return grads | dict(zip(keys, summed))
 
 
 def _embed_tp(embed: torch.Tensor, tokens: torch.Tensor, mesh
@@ -485,12 +530,16 @@ def _kv_cache(cfg: ArchConfig, n_l: int, batch: int, length: int,
             "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
 
 
-def _ssm_cache(cfg: ArchConfig, batch: int, dev: torch.device) -> dict:
-    c = cfg.d_inner + 2 * cfg.ssm_state
+def _ssm_cache(cfg: ArchConfig, batch: int, dev: torch.device, mesh=None
+               ) -> dict:
+    """The SSD blocks' conv tails and states; under a model axis this
+    rank's block of the channels (``ssd.conv_channels``) and its heads."""
+    heads = ssd_lib.local_ssm_heads(cfg, parallel.model_size(mesh))
     return {
-        "conv": torch.zeros((cfg.n_layers, batch, cfg.ssm_conv - 1, c),
+        "conv": torch.zeros((cfg.n_layers, batch, cfg.ssm_conv - 1,
+                             ssd_lib.conv_channels(cfg, mesh)),
                             dtype=cfg.dtype, device=dev),
-        "state": torch.zeros((cfg.n_layers, batch, cfg.ssm_heads,
+        "state": torch.zeros((cfg.n_layers, batch, heads,
                               cfg.ssm_head_dim, cfg.ssm_state),
                              dtype=torch.float32, device=dev)}
 
@@ -515,22 +564,25 @@ def _split_kv(cache: dict, mesh):
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
                device: str | torch.device | None = None, mesh=None) -> dict:
     """Zeroed decode cache sized for ``cache_len`` positions; ``device=None``
-    means the card.  Under a model axis (``mesh``, the dense family) this
-    rank's block of it (:func:`local_slots`), with ``"slots"`` =
-    ``cache_len``."""
+    means the card.  Under a model axis (``mesh``: the dense, ssm and
+    hybrid families) this rank's block of it (``sharding_rules.
+    cache_specs``): the K/V's :func:`local_slots`, with ``"slots"`` =
+    ``cache_len`` where there are K/V, the SSD conv tails' block of
+    channels and the states' heads."""
     _check_arch(cfg)
     dev = resolve_device(device)
     tp = model_axis_mesh(cfg, mesh)
     cache: dict = {"pos": 0}
-    if tp is not None:
+    if tp is not None and cfg.arch_type != "ssm":
         cache["slots"] = cache_len
     if cfg.arch_type in _ATTN:
         cache["kv"] = _kv_cache(cfg, cfg.n_layers, batch,
                                 local_slots(cache_len, tp), dev)
     else:
-        cache["ssm"] = _ssm_cache(cfg, batch, dev)
+        cache["ssm"] = _ssm_cache(cfg, batch, dev, tp)
     if cfg.arch_type == "hybrid":
-        cache["kv"] = _kv_cache(cfg, _n_sites(cfg), batch, cache_len, dev)
+        cache["kv"] = _kv_cache(cfg, _n_sites(cfg), batch,
+                                local_slots(cache_len, tp), dev)
     if cfg.arch_type == "audio":
         cache |= _cross_cache(cfg, batch, cfg.encoder_seq, dev)
     return cache
@@ -603,13 +655,14 @@ def _attn_block_decode(x: torch.Tensor, bp: dict, cfg: ArchConfig,
 
 
 def _ssm_layer_decode(x: torch.Tensor, bp: dict, cfg: ArchConfig,
-                      ssm_cache: dict, layer: int) -> torch.Tensor:
+                      ssm_cache: dict, layer: int, mesh=None) -> torch.Tensor:
     """One SSD block on one token; writes the layer's conv tail and state
-    into ``ssm_cache``."""
+    (this rank's block of them under a model axis) into ``ssm_cache``."""
     h = apply_norm(x, bp["norm1"], cfg.norm)
     conv, state = ssm_cache["conv"], ssm_cache["state"]
     y, conv_n, state_n = ssd_lib.ssm_block_step(h, bp["ssm"], cfg,
-                                                conv[layer], state[layer])
+                                                conv[layer], state[layer],
+                                                mesh)
     conv[layer] = conv_n
     state[layer] = state_n
     return x + y
@@ -627,10 +680,10 @@ def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
     ``dec_pos[min(pos, max_position - 1)]`` to the token and attends to
     every one of the encoder's slots in each block.
 
-    ``mesh`` with a model axis P > 1 (the dense family): ``params`` and
-    ``cache`` are this rank's (:func:`init_cache`, :func:`prefill`), the
-    blocks run as the module docstring says, and every rank returns the
-    whole (B, Vp) logits, the same bits on each.
+    ``mesh`` with a model axis P > 1 (the dense, ssm and hybrid
+    families): ``params`` and ``cache`` are this rank's (:func:`init_cache`,
+    :func:`prefill`), the blocks run as the module docstring says, and
+    every rank returns the whole (B, Vp) logits, the same bits on each.
     """
     _check_arch(cfg)
     tp = model_axis_mesh(cfg, mesh)
@@ -658,14 +711,15 @@ def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
     else:
         period = cfg.attn_every or cfg.n_layers
         shared = subtree(params, "shared")
+        kv_mesh = _split_kv(cache, tp) if "kv" in cache else None
         for i, bp in enumerate(blocks):
             if cfg.arch_type == "hybrid" and i % period == 0:
                 site = i // period
                 x = _attn_block_decode(
                     x, shared, cfg, KVCache(cache["kv"]["k"][site],
                                             cache["kv"]["v"][site], None),
-                    pos, positions, window)
-            x = _ssm_layer_decode(x, bp, cfg, cache["ssm"], i)
+                    pos, positions, window, mesh=tp, kv_mesh=kv_mesh)
+            x = _ssm_layer_decode(x, bp, cfg, cache["ssm"], i, tp)
     x = apply_norm(x, subtree(params, "final_norm"), cfg.norm)
     logits = parallel.gather_columns(tp, logits_fn(params, cfg, x, tp)[:, 0])
     return logits, dict(cache, pos=pos + 1)
@@ -746,12 +800,14 @@ def _attn_prefill(x: torch.Tensor, bp: dict, cfg: ArchConfig,
 
 
 def _ssm_layer_prefill(x: torch.Tensor, bp: dict, cfg: ArchConfig,
-                       ssm_cache: dict, layer: int) -> torch.Tensor:
+                       ssm_cache: dict, layer: int, mesh=None) -> torch.Tensor:
     """One SSD block over the prompt; writes its conv tail and final state
-    into ``ssm_cache``."""
+    into ``ssm_cache`` (under a model axis its block of the tail's
+    channels, of which every rank holds all, and its heads' state)."""
     h = apply_norm(x, bp["norm1"], cfg.norm)
-    y, h_final, conv_tail = ssd_lib.ssm_block(h, bp["ssm"], cfg)
-    ssm_cache["conv"][layer] = conv_tail
+    y, h_final, conv_tail = ssd_lib.ssm_block(h, bp["ssm"], cfg, mesh)
+    conv = ssm_cache["conv"]
+    conv[layer] = ssd_lib.conv_block(conv_tail, conv.shape[-1], mesh)
     ssm_cache["state"][layer] = h_final
     return x + y
 
@@ -785,10 +841,10 @@ def prefill(params: Params, cfg: ArchConfig, batch: dict,
     decoder tokens taking ``dec_pos`` and cross-attending to the encoder
     output, whose K/V go to ``cross_k`` / ``cross_v``.
 
-    ``mesh`` with a model axis P > 1 (the dense family): ``params`` are
-    this rank's shards; the cache is this rank's block of it, with
-    ``"slots"`` (:func:`init_cache`), and every rank returns the whole
-    logits.
+    ``mesh`` with a model axis P > 1 (the dense, ssm and hybrid
+    families): ``params`` are this rank's shards; the cache is this rank's
+    block of it, with ``"slots"`` where it has K/V (:func:`init_cache`),
+    and every rank returns the whole logits.
     """
     _check_arch(cfg)
     tp = model_axis_mesh(cfg, mesh)
@@ -804,7 +860,7 @@ def prefill(params: Params, cfg: ArchConfig, batch: dict,
     s_cache = cache_len if cache_len is not None and cache_len > s else s
     cache: dict = {"pos": s}
     blocks = layer_params(params)
-    if tp is not None:
+    if tp is not None and cfg.arch_type != "ssm":
         cache["slots"] = s_cache
     if cfg.arch_type in _ATTN:
         kv = cache["kv"] = _kv_cache(cfg, cfg.n_layers, b,
@@ -821,17 +877,19 @@ def prefill(params: Params, cfg: ArchConfig, batch: dict,
             x = _attn_prefill(x, bp, cfg, positions, kv["k"][i], kv["v"][i],
                               enc, ck[i], cv[i], mesh=tp, kv_mesh=kv_mesh)
     else:
-        cache["ssm"] = _ssm_cache(cfg, b, dev)
+        cache["ssm"] = _ssm_cache(cfg, b, dev, tp)
         period = cfg.attn_every or cfg.n_layers
         if cfg.arch_type == "hybrid":
-            kv = cache["kv"] = _kv_cache(cfg, _n_sites(cfg), b, s_cache, dev)
+            kv = cache["kv"] = _kv_cache(cfg, _n_sites(cfg), b,
+                                         local_slots(s_cache, tp), dev)
+            kv_mesh = _split_kv(cache, tp)
             shared = subtree(params, "shared")
         for i, bp in enumerate(blocks):
             if cfg.arch_type == "hybrid" and i % period == 0:
                 site = i // period
                 x = _attn_prefill(x, shared, cfg, positions, kv["k"][site],
-                                  kv["v"][site])
-            x = _ssm_layer_prefill(x, bp, cfg, cache["ssm"], i)
+                                  kv["v"][site], mesh=tp, kv_mesh=kv_mesh)
+            x = _ssm_layer_prefill(x, bp, cfg, cache["ssm"], i, tp)
     x = apply_norm(x[:, -1:], subtree(params, "final_norm"), cfg.norm)
     logits = parallel.gather_columns(tp, logits_fn(params, cfg, x, tp)[:, 0])
     return logits, cache

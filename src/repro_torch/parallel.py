@@ -10,11 +10,17 @@ identity backward) are ``torch.autograd.Function`` s, Megatron's f and g;
 LGC statistics, the clip's norm); :func:`gather_model` rebuilds a whole
 leaf on every rank (checkpoints, checks).
 
-Serving (ROADMAP A12b) adds the all-gather, without gradient:
-:func:`gather_ranks` stacks every rank's tensor in rank order (the ranks'
-partial decode-attention states, which ``models.layers`` merges), and
+Serving (ROADMAP A12b) adds the all-gather: :func:`gather_ranks` stacks
+every rank's tensor in rank order, without gradient (the ranks' partial
+decode-attention states, which ``models.layers`` merges), and
 :func:`gather_columns` puts the ranks' columns side by side (the token's
-q / k / v, the vocab-parallel logits).
+q / k / v, the vocab-parallel logits, the SSD blocks' ``in_proj``
+output); its gradient is the sum over the model group of every rank's
+gradient of the whole, cut to the rank's columns.  :func:`sum_over_model`
+is a SUM whose gradient is summed too (the gated RMSNorm's sum of squares
+over d_inner, split by heads), and :func:`all_reduce_sum_tensors` sums a
+list of tensors in one collective (the SSD leaves held whole whose use
+the heads split: their gradients are partial on each rank).
 
 Each takes ``mesh=None`` (or a mesh whose model axis is 1) and then
 returns its input as it is, so one code path serves the model at P = 1,
@@ -155,9 +161,56 @@ def gather_ranks(mesh, x: torch.Tensor) -> torch.Tensor:
     return outs
 
 
+class _GatherColumns(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh, ctx.width = mesh, x.shape[-1]
+        return torch.cat(gather_ranks(mesh, x).unbind(0), -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.mesh.model_rank * ctx.width
+        whole = _all_reduce(ctx.mesh.model_group, g, dist.ReduceOp.SUM)
+        return whole[..., lo:lo + ctx.width].contiguous(), None
+
+
+class _SumOverModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(group, x, dist.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(ctx.group, g, dist.ReduceOp.SUM), None
+
+
 def gather_columns(mesh, x: torch.Tensor) -> torch.Tensor:
     """Every model rank's ``x`` (..., c) side by side on the last dim in
-    rank order: (..., P c), the same on every rank; no gradient."""
+    rank order: (..., P c), the same on every rank.  Every rank may use
+    any part of the whole, so the gradient of this rank's ``x`` is its
+    columns of the SUM over the ranks of the whole's gradients."""
     if model_size(mesh) == 1:
         return x
-    return torch.cat(gather_ranks(mesh, x).unbind(0), -1)
+    return _GatherColumns.apply(x, mesh)
+
+
+def sum_over_model(mesh, x: torch.Tensor) -> torch.Tensor:
+    """The sum of every model rank's ``x``, where each rank then uses the
+    sum in its own way (a statistic of a split dim): the sum's gradient
+    differs between the ranks, so it is summed over them too (where
+    :func:`reduce_from_model` passes it unchanged)."""
+    if model_size(mesh) == 1:
+        return x
+    return _SumOverModel.apply(x, mesh.model_group)
+
+
+def all_reduce_sum_tensors(mesh, tensors: list) -> list:
+    """Each of ``tensors`` summed over the model group, in one collective
+    (packed as f32, each cast back to its dtype); no gradient."""
+    if model_size(mesh) == 1 or not tensors:
+        return list(tensors)
+    flat = all_reduce_sum(mesh, torch.cat(
+        [t.detach().reshape(-1).to(torch.float32) for t in tensors]))
+    return [piece.view(t.shape).to(t.dtype) for piece, t in zip(
+        flat.split([t.numel() for t in tensors]), tensors)]

@@ -15,17 +15,23 @@ job on it, returning what the caller compares (numpy arrays, host floats):
   step's whole compression (``steps.make_lgc_compress``) of the sharded
   step against the unsharded one under an aggregate;
 * ``loss_grads``: the tensor-parallel ``lm_loss`` and its gradient,
-  gathered whole;
+  gathered whole after ``transformer.sum_split_use_grads``, and the
+  rank's own (unsummed) gradients of the leaves that sums;
 * ``task``: the 100M task at ``model_axis=P``: losses, each round's
   collectives and the LGC kernels' launches, and (``state``) the whole
   params and error memory after;
 * ``sync``: the sync step (``cfg.optimizer``) over given batches;
 * ``driver``: the train driver's rank body (``train.train``) on argv;
+* ``lgc`` (ROADMAP A12c): ``steps.make_lgc_train_step`` of a config from
+  the job's params over the job's batches and delivery masks: the losses,
+  each round's collectives, and the whole params and error memory after;
 * ``serve`` (ROADMAP A12b): each of the job's ``cases`` through the serve
   entry points at P ranks, from the rank's shards of the params: the
   prefill's logits and cache, then ``steps`` greedy steps' logits and
-  tokens and the final cache (this rank's block of it), and each run's
-  collectives.
+  tokens and the final cache (this rank's block of it: K/V, SSD conv
+  tails and states), and each run's collectives; with ``conv_whole`` the
+  prefill's conv tails are gathered whole on every rank before the steps
+  (the layout ``cache_specs`` gives a conv that P does not divide).
 """
 from __future__ import annotations
 
@@ -152,10 +158,13 @@ def _loss_grads(job: dict, mesh) -> dict:
     leaves = [shards[k].detach().requires_grad_(True) for k in names]
     with torch.enable_grad():
         loss = tf.lm_loss(dict(zip(names, leaves)), cfg, batch, mesh=mesh)
-        grads = torch.autograd.grad(loss, leaves)
+        own = dict(zip(names, torch.autograd.grad(loss, leaves)))
+    grads = tf.sum_split_use_grads(cfg, own, mesh)
     return {"loss": float(loss),
             "grads": {k: _numpy(parallel.gather_model(mesh, g, specs[k]))
-                      for k, g in zip(names, grads)}}
+                      for k, g in grads.items()},
+            "unsummed": {k: _numpy(own[k])
+                         for k in tf.split_use_leaves(cfg, names)}}
 
 
 def _task(job: dict, mesh) -> dict:
@@ -225,7 +234,45 @@ def _driver(job: dict, mesh) -> dict:
     return {"losses": train.train(train._parse(job["argv"]), mesh)}
 
 
+def _lgc(job: dict, mesh) -> dict:
+    from repro_torch import parallel
+    from repro_torch.launch import sharding_rules as rules
+    from repro_torch.launch import steps
+    from repro_torch.parallel import STATS
+    cfg = _config(job)
+    params = _params(job, cfg, mesh.device)
+    specs = rules.param_specs(cfg, params, mesh)
+    shards = rules.shard_tree(params, specs, mesh)
+    m = job.get("m", 2)
+    step = steps.make_lgc_train_step(
+        cfg, m, steps.LGCStepConfig(**job["step"]), mesh=mesh)
+    ef = steps.init_ef_tree(shards, m)
+    losses, collectives = [], []
+    for b, recv in zip(job["batches"], job["received"]):
+        batch = {k: torch.from_numpy(np.asarray(v)).to(mesh.device)
+                 for k, v in b.items()}
+        calls = STATS["calls"]
+        shards, ef, loss = step(shards, ef, batch,
+                                torch.from_numpy(np.asarray(recv)))
+        losses.append(float(loss))
+        collectives.append(STATS["calls"] - calls)
+    return {"losses": losses, "collectives": collectives,
+            "params": {k: _numpy(parallel.gather_model(mesh, v, specs[k]))
+                       for k, v in shards.items()},
+            "ef": {k: _numpy(parallel.gather_model(mesh, v,
+                                                   (None, *specs[k])))
+                   for k, v in ef.items()}}
+
+
+def _caches(cache: dict) -> dict:
+    """The cache's tensors as numpy copies by name (``k``, ``v``,
+    ``conv``, ``state``)."""
+    return {k: _numpy(t).copy() for g in ("kv", "ssm")
+            for k, t in cache.get(g, {}).items()}
+
+
 def _serve(job: dict, mesh) -> dict:
+    from repro_torch import parallel
     from repro_torch.launch import sharding_rules as rules
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.parallel import STATS
@@ -241,9 +288,15 @@ def _serve(job: dict, mesh) -> dict:
                                return_logits=True)
         prompts = torch.from_numpy(np.asarray(case["prompts"]))
         logits, cache = prefill(shards, {"tokens": prompts})
-        res = {"prefill_logits": _numpy(logits), "slots": cache["slots"],
-               "prefill_cache": {k: _numpy(cache["kv"][k]).copy()
-                                 for k in ("k", "v")}}     # steps write it
+        res = {"prefill_logits": _numpy(logits),
+               "slots": cache.get("slots"),
+               "prefill_cache": _caches(cache),       # the steps write it
+               "prefill_collectives": STATS["calls"] - calls}
+        if case.get("conv_whole"):
+            specs = rules.cache_specs(cfg, {"conv": cache["ssm"]["conv"]},
+                                      mesh)
+            cache["ssm"]["conv"] = parallel.gather_model(
+                mesh, cache["ssm"]["conv"], specs["conv"])
         tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
         toks, step_logits = [tok], []
         for _ in range(case["steps"]):
@@ -252,14 +305,14 @@ def _serve(job: dict, mesh) -> dict:
             step_logits.append(_numpy(logits))
         res |= {"logits": np.stack(step_logits),
                 "tokens": _numpy(torch.cat(toks, 1)).astype(np.int32),
-                "cache": {k: _numpy(cache["kv"][k]) for k in ("k", "v")},
-                "pos": cache["pos"], "collectives": STATS["calls"] - calls}
+                "cache": _caches(cache), "pos": cache["pos"],
+                "collectives": STATS["calls"] - calls}
         out[case["name"]] = res
     return out
 
 
 RUNNERS = {"compress": _compress, "loss_grads": _loss_grads, "task": _task,
-           "sync": _sync, "driver": _driver, "serve": _serve}
+           "sync": _sync, "driver": _driver, "lgc": _lgc, "serve": _serve}
 
 
 def rank_main(jobs: list, device: str = "cpu") -> dict:

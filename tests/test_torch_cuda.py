@@ -16,7 +16,8 @@ ssm, hybrid, vlm and audio families' smoke serve (olmoe, mamba2, zamba2,
 phi-3-vision, whisper) card against CPU; one LGC training round of each
 of these families' smoke configs card against CPU; the model axis on two
 gloo ranks sharing the card: the split LGC pipeline at a full-width 100M
-leaf bitwise the unsharded one.
+leaf and at mamba2-370m's SSD leaves bitwise the unsharded one, and the
+dense, ssm and hybrid smoke configs served at P = 2 against P = 1.
 
 These tests need an NVIDIA card and ``nvcc``; without a card they skip with
 a reason.  The file imports neither ``jax`` nor the reference package, so it
@@ -446,10 +447,11 @@ def test_swa_decode_rejects_mixed_devices(card):
 # cache's slots under the model axis: the serve shard shape of qwen2-1.5b
 # (a 4,096-slot cache over two ranks), the shards of chip_smoke.py's
 # serving job (a 1,040-slot cache and a 1,024-slot ring over two ranks),
-# Dh 64 and Dh 96 under GQA
+# Dh 64 and Dh 96 under GQA, and zamba2-1.2b's shard of its 1,040-slot
+# K/V sites over two ranks (REP 1, Dh 64)
 PARTIAL_SHAPES = [(8, 12, 2, 2048, 128), (8, 12, 2, 520, 128),
                   (8, 12, 2, 512, 128), (2, 8, 2, 520, 64),
-                  (2, 16, 2, 300, 96)]
+                  (2, 16, 2, 300, 96), (8, 32, 32, 520, 64)]
 
 
 def _partial_lengths(b, w, card):
@@ -1302,6 +1304,78 @@ def test_model_axis_split_pipeline_on_one_card(card):
         assert dense["step_bitwise"]
         assert r["results"]["sparse_gather"]["blocks/mlp/w_gate"][
             "step_bitwise"]
+
+
+def test_model_axis_ssd_split_pipeline_on_one_card(card):
+    """The SSD leaves' shards (ROADMAP A12c): two gloo ranks on the card,
+    each with its column block of mamba2-370m's ``in_proj`` and its row
+    block of ``out_proj`` at full width (4 of its 48 layers) for M = 2:
+    the row kernels on the shard with MAX / SUM over the model group are
+    bitwise the rank's block of ``lgc_compress_hist_rows`` of the whole
+    leaf and of the plain split pipeline, and so is the train step's
+    whole compression; ``norm_scale``, held whole, is compressed whole."""
+    import _torch_tp_jobs as tp_jobs
+    from repro_torch.launch.mesh import spawn
+    leaves = ["blocks/ssm/in_proj", "blocks/ssm/out_proj",
+              "blocks/ssm/norm_scale"]
+    job = dict(name="ssd", kind="compress", aggregate="dense_masked",
+               arch="mamba2-370m", replace=dict(n_layers=4), leaves=leaves)
+    ranks = spawn(tp_jobs.rank_main, 2, "gloo", args=([job], "cuda"),
+                  timeout=300.0)
+    for r in ranks:
+        got = r["results"]["ssd"]
+        assert got["blocks/ssm/in_proj"]["local"] == [4, 1024, 2192]
+        assert got["blocks/ssm/out_proj"]["local"] == [4, 1024, 1024]
+        for leaf in leaves[:2]:
+            row = got[leaf]
+            assert row["split"] and row["pipeline_bitwise"], leaf
+            assert row["plain_bitwise"] and row["step_bitwise"], leaf
+        whole = got["blocks/ssm/norm_scale"]
+        assert not whole["split"] and whole["step_bitwise"]
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-1.2b"])
+def test_model_axis_ssd_smoke_serve_on_one_card(card, arch):
+    """The ssm and hybrid families served under the model axis on the
+    card: the smoke config in f32 on two gloo ranks sharing it, a 16-token
+    prefill into a 24-slot ring and 12 greedy steps past its wrap (the SSD
+    blocks on 4 of 8 heads a rank, zamba2's ``swa_decode_partial`` on each
+    rank's 12 slots), against P = 1 on the card: logits within 1e-5,
+    tokens equal, both ranks bit-equal."""
+    import dataclasses
+    import _torch_tp_jobs as tp_jobs
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer as ptf
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
+    params = ptf.init_params(cfg, seed=0, device="cpu")
+    prompts = torch.randint(0, cfg.vocab_size, (2, 16),
+                            generator=torch.Generator().manual_seed(3))
+    case = dict(name="ring", prompts=prompts.numpy(), cache_len=24,
+                window=24, steps=12)
+    job = dict(name="serve", kind="serve", arch=arch, smoke=True, f32=True,
+               params={k: v.numpy() for k, v in params.items()},
+               cases=[case])
+    ranks = spawn(tp_jobs.rank_main, 2, "gloo", args=([job], "cuda"),
+                  timeout=300.0)
+    p = {k: v.to(card) for k, v in params.items()}
+    logits, cache = make_prefill_step(cfg, 24, device=card)(
+        p, {"tokens": prompts})
+    step = make_serve_step(cfg, 24, device=card, return_logits=True)
+    tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    toks, want = [tok], []
+    for _ in range(12):
+        tok, cache, logits = step(p, tok, cache)
+        toks.append(tok)
+        want.append(logits.cpu())
+    r0, r1 = (r["results"]["serve"]["ring"] for r in ranks)
+    np.testing.assert_array_equal(r0["tokens"], torch.cat(toks, 1).cpu())
+    np.testing.assert_allclose(r0["logits"], torch.stack(want).numpy(),
+                               rtol=1e-5, atol=1e-5)
+    assert np.array_equal(r0["logits"], r1["logits"])
+    assert np.array_equal(r0["tokens"], r1["tokens"])
+    assert r0["cache"]["state"].shape[2] == cfg.ssm_heads // 2
 
 
 def test_model_axis_smoke_serve_on_one_card(card):

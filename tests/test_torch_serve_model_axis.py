@@ -27,8 +27,12 @@ states merge (``kernels.ref.merge_decode_partials``).
   bit for bit, and each run's collectives are pinned;
 * (c) after prefill and after the steps, each rank's K/V cache equals its
   ``cache_specs`` block of the P = 1 port's cache within that tolerance;
-* (d) the refusals: a family other than dense under a mesh names A12c, a
-  model axis that does not divide the kv heads raises ValueError.
+* (d) the refusals: the moe, vlm and audio families under a mesh name
+  A12c (the ssm and hybrid families serve there since A12c's first part:
+  their steps build and ``init_cache`` gives each rank its ``cache_specs``
+  block; tests/test_torch_ssm_model_axis.py holds them against the
+  reference), a model axis that does not divide the kv heads raises
+  ValueError.
 """
 import concurrent.futures
 import dataclasses
@@ -393,13 +397,34 @@ def _fake_mesh(model: int):
                                   "zamba2-1.2b", "phi-3-vision-4.2b",
                                   "whisper-small"])
 def test_other_families_refuse_to_serve_under_a_mesh(arch):
+    """The moe, vlm and audio families refuse a mesh, naming A12c; the
+    ssm and hybrid families serve on one: the steps build, and each
+    rank's ``init_cache`` is its ``cache_specs`` block of the whole."""
     cfg = get_smoke_config(arch)
-    for make in (lambda: make_prefill_step(cfg, 8, mesh=_fake_mesh(2)),
-                 lambda: make_serve_step(cfg, 8, mesh=_fake_mesh(2)),
-                 lambda: ptf.init_cache(cfg, 1, 8, device="cpu",
-                                        mesh=_fake_mesh(2))):
-        with pytest.raises(NotImplementedError, match="A12c"):
-            make()
+    makers = (lambda: make_prefill_step(cfg, 8, mesh=_fake_mesh(2)),
+              lambda: make_serve_step(cfg, 8, mesh=_fake_mesh(2)),
+              lambda: ptf.init_cache(cfg, 1, 8, device="cpu",
+                                     mesh=_fake_mesh(2)))
+    if cfg.arch_type not in ("ssm", "hybrid"):
+        for make in makers:
+            with pytest.raises(NotImplementedError, match="A12c"):
+                make()
+        return
+    for make in makers[:2]:
+        assert callable(make())
+    whole = ptf.init_cache(cfg, 2, 8, device="cpu")
+    for rank in range(2):
+        mesh = _fake_mesh(2)
+        mesh.model_rank = mesh.rank = rank
+        got = ptf.init_cache(cfg, 2, 8, device="cpu", mesh=mesh)
+        block = rules.shard_tree(whole, rules.cache_specs(cfg, whole, mesh),
+                                 mesh)
+        assert got.get("slots") == (8 if "kv" in whole else None)
+        for group in ("kv", "ssm"):
+            assert set(got.get(group, {})) == set(block.get(group, {}))
+            for k, t in block.get(group, {}).items():
+                assert got[group][k].shape == t.shape, (group, k)
+                assert not got[group][k].any()
 
 
 def test_model_axis_must_divide_the_kv_heads_to_serve():

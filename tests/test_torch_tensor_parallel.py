@@ -454,7 +454,7 @@ def test_other_families_refuse_the_model_axis():
     with pytest.raises(NotImplementedError, match="A12c"):
         ptf.lm_loss({}, cfg, batch, mesh=_fake_mesh(2))
     with pytest.raises(NotImplementedError, match="A12c"):
-        train.main(["--arch", "mamba2-370m", "--smoke", "--model-parallel",
+        train.main(["--arch", "olmoe-1b-7b", "--smoke", "--model-parallel",
                     "2", "--devices", "2", "--device", "cpu"])
 
 
