@@ -10,7 +10,8 @@ NVIDIA H100.
     python3 chip_smoke.py --family-training  # the build and phase 5c
     python3 chip_smoke.py --model-axis  # the build and phase 5d
     python3 chip_smoke.py --model-axis-faults  # 5d's loss and logits gaps,
-                                               # faults planted
+                                               # faults planted, and the
+                                               # bf16 drift at P = 2
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
@@ -62,8 +63,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    output with m and l, for a rank's shard of the cache's slots) at a
    rank's shard of the serve cache (B=8, H=12, Kv=2, W=2,048, Dh=128), at
    the shards phase 5d's serving job runs (W=520 and W=512), at Dh 64, at
-   Dh 96 under GQA and at zamba2-1.2b's shard in phase 5d (e) (B=8,
-   H=Kv=32, W=520, Dh=64), with rows of W, W/2+3, 1 and 0 valid slots: its
+   Dh 96 under GQA, at zamba2-1.2b's shard in phase 5d (e) (B=8,
+   H=Kv=32, W=520, Dh=64) and at olmoe-1b-7b's and phi-3-vision-4.2b's in
+   (f) (B=8, H=Kv=16, W=520, Dh=128; B=8, H=Kv=32, W=520, Dh=96), with
+   rows of W, W/2+3, 1 and 0 valid slots: its
    output cast to q's dtype bitwise ``swa_decode``'s, (out, m, l) against
    the plain partial version; and the serve shape and phase 5d's two
    caches cut into two halves as ``layers.attention_decode`` cuts them,
@@ -169,16 +172,16 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    (P = 1 fed the free run's tokens), the ranks' tokens equal; prefill s,
    decode ms a step (beside P = 1's), collectives a step and the host ms
    blocked in them; (e) the ssm and hybrid families in the same ranks
-   (``model_axis_ssm``): mamba2-370m and zamba2-1.2b at full width and
+   (``model_axis_family``): mamba2-370m and zamba2-1.2b at full width and
    depth, each from seed 0's draw, rank 0 first alone at P = 1 and then
-   both ranks at P = 2 on their shards: 3 / 2 LGC rounds in f32
+   both ranks at P = 2 on their shards: 2 LGC rounds in f32
    (``dense_masked``, M = 2, H = 2, batch 4 x 128; every round's loss
    within ``MODEL_AXIS_SSM_LOSS_ATOL`` of P = 1's, both ranks' losses
    bit-equal and falling, each row kernel 6 / 14 a round a rank and no
    flat launch; round ms, collectives and host ms blocked in them), then
    in bf16 ``serve_decode.serve(..., mesh=)`` on 8 x 128 tokens, 2 steps
    (the ranks' tokens bitwise equal), and 8 prompts of 1,024 tokens into
-   a 1,040-slot cache and 16 steps fed P = 1's tokens (every step's
+   a 1,040-slot cache and 8 steps fed P = 1's tokens (every step's
    logits within ``MODEL_AXIS_SSM_LOGITS_MEAN_ATOL`` / ``_ATOL`` of
    P = 1's, both ranks' bitwise equal, ``swa_decode_partial`` 7 a step at
    zamba2 and nothing else, a rank's conv channels, heads and slots its
@@ -188,7 +191,22 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    limits set from sound and planted-fault readings
    (``--model-axis-faults``: the gated norm's sum left local, the
    split-use gradients left unsummed, the prefill writing the next rank's
-   conv tail); (c) ``repro_torch.launch.train
+   conv tail); (f) the moe and vlm families the same way
+   (``model_axis_family``, as (e)): olmoe-1b-7b (expert-parallel, 32 of
+   its 64 experts a rank) and phi-3-vision-4.2b (``vis_proj``'s columns
+   gathered) at full width, 3 LGC rounds in f32 at 2 / 4 of their 16 / 32
+   layers (phi-3-vision's 576 patches before the 128 tokens), each row
+   kernel 10 a round a rank; serving in bf16 at full depth, 1,024
+   positions a prompt (phi-3-vision: 576 patches and 448 tokens) into
+   1,040 slots and 8 fed steps, ``swa_decode_partial`` 16 / 32 a step
+   at Dh 128 / 96, ``serve_decode.serve(mesh=)`` on 128 tokens; limits
+   ``MODEL_AXIS_MOE_VLM_*`` from ``--model-axis-faults`` (the router's
+   gradient unsummed, the load-balance loss's gradient counted on every
+   rank, each rank combining the next rank's expert block,
+   ``vis_proj``'s columns gathered in the reverse order), which also
+   reads the bf16 drift at P = 2 of mamba2-370m and qwen2-100m (one
+   forward and backward against P = 1 and against f32; no limit);
+   (c) ``repro_torch.launch.train
    --model-parallel 2 --devices 2 --mode sync`` for 3 steps (it spawns its
    own two ranks), its loss falling; one ``model_axis`` JSON line;
 6. a small f32 serve (qwen2-smoke), card against CPU with the same weights:
@@ -229,11 +247,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    the cross K/V projections are not read by a decode step, ``dec_pos``
    one row; whisper's cross cache is), swa_decode launches a step, peak
    memory and the device's idle share;
-7d. A15's configs at full width in bf16 with weights drawn on the card,
-   at half their depth: glm4-9b (20 of 40 layers, 5,320,734,720
-   parameters; swa_decode at REP 16) and starcoder2-7b (16 of 32,
-   3,926,631,424; REP 9) at batch 8 over 4,096-token prompts and 64 steps
-   past the 4,096-slot ring's wrap, yi-34b (30 of 60 layers,
+7d. A15's configs at full width in bf16 with weights drawn on the card:
+   glm4-9b (10 of 40 layers, 3,281,126,400 parameters; swa_decode at
+   REP 16) and starcoder2-7b (8 of 32, 2,189,812,736; REP 9) at batch 8
+   over 4,096-token prompts and 64 steps past the 4,096-slot ring's wrap,
+   yi-34b (30 of 60 layers,
    17,653,214,208; REP 7; leaves of up to 4.4 G elements, past 2**32) at
    batch 4 over 4,000 tokens and 160 steps,
    grok-1-314b at 2 of its 64 layers
@@ -366,8 +384,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ``launches`` those of rank 0's free run in phase 5d (d) and
    ``launches_model_axis_serve`` those of its fed runs, and at zamba2's
    shard (B=8, H=Kv=32, W=520, Dh=64, ``at_zamba2_shard``) with phase 5d
-   (e)'s launches (``launches_model_axis_ssm_serve``); the LGC kernels'
-   launches on each rank in phase 5d (e) (``launches_model_axis_ssm``);
+   (e)'s launches (``launches_model_axis_ssm_serve``), at olmoe-1b-7b's
+   and phi-3-vision-4.2b's shards (``at_olmoe_shard``, ``at_phi3v_shard``)
+   with (f)'s (``launches_model_axis_moe_vlm_serve``); the LGC kernels'
+   launches on each rank in phase 5d (e) and (f)
+   (``launches_model_axis_ssm``, ``launches_model_axis_moe_vlm``);
 10. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package ``repro``.
@@ -453,13 +474,14 @@ MODALITY_PROFILE_STEPS = 16
 # A15's configs at full width: (layers served, params by shape at that
 # depth, batch, prompt tokens, greedy steps) into a 4,096-slot ring, then
 # CONFIG_PROFILE_STEPS more under the profiler; grok-1-314b at 2 of its 64
-# layers (316 G parameters do not fit one card); glm4-9b, starcoder2-7b and
-# yi-34b at half their depth (20 of 40, 16 of 32, 30 of 60 layers), which
-# keeps the whole script inside its time limit; yi-34b (32.9 GiB of weights
-# at 30 layers, leaves of up to 4.4 G elements) at batch 4 and 4,000 prompt
-# tokens, 160 steps past the wrap
-CONFIGS = {"glm4-9b": (20, 5_320_734_720, 8, 4_096, 64),
-           "starcoder2-7b": (16, 3_926_631_424, 8, 4_096, 64),
+# layers (316 G parameters do not fit one card); glm4-9b and
+# starcoder2-7b at a quarter of their depth (10 of 40, 8 of 32 layers) and
+# yi-34b at half (30 of 60), which keeps the whole script inside its time
+# limit; yi-34b (32.9 GiB of weights at 30 layers, leaves of up to 4.4 G
+# elements, past 2**32) at batch 4 and 4,000 prompt tokens, 160 steps past
+# the wrap
+CONFIGS = {"glm4-9b": (10, 3_281_126_400, 8, 4_096, 64),
+           "starcoder2-7b": (8, 2_189_812_736, 8, 4_096, 64),
            "yi-34b": (30, 17_653_214_208, 4, 4_000, 160),
            "grok-1-314b": (2, 11_450_578_944, 8, 4_096, 64)}
 CONFIG_PROFILE_STEPS = 8
@@ -1146,10 +1168,15 @@ def phase_swa(gen, errs: dict) -> None:
 # the shards phase 5d's serving job runs (its 1,040-slot cache and its
 # 1,024-slot ring over two ranks), at Dh 64 and at Dh 96 under GQA, and at
 # zamba2-1.2b's shard in phase 5d (e) (its 1,040-slot K/V sites over two
-# ranks: REP 1, Dh 64; the last is the kernels line's ``at_zamba2_shard``)
+# ranks: REP 1, Dh 64), and olmoe-1b-7b's and phi-3-vision-4.2b's in (f)
+# (REP 1 at Dh 128 and at Dh 96, the partial form's first Dh 96 launches
+# on a path); the last three are the kernels line's ``at_*_shard``
+SWA_PARTIAL_SHARDS = {"zamba2-1.2b": (8, 32, 32, 520, 64),
+                      "olmoe-1b-7b": (8, 16, 16, 520, 128),
+                      "phi-3-vision-4.2b": (8, 32, 32, 520, 96)}
 SWA_PARTIAL_SHAPES = [(8, 12, 2, 2048, 128), (8, 12, 2, 520, 128),
                       (8, 12, 2, 512, 128), (2, 8, 2, 520, 64),
-                      (2, 16, 2, 300, 96), (8, 32, 32, 520, 64)]
+                      (2, 16, 2, 300, 96), *SWA_PARTIAL_SHARDS.values()]
 # whole caches split in two halves and merged: the serve shape and phase
 # 5d's two caches
 SWA_MERGE_SHAPES = [SWA_SERVE_SHAPE, (8, 12, 2, 1040, 128),
@@ -2245,7 +2272,7 @@ def model_axis_run(job: dict, mesh) -> dict:
 def model_axis_rank(jobs: list) -> dict:
     """Each rank's body under ``mesh.spawn``: the (1, P) mesh over the
     ranks present on the card, then every job (``compress``, ``run``,
-    ``serve`` or ``ssm``) with its seconds."""
+    ``serve`` or ``family``) with its seconds."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_host_mesh
@@ -2260,8 +2287,10 @@ def model_axis_rank(jobs: list) -> dict:
             results[job["name"]] = model_axis_compress(job["aggregate"], mesh)
         elif job["kind"] == "serve":
             results[job["name"]] = model_axis_serve(job, mesh)
-        elif job["kind"] == "ssm":
-            results[job["name"]] = model_axis_ssm(job, mesh)
+        elif job["kind"] == "family":
+            results[job["name"]] = model_axis_family(job, mesh)
+        elif job["kind"] == "drift":
+            results[job["name"]] = axis_drift(job["arch"], mesh)
         else:
             results[job["name"]] = model_axis_run(job, mesh)
         results[job["name"]]["seconds"] = time.perf_counter() - t0
@@ -2304,7 +2333,7 @@ def phase_model_axis(smi: str) -> dict:
                   synced=MODEL_AXIS_SYNCED_ROUNDS)
              for agg in MODEL_AXIS_AGGREGATES]
     jobs.append(dict(name="serve", kind="serve", faults=[None], free=True))
-    jobs += ssm_jobs()
+    jobs += family_axis_jobs("e") + family_axis_jobs("f")
     t0 = time.perf_counter()
     ranks = spawn(model_axis_rank, MODEL_AXIS, "gloo", args=(jobs,),
                   timeout=MODEL_AXIS_TIMEOUT_S)
@@ -2390,7 +2419,8 @@ def phase_model_axis(smi: str) -> dict:
     out["launches"] = launches
     out["serve"] = check_model_axis_serve([r["results"]["serve"]
                                            for r in ranks], smi)
-    out["ssm"] = check_model_axis_ssm(ranks, smi)
+    out["ssm"] = check_model_axis_part(ranks, smi, "e")
+    out["moe_vlm"] = check_model_axis_part(ranks, smi, "f")
     # (c) the driver spawns its own two ranks
     t0 = time.perf_counter()
     try:
@@ -2516,7 +2546,8 @@ def check_model_axis_serve(ranks: list, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 5d (e): the ssm and hybrid families under the model axis (A12c)
+# phase 5d (e) and (f): the ssm and hybrid families, then the moe and vlm
+# families, under the model axis (A12c)
 # ---------------------------------------------------------------------------
 
 MODEL_AXIS_SSM_ARCHS = ("mamba2-370m", "zamba2-1.2b")
@@ -2526,16 +2557,17 @@ MODEL_AXIS_SSM_ARCHS = ("mamba2-370m", "zamba2-1.2b")
 # the same batches.  f32, not the configs' bf16: in bf16 these rounds
 # amplify the rounding of the row-parallel partial sums into loss gaps of
 # up to 0.17 by round 3, as large as a planted fault's (PERF.md §6),
-# and no limit tells them apart.  zamba2 runs 2 rounds (time)
-MODEL_AXIS_SSM_TRAIN = {"mamba2-370m": (2, 4, 128, 2e-2, 3),
+# and no limit tells them apart.  Both run 2 rounds (time)
+MODEL_AXIS_SSM_TRAIN = {"mamba2-370m": (2, 4, 128, 2e-2, 2),
                         "zamba2-1.2b": (2, 4, 128, 3e-2, 2)}
-# serving at full width and depth in bf16: 8 prompts of 1,024 tokens (a
+# serving at full width and depth in bf16: 8 prompts of 1,024 positions (a
 # multiple of the 128-token SSD chunk) into a 1,040-slot cache (520 a
-# rank of zamba2's K/V sites), 16 steps at P = 2 fed P = 1's greedy
-# tokens; before them serve_decode.serve(..., mesh=) on 128 of the
-# prompts' tokens, 2 steps (the entry point, and the warm-up)
+# rank of zamba2's K/V sites), 8 steps at P = 2 fed P = 1's greedy
+# tokens (cut for time: the limits hold each step);
+# before them serve_decode.serve(..., mesh=) on 128 of the prompts'
+# tokens, 2 steps (the entry point, and the warm-up)
 MODEL_AXIS_SSM_SERVE = {"batch": 8, "prompt": 1024, "slots": 1040,
-                        "steps": 16, "entry_prompt": 128, "entry_steps": 2}
+                        "steps": 8, "entry_prompt": 128, "entry_steps": 2}
 # Each round's loss at P = 2 against P = 1 (f32): |L(P=2) - L(P=1)| <=
 # MODEL_AXIS_SSM_FIRST_ROUND_ATOL in round 1, whose losses come before any
 # compression (the forward, the backward with the split-use SUM and a
@@ -2559,20 +2591,94 @@ MODEL_AXIS_SSM_FIRST_ROUND_ATOL = 2e-5
 MODEL_AXIS_SSM_LOSS_ATOL = 1e-2
 MODEL_AXIS_SSM_LOGITS_MEAN_ATOL = 0.12
 MODEL_AXIS_SSM_LOGITS_ATOL = 1.0
-# fault -> the paths it touches: the gated norm's sum of squares left on
-# the rank (no SUM over the model group), the split-use SSD leaves'
-# gradients left unsummed, the prefill writing the next rank's block of
-# the conv tail
-MODEL_AXIS_SSM_FAULTS = {"norm_sum_local": ("train", "serve"),
-                         "split_use_unsummed": ("train",),
-                         "conv_tail_wrong_rank": ("serve",)}
+# fault -> the archs and paths it touches: the gated norm's sum of
+# squares left on the rank (no SUM over the model group), the split-use
+# SSD leaves' gradients left unsummed, the prefill writing the next
+# rank's block of the conv tail
+MODEL_AXIS_SSM_FAULTS = {
+    "norm_sum_local": (MODEL_AXIS_SSM_ARCHS, ("train", "serve")),
+    "split_use_unsummed": (MODEL_AXIS_SSM_ARCHS, ("train",)),
+    "conv_tail_wrong_rank": (MODEL_AXIS_SSM_ARCHS, ("serve",))}
+
+MODEL_AXIS_MOE_VLM_ARCHS = ("olmoe-1b-7b", "phi-3-vision-4.2b")
+# (f): as (e)'s, in f32 (under bf16 a router flip sends a token to
+# another expert, and the gap would hide a planted fault), at
+# MODEL_AXIS_TRAIN_LAYERS of the configs' depth: olmoe-1b-7b at 2 of its
+# 16 layers (its P = 1 step at 4 layers peaked at 56.45 GiB in bf16, and
+# f32 doubles the weights), phi-3-vision-4.2b at 4 of its 32 with its 576
+# patches before the 128 tokens
+MODEL_AXIS_MOE_VLM_TRAIN = {"olmoe-1b-7b": (2, 4, 128, 2e-2, 3),
+                            "phi-3-vision-4.2b": (2, 4, 128, 2e-2, 3)}
+MODEL_AXIS_TRAIN_LAYERS = {"olmoe-1b-7b": 2, "phi-3-vision-4.2b": 4}
+# serving at full depth in bf16 as (e)'s: 1,024 positions a prompt
+# (phi-3-vision: its 576 patches and 448 tokens), 1,040 slots, 8 fed
+# steps; the entry run on 128 tokens (after the patches)
+MODEL_AXIS_MOE_VLM_SERVE = MODEL_AXIS_SSM_SERVE
+# (f)'s limits, as (e)'s.  Set from readings on the H100
+# (``--model-axis-faults``; PERF.md §6): training's sound rounds 9.5e-7,
+# 9.5e-7, 0 (olmoe) and 9.5e-7, 0, 3.8e-6 (phi-3-vision); round 1 with
+# ``aux_every_rank`` 1.4e-3, ``router_unsummed`` 2.6e-3,
+# ``expert_block_next_rank`` 1.1e-2, ``vis_columns_reversed`` 5.8e-2, and
+# 5.3e-4-4.2e-2 in the later rounds.  Serving's sound runs 0.022-0.052
+# (olmoe) and 0.024-0.025 (phi-3-vision) mean a step, 0.14-0.45 max (bf16
+# P = 1 is itself 0.050 / 0.029 mean from P = 1 in f32);
+# ``expert_block_next_rank`` 0.48 mean (2.9-3.3 max),
+# ``vis_columns_reversed`` 1.11 mean (6.1-6.9 max).
+MODEL_AXIS_MOE_VLM_FIRST_ROUND_ATOL = 2e-5
+MODEL_AXIS_MOE_VLM_LOSS_ATOL = 1e-3
+MODEL_AXIS_MOE_VLM_LOGITS_MEAN_ATOL = 0.12
+MODEL_AXIS_MOE_VLM_LOGITS_ATOL = 1.0
+# fault -> the archs and paths it touches: the router's gradient left
+# unsummed, the load-balance loss's gradient counted on every rank, each
+# rank gathering and combining the next rank's block of the experts' slots
+# (with its own experts' weights), ``vis_proj``'s column blocks gathered
+# in the reverse rank order
+MODEL_AXIS_MOE_VLM_FAULTS = {
+    "router_unsummed": (("olmoe-1b-7b",), ("train",)),
+    "aux_every_rank": (("olmoe-1b-7b",), ("train",)),
+    "expert_block_next_rank": (("olmoe-1b-7b",), ("train", "serve")),
+    "vis_columns_reversed": (("phi-3-vision-4.2b",), ("train", "serve"))}
+# part -> its archs, runs, limits and faults
+MODEL_AXIS_PARTS = {
+    "e": {"what": "the ssm and hybrid families",
+          "archs": MODEL_AXIS_SSM_ARCHS, "train": MODEL_AXIS_SSM_TRAIN,
+          "serve": MODEL_AXIS_SSM_SERVE,
+          "first_round_atol": MODEL_AXIS_SSM_FIRST_ROUND_ATOL,
+          "loss_atol": MODEL_AXIS_SSM_LOSS_ATOL,
+          "logits_mean_atol": MODEL_AXIS_SSM_LOGITS_MEAN_ATOL,
+          "logits_atol": MODEL_AXIS_SSM_LOGITS_ATOL,
+          "faults": MODEL_AXIS_SSM_FAULTS},
+    "f": {"what": "the moe and vlm families",
+          "archs": MODEL_AXIS_MOE_VLM_ARCHS,
+          "train": MODEL_AXIS_MOE_VLM_TRAIN,
+          "serve": MODEL_AXIS_MOE_VLM_SERVE,
+          "first_round_atol": MODEL_AXIS_MOE_VLM_FIRST_ROUND_ATOL,
+          "loss_atol": MODEL_AXIS_MOE_VLM_LOSS_ATOL,
+          "logits_mean_atol": MODEL_AXIS_MOE_VLM_LOGITS_MEAN_ATOL,
+          "logits_atol": MODEL_AXIS_MOE_VLM_LOGITS_ATOL,
+          "faults": MODEL_AXIS_MOE_VLM_FAULTS}}
+MODEL_AXIS_ARCH_PART = {arch: part for part, spec in MODEL_AXIS_PARTS.items()
+                        for arch in spec["archs"]}
 
 
-def plant_ssm_fault(name: str):
-    """Put SSD fault ``name`` (MODEL_AXIS_SSM_FAULTS) into this rank;
-    returns its undo."""
+class _RankAs:
+    """``mesh`` with another ``model_rank``: what a rank that takes itself
+    for another sees."""
+
+    def __init__(self, mesh, rank: int):
+        self._mesh, self.model_rank = mesh, rank
+
+    def __getattr__(self, name):
+        return getattr(self._mesh, name)
+
+
+def plant_axis_fault(name: str):
+    """Put fault ``name`` (MODEL_AXIS_SSM_FAULTS, MODEL_AXIS_MOE_VLM_FAULTS)
+    into this rank; returns its undo."""
+    import torch
     from repro_torch import parallel
     from repro_torch.models import layers
+    from repro_torch.models import moe
     from repro_torch.models import ssd
     from repro_torch.models import transformer as tf
     if name == "norm_sum_local":
@@ -2580,7 +2686,7 @@ def plant_ssm_fault(name: str):
 
         def new(mesh, x):
             return x
-    elif name == "split_use_unsummed":
+    elif name in ("split_use_unsummed", "router_unsummed"):
         mod, attr = tf, "sum_split_use_grads"
 
         def new(cfg, grads, mesh):
@@ -2597,19 +2703,41 @@ def plant_ssm_fault(name: str):
             conv[layer] = tail[..., r * w:(r + 1) * w]
             ssm_cache["state"][layer] = h_final
             return x + y
+    elif name == "aux_every_rank":
+        mod, attr = parallel, "count_once"
+
+        def new(mesh, x):
+            return x
+    elif name == "expert_block_next_rank":
+        mod, attr = moe, "moe_forward"
+        old_forward = moe.moe_forward
+
+        def new(x, p, *, mesh=None, **kw):
+            if parallel.model_size(mesh) > 1:
+                mesh = _RankAs(mesh, (mesh.model_rank + 1) % mesh.model_size)
+            return old_forward(x, p, mesh=mesh, **kw)
+    elif name == "vis_columns_reversed":
+        mod, attr = parallel, "gather_to_model"
+        old_gather = parallel.gather_to_model
+
+        def new(mesh, x):
+            whole = old_gather(mesh, x)
+            return torch.cat(whole.chunk(parallel.model_size(mesh), -1)[::-1],
+                             -1)
     else:
-        raise ValueError(f"no SSD fault {name!r}")
+        raise ValueError(f"no model-axis fault {name!r}")
     old = getattr(mod, attr)
     setattr(mod, attr, new)
     return lambda: setattr(mod, attr, old)
 
 
-def ssm_train(cfg, mesh, lead: bool, p1: bool) -> dict:
-    """(e) training on this rank, in f32 (MODEL_AXIS_SSM_TRAIN): with
-    ``p1`` rank 0 first runs the rounds at P = 1 alone from the whole
-    draw; then both ranks at P = 2 from their shards of it.  Per round the
-    host ms, each LGC kernel's launches, the collectives and the host ms
-    blocked in them."""
+def axis_train(cfg, mesh, lead: bool, p1: bool) -> dict:
+    """(e) and (f) training on this rank, in f32 (MODEL_AXIS_SSM_TRAIN,
+    MODEL_AXIS_MOE_VLM_TRAIN at MODEL_AXIS_TRAIN_LAYERS): with ``p1`` rank
+    0 first runs the rounds at P = 1 alone from the whole draw; then both
+    ranks at P = 2 from their shards of it.  Per round the host ms, each
+    LGC kernel's launches, the collectives and the host ms blocked in
+    them."""
     import dataclasses
     import torch
     import torch.distributed as dist
@@ -2618,12 +2746,16 @@ def ssm_train(cfg, mesh, lead: bool, p1: bool) -> dict:
     from repro_torch.kernels import LAUNCHES
     from repro_torch.launch import sharding_rules as rules
     from repro_torch.launch import steps
+    from repro_torch.launch.train import modality_prefix
     from repro_torch.models import transformer as tf
-    m, batch, seq, lr, rounds = MODEL_AXIS_SSM_TRAIN[cfg.name]
-    cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    m, batch, seq, lr, rounds = MODEL_AXIS_PARTS[MODEL_AXIS_ARCH_PART[
+        cfg.name]]["train"][cfg.name]
+    cfg = dataclasses.replace(cfg, dtype=torch.float32, n_layers=(
+        MODEL_AXIS_TRAIN_LAYERS.get(cfg.name, cfg.n_layers)))
     pipe = TokenPipeline(cfg.vocab_size, seq, batch)
     pipe.next_batch()
     batches = [pipe.next_batch() for _ in range(rounds)]
+    prefix = modality_prefix(cfg, batch, "cuda")
     step_cfg = steps.LGCStepConfig(local_steps=2, local_lr=lr,
                                    aggregate="dense_masked", backend="cuda")
     kernels = (*ROW_KERNELS.values(), *LGC_KERNELS)
@@ -2636,12 +2768,14 @@ def ssm_train(cfg, mesh, lead: bool, p1: bool) -> dict:
         out = {"losses": [], "round_ms": [], "launches": [],
                "collectives": [], "collective_ms": []}
         for x, y in batches:
+            b = {"tokens": torch.from_numpy(x).to("cuda", torch.long),
+                 "labels": torch.from_numpy(y).to("cuda", torch.long)}
+            if prefix is not None:
+                b["prefix"] = prefix
             torch.cuda.synchronize()
             before = (dict(LAUNCHES), parallel.STATS["calls"],
                       parallel.STATS["seconds"], time.perf_counter())
-            params, ef, loss = step(params, ef, {
-                "tokens": torch.from_numpy(x).to("cuda", torch.long),
-                "labels": torch.from_numpy(y).to("cuda", torch.long)})
+            params, ef, loss = step(params, ef, b)
             out["losses"].append(float(loss))
             out["round_ms"].append((time.perf_counter() - before[3]) * 1e3)
             out["launches"].append({k: LAUNCHES[k] - before[0][k]
@@ -2667,33 +2801,38 @@ def ssm_train(cfg, mesh, lead: bool, p1: bool) -> dict:
 
 
 # arch -> (P = 1's greedy tokens, on every rank; its logits a step, on
-# rank 0): the sound job's, which the fault jobs on the same ranks feed
-_SSM_P1: dict = {}
+# rank 0; P = 1's in f32 fed the same tokens, on rank 0): the sound job's,
+# which the fault jobs on the same ranks feed
+_AXIS_P1: dict = {}
 
 
-def ssm_serve(cfg, mesh, lead: bool, p1: bool) -> dict:
-    """(e) serving on this rank: with ``p1`` rank 0 serves at P = 1 alone
-    (warmed up, then timed), then the same in f32 fed the same tokens (a
-    yardstick: how far bf16 itself is from f32), and hands its greedy
-    tokens to the other rank; then both run ``serve_decode.serve(...,
-    mesh=)`` on the prompts' first tokens (the entry point and the
-    warm-up), prefill at P = 2 and run the steps fed P = 1's tokens
-    (every step's logits gap to P = 1 and to f32 on rank 0, the launches,
-    the collectives and the host ms blocked in them)."""
+def axis_serve(cfg, mesh, lead: bool, p1: bool) -> dict:
+    """(e) and (f) serving on this rank: with ``p1`` rank 0 serves at
+    P = 1 alone (warmed up, then timed), then the same in f32 fed the same
+    tokens (a yardstick: how far bf16 itself is from f32), and hands its
+    greedy tokens to the other rank; then both run
+    ``serve_decode.serve(..., mesh=)`` on the prompts' first tokens (the
+    entry point and the warm-up), prefill at P = 2 and run the steps fed
+    P = 1's tokens (every step's logits gap to P = 1 and to f32 on rank 0,
+    the launches, the collectives and the host ms blocked in them).  The
+    vlm's prompts are its patch embeddings (drawn on the card) and the
+    tokens after them."""
     import dataclasses
     import torch
     import torch.distributed as dist
     from repro_torch.kernels import LAUNCHES, reset_launch_counts
     from repro_torch.launch import sharding_rules as rules
-    from repro_torch.launch.serve_decode import serve
+    from repro_torch.launch.serve_decode import serve, stub_prefix
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import transformer as tf
-    spec = MODEL_AXIS_SSM_SERVE
-    b, prompt, slots, n = (spec["batch"], spec["prompt"], spec["slots"],
-                           spec["steps"])
+    spec = MODEL_AXIS_PARTS[MODEL_AXIS_ARCH_PART[cfg.name]]["serve"]
+    b, slots, n = spec["batch"], spec["slots"], spec["steps"]
     gen = torch.Generator(device="cuda").manual_seed(1)
-    prompts = torch.randint(0, cfg.vocab_size, (b, prompt), generator=gen,
-                            device="cuda")
+    prefix = stub_prefix(cfg, b, gen, torch.device("cuda"))
+    patches = 0 if prefix is None else prefix.shape[1]
+    prompts = torch.randint(0, cfg.vocab_size, (b, spec["prompt"] - patches),
+                            generator=gen, device="cuda")
+    pre = {} if prefix is None else {"prefix": prefix}
 
     def fed(params, mesh_, feed) -> tuple:
         """Prefill and ``n`` steps (fed ``feed``'s tokens, or greedy):
@@ -2701,7 +2840,7 @@ def ssm_serve(cfg, mesh, lead: bool, p1: bool) -> dict:
         reset_launch_counts()
         m0 = mark()
         logits, cache = make_prefill_step(cfg, slots, mesh=mesh_)(
-            params, {"tokens": prompts})
+            params, {"tokens": prompts, **pre})
         m1 = mark()
         step = make_serve_step(cfg, 0, mesh=mesh_, return_logits=True)
         toks, seen = [torch.argmax(logits, -1).to(torch.int32)[:, None]], [
@@ -2712,6 +2851,7 @@ def ssm_serve(cfg, mesh, lead: bool, p1: bool) -> dict:
             toks.append(tok)
             seen.append(logits)
         m2 = mark()
+        ssm = cache.get("ssm", {})
         return seen, torch.cat(toks, 1), {
             "prefill_s": m1[0] - m0[0], "prefill_collectives": m1[1] - m0[1],
             "prefill_collective_ms": (m1[2] - m0[2]) * 1e3,
@@ -2720,8 +2860,8 @@ def ssm_serve(cfg, mesh, lead: bool, p1: bool) -> dict:
             "collective_ms_per_step": (m2[2] - m1[2]) / n * 1e3,
             "launches": {k: v for k, v in LAUNCHES.items() if v},
             "pos": cache["pos"], "slots": cache.get("slots"),
-            "local_conv": cache["ssm"]["conv"].shape[-1],
-            "local_heads": cache["ssm"]["state"].shape[2],
+            "local_conv": (ssm["conv"].shape[-1] if ssm else None),
+            "local_heads": (ssm["state"].shape[2] if ssm else None),
             "local_slots": (cache["kv"]["k"].shape[3] if "kv" in cache
                             else None)}
 
@@ -2738,8 +2878,8 @@ def ssm_serve(cfg, mesh, lead: bool, p1: bool) -> dict:
         f32 = None
         if lead:
             params = tf.init_params(cfg, seed=0)
-            serve(params, cfg, prompts[:, :short], n_short,
-                  cache_len=short + n_short)
+            serve(params, cfg, prompts[:, :short], n_short, prefix=prefix,
+                  cache_len=short + patches + n_short)
             want, toks, out["p1"] = fed(params, None, None)
             tokens = toks.cpu()
             del params
@@ -2750,16 +2890,16 @@ def ssm_serve(cfg, mesh, lead: bool, p1: bool) -> dict:
             del params
             cfg = bf16
         dist.broadcast(tokens, 0, group=mesh.model_group)
-        _SSM_P1[cfg.name] = (tokens.cuda(), want if lead else None, f32)
-    feed, want, f32 = _SSM_P1[cfg.name]
+        _AXIS_P1[cfg.name] = (tokens.cuda(), want if lead else None, f32)
+    feed, want, f32 = _AXIS_P1[cfg.name]
     params = tf.init_params(cfg, seed=0)
     shards = rules.shard_tree(params, rules.param_specs(cfg, params, mesh),
                               mesh)
     del params
     reset_launch_counts()
     m0 = mark()
-    r = serve(shards, cfg, prompts[:, :short], n_short,
-              cache_len=short + n_short, mesh=mesh)
+    r = serve(shards, cfg, prompts[:, :short], n_short, prefix=prefix,
+              cache_len=short + patches + n_short, mesh=mesh)
     m1 = mark()
     out["entry"] = {
         "launches": {k: v for k, v in LAUNCHES.items() if v},
@@ -2780,22 +2920,22 @@ def ssm_serve(cfg, mesh, lead: bool, p1: bool) -> dict:
     return out
 
 
-def model_axis_ssm(job: dict, mesh) -> dict:
-    """(e) on this rank: ``job["arch"]``'s training and serving
+def model_axis_family(job: dict, mesh) -> dict:
+    """(e) or (f) on this rank: ``job["arch"]``'s training and serving
     (``job["paths"]``) at full width, with fault ``job["fault"]`` planted
     and, with ``job["p1"]``, P = 1 on rank 0 to compare with."""
     from repro_torch.configs import get_config
     cfg = get_config(job["arch"])
     lead = mesh.model_rank == 0
-    undo = plant_ssm_fault(job["fault"]) if job.get("fault") else None
+    undo = plant_axis_fault(job["fault"]) if job.get("fault") else None
     out: dict = {"rank": mesh.rank}
     try:
         t0 = time.perf_counter()
         if "train" in job["paths"]:
-            out["train"] = ssm_train(cfg, mesh, lead, job["p1"])
+            out["train"] = axis_train(cfg, mesh, lead, job["p1"])
         out["train_s"] = time.perf_counter() - t0
         if "serve" in job["paths"]:
-            out["serve"] = ssm_serve(cfg, mesh, lead, job["p1"])
+            out["serve"] = axis_serve(cfg, mesh, lead, job["p1"])
         out["serve_s"] = time.perf_counter() - t0 - out["train_s"]
     finally:
         if undo is not None:
@@ -2803,21 +2943,24 @@ def model_axis_ssm(job: dict, mesh) -> dict:
     return out
 
 
-def ssm_jobs(faults: bool = False) -> list:
-    """Phase 5d (e)'s jobs: each arch sound with P = 1 to compare with
-    and, with ``faults``, each of MODEL_AXIS_SSM_FAULTS on its paths."""
+def family_axis_jobs(part: str, faults: bool = False) -> list:
+    """Phase 5d (``part`` e or f)'s jobs: each arch sound with P = 1 to
+    compare with and, with ``faults``, each of the part's faults on its
+    archs and paths."""
+    spec = MODEL_AXIS_PARTS[part]
     jobs = []
-    for arch in MODEL_AXIS_SSM_ARCHS:
-        jobs.append(dict(name=f"ssm {arch}", kind="ssm", arch=arch,
+    for arch in spec["archs"]:
+        jobs.append(dict(name=f"{part} {arch}", kind="family", arch=arch,
                          paths=("train", "serve"), p1=True))
         if faults:
-            jobs += [dict(name=f"ssm {arch} {f}", kind="ssm", arch=arch,
-                          paths=paths, p1=False, fault=f)
-                     for f, paths in MODEL_AXIS_SSM_FAULTS.items()]
+            jobs += [dict(name=f"{part} {arch} {f}", kind="family",
+                          arch=arch, paths=paths, p1=False, fault=f)
+                     for f, (archs, paths) in spec["faults"].items()
+                     if arch in archs]
     return jobs
 
 
-def ssm_gaps(sound: dict, run: dict) -> dict:
+def axis_gaps(sound: dict, run: dict) -> dict:
     """A run's loss gaps to P = 1 a round and its logits gaps (max and
     mean) to P = 1 a step, from rank 0's results (``sound`` holds
     P = 1's)."""
@@ -2832,35 +2975,35 @@ def ssm_gaps(sound: dict, run: dict) -> dict:
     return out
 
 
-def check_model_axis_ssm(ranks: list, smi: str) -> dict:
-    """(e) of phase 5d: both ranks' results for each arch against the
-    limits, the launches and the ranks' bits; returns the ``ssm`` part of
-    the ``model_axis`` line."""
-    out: dict = {"first_round_atol": MODEL_AXIS_SSM_FIRST_ROUND_ATOL,
-                 "loss_atol": MODEL_AXIS_SSM_LOSS_ATOL,
-                 "logits_atol": MODEL_AXIS_SSM_LOGITS_ATOL,
-                 "logits_mean_atol": MODEL_AXIS_SSM_LOGITS_MEAN_ATOL,
-                 "train": MODEL_AXIS_SSM_TRAIN, "serve": MODEL_AXIS_SSM_SERVE}
+def check_model_axis_part(ranks: list, smi: str, part: str) -> dict:
+    """(e) or (f) of phase 5d: both ranks' results for each arch against
+    the part's limits, the launches and the ranks' bits; returns the
+    ``ssm`` (e) or ``moe_vlm`` (f) part of the ``model_axis`` line."""
     from repro_torch.configs import get_config
-    spec = MODEL_AXIS_SSM_SERVE
-    for arch in MODEL_AXIS_SSM_ARCHS:
+    p = MODEL_AXIS_PARTS[part]
+    first, lim, mean_lim, max_lim = (p["first_round_atol"], p["loss_atol"],
+                                     p["logits_mean_atol"], p["logits_atol"])
+    spec = p["serve"]
+    out: dict = {"first_round_atol": first, "loss_atol": lim,
+                 "logits_atol": max_lim, "logits_mean_atol": mean_lim,
+                 "train": p["train"], "serve": spec}
+    tag = f"model axis ({part})"
+    for arch in p["archs"]:
         cfg = get_config(arch)
-        r0, r1 = (r["results"][f"ssm {arch}"] for r in ranks)
+        r0, r1 = (r["results"][f"{part} {arch}"] for r in ranks)
         t0, t1 = r0["train"], r1["train"]
         p1, p2 = t0["p1"], t0["p2"]
         losses = p2["losses"]
-        check(losses == t1["p2"]["losses"], f"model axis (e) {arch}: rank "
+        check(losses == t1["p2"]["losses"], f"{tag} {arch}: rank "
               f"losses {losses} and {t1['p2']['losses']}")
         check(all(math.isfinite(x) for x in losses + p1["losses"])
               and losses[-1] < losses[0] and p1["losses"][-1]
-              < p1["losses"][0], f"model axis (e) {arch}: losses {losses}, "
+              < p1["losses"][0], f"{tag} {arch}: losses {losses}, "
               f"P = 1 {p1['losses']} do not fall")
         gaps = loss_gaps(losses, p1["losses"])
-        check(gaps[0] <= MODEL_AXIS_SSM_FIRST_ROUND_ATOL
-              and max(gaps) <= MODEL_AXIS_SSM_LOSS_ATOL, f"model axis (e) "
-              f"{arch}: losses {losses} against {p1['losses']} at P = 1 "
-              f"(allowed {MODEL_AXIS_SSM_FIRST_ROUND_ATOL} in round 1, "
-              f"{MODEL_AXIS_SSM_LOSS_ATOL} after)")
+        check(gaps[0] <= first and max(gaps) <= lim, f"{tag} {arch}: "
+              f"losses {losses} against {p1['losses']} at P = 1 (allowed "
+              f"{first} in round 1, {lim} after)")
         leaves = FAMILY_KERNEL_LEAVES[arch]
         want = {"maxabs_rows": leaves, "histogram_rows": leaves,
                 "sparsify_ef_rows": leaves, "maxabs": 0, "histogram": 0,
@@ -2868,36 +3011,34 @@ def check_model_axis_ssm(ranks: list, smi: str) -> dict:
         for r in (t0, t1):
             for run in (r["p2"],) + ((r["p1"],) if "p1" in r else ()):
                 for i, got in enumerate(run["launches"]):
-                    check(got == want, f"model axis (e) {arch} round {i + 1}"
-                          f": launches {got}, expected {want}")
+                    check(got == want, f"{tag} {arch} round {i + 1}: "
+                          f"launches {got}, expected {want}")
         s0, s1 = r0["serve"], r1["serve"]
         f0 = s0["p2"]
         check(f0["digest"] == s1["p2"]["digest"] and f0["finite"],
-              f"model axis (e) {arch}: the ranks' logits differ or are not "
-              f"finite")
+              f"{tag} {arch}: the ranks' logits differ or are not finite")
         sites = attention_sites(cfg)
         want_serve = ({"swa_decode_partial": sites * spec["steps"]}
                       if sites else {})
         for s in (s0, s1):
-            check(s["p2"]["launches"] == want_serve, f"model axis (e) {arch}"
+            check(s["p2"]["launches"] == want_serve, f"{tag} {arch}"
                   f" serve: launches {s['p2']['launches']}, expected "
                   f"{want_serve}")
+        ssd = cfg.arch_type in ("ssm", "hybrid")
         c = cfg.d_inner + 2 * cfg.ssm_state
         check(f0["pos"] == spec["prompt"] + spec["steps"]
-              and f0["local_conv"] == c // 2
-              and f0["local_heads"] == cfg.ssm_heads // 2
+              and f0["local_conv"] == (c // 2 if ssd else None)
+              and f0["local_heads"] == (cfg.ssm_heads // 2 if ssd else None)
               and f0["local_slots"] == (spec["slots"] // 2 if sites
                                         else None),
-              f"model axis (e) {arch} serve: pos {f0['pos']}, a rank's "
+              f"{tag} {arch} serve: pos {f0['pos']}, a rank's "
               f"conv {f0['local_conv']}, heads {f0['local_heads']}, slots "
               f"{f0['local_slots']}")
         worst, worst_mean = max(f0["logits_gaps"]), max(f0["mean_gaps"])
-        check(worst <= MODEL_AXIS_SSM_LOGITS_ATOL
-              and worst_mean <= MODEL_AXIS_SSM_LOGITS_MEAN_ATOL,
-              f"model axis (e) {arch} serve: logits {worst_mean:.4e} from "
-              f"P = 1's in the mean, {worst:.4e} at most (allowed "
-              f"{MODEL_AXIS_SSM_LOGITS_MEAN_ATOL}, "
-              f"{MODEL_AXIS_SSM_LOGITS_ATOL}); mean gaps {f0['mean_gaps']}")
+        check(worst <= max_lim and worst_mean <= mean_lim,
+              f"{tag} {arch} serve: logits {worst_mean:.4e} from P = 1's in "
+              f"the mean, {worst:.4e} at most (allowed {mean_lim}, "
+              f"{max_lim}); mean gaps {f0['mean_gaps']}")
         rec = {"train": {"losses": losses, "p1_losses": p1["losses"],
                          "loss_gaps": gaps, "round_ms": p2["round_ms"],
                          "round_ms_rank1": t1["p2"]["round_ms"],
@@ -2922,33 +3063,34 @@ def check_model_axis_ssm(ranks: list, smi: str) -> dict:
                "train_s": r0["train_s"], "serve_s": r0["serve_s"]}
         e0, e1 = s0["entry"], s1["entry"]
         short, n_short = spec["entry_prompt"], spec["entry_steps"]
+        patches = cfg.n_prefix_tokens if cfg.arch_type == "vlm" else 0
         want_entry = ({"swa_decode_partial": sites * n_short} if sites
                       else {})
         check(e0["digest"] == e1["digest"] and e0["logits_finite"]
               and e0["launches"] == e1["launches"] == want_entry
-              and e0["pos"] == short + n_short
-              and e0["slots"] == (short + n_short if sites else None),
-              f"model axis (e) {arch} serve_decode.serve(mesh=): {e0}, "
-              f"rank 1 {e1}")
+              and e0["pos"] == short + patches + n_short
+              and e0["slots"] == (short + patches + n_short if sites
+                                  else None),
+              f"{tag} {arch} serve_decode.serve(mesh=): {e0}, rank 1 {e1}")
         rec["entry"] = e0
         out[arch] = rec
-        log(f"model axis (e) {arch} training at P = 2 in f32 (M = "
-            f"{MODEL_AXIS_SSM_TRAIN[arch][0]}, H = 2, dense_masked): losses "
-            f"{losses} (both ranks), P = 1 {p1['losses']}, gaps "
-            f"{[f'{g:.3e}' for g in gaps]} (allowed "
-            f"{MODEL_AXIS_SSM_FIRST_ROUND_ATOL} in round 1, "
-            f"{MODEL_AXIS_SSM_LOSS_ATOL} after); round ms {p2['round_ms']} "
-            f"(P = 1 {p1['round_ms']}); {p2['collectives']} collectives a "
-            f"round, "
+        m, batch, seq = p["train"][arch][:3]
+        depth = MODEL_AXIS_TRAIN_LAYERS.get(arch, cfg.n_layers)
+        log(f"{tag} {arch} training at P = 2 in f32 ({depth} of "
+            f"{cfg.n_layers} layers, M = {m}, H = 2, dense_masked, {batch} x "
+            f"{seq} tokens{f' after {patches} patches' if patches else ''}): "
+            f"losses {losses} (both ranks), P = 1 {p1['losses']}, gaps "
+            f"{[f'{g:.3e}' for g in gaps]} (allowed {first} in round 1, "
+            f"{lim} after); round ms {p2['round_ms']} (P = 1 "
+            f"{p1['round_ms']}); {p2['collectives']} collectives a round, "
             f"{[f'{x:.1f}' for x in p2['collective_ms']]} host ms blocked "
             f"in them; LGC launches a round a rank {p2['launches'][0]}; "
             f"peak {t0['peak_gib']:.2f} / {t1['peak_gib']:.2f} GiB; {smi}")
-        log(f"model axis (e) {arch} serving at P = 2, {spec['batch']} x "
-            f"{spec['prompt']} tokens into {spec['slots']} slots, "
+        log(f"{tag} {arch} serving at P = 2, {spec['batch']} x "
+            f"{spec['prompt']} positions into {spec['slots']} slots, "
             f"{spec['steps']} steps fed P = 1's tokens: logits gap a step at "
             f"most {worst_mean:.4e} in the mean and {worst:.4e} in the max "
-            f"(allowed {MODEL_AXIS_SSM_LOGITS_MEAN_ATOL}, "
-            f"{MODEL_AXIS_SSM_LOGITS_ATOL}), argmax agreeing "
+            f"(allowed {mean_lim}, {max_lim}), argmax agreeing "
             f"{min(f0['argmax_agree']):.4f}-{max(f0['argmax_agree']):.4f}; "
             f"prefill {f0['prefill_s']:.3f} s ({f0['prefill_collectives']} "
             f"collectives, {f0['prefill_collective_ms']:.1f} ms blocked), "
@@ -2959,18 +3101,121 @@ def check_model_axis_ssm(ranks: list, smi: str) -> dict:
             f"{f0['collective_ms_per_step']:.2f} host ms blocked in them; "
             f"launches {f0['launches']}; ranks bitwise equal; {smi}")
         yard = s0["p1"]["to_f32"]
-        log(f"model axis (e) {arch} serving, the f32 yardstick (P = 1 in f32"
-            f" fed the same tokens): bf16 P = 1 at most "
-            f"{max(yard['mean_gaps']):.4e} mean / "
-            f"{max(yard['logits_gaps']):.4e} max a step from it, bf16 P = 2 "
-            f"{max(f0['to_f32']['mean_gaps']):.4e} / "
+        log(f"{tag} {arch} serving, the f32 yardstick (P = 1 in f32 fed the "
+            f"same tokens): bf16 P = 1 at most {max(yard['mean_gaps']):.4e} "
+            f"mean / {max(yard['logits_gaps']):.4e} max a step from it, bf16 "
+            f"P = 2 {max(f0['to_f32']['mean_gaps']):.4e} / "
             f"{max(f0['to_f32']['logits_gaps']):.4e}")
-        log(f"model axis (e) {arch} serve_decode.serve(mesh=) at full width"
-            f" on {short} tokens x {spec['batch']}, {n_short} steps: "
+        log(f"{tag} {arch} serve_decode.serve(mesh=) at full width on "
+            f"{short} tokens x {spec['batch']}, {n_short} steps: "
             f"{e0['seconds']:.2f} s, {e0['collectives']} collectives, "
             f"launches {e0['launches']}; ranks' tokens bitwise equal")
-        log(f"model axis (e) {arch}: {r0['seconds']:.1f} s on rank 0 "
-            f"(training {r0['train_s']:.1f}, serving {r0['serve_s']:.1f})")
+        log(f"{tag} {arch}: {r0['seconds']:.1f} s on rank 0 (training "
+            f"{r0['train_s']:.1f}, serving {r0['serve_s']:.1f})")
+    return out
+
+
+# The bf16 drift of the model axis (``--model-axis-faults``): the SSD
+# family (mamba2-370m) beside the dense one (the 100M task's qwen2-100m),
+# at full width and depth, one lm_loss and its gradient on the first local
+# step's batch of a round (DRIFT_BATCH x DRIFT_SEQ tokens), before any SGD
+# step or compression: bf16 at P = 2 against bf16 at P = 1, and bf16 at
+# P = 1 against f32 at P = 1 (bf16's own yardstick), from seed 0's draw
+DRIFT_ARCHS = ("mamba2-370m", "qwen2-100m")
+DRIFT_BATCH, DRIFT_SEQ = 2, 128
+
+
+def axis_drift(arch: str, mesh) -> dict:
+    """The drift readings on this rank: rank 0 alone takes the loss and
+    gradients at P = 1 in bf16 and in f32, then both ranks at P = 2 in
+    bf16 from their shards, gathered whole; rank 0 returns each leaf's
+    relative gaps (the norm of the difference over the norm of the
+    reference, and its max |.| over the reference's) and the loss gaps."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch import parallel
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import sharding_rules as rules
+    from repro_torch.models import transformer as tf
+    cfg = get_config(arch)
+    pipe = TokenPipeline(cfg.vocab_size, DRIFT_SEQ, DRIFT_BATCH)
+    pipe.next_batch()
+    x, y = pipe.next_batch()
+    batch = {"tokens": torch.from_numpy(x).to("cuda", torch.long),
+             "labels": torch.from_numpy(y).to("cuda", torch.long)}
+
+    def loss_grads(cfg_, params, mesh_) -> tuple:
+        names = list(params)
+        leaves = [params[k].detach().requires_grad_(True) for k in names]
+        with torch.enable_grad():
+            loss = tf.lm_loss(dict(zip(names, leaves)), cfg_, batch,
+                              mesh=mesh_)
+            grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
+        return float(loss), tf.sum_split_use_grads(cfg_, grads, mesh_)
+
+    def gaps(got: dict, ref: dict) -> dict:
+        out = {}
+        for k, r in ref.items():
+            r, g = r.float(), got[k].float()
+            out[k] = {"norm": float((g - r).norm() / r.norm()),
+                      "max": float((g - r).abs().max() / r.abs().max())}
+        return out
+
+    lead = mesh.model_rank == 0
+    res: dict = {"arch": arch}
+    if lead:
+        l16, g16 = loss_grads(cfg, tf.init_params(cfg, seed=0), None)
+        f32 = dataclasses.replace(cfg, dtype=torch.float32)
+        l32, g32 = loss_grads(f32, tf.init_params(f32, seed=0), None)
+        res["yardstick"] = {"loss": abs(l16 - l32), "grads": gaps(g16, g32)}
+        del g32
+        torch.cuda.empty_cache()
+    dist.barrier(group=mesh.model_group)
+    params = tf.init_params(cfg, seed=0)
+    specs = rules.param_specs(cfg, params, mesh)
+    shards = rules.shard_tree(params, specs, mesh)
+    del params
+    l2, g2 = loss_grads(cfg, shards, mesh)
+    g2 = {k: parallel.gather_model(mesh, g, specs[k]) for k, g in g2.items()}
+    if lead:
+        res["p2"] = {"loss": abs(l2 - l16), "grads": gaps(g2, g16)}
+        res["losses"] = {"p1_bf16": l16, "p1_f32": l32, "p2_bf16": l2}
+    del g2, shards
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_drift(ranks: list, smi: str) -> dict:
+    """The drift readings' lines (no limit: a measurement)."""
+    out = {}
+    for arch in DRIFT_ARCHS:
+        r = ranks[0]["results"][f"drift {arch}"]
+        row = {"losses": r["losses"]}
+        for key in ("p2", "yardstick"):
+            g = r[key]["grads"]
+            worst = max(g, key=lambda k: g[k]["norm"])
+            row[key] = {"loss_gap": r[key]["loss"],
+                        "grad_norm_gap_max": g[worst]["norm"],
+                        "grad_norm_gap_leaf": worst,
+                        "grad_norm_gap_median": statistics.median(
+                            v["norm"] for v in g.values()),
+                        "grad_max_gap_max": max(v["max"] for v in g.values())}
+        out[arch] = row | {"grads": {k: [r["p2"]["grads"][k]["norm"],
+                                         r["yardstick"]["grads"][k]["norm"]]
+                                     for k in r["p2"]["grads"]}}
+        for key, what in (("p2", "bf16 P = 2 against bf16 P = 1"),
+                          ("yardstick", "bf16 P = 1 against f32 P = 1")):
+            v = row[key]
+            log(f"bf16 drift {arch}, {what} (one lm_loss on "
+                f"{DRIFT_BATCH} x {DRIFT_SEQ} tokens, full width and depth): "
+                f"loss gap {v['loss_gap']:.4e}; gradient |diff| / |ref| a "
+                f"leaf median {v['grad_norm_gap_median']:.4e}, at most "
+                f"{v['grad_norm_gap_max']:.4e} ({v['grad_norm_gap_leaf']}); "
+                f"max |diff| / max |ref| at most {v['grad_max_gap_max']:.4e}"
+                f"; {smi}")
+        log(f"bf16 drift {arch}: losses {r['losses']}")
     return out
 
 
@@ -2978,14 +3223,19 @@ def model_axis_faults(smi: str) -> dict:
     """``--model-axis-faults``: the readings behind MODEL_AXIS_LOSS_ATOL.
     The task at P = 2 under ``dense_masked`` for ROUNDS rounds, sound and
     with each of MODEL_AXIS_FAULTS planted in both ranks, against P = 1
-    from the same draw: each round's loss gap."""
+    from the same draw: each round's loss gap; the serving job and parts
+    (e) and (f) the same way with their faults (the readings behind their
+    limits); and the bf16 drift at P = 2 (DRIFT_ARCHS)."""
     from repro_torch.launch.mesh import spawn
     one = model_axis_p1(ROUNDS)["dense_masked"]["losses"]
     jobs = [dict(name=f or "sound", kind="run", aggregate="dense_masked",
                  fault=f) for f in (None, *MODEL_AXIS_FAULTS)]
     jobs.append(dict(name="serve", kind="serve",
                      faults=[None, *MODEL_AXIS_SERVE_FAULTS], free=True))
-    jobs += ssm_jobs(faults=True)
+    jobs += family_axis_jobs("e", faults=True) + family_axis_jobs(
+        "f", faults=True)
+    jobs += [dict(name=f"drift {arch}", kind="drift", arch=arch)
+             for arch in DRIFT_ARCHS]
     ranks = spawn(model_axis_rank, MODEL_AXIS, "gloo", args=(jobs,),
                   timeout=3 * MODEL_AXIS_TIMEOUT_S)
     out = {"card": smi, "p1": one, "loss_atol": MODEL_AXIS_LOSS_ATOL}
@@ -3026,27 +3276,29 @@ def model_axis_faults(smi: str) -> dict:
             f"{[f'{m:.3e}' for m in f['margins']]}; decode "
             f"{f['decode_ms']:.2f} ms a step; {smi}")
     out["serve"]["p1"] = serve["p1"]
-    out["ssm"] = {"first_round_atol": MODEL_AXIS_SSM_FIRST_ROUND_ATOL,
-                  "loss_atol": MODEL_AXIS_SSM_LOSS_ATOL,
-                  "logits_atol": MODEL_AXIS_SSM_LOGITS_ATOL,
-                  "logits_mean_atol": MODEL_AXIS_SSM_LOGITS_MEAN_ATOL}
-    for arch in MODEL_AXIS_SSM_ARCHS:
-        sound = ranks[0]["results"][f"ssm {arch}"]
-        for job in [j for j in jobs if j["kind"] == "ssm"
-                    and j["arch"] == arch]:
-            key = job.get("fault") or "sound"
-            g = ssm_gaps(sound, ranks[0]["results"][job["name"]])
-            out["ssm"][f"{arch} {key}"] = g
-            log(f"model axis (e) {arch} {key}: loss gaps to P = 1 a round "
-                f"{[f'{x:.3e}' for x in g.get('loss_gaps', [])]} (allowed "
-                f"{MODEL_AXIS_SSM_FIRST_ROUND_ATOL} in round 1, "
-                f"{MODEL_AXIS_SSM_LOSS_ATOL} after); logits gaps a step max "
-                f"{max(g['logits_gaps']) if 'logits_gaps' in g else None}, "
-                f"mean up to "
-                f"{max(g['mean_gaps']) if 'mean_gaps' in g else None} "
-                f"(allowed {MODEL_AXIS_SSM_LOGITS_ATOL}, "
-                f"{MODEL_AXIS_SSM_LOGITS_MEAN_ATOL}); mean gaps "
-                f"{[f'{x:.3e}' for x in g.get('mean_gaps', [])]}; {smi}")
+    for part, key in (("e", "ssm"), ("f", "moe_vlm")):
+        p = MODEL_AXIS_PARTS[part]
+        out[key] = {k: p[k] for k in ("first_round_atol", "loss_atol",
+                                      "logits_atol", "logits_mean_atol")}
+        for arch in p["archs"]:
+            sound = ranks[0]["results"][f"{part} {arch}"]
+            for job in [j for j in jobs if j["kind"] == "family"
+                        and j["name"].startswith(f"{part} {arch}")]:
+                fault = job.get("fault") or "sound"
+                g = axis_gaps(sound, ranks[0]["results"][job["name"]])
+                out[key][f"{arch} {fault}"] = g
+                log(f"model axis ({part}) {arch} {fault}: loss gaps to "
+                    f"P = 1 a round "
+                    f"{[f'{x:.3e}' for x in g.get('loss_gaps', [])]} "
+                    f"(allowed {p['first_round_atol']} in round 1, "
+                    f"{p['loss_atol']} after); logits gaps a step max "
+                    f"{max(g['logits_gaps']) if 'logits_gaps' in g else None}"
+                    f", mean up to "
+                    f"{max(g['mean_gaps']) if 'mean_gaps' in g else None} "
+                    f"(allowed {p['logits_atol']}, {p['logits_mean_atol']}); "
+                    f"mean gaps "
+                    f"{[f'{x:.3e}' for x in g.get('mean_gaps', [])]}; {smi}")
+    out["bf16_drift"] = check_drift(ranks, smi)
     print(json.dumps({"model_axis_faults": out}), flush=True)
     return out
 
@@ -5397,8 +5649,8 @@ def main(argv: list[str]) -> int:
                        for arch, shape in SWA_CONFIG_SHAPES.items()}
     swa_partial_row = phase_time_swa(gen, SWA_PARTIAL_SHAPES[0],
                                      partial=True)
-    swa_partial_zamba2 = phase_time_swa(gen, SWA_PARTIAL_SHAPES[-1],
-                                        partial=True)
+    swa_partial_shards = {arch: phase_time_swa(gen, shape, partial=True)
+                          for arch, shape in SWA_PARTIAL_SHARDS.items()}
     threefry_row = phase_time_threefry()
     done("phase 9, timings")
 
@@ -5426,10 +5678,11 @@ def main(argv: list[str]) -> int:
             # each rank's row launches over phase 5d's 4 rounds, and over
             # (e)'s rounds of the ssm and hybrid families
             row["launches_model_axis"] = model_axis["launches"][name]
-            row["launches_model_axis_ssm"] = {
-                arch: a["launches_rows"][rn]
-                for arch, a in model_axis["ssm"].items()
-                if isinstance(a, dict) and "launches_rows" in a}
+            for key in ("ssm", "moe_vlm"):
+                row[f"launches_model_axis_{key}"] = {
+                    arch: a["launches_rows"][rn]
+                    for arch, a in model_axis[key].items()
+                    if isinstance(a, dict) and "launches_rows" in a}
             if name != "sparsify_ef":
                 row["launches_sparse_gather"] = sparse_launches[rn]
                 row["at_sparse_gather_rows"] = sparse_launches["timing"][
@@ -5506,13 +5759,19 @@ def main(argv: list[str]) -> int:
         "launches_model_axis_serve": {
             key: r["launches"]["swa_decode_partial"]
             for key, r in serve["runs"].items()},
-        # phase 5d (e): zamba2-1.2b's fed and free runs, a rank
-        "launches_model_axis_ssm_serve": {
-            arch: {run: a[run]["launches"].get("swa_decode_partial", 0)
-                   for run in ("serve", "free") if run in a}
-            for arch, a in model_axis["ssm"].items()
-            if isinstance(a, dict) and "serve" in a},
-        "at_zamba2_shard": swa_partial_zamba2} | swa_partial_row)
+        # phase 5d (e) and (f): each arch's fed run (8 steps) and
+        # its serve_decode.serve(mesh=) run, a rank
+        **{f"launches_model_axis_{key}_serve": {
+            arch: {"fed": a["serve"]["launches"].get("swa_decode_partial", 0),
+                   "entry": a["entry"]["launches"].get("swa_decode_partial",
+                                                       0)}
+            for arch, a in model_axis[key].items()
+            if isinstance(a, dict) and "serve" in a}
+           for key in ("ssm", "moe_vlm")},
+        "at_zamba2_shard": swa_partial_shards["zamba2-1.2b"],
+        "at_olmoe_shard": swa_partial_shards["olmoe-1b-7b"],
+        "at_phi3v_shard": swa_partial_shards["phi-3-vision-4.2b"]}
+        | swa_partial_row)
     # the weights' draw: the port's own kernel, with no Pallas counterpart
     # (the reference's jax.random.normal draw is at ``replaces``)
     kernels.append({

@@ -120,9 +120,10 @@ def serve(params: dict, cfg: ArchConfig, prompts: torch.Tensor, gen: int, *,
     under the profiler afterwards; ``pos`` and the cache include them.
 
     ``mesh`` with a model axis P > 1 (the dense family, ROADMAP A12b; the
-    ssm and hybrid families, A12c): every rank of it calls ``serve`` with
-    its shards of the params (``launch.sharding_rules.param_specs``) and
-    the same prompts; the cache is split as ``cache_specs`` splits it (the
+    moe, ssm, hybrid and vlm families, A12c): every rank of it calls
+    ``serve`` with its shards of the params
+    (``launch.sharding_rules.param_specs``), the same prompts and the same
+    ``prefix``; the cache is split as ``cache_specs`` splits it (the
     K/V on their slots, the SSD conv tails on their channels and states on
     their heads), and every rank returns the same tokens.
     ``cache_slots`` is the whole cache's.

@@ -38,15 +38,17 @@ the whole batch (microbatches accumulated in f32), through
 :mod:`repro_torch.optim`.
 
 Both train steps take a ``mesh`` with a model axis P > 1 (ROADMAP A12:
-the dense family; A12c: the ssm and hybrid families): params, error
-memory and gradients are then each rank's shards
+the dense family; A12c: the moe, ssm, hybrid and vlm families): params,
+error memory and gradients are then each rank's shards
 (``sharding_rules.param_specs``) for all M devices, the forward and
 backward run tensor-parallel (``transformer.lm_loss(..., mesh=)``), the
-gradients of the SSD leaves held whole but used a head block at a time
-are summed over the ranks (``transformer.sum_split_use_grads``) before
-the optimizer or the local SGD step, and the three LGC row kernels run on
-each rank's shards of a
-split leaf under ``dense_masked``: the rows' maxima from
+gradients of the leaves held whole but used a block at a time (the SSD
+leaves split by heads, the MoE router by experts) are summed over the
+ranks (``transformer.sum_split_use_grads``) before the optimizer or the
+local SGD step, and the three LGC row kernels run on each rank's shards
+of a split leaf under ``dense_masked`` (an expert-parallel leaf's shard
+(L, E / P, D, F) is not a contiguous block of the whole's flat order,
+which neither the statistics nor the elementwise step read): the rows' maxima from
 ``sum_maxabs_rows`` are reduced with a MAX over the model group, the
 256-bin counts that ``histogram_rows`` takes of the shard under the global
 maxima with a SUM, and the thresholds come from the whole leaf's budgets,
@@ -142,7 +144,7 @@ def model_specs(cfg: ArchConfig, mesh) -> dict | None:
     above 1 (the leaves are then each rank's shards), else None."""
     if mesh is None or mesh.model_size == 1:
         return None
-    tf.model_axis_mesh(cfg, mesh)    # dense, ssm, hybrid; P | the heads
+    tf.model_axis_mesh(cfg, mesh)    # all but audio; P | the heads
     if mesh.shape.get("data", 1) != 1:
         raise ValueError(f"the model axis trains on a (data=1, model=P) "
                          f"mesh, the FL devices as rows; got {mesh.shape}")
@@ -625,9 +627,8 @@ def make_lgc_train_step(cfg: ArchConfig, m_devices: int,
     error memory fill most of a card); the caller keeps only the returned
     state.
 
-    ``mesh`` with a model axis P > 1 (the dense, ssm and hybrid
-    families): ``params`` hold
-    this rank's shards and ``ef`` its (M, *shard) rows, the batch is whole
+    ``mesh`` with a model axis P > 1 (every family but the audio one):
+    ``params`` hold this rank's shards and ``ef`` its (M, *shard) rows, the batch is whole
     on every rank, and every rank returns the same loss (module
     docstring).  Kernel routing and budgets read each leaf's WHOLE size.
     """
@@ -752,7 +753,7 @@ def make_prefill_step(cfg: ArchConfig, cache_len: int | None = None, *,
     """``f(params, batch) -> (logits (B,Vp), cache)`` on ``device`` (None
     means the card, or ``mesh.device`` under a mesh); the prompt tokens,
     and the modality prefix where the batch has one, are moved there.
-    ``mesh`` with a model axis P > 1 (the dense, ssm and hybrid families):
+    ``mesh`` with a model axis P > 1 (every family but the audio one):
     ``params`` are this rank's shards (``sharding_rules.param_specs``) and
     the cache this rank's block (``cache_specs``), see
     :func:`transformer.prefill`."""

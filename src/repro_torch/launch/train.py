@@ -13,8 +13,8 @@ its 1/N of the batch.  On the card the LGC compression takes the CUDA
 kernels (``backend="cuda"``), on the CPU their plain versions: the same
 bits.  The run exits with code 1 when the loss did not fall.
 
-``--model-parallel P`` > 1 trains the dense, ssm and hybrid families
-tensor-parallel (ROADMAP A12, A12c): the driver spawns P ranks
+``--model-parallel P`` > 1 trains the dense, moe, ssm, hybrid and vlm
+families tensor-parallel (ROADMAP A12, A12c): the driver spawns P ranks
 (``launch.mesh.spawn``), each on a (data=1, model=P) mesh holding its
 shard of every leaf (``launch.sharding_rules``), in every mode.  As in
 the reference, ``--devices`` counts the mesh's devices, so the LGC modes
@@ -22,8 +22,8 @@ train ``devices // P`` FL devices as rows (a count that P does not
 divide is the reference's ``make_host_mesh`` refusal).  The ranks share
 the card over gloo (NCCL refuses two ranks on one card) unless there is
 a card a rank, where they take NCCL; the header line names the
-transport.  The moe, vlm and audio families at P > 1 raise (ROADMAP
-A12c).
+transport; every rank draws the same vlm patches.  The audio family at
+P > 1 raises (ROADMAP A12c).
 
 Every arch id trains (``--arch mamba2-370m``, ``olmoe-1b-7b``,
 ``glm4-9b``, ...; grok-1's ``sgdm`` keeps its moment in the parameters'

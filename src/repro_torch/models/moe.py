@@ -23,13 +23,33 @@ of 8 x 4096 tokens has C = 10,240.
 
 ``moe_dense_ref`` is the O(N*E) oracle (every expert on every token); it
 drops nothing, so it equals ``moe_forward`` only where no row is dropped.
-The reference's ``maybe_constrain`` / ``shard_buffer`` are sharding hints
-without a numeric effect and have no counterpart here.
+
+Under a model axis of P > 1 ranks (``mesh=``, ROADMAP A12c) the layer
+runs on each rank's shards of the experts (``launch.sharding_rules``),
+which is what the reference's ``shard_buffer`` constraint on the (E, C,
+D) buffer asks of GSPMD.  The dispatch stays global: the block's input
+is replicated and every rank runs the whole router, top-k, sort and
+capacity over all N*K rows, so the drops are the reference's.  When P
+divides E the experts are expert-parallel: rank r gathers only its
+slots' rows (its E / P experts' block of the buffer), runs its own
+experts whole and combines only the rows whose destination lies in its
+block; otherwise each expert's ``w_gate`` / ``w_up`` are split on their
+F columns and ``w_down`` on its F rows, as the dense MLP's, and every
+rank runs every expert on its block of F.  Either way the rank's
+combine is a partial of the output, summed over the ranks in f32 before
+the one cast to x's dtype (the reference's f32 combine, then its cast),
+and the input's gradient is summed over them
+(``parallel.copy_to_model``).  The router is replicated but each rank's
+gates reach the loss only through its own rows, so its gradient is
+partial (``transformer.split_use_leaves`` sums it); the load-balance
+loss, which every rank computes whole, has its gradient divided by P
+(``parallel.count_once``), so that those SUMs count it once.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import parallel
 from repro_torch.core import prng
 from .layers import _split_each, mlp_forward, mlp_init, normal
 
@@ -84,17 +104,16 @@ def expert_mlps(buf: torch.Tensor, experts: dict, kind: str) -> torch.Tensor:
                              for k, v in experts.items()}, kind)
 
 
-def moe_forward(x: torch.Tensor, p: dict, *, n_experts: int, top_k: int,
-                capacity_factor: float = 1.25, mlp_kind: str = "swiglu"
-                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (out (B, S, D) in x's dtype, aux loss f32 scalar)."""
-    b, s, d = x.shape
-    n = b * s
-    dev = x.device
-    x2 = x.reshape(n, d)
-    gates, ids, aux = _router(x2, p["router"], top_k)
-
+def dispatch(ids: torch.Tensor, n_experts: int, capacity_factor: float
+             ) -> tuple:
+    """The global capacity-limited dispatch of the (N, K) expert ids:
+    (order, the stable sort's permutation by expert; stok, each sorted
+    row's source token; valid, whether it is within its expert's
+    capacity; dest, its slot in the (E * C,) buffer or the drop slot
+    E * C; C)."""
+    n, top_k = ids.shape
     nk = n * top_k
+    dev = ids.device
     flat_e = ids.reshape(nk)                               # expert of each row
     flat_tok = torch.arange(nk, device=dev) // top_k       # its source token
     se, order = torch.sort(flat_e, stable=True)            # stable by expert
@@ -105,24 +124,57 @@ def moe_forward(x: torch.Tensor, p: dict, *, n_experts: int, top_k: int,
     pos = torch.arange(nk, device=dev) - starts[se]
     cap = max(1, int(nk / n_experts * capacity_factor))
     valid = pos < cap
+    dest = torch.where(valid, se * cap + pos,
+                       torch.full_like(se, n_experts * cap))
+    return order, stok, valid, dest, cap
+
+
+def moe_forward(x: torch.Tensor, p: dict, *, n_experts: int, top_k: int,
+                capacity_factor: float = 1.25, mlp_kind: str = "swiglu",
+                mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (out (B, S, D) in x's dtype, aux loss f32 scalar).
+    ``mesh`` with a model axis P > 1: ``p`` holds this rank's shards of
+    the experts and the whole router (module docstring)."""
+    b, s, d = x.shape
+    n = b * s
+    dev = x.device
+    tp = mesh if parallel.model_size(mesh) > 1 else None
+    # this rank's experts [e0, e0 + n_loc), as its shards hold them: all
+    # of them at P = 1 and when each expert's F is split
+    n_loc = p["experts"]["w_up"].shape[0]
+    e0 = 0 if n_loc == n_experts else tp.model_rank * n_loc
+    if tp is not None and n_loc == n_experts and mlp_kind == "gelu":
+        raise NotImplementedError(
+            "biased GELU experts split on F under a model axis are not "
+            "ported (no config has them): P must divide n_experts")
+    x2 = parallel.copy_to_model(tp, x).reshape(n, d)
+    gates, ids, aux = _router(x2, p["router"], top_k)
+    order, stok, valid, dest, cap = dispatch(ids, n_experts,
+                                             capacity_factor)
+    nk = n * top_k
     drop = n_experts * cap
-    dest = torch.where(valid, se * cap + pos, torch.full_like(se, drop))
 
     # slot -> source token (row n of x2p is zeros); the drop slot is cut off
     slot_src = torch.full((drop + 1,), n, dtype=torch.int64, device=dev)
     slot_src[dest] = stok
     x2p = torch.cat([x2, x2.new_zeros((1, d))], 0)
-    buf = x2p[slot_src[:-1]].reshape(n_experts, cap, d)
-    out_buf = expert_mlps(buf, p["experts"], mlp_kind)     # (E, C, D)
+    buf = x2p[slot_src[e0 * cap:(e0 + n_loc) * cap]].reshape(n_loc, cap, d)
+    out_buf = expert_mlps(buf, p["experts"], mlp_kind)     # (E_loc, C, D)
 
-    rows = out_buf.reshape(drop, d)
-    picked = torch.where(valid[:, None],
-                         rows[torch.clamp(dest, max=drop - 1)],
+    rows = out_buf.reshape(n_loc * cap, d)
+    local = dest - e0 * cap
+    mine = valid if n_loc == n_experts else (
+        valid & (local >= 0) & (local < n_loc * cap))
+    picked = torch.where(mine[:, None],
+                         rows[torch.clamp(local, 0, n_loc * cap - 1)],
                          rows.new_zeros(()))
     inv = torch.empty_like(order)
     inv[order] = torch.arange(nk, device=dev)
     per_slot = picked[inv].reshape(n, top_k, d)            # token-major
     y = torch.einsum("nkd,nk->nd", per_slot.to(torch.float32), gates)
+    if tp is not None:
+        y = parallel.reduce_from_model(tp, y)
+        aux = parallel.count_once(tp, aux)
     return y.to(x.dtype).reshape(b, s, d), aux
 
 

@@ -47,7 +47,13 @@ H / P heads (:mod:`repro_torch.models.ssd`: ``in_proj``'s output gathered,
 the gated norm's squares summed over the ranks), the hybrid's shared block
 as a dense block at each of its sites, and the SSD leaves held whole but
 used a head block at a time get their gradients summed over the ranks
-(:func:`sum_split_use_grads`, called by the train steps).
+(:func:`sum_split_use_grads`, called by the train steps).  The moe
+family's blocks are the dense family's with the expert layer on the
+rank's experts, or on each expert's block of F (:mod:`repro_torch.models.
+moe`: the dispatch global on every rank, the partial outputs summed, the
+router's gradient summed with the SSD leaves', the load-balance loss
+counted once); the vlm family's ``vis_proj`` projects the patches on the
+rank's columns, gathered whole (``parallel.gather_to_model``).
 
 It also serves there (A12b): the decode cache is split on its slots as
 ``sharding_rules.cache_specs`` splits it (S / P slots a rank, every KV
@@ -62,7 +68,8 @@ merged attention go through its rows of ``wo``.  The vocab-parallel
 logits are gathered whole, so every rank takes the same greedy token.
 The ssm and hybrid families serve there too: the SSD state is split on
 its heads and the conv tail on its channels (``cache_specs``), the
-hybrid's K/V sites on their slots as the dense family's cache.
+hybrid's K/V sites on their slots as the dense family's cache; so do the
+moe and vlm families, whose caches are the dense family's.
 """
 from __future__ import annotations
 
@@ -247,12 +254,14 @@ def _ffn(x: torch.Tensor, bp: dict, cfg: ArchConfig, mesh=None
     the residual add.  Returns (x, the MoE's aux loss or None); serving
     drops the aux loss.  Under a model axis (``mesh``) the MLP's columns
     are this rank's: its partial output is summed over the ranks before
-    the replicated ``b_down`` joins it once."""
+    the replicated ``b_down`` joins it once; the MoE layer runs on the
+    rank's experts (:func:`repro_torch.models.moe.moe_forward`)."""
     h = apply_norm(x, bp["norm2"], cfg.norm)
     if "moe" in bp:
         y, aux = moe_lib.moe_forward(
             h, bp["moe"], n_experts=cfg.n_experts, top_k=cfg.experts_per_tok,
-            capacity_factor=cfg.moe_capacity_factor, mlp_kind=cfg.mlp)
+            capacity_factor=cfg.moe_capacity_factor, mlp_kind=cfg.mlp,
+            mesh=mesh)
         return x + y, aux
     p = bp["mlp"]
     y = parallel.reduce_from_model(mesh, mlp_forward(
@@ -273,9 +282,10 @@ def _attn_block_train(x: torch.Tensor, bp: dict, cfg: ArchConfig,
     """One attention + FFN block over the full sequence; returns (x, the
     MoE's aux loss or None).  With ``enc_out`` (the audio decoder) the
     block cross-attends to the encoder output, non-causally, after its
-    self-attention.  Under a model axis (``mesh``: the dense family, the
-    hybrid's shared block) the block runs on this rank's heads and MLP
-    columns, its row-parallel outputs summed over the ranks."""
+    self-attention.  Under a model axis (``mesh``: the dense, moe and vlm
+    families, the hybrid's shared block) the block runs on this rank's
+    heads and MLP columns or experts, its row-parallel outputs summed over
+    the ranks."""
     n_h, n_kv = local_heads(cfg.n_heads, cfg.n_kv_heads,
                             parallel.model_size(mesh))
     h = parallel.copy_to_model(mesh, apply_norm(x, bp["norm1"], cfg.norm))
@@ -341,8 +351,8 @@ def forward_hidden(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     the encoder output in every block.
 
     ``mesh`` with a model axis P > 1: ``params`` are this rank's shards
-    and the dense, ssm and hybrid families' blocks run tensor-parallel
-    (module docstring).
+    and the dense, moe, ssm, hybrid and vlm families' blocks run
+    tensor-parallel (module docstring).
     """
     _check_arch(cfg)
     tp = model_axis_mesh(cfg, mesh)
@@ -353,7 +363,8 @@ def forward_hidden(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
         raise ValueError(f"the {cfg.arch_type} family needs a modality "
                          f"prefix (batch['prefix'])")
     if cfg.arch_type == "vlm":
-        vis = prefix.to(cfg.dtype) @ params["vis_proj"]
+        vis = parallel.gather_to_model(
+            tp, prefix.to(cfg.dtype) @ params["vis_proj"])
         x = torch.cat([vis, x], 1)
         n_prefix = vis.shape[1]
     positions = torch.arange(x.shape[1], device=x.device)
@@ -431,17 +442,18 @@ def lm_loss(params: Params, cfg: ArchConfig, batch: dict, *,
 
 
 # ===========================================================================
-# the model axis: the dense, ssm and hybrid families tensor-parallel
+# the model axis: every family but the audio one tensor-parallel
 # ===========================================================================
 
 #: the families that train and serve under a model axis above 1
-MODEL_AXIS_FAMILIES = ("dense", "ssm", "hybrid")
+MODEL_AXIS_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
 
 def model_axis_mesh(cfg: ArchConfig, mesh):
-    """``mesh`` when it has a model axis above 1 (the dense, ssm and hybrid
-    families train and serve on one: P must divide the attention's kv
-    heads and the SSD heads), else None."""
+    """``mesh`` when it has a model axis above 1 (the dense, moe, ssm,
+    hybrid and vlm families train and serve on one: P must divide the
+    attention's kv heads and the SSD heads; a P that does not divide the
+    experts splits each expert's F), else None."""
     if mesh is None or mesh.model_size == 1:
         return None
     if cfg.arch_type not in MODEL_AXIS_FAMILIES:
@@ -449,7 +461,7 @@ def model_axis_mesh(cfg: ArchConfig, mesh):
             f"the {cfg.arch_type} family does not train or serve under a "
             f"model axis yet (ROADMAP A12c); the "
             f"{', '.join(MODEL_AXIS_FAMILIES)} families do")
-    if cfg.arch_type in ("dense", "hybrid"):
+    if cfg.arch_type != "ssm":
         local_heads(cfg.n_heads, cfg.n_kv_heads, mesh.model_size)
     if cfg.arch_type in ("ssm", "hybrid"):
         ssd_lib.local_ssm_heads(cfg, mesh.model_size)
@@ -458,7 +470,10 @@ def model_axis_mesh(cfg: ArchConfig, mesh):
 
 def split_use_leaves(cfg: ArchConfig, names) -> list[str]:
     """The leaves of ``names`` held whole on every rank whose use the model
-    axis splits by heads: the SSD blocks' :data:`ssd.SPLIT_USE`."""
+    axis splits: the SSD blocks' :data:`ssd.SPLIT_USE` (by heads) and the
+    MoE router (by experts or by their F)."""
+    if cfg.arch_type == "moe":
+        return [k for k in names if k == "blocks/moe/router"]
     if cfg.arch_type not in ("ssm", "hybrid"):
         return []
     return [k for k in names if k.startswith("blocks/ssm/")
@@ -564,8 +579,8 @@ def _split_kv(cache: dict, mesh):
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
                device: str | torch.device | None = None, mesh=None) -> dict:
     """Zeroed decode cache sized for ``cache_len`` positions; ``device=None``
-    means the card.  Under a model axis (``mesh``: the dense, ssm and
-    hybrid families) this rank's block of it (``sharding_rules.
+    means the card.  Under a model axis (``mesh``: every family but the
+    audio one) this rank's block of it (``sharding_rules.
     cache_specs``): the K/V's :func:`local_slots`, with ``"slots"`` =
     ``cache_len`` where there are K/V, the SSD conv tails' block of
     channels and the states' heads."""
@@ -680,8 +695,8 @@ def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
     ``dec_pos[min(pos, max_position - 1)]`` to the token and attends to
     every one of the encoder's slots in each block.
 
-    ``mesh`` with a model axis P > 1 (the dense, ssm and hybrid
-    families): ``params`` and ``cache`` are this rank's (:func:`init_cache`,
+    ``mesh`` with a model axis P > 1 (every family but the audio one):
+    ``params`` and ``cache`` are this rank's (:func:`init_cache`,
     :func:`prefill`), the blocks run as the module docstring says, and
     every rank returns the whole (B, Vp) logits, the same bits on each.
     """
@@ -841,8 +856,9 @@ def prefill(params: Params, cfg: ArchConfig, batch: dict,
     decoder tokens taking ``dec_pos`` and cross-attending to the encoder
     output, whose K/V go to ``cross_k`` / ``cross_v``.
 
-    ``mesh`` with a model axis P > 1 (the dense, ssm and hybrid
-    families): ``params`` are this rank's shards; the cache is this rank's
+    ``mesh`` with a model axis P > 1 (every family but the audio one):
+    ``params`` are this rank's shards (the vlm's patches projected on
+    its ``vis_proj`` columns and gathered whole); the cache is this rank's
     block of it, with ``"slots"`` where it has K/V (:func:`init_cache`),
     and every rank returns the whole logits.
     """
@@ -852,7 +868,8 @@ def prefill(params: Params, cfg: ArchConfig, batch: dict,
     x = (params["embed"][tokens] if tp is None              # (B,S,D)
          else _embed_tp(params["embed"], tokens, tp))
     if cfg.arch_type == "vlm":
-        vis = batch["prefix"].to(cfg.dtype) @ params["vis_proj"]
+        vis = parallel.gather_to_model(
+            tp, batch["prefix"].to(cfg.dtype) @ params["vis_proj"])
         x = torch.cat([vis, x], 1)
     b, s = x.shape[0], prompt_positions(cfg, batch)
     dev = x.device

@@ -22,6 +22,16 @@ over d_inner, split by heads), and :func:`all_reduce_sum_tensors` sums a
 list of tensors in one collective (the SSD leaves held whole whose use
 the heads split: their gradients are partial on each rank).
 
+The moe and vlm families (A12c) add two: :func:`gather_to_model` puts
+the ranks' columns side by side as :func:`gather_columns` does, for a
+whole that every rank then uses the same way (the vlm's projected patch
+prefix joins the replicated residual stream), so its gradient is the
+rank's own columns of the whole's, without a collective; and
+:func:`count_once` is the identity whose gradient is divided by P (the
+MoE's load-balance loss, which every rank computes whole from the
+replicated router, while the SUMs downstream of it add every rank's
+gradient).
+
 Each takes ``mesh=None`` (or a mesh whose model axis is 1) and then
 returns its input as it is, so one code path serves the model at P = 1,
 where it runs exactly the ops it ran before the model axis existed.
@@ -193,6 +203,45 @@ def gather_columns(mesh, x: torch.Tensor) -> torch.Tensor:
     if model_size(mesh) == 1:
         return x
     return _GatherColumns.apply(x, mesh)
+
+
+class _GatherToModel(_GatherColumns):
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.mesh.model_rank * ctx.width
+        return g[..., lo:lo + ctx.width].contiguous(), None
+
+
+class _CountOnce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, p):
+        ctx.p = p
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.p, None
+
+
+def gather_to_model(mesh, x: torch.Tensor) -> torch.Tensor:
+    """Every model rank's ``x`` (..., c) side by side on the last dim in
+    rank order, as :func:`gather_columns`, for a whole that every rank
+    uses the same way: each rank's gradient of the whole is then the
+    whole gradient, and the gradient of its ``x`` is its own columns of
+    it (Megatron's gather, whose backward is a split)."""
+    if model_size(mesh) == 1:
+        return x
+    return _GatherToModel.apply(x, mesh)
+
+
+def count_once(mesh, x: torch.Tensor) -> torch.Tensor:
+    """``x`` as it is, its gradient divided by P: a term that every rank
+    computes whole from replicated inputs and whose gradient the SUMs
+    over the model group downstream of it would otherwise count P
+    times."""
+    if model_size(mesh) == 1:
+        return x
+    return _CountOnce.apply(x, mesh.model_size)
 
 
 def sum_over_model(mesh, x: torch.Tensor) -> torch.Tensor:

@@ -16,7 +16,10 @@ job on it, returning what the caller compares (numpy arrays, host floats):
   step against the unsharded one under an aggregate;
 * ``loss_grads``: the tensor-parallel ``lm_loss`` and its gradient,
   gathered whole after ``transformer.sum_split_use_grads``, and the
-  rank's own (unsummed) gradients of the leaves that sums;
+  rank's own (unsummed) gradients of the leaves that sums; for the moe
+  family each MoE layer's router ids and kept rows (``moe.dispatch``),
+  and with ``fault`` (``aux_every_rank``: ``parallel.count_once`` made
+  the identity) the run with that fault planted;
 * ``task``: the 100M task at ``model_axis=P``: losses, each round's
   collectives and the LGC kernels' launches, and (``state``) the whole
   params and error memory after;
@@ -29,7 +32,8 @@ job on it, returning what the caller compares (numpy arrays, host floats):
   entry points at P ranks, from the rank's shards of the params: the
   prefill's logits and cache, then ``steps`` greedy steps' logits and
   tokens and the final cache (this rank's block of it: K/V, SSD conv
-  tails and states), and each run's collectives; with ``conv_whole`` the
+  tails and states), and each run's collectives; a case's ``prefix`` is
+  the vlm's patch embeddings; with ``conv_whole`` the
   prefill's conv tails are gathered whole on every rank before the steps
   (the layout ``cache_specs`` gives a conv that P does not divide).
 """
@@ -144,6 +148,32 @@ def _compress(job: dict, mesh) -> dict:
     return out
 
 
+def _planted(job: dict):
+    """The job's ``fault`` put into this rank; returns its undo."""
+    from repro_torch import parallel
+    if job.get("fault") is None:
+        return lambda: None
+    if job["fault"] != "aux_every_rank":
+        raise ValueError(f"no fault {job['fault']!r}")
+    old = parallel.count_once
+    parallel.count_once = lambda mesh, x: x
+    return lambda: setattr(parallel, "count_once", old)
+
+
+def _dispatches(calls: list):
+    """A wrapper of ``moe.dispatch`` that appends each call's (ids, kept
+    rows in the sorted order) to ``calls``; returns its undo."""
+    from repro_torch.models import moe
+    old = moe.dispatch
+
+    def new(ids, n_experts, capacity_factor):
+        out = old(ids, n_experts, capacity_factor)
+        calls.append((_numpy(ids).astype(np.int32), _numpy(out[2])))
+        return out
+    moe.dispatch = new
+    return lambda: setattr(moe, "dispatch", old)
+
+
 def _loss_grads(job: dict, mesh) -> dict:
     from repro_torch import parallel
     from repro_torch.launch import sharding_rules as rules
@@ -156,15 +186,23 @@ def _loss_grads(job: dict, mesh) -> dict:
              for k, v in job["batch"].items()}
     names = list(shards)
     leaves = [shards[k].detach().requires_grad_(True) for k in names]
-    with torch.enable_grad():
-        loss = tf.lm_loss(dict(zip(names, leaves)), cfg, batch, mesh=mesh)
-        own = dict(zip(names, torch.autograd.grad(loss, leaves)))
+    calls: list = []
+    undo = [_planted(job), _dispatches(calls)]
+    try:
+        with torch.enable_grad():
+            loss = tf.lm_loss(dict(zip(names, leaves)), cfg, batch,
+                              mesh=mesh)
+            own = dict(zip(names, torch.autograd.grad(loss, leaves)))
+    finally:
+        for u in undo:
+            u()
     grads = tf.sum_split_use_grads(cfg, own, mesh)
-    return {"loss": float(loss),
+    return {"loss": float(loss.detach()),
             "grads": {k: _numpy(parallel.gather_model(mesh, g, specs[k]))
                       for k, g in grads.items()},
             "unsummed": {k: _numpy(own[k])
-                         for k in tf.split_use_leaves(cfg, names)}}
+                         for k in tf.split_use_leaves(cfg, names)},
+            "dispatch": calls}
 
 
 def _task(job: dict, mesh) -> dict:
@@ -286,8 +324,10 @@ def _serve(job: dict, mesh) -> dict:
         prefill = make_prefill_step(cfg, case["cache_len"], mesh=mesh)
         step = make_serve_step(cfg, case["window"], mesh=mesh,
                                return_logits=True)
-        prompts = torch.from_numpy(np.asarray(case["prompts"]))
-        logits, cache = prefill(shards, {"tokens": prompts})
+        batch = {"tokens": torch.from_numpy(np.asarray(case["prompts"]))}
+        if case.get("prefix") is not None:
+            batch["prefix"] = torch.from_numpy(np.asarray(case["prefix"]))
+        logits, cache = prefill(shards, batch)
         res = {"prefill_logits": _numpy(logits),
                "slots": cache.get("slots"),
                "prefill_cache": _caches(cache),       # the steps write it

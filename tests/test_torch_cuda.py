@@ -447,11 +447,13 @@ def test_swa_decode_rejects_mixed_devices(card):
 # cache's slots under the model axis: the serve shard shape of qwen2-1.5b
 # (a 4,096-slot cache over two ranks), the shards of chip_smoke.py's
 # serving job (a 1,040-slot cache and a 1,024-slot ring over two ranks),
-# Dh 64 and Dh 96 under GQA, and zamba2-1.2b's shard of its 1,040-slot
-# K/V sites over two ranks (REP 1, Dh 64)
+# Dh 64 and Dh 96 under GQA, zamba2-1.2b's shard of its 1,040-slot
+# K/V sites over two ranks (REP 1, Dh 64), and olmoe-1b-7b's and
+# phi-3-vision-4.2b's shards of a 1,040-slot cache (REP 1, Dh 128 and 96)
 PARTIAL_SHAPES = [(8, 12, 2, 2048, 128), (8, 12, 2, 520, 128),
                   (8, 12, 2, 512, 128), (2, 8, 2, 520, 64),
-                  (2, 16, 2, 300, 96), (8, 32, 32, 520, 64)]
+                  (2, 16, 2, 300, 96), (8, 32, 32, 520, 64),
+                  (8, 16, 16, 520, 128), (8, 32, 32, 520, 96)]
 
 
 def _partial_lengths(b, w, card):
@@ -575,7 +577,8 @@ def test_short_lr_run_launches_the_kernels_once_per_sync(card):
         counts = dict(pk.LAUNCHES)
     torch.cuda.synchronize()
     assert counts == {"maxabs": 9, "histogram": 9, "sparsify_ef": 9,
-                      "swa_decode": 0, "maxabs_rows": 0,
+                      "swa_decode": 0, "swa_decode_partial": 0,
+                      "maxabs_rows": 0,
                       "histogram_rows": 0, "sparsify_ef_rows": 0,
                       "maxabs_segments": 0, "histogram_segments": 0,
                       "threefry_normal": 0}
@@ -830,7 +833,8 @@ def test_batched_engine_launches_once_per_boundary_without_a_sync(
     torch.cuda.synchronize()
     counts = dict(pk.LAUNCHES)
     assert counts == {"maxabs": 0, "histogram": 0, "sparsify_ef": 0,
-                      "swa_decode": 0, "maxabs_rows": want,
+                      "swa_decode": 0, "swa_decode_partial": 0,
+                      "maxabs_rows": want,
                       "histogram_rows": want, "sparsify_ef_rows": want,
                       "maxabs_segments": 0, "histogram_segments": 0,
                       "threefry_normal": 0}
@@ -1334,14 +1338,47 @@ def test_model_axis_ssd_split_pipeline_on_one_card(card):
         assert not whole["split"] and whole["step_bitwise"]
 
 
-@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-1.2b"])
-def test_model_axis_ssd_smoke_serve_on_one_card(card, arch):
-    """The ssm and hybrid families served under the model axis on the
-    card: the smoke config in f32 on two gloo ranks sharing it, a 16-token
-    prefill into a 24-slot ring and 12 greedy steps past its wrap (the SSD
-    blocks on 4 of 8 heads a rank, zamba2's ``swa_decode_partial`` on each
-    rank's 12 slots), against P = 1 on the card: logits within 1e-5,
-    tokens equal, both ranks bit-equal."""
+def test_model_axis_expert_split_pipeline_on_one_card(card):
+    """The expert shards (ROADMAP A12c): two gloo ranks on the card, each
+    with its 32 of olmoe-1b-7b's 64 experts at full width (1 of its 16
+    layers) for M = 2, a block of the whole leaf's flat order that is not
+    contiguous: the row kernels on the shard with MAX / SUM over the model
+    group are bitwise the rank's block of ``lgc_compress_hist_rows`` of
+    the whole leaf and of the plain split pipeline, and so is the train
+    step's whole compression; the router, held whole, is compressed
+    whole."""
+    import _torch_tp_jobs as tp_jobs
+    from repro_torch.launch.mesh import spawn
+    leaves = ["blocks/moe/experts/w_gate", "blocks/moe/experts/w_down",
+              "blocks/moe/router"]
+    job = dict(name="experts", kind="compress", aggregate="dense_masked",
+               arch="olmoe-1b-7b", replace=dict(n_layers=1), leaves=leaves)
+    ranks = spawn(tp_jobs.rank_main, 2, "gloo", args=([job], "cuda"),
+                  timeout=300.0)
+    for r in ranks:
+        got = r["results"]["experts"]
+        assert got["blocks/moe/experts/w_gate"]["local"] == [1, 32, 2048,
+                                                             1024]
+        assert got["blocks/moe/experts/w_down"]["local"] == [1, 32, 1024,
+                                                             2048]
+        for leaf in leaves[:2]:
+            row = got[leaf]
+            assert row["split"] and row["pipeline_bitwise"], leaf
+            assert row["plain_bitwise"] and row["step_bitwise"], leaf
+        whole = got["blocks/moe/router"]
+        assert not whole["split"] and whole["step_bitwise"]
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-1.2b",
+                                  "olmoe-1b-7b"])
+def test_model_axis_family_smoke_serve_on_one_card(card, arch):
+    """The ssm, hybrid and moe families served under the model axis on
+    the card: the smoke config in f32 on two gloo ranks sharing it, a
+    16-token prefill into a 24-slot ring and 12 greedy steps past its wrap
+    (the SSD blocks on 4 of 8 heads a rank, olmoe's 2 of 4 experts a rank,
+    zamba2's and olmoe's ``swa_decode_partial`` on each rank's 12 slots),
+    against P = 1 on the card: logits within 1e-5, tokens equal, both
+    ranks bit-equal."""
     import dataclasses
     import _torch_tp_jobs as tp_jobs
     from repro_torch.configs import get_smoke_config
@@ -1375,7 +1412,10 @@ def test_model_axis_ssd_smoke_serve_on_one_card(card, arch):
                                rtol=1e-5, atol=1e-5)
     assert np.array_equal(r0["logits"], r1["logits"])
     assert np.array_equal(r0["tokens"], r1["tokens"])
-    assert r0["cache"]["state"].shape[2] == cfg.ssm_heads // 2
+    if cfg.arch_type == "moe":
+        assert r0["cache"]["k"].shape[3] == 12
+    else:
+        assert r0["cache"]["state"].shape[2] == cfg.ssm_heads // 2
 
 
 def test_model_axis_smoke_serve_on_one_card(card):

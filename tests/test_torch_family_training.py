@@ -190,6 +190,7 @@ def test_moe_aux_loss_on_its_own(monkeypatch):
     def checked(x, p, **kw):
         y, aux = orig(x, p, **kw)
         kw.pop("capacity_factor")
+        assert kw.pop("mesh") is None           # no model axis here
         y_all, aux_all = pmoe.moe_dense_ref(x, p, **kw)
         assert torch.equal(aux, aux_all)
         dropped.append(not torch.allclose(y, y_all, rtol=RTOL, atol=ATOL))

@@ -397,15 +397,15 @@ def _fake_mesh(model: int):
                                   "zamba2-1.2b", "phi-3-vision-4.2b",
                                   "whisper-small"])
 def test_other_families_refuse_to_serve_under_a_mesh(arch):
-    """The moe, vlm and audio families refuse a mesh, naming A12c; the
-    ssm and hybrid families serve on one: the steps build, and each
-    rank's ``init_cache`` is its ``cache_specs`` block of the whole."""
+    """The audio family refuses a mesh, naming A12c; the moe, ssm, hybrid
+    and vlm families serve on one: the steps build, and each rank's
+    ``init_cache`` is its ``cache_specs`` block of the whole."""
     cfg = get_smoke_config(arch)
     makers = (lambda: make_prefill_step(cfg, 8, mesh=_fake_mesh(2)),
               lambda: make_serve_step(cfg, 8, mesh=_fake_mesh(2)),
               lambda: ptf.init_cache(cfg, 1, 8, device="cpu",
                                      mesh=_fake_mesh(2)))
-    if cfg.arch_type not in ("ssm", "hybrid"):
+    if cfg.arch_type == "audio":
         for make in makers:
             with pytest.raises(NotImplementedError, match="A12c"):
                 make()

@@ -449,12 +449,12 @@ def test_model_axis_must_divide_the_kv_heads():
 
 
 def test_other_families_refuse_the_model_axis():
-    cfg = get_smoke_config("olmoe-1b-7b")
+    cfg = get_smoke_config("whisper-small")
     batch = {k: torch.from_numpy(v).long() for k, v in LOSS_BATCH.items()}
     with pytest.raises(NotImplementedError, match="A12c"):
         ptf.lm_loss({}, cfg, batch, mesh=_fake_mesh(2))
     with pytest.raises(NotImplementedError, match="A12c"):
-        train.main(["--arch", "olmoe-1b-7b", "--smoke", "--model-parallel",
+        train.main(["--arch", "whisper-small", "--smoke", "--model-parallel",
                     "2", "--devices", "2", "--device", "cpu"])
 
 
