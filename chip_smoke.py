@@ -65,14 +65,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    the shards phase 5d's serving job runs (W=520 and W=512), at Dh 64, at
    Dh 96 under GQA, at zamba2-1.2b's shard in phase 5d (e) (B=8,
    H=Kv=32, W=520, Dh=64) and at olmoe-1b-7b's and phi-3-vision-4.2b's in
-   (f) (B=8, H=Kv=16, W=520, Dh=128; B=8, H=Kv=32, W=520, Dh=96), with
+   (f) (B=8, H=Kv=16, W=520, Dh=128; B=8, H=Kv=32, W=520, Dh=96) and
+   whisper-small's in (g) (B=8, H=Kv=12, W=128, Dh=64), with
    rows of W, W/2+3, 1 and 0 valid slots: its
    output cast to q's dtype bitwise ``swa_decode``'s, (out, m, l) against
    the plain partial version; and the serve shape and phase 5d's two
    caches cut into two halves as ``layers.attention_decode`` cuts them,
    the kernel's and the plain version's states merged
    (``ref.merge_decode_partials``) within the tolerance of ``swa_decode``
-   over the whole window;
+   over the whole window; and ``layers.attention_decode_heads`` (a rank's
+   query heads over their heads of a cache every rank holds whole:
+   whisper-small's cross cache under P = 2, B=8, H=12, W=1,500, Dh=64)
+   one ``swa_decode`` launch a call, each rank within the tolerance of
+   the plain version and of ``swa_decode`` on its contiguous heads, every
+   slot valid and at mixed lengths;
 3b. threefry_normal, the weights' draw, bitwise its plain version on the
    card at one layer of yi-34b's ``w_up`` and glm4-9b's ``embed`` (bf16),
    olmoe's router (f32) and an odd length;
@@ -206,7 +212,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ``vis_proj``'s columns gathered in the reverse order), which also
    reads the bf16 drift at P = 2 of mamba2-370m and qwen2-100m (one
    forward and backward against P = 1 and against f32; no limit);
-   (c) ``repro_torch.launch.train
+   (g) the audio family the same way: whisper-small at full width and
+   depth (12 encoder blocks over 1,500 frames, 12 decoder blocks with
+   cross-attention), 3 LGC rounds in f32 over the driver's zero frames,
+   each row kernel 20 a round a rank; serving in bf16, 8 x 192 tokens and
+   1,500 frames drawn from one seed on both ranks into 256 slots, 8 fed
+   steps, ``swa_decode_partial`` (the rank's 128 self-attention slots) and
+   ``swa_decode`` (the rank's 6 of the 12 heads of each block's
+   1,500-slot cross cache, ``layers.attention_decode_heads``) 12 each a
+   step, both ranks' cross caches bitwise equal, then
+   ``serve_decode.serve(mesh=)`` on 128 tokens; limits
+   ``MODEL_AXIS_AUDIO_*`` from ``--model-axis-faults`` (the encoder
+   output's gradient left unsummed, the cross ``wo`` output left unsummed,
+   the decode's query heads over the next rank's heads of the cross
+   cache); (c) ``repro_torch.launch.train
    --model-parallel 2 --devices 2 --mode sync`` for 3 steps (it spawns its
    own two ranks), its loss falling; one ``model_axis`` JSON line;
 6. a small f32 serve (qwen2-smoke), card against CPU with the same weights:
@@ -386,9 +405,16 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    shard (B=8, H=Kv=32, W=520, Dh=64, ``at_zamba2_shard``) with phase 5d
    (e)'s launches (``launches_model_axis_ssm_serve``), at olmoe-1b-7b's
    and phi-3-vision-4.2b's shards (``at_olmoe_shard``, ``at_phi3v_shard``)
-   with (f)'s (``launches_model_axis_moe_vlm_serve``); the LGC kernels'
-   launches on each rank in phase 5d (e) and (f)
-   (``launches_model_axis_ssm``, ``launches_model_axis_moe_vlm``);
+   with (f)'s (``launches_model_axis_moe_vlm_serve``), at
+   whisper-small's shard (B=8, H=Kv=12, W=128, Dh=64,
+   ``at_whisper_shard``) with (g)'s (``launches_model_axis_audio_serve``);
+   ``swa_decode`` over a rank's 6 heads of whisper-small's cross cache
+   (``at_whisper_cross_heads``: the (16, 6, 6, 1500, 64) launch of
+   ``attention_decode_heads``, half its rows empty, beside SDPA over the
+   strided heads and the copy design's time) with (g)'s launches
+   (``launches_model_axis_audio_serve``); the LGC kernels' launches on
+   each rank in phase 5d (e), (f) and (g) (``launches_model_axis_ssm``,
+   ``launches_model_axis_moe_vlm``, ``launches_model_axis_audio``);
 10. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package ``repro``.
@@ -1168,12 +1194,15 @@ def phase_swa(gen, errs: dict) -> None:
 # the shards phase 5d's serving job runs (its 1,040-slot cache and its
 # 1,024-slot ring over two ranks), at Dh 64 and at Dh 96 under GQA, and at
 # zamba2-1.2b's shard in phase 5d (e) (its 1,040-slot K/V sites over two
-# ranks: REP 1, Dh 64), and olmoe-1b-7b's and phi-3-vision-4.2b's in (f)
+# ranks: REP 1, Dh 64), olmoe-1b-7b's and phi-3-vision-4.2b's in (f)
 # (REP 1 at Dh 128 and at Dh 96, the partial form's first Dh 96 launches
-# on a path); the last three are the kernels line's ``at_*_shard``
+# on a path) and whisper-small's in (g) (its 256-slot self-attention
+# cache over two ranks: REP 1, Dh 64); the last four are the kernels
+# line's ``at_*_shard``
 SWA_PARTIAL_SHARDS = {"zamba2-1.2b": (8, 32, 32, 520, 64),
                       "olmoe-1b-7b": (8, 16, 16, 520, 128),
-                      "phi-3-vision-4.2b": (8, 32, 32, 520, 96)}
+                      "phi-3-vision-4.2b": (8, 32, 32, 520, 96),
+                      "whisper-small": (8, 12, 12, 128, 64)}
 SWA_PARTIAL_SHAPES = [(8, 12, 2, 2048, 128), (8, 12, 2, 520, 128),
                       (8, 12, 2, 512, 128), (2, 8, 2, 520, 64),
                       (2, 16, 2, 300, 96), *SWA_PARTIAL_SHARDS.values()]
@@ -1255,6 +1284,135 @@ def phase_swa_partial(gen, errs: dict) -> None:
                     f"rtol=atol={tol} of swa_decode over the whole window; "
                     f"max abs err {max_abs_err(got, want):.3e}")
     torch.cuda.synchronize()
+
+
+# whisper-small's cross cache under a model axis of 2 (phase 5d (g)):
+# (B, P, H, W, Dh); a rank attends with its 6 query heads over their heads
+# of the whole 1,500-slot cache (``layers.attention_decode_heads``)
+SWA_CROSS_HEADS = (8, 2, 12, 1500, 64)
+
+
+class _HeadsMesh:
+    """What ``layers.attention_decode_heads`` reads of a mesh."""
+
+    def __init__(self, model_size: int, model_rank: int):
+        self.model_size, self.model_rank = model_size, model_rank
+
+
+def cross_heads_inputs(gen, dtype, lengths=None):
+    """q (B, 1, H / P, Dh) of each rank and the whole cross cache (B, H, W,
+    Dh) as ``layers.KVCache`` with ``lengths`` (every slot valid: W)."""
+    import torch
+    from repro_torch.models.layers import KVCache
+    b, p, h, w, dh = SWA_CROSS_HEADS
+    q, k, v = swa_inputs(gen, (b, h, h, w, dh), dtype)
+    ln = (torch.full((b,), w, dtype=torch.int32, device="cuda")
+          if lengths is None else lengths)
+    return ([q.view(b, p, h // p, dh)[:, r, None].contiguous()
+             for r in range(p)], KVCache(k, v, ln))
+
+
+def phase_swa_cross_heads(gen, errs: dict) -> None:
+    """Phase 3: ``layers.attention_decode_heads`` at whisper-small's cross
+    cache under P = 2 (SWA_CROSS_HEADS), f32 and bf16, every slot valid
+    and at mixed lengths: one ``swa_decode`` launch a call, each rank's
+    output within SWA_TOL of the plain version on its contiguous block of
+    heads and of ``swa_decode`` on that block."""
+    import torch
+    from repro_torch.kernels import LAUNCHES, ref, swa_decode
+    from repro_torch.models.layers import attention_decode_heads
+    b, p, h, w, dh = SWA_CROSS_HEADS
+    mixed = torch.tensor([w, w - 7, 1, 0, 700, w // 2, 3, w],
+                         dtype=torch.int32, device="cuda")[:b]
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        tol = SWA_TOL[name]
+        for ln in (None, mixed):
+            qs, cache = cross_heads_inputs(gen, dtype, ln)
+            for r, q in enumerate(qs):
+                before = LAUNCHES["swa_decode"]
+                got = attention_decode_heads(q, cache, _HeadsMesh(p, r))[:, 0]
+                check(LAUNCHES["swa_decode"] - before == 1,
+                      f"attention_decode_heads: "
+                      f"{LAUNCHES['swa_decode'] - before} launches")
+                heads = slice(r * h // p, (r + 1) * h // p)
+                kb = cache.k[:, heads].contiguous()
+                vb = cache.v[:, heads].contiguous()
+                for tag, want in (
+                        ("plain", ref.swa_decode_ref(q[:, 0], kb, vb,
+                                                     cache.length)),
+                        ("swa_decode on the block",
+                         swa_decode(q[:, 0].contiguous(), kb, vb,
+                                    cache.length))):
+                    check(got.dtype == dtype and bool(torch.isclose(
+                        got.float(), want.float(), rtol=tol,
+                        atol=tol).all()),
+                        f"attention_decode_heads {SWA_CROSS_HEADS} {name} "
+                        f"rank {r} against the {tag}: "
+                        f"{max_abs_err(got, want):.3e}")
+                errs["swa_decode"] = max(errs["swa_decode"], max_abs_err(
+                    got, ref.swa_decode_ref(q[:, 0], kb, vb, cache.length)))
+        log(f"attention_decode_heads (B,P,H,W,Dh)={SWA_CROSS_HEADS} {name}: "
+            f"one swa_decode launch a call over a (B P, H / P, W, Dh) view "
+            f"of the whole cache, each rank within rtol=atol={tol} of the "
+            f"plain version and of swa_decode on its contiguous heads, "
+            f"every slot valid and at lengths {mixed.tolist()}")
+    torch.cuda.synchronize()
+
+
+def time_swa_cross_heads(gen) -> dict:
+    """``attention_decode_heads``'s launch at whisper-small's cross cache
+    under P = 2 in bf16, every slot valid, rank 0: ``swa_decode`` on the
+    (B P, H / P, W, Dh) view of the whole cache whose other rank's rows
+    have length 0, each call on the next of four input copies.  Its plain
+    version on the same inputs; the library call is
+    scaled_dot_product_attention over the rank's heads (a strided view of
+    the same cache); the bound counts the bytes the rank's rows need (its
+    heads' K and V, q, the output).  ``copy_design_device_ms``: the other
+    design, the rank's heads copied contiguous and ``swa_decode`` on them."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.device import device_ms
+    from repro_torch.kernels import ref, swa_decode
+    b, p, h, w, dh = SWA_CROSS_HEADS
+    hl = h // p
+    sets = [cross_heads_inputs(gen, torch.bfloat16) for _ in range(4)]
+    ln = torch.tensor([w, 0] * b, dtype=torch.int32, device="cuda")
+    view = [(torch.cat([q, torch.zeros_like(q)], 1).view(b * p, hl, dh),
+             c.k.view(b * p, hl, w, dh), c.v.view(b * p, hl, w, dh))
+            for (q, _), c in sets]
+    heads = [(qs[0][:, 0], c.k.view(b, p, hl, w, dh)[:, 0],
+              c.v.view(b, p, hl, w, dh)[:, 0]) for qs, c in sets]
+    full = torch.full((b,), w, dtype=torch.int32, device="cuda")
+
+    def rotate(f, inputs):
+        it = iter(range(1 << 30))
+        return lambda: f(*inputs[next(it) % len(inputs)])
+    kern = rotate(lambda q, k, v: swa_decode(q, k, v, ln), view)
+    plain = rotate(lambda q, k, v: ref.swa_decode_ref(q, k, v, ln), view)
+    lib = rotate(lambda q, k, v: F.scaled_dot_product_attention(
+        q[:, :, None], k, v), heads)
+    copy = rotate(lambda q, k, v: swa_decode(q, k.contiguous(),
+                                             v.contiguous(), full), heads)
+    n_bytes = 2 * b * hl * w * dh * 2 + 2 * (b * hl * dh * 2) + 4 * b * p
+    n_ops = 4 * b * hl * w * dh
+    bnd, by = bound_ms(n_bytes, n_ops)
+    row = {"shape": list(SWA_CROSS_HEADS), "launch_shape": [b * p, hl, hl,
+                                                            w, dh],
+           "dtype": "bfloat16", "ms": time_ms(kern),
+           "plain_ms": time_ms(plain), "library_ms": time_ms(lib),
+           "device_ms": device_ms(kern), "library_device_ms": device_ms(lib),
+           "bound_ms": bnd, "bound_by": by, "bytes": n_bytes,
+           "copy_design_device_ms": device_ms(copy)}
+    log(f"timing swa_decode over a rank's heads of the cross cache "
+        f"(B,P,H,W,Dh)={SWA_CROSS_HEADS} bf16 (launched at "
+        f"{row['launch_shape']}, the other rank's rows empty): kernel {row['ms']:.5f} ms one "
+        f"call, {row['device_ms']:.5f} ms device; plain {row['plain_ms']:.5f}"
+        f" ms; library {row['library_ms']:.5f} ms one call, "
+        f"{row['library_device_ms']:.5f} ms device; bound {bnd:.5f} ms ({by},"
+        f" {n_bytes:,} B); the copy design (heads copied, then swa_decode) "
+        f"{row['copy_design_device_ms']:.5f} ms device")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -2333,7 +2491,8 @@ def phase_model_axis(smi: str) -> dict:
                   synced=MODEL_AXIS_SYNCED_ROUNDS)
              for agg in MODEL_AXIS_AGGREGATES]
     jobs.append(dict(name="serve", kind="serve", faults=[None], free=True))
-    jobs += family_axis_jobs("e") + family_axis_jobs("f")
+    jobs += [j for part in MODEL_AXIS_PART_KEYS
+             for j in family_axis_jobs(part)]
     t0 = time.perf_counter()
     ranks = spawn(model_axis_rank, MODEL_AXIS, "gloo", args=(jobs,),
                   timeout=MODEL_AXIS_TIMEOUT_S)
@@ -2419,8 +2578,8 @@ def phase_model_axis(smi: str) -> dict:
     out["launches"] = launches
     out["serve"] = check_model_axis_serve([r["results"]["serve"]
                                            for r in ranks], smi)
-    out["ssm"] = check_model_axis_part(ranks, smi, "e")
-    out["moe_vlm"] = check_model_axis_part(ranks, smi, "f")
+    for part, key in MODEL_AXIS_PART_KEYS.items():
+        out[key] = check_model_axis_part(ranks, smi, part)
     # (c) the driver spawns its own two ranks
     t0 = time.perf_counter()
     try:
@@ -2638,6 +2797,37 @@ MODEL_AXIS_MOE_VLM_FAULTS = {
     "aux_every_rank": (("olmoe-1b-7b",), ("train",)),
     "expert_block_next_rank": (("olmoe-1b-7b",), ("train", "serve")),
     "vis_columns_reversed": (("phi-3-vision-4.2b",), ("train", "serve"))}
+MODEL_AXIS_AUDIO_ARCHS = ("whisper-small",)
+# (g): as (f)'s, in f32 at full depth (12 encoder blocks over the
+# driver's 1,500 zero frames, 12 decoder blocks, 128 tokens)
+MODEL_AXIS_AUDIO_TRAIN = {"whisper-small": (2, 4, 128, 2e-2, 3)}
+# serving in bf16 at full depth: 8 prompts of 192 tokens (whisper's
+# decoder ceiling is 448) and 1,500 frames drawn from the same seed on
+# both ranks, a 256-slot cache (128 a rank), 8 fed steps; the entry run on
+# 128 tokens.  A step launches swa_decode_partial on the rank's slots of
+# each block's self-attention cache and swa_decode on the rank's 6 of the
+# 12 heads of its 1,500-slot cross cache
+MODEL_AXIS_AUDIO_SERVE = {"batch": 8, "prompt": 192, "slots": 256,
+                          "steps": 8, "entry_prompt": 128, "entry_steps": 2}
+# (g)'s limits, as (e)'s and (f)'s.  Set from readings on the H100
+# (``--model-axis-faults``; PERF.md §6): training's sound rounds 0, 0,
+# 1.9e-6; ``enc_unsummed`` 3.7e-2, 5.1e-2, 4.1e-2, ``cross_wo_unsummed``
+# 8.2e-2, 4.7e-2, 4.3e-2.  Serving's sound run 0.0076-0.0080 mean a step,
+# 0.055 max (bf16 P = 1 is itself 0.0083 mean from P = 1 in f32);
+# ``cross_wo_unsummed`` 0.43-0.59 mean (2.3-3.4 max),
+# ``cross_heads_next_rank`` 0.73 mean (4.0-4.1 max) from the first step
+MODEL_AXIS_AUDIO_FIRST_ROUND_ATOL = 2e-5
+MODEL_AXIS_AUDIO_LOSS_ATOL = 1e-3
+MODEL_AXIS_AUDIO_LOGITS_MEAN_ATOL = 0.04
+MODEL_AXIS_AUDIO_LOGITS_ATOL = 0.4
+# fault -> the archs and paths it touches: the encoder output's gradient
+# left each rank's own heads' part (no copy_to_model), the cross ``wo``
+# output left unsummed, the decode step's query heads attending over the
+# next rank's heads of the cross cache
+MODEL_AXIS_AUDIO_FAULTS = {
+    "enc_unsummed": (MODEL_AXIS_AUDIO_ARCHS, ("train",)),
+    "cross_wo_unsummed": (MODEL_AXIS_AUDIO_ARCHS, ("train", "serve")),
+    "cross_heads_next_rank": (MODEL_AXIS_AUDIO_ARCHS, ("serve",))}
 # part -> its archs, runs, limits and faults
 MODEL_AXIS_PARTS = {
     "e": {"what": "the ssm and hybrid families",
@@ -2656,7 +2846,17 @@ MODEL_AXIS_PARTS = {
           "loss_atol": MODEL_AXIS_MOE_VLM_LOSS_ATOL,
           "logits_mean_atol": MODEL_AXIS_MOE_VLM_LOGITS_MEAN_ATOL,
           "logits_atol": MODEL_AXIS_MOE_VLM_LOGITS_ATOL,
-          "faults": MODEL_AXIS_MOE_VLM_FAULTS}}
+          "faults": MODEL_AXIS_MOE_VLM_FAULTS},
+    "g": {"what": "the audio family",
+          "archs": MODEL_AXIS_AUDIO_ARCHS, "train": MODEL_AXIS_AUDIO_TRAIN,
+          "serve": MODEL_AXIS_AUDIO_SERVE,
+          "first_round_atol": MODEL_AXIS_AUDIO_FIRST_ROUND_ATOL,
+          "loss_atol": MODEL_AXIS_AUDIO_LOSS_ATOL,
+          "logits_mean_atol": MODEL_AXIS_AUDIO_LOGITS_MEAN_ATOL,
+          "logits_atol": MODEL_AXIS_AUDIO_LOGITS_ATOL,
+          "faults": MODEL_AXIS_AUDIO_FAULTS}}
+#: part -> its key in the ``model_axis`` line
+MODEL_AXIS_PART_KEYS = {"e": "ssm", "f": "moe_vlm", "g": "audio"}
 MODEL_AXIS_ARCH_PART = {arch: part for part, spec in MODEL_AXIS_PARTS.items()
                         for arch in spec["archs"]}
 
@@ -2673,8 +2873,8 @@ class _RankAs:
 
 
 def plant_axis_fault(name: str):
-    """Put fault ``name`` (MODEL_AXIS_SSM_FAULTS, MODEL_AXIS_MOE_VLM_FAULTS)
-    into this rank; returns its undo."""
+    """Put fault ``name`` (MODEL_AXIS_SSM_FAULTS, MODEL_AXIS_MOE_VLM_FAULTS,
+    MODEL_AXIS_AUDIO_FAULTS) into this rank; returns its undo."""
     import torch
     from repro_torch import parallel
     from repro_torch.models import layers
@@ -2716,6 +2916,38 @@ def plant_axis_fault(name: str):
             if parallel.model_size(mesh) > 1:
                 mesh = _RankAs(mesh, (mesh.model_rank + 1) % mesh.model_size)
             return old_forward(x, p, mesh=mesh, **kw)
+    elif name == "enc_unsummed":
+        mod, attr = tf, "_encode"
+
+        def new(params, cfg, frames, mesh=None):
+            enc = frames.to(cfg.dtype) + params["enc_pos"][
+                None, :frames.shape[1]]
+            positions = torch.arange(enc.shape[1], device=enc.device)
+            for bp in tf.layer_params(params, "enc_blocks"):
+                enc, _ = tf._attn_block_train(enc, bp, cfg, positions,
+                                              causal=False, mesh=mesh)
+            return layers.apply_norm(enc, tf.subtree(params, "enc_norm"),
+                                     cfg.norm)
+    elif name == "cross_wo_unsummed":
+        mod, attr = tf, "_cross_train"
+
+        def new(x, bp, cfg, enc, mesh=None):
+            b, s, _ = x.shape
+            n_h, n_kv = layers.local_heads(cfg.n_heads, cfg.n_kv_heads,
+                                           parallel.model_size(mesh))
+            h = parallel.copy_to_model(
+                mesh, layers.apply_norm(x, bp["norm_x"], cfg.norm))
+            q = (h @ bp["cross"]["wq"]).reshape(b, s, n_h, cfg.hd)
+            ck, cv = tf._cross_kv(enc, bp["cross"], cfg, n_h, n_kv)
+            att = layers.attention_train(q, ck, cv, causal=False,
+                                         q_chunk=cfg.attn_q_chunk)
+            return x + att.reshape(b, s, -1) @ bp["cross"]["wo"], ck, cv
+    elif name == "cross_heads_next_rank":
+        mod, attr = tf, "attention_decode_heads"
+
+        def new(q, cache, mesh):
+            return layers.attention_decode_heads(q, cache, _RankAs(
+                mesh, (mesh.model_rank + 1) % mesh.model_size))
     elif name == "vis_columns_reversed":
         mod, attr = parallel, "gather_to_model"
         old_gather = parallel.gather_to_model
@@ -2732,8 +2964,8 @@ def plant_axis_fault(name: str):
 
 
 def axis_train(cfg, mesh, lead: bool, p1: bool) -> dict:
-    """(e) and (f) training on this rank, in f32 (MODEL_AXIS_SSM_TRAIN,
-    MODEL_AXIS_MOE_VLM_TRAIN at MODEL_AXIS_TRAIN_LAYERS): with ``p1`` rank
+    """(e), (f) and (g) training on this rank, in f32 (each part's
+    ``train``, at MODEL_AXIS_TRAIN_LAYERS): with ``p1`` rank
     0 first runs the rounds at P = 1 alone from the whole draw; then both
     ranks at P = 2 from their shards of it.  Per round the host ms, each
     LGC kernel's launches, the collectives and the host ms blocked in
@@ -2807,7 +3039,7 @@ _AXIS_P1: dict = {}
 
 
 def axis_serve(cfg, mesh, lead: bool, p1: bool) -> dict:
-    """(e) and (f) serving on this rank: with ``p1`` rank 0 serves at
+    """(e), (f) and (g) serving on this rank: with ``p1`` rank 0 serves at
     P = 1 alone (warmed up, then timed), then the same in f32 fed the same
     tokens (a yardstick: how far bf16 itself is from f32), and hands its
     greedy tokens to the other rank; then both run
@@ -2816,7 +3048,9 @@ def axis_serve(cfg, mesh, lead: bool, p1: bool) -> dict:
     P = 1's tokens (every step's logits gap to P = 1 and to f32 on rank 0,
     the launches, the collectives and the host ms blocked in them).  The
     vlm's prompts are its patch embeddings (drawn on the card) and the
-    tokens after them."""
+    tokens after them; the audio family's are 1,500 frames (drawn on the
+    card from the same seed on both ranks, which take no positions) and
+    the tokens."""
     import dataclasses
     import torch
     import torch.distributed as dist
@@ -2829,7 +3063,7 @@ def axis_serve(cfg, mesh, lead: bool, p1: bool) -> dict:
     b, slots, n = spec["batch"], spec["slots"], spec["steps"]
     gen = torch.Generator(device="cuda").manual_seed(1)
     prefix = stub_prefix(cfg, b, gen, torch.device("cuda"))
-    patches = 0 if prefix is None else prefix.shape[1]
+    patches = cfg.n_prefix_tokens if cfg.arch_type == "vlm" else 0
     prompts = torch.randint(0, cfg.vocab_size, (b, spec["prompt"] - patches),
                             generator=gen, device="cuda")
     pre = {} if prefix is None else {"prefix": prefix}
@@ -2863,7 +3097,9 @@ def axis_serve(cfg, mesh, lead: bool, p1: bool) -> dict:
             "local_conv": (ssm["conv"].shape[-1] if ssm else None),
             "local_heads": (ssm["state"].shape[2] if ssm else None),
             "local_slots": (cache["kv"]["k"].shape[3] if "kv" in cache
-                            else None)}
+                            else None),
+            "cross_digest": (digest([cache["cross_k"], cache["cross_v"]])
+                             if "cross_k" in cache else None)}
 
     def gaps(got, ref) -> dict:
         return {"logits_gaps": [float((g - w).abs().max())
@@ -2975,10 +3211,35 @@ def axis_gaps(sound: dict, run: dict) -> dict:
     return out
 
 
+def axis_serve_launches(cfg, steps: int) -> dict:
+    """The kernels' launches on a rank in ``steps`` decode steps at P = 2
+    over a K/V cache split on its slots: ``swa_decode_partial`` at every
+    self-attention site, and the audio decoder's ``swa_decode`` over the
+    rank's heads of each block's cross cache."""
+    if cfg.arch_type == "audio":
+        return {"swa_decode_partial": cfg.n_layers * steps,
+                "swa_decode": cfg.n_layers * steps}
+    sites = attention_sites(cfg)
+    return {"swa_decode_partial": sites * steps} if sites else {}
+
+
+def axis_serve_launch_rows(model_axis: dict, kernel: str,
+                           keys=tuple(MODEL_AXIS_PART_KEYS.values())
+                           ) -> dict:
+    """``launches_model_axis_<key>_serve`` for each part ``key`` of the
+    ``model_axis`` line: ``kernel``'s launches on rank 0 in each arch's
+    fed run and its ``serve_decode.serve(mesh=)`` run."""
+    return {f"launches_model_axis_{key}_serve": {
+        arch: {"fed": a["serve"]["launches"].get(kernel, 0),
+               "entry": a["entry"]["launches"].get(kernel, 0)}
+        for arch, a in model_axis[key].items()
+        if isinstance(a, dict) and "serve" in a} for key in keys}
+
+
 def check_model_axis_part(ranks: list, smi: str, part: str) -> dict:
-    """(e) or (f) of phase 5d: both ranks' results for each arch against
-    the part's limits, the launches and the ranks' bits; returns the
-    ``ssm`` (e) or ``moe_vlm`` (f) part of the ``model_axis`` line."""
+    """(e), (f) or (g) of phase 5d: both ranks' results for each arch
+    against the part's limits, the launches and the ranks' bits; returns
+    the part's entry of the ``model_axis`` line (MODEL_AXIS_PART_KEYS)."""
     from repro_torch.configs import get_config
     p = MODEL_AXIS_PARTS[part]
     first, lim, mean_lim, max_lim = (p["first_round_atol"], p["loss_atol"],
@@ -3015,11 +3276,12 @@ def check_model_axis_part(ranks: list, smi: str, part: str) -> dict:
                           f"launches {got}, expected {want}")
         s0, s1 = r0["serve"], r1["serve"]
         f0 = s0["p2"]
-        check(f0["digest"] == s1["p2"]["digest"] and f0["finite"],
-              f"{tag} {arch}: the ranks' logits differ or are not finite")
+        check(f0["digest"] == s1["p2"]["digest"] and f0["finite"]
+              and f0["cross_digest"] == s1["p2"]["cross_digest"],
+              f"{tag} {arch}: the ranks' logits (or cross caches) differ "
+              f"or are not finite")
         sites = attention_sites(cfg)
-        want_serve = ({"swa_decode_partial": sites * spec["steps"]}
-                      if sites else {})
+        want_serve = axis_serve_launches(cfg, spec["steps"])
         for s in (s0, s1):
             check(s["p2"]["launches"] == want_serve, f"{tag} {arch}"
                   f" serve: launches {s['p2']['launches']}, expected "
@@ -3064,8 +3326,7 @@ def check_model_axis_part(ranks: list, smi: str, part: str) -> dict:
         e0, e1 = s0["entry"], s1["entry"]
         short, n_short = spec["entry_prompt"], spec["entry_steps"]
         patches = cfg.n_prefix_tokens if cfg.arch_type == "vlm" else 0
-        want_entry = ({"swa_decode_partial": sites * n_short} if sites
-                      else {})
+        want_entry = axis_serve_launches(cfg, n_short)
         check(e0["digest"] == e1["digest"] and e0["logits_finite"]
               and e0["launches"] == e1["launches"] == want_entry
               and e0["pos"] == short + patches + n_short
@@ -3076,12 +3337,15 @@ def check_model_axis_part(ranks: list, smi: str, part: str) -> dict:
         out[arch] = rec
         m, batch, seq = p["train"][arch][:3]
         depth = MODEL_AXIS_TRAIN_LAYERS.get(arch, cfg.n_layers)
+        frames = (f" (the encoder's {cfg.encoder_layers} blocks over "
+                  f"{cfg.encoder_seq} zero frames)"
+                  if cfg.arch_type == "audio" else "")
         log(f"{tag} {arch} training at P = 2 in f32 ({depth} of "
             f"{cfg.n_layers} layers, M = {m}, H = 2, dense_masked, {batch} x "
             f"{seq} tokens{f' after {patches} patches' if patches else ''}): "
             f"losses {losses} (both ranks), P = 1 {p1['losses']}, gaps "
             f"{[f'{g:.3e}' for g in gaps]} (allowed {first} in round 1, "
-            f"{lim} after); round ms {p2['round_ms']} (P = 1 "
+            f"{lim} after){frames}; round ms {p2['round_ms']} (P = 1 "
             f"{p1['round_ms']}); {p2['collectives']} collectives a round, "
             f"{[f'{x:.1f}' for x in p2['collective_ms']]} host ms blocked "
             f"in them; LGC launches a round a rank {p2['launches'][0]}; "
@@ -3225,15 +3489,15 @@ def model_axis_faults(smi: str) -> dict:
     with each of MODEL_AXIS_FAULTS planted in both ranks, against P = 1
     from the same draw: each round's loss gap; the serving job and parts
     (e) and (f) the same way with their faults (the readings behind their
-    limits); and the bf16 drift at P = 2 (DRIFT_ARCHS)."""
+    limits), and (g); and the bf16 drift at P = 2 (DRIFT_ARCHS)."""
     from repro_torch.launch.mesh import spawn
     one = model_axis_p1(ROUNDS)["dense_masked"]["losses"]
     jobs = [dict(name=f or "sound", kind="run", aggregate="dense_masked",
                  fault=f) for f in (None, *MODEL_AXIS_FAULTS)]
     jobs.append(dict(name="serve", kind="serve",
                      faults=[None, *MODEL_AXIS_SERVE_FAULTS], free=True))
-    jobs += family_axis_jobs("e", faults=True) + family_axis_jobs(
-        "f", faults=True)
+    jobs += [j for part in MODEL_AXIS_PART_KEYS
+             for j in family_axis_jobs(part, faults=True)]
     jobs += [dict(name=f"drift {arch}", kind="drift", arch=arch)
              for arch in DRIFT_ARCHS]
     ranks = spawn(model_axis_rank, MODEL_AXIS, "gloo", args=(jobs,),
@@ -3276,7 +3540,7 @@ def model_axis_faults(smi: str) -> dict:
             f"{[f'{m:.3e}' for m in f['margins']]}; decode "
             f"{f['decode_ms']:.2f} ms a step; {smi}")
     out["serve"]["p1"] = serve["p1"]
-    for part, key in (("e", "ssm"), ("f", "moe_vlm")):
+    for part, key in MODEL_AXIS_PART_KEYS.items():
         p = MODEL_AXIS_PARTS[part]
         out[key] = {k: p[k] for k in ("first_round_atol", "loss_atol",
                                       "logits_atol", "logits_mean_atol")}
@@ -5609,6 +5873,7 @@ def main(argv: list[str]) -> int:
     done("phase 2")
     phase_swa(gen, errs)
     phase_swa_partial(gen, errs)
+    phase_swa_cross_heads(gen, errs)
     phase_threefry(errs)
     done("phase 3")
     phase_small_trainer()
@@ -5651,6 +5916,7 @@ def main(argv: list[str]) -> int:
                                      partial=True)
     swa_partial_shards = {arch: phase_time_swa(gen, shape, partial=True)
                           for arch, shape in SWA_PARTIAL_SHARDS.items()}
+    swa_cross_row = time_swa_cross_heads(gen)
     threefry_row = phase_time_threefry()
     done("phase 9, timings")
 
@@ -5678,7 +5944,7 @@ def main(argv: list[str]) -> int:
             # each rank's row launches over phase 5d's 4 rounds, and over
             # (e)'s rounds of the ssm and hybrid families
             row["launches_model_axis"] = model_axis["launches"][name]
-            for key in ("ssm", "moe_vlm"):
+            for key in MODEL_AXIS_PART_KEYS.values():
                 row[f"launches_model_axis_{key}"] = {
                     arch: a["launches_rows"][rn]
                     for arch, a in model_axis[key].items()
@@ -5731,7 +5997,12 @@ def main(argv: list[str]) -> int:
                 "at_modalities": swa_modality_rows,
                 "launches_configs": {
                     arch: f["launches"][name] for arch, f in configs.items()},
-                "at_configs": swa_config_rows}
+                "at_configs": swa_config_rows,
+                # phase 5d (g): the plain form over a rank's heads of
+                # whisper-small's cross cache, fed and entry runs, a rank
+                **axis_serve_launch_rows(model_axis, "swa_decode",
+                                         ("audio",)),
+                "at_whisper_cross_heads": swa_cross_row}
         kernels.append(row)
     # the segmented forms: their path is the per-layer runs (the batched
     # CNN run under size_prop for ``launches``), timed at the CNN's (M, D)
@@ -5759,18 +6030,13 @@ def main(argv: list[str]) -> int:
         "launches_model_axis_serve": {
             key: r["launches"]["swa_decode_partial"]
             for key, r in serve["runs"].items()},
-        # phase 5d (e) and (f): each arch's fed run (8 steps) and
+        # phase 5d (e), (f) and (g): each arch's fed run (8 steps) and
         # its serve_decode.serve(mesh=) run, a rank
-        **{f"launches_model_axis_{key}_serve": {
-            arch: {"fed": a["serve"]["launches"].get("swa_decode_partial", 0),
-                   "entry": a["entry"]["launches"].get("swa_decode_partial",
-                                                       0)}
-            for arch, a in model_axis[key].items()
-            if isinstance(a, dict) and "serve" in a}
-           for key in ("ssm", "moe_vlm")},
+        **axis_serve_launch_rows(model_axis, "swa_decode_partial"),
         "at_zamba2_shard": swa_partial_shards["zamba2-1.2b"],
         "at_olmoe_shard": swa_partial_shards["olmoe-1b-7b"],
-        "at_phi3v_shard": swa_partial_shards["phi-3-vision-4.2b"]}
+        "at_phi3v_shard": swa_partial_shards["phi-3-vision-4.2b"],
+        "at_whisper_shard": swa_partial_shards["whisper-small"]}
         | swa_partial_row)
     # the weights' draw: the port's own kernel, with no Pallas counterpart
     # (the reference's jax.random.normal draw is at ``replaces``)

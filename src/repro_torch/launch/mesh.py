@@ -24,8 +24,8 @@ names the one in use; nothing switches on its own.
 The model axis (tensor parallelism, ROADMAP A12): a mesh of ``model`` =
 P > 1 is one row, ("data", "model") = (1, P), whose ``model_group`` is
 the whole group (the FL devices stay rows on every rank); its collectives
-are in :mod:`repro_torch.parallel`; every family but the audio one trains
-and serves on it.  A mesh with both axes above 1 is not ported (ROADMAP
+are in :mod:`repro_torch.parallel`; every family trains and serves on
+it.  A mesh with both axes above 1 is not ported (ROADMAP
 A12c).
 
 The production meshes of the reference (256 / 512 chips,
@@ -143,8 +143,8 @@ def fl_shards(mesh: Mesh) -> int:
     """The number of ranks the FL-device axis spreads over, for the
     simulator's engines.  They take no model axis (nor do the reference's
     engines in its tests): the model axis trains and serves the
-    transformers of every family but the audio one (``launch.steps``),
-    and a model axis under the engines stays open (ROADMAP A12c)."""
+    transformers of every family (``launch.steps``), and a model axis
+    under the engines stays open (ROADMAP A12c)."""
     if mesh.shape.get("model", 1) > 1:
         raise NotImplementedError(
             "the simulator's engines take no model axis: a mesh with a "

@@ -120,12 +120,13 @@ def serve(params: dict, cfg: ArchConfig, prompts: torch.Tensor, gen: int, *,
     under the profiler afterwards; ``pos`` and the cache include them.
 
     ``mesh`` with a model axis P > 1 (the dense family, ROADMAP A12b; the
-    moe, ssm, hybrid and vlm families, A12c): every rank of it calls
-    ``serve`` with its shards of the params
-    (``launch.sharding_rules.param_specs``), the same prompts and the same
-    ``prefix``; the cache is split as ``cache_specs`` splits it (the
-    K/V on their slots, the SSD conv tails on their channels and states on
-    their heads), and every rank returns the same tokens.
+    other families, A12c): every rank of it calls ``serve`` with its
+    shards of the params (``launch.sharding_rules.param_specs``), the same
+    prompts and the same ``prefix`` (:func:`stub_prefix` from a generator
+    seeded alike on every rank draws the same frames or patches); the
+    cache is split as ``cache_specs`` splits it (the K/V on their slots,
+    the SSD conv tails on their channels and states on their heads, the
+    audio cross cache whole), and every rank returns the same tokens.
     ``cache_slots`` is the whole cache's.
     """
     dev = prompts.device

@@ -32,14 +32,16 @@ In place of the reference's ``place`` (``jax.device_put`` onto named
 shardings), :func:`shard` cuts the block of a tensor that one rank keeps,
 and :func:`unshard` puts the blocks of every rank back together.  The rules
 cover every arch; the port's model axis trains and serves the dense family
-(ROADMAP A12, A12b) and the moe, ssm, hybrid and vlm families (A12c),
-which read the dense rules, the MoE ones (the experts on "model" when P
-divides E, each expert whole on its rank, else each expert's F split as
-the dense MLP's; the router whole), ``vis_proj``'s column blocks, the SSD
-ones (``in_proj`` column blocks, ``out_proj`` row blocks, the rest whole)
-and the caches' (K/V split on the slots, the SSD conv tails on their
-channels, the states on their heads).  The audio family's rules
-(``enc_blocks``, the cross caches) are not yet read by any step.
+(ROADMAP A12, A12b) and the moe, ssm, hybrid, vlm and audio families
+(A12c), which read the dense rules, the MoE ones (the experts on "model"
+when P divides E, each expert whole on its rank, else each expert's F
+split as the dense MLP's; the router whole), ``vis_proj``'s column
+blocks, the SSD ones (``in_proj`` column blocks, ``out_proj`` row blocks,
+the rest whole), the audio ones (``enc_blocks`` as the dense blocks, the
+cross-attention's ``wq`` / ``wk`` / ``wv`` column blocks and ``wo`` row
+blocks, ``enc_pos`` / ``dec_pos`` whole) and the caches' (K/V split on
+the slots, the SSD conv tails on their channels, the states on their
+heads, the audio family's cross K/V whole).
 """
 from __future__ import annotations
 

@@ -38,8 +38,8 @@ the whole batch (microbatches accumulated in f32), through
 :mod:`repro_torch.optim`.
 
 Both train steps take a ``mesh`` with a model axis P > 1 (ROADMAP A12:
-the dense family; A12c: the moe, ssm, hybrid and vlm families): params,
-error memory and gradients are then each rank's shards
+the dense family; A12c: the moe, ssm, hybrid, vlm and audio families):
+params, error memory and gradients are then each rank's shards
 (``sharding_rules.param_specs``) for all M devices, the forward and
 backward run tensor-parallel (``transformer.lm_loss(..., mesh=)``), the
 gradients of the leaves held whole but used a block at a time (the SSD
@@ -144,7 +144,7 @@ def model_specs(cfg: ArchConfig, mesh) -> dict | None:
     above 1 (the leaves are then each rank's shards), else None."""
     if mesh is None or mesh.model_size == 1:
         return None
-    tf.model_axis_mesh(cfg, mesh)    # all but audio; P | the heads
+    tf.model_axis_mesh(cfg, mesh)    # P | the heads and the padded vocab
     if mesh.shape.get("data", 1) != 1:
         raise ValueError(f"the model axis trains on a (data=1, model=P) "
                          f"mesh, the FL devices as rows; got {mesh.shape}")
@@ -627,10 +627,10 @@ def make_lgc_train_step(cfg: ArchConfig, m_devices: int,
     error memory fill most of a card); the caller keeps only the returned
     state.
 
-    ``mesh`` with a model axis P > 1 (every family but the audio one):
-    ``params`` hold this rank's shards and ``ef`` its (M, *shard) rows, the batch is whole
-    on every rank, and every rank returns the same loss (module
-    docstring).  Kernel routing and budgets read each leaf's WHOLE size.
+    ``mesh`` with a model axis P > 1: ``params`` hold this rank's shards
+    and ``ef`` its (M, *shard) rows, the batch is whole on every rank,
+    and every rank returns the same loss (module docstring).  Kernel
+    routing and budgets read each leaf's WHOLE size.
     """
     h, n_ch, lr = step_cfg.local_steps, step_cfg.n_channels, step_cfg.local_lr
     ef_dt = _dtype(step_cfg.ef_dtype)
@@ -753,10 +753,9 @@ def make_prefill_step(cfg: ArchConfig, cache_len: int | None = None, *,
     """``f(params, batch) -> (logits (B,Vp), cache)`` on ``device`` (None
     means the card, or ``mesh.device`` under a mesh); the prompt tokens,
     and the modality prefix where the batch has one, are moved there.
-    ``mesh`` with a model axis P > 1 (every family but the audio one):
-    ``params`` are this rank's shards (``sharding_rules.param_specs``) and
-    the cache this rank's block (``cache_specs``), see
-    :func:`transformer.prefill`."""
+    ``mesh`` with a model axis P > 1: ``params`` are this rank's shards
+    (``sharding_rules.param_specs``) and the cache this rank's block
+    (``cache_specs``), see :func:`transformer.prefill`."""
     dev = resolve_device(device if device is not None or mesh is None
                          else mesh.device)
     tf.model_axis_mesh(cfg, mesh)

@@ -13,17 +13,18 @@ its 1/N of the batch.  On the card the LGC compression takes the CUDA
 kernels (``backend="cuda"``), on the CPU their plain versions: the same
 bits.  The run exits with code 1 when the loss did not fall.
 
-``--model-parallel P`` > 1 trains the dense, moe, ssm, hybrid and vlm
-families tensor-parallel (ROADMAP A12, A12c): the driver spawns P ranks
-(``launch.mesh.spawn``), each on a (data=1, model=P) mesh holding its
+``--model-parallel P`` > 1 trains every family tensor-parallel (ROADMAP
+A12, A12c): the driver spawns P ranks (``launch.mesh.spawn``), each on a
+(data=1, model=P) mesh holding its
 shard of every leaf (``launch.sharding_rules``), in every mode.  As in
 the reference, ``--devices`` counts the mesh's devices, so the LGC modes
 train ``devices // P`` FL devices as rows (a count that P does not
 divide is the reference's ``make_host_mesh`` refusal).  The ranks share
 the card over gloo (NCCL refuses two ranks on one card) unless there is
 a card a rank, where they take NCCL; the header line names the
-transport; every rank draws the same vlm patches.  The audio family at
-P > 1 raises (ROADMAP A12c).
+transport; every rank draws the same vlm patches (the audio frames are
+zeros on every rank).  P must divide the config's kv heads (SSD heads)
+and its padded vocab, which the driver checks before it spawns a rank.
 
 Every arch id trains (``--arch mamba2-370m``, ``olmoe-1b-7b``,
 ``glm4-9b``, ...; grok-1's ``sgdm`` keeps its moment in the parameters'
@@ -124,13 +125,8 @@ def main(argv=None) -> list[float]:
     args = _parse(argv)
     if args.model_parallel > 1:
         meshlib.check_factors(args.devices, args.model_parallel)
-        cfg = get_smoke_config(args.arch) if args.smoke else get_config(
-            args.arch)
-        if cfg.arch_type not in tf.MODEL_AXIS_FAMILIES:
-            raise NotImplementedError(
-                f"--model-parallel > 1 trains the "
-                f"{', '.join(tf.MODEL_AXIS_FAMILIES)} families; {cfg.name} "
-                f"is {cfg.arch_type} (ROADMAP A12c)")
+        tf.check_model_axis(get_smoke_config(args.arch) if args.smoke
+                            else get_config(args.arch), args.model_parallel)
         dev = resolve_device(args.device)
         backend = transport(dev, args.model_parallel)
         ranks = meshlib.spawn(rank_main, args.model_parallel, backend,

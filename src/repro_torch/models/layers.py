@@ -10,7 +10,9 @@ Conventions are the reference's:
 ``attention_train`` is plain jnp in the reference (no Pallas kernel), so it is
 plain torch here.  ``attention_decode`` goes through the ``swa_decode`` CUDA
 kernel (:mod:`repro_torch.kernels.swa_attention`), and under a model axis,
-over a rank's shard of the cache's slots, through its partial form.  The
+over a rank's shard of the cache's slots, through its partial form;
+``attention_decode_heads`` through the plain form over a rank's heads of a
+cache every rank holds whole (the audio family's cross cache).  The
 reference's remat and sequence-sharding knobs change memory and layout, not
 values, and have no counterpart on one card.
 """
@@ -210,6 +212,36 @@ def attention_decode(q: torch.Tensor, cache: KVCache, n_heads: int, *,
                                        cache.v, length)
     out = merge_rank_partials(mesh, out, m, l_sum, q.dtype)
     return out.reshape(b, 1, h, hd)
+
+
+def attention_decode_heads(q: torch.Tensor, cache: KVCache, mesh
+                           ) -> torch.Tensor:
+    """One-token attention of this rank's query heads over their heads of
+    a cache that every rank of a model axis holds whole (the audio
+    family's cross cache, ``launch.sharding_rules.cache_specs``), through
+    ``swa_decode``'s plain form: no collective, no merge.
+
+    q: (B, 1, H / P, hd), the rank's block of heads r H / P .. (r + 1) H
+    / P; cache.k/v: (B, H, S, hd), every query head with its own K/V
+    (REP 1).  The rank's heads of batch row b are not contiguous in the
+    cache, so the kernel takes the cache as (B P, H / P, S, hd), whose row
+    b P + r holds them: the rank's queries sit in its rows, the other
+    ranks' rows get length 0, whose slots the kernel never reads.
+    Returns (B, 1, H / P, hd)."""
+    b, _, h_loc, hd = q.shape
+    p, r = mesh.model_size, mesh.model_rank
+    _, h, s, _ = cache.k.shape
+    if h != h_loc * p:
+        raise ValueError(f"q has {h_loc} heads a rank, the cache {h} over "
+                         f"{p} ranks")
+    rows = torch.zeros((b, p, h_loc, hd), dtype=q.dtype, device=q.device)
+    rows[:, r] = q[:, 0]
+    length = torch.zeros((b, p), dtype=torch.int32, device=q.device)
+    length[:, r] = cache.length
+    out = swa_decode(rows.view(b * p, h_loc, hd),
+                     cache.k.view(b * p, h_loc, s, hd),
+                     cache.v.view(b * p, h_loc, s, hd), length.view(-1))
+    return out.view(b, p, h_loc, hd)[:, r, None]
 
 
 def merge_rank_partials(mesh, out: torch.Tensor, m: torch.Tensor,

@@ -270,7 +270,7 @@ def make_qwen2_100m_task(m_devices: int = 8, seed: int = 0,
                              sparsity=tuple(sparsity), aggregate=aggregate,
                              backend=backend, **kw)
     if mesh is not None:
-        tf.model_axis_mesh(arch, mesh)       # the dense family, P | n_kv_heads
+        tf.model_axis_mesh(arch, mesh)       # P | n_kv_heads and the vocab
         dev = mesh.device
     return LGCTransformerTask(arch=arch, m_devices=m_devices, scenario=scn,
                               step_cfg=step_cfg, device=dev, seed=seed,

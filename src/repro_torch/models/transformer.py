@@ -53,7 +53,12 @@ rank's experts, or on each expert's block of F (:mod:`repro_torch.models.
 moe`: the dispatch global on every rank, the partial outputs summed, the
 router's gradient summed with the SSD leaves', the load-balance loss
 counted once); the vlm family's ``vis_proj`` projects the patches on the
-rank's columns, gathered whole (``parallel.gather_to_model``).
+rank's columns, gathered whole (``parallel.gather_to_model``).  The audio
+family's encoder blocks are dense blocks on the rank's heads and MLP
+columns; its output, the same bits on every rank, passes once through
+``copy_to_model`` before the decoder, whose blocks each project the
+rank's heads' cross K/V from it (so its gradient there is partial); the
+cross-attention runs on the rank's heads, its ``wo`` rows summed.
 
 It also serves there (A12b): the decode cache is split on its slots as
 ``sharding_rules.cache_specs`` splits it (S / P slots a rank, every KV
@@ -69,7 +74,11 @@ logits are gathered whole, so every rank takes the same greedy token.
 The ssm and hybrid families serve there too: the SSD state is split on
 its heads and the conv tail on its channels (``cache_specs``), the
 hybrid's K/V sites on their slots as the dense family's cache; so do the
-moe and vlm families, whose caches are the dense family's.
+moe and vlm families, whose caches are the dense family's, and the audio
+family, whose cross cache is whole on every rank: prefill gathers every
+head's cross K/V into it, and a decode step attends with the rank's query
+heads over their heads of it (:func:`repro_torch.models.layers.
+attention_decode_heads`), with no merge.
 """
 from __future__ import annotations
 
@@ -82,9 +91,9 @@ from repro_torch.device import resolve_device
 from . import moe as moe_lib
 from . import ssd as ssd_lib
 from .layers import (KVCache, _expand_kv, _split_each, apply_norm,
-                     apply_rope, attention_decode, attention_train,
-                     attn_init, cache_update, local_heads, mlp_forward,
-                     mlp_init, norm_init, normal, qkv_project)
+                     apply_rope, attention_decode, attention_decode_heads,
+                     attention_train, attn_init, cache_update, local_heads,
+                     mlp_forward, mlp_init, norm_init, normal, qkv_project)
 
 Params = dict[str, torch.Tensor]
 
@@ -282,10 +291,9 @@ def _attn_block_train(x: torch.Tensor, bp: dict, cfg: ArchConfig,
     """One attention + FFN block over the full sequence; returns (x, the
     MoE's aux loss or None).  With ``enc_out`` (the audio decoder) the
     block cross-attends to the encoder output, non-causally, after its
-    self-attention.  Under a model axis (``mesh``: the dense, moe and vlm
-    families, the hybrid's shared block) the block runs on this rank's
-    heads and MLP columns or experts, its row-parallel outputs summed over
-    the ranks."""
+    self-attention.  Under a model axis (``mesh``) the block runs on this
+    rank's heads and MLP columns or experts, its row-parallel outputs
+    summed over the ranks."""
     n_h, n_kv = local_heads(cfg.n_heads, cfg.n_kv_heads,
                             parallel.model_size(mesh))
     h = parallel.copy_to_model(mesh, apply_norm(x, bp["norm1"], cfg.norm))
@@ -301,13 +309,31 @@ def _attn_block_train(x: torch.Tensor, bp: dict, cfg: ArchConfig,
     x = x + parallel.reduce_from_model(
         mesh, att.reshape(b, s, -1) @ bp["attn"]["wo"])
     if enc_out is not None:
-        h = apply_norm(x, bp["norm_x"], cfg.norm)
-        q = (h @ bp["cross"]["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
-        ck, cv = _cross_kv(enc_out, bp["cross"], cfg)
-        att = attention_train(q, ck, cv, causal=False,
-                              q_chunk=cfg.attn_q_chunk)
-        x = x + att.reshape(b, s, -1) @ bp["cross"]["wo"]
+        x, _, _ = _cross_train(x, bp, cfg, enc_out, mesh)
     return _ffn(x, bp, cfg, mesh)
+
+
+def _cross_train(x: torch.Tensor, bp: dict, cfg: ArchConfig,
+                 enc: torch.Tensor, mesh=None
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The audio decoder block's cross-attention over the whole sequence
+    (the reference's ``transformer.py:133-142``): q from ``norm_x(x)``,
+    K/V from the encoder output ``enc``, non-causal, then ``wo``.  Returns
+    (x, the cross K, the cross V (B, S_enc, heads, hd)).  Under a model
+    axis (``mesh``) on this rank's heads (``wq`` / ``wk`` / ``wv`` column
+    blocks), its rows of ``wo`` summed over the ranks; ``enc`` is the
+    same on every rank and has passed through ``copy_to_model`` once
+    (:func:`_encode`)."""
+    b, s, _ = x.shape
+    n_h, n_kv = local_heads(cfg.n_heads, cfg.n_kv_heads,
+                            parallel.model_size(mesh))
+    h = parallel.copy_to_model(mesh, apply_norm(x, bp["norm_x"], cfg.norm))
+    q = (h @ bp["cross"]["wq"]).reshape(b, s, n_h, cfg.hd)
+    ck, cv = _cross_kv(enc, bp["cross"], cfg, n_h, n_kv)
+    att = attention_train(q, ck, cv, causal=False, q_chunk=cfg.attn_q_chunk)
+    x = x + parallel.reduce_from_model(
+        mesh, att.reshape(b, s, -1) @ bp["cross"]["wo"])
+    return x, ck, cv
 
 
 def _ssm_block_train(x: torch.Tensor, bp: dict, cfg: ArchConfig, mesh=None
@@ -351,8 +377,7 @@ def forward_hidden(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     the encoder output in every block.
 
     ``mesh`` with a model axis P > 1: ``params`` are this rank's shards
-    and the dense, moe, ssm, hybrid and vlm families' blocks run
-    tensor-parallel (module docstring).
+    and every family's blocks run tensor-parallel (module docstring).
     """
     _check_arch(cfg)
     tp = model_axis_mesh(cfg, mesh)
@@ -381,12 +406,12 @@ def forward_hidden(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     elif cfg.arch_type == "hybrid":
         x = _hybrid_train(x, params, cfg, positions, window, tp)
     else:                                                   # audio
-        enc = _encode(params, cfg, prefix)
+        enc = _encode(params, cfg, prefix, tp)
         x = x + params["dec_pos"][
             torch.clamp(positions, max=cfg.max_position - 1)][None]
         for bp in layer_params(params):
             x, _ = _attn_block_train(x, bp, cfg, positions, window=window,
-                                     enc_out=enc)
+                                     enc_out=enc, mesh=tp)
     return (apply_norm(x, subtree(params, "final_norm"), cfg.norm), aux,
             n_prefix)
 
@@ -442,29 +467,32 @@ def lm_loss(params: Params, cfg: ArchConfig, batch: dict, *,
 
 
 # ===========================================================================
-# the model axis: every family but the audio one tensor-parallel
+# the model axis: every family tensor-parallel
 # ===========================================================================
 
-#: the families that train and serve under a model axis above 1
-MODEL_AXIS_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
+def check_model_axis(cfg: ArchConfig, model: int) -> None:
+    """Raise ValueError unless a model axis of ``model`` = P ranks can
+    split ``cfg``: P must divide the attention's kv heads, the SSD heads
+    and the padded vocab (the vocab-parallel ``embed``); a P that does not
+    divide the experts splits each expert's F.  Reads the config only, so
+    a caller can check before any weight is drawn."""
+    _check_arch(cfg)
+    if cfg.arch_type != "ssm":
+        local_heads(cfg.n_heads, cfg.n_kv_heads, model)
+    if cfg.arch_type in ("ssm", "hybrid"):
+        ssd_lib.local_ssm_heads(cfg, model)
+    if cfg.vocab_padded % model:
+        raise ValueError(f"a model axis of {model} must divide the padded "
+                         f"vocab {cfg.vocab_padded} of {cfg.name}: each "
+                         f"rank holds a block of the embedding's rows")
 
 
 def model_axis_mesh(cfg: ArchConfig, mesh):
-    """``mesh`` when it has a model axis above 1 (the dense, moe, ssm,
-    hybrid and vlm families train and serve on one: P must divide the
-    attention's kv heads and the SSD heads; a P that does not divide the
-    experts splits each expert's F), else None."""
+    """``mesh`` when it has a model axis above 1 that can split ``cfg``
+    (:func:`check_model_axis`), else None."""
     if mesh is None or mesh.model_size == 1:
         return None
-    if cfg.arch_type not in MODEL_AXIS_FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.arch_type} family does not train or serve under a "
-            f"model axis yet (ROADMAP A12c); the "
-            f"{', '.join(MODEL_AXIS_FAMILIES)} families do")
-    if cfg.arch_type != "ssm":
-        local_heads(cfg.n_heads, cfg.n_kv_heads, mesh.model_size)
-    if cfg.arch_type in ("ssm", "hybrid"):
-        ssd_lib.local_ssm_heads(cfg, mesh.model_size)
+    check_model_axis(cfg, mesh.model_size)
     return mesh
 
 
@@ -579,11 +607,11 @@ def _split_kv(cache: dict, mesh):
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
                device: str | torch.device | None = None, mesh=None) -> dict:
     """Zeroed decode cache sized for ``cache_len`` positions; ``device=None``
-    means the card.  Under a model axis (``mesh``: every family but the
-    audio one) this rank's block of it (``sharding_rules.
-    cache_specs``): the K/V's :func:`local_slots`, with ``"slots"`` =
-    ``cache_len`` where there are K/V, the SSD conv tails' block of
-    channels and the states' heads."""
+    means the card.  Under a model axis (``mesh``) this rank's block of it
+    (``sharding_rules.cache_specs``): the K/V's :func:`local_slots`, with
+    ``"slots"`` = ``cache_len`` where there are K/V, the SSD conv tails'
+    block of channels and the states' heads; the audio family's cross
+    cache whole."""
     _check_arch(cfg)
     dev = resolve_device(device)
     tp = model_axis_mesh(cfg, mesh)
@@ -606,7 +634,8 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
 def _cross_cache(cfg: ArchConfig, batch: int, enc_len: int,
                  dev: torch.device) -> dict:
     """The audio family's cross-attention K/V, (L, B, H, enc_len, hd): the
-    reference keeps them expanded to the H query heads."""
+    reference keeps them expanded to the H query heads.  Whole on every
+    rank of a model axis (``sharding_rules.cache_specs``)."""
     shape = (cfg.n_layers, batch, cfg.n_heads, enc_len, cfg.hd)
     return {"cross_k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
             "cross_v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
@@ -643,7 +672,10 @@ def _attn_block_decode(x: torch.Tensor, bp: dict, cfg: ArchConfig,
     attends (``kv_mesh``: the cache is split on its slots, see
     :func:`repro_torch.models.layers.attention_decode`; None: whole on
     every rank); its heads of the attention go through its rows of
-    ``wo``, summed over the ranks."""
+    ``wo``, summed over the ranks.  Its heads' cross query attends over
+    their heads of the whole cross cache
+    (:func:`repro_torch.models.layers.attention_decode_heads`), through
+    its rows of the cross ``wo``, summed."""
     b = x.shape[0]
     n_h, n_kv = local_heads(cfg.n_heads, cfg.n_kv_heads,
                             parallel.model_size(mesh))
@@ -663,9 +695,11 @@ def _attn_block_decode(x: torch.Tensor, bp: dict, cfg: ArchConfig,
         mesh, att.reshape(b, 1, -1) @ bp["attn"]["wo"])
     if cross is not None:
         h = apply_norm(x, bp["norm_x"], cfg.norm)
-        q = (h @ bp["cross"]["wq"]).reshape(b, 1, cfg.n_heads, cfg.hd)
-        att = attention_decode(q, cross, cfg.n_heads)
-        x = x + att.reshape(b, 1, -1) @ bp["cross"]["wo"]
+        q = (h @ bp["cross"]["wq"]).reshape(b, 1, n_h, cfg.hd)
+        att = (attention_decode(q, cross, n_h) if mesh is None
+               else attention_decode_heads(q, cross, mesh))
+        x = x + parallel.reduce_from_model(
+            mesh, att.reshape(b, 1, -1) @ bp["cross"]["wo"])
     return _ffn(x, bp, cfg, mesh)[0]
 
 
@@ -695,10 +729,10 @@ def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
     ``dec_pos[min(pos, max_position - 1)]`` to the token and attends to
     every one of the encoder's slots in each block.
 
-    ``mesh`` with a model axis P > 1 (every family but the audio one):
-    ``params`` and ``cache`` are this rank's (:func:`init_cache`,
-    :func:`prefill`), the blocks run as the module docstring says, and
-    every rank returns the whole (B, Vp) logits, the same bits on each.
+    ``mesh`` with a model axis P > 1: ``params`` and ``cache`` are this
+    rank's (:func:`init_cache`, :func:`prefill`), the blocks run as the
+    module docstring says, and every rank returns the whole (B, Vp)
+    logits, the same bits on each.
     """
     _check_arch(cfg)
     tp = model_axis_mesh(cfg, mesh)
@@ -744,25 +778,46 @@ def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
 # prefill
 # ===========================================================================
 
-def _cross_kv(enc: torch.Tensor, cross_p: dict, cfg: ArchConfig
-              ) -> tuple[torch.Tensor, torch.Tensor]:
+def _cross_kv(enc: torch.Tensor, cross_p: dict, cfg: ArchConfig,
+              n_h: int, n_kv: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The reference's ``_split_kv_from``: the encoder output's
-    cross-attention K/V, (B, S_enc, H, hd), expanded to the H heads."""
+    cross-attention K/V of ``n_kv`` kv heads (the rank's, under a model
+    axis: ``cross_p`` holds its ``wk`` / ``wv`` columns), (B, S_enc, n_h,
+    hd) expanded to its ``n_h`` query heads."""
     b, s, _ = enc.shape
-    k = (enc @ cross_p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.hd)
-    v = (enc @ cross_p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.hd)
-    return _expand_kv(k, cfg.n_heads), _expand_kv(v, cfg.n_heads)
+    k = (enc @ cross_p["wk"]).reshape(b, s, n_kv, cfg.hd)
+    v = (enc @ cross_p["wv"]).reshape(b, s, n_kv, cfg.hd)
+    return _expand_kv(k, n_h), _expand_kv(v, n_h)
 
 
-def _encode(params: Params, cfg: ArchConfig, frames: torch.Tensor
-            ) -> torch.Tensor:
+def _encode(params: Params, cfg: ArchConfig, frames: torch.Tensor,
+            mesh=None) -> torch.Tensor:
     """The audio family's encoder: the frame stub (B, S_enc, D) plus
-    ``enc_pos``, the non-causal encoder blocks, ``enc_norm``."""
+    ``enc_pos``, the non-causal encoder blocks, ``enc_norm``.  Under a
+    model axis (``mesh``) the blocks run on the rank's heads and MLP
+    columns as dense blocks, and the output, the same on every rank,
+    passes through ``copy_to_model``: each decoder block projects only
+    the rank's heads' cross K/V from it, so its gradient is summed over
+    the ranks once here, not once a block."""
     enc = frames.to(cfg.dtype) + params["enc_pos"][None, :frames.shape[1]]
     positions = torch.arange(enc.shape[1], device=enc.device)
     for bp in layer_params(params, "enc_blocks"):
-        enc, _ = _attn_block_train(enc, bp, cfg, positions, causal=False)
-    return apply_norm(enc, subtree(params, "enc_norm"), cfg.norm)
+        enc, _ = _attn_block_train(enc, bp, cfg, positions, causal=False,
+                                   mesh=mesh)
+    return parallel.copy_to_model(
+        mesh, apply_norm(enc, subtree(params, "enc_norm"), cfg.norm))
+
+
+def _write_cross(ck_dst: torch.Tensor, cv_dst: torch.Tensor,
+                 ck: torch.Tensor, cv: torch.Tensor, mesh=None) -> None:
+    """Write a decoder block's cross K/V (B, S_enc, heads, hd) into its
+    cross cache (B, H, S_enc, hd); under a model axis (``mesh``) every
+    head's, gathered from the ranks (the cross cache is whole on every
+    rank)."""
+    if mesh is not None:
+        ck, cv = _gather_heads(mesh, ck, cv)
+    ck_dst.copy_(ck.transpose(1, 2))
+    cv_dst.copy_(cv.transpose(1, 2))
 
 
 def _attn_prefill(x: torch.Tensor, bp: dict, cfg: ArchConfig,
@@ -780,7 +835,8 @@ def _attn_prefill(x: torch.Tensor, bp: dict, cfg: ArchConfig,
     Under a model axis (``mesh``) the block runs head-parallel, as in
     training; every head's K/V is gathered and the rank writes all of them
     into its slots: the prompt's positions in its block of the cache
-    (``kv_mesh``, the cache split on its slots) or all of them."""
+    (``kv_mesh``, the cache split on its slots) or all of them; every
+    head's cross K/V is gathered into the whole cross cache."""
     b, s, _ = x.shape
     n_h, n_kv = local_heads(cfg.n_heads, cfg.n_kv_heads,
                             parallel.model_size(mesh))
@@ -803,14 +859,8 @@ def _attn_prefill(x: torch.Tensor, bp: dict, cfg: ArchConfig,
     x = x + parallel.reduce_from_model(
         mesh, att.reshape(b, s, -1) @ bp["attn"]["wo"])
     if enc is not None:
-        hx = apply_norm(x, bp["norm_x"], cfg.norm)
-        qx = (hx @ bp["cross"]["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
-        ck, cv = _cross_kv(enc, bp["cross"], cfg)
-        ck_dst.copy_(ck.transpose(1, 2))
-        cv_dst.copy_(cv.transpose(1, 2))
-        att = attention_train(qx, ck, cv, causal=False,
-                              q_chunk=cfg.attn_q_chunk)
-        x = x + att.reshape(b, s, -1) @ bp["cross"]["wo"]
+        x, ck, cv = _cross_train(x, bp, cfg, enc, mesh)
+        _write_cross(ck_dst, cv_dst, ck, cv, mesh)
     return _ffn(x, bp, cfg, mesh)[0]
 
 
@@ -856,11 +906,12 @@ def prefill(params: Params, cfg: ArchConfig, batch: dict,
     decoder tokens taking ``dec_pos`` and cross-attending to the encoder
     output, whose K/V go to ``cross_k`` / ``cross_v``.
 
-    ``mesh`` with a model axis P > 1 (every family but the audio one):
-    ``params`` are this rank's shards (the vlm's patches projected on
-    its ``vis_proj`` columns and gathered whole); the cache is this rank's
-    block of it, with ``"slots"`` where it has K/V (:func:`init_cache`),
-    and every rank returns the whole logits.
+    ``mesh`` with a model axis P > 1: ``params`` are this rank's shards
+    (the vlm's patches projected on its ``vis_proj`` columns and gathered
+    whole; the audio frames encoded head-parallel); the cache is this
+    rank's block of it, with ``"slots"`` where it has K/V
+    (:func:`init_cache`) and the cross cache whole, and every rank
+    returns the whole logits.
     """
     _check_arch(cfg)
     tp = model_axis_mesh(cfg, mesh)
@@ -885,7 +936,7 @@ def prefill(params: Params, cfg: ArchConfig, batch: dict,
         kv_mesh = _split_kv(cache, tp)
         enc, ck, cv = None, [None] * len(blocks), [None] * len(blocks)
         if cfg.arch_type == "audio":
-            enc = _encode(params, cfg, batch["prefix"])
+            enc = _encode(params, cfg, batch["prefix"], tp)
             x = x + params["dec_pos"][
                 torch.clamp(positions, max=cfg.max_position - 1)][None]
             cache |= _cross_cache(cfg, b, enc.shape[1], dev)

@@ -18,8 +18,8 @@ job on it, returning what the caller compares (numpy arrays, host floats):
   gathered whole after ``transformer.sum_split_use_grads``, and the
   rank's own (unsummed) gradients of the leaves that sums; for the moe
   family each MoE layer's router ids and kept rows (``moe.dispatch``),
-  and with ``fault`` (``aux_every_rank``: ``parallel.count_once`` made
-  the identity) the run with that fault planted;
+  for the audio family the encoder's output, and with ``fault``
+  (:data:`FAULTS`) the run with that fault planted;
 * ``task``: the 100M task at ``model_axis=P``: losses, each round's
   collectives and the LGC kernels' launches, and (``state``) the whole
   params and error memory after;
@@ -32,8 +32,12 @@ job on it, returning what the caller compares (numpy arrays, host floats):
   entry points at P ranks, from the rank's shards of the params: the
   prefill's logits and cache, then ``steps`` greedy steps' logits and
   tokens and the final cache (this rank's block of it: K/V, SSD conv
-  tails and states), and each run's collectives; a case's ``prefix`` is
-  the vlm's patch embeddings; with ``conv_whole`` the
+  tails and states, the audio family's cross cache), and each run's
+  collectives; a case's ``prefix`` is the vlm's patch embeddings or the
+  audio frames (with ``stub_seed`` the rank draws them itself,
+  ``serve_decode.stub_prefix`` from a CPU generator of that seed; the
+  audio family's encoder outputs are returned), with ``fault``
+  (:data:`FAULTS`) planted; with ``conv_whole`` the
   prefill's conv tails are gathered whole on every rank before the steps
   (the layout ``cache_specs`` gives a conv that P does not divide).
 """
@@ -148,16 +152,84 @@ def _compress(job: dict, mesh) -> dict:
     return out
 
 
-def _planted(job: dict):
-    """The job's ``fault`` put into this rank; returns its undo."""
+def _encode_unsummed(params, cfg, frames, mesh=None):
+    """``transformer._encode`` without its ``copy_to_model``: each rank's
+    gradient of the encoder output left its own heads' part."""
+    from repro_torch.models import transformer as tf
+    enc = frames.to(cfg.dtype) + params["enc_pos"][None, :frames.shape[1]]
+    positions = torch.arange(enc.shape[1], device=enc.device)
+    for bp in tf.layer_params(params, "enc_blocks"):
+        enc, _ = tf._attn_block_train(enc, bp, cfg, positions, causal=False,
+                                      mesh=mesh)
+    return tf.apply_norm(enc, tf.subtree(params, "enc_norm"), cfg.norm)
+
+
+def _cross_wo_unsummed(x, bp, cfg, enc, mesh=None):
+    """``transformer._cross_train`` with the rank's cross ``wo`` output
+    left unsummed."""
     from repro_torch import parallel
+    from repro_torch.models import transformer as tf
+    b, s, _ = x.shape
+    n_h, n_kv = tf.local_heads(cfg.n_heads, cfg.n_kv_heads,
+                               parallel.model_size(mesh))
+    h = parallel.copy_to_model(mesh,
+                               tf.apply_norm(x, bp["norm_x"], cfg.norm))
+    q = (h @ bp["cross"]["wq"]).reshape(b, s, n_h, cfg.hd)
+    ck, cv = tf._cross_kv(enc, bp["cross"], cfg, n_h, n_kv)
+    att = tf.attention_train(q, ck, cv, causal=False,
+                             q_chunk=cfg.attn_q_chunk)
+    return x + att.reshape(b, s, -1) @ bp["cross"]["wo"], ck, cv
+
+
+def _cross_cache_own_heads(ck_dst, cv_dst, ck, cv, mesh=None):
+    """``transformer._write_cross`` writing only the rank's heads (no
+    gather): the other ranks' heads of its cross cache stay zero."""
+    r, n = mesh.model_rank, ck.shape[2]
+    ck_dst[:, r * n:(r + 1) * n] = ck.transpose(1, 2)
+    cv_dst[:, r * n:(r + 1) * n] = cv.transpose(1, 2)
+
+
+#: fault -> (module name, attribute, its replacement): the load-balance
+#: loss's gradient counted on every rank (``parallel.count_once`` made the
+#: identity); the audio encoder's output gradient left unsummed, the cross
+#: ``wo`` output left unsummed, the prefill's cross cache written with the
+#: rank's heads only
+FAULTS = {"aux_every_rank": ("parallel", "count_once", lambda mesh, x: x),
+          "enc_unsummed": ("transformer", "_encode", _encode_unsummed),
+          "cross_wo_unsummed": ("transformer", "_cross_train",
+                                _cross_wo_unsummed),
+          "cross_cache_own_heads": ("transformer", "_write_cross",
+                                    _cross_cache_own_heads)}
+
+
+def _planted(job: dict):
+    """The job's ``fault`` (:data:`FAULTS`) put into this rank; returns
+    its undo."""
+    from repro_torch import parallel
+    from repro_torch.models import transformer
     if job.get("fault") is None:
         return lambda: None
-    if job["fault"] != "aux_every_rank":
+    if job["fault"] not in FAULTS:
         raise ValueError(f"no fault {job['fault']!r}")
-    old = parallel.count_once
-    parallel.count_once = lambda mesh, x: x
-    return lambda: setattr(parallel, "count_once", old)
+    name, attr, new = FAULTS[job["fault"]]
+    mod = {"parallel": parallel, "transformer": transformer}[name]
+    old = getattr(mod, attr)
+    setattr(mod, attr, new)
+    return lambda: setattr(mod, attr, old)
+
+
+def _encodings(outs: list):
+    """A wrapper of ``transformer._encode`` that appends each call's
+    output to ``outs``; returns its undo."""
+    from repro_torch.models import transformer as tf
+    old = tf._encode
+
+    def new(*args, **kw):
+        out = old(*args, **kw)
+        outs.append(_numpy(out).copy())
+        return out
+    tf._encode = new
+    return lambda: setattr(tf, "_encode", old)
 
 
 def _dispatches(calls: list):
@@ -187,14 +259,15 @@ def _loss_grads(job: dict, mesh) -> dict:
     names = list(shards)
     leaves = [shards[k].detach().requires_grad_(True) for k in names]
     calls: list = []
-    undo = [_planted(job), _dispatches(calls)]
+    encs: list = []
+    undo = [_planted(job), _dispatches(calls), _encodings(encs)]
     try:
         with torch.enable_grad():
             loss = tf.lm_loss(dict(zip(names, leaves)), cfg, batch,
                               mesh=mesh)
             own = dict(zip(names, torch.autograd.grad(loss, leaves)))
     finally:
-        for u in undo:
+        for u in reversed(undo):      # the last wrapper first
             u()
     grads = tf.sum_split_use_grads(cfg, own, mesh)
     return {"loss": float(loss.detach()),
@@ -202,7 +275,7 @@ def _loss_grads(job: dict, mesh) -> dict:
                       for k, g in grads.items()},
             "unsummed": {k: _numpy(own[k])
                          for k in tf.split_use_leaves(cfg, names)},
-            "dispatch": calls}
+            "dispatch": calls, "enc": encs}
 
 
 def _task(job: dict, mesh) -> dict:
@@ -304,51 +377,69 @@ def _lgc(job: dict, mesh) -> dict:
 
 def _caches(cache: dict) -> dict:
     """The cache's tensors as numpy copies by name (``k``, ``v``,
-    ``conv``, ``state``)."""
-    return {k: _numpy(t).copy() for g in ("kv", "ssm")
-            for k, t in cache.get(g, {}).items()}
+    ``conv``, ``state``, ``cross_k``, ``cross_v``)."""
+    out = {k: _numpy(t).copy() for g in ("kv", "ssm")
+           for k, t in cache.get(g, {}).items()}
+    return out | {k: _numpy(cache[k]).copy() for k in ("cross_k", "cross_v")
+                  if k in cache}
 
 
 def _serve(job: dict, mesh) -> dict:
-    from repro_torch import parallel
     from repro_torch.launch import sharding_rules as rules
-    from repro_torch.launch.steps import make_prefill_step, make_serve_step
-    from repro_torch.parallel import STATS
     cfg = _config(job)
     params = _params(job, cfg, mesh.device)
     shards = rules.shard_tree(params, rules.param_specs(cfg, params, mesh),
                               mesh)
-    out = {}
-    for case in job["cases"]:
-        calls = STATS["calls"]
-        prefill = make_prefill_step(cfg, case["cache_len"], mesh=mesh)
-        step = make_serve_step(cfg, case["window"], mesh=mesh,
-                               return_logits=True)
-        batch = {"tokens": torch.from_numpy(np.asarray(case["prompts"]))}
-        if case.get("prefix") is not None:
-            batch["prefix"] = torch.from_numpy(np.asarray(case["prefix"]))
+    undo = _planted(job)
+    try:
+        return {case["name"]: _serve_case(case, cfg, shards, mesh)
+                for case in job["cases"]}
+    finally:
+        undo()
+
+
+def _serve_case(case: dict, cfg, shards: dict, mesh) -> dict:
+    """One case of a ``serve`` job on this rank."""
+    from repro_torch import parallel
+    from repro_torch.launch import sharding_rules as rules
+    from repro_torch.launch.serve_decode import stub_prefix
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.parallel import STATS
+    calls = STATS["calls"]
+    prefill = make_prefill_step(cfg, case["cache_len"], mesh=mesh)
+    step = make_serve_step(cfg, case["window"], mesh=mesh, return_logits=True)
+    prompts = torch.from_numpy(np.asarray(case["prompts"]))
+    batch = {"tokens": prompts}
+    if case.get("stub_seed") is not None:
+        batch["prefix"] = stub_prefix(
+            cfg, prompts.shape[0],
+            torch.Generator().manual_seed(case["stub_seed"]), mesh.device)
+    elif case.get("prefix") is not None:
+        batch["prefix"] = torch.from_numpy(np.asarray(case["prefix"]))
+    encs: list = []
+    undo = _encodings(encs)
+    try:
         logits, cache = prefill(shards, batch)
-        res = {"prefill_logits": _numpy(logits),
-               "slots": cache.get("slots"),
-               "prefill_cache": _caches(cache),       # the steps write it
-               "prefill_collectives": STATS["calls"] - calls}
-        if case.get("conv_whole"):
-            specs = rules.cache_specs(cfg, {"conv": cache["ssm"]["conv"]},
-                                      mesh)
-            cache["ssm"]["conv"] = parallel.gather_model(
-                mesh, cache["ssm"]["conv"], specs["conv"])
-        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
-        toks, step_logits = [tok], []
-        for _ in range(case["steps"]):
-            tok, cache, logits = step(shards, tok, cache)
-            toks.append(tok)
-            step_logits.append(_numpy(logits))
-        res |= {"logits": np.stack(step_logits),
-                "tokens": _numpy(torch.cat(toks, 1)).astype(np.int32),
-                "cache": _caches(cache), "pos": cache["pos"],
-                "collectives": STATS["calls"] - calls}
-        out[case["name"]] = res
-    return out
+    finally:
+        undo()
+    res = {"prefill_logits": _numpy(logits), "slots": cache.get("slots"),
+           "enc": encs,
+           "prefill_cache": _caches(cache),           # the steps write it
+           "prefill_collectives": STATS["calls"] - calls}
+    if case.get("conv_whole"):
+        specs = rules.cache_specs(cfg, {"conv": cache["ssm"]["conv"]}, mesh)
+        cache["ssm"]["conv"] = parallel.gather_model(
+            mesh, cache["ssm"]["conv"], specs["conv"])
+    tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    toks, step_logits = [tok], []
+    for _ in range(case["steps"]):
+        tok, cache, logits = step(shards, tok, cache)
+        toks.append(tok)
+        step_logits.append(_numpy(logits))
+    return res | {"logits": np.stack(step_logits),
+                  "tokens": _numpy(torch.cat(toks, 1)).astype(np.int32),
+                  "cache": _caches(cache), "pos": cache["pos"],
+                  "collectives": STATS["calls"] - calls}
 
 
 RUNNERS = {"compress": _compress, "loss_grads": _loss_grads, "task": _task,

@@ -397,20 +397,14 @@ def _fake_mesh(model: int):
                                   "zamba2-1.2b", "phi-3-vision-4.2b",
                                   "whisper-small"])
 def test_other_families_refuse_to_serve_under_a_mesh(arch):
-    """The audio family refuses a mesh, naming A12c; the moe, ssm, hybrid
-    and vlm families serve on one: the steps build, and each rank's
-    ``init_cache`` is its ``cache_specs`` block of the whole."""
+    """No family refuses a mesh any more: the moe, ssm, hybrid, vlm and
+    audio families serve on one (A12c).  The steps build, and each rank's
+    ``init_cache`` is its ``cache_specs`` block of the whole (the audio
+    family's cross cache whole on every rank)."""
     cfg = get_smoke_config(arch)
     makers = (lambda: make_prefill_step(cfg, 8, mesh=_fake_mesh(2)),
-              lambda: make_serve_step(cfg, 8, mesh=_fake_mesh(2)),
-              lambda: ptf.init_cache(cfg, 1, 8, device="cpu",
-                                     mesh=_fake_mesh(2)))
-    if cfg.arch_type == "audio":
-        for make in makers:
-            with pytest.raises(NotImplementedError, match="A12c"):
-                make()
-        return
-    for make in makers[:2]:
+              lambda: make_serve_step(cfg, 8, mesh=_fake_mesh(2)))
+    for make in makers:
         assert callable(make())
     whole = ptf.init_cache(cfg, 2, 8, device="cpu")
     for rank in range(2):
@@ -425,6 +419,11 @@ def test_other_families_refuse_to_serve_under_a_mesh(arch):
             for k, t in block.get(group, {}).items():
                 assert got[group][k].shape == t.shape, (group, k)
                 assert not got[group][k].any()
+        for k in ("cross_k", "cross_v"):
+            assert (k in got) == (k in whole) == (cfg.arch_type == "audio")
+            if k in got:
+                assert got[k].shape == block[k].shape == whole[k].shape, k
+                assert not got[k].any()
 
 
 def test_model_axis_must_divide_the_kv_heads_to_serve():

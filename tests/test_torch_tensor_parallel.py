@@ -67,7 +67,7 @@ from repro.data.tokens import TokenPipeline  # noqa: E402
 from repro.launch import steps as jsteps  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
 from repro.optim import optimizers as jopt  # noqa: E402
-from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.launch import mesh as pmesh  # noqa: E402
 from repro_torch.launch import steps as psteps  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
@@ -449,13 +449,19 @@ def test_model_axis_must_divide_the_kv_heads():
 
 
 def test_other_families_refuse_the_model_axis():
-    cfg = get_smoke_config("whisper-small")
+    """No family is refused (the audio family trains since A12c's third
+    part, tests/test_torch_audio_model_axis.py); what a model axis still
+    refuses is a P that does not divide the padded vocab, here
+    whisper-small's 51,968 rows at P = 3 (which divides its 12 heads),
+    before any weight is drawn or any rank spawned."""
+    cfg = get_config("whisper-small")
+    assert ptf.model_axis_mesh(cfg, _fake_mesh(2)) is not None
     batch = {k: torch.from_numpy(v).long() for k, v in LOSS_BATCH.items()}
-    with pytest.raises(NotImplementedError, match="A12c"):
-        ptf.lm_loss({}, cfg, batch, mesh=_fake_mesh(2))
-    with pytest.raises(NotImplementedError, match="A12c"):
-        train.main(["--arch", "whisper-small", "--smoke", "--model-parallel",
-                    "2", "--devices", "2", "--device", "cpu"])
+    with pytest.raises(ValueError, match="padded vocab 51968"):
+        ptf.lm_loss({}, cfg, batch, mesh=_fake_mesh(3))
+    with pytest.raises(ValueError, match="padded vocab 51968"):
+        train.main(["--arch", "whisper-small", "--model-parallel", "3",
+                    "--devices", "3", "--device", "cpu"])
 
 
 def test_task_refuses_a_group_of_another_size():

@@ -318,17 +318,18 @@ def test_driver_builds_the_modality_stub():
 
 
 def test_driver_refuses_what_is_not_ported():
-    """Only the model axis of the audio family (A12c) is left: every arch
-    id trains (A15's four configs: tests/test_torch_configs.py), the
-    dense, moe, ssm, hybrid and vlm families also under
+    """Nothing is left unported: every arch id trains (A15's four
+    configs: tests/test_torch_configs.py), every family also under
     ``--model-parallel`` (tests/test_torch_tensor_parallel.py,
     tests/test_torch_ssm_model_axis.py,
-    tests/test_torch_moe_vlm_model_axis.py), where ``--devices`` must be
-    a multiple of it, as the reference's mesh asks."""
+    tests/test_torch_moe_vlm_model_axis.py,
+    tests/test_torch_audio_model_axis.py), where ``--devices`` must be
+    a multiple of it, as the reference's mesh asks, and P must divide the
+    heads and the padded vocab (checked before a rank is spawned)."""
     with pytest.raises(ValueError, match="do not factor"):
         train.main(["--arch", "qwen2-100m", "--model-parallel", "2",
                     "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A12c"):
-        train.main(["--arch", "whisper-small", "--smoke", "--model-parallel",
-                    "2", "--devices", "2", "--device", "cpu"])
+    with pytest.raises(ValueError, match="padded vocab 51968"):
+        train.main(["--arch", "whisper-small", "--model-parallel", "3",
+                    "--devices", "3", "--device", "cpu"])
     assert train.get_config("glm4-9b").name == "glm4-9b"
